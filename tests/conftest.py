@@ -75,3 +75,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device subprocess tests (deselect with "
         "-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's kernels); skipped "
+        "without one")
