@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # build + kernel check only
+    python3 chip_smoke.py --phases serve     # build + the serving path
 
 Phases:
   0. device   -- the card's name, count, power limit (nvidia-smi).
-  1. build    -- nvcc builds the three kernels from kernels/csrc (sm_90a);
+  1. build    -- nvcc builds the six kernels from kernels/csrc (sm_90a);
                  always runs.
   2. kernels  -- K1 pcdn_bundle, K2 pcdn_sparse_direction and K3
                  pcdn_direction against their plain PyTorch versions on the
-                 card, at the shapes the solves below give them; errors,
-                 kernel and plain times (CUDA events), and the bound.
+                 card, at the shapes the solves below give them; K4a
+                 serve_margins_dense, K4b serve_margins_csc and K5
+                 pcdn_linesearch at the serve phase's shapes; errors,
+                 kernel, plain and library times (CUDA events), the bound.
   3. support  -- real-sim at its published shape (57,848 x 20,958, ~139 nnz
                  a column, k_max 278) in padded-CSC, P = 32: the support
                  scope, so every bundle runs K1.
@@ -20,6 +23,14 @@ Phases:
                  correlated), P = 512: K3.
   6. cli      -- `repro_torch.launch.solve.main` on a9a, padded-CSC,
                  --use-kernels, through the normal entry point.
+  7. serve    -- real-sim at its published width (72,310 x 20,958, the
+                 first 57,848 rows train, the other 14,462 are requests):
+                 an 8-point regularization path solved on the card and
+                 saved with `save_model`, then `repro_torch.launch.
+                 predict.main` through K4a (dense requests) and K4b
+                 (padded-CSC requests), for the c* model and the path
+                 family, `--serve` with a mid-stream hot-swap, and one
+                 dense chunk traced in a child process (`--chunk-profile`).
 
 Each solve phase sets the launch counts to 0, solves with the kernels,
 reads the counts, then solves again with the plain versions from the same
@@ -36,6 +47,7 @@ and power limit, and before that one JSON line of per-kernel numbers.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -47,7 +59,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
-PHASES = ("build", "kernels", "support", "full", "dense", "cli")  # in order
+PHASES = ("build", "kernels", "support", "full", "dense", "cli",
+          "serve")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -57,8 +70,11 @@ FP32_OPS_PER_S = 67e12
 # iteration from a shared carry (f32 sums in another order, atomics in K1)
 F_RTOL = 1e-4
 # kernel-phase tolerance on d/g/h and upd_*: max |kernel - plain| over
-# max |plain| (f32 reductions in another order; K1's atomic scatter)
+# max |plain| (f32 reductions in another order; K1's atomic scatter; K4b's
+# shared-memory atomics; K5's block partials)
 KERNEL_RTOL = 1e-4
+# K4a sums in a fixed order with no atomics: held closer
+K4A_RTOL = 1e-5
 # outer iterations of each solve phase (and of its lockstep check), and
 # the seed of every dataset
 N_OUTER = 10
@@ -74,7 +90,39 @@ SOURCES = {
         "src/repro/kernels/pcdn_sparse_direction.py:85"),
     "pcdn_direction": ("src/repro_torch/kernels/csrc/pcdn_direction.cu",
                        "src/repro/kernels/pcdn_direction.py:68"),
+    "serve_margins_dense": (
+        "src/repro_torch/kernels/csrc/serve_margins_dense.cu",
+        "src/repro/kernels/pcdn_margin.py:74"),
+    "serve_margins_csc": (
+        "src/repro_torch/kernels/csrc/serve_margins_csc.cu",
+        "src/repro/kernels/pcdn_margin.py:121"),
+    "pcdn_linesearch": ("src/repro_torch/kernels/csrc/pcdn_linesearch.cu",
+                        "src/repro/kernels/pcdn_linesearch.py:62"),
 }
+
+# the serve phase: real-sim at its published width, with the published
+# s rows for training and a fifth more as requests (the paper's split)
+SERVE_ROWS = 72_310
+SERVE_TRAIN = 57_848
+SERVE_FEATURES = 20_958
+SERVE_NNZ_PER_COL = 278
+# planted support of the labels' model: at the generator's default of 2%
+# a request row meets ~0.8 planted features and even the planted w scores
+# 0.513 on the request rows; at 20% it scores 0.584 (numpy, from the seed)
+SERVE_W_NNZ_FRAC = 0.2
+SERVE_C_STAR = 4.0
+SERVE_GRID = 8            # path points, c* downward by SERVE_GRID_RATIO
+SERVE_GRID_RATIO = 0.5 ** 0.5
+SERVE_OUTER = 5           # outer iterations per path point
+SERVE_P = 512
+SERVE_MAX_BATCH = 256
+# --serve traffic (one H100; picked from the first runs, see PERF.md: at
+# 4000 rps the open-loop generator fell 210-311 ms behind its schedule,
+# so the latencies measured its bursts; at 2000 rps it kept up apart from
+# an occasional single stall, whose cause is still open)
+SERVE_RATE = 2000.0
+SERVE_REQUESTS = 4000
+SERVE_SLO_MS = 50.0
 
 
 def log(msg: str) -> None:
@@ -182,8 +230,9 @@ def timings(torch, kernel, plain, flush) -> dict:
                 plain_host_ms=host_ms(torch, plain, 50))
 
 
-def phase_kernels(torch, data, card: str) -> dict:
-    """Each kernel against its plain version at the solves' shapes."""
+def phase_kernels(torch, data, serve, card: str) -> dict:
+    """Each kernel against its plain version: K1-K3 at the solves' shapes,
+    K4a/K4b/K5 at the serve phase's."""
     from repro_torch.core import bundles as B
     from repro_torch.core.design_matrix import _take_fill
     from repro_torch.core.linesearch import ArmijoParams, candidate_alphas
@@ -235,7 +284,7 @@ def phase_kernels(torch, data, card: str) -> dict:
     n_live = int(torch.unique(support[support < sparse.n_samples]).numel())
     nbytes = P * K * 8 + R * 8 + P * 4 + Q * 4 + (P + R) * 4 + 8
     nops = P * K * 20 + n_live * Q * 12
-    _, top = device_profile(torch, lambda: ops.pcdn_bundle(*args))
+    _, top, _ = device_profile(torch, lambda: ops.pcdn_bundle(*args))
     log("[kernels] pcdn_bundle launches, device time of one call:")
     log_top("kernels", top, 1, "call")
     out["pcdn_bundle"] = dict(
@@ -297,29 +346,471 @@ def phase_kernels(torch, data, card: str) -> dict:
         **timings(torch, lambda: ops.pcdn_direction(*args),
                   lambda: ref.pcdn_direction_ref(*args), flush),
         bound=bound(nbytes, nops), library_ms=None)
+    out.update(serve_kernel_checks(torch, serve, flush))
     for name, r in out.items():
         log(f"[kernels] {name}: device {r['ms'] * 1e3:.2f} us L2-cold, "
             f"{r['warm_ms'] * 1e3:.2f} us L2-warm; plain version device "
             f"{r['plain_ms'] * 1e3:.2f} us; host {r['host_ms'] * 1e3:.2f} us "
             f"a call (plain {r['plain_host_ms'] * 1e3:.2f} us); bound "
-            f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}) on {card}")
+            f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}); library "
+            + ("none" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.2f} us") + f" on {card}")
     return out
+
+
+def prepare_serve(torch) -> dict:
+    """The serve phase's data and models, from DATA_SEED: real-sim at its
+    published width, split into the published training rows and request
+    rows (written as .libsvm from their CSR rows: they are 1.2 GB dense);
+    an 8-point geometric path from c* down, each point warm-started from
+    the previous w, solved on the card through the kernels; and the
+    artifacts `launch.predict` serves, written with `save_model` under
+    build/ (listed in .gitignore)."""
+    from repro_torch.core import PCDNConfig
+    from repro_torch.core.problem import make_problem
+    from repro_torch.data import (csr_to_padded_csc,
+                                  make_sparse_classification,
+                                  save_libsvm_csr)
+    from repro_torch.engine import LocalBackend
+    from repro_torch.engine import loop as engine_loop
+    from repro_torch.serve import artifact as art
+
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    csc, y, _ = make_sparse_classification(
+        SERVE_ROWS, SERVE_FEATURES, nnz_per_col=SERVE_NNZ_PER_COL,
+        w_nnz_frac=SERVE_W_NNZ_FRAC, seed=DATA_SEED)
+    csr = csc.to_csr()
+    train = csr_to_padded_csc(csr.rows(0, SERVE_TRAIN))
+    requests = csr.rows(SERVE_TRAIN, SERVE_ROWS)
+    req_path = work / "requests.libsvm"
+    save_libsvm_csr(str(req_path), requests, y[SERVE_TRAIN:])
+    log(f"[serve] data: {SERVE_ROWS} x {SERVE_FEATURES}, nnz {csr.nnz}; "
+        f"train {SERVE_TRAIN} rows (k_max {train.k_max}), requests "
+        f"{requests.shape[0]} rows (nnz {requests.nnz}, max column nnz "
+        f"{requests.max_col_nnz()}) -> {req_path.name}; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    prob = make_problem(train, y[:SERVE_TRAIN], c=SERVE_C_STAR,
+                        layout="padded_csc", device=DEVICE)
+    backend = LocalBackend(prob, PCDNConfig(
+        P=SERVE_P, use_kernels=True, tol_kkt=0.0, max_outer=SERVE_OUTER,
+        seed=0))
+    cs = [SERVE_C_STAR * SERVE_GRID_RATIO ** i for i in range(SERVE_GRID)]
+    ws, metas = [], []
+    w = None
+    t0 = time.perf_counter()
+    for c in cs:
+        res = engine_loop.solve(backend, c, w, max_outer=SERVE_OUTER,
+                                tol_kkt=0.0)
+        w = backend.host_weights(res.w)
+        assert np.isfinite(res.objective), res.objective
+        ws.append(w)
+        metas.append({"objective": float(res.objective),
+                      "kkt": float(res.history.kkt[-1]),
+                      "n_outer": int(res.n_outer),
+                      "nnz": int(np.count_nonzero(w))})
+        log(f"[serve] path c={c:g}: F={res.objective:.6f} kkt="
+            f"{metas[-1]['kkt']:.3e} nnz={metas[-1]['nnz']}")
+    torch.cuda.synchronize()
+    log(f"[serve] path of {SERVE_GRID} points x {SERVE_OUTER} outer "
+        f"iterations at P={SERVE_P}, warm-started: "
+        f"{time.perf_counter() - t0:.1f}s")
+    order = np.argsort(cs)        # an artifact path family: ascending c
+    prov = art.solver_provenance(solver="pcdn", dataset="real-sim profile",
+                                 P=SERVE_P, seed=0, package="repro_torch")
+    family = art.path_family(np.stack([ws[i] for i in order]),
+                             [cs[i] for i in order], "logistic",
+                             metas=[metas[i] for i in order],
+                             provenance=prov)
+    paths = {"family": work / "family.json", "star": work / "star.json",
+             "swap": work / "swap.json"}
+    art.save_model(str(paths["family"]), family)
+    # the c* model alone, and the next grid point as the hot-swap target
+    for key, i in (("star", 0), ("swap", 1)):
+        art.save_model(str(paths[key]), art.ModelFamily(
+            kind="binary", provenance=prov,
+            models=(art.artifact_from_solution(ws[i], "logistic", cs[i],
+                                               meta=metas[i]),)))
+    return {"family": family, "paths": paths, "requests": requests,
+            "requests_path": req_path, "problem": prob,
+            "w_star": ws[0], "w_next": ws[1]}
+
+
+def serve_kernel_checks(torch, serve, flush) -> dict:
+    """K4a, K4b at the serve phase's shapes (one full bucket of requests,
+    the K = 8 path family's bank) and K5 at the training set's (the
+    margins of the c* model and their change to the next path point)."""
+    from repro_torch.core.linesearch import ArmijoParams, candidate_alphas
+    from repro_torch.data import csr_to_padded_csc
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.predict import ModelBank
+
+    out = {}
+    bank = ModelBank.from_family(serve["family"], device=DEVICE)
+    req = serve["requests"]
+    B = SERVE_MAX_BATCH
+    head = req.rows(0, B)
+    n = bank.n_features
+    K, A = bank.idx.shape
+    live = bank.idx < n
+    live_idx = bank.idx[live].long()
+    U = int(torch.unique(live_idx).numel())
+    W = bank.dense_matrix()
+
+    # K4a: (B, n) dense requests
+    X = torch.as_tensor(head.to_dense(), device=DEVICE)
+    args = (X, bank.idx, bank.val)
+    got = ops.serve_margins_dense(*args)
+    want = ref.serve_margins_dense_ref(*args)
+    lib = torch.matmul(X, W.T)
+    torch.cuda.synchronize()
+    e = rel_err(torch, got, want)
+    e_lib = rel_err(torch, lib, want)
+    log(f"[kernels] serve_margins_dense B={B} n={n} K={K} A={A} U={U}: "
+        f"err {e[0]:.3e} (rel {e[1]:.2e}), tolerance rel {K4A_RTOL}; "
+        f"library matmul vs plain rel {e_lib[1]:.2e}")
+    assert e[1] <= K4A_RTOL, e
+    out["serve_margins_dense"] = dict(
+        max_abs_err=e[0],
+        **timings(torch, lambda: ops.serve_margins_dense(*args),
+                  lambda: ref.serve_margins_dense_ref(*args), flush),
+        # the union's columns of X once, idx/val, the output
+        bound=bound(B * U * 4 + K * A * 8 + B * K * 4,
+                    2 * B * int(live.sum())),
+        library_ms=device_ms(torch, lambda: torch.matmul(X, W.T), 100,
+                             flush))
+
+    # K4b: the same bucket in padded-CSC, packed as the batcher packs it:
+    # at the chunk's own column width
+    pc = csr_to_padded_csc(head)
+    k_max = pc.k_max
+    rows = torch.as_tensor(pc.col_rows, device=DEVICE)
+    vals = torch.as_tensor(pc.col_vals, device=DEVICE)
+    args = (rows, vals, bank.idx, bank.val, B)
+    got = ops.serve_margins_csc(*args)
+    want = ref.serve_margins_csc_ref(*args)
+    A_csr = torch.sparse_csr_tensor(
+        torch.as_tensor(head.indptr, device=DEVICE),
+        torch.as_tensor(head.indices.astype(np.int64), device=DEVICE),
+        torch.as_tensor(head.data, device=DEVICE), size=(B, n))
+    Wt = W.T.contiguous()
+    lib = torch.sparse.mm(A_csr, Wt)
+    torch.cuda.synchronize()
+    e = rel_err(torch, got, want)
+    e_lib = rel_err(torch, lib, want)
+    # the bytes the function needs: of each of the union's request columns
+    # its row ids up to the first sentinel (packed last) and its live
+    # values, each column once over all models; idx/val; the output
+    col_nnz = torch.sum(rows < B, dim=1)
+    nnz_u = col_nnz[torch.unique(live_idx)]
+    need = int((4 * torch.clamp(nnz_u + 1, max=k_max) + 4 * nnz_u).sum())
+    log(f"[kernels] serve_margins_csc B={B} n={n} k_max={k_max} (the "
+        f"stream's {req.max_col_nnz()}) K={K} A={A}: err {e[0]:.3e} (rel "
+        f"{e[1]:.2e}), tolerance rel {KERNEL_RTOL}; library sparse.mm vs "
+        f"plain rel {e_lib[1]:.2e}; the union's {U} columns hold "
+        f"{int(nnz_u.sum())} live entries, {need} bytes needed of them")
+    assert e[1] <= KERNEL_RTOL, e
+    out["serve_margins_csc"] = dict(
+        max_abs_err=e[0],
+        **timings(torch, lambda: ops.serve_margins_csc(*args),
+                  lambda: ref.serve_margins_csc_ref(*args), flush),
+        bound=bound(need + K * A * 8 + B * K * 4,
+                    2 * int(col_nnz[live_idx].sum())),
+        library_ms=device_ms(torch, lambda: torch.sparse.mm(A_csr, Wt), 100,
+                             flush))
+    # K4b's two design choices, timed: one feature slice a model, and the
+    # request stream's fixed column width (the JAX policy's)
+    t_one = device_ms(torch, lambda: ops.serve_margins_csc(
+        *args, n_slices=1), 20, flush)
+    wide = csr_to_padded_csc(head, k_max=req.max_col_nnz())
+    wide_args = (torch.as_tensor(wide.col_rows, device=DEVICE),
+                 torch.as_tensor(wide.col_vals, device=DEVICE),
+                 bank.idx, bank.val, B)
+    e = rel_err(torch, ops.serve_margins_csc(*wide_args), want)
+    assert e[1] <= KERNEL_RTOL, e
+    t_wide = device_ms(torch, lambda: ops.serve_margins_csc(*wide_args),
+                       100, flush)
+    log(f"[kernels] serve_margins_csc, L2-cold: one feature slice a model "
+        f"{t_one * 1e3:.2f} us; at the stream's width (k_max "
+        f"{wide.k_max}) {t_wide * 1e3:.2f} us")
+
+    # K5: the candidates' loss deltas over the training set
+    prob = serve["problem"]
+    dev = torch.device(DEVICE)
+    w0 = torch.as_tensor(serve["w_star"], device=dev)
+    w1 = torch.as_tensor(serve["w_next"], device=dev)
+    z = prob.margins(w0)
+    delta = prob.margins(w1) - z
+    alphas = candidate_alphas(ArmijoParams(), torch.float32, dev)
+    args = (z, delta, prob.y, alphas)
+    got = ops.pcdn_linesearch(*args)
+    want = ref.pcdn_linesearch_ref(*args)
+    torch.cuda.synchronize()
+    e = rel_err(torch, got, want)
+    s = z.shape[0]
+    Q = alphas.shape[0]
+    s_live = int(torch.count_nonzero(delta))
+    log(f"[kernels] pcdn_linesearch s={s} (delta != 0: {s_live}) Q={Q}: "
+        f"err {e[0]:.3e} (rel {e[1]:.2e}), tolerance rel {KERNEL_RTOL}")
+    assert e[1] <= KERNEL_RTOL, e
+    out["pcdn_linesearch"] = dict(
+        max_abs_err=e[0],
+        **timings(torch, lambda: ops.pcdn_linesearch(*args),
+                  lambda: ref.pcdn_linesearch_ref(*args), flush),
+        # delta everywhere, z and y where delta != 0, alphas, the output;
+        # ~10 flops per (sample, candidate) loss term
+        bound=bound(4 * s + 8 * s_live + 8 * Q, 10 * s_live * Q),
+        library_ms=None)
+    return out
+
+
+def phase_serve(torch, serve, card: str) -> dict:
+    """The serving path through `repro_torch.launch.predict.main`: the
+    synchronous batcher for the c* model and the K = 8 path family in
+    both request layouts, then `--serve` with a mid-stream hot-swap.
+    Checks the first-batch guard, the launch counts against the chunks
+    scored, accuracy, the swap's versions and storage. -> launch counts
+    of K4a and K4b summed over the phase's runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import predict as predict_cli
+    from repro_torch.serve.artifact import load_model
+    from repro_torch.serve.batcher import MicroBatcher
+    from repro_torch.serve.predict import ModelBank, margins_dense
+
+    req_path = str(serve["requests_path"])
+    paths = serve["paths"]
+    total = {"serve_margins_dense": 0, "serve_margins_csc": 0}
+    for name, model in (("c*", paths["star"]), ("path", paths["family"])):
+        for layout, kernel in (("dense", "serve_margins_dense"),
+                               ("padded_csc", "serve_margins_csc")):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            payload = predict_cli.main([
+                "--model", str(model), "--dataset", req_path,
+                "--layout", layout, "--use-kernels",
+                "--max-batch", str(SERVE_MAX_BATCH), "--device", DEVICE])
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            st = payload["stats"]
+            # the batcher's chunks and the first-batch guard's one
+            chunks = st["calls"] + 1
+            assert payload["kernel_guard_max_abs_err"] is not None
+            assert counts[kernel] == chunks, (counts, chunks)
+            assert sum(counts.values()) == chunks, counts
+            accs = payload.get("per_point", [payload.get("accuracy")])
+            assert all(a is not None and np.isfinite(a) for a in accs), accs
+            acc = payload.get("accuracy", payload.get("best_accuracy"))
+            assert acc > 0.5, acc
+            total[kernel] += counts[kernel]
+            K = len(payload["per_point"]) if "per_point" in payload else 1
+            log(f"[serve] sync {name} {layout}: K={K}, "
+                f"{payload['n_requests']} requests, accuracy {acc:.4f}, "
+                f"{kernel} launches {counts[kernel]} = {chunks} chunks, "
+                f"guard err {payload['kernel_guard_max_abs_err']:.2e}, "
+                f"steady {st['steady_rows_per_s']:.0f} rows/s, p50 "
+                f"{st['latency_p50_s'] * 1e3:.3f} ms p99 "
+                f"{st['latency_p99_s'] * 1e3:.3f} ms a chunk; {wall:.1f}s "
+                f"wall (parse + densify + score)")
+            for b in st["buckets"]:
+                log(f"[serve]   bucket {b['bucket']:>4}: calls "
+                    f"{b['calls']}, rows {b['rows']}, pad {b['pad_rows']}, "
+                    f"warm-up {b['warmup_seconds'] * 1e3:.2f} ms, steady "
+                    + (f"{b['rows_per_s']:.0f} rows/s"
+                       if b["rows_per_s"] else "n/a"))
+
+    # the interpreter's garbage-collection pauses during --serve, to set
+    # beside the request generator's worst lag
+    pauses = []
+
+    def gc_pause(phase, info, _start=[0.0]):
+        if phase == "start":
+            _start[0] = time.perf_counter()
+        else:
+            pauses.append((time.perf_counter() - _start[0],
+                           info["generation"]))
+
+    gc.callbacks.append(gc_pause)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    payload = predict_cli.main([
+        "--model", str(paths["star"]), "--dataset", req_path, "--serve",
+        "--use-kernels", "--max-batch", str(SERVE_MAX_BATCH),
+        "--rate", str(SERVE_RATE), "--serve-requests", str(SERVE_REQUESTS),
+        "--slo-ms", str(SERVE_SLO_MS), "--swap-model", str(paths["swap"]),
+        "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    gc.callbacks.remove(gc_pause)
+    counts = ops.launch_counts()
+    st = payload["stats"]
+    slot = st["models"]["default"]
+    flushes = sum(slot["flushes"].values())
+    warm = 2 * len(st["buckets"])            # two warm-up calls a bucket
+    assert counts["serve_margins_dense"] == warm + flushes, (counts, warm,
+                                                             flushes)
+    assert payload["swap"]["response_versions"] == [1, 2], payload["swap"]
+    assert payload["bank_storage_kept"], payload
+    assert payload["libraries_loaded_after_warmup"] == [], payload
+    assert payload["responses"] + payload["rejects"] == SERVE_REQUESTS
+    total["serve_margins_dense"] += counts["serve_margins_dense"]
+    log(f"[serve] --serve at {SERVE_RATE:g} rps target "
+        f"({payload['offered_rps']:.0f} offered), {SERVE_REQUESTS} "
+        f"requests, slo {SERVE_SLO_MS:g} ms on {card}: responses "
+        f"{payload['responses']}, rejects {payload['rejects']}, p50 "
+        f"{payload['p50_s'] * 1e3:.3f} ms, p99 {payload['p99_s'] * 1e3:.3f} "
+        f"ms, max {payload['max_s'] * 1e3:.3f} ms, slo violations "
+        f"{payload['slo_violations']}, padding efficiency "
+        f"{payload['padding_efficiency']:.3f}, flushes {slot['flushes']}, "
+        f"generator lag {payload['generator_lag_s'] * 1e3:.2f} ms at "
+        f"{payload['generator_lag_at_s']:.3f} s (swap called at "
+        f"{payload['swap']['fired_at_s']:.3f} s, held its thread "
+        f"{payload['swap']['queue_s'] * 1e3:.2f} ms); "
+        f"serve_margins_dense launches {counts['serve_margins_dense']} = "
+        f"{warm} warm-up + {flushes} flushes; swap -> versions "
+        f"{payload['swap']['response_versions']}, bank storage kept, no "
+        f"library loaded after warm-up; {wall:.1f}s wall")
+    worst = max(pauses, default=(0.0, None))
+    log(f"[serve] garbage collection during the --serve run: "
+        f"{len(pauses)} collections, {sum(p[0] for p in pauses) * 1e3:.2f} "
+        f"ms in all, the longest {worst[0] * 1e3:.2f} ms (generation "
+        f"{worst[1]}), against the generator's worst lag "
+        f"{payload['generator_lag_s'] * 1e3:.2f} ms")
+
+    # one full dense chunk as the batcher scores it, traced in a child
+    # process: in this long process torch.profiler has recorded nothing
+    # for it after the earlier phases (see PERF.md), in a fresh one it
+    # records every copy and kernel
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--chunk-profile",
+         str(paths["family"]), req_path], capture_output=True, text=True,
+        check=True, timeout=300)
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    if prof["busy_ms"] > 0:
+        log(f"[serve] one {SERVE_MAX_BATCH}-row dense chunk, K=8, traced "
+            f"by torch.profiler in a fresh process: {prof['traced_ms']:.3f} "
+            f"ms wall traced ({prof['wall_ms']:.3f} untraced); device busy "
+            f"{prof['busy_ms']:.3f} ms (idle share "
+            f"{1 - prof['busy_ms'] / prof['traced_ms']:.3f}), of it copies "
+            f"{prof['copy_ms']:.3f} ms (the host stages the pageable rows: "
+            f"{prof['copy_in_gbps']:.2f} GB/s in) and kernels "
+            f"{prof['kernel_ms']:.3f} ms (SM idle share "
+            f"{1 - prof['kernel_ms'] / prof['traced_ms']:.3f}); device "
+            f"ops:")
+        for key, calls, us in prof["top"]:
+            log(f"[serve]   {us:9.2f} us  {calls:4d} calls  {key[:90]}")
+    else:
+        log(f"[serve] one {SERVE_MAX_BATCH}-row dense chunk: "
+            f"{prof['wall_ms']:.3f} ms wall; idle share not measured (the "
+            f"profiler saw no device time)")
+    log(f"[serve] the chunk's rows alone, host-timed copy in: pageable "
+        f"{prof['pageable_gbps']:.2f} GB/s, pinned {prof['pinned_gbps']:.2f}"
+        f" GB/s")
+
+    # padded-CSC packing, end to end (pack + copy + score): each chunk at
+    # its own column width (the batcher's default) against the request
+    # stream's fixed width (the JAX policy's); alternating, after a first
+    # pass that loads each bucket
+    req = serve["requests"]
+    fam_bank = ModelBank.from_family(serve["family"], device=DEVICE)
+    walls = {None: [], req.max_col_nnz(): []}
+    for km in (req.max_col_nnz(), None, None, req.max_col_nnz()):
+        mb = MicroBatcher(fam_bank, max_batch=SERVE_MAX_BATCH,
+                          layout="padded_csc", use_kernels=True, k_max=km)
+        mb.predict(req)
+        t0 = time.perf_counter()
+        mb.predict(req)
+        walls[km].append(time.perf_counter() - t0)
+    cells = []
+    for km, ws in walls.items():
+        label = "own width" if km is None else f"width {km}"
+        cells.append(label + " " + ", ".join(
+            f"{w * 1e3:.1f} ms ({req.shape[0] / w:.0f} rows/s)" for w in ws))
+    log(f"[serve] padded-CSC requests, K=8, wall of MicroBatcher.predict "
+        f"over {req.shape[0]} rows (pack + copy + score): "
+        + "; ".join(cells))
+
+    # the dense-layout route crossover on the card: union-gather vs the
+    # densified matmul, device ms a call at each bucket
+    Xall = torch.as_tensor(
+        serve["requests"].rows(0, SERVE_MAX_BATCH).to_dense(), device=DEVICE)
+    star = ModelBank.from_family(load_model(str(paths["star"])),
+                                 device=DEVICE)
+    for label, rbank in (("c*", star), ("path", fam_bank)):
+        rbank.dense_matrix()
+        cells = []
+        b = 1
+        while b <= SERVE_MAX_BATCH:
+            Xb = Xall[:b]
+            t_s = device_ms(torch, lambda: margins_dense(
+                rbank, Xb, route="sparse"), 30)
+            t_d = device_ms(torch, lambda: margins_dense(
+                rbank, Xb, route="dense"), 30)
+            cells.append(f"B={b}: {t_s * 1e3:.1f}/{t_d * 1e3:.1f}")
+            b *= 2
+        log(f"[serve] route crossover, {label} bank (K={rbank.n_models},"
+            f" sparsity {rbank.sparsity():.5f}), union-gather/densified "
+            f"us a call: " + ", ".join(cells))
+    return total
+
+
+def chunk_profile(family_path: str, requests_path: str) -> dict:
+    """One dense chunk of the serve phase (its first SERVE_MAX_BATCH
+    request rows against the family's bank, host rows -> device -> K4a ->
+    host) timed on the host and traced once with torch.profiler ->
+    {"wall_ms", "traced_ms", "busy_ms", "copy_ms", "kernel_ms",
+    "copy_in_gbps", "pageable_gbps", "pinned_gbps", "top"}: wall_ms
+    untraced, traced_ms the wall of the traced call, whose busy time the
+    trace splits into copies and kernels; the pageable and pinned rates
+    time a copy of the rows alone. Run by the serve phase in a child
+    process (`--chunk-profile`)."""
+    import torch
+    from repro_torch.data import load_libsvm
+    from repro_torch.serve.artifact import load_model
+    from repro_torch.serve.predict import ModelBank, margins_dense
+
+    bank = ModelBank.from_family(load_model(family_path), device=DEVICE)
+    csr, _ = load_libsvm(requests_path, n_features=bank.n_features,
+                         layout="csr")
+    Xh = csr.rows(0, SERVE_MAX_BATCH).to_dense()
+
+    def chunk():
+        return margins_dense(bank, Xh, use_kernels=True).cpu()
+
+    wall_ms = host_ms(torch, chunk, 20)
+    # the rows' copy in alone, from pageable memory and from pinned
+    page_ms = host_ms(torch, lambda: torch.as_tensor(Xh, device=DEVICE), 20)
+    pinned = torch.from_numpy(Xh).pin_memory()
+    pin_ms = host_ms(torch, lambda: pinned.to(DEVICE, non_blocking=True),
+                     20)
+    busy, rows, traced = device_profile(torch, chunk, n_top=None)
+    copy_in = sum(t for k, _, t in rows if k.startswith("Memcpy HtoD"))
+    copy = sum(t for k, _, t in rows if k.startswith(("Memcpy", "Memset")))
+    return {"wall_ms": wall_ms, "traced_ms": traced * 1e3,
+            "busy_ms": busy * 1e3,
+            "copy_ms": copy * 1e3, "kernel_ms": (busy - copy) * 1e3,
+            "copy_in_gbps": Xh.nbytes / copy_in / 1e9 if copy_in else 0.0,
+            "pageable_gbps": Xh.nbytes / page_ms / 1e6,
+            "pinned_gbps": Xh.nbytes / pin_ms / 1e6,
+            "top": [(k, c, t * 1e6) for k, c, t in rows[:6] if t > 0]}
 
 
 def device_profile(torch, fn, n_top: int = 8):
     """Run fn once under torch.profiler (CUDA activity only) -> (device-busy
     seconds summed over what the card ran, the n_top ops by device time as
-    (name, calls, seconds)); (0.0, []) when the profiler saw no device
-    time."""
+    (name, calls, seconds), the wall seconds of the traced call); busy 0.0
+    and no ops when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     rows = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0) / 1e6)
             for e in prof.key_averages()]
     rows.sort(key=lambda r: -r[2])
-    return sum(r[2] for r in rows), rows[:n_top]
+    return sum(r[2] for r in rows), rows[:n_top], wall  # n_top None: all
 
 
 def log_top(name: str, top, per: int, unit: str) -> None:
@@ -399,7 +890,7 @@ def run_solve(torch, name, X, y, c, layout, P, kernel, n_outer, expect):
     res_p = results[False][0]
     b = num_bundles(prob.n_features, P)
     assert counts[kernel] == b * n_outer, (counts, b, n_outer)
-    busy, top = profile_iteration(torch, LocalBackend(prob, PCDNConfig(
+    busy, top, _ = profile_iteration(torch, LocalBackend(prob, PCDNConfig(
         P=P, use_kernels=True, tol_kkt=0.0, seed=0)), c)
     wall = dt_k / n_outer
     if busy > 0:
@@ -431,6 +922,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES[1:]),
                     help=f"comma-separated subset of {PHASES[1:]}")
+    ap.add_argument("--chunk-profile", nargs=2,
+                    metavar=("FAMILY", "REQUESTS"),
+                    help="trace one dense serve chunk and print its JSON "
+                         "line (the serve phase runs this in a child "
+                         "process)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -447,6 +943,9 @@ def main(argv=None) -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    if args.chunk_profile:
+        print(json.dumps(chunk_profile(*args.chunk_profile)), flush=True)
+        return 0
 
     # full-precision float32 products on the plain paths (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -462,9 +961,12 @@ def main(argv=None) -> int:
     data = None
     if set(phases) & {"kernels", "support", "full", "dense"}:
         data = make_data(DATA_SEED)
+    serve = None
+    if set(phases) & {"kernels", "serve"}:
+        serve = prepare_serve(torch)
     kernels = {}
     if "kernels" in phases:
-        kernels = phase_kernels(torch, data, f"{card} ({smi})")
+        kernels = phase_kernels(torch, data, serve, f"{card} ({smi})")
     launches = {}
     if "support" in phases:
         csc, y_rs = data[0], data[1]
@@ -492,6 +994,8 @@ def main(argv=None) -> int:
         counts = ops.launch_counts()
         log(f"[cli] F={f:.6f} launches={counts}")
         assert np.isfinite(f) and counts["pcdn_sparse_direction"] > 0, counts
+    if "serve" in phases:
+        launches.update(phase_serve(torch, serve, f"{card} ({smi})"))
 
     if kernels:
         rows = []

@@ -45,6 +45,31 @@ class CSRMatrix:
         out[row_ids, self.indices] = self.data
         return out
 
+    def max_col_nnz(self) -> int:
+        """k_max of the padded-CSC layout this matrix would convert to."""
+        if self.nnz == 0:
+            return 1
+        return int(np.bincount(self.indices,
+                               minlength=self.shape[1]).max())
+
+    def rows(self, start: int, stop: int) -> "CSRMatrix":
+        """Rows [start, stop) as their own CSRMatrix (views, no copy)."""
+        lo, hi = self.indptr[start], self.indptr[stop]
+        return CSRMatrix(self.data[lo:hi], self.indices[lo:hi],
+                         self.indptr[start:stop + 1] - lo,
+                         (stop - start, self.shape[1]))
+
+    @classmethod
+    def from_dense(cls, X) -> "CSRMatrix":
+        """Row-major sparse view of a dense array (serving/test helper)."""
+        X = np.asarray(X, np.float32)
+        rows, cols = np.nonzero(X)
+        indptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(rows, minlength=X.shape[0]))]
+        ).astype(np.int64)
+        return cls(data=X[rows, cols], indices=cols.astype(np.int32),
+                   indptr=indptr, shape=X.shape)
+
 
 @dataclasses.dataclass
 class PaddedCSC:
@@ -60,6 +85,26 @@ class PaddedCSC:
     @property
     def nnz(self) -> int:
         return int(np.count_nonzero(self.col_rows < self.shape[0]))
+
+    def to_csr(self) -> CSRMatrix:
+        """Row-major CSR of the same matrix, never densified. Entries that
+        share a (row, column) slot are summed into one, as every scorer of
+        the padded layout sums them."""
+        s, n = self.shape
+        live = self.col_rows < s
+        cols = np.broadcast_to(np.arange(n, dtype=np.int64)[:, None],
+                               self.col_rows.shape)[live]
+        rows = self.col_rows[live].astype(np.int64)
+        vals = self.col_vals[live].astype(np.float32)
+        key = rows * n + cols
+        uniq, inv = np.unique(key, return_inverse=True)
+        data = np.zeros(uniq.shape, np.float32)
+        np.add.at(data, inv, vals)
+        urows = uniq // n
+        indptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(urows, minlength=s))]
+        ).astype(np.int64)
+        return CSRMatrix(data, (uniq % n).astype(np.int32), indptr, (s, n))
 
 
 def csr_to_padded_csc(csr: CSRMatrix,
@@ -153,13 +198,17 @@ def normalize_labels(y: np.ndarray):
 
 
 def load_libsvm(path: str, n_features: Optional[int] = None,
-                layout: str = "dense", k_max: Optional[int] = None):
-    """-> (X, y) where X's type follows `layout` (y (s,) float32 +-1).
+                layout: str = "dense", k_max: Optional[int] = None,
+                return_classes: bool = False):
+    """-> (X, y) where X's type follows `layout` (y (s,) float32 +-1), or
+    (X, y, classes) with return_classes=True.
 
     layout: "dense" ((s, n) float32 array), "csr" (CSRMatrix), or
     "padded_csc" (PaddedCSC -- never materializes the dense matrix).
-    Binary files only: {0, 1}, {-1, +1} and other two-label files map to
-    +-1 (`normalize_labels`); a multiclass file raises.
+    Labels: {0, 1}, {-1, +1} and other two-label files map to +-1
+    (`normalize_labels`). With return_classes=True, y is the class CODES
+    into the sorted vocabulary `classes` (binary files too), which is how
+    the predict CLI scores OVR heads; a multiclass file without it raises.
     """
     if layout not in ("dense", "csr", "padded_csc"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -167,16 +216,25 @@ def load_libsvm(path: str, n_features: Optional[int] = None,
     y, idx, vals, ptr = _parse_libsvm_text(path)
     n = n_features or (int(idx.max()) + 1 if idx.size else 0)
     y, classes = normalize_labels(y)
-    if classes.shape[0] > 2:
+    if classes.shape[0] > 2 and not return_classes:
         raise ValueError(
             f"{path!r} has {classes.shape[0]} label values "
-            f"{classes.tolist()[:8]}...; the solver takes binary labels")
+            f"{classes.tolist()[:8]}...; pass return_classes=True to get "
+            f"(X, codes, classes)")
     csr = CSRMatrix(vals, idx.astype(np.int32), ptr, (y.shape[0], n))
     if layout == "dense":
-        return csr.to_dense(), y
-    if layout == "padded_csc":
-        return csr_to_padded_csc(csr, k_max=k_max), y
-    return csr, y
+        X = csr.to_dense()
+    elif layout == "padded_csc":
+        X = csr_to_padded_csc(csr, k_max=k_max)
+    else:
+        X = csr
+    if not return_classes:
+        return X, y
+    if classes.shape[0] == 2:
+        # y is always CODES into classes here: classes[codes] gives back
+        # the +-1 labels of a binary file
+        y = (y > 0).astype(np.float32)
+    return X, y, classes
 
 
 def save_libsvm(path: str, X: np.ndarray, y: np.ndarray) -> None:
@@ -185,3 +243,16 @@ def save_libsvm(path: str, X: np.ndarray, y: np.ndarray) -> None:
             nz = np.nonzero(xi)[0]
             feats = " ".join(f"{j + 1}:{xi[j]:.6g}" for j in nz)
             fh.write(f"{yi:g} {feats}\n")
+
+
+def save_libsvm_csr(path: str, X: CSRMatrix, y: np.ndarray) -> None:
+    """`save_libsvm` from CSR rows, for request sets too large to densify.
+    Values are written with 9 significant digits, so a float32 reads back
+    exactly."""
+    with open(path, "w") as fh:
+        for i in range(X.shape[0]):
+            lo, hi = X.indptr[i], X.indptr[i + 1]
+            feats = " ".join(f"{j + 1}:{v:.9g}" for j, v in
+                             zip(X.indices[lo:hi].tolist(),
+                                 X.data[lo:hi].tolist()))
+            fh.write(f"{y[i]:g} {feats}\n")

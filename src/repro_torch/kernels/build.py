@@ -28,7 +28,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle")
+SOURCES = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
+           "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -54,11 +55,24 @@ SIGNATURES = {
                                 _P, _P, _P]
            for t in ("f32", "bf16")},
     },
+    # (X or col_vals type)_(val type): each float32 or bfloat16
+    "serve_margins_dense": {
+        f"serve_margins_dense_{a}_{b}": [_P, _P, _P, _I, _I, _I, _I, _P, _P]
+        for a in ("f32", "bf16") for b in ("f32", "bf16")},
+    "serve_margins_csc": {
+        f"serve_margins_csc_{a}_{b}": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _P, _P, _P]
+        for a in ("f32", "bf16") for b in ("f32", "bf16")},
+    "pcdn_linesearch": {
+        "pcdn_linesearch_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    },
 }
 
 # zero-argument C functions returning a launch constant of the library:
 # `load` reads them once into KernelLibrary.consts
-CONSTANTS = {"pcdn_bundle": ("pcdn_bundle_tile", "pcdn_bundle_max_q")}
+CONSTANTS = {"pcdn_bundle": ("pcdn_bundle_tile", "pcdn_bundle_max_q"),
+             "pcdn_linesearch": ("pcdn_linesearch_max_q",
+                                 "pcdn_linesearch_threads")}
 
 
 class KernelLibrary(ctypes.CDLL):
@@ -162,6 +176,12 @@ def _build_locked(names) -> dict[str, BuiltLibrary]:
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return {n: _BUILT[n] for n in names}
+
+
+def loaded() -> tuple:
+    """Names of the libraries loaded into this process so far, in load
+    order. A server that has warmed up loads none during traffic."""
+    return tuple(_LIBS)
 
 
 def load(name: str) -> KernelLibrary:

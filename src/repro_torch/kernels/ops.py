@@ -1,4 +1,5 @@
-"""Dispatchers for the three solver kernels (K1-K3).
+"""Dispatchers for the port's kernels: the three solver kernels (K1-K3),
+the two serving-margin kernels (K4a, K4b) and the batched line search (K5).
 
 Each wrapper looks at where its tensors live:
 
@@ -22,7 +23,8 @@ from repro_torch.kernels import build, ref
 
 Tensor = torch.Tensor
 
-KERNELS = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle")
+KERNELS = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
+           "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch")
 _LAUNCHES = {name: 0 for name in KERNELS}
 
 # loss kind codes, as kernels/csrc/common.cuh numbers them
@@ -197,3 +199,109 @@ def pcdn_bundle(vals: Tensor, pos: Tensor, z_R: Tensor, y_R: Tensor,
     _raise_if(err, "pcdn_bundle")
     _LAUNCHES["pcdn_bundle"] += 1
     return upd_w, upd_z, alpha, n_steps
+
+
+def serve_margins_dense(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:
+    """K4a: serving margins over a dense request slab. X (B, n) float32|
+    bf16, idx (K, A) int32 with sentinel n at padding, val (K, A) float32|
+    bf16 -> (B, K) float32 (bias not added)."""
+    if _on_cpu(X, idx, val):
+        return ref.serve_margins_dense_ref(X, idx, val)
+    B, n = X.shape
+    K, A = idx.shape
+    _check("X", X, tuple(_VALUE_TYPES), (B, n))
+    _check("idx", idx, _I32, (K, A))
+    _check("val", val, tuple(_VALUE_TYPES), (K, A))
+    if B < 1 or n < 1 or K < 1 or A < 1:
+        raise ValueError(f"serve_margins_dense: empty input B={B} n={n} "
+                         f"K={K} A={A}")
+    lib = build.load("serve_margins_dense")
+    out = torch.empty((B, K), dtype=torch.float32, device=X.device)
+    fn = getattr(lib, f"serve_margins_dense_{_VALUE_TYPES[X.dtype]}_"
+                      f"{_VALUE_TYPES[val.dtype]}")
+    err = fn(_ptr(X), _ptr(idx), _ptr(val), B, n, K, A, _ptr(out),
+             _stream(X))
+    _raise_if(err, "serve_margins_dense")
+    _LAUNCHES["serve_margins_dense"] += 1
+    return out
+
+
+def _csc_slices(K: int, A: int, B: int, device) -> int:
+    """Active-feature slices per model of the K4b launch: about four
+    blocks per SM, each slice at least 8 features, and the (slices, K, B)
+    partials at most 16M floats."""
+    want = -(-4 * _sm_count(device) // K)
+    return int(max(1, min(want, -(-A // 8), (1 << 24) // (K * B), 65535)))
+
+
+def serve_margins_csc(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
+                      val: Tensor, n_requests: int,
+                      n_slices: int = None) -> Tensor:
+    """K4b: serving margins over a padded-CSC request batch. col_rows
+    (n, k_max) int32 with sentinel n_requests at padding, col_vals
+    (n, k_max) float32|bf16, idx/val (K, A) as for K4a -> (n_requests, K)
+    float32 (bias not added), a transposed view of the kernel's (K, B)
+    output. The model's active features are split into slices whose
+    partial margins a second launch sums in slice order; `n_slices`
+    overrides the count `_csc_slices` picks."""
+    if _on_cpu(col_rows, col_vals, idx, val):
+        return ref.serve_margins_csc_ref(col_rows, col_vals, idx, val,
+                                         n_requests)
+    n, k_max = col_rows.shape
+    K, A = idx.shape
+    B = int(n_requests)
+    _check("col_rows", col_rows, _I32, (n, k_max))
+    _check("col_vals", col_vals, tuple(_VALUE_TYPES), (n, k_max))
+    _check("idx", idx, _I32, (K, A))
+    _check("val", val, tuple(_VALUE_TYPES), (K, A))
+    if B < 1 or n < 1 or k_max < 1 or K < 1 or A < 1:
+        raise ValueError(f"serve_margins_csc: empty input B={B} n={n} "
+                         f"k_max={k_max} K={K} A={A}")
+    lib = build.load("serve_margins_csc")
+    if n_slices is None:
+        n_slices = _csc_slices(K, A, B, col_rows.device)
+    # one allocation: the (K, B) output, then the (n_slices, K, B) partials
+    buf = torch.empty(((n_slices + 1) * K * B,), dtype=torch.float32,
+                      device=col_rows.device)
+    out, part = buf[:K * B].view(K, B), buf[K * B:]
+    fn = getattr(lib, f"serve_margins_csc_{_VALUE_TYPES[col_vals.dtype]}_"
+                      f"{_VALUE_TYPES[val.dtype]}")
+    err = fn(_ptr(col_rows), _ptr(col_vals), _ptr(idx), _ptr(val), n, k_max,
+             K, A, B, n_slices, _ptr(part), _ptr(out), _stream(col_rows))
+    _raise_if(err, "serve_margins_csc")
+    _LAUNCHES["serve_margins_csc"] += 1
+    return out.T
+
+
+def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
+                    kind: str = "logistic") -> Tensor:
+    """K5: batched candidate loss deltas. z, delta, y (s,) float32, alphas
+    (Q,) float32 -> (Q,) float32 with out[q] = sum_i phi(z_i + alphas[q] *
+    delta_i, y_i) - phi(z_i, y_i); the caller scales by c and adds the l1
+    part. Deterministic: block partials are summed in block order."""
+    if kind not in _KINDS:
+        raise KeyError(f"unknown loss {kind!r}")
+    if _on_cpu(z, delta, y, alphas):
+        return ref.pcdn_linesearch_ref(z, delta, y, alphas, kind=kind)
+    s = z.shape[0]
+    Q = alphas.shape[0]
+    _check("z", z, _F32, (s,))
+    _check("delta", delta, _F32, (s,))
+    _check("y", y, _F32, (s,))
+    _check("alphas", alphas, _F32, (Q,))
+    lib = build.load("pcdn_linesearch")
+    max_q = lib.consts["pcdn_linesearch_max_q"]
+    if s < 1 or not 1 <= Q <= max_q:
+        raise ValueError(f"pcdn_linesearch: unsupported sizes s={s} Q={Q} "
+                         f"(Q <= {max_q})")
+    threads = lib.consts["pcdn_linesearch_threads"]
+    n_blocks = int(min(-(-s // threads), 4 * _sm_count(z.device)))
+    buf = torch.empty((n_blocks * Q + Q,), dtype=torch.float32,
+                      device=z.device)
+    partials, out = buf[:n_blocks * Q], buf[n_blocks * Q:]
+    err = lib.pcdn_linesearch_f32(_ptr(z), _ptr(delta), _ptr(y),
+                                  _ptr(alphas), _KINDS[kind], s, Q, n_blocks,
+                                  _ptr(partials), _ptr(out), _stream(z))
+    _raise_if(err, "pcdn_linesearch")
+    _LAUNCHES["pcdn_linesearch"] += 1
+    return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three solver kernels (K1-K3).
+"""Plain PyTorch versions of the port's kernels (K1-K5).
 
 Ports of `repro.kernels.ref`'s oracles. Each computes, in float32, exactly
 what its CUDA kernel computes (kernels/csrc/*.cu):
@@ -7,6 +7,11 @@ what its CUDA kernel computes (kernels/csrc/*.cu):
   * `pcdn_sparse_direction_ref` -- K2, padded-CSC slab   -> (d, g, h)
   * `pcdn_bundle_ref`           -- K1, the fused support-restricted step
                                    -> (upd_w, upd_z, alpha, n_steps)
+  * `serve_margins_dense_ref`   -- K4a, serving margins over a dense
+                                   request slab -> (B, K)
+  * `serve_margins_csc_ref`     -- K4b, serving margins over a padded-CSC
+                                   request batch -> (B, K)
+  * `pcdn_linesearch_ref`       -- K5, the Q candidates' loss deltas (Q,)
 
 `kernels.ops` takes them for tensors on the CPU; the tests hold them
 against the reference, and `chip_smoke.py` holds the kernels against them
@@ -91,3 +96,46 @@ def pcdn_bundle_ref(vals: Tensor, pos: Tensor, z_R: Tensor, y_R: Tensor,
     alpha = torch.where(torch.any(ok), alphas[first],
                         torch.zeros((), dtype=f32, device=alphas.device))
     return alpha * d, alpha * delta_R, alpha, (first + 1).to(torch.int32)
+
+
+def pcdn_linesearch_ref(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
+                        kind: str = "logistic") -> Tensor:
+    """(Q,) per-candidate loss deltas: sum_i phi(z + a*delta) - phi(z)."""
+    loss = get_loss(kind)
+    z = z.to(f32)
+    y = y.to(f32)
+    zq = z[None, :] + alphas.to(f32)[:, None] * delta.to(f32)[None, :]
+    return torch.sum(loss.value(zq, y[None, :]) - loss.value(z, y)[None, :],
+                     dim=-1)
+
+
+def serve_margins_dense_ref(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:
+    """(B, K) serving margins over a dense request slab: for each model k,
+    gather only its active columns of X (sentinel idx >= n gathers 0) and
+    contract with the active values."""
+    n = X.shape[1]
+    xg = X.to(f32)[:, idx.clamp(max=n - 1)]                  # (B, K, A)
+    xg = torch.where(idx < n, xg, torch.zeros((), dtype=f32, device=X.device))
+    return torch.einsum("bka,ka->bk", xg, val.to(f32))
+
+
+def serve_margins_csc_ref(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
+                          val: Tensor, n_requests: int) -> Tensor:
+    """(B, K) serving margins over a padded-CSC request batch: gather each
+    model's active columns of the request matrix, scale, scatter-add over
+    request rows. Model padding (idx >= n) and request padding (row id
+    >= n_requests) land in a last slot that is cut off."""
+    n = col_rows.shape[0]
+    K = idx.shape[0]
+    B = int(n_requests)
+    live = (idx < n)[:, :, None]                               # (K, A, 1)
+    safe = idx.clamp(max=n - 1).long()
+    rows = col_rows[safe].long()                               # (K, A, k)
+    rows = torch.where(live & (rows >= 0) & (rows < B), rows, B)
+    contrib = col_vals.to(f32)[safe] * val.to(f32)[:, :, None]
+    # model k scatters into its own (B + 1)-slot segment
+    flat = rows + (B + 1) * torch.arange(K, device=rows.device)[:, None,
+                                                                 None]
+    z = torch.zeros((K * (B + 1),), dtype=f32, device=col_vals.device)
+    z.index_add_(0, flat.reshape(-1), contrib.reshape(-1))
+    return z.view(K, B + 1)[:, :B].T

@@ -1,17 +1,26 @@
-"""Shared CLI plumbing of the port's solve driver.
+"""Shared CLI plumbing of the port's solve and predict entry points.
 
-The flags mirror `repro.launch.common` for what this slice carries:
-`--layout / --use-kernels / --device` and the solver knobs. The port runs
-on the local backend only, so there is no `--backend`; `--device`
-(default cuda) is the explicit device every entry point of the port takes.
+The flags mirror `repro.launch.common` for what the port carries:
+`--layout / --use-kernels / --device`, the solver knobs and
+`--warm-start`. The port runs on the local backend only, so there is no
+`--backend`; `--device` (default cuda) is the explicit device every entry
+point of the port takes.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
+
+import numpy as np
+import torch
 
 from repro_torch.core import PCDNConfig
 from repro_torch.data import load_libsvm, paper_like
+
+# --dtype values -> storage dtype of the serve bank (margins accumulate
+# in float32 either way)
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 def add_backend_args(ap: argparse.ArgumentParser):
@@ -41,6 +50,10 @@ def add_solver_args(ap: argparse.ArgumentParser):
                          "bundle step to the bundle's row support "
                          "(padded_csc layout); 'auto' picks it when "
                          "4 * P * k_max <= s")
+    ap.add_argument("--warm-start", default=None, metavar="CKPT",
+                    help="w0 from a .npy vector or a JSON file (a dense "
+                         "list or the sparse weight record a previous "
+                         "--out report carries)")
 
 
 def load_dataset(args, with_test: bool = False):
@@ -62,3 +75,44 @@ def build_pcdn_config(args, **overrides) -> PCDNConfig:
               use_kernels=args.use_kernels, ls_scope=args.ls_scope)
     kw.update(overrides)
     return PCDNConfig(**kw)
+
+
+def load_warm_start(path: str, n: int) -> np.ndarray:
+    """Load a w0 vector (float32 numpy) from .npy, or from JSON: a dense
+    list, or the sparse {n_features, w_indices, w_values} record `--out`
+    writes (in either package) -- so solve runs chain."""
+    if path.endswith(".npy"):
+        w = np.asarray(np.load(path), np.float64).reshape(-1)
+    else:
+        with open(path) as fh:
+            obj = json.load(fh)
+        if isinstance(obj, dict):
+            if "w_indices" not in obj:
+                raise ValueError(
+                    f"warm start {path!r} has no weight record "
+                    f"(w_indices/w_values); re-run the source solve with "
+                    f"--out or pass a .npy")
+            w = np.zeros((int(obj["n_features"]),), np.float64)
+            w[np.asarray(obj["w_indices"], np.int64)] = obj["w_values"]
+        else:
+            w = np.asarray(obj, np.float64).reshape(-1)
+    if w.shape[0] != n:
+        raise ValueError(
+            f"warm start {path!r} has {w.shape[0]} features, problem "
+            f"has {n}")
+    return w.astype(np.float32)
+
+
+def history_dict(history) -> dict:
+    """JSON-ready SolveHistory."""
+    return {k: np.asarray(v).tolist() for k, v in history._asdict().items()
+            if v is not None}
+
+
+def sparse_weight_record(w) -> dict:
+    """JSON-compact (indices, values) form of an l1 solution."""
+    w = np.asarray(w, np.float64)
+    idx = np.flatnonzero(w)
+    return {"n_features": int(w.shape[0]),
+            "w_indices": idx.tolist(),
+            "w_values": w[idx].tolist()}

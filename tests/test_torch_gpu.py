@@ -184,3 +184,119 @@ def test_solve_runs_through_kernel(cuda, layout, P, scope, kernel):
         assert (counts[kernel] > 0) == use_kernels, counts
     f_k, f_p = res[True].objective, res[False].objective
     assert abs(f_k - f_p) <= 1e-4 * abs(f_p)
+
+
+# -- serving margins (K4a, K4b) and the batched line search (K5) --------------
+
+def _bank_arrays(cuda, seed, K, A, n):
+    """idx/val (K, A) with sentinel n at padding, where the values are
+    nonzero (only the sentinel keeps them out); model 0 all padding."""
+    rng = _rng(seed)
+    idx = np.full((K, A), n, np.int32)
+    val = np.full((K, A), 7.0, np.float32)
+    for k in range(1, K):
+        a = int(rng.integers(1, A + 1))
+        idx[k, :a] = np.sort(rng.choice(n, a, replace=False))
+        val[k, :a] = rng.standard_normal(a)
+    return (torch.tensor(idx, device=cuda), torch.tensor(val, device=cuda))
+
+
+def _close_to(got, want, rtol):
+    err = float(torch.max(torch.abs(got.float() - want.float())))
+    scale = float(torch.max(torch.abs(want.float())))
+    assert err <= rtol * max(scale, 1e-30), (err, scale)
+
+
+@pytest.mark.parametrize("B,n,K,A", [(1, 10, 1, 1), (17, 300, 5, 37),
+                                     (256, 20958, 8, 3000),
+                                     (70, 5000, 3, 2500)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v_dtype", [torch.float32, torch.bfloat16])
+def test_serve_margins_dense_kernel(cuda, B, n, K, A, x_dtype, v_dtype):
+    rng = _rng(B, n, K)
+    idx, val = _bank_arrays(cuda, B + K, K, min(A, n), n)
+    X = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32,
+                     device=cuda).to(x_dtype)
+    val = val.to(v_dtype)
+    before = ops.launch_counts()["serve_margins_dense"]
+    got = ops.serve_margins_dense(X, idx, val)
+    want = ref.serve_margins_dense_ref(X, idx, val)
+    torch.cuda.synchronize()
+    assert got.shape == (B, K)
+    # a fixed sum order, no atomics: held to 1e-5
+    _close_to(got, want, 1e-5)
+    assert not torch.any(got[:, 0])              # the all-padding model
+    assert ops.launch_counts()["serve_margins_dense"] == before + 1
+
+
+@pytest.mark.parametrize("B,n,k_max,K,A", [(1, 10, 1, 1, 1),
+                                           (33, 300, 9, 5, 40),
+                                           (256, 20958, 80, 8, 3000),
+                                           (60000, 2000, 40, 2, 500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serve_margins_csc_kernel(cuda, B, n, k_max, K, A, dtype):
+    rng = _rng(B, n, k_max)
+    rows = rng.integers(0, B + 1, size=(n, k_max)).astype(np.int32)
+    vals = rng.standard_normal((n, k_max)).astype(np.float32)
+    vals[rows == B] = 5.0                  # the sentinel row drops it
+    idx, val = _bank_arrays(cuda, B + n, K, min(A, n), n)
+    args = (torch.tensor(rows, device=cuda),
+            torch.tensor(vals, device=cuda).to(dtype), idx, val.to(dtype), B)
+    got = ops.serve_margins_csc(*args)
+    want = ref.serve_margins_csc_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (B, K)
+    _close_to(got, want, RTOL)
+
+
+@pytest.mark.parametrize("s,Q", [(1, 1), (1000, 7), (57848, 40),
+                                 (300000, 40)])
+@pytest.mark.parametrize("kind", ["logistic", "squared_hinge", "squared"])
+def test_linesearch_kernel(cuda, s, Q, kind):
+    rng = _rng(s, Q)
+    delta = rng.standard_normal(s) * 0.1
+    delta[::3] = 0.0
+    args = [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                         device=cuda),
+            torch.tensor(delta, dtype=torch.float32, device=cuda),
+            torch.tensor(np.where(rng.random(s) < 0.5, -1.0, 1.0),
+                         dtype=torch.float32, device=cuda),
+            torch.tensor(0.5 ** np.arange(Q), dtype=torch.float32,
+                         device=cuda)]
+    got = ops.pcdn_linesearch(*args, kind=kind)
+    want = ref.pcdn_linesearch_ref(*args, kind=kind)
+    again = ops.pcdn_linesearch(*args, kind=kind)
+    torch.cuda.synchronize()
+    _close_to(got, want, RTOL)
+    assert torch.equal(got, again)               # block order: deterministic
+
+
+def test_serve_loop_swaps_in_place_on_the_card(cuda):
+    from repro_torch.kernels import build
+    from repro_torch.serve import artifact as art
+    from repro_torch.serve.loop import ServeLoop
+    from repro_torch.serve.predict import margins_dense
+
+    def family(seed, nnz):
+        rng = _rng(seed)
+        w = np.zeros(500)
+        w[rng.choice(500, nnz, replace=False)] = rng.standard_normal(nnz)
+        return art.ModelFamily("binary", (art.artifact_from_solution(
+            w, "logistic", 1.0),))
+
+    X = _rng(3).standard_normal((40, 500)).astype(np.float32)
+    with ServeLoop(family(1, 20), buckets=(1, 4, 16), use_kernels=True,
+                   default_budget_s=0.01, device=cuda) as loop:
+        ptrs = loop.storage_ptrs()
+        libs = build.loaded()
+        first = [f.result(timeout=30) for f in loop.submit_many(X[:20])]
+        assert loop.swap(model=family(2, 30)).installed.wait(timeout=30)
+        second = [f.result(timeout=30) for f in loop.submit_many(X[20:])]
+        assert loop.storage_ptrs() == ptrs
+        assert build.loaded() == libs
+        assert loop.libraries_loaded_since_warmup() == ()
+        want = margins_dense(loop.bank(), X[20:]).cpu().numpy()
+    assert {r.version for r in first} == {1}
+    assert {r.version for r in second} == {2}
+    np.testing.assert_allclose(np.stack([r.margins for r in second]), want,
+                               rtol=1e-5, atol=1e-5)

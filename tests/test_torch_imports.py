@@ -36,19 +36,29 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"pcdn.py", "ops.py", "build.py", "bridge.py", "solve.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "artifact.py", "predict.py", "loop.py",
+            "batcher.py", "policy.py", "atomic.py", "registry.py"} <= names
+    serve = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"src/repro_torch/serve/predict.py",
+            "src/repro_torch/launch/predict.py"} <= serve
 
 
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     from repro_torch.core import make_problem
-    from repro_torch.launch import solve
+    from repro_torch.launch import predict, solve
+    from repro_torch.serve import ModelBank
     X = np.eye(4, dtype=np.float32)
     with pytest.raises(RuntimeError, match="cuda"):
         make_problem(X, np.ones(4), c=1.0)
     with pytest.raises(RuntimeError, match="cuda"):
         solve.main(["--dataset", "a9a", "--max-outer", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelBank.from_dense(X)
+    # the device is resolved before the model file is read
+    with pytest.raises(RuntimeError, match="cuda"):
+        predict.main(["--model", "absent.json", "--dataset", "a9a"])
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu_without_counting():
