@@ -4,17 +4,22 @@
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # build + kernel check only
     python3 chip_smoke.py --phases serve     # build + the serving path
+    python3 chip_smoke.py --phases lm        # build + the LM serving path
 
 Phases:
   0. device   -- the card's name, count, power limit (nvidia-smi).
-  1. build    -- nvcc builds the six kernels from kernels/csrc (sm_90a);
-                 always runs.
+  1. build    -- nvcc builds the seven kernels from kernels/csrc
+                 (sm_90a); always runs.
   2. kernels  -- K1 pcdn_bundle, K2 pcdn_sparse_direction and K3
                  pcdn_direction against their plain PyTorch versions on the
                  card, at the shapes the solves below give them; K4a
                  serve_margins_dense, K4b serve_margins_csc and K5
-                 pcdn_linesearch at the serve phase's shapes; errors,
-                 kernel, plain and library times (CUDA events), the bound.
+                 pcdn_linesearch at the serve phase's shapes; K6
+                 flash_attention at the lm phase's prefill shape and at
+                 yi-6b's and gemma-7b's head widths, tails, non-causal and
+                 float32, per query row, with planted faults as controls;
+                 errors, kernel, plain and library times (CUDA events),
+                 the bound.
   3. support  -- real-sim at its published shape (57,848 x 20,958, ~139 nnz
                  a column, k_max 278) in padded-CSC, P = 32: the support
                  scope, so every bundle runs K1.
@@ -31,6 +36,16 @@ Phases:
                  (padded-CSC requests), for the c* model and the path
                  family, `--serve` with a mid-stream hot-swap, and one
                  dense chunk traced in a child process (`--chunk-profile`).
+  8. lm       -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
+                 width (24 layers, bf16, random weights from a seed): a
+                 4096-token prefill of 4 prompts, which runs K6 once a
+                 layer, then 32 greedy tokens; the same at 32 tokens (the
+                 dense route: no K6). Then the prefill's logits and four
+                 decode steps through K6 against its plain version, from
+                 the same weights, in bf16 (three seeds) and in float32,
+                 with the readings of faults planted in the plain version
+                 beside them, and one prefill and one decode step traced
+                 in a child process (`--lm-profile`).
 
 Each solve phase sets the launch counts to 0, solves with the kernels,
 reads the counts, then solves again with the plain versions from the same
@@ -60,11 +75,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
 PHASES = ("build", "kernels", "support", "full", "dense", "cli",
-          "serve")  # in order
+          "serve", "lm")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12   # dense, tensor cores
 
 # solve-phase tolerance: kernel vs plain objective after one outer
 # iteration from a shared carry (f32 sums in another order, atomics in K1)
@@ -98,6 +114,8 @@ SOURCES = {
         "src/repro/kernels/pcdn_margin.py:121"),
     "pcdn_linesearch": ("src/repro_torch/kernels/csrc/pcdn_linesearch.cu",
                         "src/repro/kernels/pcdn_linesearch.py:62"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:78"),
 }
 
 # the serve phase: real-sim at its published width, with the published
@@ -123,6 +141,37 @@ SERVE_MAX_BATCH = 256
 SERVE_RATE = 2000.0
 SERVE_REQUESTS = 4000
 SERVE_SLO_MS = 50.0
+
+# the lm phase: qwen2-0.5b at its published width, 4 prompts of 4096
+# tokens (BLOCKWISE_MIN_KV = 2048 or more: K6 in every layer) and 32 new
+# tokens; 32-token prompts take the dense route
+LM_ARCH = "qwen2-0.5b"
+LM_BATCH = 4
+LM_PROMPT = 4096
+LM_SHORT_PROMPT = 32
+LM_NEW = 32
+LM_DECODE_CHECK = 4       # decode steps held kernel route vs plain route
+LM_SEED = 0
+LM_GATE_SEEDS = (0, 1, 2)  # bf16 weights and prompts the LM gate reads
+# K6 against its plain version on the same inputs: the largest over query
+# rows of the row's max abs error over its max |plain| (a row's size falls
+# with the keys it averages). bf16: inputs and output in bf16, K6 casts p
+# to bf16 before p v (as the Pallas kernel does), the plain version keeps
+# it in float32; both round the output to bf16, so a sound kernel differs
+# by an ulp (2^-7 of the value) where the two roundings fall apart
+FLASH_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the prefill's last-position logits and the decode steps through K6
+# against the plain route: max abs error over max |plain|. bf16: the 24
+# bf16 layers carry K6's one-ulp differences to the logits; on an H100
+# the kernel route read 1.45e-2 to 2.15e-2 over LM_GATE_SEEDS and the
+# plain route with p in fp8 4.15e-2, a dropped KV tile 0.60 (PERF.md):
+# the limit sits between
+LM_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# planted faults in the plain version, held by the gates above: one KV
+# tile (keys 64-127) dropped, keys 8 j + 6 and 8 j + 7 left out of the
+# softmax's normaliser (one lane of the quad that shares a row in K6's
+# bf16 kernel), p rounded to fp8 e4m3 before p v (a precision control)
+FLASH_FAULTS = ("tile", "quad", "fp8 p")
 
 
 def log(msg: str) -> None:
@@ -176,9 +225,9 @@ def device_ms(torch, fn, n: int, flush=None) -> float:
     return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / n
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -187,6 +236,14 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     err = float(torch.max(torch.abs(got.float() - want.float())))
     scale = float(torch.max(torch.abs(want.float())))
     return err, err / max(scale, 1e-30)
+
+
+def row_rel_err(torch, got, want) -> tuple[float, float]:
+    """(max abs error, the largest over rows (all dims but the last) of
+    the row's max abs error over its max |want|)."""
+    err = torch.abs(got.float() - want.float()).amax(dim=-1)
+    scale = torch.abs(want.float()).amax(dim=-1).clamp_min(1e-30)
+    return float(err.max()), float((err / scale).max())
 
 
 # -- data -----------------------------------------------------------------
@@ -347,6 +404,7 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
                   lambda: ref.pcdn_direction_ref(*args), flush),
         bound=bound(nbytes, nops), library_ms=None)
     out.update(serve_kernel_checks(torch, serve, flush))
+    out.update(flash_kernel_checks(torch, flush))
     for name, r in out.items():
         log(f"[kernels] {name}: device {r['ms'] * 1e3:.2f} us L2-cold, "
             f"{r['warm_ms'] * 1e3:.2f} us L2-warm; plain version device "
@@ -563,6 +621,305 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
         # ~10 flops per (sample, candidate) loss term
         bound=bound(4 * s + 8 * s_live + 8 * Q, 10 * s_live * Q),
         library_ms=None)
+    return out
+
+
+def flash_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """(query, key) pairs the mask lets through, per head: what the
+    attention's work depends on."""
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)          # rows i < Skv see i + 1 keys, later rows Skv
+    return n * (n + 1) // 2 + max(Sq - Skv, 0) * Skv
+
+
+def flash_fault(torch, q, k, v, causal=True, sm_scale=None, *, fault):
+    """The plain version (model layout) with one of FLASH_FAULTS planted:
+    what the gates read for a wrong kernel."""
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    scale = D ** -0.5 if sm_scale is None else sm_scale
+    qg = q.reshape(B, Sq, Kv, H // Kv, D).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    kj = torch.arange(Skv, device=q.device)
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= torch.arange(Sq, device=q.device)[:, None] >= kj
+    if fault == "tile":
+        ok &= (kj < 64) | (kj >= 128)
+    s = torch.where(ok, s, -torch.inf)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = (e * (kj % 8 < 6) if fault == "quad" else e).sum(-1, keepdim=True)
+    if fault == "fp8 p":
+        e = e.to(torch.float8_e4m3fn).float()
+    o = torch.einsum("bkgqs,bskd->bqkgd", e / l, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_kernel_checks(torch, flush) -> dict:
+    """K6 against its plain version on the same inputs: at the lm phase's
+    prefill shape (bf16, causal, the model's (B, S, H, D) layout with its
+    2 kv heads), timed with the bound and the library call
+    (scaled_dot_product_attention, timed only), and the planted faults'
+    readings there; then yi-6b's and gemma-7b's head widths, tails,
+    Sq != Skv, non-causal and float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(q_shape, kv_shape, dtype):
+        return [torch.randn(s, generator=gen, device=dev).to(dtype)
+                for s in (q_shape, kv_shape, kv_shape)]
+
+    def check(label, q, k, v, causal):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e = row_rel_err(torch, got, want)
+        tol = FLASH_RTOL[str(q.dtype).removeprefix("torch.")]
+        us = device_ms(torch, lambda: ops.flash_attention(
+            q, k, v, causal=causal), 20) * 1e3
+        log(f"[kernels] flash_attention {label} q {tuple(q.shape)} k/v "
+            f"{tuple(k.shape)} {str(q.dtype).removeprefix('torch.')} "
+            f"{'causal' if causal else 'non-causal'}: err {e[0]:.3e} (row "
+            f"rel {e[1]:.2e}), tolerance row rel {tol}; {us:.2f} us "
+            f"L2-warm")
+        assert e[1] <= tol, (label, e)
+        return e, want
+
+    cfg = get_config(LM_ARCH)
+    H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = inputs((LM_BATCH, LM_PROMPT, H, D), (LM_BATCH, LM_PROMPT, Kv, D),
+                     torch.bfloat16)
+    e, want = check(f"{LM_ARCH} prefill", q, k, v, True)
+    tol = FLASH_RTOL["bfloat16"]
+    for fault in FLASH_FAULTS:
+        r = row_rel_err(torch, flash_fault(torch, q, k, v, fault=fault),
+                        want)[1]
+        log(f"[kernels] flash_attention control, plain version with "
+            f"{fault!r} planted: row rel {r:.2e} (limit {tol})")
+        if fault != "fp8 p":
+            assert r > tol, (fault, r)
+    del want
+    # the library call: heads first, contiguous, kv heads grouped inside
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    e_lib = row_rel_err(torch, library().transpose(1, 2),
+                        ref.attention_ref(q, k, v))
+    log(f"[kernels] flash_attention library scaled_dot_product_attention "
+        f"vs plain row rel {e_lib[1]:.2e} (timed only)")
+    # each input read once, the output written once; 4 D flops a pair
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+    nops = 4 * D * flash_pairs(LM_PROMPT, LM_PROMPT, True) * LM_BATCH * H
+    out = {"flash_attention": dict(
+        max_abs_err=e[0],
+        **timings(torch, lambda: ops.flash_attention(q, k, v),
+                  lambda: ref.attention_ref(q, k, v), flush),
+        bound=bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+        library_ms=device_ms(torch, library, 20, flush))}
+    del q, k, v, qt, kt, vt
+
+    for label, arch, B, S in (("yi-6b heads", "yi-6b", 1, 2048),
+                              ("gemma-7b heads", "gemma-7b", 2, 2048)):
+        c = get_config(arch)
+        D = c.resolved_head_dim
+        check(label, *inputs((B, S, c.n_heads, D), (B, S, c.n_kv_heads, D),
+                             torch.bfloat16), True)
+    check("tail", *inputs((1, 4000, H, 64), (1, 4000, Kv, 64),
+                          torch.bfloat16), True)
+    check("Sq != Skv", *inputs((8, 200, 64), (8, 328, 64), torch.bfloat16),
+          True)
+    check("non-causal", *inputs((1, 2048, H, 64), (1, 2048, Kv, 64),
+                                torch.bfloat16), False)
+    check("float32", *inputs((1, 2048, H, 64), (1, 2048, Kv, 64),
+                             torch.float32), True)
+    check("float32 gemma-7b heads, Sq != Skv", *inputs(
+        (1, 1000, 16, 256), (1, 1500, 16, 256), torch.float32), False)
+    return out
+
+
+def lm_model(torch, dtype: str, seed: int = LM_SEED):
+    """The lm phase's model (random weights from `seed`, on the card) and
+    its prompts, made as `launch.serve` makes them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decls import init_params
+    from repro_torch.models.transformer import Model
+    cfg = get_config(LM_ARCH).replace(dtype=dtype)
+    model = Model(cfg, DEVICE)
+    init_params(model, torch.Generator(device=DEVICE).manual_seed(seed))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    return model, torch.as_tensor(prompts, device=DEVICE)
+
+
+def lm_agreement(torch, dtype: str, seed: int, faults=()) -> list:
+    """Prefill through K6 and through its plain version, from the same
+    weights and prompts (from `seed`), then LM_DECODE_CHECK decode steps
+    from each cache on the kernel route's greedy tokens; then a prefill
+    through the plain version with each of `faults` planted. -> the
+    readings: [prefill, each decode step] rel of the kernel route, then
+    one prefill rel a fault, against the plain route. In float32 the
+    greedy first tokens are equal."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import decode as dec
+    model, tokens = lm_model(torch, dtype, seed)
+    n_layers = model.cfg.n_layers
+    steps, firsts, feed = {}, {}, []
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        ops.reset_launch_counts()
+        logits, cache = dec.prefill(model, tokens,
+                                    LM_PROMPT + LM_DECODE_CHECK)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["flash_attention"]
+        assert n == (n_layers if use_kernels else 0), (use_kernels, n)
+        firsts[use_kernels] = torch.argmax(logits[:, -1], dim=-1)
+        if not feed:
+            feed.append(firsts[True][:, None])
+        steps[use_kernels] = [logits]
+        for i in range(LM_DECODE_CHECK):
+            logits, cache = dec.decode_step(model, cache, feed[i])
+            steps[use_kernels].append(logits)
+            if len(feed) < LM_DECODE_CHECK:
+                feed.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
+        del cache
+    rels = [rel_err(torch, a, b)[1]
+            for a, b in zip(steps[True], steps[False])]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in steps[True] + steps[False])
+    same_first = torch.equal(firsts[True], firsts[False])
+    log(f"[lm] {dtype} seed {seed}: prefill logits through K6 ({n_layers} "
+        f"launches) vs its plain version rel {rels[0]:.2e}; "
+        f"{LM_DECODE_CHECK} decode steps rel "
+        + " ".join(f"{r:.2e}" for r in rels[1:])
+        + f"; greedy first tokens {'equal' if same_first else 'differ'} "
+        f"({firsts[True].tolist()} vs {firsts[False].tolist()})")
+    assert finite, "non-finite logits"
+    if dtype == "float32":
+        assert same_first, (firsts[True], firsts[False])
+    plain_ref = ref.attention_ref
+    model.use_kernels = False
+    for fault in faults:
+        def planted(q, k, v, causal=True, sm_scale=None, _fault=fault):
+            return flash_fault(torch, q, k, v, causal, sm_scale,
+                               fault=_fault)
+        ref.attention_ref = planted
+        try:
+            logits, _ = dec.prefill(model, tokens, LM_PROMPT)
+        finally:
+            ref.attention_ref = plain_ref
+        rels.append(rel_err(torch, logits, steps[False][0])[1])
+        log(f"[lm] {dtype} seed {seed}: control, plain route with "
+            f"{fault!r} planted: prefill logits rel {rels[-1]:.2e}")
+    del model, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rels
+
+
+def phase_lm(torch, card: str) -> dict:
+    """The LM serving path through `repro_torch.launch.serve.main`:
+    qwen2-0.5b at full width, a 4096-token prefill (K6 in each of its 24
+    layers: checked) and greedy decode, twice (the second run warm), then a
+    32-token prompt (the dense route: no K6); K6 against its plain version
+    inside the whole prefill, in bf16 and float32; one prefill and one
+    decode step traced in a child process. -> K6's launches in the first
+    4096-token run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+
+    cfg = get_config(LM_ARCH)
+    launches = None
+    for prompt, want in ((LM_PROMPT, cfg.n_layers), (LM_PROMPT, cfg.n_layers),
+                         (LM_SHORT_PROMPT, 0)):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = serve_cli.main([
+            "--arch", LM_ARCH, "--full", "--batch", str(LM_BATCH),
+            "--prompt-len", str(prompt), "--new-tokens", str(LM_NEW),
+            "--seed", str(LM_SEED), "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        toks = out["tokens"]
+        assert counts["flash_attention"] == want, counts
+        assert sum(counts.values()) == want, counts
+        assert toks.shape == (LM_BATCH, LM_NEW), toks.shape
+        assert np.all((toks >= 0) & (toks < cfg.vocab_size)), toks
+        if launches is None:
+            launches = counts["flash_attention"]
+        log(f"[lm] launch.serve {LM_ARCH} --full batch {LM_BATCH} prompt "
+            f"{prompt} new {LM_NEW} on {card}: prefill "
+            f"{out['prefill_ms']:.2f} ms, first decode step "
+            f"{out['first_step_ms']:.3f} ms, then "
+            f"{out['decode_ms_per_token']:.3f} ms a token "
+            f"({out['tok_per_s']:.1f} tok/s); flash_attention launches "
+            f"{counts['flash_attention']} (expected {want}); {wall:.1f}s "
+            f"wall with the model's init")
+    # the agreement gate: the kernel route's readings at each seed, the
+    # planted faults' (not gated) at the first
+    for dtype, seeds in (("bfloat16", LM_GATE_SEEDS), ("float32", (LM_SEED,))):
+        tol = LM_RTOL[dtype]
+        kernel = []
+        for seed in seeds:
+            rels = lm_agreement(torch, dtype, seed, FLASH_FAULTS
+                                if seed == seeds[0] and dtype == "bfloat16"
+                                else ())
+            kernel += rels[:1 + LM_DECODE_CHECK]
+        log(f"[lm] {dtype}: kernel route's largest rel {max(kernel):.2e} "
+            f"over {len(seeds)} seed(s), tolerance rel {tol}")
+        assert max(kernel) <= tol, (dtype, kernel)
+
+    # traced in a fresh process: the profiler loses records late in a
+    # long one (PERF.md)
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--lm-profile"],
+        capture_output=True, text=True, check=True, timeout=600)
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    for name in ("prefill", "decode"):
+        r = prof[name]
+        if r["busy_ms"] > 0:
+            log(f"[lm] one {name} traced by torch.profiler in a fresh "
+                f"process: {r['traced_ms']:.3f} ms wall traced "
+                f"({r['wall_ms']:.3f} untraced), device busy "
+                f"{r['busy_ms']:.3f} ms (idle share "
+                f"{1 - r['busy_ms'] / r['traced_ms']:.3f}); top device ops:")
+            for key, calls, us in r["top"]:
+                log(f"[lm]   {us:10.2f} us  {calls:5d} calls  {key[:90]}")
+        else:
+            log(f"[lm] one {name}: {r['wall_ms']:.3f} ms wall; idle share "
+                f"not measured (the profiler saw no device time)")
+    return {"flash_attention": launches}
+
+
+def lm_profile() -> dict:
+    """One prefill (LM_BATCH x LM_PROMPT) and one decode step of the lm
+    phase's bf16 model, after a warm-up prefill and two decode steps: the
+    untraced wall (host_ms), then one traced call each ->
+    {"prefill"|"decode": {"wall_ms", "traced_ms", "busy_ms", "top"}}.
+    Run by the lm phase in a child process (`--lm-profile`)."""
+    import torch
+    from repro_torch.models import decode as dec
+    model, tokens = lm_model(torch, "bfloat16")
+    max_len = LM_PROMPT + 16
+    logits, cache = dec.prefill(model, tokens, max_len)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for _ in range(2):
+        dec.decode_step(model, cache, tok)
+    out = {}
+    for name, fn in (("prefill", lambda: dec.prefill(model, tokens, max_len)),
+                     ("decode", lambda: dec.decode_step(model, cache, tok))):
+        wall = host_ms(torch, fn, 3)
+        busy, top, traced = device_profile(torch, fn)
+        out[name] = {"wall_ms": wall, "traced_ms": traced * 1e3,
+                     "busy_ms": busy * 1e3,
+                     "top": [(k, c, t * 1e6) for k, c, t in top if t > 0]}
     return out
 
 
@@ -922,6 +1279,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES[1:]),
                     help=f"comma-separated subset of {PHASES[1:]}")
+    ap.add_argument("--lm-profile", action="store_true",
+                    help="trace one LM prefill and decode step and print "
+                         "their JSON line (the lm phase runs this in a "
+                         "child process)")
     ap.add_argument("--chunk-profile", nargs=2,
                     metavar=("FAMILY", "REQUESTS"),
                     help="trace one dense serve chunk and print its JSON "
@@ -945,6 +1306,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if args.chunk_profile:
         print(json.dumps(chunk_profile(*args.chunk_profile)), flush=True)
+        return 0
+    if args.lm_profile:
+        print(json.dumps(lm_profile()), flush=True)
         return 0
 
     # full-precision float32 products on the plain paths (the default)
@@ -996,6 +1360,8 @@ def main(argv=None) -> int:
         assert np.isfinite(f) and counts["pcdn_sparse_direction"] > 0, counts
     if "serve" in phases:
         launches.update(phase_serve(torch, serve, f"{card} ({smi})"))
+    if "lm" in phases:
+        launches.update(phase_lm(torch, f"{card} ({smi})"))
 
     if kernels:
         rows = []

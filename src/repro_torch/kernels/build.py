@@ -29,7 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
-           "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch")
+           "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -37,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.POINTER(ctypes.c_longlong)
 
 # argtypes of every exported C function (pointers and the stream are
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int)
@@ -66,6 +68,11 @@ SIGNATURES = {
     "pcdn_linesearch": {
         "pcdn_linesearch_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     },
+    # q, k, v, o, B, H, G, Sq, Skv, D, causal, scale, 12 strides, stream
+    "flash_attention": {
+        f"flash_attention_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _F, _L, _P]
+        for t in ("f32", "bf16")},
 }
 
 # zero-argument C functions returning a launch constant of the library:

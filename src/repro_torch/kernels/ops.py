@@ -1,5 +1,6 @@
 """Dispatchers for the port's kernels: the three solver kernels (K1-K3),
-the two serving-margin kernels (K4a, K4b) and the batched line search (K5).
+the two serving-margin kernels (K4a, K4b), the batched line search (K5)
+and flash attention (K6), the LM's blockwise prefill attention.
 
 Each wrapper looks at where its tensors live:
 
@@ -15,6 +16,7 @@ run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -24,7 +26,8 @@ from repro_torch.kernels import build, ref
 Tensor = torch.Tensor
 
 KERNELS = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
-           "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch")
+           "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch",
+           "flash_attention")
 _LAUNCHES = {name: 0 for name in KERNELS}
 
 # loss kind codes, as kernels/csrc/common.cuh numbers them
@@ -304,4 +307,77 @@ def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
                                   _ptr(partials), _ptr(out), _stream(z))
     _raise_if(err, "pcdn_linesearch")
     _LAUNCHES["pcdn_linesearch"] += 1
+    return out
+
+
+_FLASH_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                    sm_scale: float | None = None) -> Tensor:
+    """K6: softmax(q k^T * sm_scale, masked) v, f32 accumulation, output in
+    q's dtype; sm_scale defaults to D ** -0.5.
+
+    Takes `repro.kernels.ops.flash_attention`'s layout, q (BH, Sq, D) with
+    k/v (BH / G, Skv, D) (query head bh reads kv head bh // G), or the
+    model's, q (B, Sq, H, D) with k/v (B, Skv, Kv, D), and returns q's
+    shape. Causal masks `qi >= kj` with both positions from 0. Any Sq and
+    Skv: the kernel masks the tails itself (the JAX wrapper falls back to
+    the dense reference when they are not multiples of its tile). On the
+    card D is 64, 128 or 256, q/k/v float32 or bfloat16 alike, each with a
+    contiguous last dim; the other strides are passed to the kernel."""
+    if _on_cpu(q, k, v):
+        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    if q.ndim not in (3, 4) or k.ndim != q.ndim or k.shape != v.shape:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    D = q.shape[-1]
+    if D not in _FLASH_HEAD_DIMS or k.shape[-1] != D:
+        raise ValueError(f"flash_attention: head dim {D} (q) / "
+                         f"{k.shape[-1]} (k), the kernel takes "
+                         f"{_FLASH_HEAD_DIMS}")
+    if q.dtype not in _VALUE_TYPES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}, expected one of {tuple(_VALUE_TYPES)} "
+                        f"for all three")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = out
+    if q.ndim == 3:
+        # a view of the model's layout: query head bh = kv head * G + member
+        B = k.shape[0]
+        if q.shape[0] % B:
+            raise ValueError(f"flash_attention: {q.shape[0]} query heads "
+                             f"over {B} kv heads")
+        q, o = (t.unflatten(0, (B, -1)).transpose(1, 2) for t in (q, o))
+        k, v = k.unsqueeze(2), v.unsqueeze(2)
+    B, Sq, H, _ = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or H % Kv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} against "
+                         f"k/v {tuple(k.shape)}")
+    G = H // Kv
+    # (batch, head, row) strides
+    strides = [(t.stride(0), t.stride(2), t.stride(1)) for t in (q, k, v, o)]
+    # 16-byte rows: the kernel moves 16 bytes a thread
+    align = 16 // q.element_size()
+    for name, t, st in zip("qkvo", (q, k, v, o), strides):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or \
+                any(x % align for x in st):
+            raise ValueError(f"flash_attention: {name} needs a contiguous "
+                             f"last dim, 16-byte alignment and strides in "
+                             f"multiples of {align} elements; got strides "
+                             f"{tuple(t.stride())}")
+    if Sq < 1 or Skv < 1:
+        raise ValueError(f"flash_attention: empty sequence Sq={Sq} "
+                         f"Skv={Skv}")
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    lib = build.load("flash_attention")
+    flat = (ctypes.c_longlong * 12)(*[int(x) for st in strides for x in st])
+    fn = getattr(lib, f"flash_attention_{_VALUE_TYPES[q.dtype]}")
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(o), B, H, G, Sq, Skv, D,
+             int(bool(causal)), float(sm_scale), flat, _stream(q))
+    _raise_if(err, "flash_attention")
+    _LAUNCHES["flash_attention"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's kernels (K1-K5).
+"""Plain PyTorch versions of the port's kernels (K1-K6).
 
 Ports of `repro.kernels.ref`'s oracles. Each computes, in float32, exactly
 what its CUDA kernel computes (kernels/csrc/*.cu):
@@ -12,6 +12,8 @@ what its CUDA kernel computes (kernels/csrc/*.cu):
   * `serve_margins_csc_ref`     -- K4b, serving margins over a padded-CSC
                                    request batch -> (B, K)
   * `pcdn_linesearch_ref`       -- K5, the Q candidates' loss deltas (Q,)
+  * `attention_ref`             -- K6, dense softmax attention (the flash
+                                   kernel's function)
 
 `kernels.ops` takes them for tensors on the CPU; the tests hold them
 against the reference, and `chip_smoke.py` holds the kernels against them
@@ -139,3 +141,33 @@ def serve_margins_csc_ref(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
     z = torch.zeros((K * (B + 1),), dtype=f32, device=col_vals.device)
     z.index_add_(0, flat.reshape(-1), contrib.reshape(-1))
     return z.view(K, B + 1)[:, :B].T
+
+
+def attention_ref(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                  sm_scale: float | None = None) -> Tensor:
+    """Dense softmax attention in float32, output in q's dtype.
+
+    The model's layout, q (B, Sq, H, D) with k/v (B, Skv, Kv, D), query
+    head h reading kv head h // (H / Kv); or q (BH, Sq, D) with k/v
+    (BH / G, Skv, D), query head bh reading kv head bh // G (G = 1 is
+    `repro.kernels.ref.attention_ref`'s contract), taken as a view of the
+    first with B = BH / G and Kv = 1. Causal masks `qi >= kj` with both
+    positions from 0 (aligned top-left) by -1e30 before the softmax."""
+    heads_first = q.ndim == 3
+    if heads_first:
+        q = q.unflatten(0, (k.shape[0], -1)).transpose(1, 2)
+        k, v = k.unsqueeze(2), v.unsqueeze(2)
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Sq, Kv, H // Kv, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(f32), k.to(f32)) * sm_scale
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None]
+        kj = torch.arange(Skv, device=q.device)[None, :]
+        s = torch.where(qi >= kj, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(f32))
+    o = o.reshape(B, Sq, H, D).to(q.dtype)
+    return o.transpose(1, 2).flatten(0, 1) if heads_first else o

@@ -300,3 +300,83 @@ def test_serve_loop_swaps_in_place_on_the_card(cuda):
     assert {r.version for r in second} == {2}
     np.testing.assert_allclose(np.stack([r.margins for r in second]), want,
                                rtol=1e-5, atol=1e-5)
+
+
+# -- flash attention (K6) and the LM serving path ------------------------------
+
+# per query row, the row's max abs error over its max |plain| (a row's
+# size falls with the keys it averages). bf16: inputs and output in bf16,
+# K6 casts p to bf16 before p v (as the Pallas kernel does), the plain
+# version keeps it in float32; both round the output to bf16
+FLASH_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rows_close_to(got, want, rtol):
+    err = torch.abs(got.float() - want.float()).amax(dim=-1)
+    scale = torch.abs(want.float()).amax(dim=-1).clamp_min(1e-30)
+    worst = float((err / scale).max())
+    assert worst <= rtol, worst
+
+
+@pytest.mark.parametrize("q_shape,kv_shape", [
+    ((4, 4096, 14, 64), (4, 4096, 2, 64)),      # qwen2-0.5b prefill
+    ((1, 2048, 32, 128), (1, 2048, 4, 128)),    # yi-6b heads
+    ((1, 2048, 16, 256), (1, 2048, 16, 256)),   # gemma-7b heads
+    ((1, 4000, 4, 64), (1, 4000, 2, 64)),       # tail tiles
+    ((3, 200, 64), (3, 328, 64)),               # Sq != Skv, (BH, S, D)
+    ((8, 100, 128), (2, 100, 128)),             # grouped (BH, S, D)
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel(cuda, q_shape, kv_shape, dtype, causal):
+    g = torch.Generator(device=cuda).manual_seed(sum(q_shape))
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in (q_shape, kv_shape, kv_shape))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype
+    _rows_close_to(got, want, FLASH_RTOL[dtype])
+    assert ops.launch_counts()["flash_attention"] == before + 1
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((2, 64, 96), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+    q = torch.zeros((2, 64, 64), device=cuda)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.half(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2)[:, :64], q, q)
+
+
+def test_lm_prefill_agrees_with_plain_route_f32(cuda):
+    """Reduced qwen2-0.5b at head_dim 64, float32, a 2100-token prompt:
+    the prefill through K6 against the same weights through its plain
+    version, then two decode steps from each cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode as dec
+    from repro_torch.models.decls import init_params
+    from repro_torch.models.transformer import Model
+    cfg = get_config("qwen2-0.5b", reduced=True).replace(head_dim=64)
+    model = Model(cfg, cuda)
+    init_params(model, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 2100), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    out, tok = {}, None
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        ops.reset_launch_counts()
+        logits, cache = dec.prefill(model, toks, 2102)
+        assert ops.launch_counts()["flash_attention"] == \
+            (cfg.n_layers if use_kernels else 0)
+        if tok is None:     # both routes decode the kernel route's token
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+        out[use_kernels] = [logits]
+        for _ in range(2):
+            logits, cache = dec.decode_step(model, cache, tok)
+            out[use_kernels].append(logits)
+    for got, want in zip(out[True], out[False]):
+        _close_to(got, want, 1e-4)

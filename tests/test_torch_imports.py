@@ -38,9 +38,15 @@ def test_scan_covers_the_package():
     assert {"pcdn.py", "ops.py", "build.py", "bridge.py", "solve.py",
             "chip_smoke.py", "artifact.py", "predict.py", "loop.py",
             "batcher.py", "policy.py", "atomic.py", "registry.py"} <= names
-    serve = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    paths = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"src/repro_torch/serve/predict.py",
-            "src/repro_torch/launch/predict.py"} <= serve
+            "src/repro_torch/launch/predict.py"} <= paths
+    lm = {f"src/repro_torch/{m}.py" for m in (
+        "models/config", "models/decls", "models/layers", "models/attention",
+        "models/transformer", "models/decode", "models/convert",
+        "configs/__init__", "configs/qwen2_0_5b", "train/steps",
+        "utils/params", "launch/serve")}
+    assert lm <= paths, lm - paths
 
 
 def test_default_device_raises_without_cuda():
@@ -59,6 +65,10 @@ def test_default_device_raises_without_cuda():
     # the device is resolved before the model file is read
     with pytest.raises(RuntimeError, match="cuda"):
         predict.main(["--model", "absent.json", "--dataset", "a9a"])
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(get_config("qwen2-0.5b", reduced=True))
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu_without_counting():
