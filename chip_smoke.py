@@ -17,9 +17,12 @@ Phases:
                  pcdn_linesearch at the serve phase's shapes; K6
                  flash_attention at the lm phase's prefill shape and at
                  yi-6b's and gemma-7b's head widths, tails, non-causal and
-                 float32, per query row, with planted faults as controls;
-                 errors, kernel, plain and library times (CUDA events),
-                 the bound.
+                 float32, per query row, with planted faults as controls,
+                 each check naming the variant that ran (wgmma, mma,
+                 f32); errors, kernel, plain and library times (CUDA
+                 events), the bound, K6's TFLOP/s and share of it, its
+                 mma variant's time at the prefill shape and the host time
+                 of its tensor-map encodes.
   3. support  -- real-sim at its published shape (57,848 x 20,958, ~139 nnz
                  a column, k_max 278) in padded-CSC, P = 32: the support
                  scope, so every bundle runs K1.
@@ -522,14 +525,20 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
     args = (X, bank.idx, bank.val)
     got = ops.serve_margins_dense(*args)
     want = ref.serve_margins_dense_ref(*args)
+    again = ops.serve_margins_dense(*args)
     lib = torch.matmul(X, W.T)
     torch.cuda.synchronize()
     e = rel_err(torch, got, want)
     e_lib = rel_err(torch, lib, want)
+    width = ops.dense_tile_width(B, n, K, ops._sm_count(X.device))
     log(f"[kernels] serve_margins_dense B={B} n={n} K={K} A={A} U={U}: "
         f"err {e[0]:.3e} (rel {e[1]:.2e}), tolerance rel {K4A_RTOL}; "
-        f"library matmul vs plain rel {e_lib[1]:.2e}")
+        f"two calls bit-equal {torch.equal(got, again)}; one variant, "
+        f"column tiles of {width} ({-(-n // width)} tiles x "
+        f"{-(-B // 32)} row tiles); library matmul vs plain rel "
+        f"{e_lib[1]:.2e}")
     assert e[1] <= K4A_RTOL, e
+    assert torch.equal(got, again)
     out["serve_margins_dense"] = dict(
         max_abs_err=e[0],
         **timings(torch, lambda: ops.serve_margins_dense(*args),
@@ -656,13 +665,38 @@ def flash_fault(torch, q, k, v, causal=True, sm_scale=None, *, fault):
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def flash_work(q, k, causal: bool) -> tuple[float, float]:
+    """(bytes, flops) one K6 call needs: each input read once, the output
+    written once; 4 D flops for each (query, key) pair the mask lets
+    through. Either layout ((B, S, H, D) or (BH, S, D))."""
+    D = q.shape[-1]
+    Sq, Skv = q.shape[1], k.shape[1]
+    heads = q.numel() // (Sq * D)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4 * D * flash_pairs(Sq, Skv, causal) * heads
+
+
+def flash_rate(torch, q, k, causal: bool, ms: float) -> str:
+    """A K6 time's TFLOP/s and its share of the bound (bf16 tensor-core
+    peak, or fp32 on the CUDA cores)."""
+    nbytes, nops = flash_work(q, k, causal)
+    peak = FP32_OPS_PER_S if q.dtype == torch.float32 else \
+        BF16_TENSOR_OPS_PER_S
+    b = bound(nbytes, nops, peak)[0]
+    return (f"{nops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {b / ms:.3f} of its "
+            f"bound")
+
+
 def flash_kernel_checks(torch, flush) -> dict:
     """K6 against its plain version on the same inputs: at the lm phase's
     prefill shape (bf16, causal, the model's (B, S, H, D) layout with its
-    2 kv heads), timed with the bound and the library call
-    (scaled_dot_product_attention, timed only), and the planted faults'
-    readings there; then yi-6b's and gemma-7b's head widths, tails,
-    Sq != Skv, non-causal and float32."""
+    2 kv heads), timed with the bound, the library call
+    (scaled_dot_product_attention, timed only), the mma.sync variant at
+    the same shape (the wgmma kernel's first step) and the host time of a
+    call's tensor-map encodes, and the planted faults' readings there;
+    then yi-6b's and gemma-7b's head widths, tails, Sq != Skv,
+    non-causal and float32. Every time with its TFLOP/s and share of the
+    bound; every check names the variant that ran."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
 
@@ -675,19 +709,24 @@ def flash_kernel_checks(torch, flush) -> dict:
                 for s in (q_shape, kv_shape, kv_shape)]
 
     def check(label, q, k, v, causal):
+        before = ops.flash_variant_counts()
         got = ops.flash_attention(q, k, v, causal=causal)
         want = ref.attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        ran = [n for n, c in ops.flash_variant_counts().items()
+               if c != before[n]]
         e = row_rel_err(torch, got, want)
         tol = FLASH_RTOL[str(q.dtype).removeprefix("torch.")]
-        us = device_ms(torch, lambda: ops.flash_attention(
-            q, k, v, causal=causal), 20) * 1e3
+        ms = device_ms(torch, lambda: ops.flash_attention(
+            q, k, v, causal=causal), 20)
         log(f"[kernels] flash_attention {label} q {tuple(q.shape)} k/v "
             f"{tuple(k.shape)} {str(q.dtype).removeprefix('torch.')} "
-            f"{'causal' if causal else 'non-causal'}: err {e[0]:.3e} (row "
-            f"rel {e[1]:.2e}), tolerance row rel {tol}; {us:.2f} us "
-            f"L2-warm")
+            f"{'causal' if causal else 'non-causal'}, variant "
+            f"{'/'.join(ran)}: err {e[0]:.3e} (row rel {e[1]:.2e}), "
+            f"tolerance row rel {tol}; {ms * 1e3:.2f} us L2-warm, "
+            f"{flash_rate(torch, q, k, causal, ms)}")
         assert e[1] <= tol, (label, e)
+        assert ran == [ops.flash_variant(q.dtype, q.shape[-1])], ran
         return e, want
 
     cfg = get_config(LM_ARCH)
@@ -703,6 +742,10 @@ def flash_kernel_checks(torch, flush) -> dict:
             f"{fault!r} planted: row rel {r:.2e} (limit {tol})")
         if fault != "fp8 p":
             assert r > tol, (fault, r)
+    # the first step of the redesign, the mma.sync variant, at this shape
+    e_mma = row_rel_err(torch, ops.flash_attention(q, k, v, variant="mma"),
+                        want)
+    assert e_mma[1] <= tol, e_mma
     del want
     # the library call: heads first, contiguous, kv heads grouped inside
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -714,15 +757,31 @@ def flash_kernel_checks(torch, flush) -> dict:
                         ref.attention_ref(q, k, v))
     log(f"[kernels] flash_attention library scaled_dot_product_attention "
         f"vs plain row rel {e_lib[1]:.2e} (timed only)")
-    # each input read once, the output written once; 4 D flops a pair
-    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
-    nops = 4 * D * flash_pairs(LM_PROMPT, LM_PROMPT, True) * LM_BATCH * H
-    out = {"flash_attention": dict(
-        max_abs_err=e[0],
-        **timings(torch, lambda: ops.flash_attention(q, k, v),
-                  lambda: ref.attention_ref(q, k, v), flush),
-        bound=bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
-        library_ms=device_ms(torch, library, 20, flush))}
+    nbytes, nops = flash_work(q, k, True)
+    r = dict(max_abs_err=e[0],
+             **timings(torch, lambda: ops.flash_attention(q, k, v),
+                       lambda: ref.attention_ref(q, k, v), flush),
+             bound=bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+             library_ms=device_ms(torch, library, 20, flush))
+    mma_ms = device_ms(torch, lambda: ops.flash_attention(
+        q, k, v, variant="mma"), 20, flush)
+    r["variant_ms"] = {"wgmma": r["ms"], "mma": mma_ms}
+    encode_us = []
+    for _ in range(50):
+        ops.flash_attention(q, k, v)
+        encode_us.append(ops.flash_encode_us())
+    torch.cuda.synchronize()
+    log(f"[kernels] flash_attention {LM_ARCH} prefill, L2-cold: wgmma "
+        f"{r['ms'] * 1e3:.2f} us ({flash_rate(torch, q, k, True, r['ms'])})"
+        f"; the mma.sync variant {mma_ms * 1e3:.2f} us "
+        f"({flash_rate(torch, q, k, True, mma_ms)}; row rel "
+        f"{e_mma[1]:.2e}); library {r['library_ms'] * 1e3:.2f} us "
+        f"({flash_rate(torch, q, k, True, r['library_ms'])})")
+    log(f"[kernels] flash_attention host time encoding a call's three "
+        f"tensor maps: mean {sum(encode_us) / len(encode_us):.3f} us, max "
+        f"{max(encode_us):.3f} us over {len(encode_us)} calls (host "
+        f"{r['host_ms'] * 1e3:.2f} us a call in all)")
+    out = {"flash_attention": r}
     del q, k, v, qt, kt, vt
 
     for label, arch, B, S in (("yi-6b heads", "yi-6b", 1, 2048),
@@ -847,20 +906,26 @@ def phase_lm(torch, card: str) -> dict:
             "--seed", str(LM_SEED), "--device", DEVICE])
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        variants = ops.flash_variant_counts()
         toks = out["tokens"]
         assert counts["flash_attention"] == want, counts
         assert sum(counts.values()) == want, counts
+        # the variant the dispatcher's rule gives bf16 at this head dim
+        rule = ops.flash_variant(torch.bfloat16, cfg.resolved_head_dim)
+        assert variants[rule] == want == sum(variants.values()), variants
         assert toks.shape == (LM_BATCH, LM_NEW), toks.shape
         assert np.all((toks >= 0) & (toks < cfg.vocab_size)), toks
         if launches is None:
             launches = counts["flash_attention"]
+            by_variant = variants
         log(f"[lm] launch.serve {LM_ARCH} --full batch {LM_BATCH} prompt "
             f"{prompt} new {LM_NEW} on {card}: prefill "
             f"{out['prefill_ms']:.2f} ms, first decode step "
             f"{out['first_step_ms']:.3f} ms, then "
             f"{out['decode_ms_per_token']:.3f} ms a token "
             f"({out['tok_per_s']:.1f} tok/s); flash_attention launches "
-            f"{counts['flash_attention']} (expected {want}); {wall:.1f}s "
+            f"{counts['flash_attention']} (expected {want}; by variant "
+            f"{variants}); {wall:.1f}s "
             f"wall with the model's init")
     # the agreement gate: the kernel route's readings at each seed, the
     # planted faults' (not gated) at the first
@@ -895,7 +960,8 @@ def phase_lm(torch, card: str) -> dict:
         else:
             log(f"[lm] one {name}: {r['wall_ms']:.3f} ms wall; idle share "
                 f"not measured (the profiler saw no device time)")
-    return {"flash_attention": launches}
+    return {"flash_attention": launches,
+            "flash_attention variants": by_variant}
 
 
 def lm_profile() -> dict:
@@ -1367,12 +1433,17 @@ def main(argv=None) -> int:
         rows = []
         for name, r in kernels.items():
             src, replaces = SOURCES[name]
-            rows.append({
+            row = {
                 "name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches.get(name),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+            if f"{name} variants" in launches:
+                row["launches_by_variant"] = launches[f"{name} variants"]
+            if "variant_ms" in r:
+                row["variant_ms"] = r["variant_ms"]
+            rows.append(row)
         print(json.dumps({"kernels": rows}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi, flush=True)

@@ -59,7 +59,8 @@ SIGNATURES = {
     },
     # (X or col_vals type)_(val type): each float32 or bfloat16
     "serve_margins_dense": {
-        f"serve_margins_dense_{a}_{b}": [_P, _P, _P, _I, _I, _I, _I, _P, _P]
+        f"serve_margins_dense_{a}_{b}": [_P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                         _P, _P]
         for a in ("f32", "bf16") for b in ("f32", "bf16")},
     "serve_margins_csc": {
         f"serve_margins_csc_{a}_{b}": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -68,11 +69,13 @@ SIGNATURES = {
     "pcdn_linesearch": {
         "pcdn_linesearch_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     },
-    # q, k, v, o, B, H, G, Sq, Skv, D, causal, scale, 12 strides, stream
+    # q, k, v, o, B, H, G, Sq, Skv, D, causal, scale, 12 strides, stream;
+    # the host ns the last wgmma launch spent encoding its tensor maps
     "flash_attention": {
-        f"flash_attention_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _F, _L, _P]
-        for t in ("f32", "bf16")},
+        **{f"flash_attention_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _F, _L, _P]
+           for t in ("wgmma_bf16", "mma_bf16", "f32")},
+        "flash_attention_encode_ns": []},
 }
 
 # zero-argument C functions returning a launch constant of the library:

@@ -12,7 +12,8 @@ Each wrapper looks at where its tensors live:
     adds one to its launch count. It never falls back to the plain version.
 
 `launch_counts()` / `reset_launch_counts()` read and clear the counts, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels;
+`flash_variant_counts()` splits K6's count by the variant that ran.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    for name in _FLASH_VARIANT_LAUNCHES:
+        _FLASH_VARIANT_LAUNCHES[name] = 0
 
 
 def _on_cpu(*tensors: Tensor) -> bool:
@@ -204,10 +207,32 @@ def pcdn_bundle(vals: Tensor, pos: Tensor, z_R: Tensor, y_R: Tensor,
     return upd_w, upd_z, alpha, n_steps
 
 
+def dense_tile_width(B: int, n: int, K: int, sms: int) -> int:
+    """Column tile of the K4a launch, a multiple of 32: about four blocks
+    per SM over the (32-row, width-column) tiles of X, at most 1536
+    columns (the staged tile, 32 x (width + 1) floats, within the 227 KB
+    a block may hold), and the (tiles, K, B) partials at most 16M floats
+    where the width allows."""
+    row_tiles = -(-B // 32)
+    want = max(1, -(-4 * sms // row_tiles))
+    width = 32 * -(-n // (32 * want))
+    while width < 1536 and -(-n // width) * K * B > (1 << 24):
+        width *= 2
+    return int(min(max(width, 32), 1536))
+
+
 def serve_margins_dense(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:
     """K4a: serving margins over a dense request slab. X (B, n) float32|
     bf16, idx (K, A) int32 with sentinel n at padding, val (K, A) float32|
-    bf16 -> (B, K) float32 (bias not added)."""
+    bf16 -> (B, K) float32 (bias not added).
+
+    Contract on the card: each model's live ids ascend, sentinels after
+    them (the artifact's w_indices are strictly ascending and ModelBank
+    keeps that order). The kernel cuts X into column tiles and finds each
+    model's ids in a tile by a search that assumes that order; ids out of
+    order drop terms.
+    Each column tile's partial margins are summed in tile order by a
+    second launch: deterministic, no atomics."""
     if _on_cpu(X, idx, val):
         return ref.serve_margins_dense_ref(X, idx, val)
     B, n = X.shape
@@ -219,11 +244,16 @@ def serve_margins_dense(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:
         raise ValueError(f"serve_margins_dense: empty input B={B} n={n} "
                          f"K={K} A={A}")
     lib = build.load("serve_margins_dense")
-    out = torch.empty((B, K), dtype=torch.float32, device=X.device)
+    width = dense_tile_width(B, n, K, _sm_count(X.device))
+    n_tiles = -(-n // width)
+    # one allocation: the (B, K) output, then the (tiles, K, B) partials
+    buf = torch.empty(((n_tiles + 1) * K * B,), dtype=torch.float32,
+                      device=X.device)
+    out, part = buf[:B * K].view(B, K), buf[B * K:]
     fn = getattr(lib, f"serve_margins_dense_{_VALUE_TYPES[X.dtype]}_"
                       f"{_VALUE_TYPES[val.dtype]}")
-    err = fn(_ptr(X), _ptr(idx), _ptr(val), B, n, K, A, _ptr(out),
-             _stream(X))
+    err = fn(_ptr(X), _ptr(idx), _ptr(val), B, n, K, A, width, _ptr(part),
+             _ptr(out), _stream(X))
     _raise_if(err, "serve_margins_dense")
     _LAUNCHES["serve_margins_dense"] += 1
     return out
@@ -311,10 +341,38 @@ def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
 
 
 _FLASH_HEAD_DIMS = (64, 128, 256)
+# K6's variants (kernels/csrc/flash_attention.cu) and the head dims each
+# takes; mma's D 64 is there to time it against wgmma at the LM's shape
+FLASH_VARIANTS = {"wgmma": (64, 128), "mma": (64, 256),
+                  "f32": (64, 128, 256)}
+_FLASH_VARIANT_LAUNCHES = {name: 0 for name in FLASH_VARIANTS}
+
+
+def flash_variant(dtype: torch.dtype, D: int) -> str:
+    """The K6 variant the dispatcher launches, fixed by dtype and head dim
+    alone: bf16 at D 64 and 128 the wgmma/TMA kernel, bf16 at D 256 the
+    mma.sync kernel (the wgmma ring and a 64 x 256 f32 accumulator per
+    warpgroup do not fit), float32 the CUDA-core kernel."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if D in FLASH_VARIANTS["wgmma"] else "mma"
+
+
+def flash_variant_counts() -> dict:
+    """K6 launches by variant since the last `reset_launch_counts()`;
+    they sum to `launch_counts()["flash_attention"]`."""
+    return dict(_FLASH_VARIANT_LAUNCHES)
+
+
+def flash_encode_us() -> float:
+    """Host microseconds the last wgmma launch spent encoding its three
+    tensor maps."""
+    return build.load("flash_attention").flash_attention_encode_ns() / 1e3
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
-                    sm_scale: float | None = None) -> Tensor:
+                    sm_scale: float | None = None, *,
+                    variant: str | None = None) -> Tensor:
     """K6: softmax(q k^T * sm_scale, masked) v, f32 accumulation, output in
     q's dtype; sm_scale defaults to D ** -0.5.
 
@@ -325,7 +383,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     Skv: the kernel masks the tails itself (the JAX wrapper falls back to
     the dense reference when they are not multiples of its tile). On the
     card D is 64, 128 or 256, q/k/v float32 or bfloat16 alike, each with a
-    contiguous last dim; the other strides are passed to the kernel."""
+    contiguous last dim; the other strides are passed to the kernel.
+    `flash_variant` picks the kernel; `variant` names another one of
+    FLASH_VARIANTS that takes the dtype and D (to time them side by
+    side)."""
     if _on_cpu(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
     if q.ndim not in (3, 4) or k.ndim != q.ndim or k.shape != v.shape:
@@ -341,6 +402,13 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}, expected one of {tuple(_VALUE_TYPES)} "
                         f"for all three")
+    if variant is None:
+        variant = flash_variant(q.dtype, D)
+    if variant not in FLASH_VARIANTS or \
+            D not in FLASH_VARIANTS[variant] or \
+            (variant == "f32") != (q.dtype == torch.float32):
+        raise ValueError(f"flash_attention: variant {variant!r} does not "
+                         f"take {q.dtype} at head dim {D}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     o = out
     if q.ndim == 3:
@@ -357,27 +425,39 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
         raise ValueError(f"flash_attention: q {tuple(q.shape)} against "
                          f"k/v {tuple(k.shape)}")
     G = H // Kv
-    # (batch, head, row) strides
-    strides = [(t.stride(0), t.stride(2), t.stride(1)) for t in (q, k, v, o)]
-    # 16-byte rows: the kernel moves 16 bytes a thread
-    align = 16 // q.element_size()
-    for name, t, st in zip("qkvo", (q, k, v, o), strides):
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or \
-                any(x % align for x in st):
-            raise ValueError(f"flash_attention: {name} needs a contiguous "
-                             f"last dim, 16-byte alignment and strides in "
-                             f"multiples of {align} elements; got strides "
-                             f"{tuple(t.stride())}")
+    strides = flash_strides(q, k, v, o)
     if Sq < 1 or Skv < 1:
         raise ValueError(f"flash_attention: empty sequence Sq={Sq} "
                          f"Skv={Skv}")
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
     lib = build.load("flash_attention")
-    flat = (ctypes.c_longlong * 12)(*[int(x) for st in strides for x in st])
-    fn = getattr(lib, f"flash_attention_{_VALUE_TYPES[q.dtype]}")
+    flat = (ctypes.c_longlong * 12)(*strides)
+    fn = getattr(lib, "flash_attention_f32" if variant == "f32"
+                 else f"flash_attention_{variant}_bf16")
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(o), B, H, G, Sq, Skv, D,
              int(bool(causal)), float(sm_scale), flat, _stream(q))
-    _raise_if(err, "flash_attention")
+    _raise_if(err, f"flash_attention ({variant})")
     _LAUNCHES["flash_attention"] += 1
+    _FLASH_VARIANT_LAUNCHES[variant] += 1
+    return out
+
+
+def flash_strides(q: Tensor, k: Tensor, v: Tensor, o: Tensor) -> list:
+    """The 12 (batch, head, row) strides in elements of q, k, v and o in
+    the model's (B, S, H, D) layout, as the kernel takes them; raises
+    where a tensor lacks a contiguous last dim, 16-byte alignment or
+    strides in whole 16-byte steps (the kernels move 16 bytes at a time,
+    TMA's tensor maps need both)."""
+    align = 16 // q.element_size()
+    out = []
+    for name, t in zip("qkvo", (q, k, v, o)):
+        st = (t.stride(0), t.stride(2), t.stride(1))
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or \
+                any(x % align for x in st):
+            raise ValueError(f"flash_attention: {name} needs a contiguous "
+                             f"last dim, 16-byte alignment and strides in "
+                             f"multiples of {align} elements; got strides "
+                             f"{tuple(t.stride())}")
+        out += [int(x) for x in st]
     return out

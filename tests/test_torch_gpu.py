@@ -380,3 +380,161 @@ def test_lm_prefill_agrees_with_plain_route_f32(cuda):
             out[use_kernels].append(logits)
     for got, want in zip(out[True], out[False]):
         _close_to(got, want, 1e-4)
+
+
+# -- K6's variants: wgmma/TMA (bf16, D 64 and 128), mma.sync (bf16, D 256) --
+
+def _flash_inputs(cuda, seed, q_shape, kv_shape, dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in (q_shape, kv_shape, kv_shape)]
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 7])
+@pytest.mark.parametrize("Sq,Skv", [(4000, 4000), (200, 328), (328, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_variant_by_head_dim(cuda, D, G, Sq, Skv, causal):
+    """Grouped heads (G query heads a kv head), tails on both sides: the
+    variant the dispatcher's rule picks, held per row to the plain
+    version, and counted under its own name."""
+    q, k, v = _flash_inputs(cuda, D * G + Sq, (1, Sq, 2 * G, D),
+                            (1, Skv, 2, D))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _rows_close_to(got, want, FLASH_RTOL[torch.bfloat16])
+    variant = "wgmma" if D < 256 else "mma"
+    assert ops.flash_variant(torch.bfloat16, D) == variant
+    assert ops.flash_variant_counts()[variant] == 1
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("D", [64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_mma_variant_agrees_where_wgmma_runs(cuda, D,
+                                                            causal):
+    """The mma.sync kernel, named by `variant`, at the LM's head dim,
+    where the wgmma kernel is the rule: both held to the plain version
+    per row."""
+    q, k, v = _flash_inputs(cuda, D, (2, 1000, 14, D), (2, 1000, 2, D))
+    want = ref.attention_ref(q, k, v, causal=causal)
+    for variant in ("wgmma", "mma"):
+        got = ops.flash_attention(q, k, v, causal=causal, variant=variant)
+        torch.cuda.synchronize()
+        _rows_close_to(got, want, FLASH_RTOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_attention_strided_views_of_a_fused_projection(cuda, D):
+    """q, k, v as `Attention.project_qkv` hands them over with a fused
+    projection: views of one (B, S, H + 2 Kv, D) tensor, rows strided by
+    (H + 2 Kv) D elements, read in place through the tensor maps."""
+    B, S, H, Kv = 2, 2100, 8, 2
+    g = torch.Generator(device=cuda).manual_seed(D)
+    out = torch.randn((B, S, H + 2 * Kv, D), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = out[..., :H, :], out[..., H:H + Kv, :], out[..., H + Kv:, :]
+    assert not q.is_contiguous() and not v.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True, sm_scale=D ** -0.5)
+    want = ref.attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=True, sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    _rows_close_to(got, want, FLASH_RTOL[torch.bfloat16])
+
+
+def test_flash_attention_variant_names_are_checked(cuda):
+    q, k, v = _flash_inputs(cuda, 0, (1, 256, 4, 256), (1, 256, 4, 256))
+    with pytest.raises(ValueError, match="variant"):
+        ops.flash_attention(q, k, v, variant="wgmma")   # D 256: no
+    with pytest.raises(ValueError, match="variant"):
+        ops.flash_attention(q, k, v, variant="f32")     # bf16 inputs
+    with pytest.raises(ValueError, match="variant"):
+        ops.flash_attention(q.float(), k.float(), v.float(), variant="mma")
+    q, k, v = _flash_inputs(cuda, 0, (1, 256, 4, 128), (1, 256, 4, 128))
+    with pytest.raises(ValueError, match="variant"):
+        ops.flash_attention(q, k, v, variant="mma")     # D 128: no
+
+
+def test_flash_attention_encodes_tensor_maps_on_the_host(cuda):
+    q, k, v = _flash_inputs(cuda, 1, (1, 512, 4, 64), (1, 512, 2, 64))
+    ops.flash_attention(q, k, v)
+    us = ops.flash_encode_us()
+    assert 0.0 < us < 1e4, us
+
+
+# -- K4a: column tiles of X, staged once for all models ----------------------
+
+@pytest.mark.parametrize("B,n,K,A", [(1, 31, 2, 7), (33, 2000, 3, 900),
+                                     (257, 20958, 8, 10901),
+                                     (70, 200_000, 4, 30_000)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v_dtype", [torch.float32, torch.bfloat16])
+def test_serve_margins_dense_column_tiles(cuda, B, n, K, A, x_dtype,
+                                          v_dtype):
+    """Rows not a multiple of the 32-row tile, n from below one column
+    tile to far beyond what shared memory holds as whole rows, sentinel
+    padding with nonzero values: 1e-5 against the plain version, and the
+    same bits from a second call."""
+    rng = _rng(B, n, K, A)
+    idx, val = _bank_arrays(cuda, B + n, K, min(A, n), n)
+    X = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32,
+                     device=cuda).to(x_dtype)
+    val = val.to(v_dtype)
+    got = ops.serve_margins_dense(X, idx, val)
+    again = ops.serve_margins_dense(X, idx, val)
+    want = ref.serve_margins_dense_ref(X, idx, val)
+    torch.cuda.synchronize()
+    _close_to(got, want, 1e-5)
+    assert torch.equal(got, again)
+    assert not torch.any(got[:, 0])              # the all-padding model
+
+
+def _warp_lower_bound(ids, target):
+    """The kernel's warp-wide search: 32 probes a round, the count of
+    probes below the target narrows [lo, hi]. For ascending ids the first
+    position whose id is >= target; for any ids a position in [0, A]."""
+    lo, hi = 0, len(ids)
+    while hi - lo > 32:
+        step = (hi - lo + 31) // 32
+        below = sum(1 for p in range(lo, lo + 32 * step, step)
+                    if p < hi and ids[p] < target)
+        if below == 0:
+            return lo
+        lo, hi = lo + (below - 1) * step + 1, min(hi, lo + below * step)
+    return lo + sum(1 for p in range(lo, lo + 32) if p < hi and
+                    ids[p] < target)
+
+
+def test_serve_margins_dense_unsorted_ids_drop_terms(cuda):
+    """The kernel's contract is ascending ids (the artifact's). With ids
+    out of order, each column tile sums only the entries between the
+    search's bounds whose id lies in the tile: terms are dropped, none
+    counted twice, nothing read out of bounds. A numpy model of that rule
+    gives the kernel's margins; the sorted models stay exact."""
+    B, n, K, A = 40, 5000, 3, 2000
+    rng = _rng(7)
+    idx = np.stack([np.sort(rng.choice(n, A, replace=False))
+                    for _ in range(K)]).astype(np.int32)
+    idx[1] = rng.permutation(idx[1])             # model 1 out of order
+    val = rng.standard_normal((K, A)).astype(np.float32)
+    X = rng.standard_normal((B, n)).astype(np.float32)
+    args = (torch.tensor(X, device=cuda), torch.tensor(idx, device=cuda),
+            torch.tensor(val, device=cuda))
+    got = ops.serve_margins_dense(*args).cpu().numpy()
+    want = ref.serve_margins_dense_ref(*args).cpu().numpy()
+    np.testing.assert_allclose(got[:, [0, 2]], want[:, [0, 2]], rtol=1e-5,
+                               atol=1e-5)
+    width = ops.dense_tile_width(B, n, K, ops._sm_count(args[0].device))
+    kept = np.zeros(A, bool)
+    for c0 in range(0, n, width):
+        c1 = min(n, c0 + width)
+        e = np.arange(_warp_lower_bound(idx[1], c0),
+                      _warp_lower_bound(idx[1], c1))
+        assert not np.any(kept[e] & (idx[1][e] >= c0) & (idx[1][e] < c1))
+        kept[e] |= (idx[1][e] >= c0) & (idx[1][e] < c1)
+    model = X[:, idx[1][kept]] @ val[1][kept]
+    assert 0 < kept.sum() < A
+    np.testing.assert_allclose(got[:, 1], model, rtol=1e-5, atol=1e-5)
+    assert np.max(np.abs(got[:, 1] - want[:, 1])) > 0.1
