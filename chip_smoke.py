@@ -10,9 +10,13 @@ Phases:
   0. device   -- the card's name, count, power limit (nvidia-smi).
   1. build    -- nvcc builds the seven kernels from kernels/csrc
                  (sm_90a); always runs.
-  2. kernels  -- K1 pcdn_bundle, K2 pcdn_sparse_direction and K3
-                 pcdn_direction against their plain PyTorch versions on the
-                 card, at the shapes the solves below give them; K4a
+  2. kernels  -- K1 pcdn_bundle (the whole support step of a real-sim
+                 bundle, from one carry cloned twice, and the same bundle
+                 with the search forced past its first chunk and with
+                 nothing passing), K2 pcdn_sparse_direction (with delta)
+                 and K3 pcdn_direction against their plain PyTorch
+                 versions on the card, at the shapes the solves below give
+                 them; K4a
                  serve_margins_dense, K4b serve_margins_csc and K5
                  pcdn_linesearch at the serve phase's shapes; K6
                  flash_attention at the lm phase's prefill shape and at
@@ -25,7 +29,8 @@ Phases:
                  of its tensor-map encodes.
   3. support  -- real-sim at its published shape (57,848 x 20,958, ~139 nnz
                  a column, k_max 278) in padded-CSC, P = 32: the support
-                 scope, so every bundle runs K1.
+                 scope, so every bundle is one K1 launch (the traced
+                 iteration must show no other device op a bundle).
   4. full     -- the same data at P = 512: the full scope, K2.
   5. dense    -- gisette at its published shape (6,000 x 5,000, dense and
                  correlated), P = 512: K3.
@@ -88,9 +93,9 @@ BF16_TENSOR_OPS_PER_S = 989e12   # dense, tensor cores
 # solve-phase tolerance: kernel vs plain objective after one outer
 # iteration from a shared carry (f32 sums in another order, atomics in K1)
 F_RTOL = 1e-4
-# kernel-phase tolerance on d/g/h and upd_*: max |kernel - plain| over
-# max |plain| (f32 reductions in another order; K1's atomic scatter; K4b's
-# shared-memory atomics; K5's block partials)
+# kernel-phase tolerance on d/g/h/delta and K1's w and z: max |kernel -
+# plain| over max |plain| (f32 reductions in another order; K1's and K2's
+# atomic scatters; K4b's shared-memory atomics; K5's block partials)
 KERNEL_RTOL = 1e-4
 # K4a sums in a fixed order with no atomics: held closer
 K4A_RTOL = 1e-5
@@ -98,6 +103,12 @@ K4A_RTOL = 1e-5
 # the seed of every dataset
 N_OUTER = 10
 DATA_SEED = 0
+# the solve phases: (design, labels) at these places of make_data's tuple,
+# c, layout, P, the kernel they launch, the line-search scope
+SOLVES = {"support": (0, 1, 4.0, "padded_csc", 32, "pcdn_bundle", "support"),
+          "full": (0, 1, 4.0, "padded_csc", 512, "pcdn_sparse_direction",
+                   "full"),
+          "dense": (2, 3, 0.25, "dense", 512, "pcdn_direction", "full")}
 # objective non-increase, up to f32 rounding of the 57,848-term loss sum
 F_MONOTONE_RTOL = 1e-6
 
@@ -204,6 +215,20 @@ def host_ms(torch, fn, n: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
+def enqueue_us(torch, fn, n: int) -> float:
+    """Mean host us per call of n calls queued back to back, timed before
+    the synchronize: what the wrapper costs the host, device time apart."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e6 / n
+
+
 def device_ms(torch, fn, n: int, flush=None) -> float:
     """Mean device ms per call from CUDA events around each call.
 
@@ -294,7 +319,6 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
     """Each kernel against its plain version: K1-K3 at the solves' shapes,
     K4a/K4b/K5 at the serve phase's."""
     from repro_torch.core import bundles as B
-    from repro_torch.core.design_matrix import _take_fill
     from repro_torch.core.linesearch import ArmijoParams, candidate_alphas
     from repro_torch.core.problem import make_problem
     from repro_torch.kernels import ops, ref
@@ -316,67 +340,144 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
     w[on] = 0.05 * torch.randn((on.numel(),), generator=gen).to(dev)
     z = sparse.margins(w)
 
-    # K1 at P = 32 (support scope)
+    # K1 at P = 32 (support scope): the whole step of one real-sim bundle,
+    # from one carry cloned for the kernel and for its plain version; then
+    # the same bundle with the search forced past its first chunk (sigma
+    # 0.99 asks for nearly all of the predicted decrease) and with nothing
+    # passing (sigma 1e6)
+    design = sparse.design
+    s = sparse.n_samples
     idx = B.partition(gen, n, 32, device=dev)[0]
-    slab = sparse.design.gather_slab(idx)
-    w_B, _ = B.gather_vec(w, idx)
-    support, pos = sparse.design.slab_row_support(slab)
-    z_R = _take_fill(z, support, 0.0)
-    y_R = _take_fill(sparse.y, support, 1.0)
     alphas = candidate_alphas(ArmijoParams(), torch.float32, dev)
-    args = (slab.vals, pos, z_R, y_R, w_B, alphas, 4.0)
-    got = ops.pcdn_bundle(*args)
-    want = ref.pcdn_bundle_ref(*args)
-    torch.cuda.synchronize()
-    P, K = slab.vals.shape
-    R = z_R.shape[0]
-    Q = alphas.shape[0]
-    e_w = rel_err(torch, got[0], want[0])
-    e_z = rel_err(torch, got[1], want[1])
-    a_k, a_p = float(got[2]), float(want[2])
-    q_k, q_p = int(got[3]), int(want[3])
-    log(f"[kernels] pcdn_bundle P={P} K={K} R={R} Q={Q}: upd_w err "
-        f"{e_w[0]:.3e} (rel {e_w[1]:.2e}), upd_z err {e_z[0]:.3e} (rel "
-        f"{e_z[1]:.2e}), alpha {a_k} vs {a_p}, n_steps {q_k} vs {q_p}; "
-        f"tolerance rel {KERNEL_RTOL}, alpha/n_steps equal")
-    assert e_w[1] <= KERNEL_RTOL and e_z[1] <= KERNEL_RTOL, (e_w, e_z)
-    assert a_k == a_p and q_k == q_p, (a_k, a_p, q_k, q_p)
-    n_live = int(torch.unique(support[support < sparse.n_samples]).numel())
-    nbytes = P * K * 8 + R * 8 + P * 4 + Q * 4 + (P + R) * 4 + 8
-    nops = P * K * 20 + n_live * Q * 12
-    _, top, _ = device_profile(torch, lambda: ops.pcdn_bundle(*args))
-    log("[kernels] pcdn_bundle launches, device time of one call:")
-    log_top("kernels", top, 1, "call")
-    out["pcdn_bundle"] = dict(
-        max_abs_err=max(e_w[0], e_z[0]),
-        **timings(torch, lambda: ops.pcdn_bundle(*args),
-                  lambda: ref.pcdn_bundle_ref(*args), flush),
-        bound=bound(nbytes, nops), library_ms=None)
+    P, K, Q = idx.shape[0], design.k_max, alphas.shape[0]
+    live = idx[idx < n].long()
+    rows = design.col_rows[live]
+    touched = torch.unique(rows[rows < s])
+    n_live = int(touched.numel())
+    out_w = torch.ones(n, dtype=torch.bool, device=dev)
+    out_w[live] = False
+    out_z = torch.ones(s, dtype=torch.bool, device=dev)
+    out_z[touched] = False
+    errs = []
+    for label, sigma in (("real-sim bundle", 0.01),
+                         ("first chunk fails", 0.99),
+                         ("nothing passes", 1e6)):
+        launch = ops.BundleLaunch(design.col_rows, design.col_vals, sparse.y,
+                                  alphas, 4.0, P, 1, sigma=sigma)
+        w_k, z_k, w_p, z_p = w.clone(), z.clone(), w.clone(), z.clone()
+        ops.pcdn_bundle(launch, w_k, z_k, idx, 0)
+        q_p, a_p = ref.pcdn_bundle_step_ref(
+            design.col_rows, design.col_vals, idx, z_p, sparse.y, w_p,
+            alphas, 4.0, sigma=sigma)
+        torch.cuda.synchronize()
+        q_k, a_k = int(launch.n_steps[0]), float(launch.alpha[0])
+        e_w = rel_err(torch, w_k, w_p)
+        e_z = rel_err(torch, z_k, z_p)
+        kept = torch.equal(w_k[out_w], w[out_w]) and \
+            torch.equal(z_k[out_z], z[out_z])
+        R = P * K
+        reset = bool(torch.all(launch.workspace[:s + R] == -1)) and \
+            bool(torch.all(launch.workspace[s + R:s + 2 * R] == 0))
+        log(f"[kernels] pcdn_bundle {label}: P={P} K={K} s={s} R={P * K} "
+            f"live rows {n_live} Q={Q} (cluster {launch.plan.cluster} x "
+            f"{ops.BUNDLE_THREADS} threads, {launch.plan.nseg} warps a "
+            f"column, chunk {ops.BUNDLE_CHUNK}): w err {e_w[0]:.3e} (rel "
+            f"{e_w[1]:.2e}), z err {e_z[0]:.3e} (rel {e_z[1]:.2e}), alpha "
+            f"{a_k} vs {a_p}, n_steps {q_k} vs {int(q_p)}; outside the "
+            f"bundle bit-equal {kept}; slot map reset {reset}; tolerance rel "
+            f"{KERNEL_RTOL}, alpha/n_steps equal")
+        assert e_w[1] <= KERNEL_RTOL and e_z[1] <= KERNEL_RTOL, (e_w, e_z)
+        assert a_k == float(a_p) and q_k == int(q_p), (a_k, a_p, q_k, q_p)
+        assert kept and reset, (kept, reset)
+        if label == "first chunk fails":
+            assert q_k > ops.BUNDLE_CHUNK, q_k
+        if label == "nothing passes":
+            assert (q_k, a_k) == (1, 0.0), (q_k, a_k)
+        errs += [e_w[0], e_z[0]]
+    # timed as the support solve calls it: each call the next bundle of a
+    # partition, in turn, from a carry the calls evolve (the timings below
+    # take about one pass over the partition: about one outer iteration)
+    bundles = B.partition(gen, n, P, device=dev).unbind(0)
 
-    # K2 at P = 512 (full scope)
+    def stepper(fn):
+        wc, zc, it = w.clone(), z.clone(), [0]
+
+        def call():
+            t = it[0] % len(bundles)
+            it[0] += 1
+            fn(wc, zc, bundles[t], t)
+        return call
+
+    def plain(wc, zc, idx_t, t):
+        ref.pcdn_bundle_step_ref(design.col_rows, design.col_vals, idx_t, zc,
+                                 sparse.y, wc, alphas, 4.0)
+
+    launch = ops.BundleLaunch(design.col_rows, design.col_vals, sparse.y,
+                              alphas, 4.0, P, len(bundles))
+    k1 = stepper(lambda wc, zc, idx_t, t: ops.pcdn_bundle(
+        launch, wc, zc, idx_t, t))
+    top = device_ops(torch, k1)
+    log(f"[kernels] pcdn_bundle, device ops of one call ("
+        f"{sum(c for _, c, _ in top)} stream ops):")
+    log_top("kernels", top, 1, "call")
+    r = dict(max_abs_err=max(errs),
+             **timings(torch, k1, stepper(plain), flush),
+             enqueue_us=enqueue_us(torch, k1, 200), library_ms=None)
+    # bytes: idx, each live column's rows and values, w_B read and
+    # written, z/y read and z written at the live rows, the outputs;
+    # operations: ~20 a slab entry (the loss factors, g, h), 12 a live
+    # row for each candidate up to the accepted one; the mean over the
+    # timed bundles, at the step counts their last calls accepted
+    n_steps = launch.n_steps.tolist()
+    nbytes = nops = 0.0
+    timed = [(idx_t, q_t) for idx_t, q_t in zip(bundles, n_steps) if q_t]
+    n_steps = [q_t for _, q_t in timed]
+    for idx_t, q_t in timed:
+        live_t = idx_t[idx_t < n].long()
+        rows_t = design.col_rows[live_t]
+        rows_live = int(torch.unique(rows_t[rows_t < s]).numel())
+        nbytes += (P * 4 + int(live_t.numel()) * K *
+                   (4 + design.col_vals.element_size()) +
+                   8 * int(live_t.numel()) + 12 * rows_live + q_t * 4 + 8)
+        nops += P * K * 20 + rows_live * q_t * 12
+    r["bound"] = bound(nbytes / len(timed), nops / len(timed))
+    log(f"[kernels] pcdn_bundle over the {len(timed)} timed bundles: mean "
+        f"n_steps {sum(n_steps) / len(n_steps):.3f}, bound "
+        f"{r['bound'][0] * 1e3:.4f} us ({r['bound'][1]})")
+    out["pcdn_bundle"] = r
+
+    # K2 at P = 512 (full scope): the loss factors and delta inside
     idx = B.partition(gen, n, 512, device=dev)[0]
-    slab = sparse.design.gather_slab(idx)
+    slab = design.gather_slab(idx)
     w_B, _ = B.gather_vec(w, idx)
-    u = sparse.grad_factor(z)
-    v = sparse.hess_factor(z)
-    args = (slab.rows, slab.vals, u, v, w_B)
+    args = (slab.rows, slab.vals, z, sparse.y, w_B, 4.0)
     got = ops.pcdn_sparse_direction(*args)
     want = ref.pcdn_sparse_direction_ref(*args)
     errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
     P, K = slab.rows.shape
-    log(f"[kernels] pcdn_sparse_direction P={P} K={K} s={u.shape[0]}: "
+    log(f"[kernels] pcdn_sparse_direction P={P} K={K} s={s} ("
+        f"{ops.sparse_direction_warps(K)} warps a column): "
         + ", ".join(f"{nm} err {e[0]:.3e} (rel {e[1]:.2e})"
-                    for nm, e in zip("dgh", errs))
+                    for nm, e in zip(("d", "g", "h", "delta"), errs))
         + f"; tolerance rel {KERNEL_RTOL}")
     assert all(e[1] <= KERNEL_RTOL for e in errs), errs
-    valid = slab.rows < sparse.n_samples
+    valid = slab.rows < s
     n_rows = int(torch.unique(slab.rows[valid]).numel())
-    nbytes = P * K * 8 + n_rows * 8 + P * 4 + 3 * P * 4
-    nops = 5 * int(valid.sum())
+    top = device_ops(torch, lambda: ops.pcdn_sparse_direction(*args))
+    log(f"[kernels] pcdn_sparse_direction, device ops of one call ("
+        f"{sum(c for _, c, _ in top)} stream ops):")
+    log_top("kernels", top, 1, "call")
+    # bytes: the slab, z/y at its distinct rows, w_B, d/g/h and the (s,)
+    # delta written; operations: ~24 a live entry (the loss factors, g, h,
+    # the scatter)
+    nbytes = P * K * 8 + n_rows * 8 + P * 4 + 3 * P * 4 + s * 4
+    nops = 24 * int(valid.sum())
     out["pcdn_sparse_direction"] = dict(
         max_abs_err=max(e[0] for e in errs),
         **timings(torch, lambda: ops.pcdn_sparse_direction(*args),
                   lambda: ref.pcdn_sparse_direction_ref(*args), flush),
+        enqueue_us=enqueue_us(torch, lambda: ops.pcdn_sparse_direction(
+            *args), 200),
         bound=bound(nbytes, nops), library_ms=None)
 
     # K3 at s = 6,000, P = 512 (dense layout)
@@ -409,10 +510,12 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
     out.update(serve_kernel_checks(torch, serve, flush))
     out.update(flash_kernel_checks(torch, flush))
     for name, r in out.items():
+        enq = (f", the wrapper's enqueue {r['enqueue_us']:.2f} us"
+               if "enqueue_us" in r else "")
         log(f"[kernels] {name}: device {r['ms'] * 1e3:.2f} us L2-cold, "
             f"{r['warm_ms'] * 1e3:.2f} us L2-warm; plain version device "
             f"{r['plain_ms'] * 1e3:.2f} us; host {r['host_ms'] * 1e3:.2f} us "
-            f"a call (plain {r['plain_host_ms'] * 1e3:.2f} us); bound "
+            f"a call (plain {r['plain_host_ms'] * 1e3:.2f} us){enq}; bound "
             f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}); library "
             + ("none" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.2f} us") + f" on {card}")
@@ -1236,17 +1339,47 @@ def device_profile(torch, fn, n_top: int = 8):
     return sum(r[2] for r in rows), rows[:n_top], wall  # n_top None: all
 
 
+def device_ops(torch, fn) -> list:
+    """The ops that ran on the card in one traced call of fn, as
+    device_profile's (name, calls, seconds), those with device time only."""
+    return [r for r in device_profile(torch, fn, n_top=None)[1] if r[2] > 0]
+
+
 def log_top(name: str, top, per: int, unit: str) -> None:
     for key, calls, secs in top:
         log(f"[{name}]   {secs / per * 1e6:9.2f} us/{unit}  "
             f"{calls // max(per, 1):4d} calls/{unit}  {key[:90]}")
 
 
-def profile_iteration(torch, backend, c):
-    """device_profile of one outer iteration from the initial state."""
-    st = backend.init_state()
-    return device_profile(torch, lambda: backend.outer(
-        st.w, st.z, st.gen, st.active, True, c))
+def solve_profile(name: str) -> dict:
+    """One outer iteration of solve phase `name` from the initial state,
+    traced after an untraced run of the same iteration, in a process of its
+    own (`--solve-profile`): -> {"busy_s", "rows": [(op, calls, seconds)],
+    "launches": the kernel's count in the traced iteration}."""
+    import torch
+    from repro_torch.core import PCDNConfig
+    from repro_torch.core.problem import make_problem
+    from repro_torch.engine import LocalBackend
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = make_data(DATA_SEED)
+    i_x, i_y, c, layout, P, kernel, _ = SOLVES[name]
+    prob = make_problem(data[i_x], data[i_y], c=c, layout=layout,
+                        device=DEVICE)
+    backend = LocalBackend(prob, PCDNConfig(P=P, use_kernels=True,
+                                            tol_kkt=0.0, seed=0))
+
+    def iteration():
+        st = backend.init_state()
+        backend.outer(st.w, st.z, st.gen, st.active, True, c)
+
+    iteration()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    busy, rows, _ = device_profile(torch, iteration, n_top=None)
+    return {"busy_s": busy, "rows": rows,
+            "launches": ops.launch_counts()[kernel]}
 
 
 def lockstep(torch, prob, P, c, n_iter: int) -> list:
@@ -1271,10 +1404,13 @@ def lockstep(torch, prob, P, c, n_iter: int) -> list:
     return rels
 
 
-def run_solve(torch, name, X, y, c, layout, P, kernel, n_outer, expect):
-    """Kernel solve (launch counts read around it), the plain solve from
-    the same seed (its drift printed), then the lockstep gate over
-    n_outer iterations; returns the launch counts."""
+def run_solve(torch, name, data, n_outer, fused=False):
+    """Solve phase `name` (SOLVES): the kernel solve (launch counts read
+    around it), the plain solve from the same seed (its drift printed), one
+    iteration traced in a child process, then the lockstep gate over
+    n_outer iterations; returns the launch counts. `fused`: the traced
+    iteration must show one K1 launch a bundle and no other per-bundle
+    device op."""
     from repro_torch.core import PCDNConfig, resolve_ls_scope
     from repro_torch.core.bundles import num_bundles
     from repro_torch.core.problem import make_problem
@@ -1282,7 +1418,9 @@ def run_solve(torch, name, X, y, c, layout, P, kernel, n_outer, expect):
     from repro_torch.engine import loop as engine_loop
     from repro_torch.kernels import ops
 
-    prob = make_problem(X, y, c=c, layout=layout, device=DEVICE)
+    i_x, i_y, c, layout, P, kernel, expect = SOLVES[name]
+    prob = make_problem(data[i_x], data[i_y], c=c, layout=layout,
+                        device=DEVICE)
     results = {}
     for use_kernels in (True, False):
         # tol 0: both solves run exactly n_outer iterations
@@ -1313,8 +1451,15 @@ def run_solve(torch, name, X, y, c, layout, P, kernel, n_outer, expect):
     res_p = results[False][0]
     b = num_bundles(prob.n_features, P)
     assert counts[kernel] == b * n_outer, (counts, b, n_outer)
-    busy, top, _ = profile_iteration(torch, LocalBackend(prob, PCDNConfig(
-        P=P, use_kernels=True, tol_kkt=0.0, seed=0)), c)
+    # traced in a fresh process: late in a long one the profiler loses
+    # records (PERF.md)
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--solve-profile",
+         name], capture_output=True, text=True, check=True, timeout=300)
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    assert prof["launches"] == b, (name, prof["launches"], b)
+    busy = prof["busy_s"]
+    top = [tuple(r) for r in prof["rows"] if r[2] > 0]
     wall = dt_k / n_outer
     if busy > 0:
         log(f"[{name}] device busy {busy * 1e3:.2f} ms of {wall * 1e3:.2f} "
@@ -1322,7 +1467,18 @@ def run_solve(torch, name, X, y, c, layout, P, kernel, n_outer, expect):
             f"{1 - busy / wall:.3f}); per bundle {busy / b * 1e6:.1f} us "
             f"device, {(wall - busy) / b * 1e6:.1f} us host overhead; top "
             f"device ops:")
-        log_top(name, top, b, "bundle")
+        log_top(name, top[:8], b, "bundle")
+        n_ops = sum(r[1] for r in top)
+        per_bundle = [r for r in top if r[1] >= b]
+        log(f"[{name}] {n_ops} device ops in the traced iteration "
+            f"({kernel} launched {prof['launches']} times in it), "
+            f"{n_ops / b:.2f} a bundle; launched at least once a bundle: "
+            + "; ".join(f"{k[:70]} x{n}" for k, n, _ in per_bundle))
+        if fused:
+            # the fused step is one K1 launch a bundle and nothing else
+            assert len(per_bundle) == 1 and per_bundle[0][1] == b and \
+                "bundle_step_kernel" in per_bundle[0][0], per_bundle
+            assert n_ops - b < b // 2, (n_ops, b)
     else:
         log(f"[{name}] device busy: not measured (profiler saw no "
             f"device time)")
@@ -1349,6 +1505,10 @@ def main(argv=None) -> int:
                     help="trace one LM prefill and decode step and print "
                          "their JSON line (the lm phase runs this in a "
                          "child process)")
+    ap.add_argument("--solve-profile", choices=tuple(SOLVES),
+                    help="trace one outer iteration of a solve phase and "
+                         "print its JSON line (the solve phases run this in "
+                         "a child process)")
     ap.add_argument("--chunk-profile", nargs=2,
                     metavar=("FAMILY", "REQUESTS"),
                     help="trace one dense serve chunk and print its JSON "
@@ -1376,6 +1536,9 @@ def main(argv=None) -> int:
     if args.lm_profile:
         print(json.dumps(lm_profile()), flush=True)
         return 0
+    if args.solve_profile:
+        print(json.dumps(solve_profile(args.solve_profile)), flush=True)
+        return 0
 
     # full-precision float32 products on the plain paths (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1398,22 +1561,11 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         kernels = phase_kernels(torch, data, serve, f"{card} ({smi})")
     launches = {}
-    if "support" in phases:
-        csc, y_rs = data[0], data[1]
-        c = run_solve(
-            torch, "support", csc, y_rs, 4.0, "padded_csc", 32,
-            "pcdn_bundle", N_OUTER, "support")
-        launches["pcdn_bundle"] = c["pcdn_bundle"]
-    if "full" in phases:
-        csc, y_rs = data[0], data[1]
-        c = run_solve(torch, "full", csc, y_rs, 4.0, "padded_csc", 512,
-                      "pcdn_sparse_direction", N_OUTER, "full")
-        launches["pcdn_sparse_direction"] = c["pcdn_sparse_direction"]
-    if "dense" in phases:
-        Xg, y_g = data[2], data[3]
-        c = run_solve(torch, "dense", Xg, y_g, 0.25, "dense", 512,
-                      "pcdn_direction", N_OUTER, "full")
-        launches["pcdn_direction"] = c["pcdn_direction"]
+    for name in SOLVES:
+        if name in phases:
+            kernel = SOLVES[name][5]
+            launches[kernel] = run_solve(torch, name, data, N_OUTER,
+                                         fused=name == "support")[kernel]
     if "cli" in phases:
         from repro_torch.kernels import ops
         from repro_torch.launch import solve as solve_cli

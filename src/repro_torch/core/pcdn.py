@@ -13,12 +13,19 @@ the bundle loop is a Python loop (the reference's `lax.scan` /
 iteration copies its input carry once, so callers keep theirs.
 
 With `use_kernels`, the bundle math runs in the hand-written CUDA kernels
-(kernels/ops.py): `pcdn_bundle` for the padded-CSC support scope with the
-batched search, `pcdn_sparse_direction` for the padded-CSC full scope (and
-the support scope with backtracking), `pcdn_direction` for the dense
-layout. Host syncs per bundle: none on the fused support step, one per
-candidate chunk on the full-scope `armijo_chunked` early exit, one per
-candidate on backtracking.
+(kernels/ops.py): `pcdn_bundle` (K1) for the padded-CSC support scope with
+the batched search, `pcdn_sparse_direction` (K2) for the padded-CSC full
+scope and the support scope with backtracking, `pcdn_direction` (K3) for
+the dense layout.
+
+Device work and host syncs per bundle. The fused support step is one K1
+launch and nothing else: no host sync, no other device operation (its
+workspace is filled once per outer iteration, and the outer iteration
+reads the bundles' step counts once, from a (b,) tensor). The full scope
+runs K2 (the loss factors and the margin delta inside it), the Armijo
+search over all samples with one host sync per candidate chunk evaluated
+(`armijo_chunked`), and the w and z updates. Backtracking costs one host
+sync per candidate.
 """
 from __future__ import annotations
 
@@ -102,93 +109,125 @@ def resolve_ls_scope(cfg: PCDNConfig, problem: L1Problem) -> str:
     return "full"
 
 
-def make_bundle_step(problem: L1Problem, cfg: PCDNConfig):
-    """One inner iteration t (steps 6-11 of Algorithm 3).
+class BundleStep:
+    """One inner iteration t (steps 6-11 of Algorithm 3), built once per
+    outer iteration by `make_bundle_step`.
 
-    Returns step((w, z), idx) -> ((w, z), (n_steps, alpha)), which updates
-    w and z IN PLACE. idx is a (P,) index tensor with sentinel n. Both
-    scopes of the reference: full (dense (s,) margin delta, search over
-    all samples) and support (every per-sample pass restricted to the
-    bundle's <= P * k_max row support; one fused kernel with use_kernels
-    and the batched search).
+    `update(w, z, idx, t)` runs the step for the (P,) bundle idx (sentinel
+    n), updating w and z IN PLACE, and records its Armijo step count and
+    alpha at t of `n_steps` (int32) and `alpha` (float32), (n_bundles,)
+    tensors on the device, so the outer iteration reads them once.
+    `step((w, z), idx)` is `update` at t = 0 with the reference step's
+    return, ((w, z), (n_steps, alpha)).
+    """
+
+    def __init__(self, update: Callable, n_steps: Tensor, alpha: Tensor):
+        self.update = update
+        self.n_steps = n_steps
+        self.alpha = alpha
+
+    def __call__(self, carry, idx):
+        w, z = carry
+        self.update(w, z, idx, 0)
+        return (w, z), (self.n_steps[0], self.alpha[0])
+
+
+def make_bundle_step(problem: L1Problem, cfg: PCDNConfig,
+                     n_bundles: int = 1) -> BundleStep:
+    """The bundle step of `problem` under `cfg`, for up to n_bundles
+    bundles an outer iteration. Both scopes of the reference: full (dense
+    (s,) margin delta, search over all samples) and support (every
+    per-sample pass restricted to the bundle's <= P * k_max row support;
+    with use_kernels and the batched search the whole step is one K1
+    launch, whose workspace is allocated here).
     """
     loss = problem.loss
     gamma = cfg.armijo.gamma
     scope = resolve_ls_scope(cfg, problem)
     l2 = problem.elastic_net_l2
     c = problem.c
+    design = problem.design
+    dev = design.device
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
 
     if scope == "support":
-        design = problem.design
-        fuse = cfg.use_kernels and cfg.ls_kind == "batched"
-        alphas = candidate_alphas(cfg.armijo, torch.float32, design.device)
+        alphas = candidate_alphas(cfg.armijo, torch.float32, dev)
+        if cfg.use_kernels and cfg.ls_kind == "batched":
+            launch = kops.BundleLaunch(
+                design.col_rows, design.col_vals, problem.y, alphas, c,
+                cfg.P, n_bundles, kind=problem.loss_name, l2=l2,
+                sigma=cfg.armijo.sigma, gamma=gamma)
 
-        def step(carry, idx):
-            w, z = carry
+            def fused(w, z, idx, t):
+                kops.pcdn_bundle(launch, w, z, idx, t)
+
+            return BundleStep(fused, launch.n_steps, launch.alpha)
+
+        n_steps, alpha = _step_outputs(n_bundles, dev)
+        ls_fn = (armijo_support if cfg.ls_kind == "batched"
+                 else armijo_backtracking)
+
+        def support_step(w, z, idx, t):
             slab = design.gather_slab(idx)
             w_B, _ = B.gather_vec(w, idx)
             support, pos = design.slab_row_support(slab)
             z_R = _take_fill(z, support, 0.0)
             y_R = _take_fill(problem.y, support, 1.0)
-            if fuse:
-                upd_w, upd_z, alpha, n_steps = kops.pcdn_bundle(
-                    slab.vals, pos, z_R, y_R, w_B, alphas, c,
-                    kind=problem.loss_name, l2=l2,
-                    sigma=cfg.armijo.sigma, gamma=gamma)
-                B.scatter_add(w, idx, upd_w)
-                design.scatter_support(z, support, upd_z)
-                return (w, z), (n_steps, alpha)
             if cfg.use_kernels:
-                # backtracking: no fused step, but the direction still
-                # runs in the sparse kernel, with pos as support-local rows
-                u_R = problem.grad_factor_at(z_R, y_R)
-                v_R = problem.hess_factor_at(z_R, y_R)
-                d, g, h = kops.pcdn_sparse_direction(pos, slab.vals, u_R,
-                                                     v_R, w_B, l2=l2)
+                # backtracking: no fused step, but the direction and
+                # delta_R run in the sparse kernel, pos as the rows
+                d, g, h, delta_R = kops.pcdn_sparse_direction(
+                    pos, slab.vals, z_R, y_R, w_B, c,
+                    kind=problem.loss_name, l2=l2)
             else:
                 g, h = problem.bundle_grad_hess_support(slab, pos, z_R,
                                                         y_R, w_B)
                 d = newton_direction(g, h, w_B)
+                delta_R = design.slab_matvec_support(slab, pos, d)
             Delta = delta_decrement(g, h, w_B, d, gamma)
-            delta_R = design.slab_matvec_support(slab, pos, d)
-            ls_fn = (armijo_support if cfg.ls_kind == "batched"
-                     else armijo_backtracking)
             res = ls_fn(loss, c, z_R, delta_R, y_R, w_B, d, Delta,
                         cfg.armijo, l2=l2)
             B.scatter_add(w, idx, res.alpha * d)
             design.scatter_support(z, support, res.alpha * delta_R)
-            return (w, z), (res.n_steps, res.alpha)
+            n_steps[t] = res.n_steps
+            alpha[t] = res.alpha
 
-        return step
+        return BundleStep(support_step, n_steps, alpha)
 
     ls = _line_search_fn(cfg)
+    n_steps, alpha = _step_outputs(n_bundles, dev)
 
-    def step(carry, idx):
-        w, z = carry
-        slab = problem.design.gather_slab(idx)
+    def full_step(w, z, idx, t):
+        slab = design.gather_slab(idx)
         w_B, _ = B.gather_vec(w, idx)
-        if cfg.use_kernels:
-            u = problem.grad_factor(z)
-            v = problem.hess_factor(z)
-            if isinstance(slab, SparseSlab):
-                d, g, h = kops.pcdn_sparse_direction(slab.rows, slab.vals, u,
-                                                     v, w_B, l2=l2)
-            else:
-                d, g, h = kops.pcdn_direction(slab.XB, u, v, w_B, l2=l2)
+        if cfg.use_kernels and isinstance(slab, SparseSlab):
+            d, g, h, delta_z = kops.pcdn_sparse_direction(
+                slab.rows, slab.vals, z, problem.y, w_B, c,
+                kind=problem.loss_name, l2=l2)
         else:
-            g, h = problem.bundle_grad_hess(z, slab, w_B)
-            d = newton_direction(g, h, w_B)
+            if cfg.use_kernels:
+                d, g, h = kops.pcdn_direction(
+                    slab.XB, problem.grad_factor(z), problem.hess_factor(z),
+                    w_B, l2=l2)
+            else:
+                g, h = problem.bundle_grad_hess(z, slab, w_B)
+                d = newton_direction(g, h, w_B)
+            delta_z = design.slab_matvec(slab, d)
         Delta = delta_decrement(g, h, w_B, d, gamma)
-        delta_z = problem.design.slab_matvec(slab, d)
         res = ls(loss, c, z, delta_z, problem.y, w_B, d, Delta, cfg.armijo,
                  l2=l2)
         B.scatter_add(w, idx, res.alpha * d)
         z.add_(res.alpha * delta_z)
-        return (w, z), (res.n_steps, res.alpha)
+        n_steps[t] = res.n_steps
+        alpha[t] = res.alpha
 
-    return step
+    return BundleStep(full_step, n_steps, alpha)
+
+
+def _step_outputs(n_bundles: int, device) -> tuple[Tensor, Tensor]:
+    return (torch.zeros((n_bundles,), dtype=torch.int32, device=device),
+            torch.zeros((n_bundles,), dtype=torch.float32, device=device))
 
 
 def make_path_outer(problem: L1Problem, cfg: PCDNConfig):
@@ -213,7 +252,6 @@ def make_path_outer(problem: L1Problem, cfg: PCDNConfig):
               recheck: bool, c, idxs: Optional[Tensor] = None,
               b_active: Optional[int] = None):
         prob = problem.with_c(c)
-        step = make_bundle_step(prob, cfg)
         w = w.clone()
         z = z.clone()
         if idxs is None:
@@ -225,11 +263,12 @@ def make_path_outer(problem: L1Problem, cfg: PCDNConfig):
         if b_active is None:
             b_active = (-(-int(active.sum()) // cfg.P) if cfg.shrink
                         else idxs.shape[0])
-        q_sum = torch.zeros((), dtype=torch.float32, device=w.device)
-        for t in range(int(b_active)):
-            (w, z), (q, _alpha) = step((w, z), idxs[t])
-            q_sum += q
-        mean_q = q_sum / max(int(b_active), 1)
+        b_active = int(b_active)
+        step = make_bundle_step(prob, cfg, n_bundles=b_active)
+        for t, idx in enumerate(idxs[:b_active].unbind(0)):
+            step.update(w, z, idx, t)
+        mean_q = torch.sum(step.n_steps, dtype=torch.float32) / \
+            max(b_active, 1)
         f = prob.objective_from_margins(z, w)
         g = prob.full_grad(z, w)
         viol = prob.kkt_violation_from_grad(w, g)

@@ -48,15 +48,12 @@ SIGNATURES = {
                                 _P, _P, _P, _P]
         for t in ("f32", "bf16")},
     "pcdn_sparse_direction": {
-        f"pcdn_sparse_direction_{t}": [_P, _P, _P, _P, _P, _F, _I, _I, _I,
-                                       _P, _P, _P, _P]
+        f"pcdn_sparse_direction_{t}": [_P, _P, _P, _P, _P, _F, _I, _F, _I,
+                                       _I, _I, _I, _P, _P, _P, _P, _P]
         for t in ("f32", "bf16")},
+    # a pointer to the launch's BundleArgs (ops._BundleArgs), idx, t, stream
     "pcdn_bundle": {
-        **{f"pcdn_bundle_{t}": [_P, _P, _P, _P, _P, _P, _F, _I, _F, _F, _F,
-                                _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _P]
-           for t in ("f32", "bf16")},
-    },
+        f"pcdn_bundle_{t}": [_P, _P, _I, _P] for t in ("f32", "bf16")},
     # (X or col_vals type)_(val type): each float32 or bfloat16
     "serve_margins_dense": {
         f"serve_margins_dense_{a}_{b}": [_P, _P, _P, _I, _I, _I, _I, _I, _P,
@@ -80,7 +77,9 @@ SIGNATURES = {
 
 # zero-argument C functions returning a launch constant of the library:
 # `load` reads them once into KernelLibrary.consts
-CONSTANTS = {"pcdn_bundle": ("pcdn_bundle_tile", "pcdn_bundle_max_q"),
+CONSTANTS = {"pcdn_bundle": ("pcdn_bundle_max_q", "pcdn_bundle_chunk",
+                             "pcdn_bundle_max_cluster", "pcdn_bundle_threads",
+                             "pcdn_bundle_args_size"),
              "pcdn_linesearch": ("pcdn_linesearch_max_q",
                                  "pcdn_linesearch_threads")}
 

@@ -81,4 +81,72 @@ __device__ __forceinline__ float newton_direction(float g, float h, float w) {
   return -w;
 }
 
+// The epilogue of a feature's reduction: the elastic-net fold, the Hessian
+// floor, then Eq. 5. Returns d; g and h as folded.
+__device__ __forceinline__ float fold_direction(float g_raw, float h_raw,
+                                                float w, float l2, float& g,
+                                                float& h) {
+  g = g_raw + l2 * w;
+  h = hessian_floor(h_raw + l2);
+  return newton_direction(g, h, w);
+}
+
+// -- the per-feature gather-and-reduce of K1 and K2 --------------------------
+//
+// A warp takes a segment [k0, k1) of one feature's padded-CSC column and
+// walks it in rounds of kUnroll entries a lane. A round issues all of its
+// (row, value) loads first, then all of the z/y gathers at those rows, so
+// it waits about two memory latencies, not two for each stride of 32.
+// Rows outside [0, n_rows) (the sentinel) are marked -1 and add nothing.
+constexpr int kUnroll = 4;
+
+struct SegmentRound {
+  int row[kUnroll];    // -1: padding or past the segment
+  float x[kUnroll];
+  float z[kUnroll];
+  float y[kUnroll];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_round(SegmentRound& sr,
+                                           const int* __restrict__ rows,
+                                           const T* __restrict__ vals,
+                                           int base, int k1,
+                                           const float* __restrict__ z,
+                                           const float* __restrict__ y,
+                                           int n_rows) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int e = 0; e < kUnroll; ++e) {
+    const int k = base + e * 32 + lane;
+    const bool in = k < k1;
+    sr.row[e] = in ? rows[k] : -1;
+    sr.x[e] = in ? to_float(vals[k]) : 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < kUnroll; ++e) {
+    const int r = sr.row[e];
+    const bool live = r >= 0 && r < n_rows;
+    sr.row[e] = live ? r : -1;
+    sr.z[e] = live ? z[r] : 0.0f;
+    sr.y[e] = live ? y[r] : 1.0f;
+  }
+}
+
+// g += u x and h += v x^2 over a round's live entries, with u = c phi'(z)
+// and v = c phi''(z) formed at each entry's row (the loss factors are
+// never materialised over all samples)
+__device__ __forceinline__ void accumulate_round(const SegmentRound& sr,
+                                                 float c, int kind,
+                                                 float& acc_g, float& acc_h) {
+#pragma unroll
+  for (int e = 0; e < kUnroll; ++e) {
+    if (sr.row[e] >= 0) {
+      const float x = sr.x[e];
+      acc_g += (c * dphi(kind, sr.z[e], sr.y[e])) * x;
+      acc_h += (c * d2phi(kind, sr.z[e], sr.y[e])) * (x * x);
+    }
+  }
+}
+
 }  // namespace pcdn

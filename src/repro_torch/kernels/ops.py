@@ -18,6 +18,7 @@ run can show that its main path went through the kernels;
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -48,10 +49,10 @@ def reset_launch_counts() -> None:
 
 
 def _on_cpu(*tensors: Tensor) -> bool:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"kernel inputs on several devices: {devices}")
-    dev = devices.pop()
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors[1:]):
+        raise ValueError(f"kernel inputs on several devices: "
+                         f"{ {t.device for t in tensors} }")
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
@@ -62,7 +63,7 @@ def _on_cpu(*tensors: Tensor) -> bool:
 def _check(name: str, t: Tensor, dtypes, shape) -> None:
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
@@ -73,8 +74,15 @@ def _ptr(t: Tensor) -> int:
     return t.data_ptr()
 
 
+def _raw_stream(index: int) -> int:
+    """PyTorch's current stream on card `index`, as an int, through the
+    binding Triton's launcher uses: a few us less host time a launch than
+    torch.cuda.current_stream, which builds a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _stream(t: Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _raw_stream(t.get_device())
 
 
 def _raise_if(err: int, kernel: str) -> None:
@@ -128,83 +136,238 @@ def pcdn_direction(XB: Tensor, u: Tensor, v: Tensor, w_B: Tensor,
     return d, g, h
 
 
-def pcdn_sparse_direction(rows: Tensor, vals: Tensor, u: Tensor, v: Tensor,
-                          w_B: Tensor, l2: float = 0.0):
-    """K2: bundle direction over a padded-CSC slab. rows (P, K) int32 with
-    sentinel len(u), vals (P, K) float32|bf16, u/v (s,), w_B (P,) float32
-    -> (d, g, h), each (P,) float32."""
-    if _on_cpu(rows, vals, u, v, w_B):
-        return ref.pcdn_sparse_direction_ref(rows, vals, u, v, w_B, l2=l2)
-    P, K = rows.shape
-    s = u.shape[0]
-    _check("rows", rows, _I32, (P, K))
-    _check("vals", vals, tuple(_VALUE_TYPES), (P, K))
-    _check("u", u, _F32, (s,))
-    _check("v", v, _F32, (s,))
-    _check("w_B", w_B, _F32, (P,))
-    if P < 1 or K < 1:
-        raise ValueError(f"pcdn_sparse_direction: empty slab {(P, K)}")
-    lib = build.load("pcdn_sparse_direction")
-    d, g, h = torch.empty((3, P), dtype=torch.float32, device=rows.device)
-    fn = getattr(lib, f"pcdn_sparse_direction_{_VALUE_TYPES[vals.dtype]}")
-    err = fn(_ptr(rows), _ptr(vals), _ptr(u), _ptr(v), _ptr(w_B), float(l2),
-             P, K, s, _ptr(d), _ptr(g), _ptr(h), _stream(rows))
-    _raise_if(err, "pcdn_sparse_direction")
-    _LAUNCHES["pcdn_sparse_direction"] += 1
-    return d, g, h
+def sparse_direction_warps(K: int) -> int:
+    """Warps a feature's column is split over in the K2 launch: 1 up to 64
+    entries, 2 up to 128, else 4 (a block holds 4 warps)."""
+    return 1 if K <= 64 else (2 if K <= 128 else 4)
 
 
-def pcdn_bundle(vals: Tensor, pos: Tensor, z_R: Tensor, y_R: Tensor,
-                w_B: Tensor, alphas: Tensor, c, kind: str = "logistic",
-                l2: float = 0.0, sigma: float = 0.01, gamma: float = 0.0):
-    """K1: the fused support-restricted bundle step.
-
-    vals/pos (P, K) from `PaddedCSCDesign.gather_slab` + `slab_row_support`,
-    z_R/y_R (R = P*K,) margins and labels at the support rows (sentinel
-    slots z = 0, y = 1), w_B (P,), alphas (Q,), c a float (a run-time
-    kernel argument). Returns (upd_w (P,), upd_z (R,), alpha (), n_steps
-    () int32), upd_* already scaled by the accepted alpha; no host sync.
-    """
+def pcdn_sparse_direction(rows: Tensor, vals: Tensor, z: Tensor, y: Tensor,
+                          w_B: Tensor, c, kind: str = "logistic",
+                          l2: float = 0.0):
+    """K2: bundle direction over a padded-CSC slab, the loss factors and the
+    margin scatter inside. rows (P, K) int32 with sentinel len(z), vals
+    (P, K) float32|bf16, z/y (m,) float32 margins and labels (the full
+    scope: m = s; the support scope: positions into z_R, y_R), w_B (P,)
+    float32, c a float -> (d, g, h), each (P,), and delta = X_B d (m,), all
+    float32."""
     if kind not in _KINDS:
         raise KeyError(f"unknown loss {kind!r}")
-    if _on_cpu(vals, pos, z_R, y_R, w_B, alphas):
-        return ref.pcdn_bundle_ref(vals, pos, z_R, y_R, w_B, alphas, c,
-                                   kind=kind, l2=l2, sigma=sigma,
-                                   gamma=gamma)
-    P, K = vals.shape
-    R = z_R.shape[0]
-    Q = alphas.shape[0]
+    if _on_cpu(rows, vals, z, y, w_B):
+        return ref.pcdn_sparse_direction_ref(rows, vals, z, y, w_B, c,
+                                             kind=kind, l2=l2)
+    P, K = rows.shape
+    m = z.shape[0]
+    _check("rows", rows, _I32, (P, K))
     _check("vals", vals, tuple(_VALUE_TYPES), (P, K))
-    _check("pos", pos, _I32, (P, K))
-    _check("z_R", z_R, _F32, (R,))
-    _check("y_R", y_R, _F32, (R,))
+    _check("z", z, _F32, (m,))
+    _check("y", y, _F32, (m,))
     _check("w_B", w_B, _F32, (P,))
-    _check("alphas", alphas, _F32, (Q,))
-    lib = build.load("pcdn_bundle")
-    max_q = lib.consts["pcdn_bundle_max_q"]
-    if P < 1 or K < 1 or R < 1 or not 1 <= Q <= max_q:
-        raise ValueError(f"pcdn_bundle: unsupported sizes P={P} K={K} R={R} "
-                         f"Q={Q} (Q <= {max_q})")
-    n_tiles = -(-R // lib.consts["pcdn_bundle_tile"])
-    # one allocation: outputs upd_w, upd_z, alpha, n_steps (its 4 bytes
-    # viewed as int32), then the scratch d, g, h, delta_R, partials
-    n_out = P + R + 2
-    buf = torch.empty((n_out + 3 * P + R + n_tiles * Q,),
-                      dtype=torch.float32, device=vals.device)
-    upd_w, upd_z, alpha = buf[:P], buf[P:P + R], buf[P + R]
-    n_steps = buf[P + R + 1:n_out].view(torch.int32)[0]
-    d, g, h = buf[n_out:n_out + 3 * P].view(3, P)
-    delta_R = buf[n_out + 3 * P:n_out + 3 * P + R]
-    partials = buf[n_out + 3 * P + R:]
-    fn = getattr(lib, f"pcdn_bundle_{_VALUE_TYPES[vals.dtype]}")
-    err = fn(_ptr(vals), _ptr(pos), _ptr(z_R), _ptr(y_R), _ptr(w_B),
-             _ptr(alphas), float(c), _KINDS[kind], float(l2), float(sigma),
-             float(gamma), P, K, R, Q, _ptr(d), _ptr(g), _ptr(h),
-             _ptr(delta_R), _ptr(partials), _ptr(upd_w), _ptr(upd_z),
-             _ptr(alpha), _ptr(n_steps), _stream(vals))
+    if P < 1 or K < 1 or m < 1:
+        raise ValueError(f"pcdn_sparse_direction: empty input P={P} K={K} "
+                         f"len(z)={m}")
+    lib = build.load("pcdn_sparse_direction")
+    buf = torch.empty((3 * P + m,), dtype=torch.float32, device=rows.device)
+    d, g, h = buf[:3 * P].view(3, P)
+    delta = buf[3 * P:]
+    fn = getattr(lib, f"pcdn_sparse_direction_{_VALUE_TYPES[vals.dtype]}")
+    err = fn(_ptr(rows), _ptr(vals), _ptr(z), _ptr(y), _ptr(w_B), float(c),
+             _KINDS[kind], float(l2), P, K, m, sparse_direction_warps(K),
+             _ptr(d), _ptr(g), _ptr(h), _ptr(delta), _stream(rows))
+    _raise_if(err, "pcdn_sparse_direction")
+    _LAUNCHES["pcdn_sparse_direction"] += 1
+    return d, g, h, delta
+
+
+# -- K1 ------------------------------------------------------------------------
+# launch constants of kernels/csrc/pcdn_bundle.cu (checked against the
+# built library's when it is loaded)
+BUNDLE_THREADS = 512
+BUNDLE_MAX_CLUSTER = 8
+BUNDLE_MAX_Q = 64
+BUNDLE_CHUNK = 2            # candidates a chunk of the in-kernel search
+BUNDLE_ENTRIES_PER_CTA = 1024
+_INT32_MAX = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class BundlePlan:
+    """K1's launch for a bundle of P columns of width K over s samples and
+    n features, Q candidates: one cluster of `cluster` CTAs, a column split
+    over `nseg` warps, and the workspace."""
+    P: int
+    K: int
+    s: int
+    n: int
+    Q: int
+    cluster: int
+    nseg: int
+
+    @property
+    def workspace_ints(self) -> int:
+        """int32 words: the (s,) slot map, then the R = P K slots' row,
+        delta, entry slot, z and y, then w_B and d (P each)."""
+        return self.s + 5 * self.P * self.K + 2 * self.P
+
+    @property
+    def workspace_bytes(self) -> int:
+        return 4 * self.workspace_ints
+
+
+def bundle_plan(P: int, K: int, s: int, n: int, Q: int) -> BundlePlan:
+    """K1's launch plan, or a ValueError naming the limit the kernel has:
+    a cluster of ceil(P K / 1024) CTAs, at most 8 (the portable cluster
+    size); each feature's column over the largest power of two of warps
+    that the cluster's warps a feature and ceil(K / 32) allow, at most 16."""
+    if min(P, K, s, n) < 1:
+        raise ValueError(f"pcdn_bundle: empty design or bundle P={P} "
+                         f"k_max={K} s={s} n={n} (each must be >= 1)")
+    if not 1 <= Q <= BUNDLE_MAX_Q:
+        raise ValueError(f"pcdn_bundle: Q={Q} candidates, the kernel takes "
+                         f"1 to {BUNDLE_MAX_Q}")
+    if P * K > _INT32_MAX or s >= _INT32_MAX or n >= _INT32_MAX:
+        raise ValueError(f"pcdn_bundle: P * k_max = {P * K}, s = {s}, "
+                         f"n = {n}: each must be below 2**31 (int32 entry "
+                         f"ids and rows)")
+    cluster = max(1, min(BUNDLE_MAX_CLUSTER,
+                         -(-P * K // BUNDLE_ENTRIES_PER_CTA)))
+    warps = BUNDLE_THREADS // 32
+    cap = min(warps, max(1, cluster * warps // P), -(-K // 32))
+    nseg = 1
+    while nseg * 2 <= cap:
+        nseg *= 2
+    return BundlePlan(P=P, K=K, s=s, n=n, Q=Q, cluster=cluster, nseg=nseg)
+
+
+class _BundleArgs(ctypes.Structure):
+    """kernels/csrc/pcdn_bundle.cu's BundleArgs, field for field."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "col_rows", "col_vals", "z", "y", "w", "alphas", "n_steps", "alpha",
+        "ws")] + [(name, ctypes.c_float) for name in (
+            "c", "l2", "sigma", "gamma")] + [(name, ctypes.c_int) for name in (
+                "kind", "n", "K", "s", "P", "Q", "cluster", "nseg")]
+
+
+class BundleLaunch:
+    """K1 bound to one outer iteration of the support scope: the design's
+    columns (n, K), the labels y (s,), the candidates alphas (Q,), the loss
+    and its scalars, and the (n_bundles,) outputs `n_steps` (int32) and
+    `alpha` (float32) that bundle t writes at t. On the card it also holds
+    the launch plan, the arguments (packed once) and the workspace, filled
+    once here; `pcdn_bundle(launch, w, z, idx, t)` runs a bundle."""
+
+    def __init__(self, col_rows: Tensor, col_vals: Tensor, y: Tensor,
+                 alphas: Tensor, c, P: int, n_bundles: int, *,
+                 kind: str = "logistic", l2: float = 0.0,
+                 sigma: float = 0.01, gamma: float = 0.0):
+        if kind not in _KINDS:
+            raise KeyError(f"unknown loss {kind!r}")
+        n, K = col_rows.shape
+        s = y.shape[0]
+        self.plan = bundle_plan(int(P), K, s, n, alphas.shape[0])
+        self.col_rows, self.col_vals, self.y, self.alphas = (
+            col_rows, col_vals, y, alphas)
+        self.c, self.kind, self.l2 = float(c), kind, float(l2)
+        self.sigma, self.gamma = float(sigma), float(gamma)
+        self.device = col_rows.device
+        self.on_cpu = _on_cpu(col_rows, col_vals, y, alphas)
+        self.n_steps = torch.zeros((n_bundles,), dtype=torch.int32,
+                                   device=self.device)
+        self.alpha = torch.zeros((n_bundles,), dtype=torch.float32,
+                                 device=self.device)
+        if self.on_cpu:
+            return
+        _check("col_rows", col_rows, _I32, (n, K))
+        _check("col_vals", col_vals, tuple(_VALUE_TYPES), (n, K))
+        _check("y", y, _F32, (s,))
+        _check("alphas", alphas, _F32, (self.plan.Q,))
+        lib = build.load("pcdn_bundle")
+        _check_bundle_consts(lib.consts)
+        self._fn = getattr(lib, f"pcdn_bundle_{_VALUE_TYPES[col_vals.dtype]}")
+        self.workspace = torch.empty((self.plan.workspace_ints,),
+                                     dtype=torch.int32, device=self.device)
+        # the slot map and the slots' rows start at -1, the slots' delta at
+        # 0 (float 0.0 is int 0); each launch leaves them so
+        R = K * self.plan.P
+        self.workspace[:s + R].fill_(-1)
+        self.workspace[s + R:s + 2 * R].zero_()
+        p = self.plan
+        self._args = _BundleArgs(
+            _ptr(col_rows), _ptr(col_vals), None, _ptr(y), None,
+            _ptr(alphas), _ptr(self.n_steps), _ptr(self.alpha),
+            _ptr(self.workspace), self.c, self.l2, self.sigma, self.gamma,
+            _KINDS[kind], n, K, s, p.P, p.Q, p.cluster, p.nseg)
+        self._ref = ctypes.byref(self._args)
+        self._bound = None
+        self._index = (self.device.index if self.device.index is not None
+                       else torch.cuda.current_device())
+
+    def _bind(self, w: Tensor, z: Tensor, key: tuple) -> None:
+        """Point the packed arguments at w and z, checked here once for each
+        `key` (`_tensor_key` of w and of z)."""
+        p = self.plan
+        _check("w", w, _F32, (p.n,))
+        _check("z", z, _F32, (p.s,))
+        if w.device != self.device or z.device != self.device:
+            raise ValueError(f"pcdn_bundle: w on {w.device}, z on "
+                             f"{z.device}, the launch on {self.device}")
+        self._args.w = w.data_ptr()
+        self._args.z = z.data_ptr()
+        self._bound = key
+
+
+def _check_bundle_consts(consts: dict) -> None:
+    want = {"pcdn_bundle_max_q": BUNDLE_MAX_Q,
+            "pcdn_bundle_chunk": BUNDLE_CHUNK,
+            "pcdn_bundle_max_cluster": BUNDLE_MAX_CLUSTER,
+            "pcdn_bundle_threads": BUNDLE_THREADS,
+            "pcdn_bundle_args_size": ctypes.sizeof(_BundleArgs)}
+    got = {k: consts[k] for k in want}
+    if got != want:
+        raise RuntimeError(f"pcdn_bundle: the built kernel's constants "
+                           f"{got} differ from kernels/ops.py's {want}")
+
+
+def _tensor_key(t: Tensor) -> tuple:
+    """What `BundleLaunch._bind` checks of a tensor, cheap to read each call:
+    a view at the same address with another length, stride or dtype gets
+    checked again. (Addresses are unique across devices: CUDA's unified
+    virtual addressing.)"""
+    return t.data_ptr(), t.shape, t.stride(), t.dtype
+
+
+def pcdn_bundle(launch: BundleLaunch, w: Tensor, z: Tensor, idx: Tensor,
+                t: int) -> None:
+    """K1: the whole support-restricted bundle step for the (P,) bundle idx
+    (int32, sentinel n): w and z updated IN PLACE, launch.n_steps[t] and
+    launch.alpha[t] written (n_steps = 1 and alpha = 0 when no candidate
+    passes). One kernel launch on the card, no other device operation and
+    no host sync."""
+    if launch.on_cpu:
+        _on_cpu(w, z, idx, launch.y)
+        q, a = ref.pcdn_bundle_step_ref(
+            launch.col_rows, launch.col_vals, idx, z, launch.y, w,
+            launch.alphas, launch.c, kind=launch.kind, l2=launch.l2,
+            sigma=launch.sigma, gamma=launch.gamma)
+        launch.n_steps[t] = q
+        launch.alpha[t] = a
+        return
+    key = (*_tensor_key(w), *_tensor_key(z))
+    if key != launch._bound:
+        launch._bind(w, z, key)
+    if idx.dtype != torch.int32 or idx.shape != (launch.plan.P,) or \
+            idx.device != launch.device or not idx.is_contiguous():
+        raise ValueError(f"pcdn_bundle: idx must be a contiguous "
+                         f"({launch.plan.P},) int32 tensor on "
+                         f"{launch.device}; got {tuple(idx.shape)} "
+                         f"{idx.dtype} on {idx.device}")
+    if not 0 <= t < launch.n_steps.shape[0]:
+        raise IndexError(f"pcdn_bundle: bundle {t} of "
+                         f"{launch.n_steps.shape[0]}")
+    err = launch._fn(launch._ref, idx.data_ptr(), t,
+                     _raw_stream(launch._index))
     _raise_if(err, "pcdn_bundle")
     _LAUNCHES["pcdn_bundle"] += 1
-    return upd_w, upd_z, alpha, n_steps
 
 
 def dense_tile_width(B: int, n: int, K: int, sms: int) -> int:

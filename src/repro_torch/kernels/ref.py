@@ -4,9 +4,14 @@ Ports of `repro.kernels.ref`'s oracles. Each computes, in float32, exactly
 what its CUDA kernel computes (kernels/csrc/*.cu):
 
   * `pcdn_direction_ref`        -- K3, dense bundle slab -> (d, g, h)
-  * `pcdn_sparse_direction_ref` -- K2, padded-CSC slab   -> (d, g, h)
-  * `pcdn_bundle_ref`           -- K1, the fused support-restricted step
-                                   -> (upd_w, upd_z, alpha, n_steps)
+  * `pcdn_sparse_direction_ref` -- K2, padded-CSC slab with the loss
+                                   factors and the margin scatter
+                                   -> (d, g, h, delta)
+  * `pcdn_bundle_step_ref`      -- K1, the whole support-restricted bundle
+                                   step: w, z updated in place
+                                   -> (n_steps, alpha); built on
+  * `pcdn_bundle_ref`           -- the per-bundle math on a gathered
+                                   support -> (upd_w, upd_z, alpha, n_steps)
   * `serve_margins_dense_ref`   -- K4a, serving margins over a dense
                                    request slab -> (B, K)
   * `serve_margins_csc_ref`     -- K4b, serving margins over a padded-CSC
@@ -23,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import bundles as B
+from repro_torch.core.design_matrix import PaddedCSCDesign, _take_fill
 from repro_torch.core.direction import newton_direction
 from repro_torch.core.losses import HESSIAN_FLOOR, get_loss
 
@@ -42,21 +49,34 @@ def pcdn_direction_ref(XB: Tensor, u: Tensor, v: Tensor, w_B: Tensor,
     return d, g, h
 
 
-def pcdn_sparse_direction_ref(rows: Tensor, vals: Tensor, u: Tensor,
-                              v: Tensor, w_B: Tensor, l2: float = 0.0):
-    """(d, g, h) for a padded-CSC slab; rows == len(u) (sentinel) add 0."""
+def pcdn_sparse_direction_ref(rows: Tensor, vals: Tensor, z: Tensor,
+                              y: Tensor, w_B: Tensor, c,
+                              kind: str = "logistic", l2: float = 0.0):
+    """(d, g, h, delta) for a padded-CSC slab: the loss factors u, v =
+    c phi'(z), c phi''(z), then g/h over the slab (rows == len(z), the
+    sentinel, add 0), Eq. 5, and delta = X_B d of length len(z) by an
+    index_add at the slab's rows."""
+    loss = get_loss(kind)
+    z = z.to(f32)
+    y = y.to(f32)
+    c = float(c)
+    u = c * loss.dz(z, y)
+    v = c * loss.d2z(z, y)
     vals = vals.to(f32)
-    s = u.shape[0]
+    s = z.shape[0]
     valid = (rows >= 0) & (rows < s)
     safe = rows.clamp(0, s - 1)
-    zero = torch.zeros((), dtype=f32, device=u.device)
-    ug = torch.where(valid, u.to(f32)[safe], zero)
-    vg = torch.where(valid, v.to(f32)[safe], zero)
+    zero = torch.zeros((), dtype=f32, device=z.device)
+    ug = torch.where(valid, u[safe], zero)
+    vg = torch.where(valid, v[safe], zero)
     g = torch.sum(ug * vals, dim=1) + l2 * w_B
     h = torch.clamp_min(torch.sum(vg * torch.square(vals), dim=1) + l2,
                         HESSIAN_FLOOR)
     d = newton_direction(g, h, w_B.to(f32))
-    return d, g, h
+    delta = torch.zeros((s + 1,), dtype=f32, device=z.device)
+    delta.index_add_(0, torch.where(valid, rows, s).reshape(-1).long(),
+                     (vals * d[:, None]).reshape(-1))
+    return d, g, h, delta[:s]
 
 
 def pcdn_bundle_ref(vals: Tensor, pos: Tensor, z_R: Tensor, y_R: Tensor,
@@ -98,6 +118,29 @@ def pcdn_bundle_ref(vals: Tensor, pos: Tensor, z_R: Tensor, y_R: Tensor,
     alpha = torch.where(torch.any(ok), alphas[first],
                         torch.zeros((), dtype=f32, device=alphas.device))
     return alpha * d, alpha * delta_R, alpha, (first + 1).to(torch.int32)
+
+
+def pcdn_bundle_step_ref(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
+                         z: Tensor, y: Tensor, w: Tensor, alphas: Tensor, c,
+                         kind: str = "logistic", l2: float = 0.0,
+                         sigma: float = 0.01, gamma: float = 0.0):
+    """K1's whole function, as the plain support step composes it: gather
+    the bundle's slab and w_B, build its sorted row support, gather z and
+    y there, run `pcdn_bundle_ref`, then scatter the updates into w and z
+    IN PLACE. col_rows/col_vals (n, K) with sentinel len(z) at padding, idx
+    (P,) with sentinel n. Returns (n_steps, alpha) as 0-d tensors."""
+    design = PaddedCSCDesign(col_rows, col_vals, z.shape[0])
+    slab = design.gather_slab(idx)
+    w_B, _ = B.gather_vec(w, idx)
+    support, pos = design.slab_row_support(slab)
+    z_R = _take_fill(z, support, 0.0)
+    y_R = _take_fill(y, support, 1.0)
+    upd_w, upd_z, alpha, n_steps = pcdn_bundle_ref(
+        slab.vals, pos, z_R, y_R, w_B, alphas, c, kind=kind, l2=l2,
+        sigma=sigma, gamma=gamma)
+    B.scatter_add(w, idx, upd_w)
+    design.scatter_support(z, support, upd_z)
+    return n_steps, alpha
 
 
 def pcdn_linesearch_ref(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,

@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.design_matrix import _take_fill, padded_row_support
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.gpu
@@ -44,7 +43,8 @@ def _rng(*seed):
                                    (512, 278, 57848)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l2", [0.0, 0.3])
-def test_sparse_direction_kernel(cuda, P, K, s, dtype, l2):
+@pytest.mark.parametrize("kind", ["logistic", "squared_hinge", "squared"])
+def test_sparse_direction_kernel(cuda, P, K, s, dtype, l2, kind):
     rng = _rng(P, K, s)
     rows = rng.integers(0, s + 1, size=(P, K)).astype(np.int32)
     vals = rng.standard_normal((P, K)).astype(np.float32)
@@ -53,15 +53,16 @@ def test_sparse_direction_kernel(cuda, P, K, s, dtype, l2):
             torch.tensor(vals, device=cuda).to(dtype),
             torch.tensor(rng.standard_normal(s), dtype=torch.float32,
                          device=cuda),
-            torch.tensor(np.abs(rng.standard_normal(s)) + 0.01,
+            torch.tensor(np.where(rng.random(s) < 0.5, -1.0, 1.0),
                          dtype=torch.float32, device=cuda),
             torch.tensor(rng.standard_normal(P), dtype=torch.float32,
-                         device=cuda)]
+                         device=cuda), 1.5]
     before = ops.launch_counts()["pcdn_sparse_direction"]
-    got = ops.pcdn_sparse_direction(*args, l2=l2)
-    want = ref.pcdn_sparse_direction_ref(*args, l2=l2)
+    got = ops.pcdn_sparse_direction(*args, kind=kind, l2=l2)
+    want = ref.pcdn_sparse_direction_ref(*args, kind=kind, l2=l2)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
+    assert got[3].shape == (s,)
+    for a, b in zip(got, want):   # d, g, h, delta
         _close(a, b)
     assert ops.launch_counts()["pcdn_sparse_direction"] == before + 1
 
@@ -86,67 +87,162 @@ def test_direction_kernel(cuda, s, P, dtype, l2):
         _close(a, b)
 
 
-def _bundle_args(cuda, seed, s, P, k, scale=1.0, same_sign=False):
+def _bundle_design(cuda, seed, s, n, K, same_sign=False, dtype=None):
+    """A padded-CSC design (col_rows, col_vals) of n columns of up to K
+    distinct rows of s, sentinel s at padding; z, y, a sparse w."""
     rng = _rng(seed)
-    counts = rng.integers(1, k + 1, size=P)
-    rows = np.full((P, k), s, np.int32)
-    vals = np.zeros((P, k), np.float32)
-    for j in range(P):
-        rows[j, :counts[j]] = rng.integers(0, s, size=counts[j])
-        vals[j, :counts[j]] = rng.standard_normal(counts[j]) * scale
+    rows = np.full((n, K), s, np.int32)
+    vals = np.zeros((n, K), np.float32)
+    for j in range(n):
+        r = np.unique(rng.integers(0, s, size=int(rng.integers(1, K + 1))))
+        rows[j, :r.size] = r
+        vals[j, :r.size] = rng.standard_normal(r.size)
     if same_sign:
         vals = np.abs(vals)
-    support, pos = padded_row_support(torch.tensor(rows, device=cuda), s)
-    z = torch.tensor(rng.standard_normal(s), dtype=torch.float32,
-                     device=cuda)
-    y = torch.tensor(np.where(rng.random(s) < 0.5, -1.0, 1.0),
-                     dtype=torch.float32, device=cuda)
-    w = 0.1 * rng.standard_normal(P)
-    w[::3] = 0.0
-    return [torch.tensor(vals, device=cuda), pos,
-            _take_fill(z, support, 0.0), _take_fill(y, support, 1.0),
-            torch.tensor(w, dtype=torch.float32, device=cuda),
-            torch.tensor(0.5 ** np.arange(40), dtype=torch.float32,
-                         device=cuda)]
+    w = np.where(rng.random(n) < 0.3, 0.1 * rng.standard_normal(n), 0.0)
+    col_vals = torch.tensor(vals, device=cuda)
+    return dict(
+        col_rows=torch.tensor(rows, device=cuda),
+        col_vals=col_vals.to(dtype) if dtype is not None else col_vals,
+        z=torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                       device=cuda),
+        y=torch.tensor(np.where(rng.random(s) < 0.5, -1.0, 1.0),
+                       dtype=torch.float32, device=cuda),
+        w=torch.tensor(w, dtype=torch.float32, device=cuda))
 
 
-@pytest.mark.parametrize("kind,l2,gamma,sigma,P,k,s", [
-    ("logistic", 0.0, 0.0, 0.01, 32, 278, 57848),   # the support solve
-    ("logistic", 0.3, 0.0, 0.01, 13, 6, 200),
-    ("squared_hinge", 0.0, 0.5, 0.01, 7, 6, 200),
-    ("squared", 0.2, 0.0, 0.01, 40, 20, 500),
-    ("logistic", 0.0, 0.0, 1e6, 9, 6, 200),          # nothing passes
-])
-def test_bundle_kernel(cuda, kind, l2, gamma, sigma, P, k, s):
-    args = _bundle_args(cuda, P, s, P, k)
-    kw = dict(kind=kind, l2=l2, sigma=sigma, gamma=gamma)
-    got = ops.pcdn_bundle(*args, 4.0, **kw)
-    want = ref.pcdn_bundle_ref(*args, 4.0, **kw)
+def _bundle_step_check(cuda, d, idx, c, kind="logistic", l2=0.0,
+                       sigma=0.01, gamma=0.0):
+    """K1 on one clone of the carry, its plain version on another: w and z
+    close, alpha and n_steps equal, w and z bit-equal outside the bundle,
+    the slot map all -1 again. -> (n_steps, alpha)."""
+    n, K = d["col_rows"].shape
+    s = d["z"].shape[0]
+    idx = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    alphas = torch.tensor(0.5 ** np.arange(40), dtype=torch.float32,
+                          device=cuda)
+    launch = ops.BundleLaunch(d["col_rows"], d["col_vals"], d["y"], alphas,
+                              c, idx.shape[0], 1, kind=kind, l2=l2,
+                              sigma=sigma, gamma=gamma)
+    w_k, z_k = d["w"].clone(), d["z"].clone()
+    w_p, z_p = d["w"].clone(), d["z"].clone()
+    before = ops.launch_counts()["pcdn_bundle"]
+    ops.pcdn_bundle(launch, w_k, z_k, idx, 0)
+    q, a = ref.pcdn_bundle_step_ref(d["col_rows"], d["col_vals"], idx, z_p,
+                                    d["y"], w_p, alphas, c, kind=kind,
+                                    l2=l2, sigma=sigma, gamma=gamma)
     torch.cuda.synchronize()
-    assert float(got[2]) == float(want[2])
-    assert int(got[3]) == int(want[3])
-    _close(got[0], want[0])
-    _close(got[1], want[1])
-    if sigma > 1:
-        assert float(got[2]) == 0.0 and int(got[3]) == 1
+    assert ops.launch_counts()["pcdn_bundle"] == before + 1
+    assert int(launch.n_steps[0]) == int(q)
+    assert float(launch.alpha[0]) == float(a)
+    _close(w_k, w_p)
+    _close(z_k, z_p)
+    live = idx[idx < n].long()
+    out_w = torch.ones(n, dtype=torch.bool, device=cuda)
+    out_w[live] = False
+    assert torch.equal(w_k[out_w], d["w"][out_w])
+    touched = d["col_rows"][live].reshape(-1).long()
+    out_z = torch.ones(s + 1, dtype=torch.bool, device=cuda)
+    out_z[touched] = False
+    assert torch.equal(z_k[out_z[:s]], d["z"][out_z[:s]])
+    # the slot map and the slots' rows are back to -1 for the next bundle,
+    # the slots' delta to 0
+    R = idx.shape[0] * K
+    assert bool(torch.all(launch.workspace[:s + R] == -1))
+    assert bool(torch.all(launch.workspace[s + R:s + 2 * R] == 0))
+    return int(q), float(a)
+
+
+@pytest.mark.parametrize("kind,l2,gamma,P,K,s,n", [
+    ("logistic", 0.0, 0.0, 32, 278, 57848, 300),    # the support solve
+    ("logistic", 0.3, 0.0, 13, 6, 200, 40),
+    ("squared_hinge", 0.3, 0.5, 7, 6, 200, 40),
+    ("squared", 0.2, 0.0, 40, 20, 500, 80),
+    ("logistic", 0.1, 0.0, 300, 40, 60000, 600),    # several rounds
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bundle_kernel(cuda, kind, l2, gamma, P, K, s, n, dtype):
+    d = _bundle_design(cuda, P, s, n, K, dtype=dtype)
+    idx = _rng(P, 1).permutation(n)[:P]
+    q, _ = _bundle_step_check(cuda, d, idx, 4.0, kind=kind, l2=l2,
+                              gamma=gamma)
+    assert q >= 1
 
 
 def test_bundle_kernel_backtracks(cuda):
-    args = _bundle_args(cuda, 3, 4, 11, 5, same_sign=True)
-    got = ops.pcdn_bundle(*args, 8.0)
-    want = ref.pcdn_bundle_ref(*args, 8.0)
-    assert int(got[3]) == int(want[3]) > 1
-    assert float(got[2]) == float(want[2])
-    _close(got[0], want[0])
+    """Eleven same-sign columns over 4 rows: strongly correlated, so alpha
+    = 1 overshoots; c scaled up."""
+    d = _bundle_design(cuda, 3, 4, 11, 5, same_sign=True)
+    q, _ = _bundle_step_check(cuda, d, np.arange(11), 8.0)
+    assert q > 1
 
 
-def test_bundle_kernel_bf16_values(cuda):
-    args = _bundle_args(cuda, 5, 300, 24, 10)
-    args[0] = args[0].to(torch.bfloat16)
-    got = ops.pcdn_bundle(*args, 2.0)
-    want = ref.pcdn_bundle_ref(*args, 2.0)
-    assert int(got[3]) == int(want[3])
-    _close(got[0], want[0])
+def test_bundle_kernel_first_chunk_fails(cuda):
+    """sigma = 0.99: the search goes past its first chunk of candidates."""
+    d = _bundle_design(cuda, 8, 57848, 300, 278)
+    q, _ = _bundle_step_check(cuda, d, np.arange(32), 4.0, sigma=0.99)
+    assert q > ops.BUNDLE_CHUNK
+
+
+def test_bundle_kernel_nothing_passes(cuda):
+    d = _bundle_design(cuda, 9, 200, 40, 6)
+    assert _bundle_step_check(cuda, d, np.arange(9), 4.0,
+                              sigma=1e6) == (1, 0.0)
+
+
+def test_bundle_kernel_all_sentinel_bundle(cuda):
+    d = _bundle_design(cuda, 10, 300, 50, 8)
+    assert _bundle_step_check(cuda, d, np.full(16, 50), 4.0) == (1, 1.0)
+
+
+def test_bundle_kernel_at_kdda_rows(cuda):
+    """s = 8,407,752 (kdda's published rows) with a narrow design: the slot
+    map covers every row, no sort over s."""
+    d = _bundle_design(cuda, 11, 8_407_752, 64, 32)
+    _bundle_step_check(cuda, d, np.arange(0, 64, 2), 2.0)
+
+
+def test_bundle_kernel_runs_bundles_back_to_back(cuda):
+    """One launch object over a partition: each bundle leaves the map as it
+    found it, and the plain version, bundle for bundle, agrees."""
+    d = _bundle_design(cuda, 12, 2000, 96, 30)
+    perm = torch.tensor(_rng(12).permutation(96).reshape(8, 12),
+                        dtype=torch.int32, device=cuda)
+    alphas = torch.tensor(0.5 ** np.arange(40), dtype=torch.float32,
+                          device=cuda)
+    launch = ops.BundleLaunch(d["col_rows"], d["col_vals"], d["y"], alphas,
+                              2.0, 12, 8)
+    w_k, z_k = d["w"].clone(), d["z"].clone()
+    w_p, z_p = d["w"].clone(), d["z"].clone()
+    for t in range(8):
+        ops.pcdn_bundle(launch, w_k, z_k, perm[t], t)
+        q, a = ref.pcdn_bundle_step_ref(d["col_rows"], d["col_vals"],
+                                        perm[t], z_p, d["y"], w_p, alphas,
+                                        2.0)
+        assert int(launch.n_steps[t]) == int(q)
+        assert float(launch.alpha[t]) == float(a)
+        # from the kernel's carry, so an Armijo flip cannot compound
+        w_p.copy_(w_k)
+        z_p.copy_(z_k)
+    R = 12 * 30
+    assert bool(torch.all(launch.workspace[:2000 + R] == -1))
+    assert bool(torch.all(launch.workspace[2000 + R:2000 + 2 * R] == 0))
+
+
+def test_bundle_kernel_checks_a_view_at_the_bound_address(cuda):
+    """After a bundle on z, a shorter view of z (the same address) is
+    refused, not handed to the kernel."""
+    d = _bundle_design(cuda, 14, 300, 40, 6)
+    alphas = torch.tensor(0.5 ** np.arange(40), dtype=torch.float32,
+                          device=cuda)
+    launch = ops.BundleLaunch(d["col_rows"], d["col_vals"], d["y"], alphas,
+                              2.0, 8, 2)
+    idx = torch.arange(8, dtype=torch.int32, device=cuda)
+    ops.pcdn_bundle(launch, d["w"], d["z"], idx, 0)
+    with pytest.raises(ValueError, match="shape"):
+        ops.pcdn_bundle(launch, d["w"], d["z"][:100], idx, 1)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.pcdn_bundle(launch, d["w"].view(torch.int32), d["z"], idx, 1)
 
 
 def test_wrappers_refuse_what_kernels_do_not_take(cuda):
@@ -155,7 +251,11 @@ def test_wrappers_refuse_what_kernels_do_not_take(cuda):
     u = torch.zeros(10, device=cuda)
     w = torch.zeros(4, device=cuda)
     with pytest.raises(TypeError):
-        ops.pcdn_sparse_direction(rows, vals, u, u, w)
+        ops.pcdn_sparse_direction(rows, vals, u, u, w, 1.0)
+    launch = ops.BundleLaunch(rows.int(), vals, u, torch.ones(40,
+                              device=cuda), 1.0, 4, 1)
+    with pytest.raises(ValueError, match="int32"):
+        ops.pcdn_bundle(launch, w, u, rows[:, 0], 0)
     with pytest.raises(ValueError, match="contiguous"):
         ops.pcdn_direction(torch.zeros((4, 10), device=cuda).T, u, u, w)
     with pytest.raises(ValueError, match="devices"):

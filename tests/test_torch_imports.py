@@ -76,9 +76,13 @@ def test_kernel_wrappers_take_plain_version_on_cpu_without_counting():
     ops.reset_launch_counts()
     rows = torch.tensor([[0, 1, 3]], dtype=torch.int32)
     vals = torch.tensor([[1.0, 2.0, 0.0]])
-    u = torch.tensor([0.5, -0.5, 1.0])
-    d, g, h = ops.pcdn_sparse_direction(rows, vals, u, u.abs(),
-                                        torch.zeros(1))
-    assert float(g) == pytest.approx(-0.5)
+    z = torch.zeros(3)
+    y = torch.tensor([1.0, -1.0, 1.0])
+    # squared loss: u = c (z - y), v = c
+    d, g, h, delta = ops.pcdn_sparse_direction(rows, vals, z, y,
+                                               torch.zeros(1), 0.5,
+                                               kind="squared")
+    assert float(g) == pytest.approx(0.5)
     assert float(h) == pytest.approx(2.5)
+    assert delta.tolist() == pytest.approx([float(d), 2 * float(d), 0.0])
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}

@@ -175,3 +175,87 @@ def test_wgmma_tile_order_covers_every_tile_once():
                 seen.append(t)
                 i += 1
         assert sorted(seen) == list(range(tiles))
+
+
+# -- K1: one cluster a bundle; K2: warps a column ------------------------------
+
+@pytest.mark.parametrize("P,K,cluster,nseg", [
+    (32, 278, 8, 4),       # the support solve: 8896 entries, 4 warps a column
+    (1, 1, 1, 1),
+    (12, 20, 1, 1),        # 240 entries: one CTA, 16 warps, a column each
+    (4, 300, 2, 8),        # 8 warps a feature, up to ceil(300 / 32) = 10
+    (512, 278, 8, 1),      # more features than the cluster's 128 warps
+    (3, 5000, 8, 16),      # long columns: a CTA's 16 warps on each
+])
+def test_bundle_plan_cluster_and_column_split(P, K, cluster, nseg):
+    plan = ops.bundle_plan(P, K, s=57848, n=20958, Q=40)
+    assert (plan.cluster, plan.nseg) == (cluster, nseg)
+    assert 1 <= plan.cluster <= ops.BUNDLE_MAX_CLUSTER
+    assert (ops.BUNDLE_THREADS // 32) % plan.nseg == 0
+
+
+def test_bundle_plan_workspace_bytes():
+    """The (s,) slot map, five int32/float32 words a slot over R = P K
+    slots, and w_B and d: 409 KB at the support solve's shape."""
+    plan = ops.bundle_plan(32, 278, s=57848, n=20958, Q=40)
+    R = 32 * 278
+    assert plan.workspace_ints == 57848 + 5 * R + 2 * 32
+    assert plan.workspace_bytes == 4 * plan.workspace_ints == 409_568
+    big = ops.bundle_plan(64, 16, s=8_407_752, n=100, Q=40)
+    assert big.workspace_bytes == 4 * (8_407_752 + 5 * 64 * 16 + 128)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(Q=65), "Q=65 candidates, the kernel takes 1 to 64"),
+    (dict(Q=0), "Q=0 candidates"),
+    (dict(s=2 ** 31), r"below 2\*\*31"),
+    (dict(P=0), "empty design or bundle"),
+    (dict(s=0), "empty design or bundle"),
+    (dict(P=2 ** 20, K=2 ** 11), r"below 2\*\*31"),
+])
+def test_bundle_plan_refusals_name_the_limit(kw, match):
+    args = dict(P=32, K=278, s=57848, n=20958, Q=40)
+    args.update(kw)
+    with pytest.raises(ValueError, match=match):
+        ops.bundle_plan(**args)
+
+
+def test_bundle_launch_refuses_before_any_work():
+    """The launch object checks the plan on the CPU too: 65 candidates are
+    refused with the kernel's limit, whatever the device."""
+    rows = torch.zeros((4, 3), dtype=torch.int32)
+    vals = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="1 to 64"):
+        ops.BundleLaunch(rows, vals, torch.ones(10), torch.ones(65), 1.0,
+                         P=2, n_bundles=1)
+
+
+@pytest.mark.parametrize("view", [
+    lambda z: z[:5],                            # same address, shorter
+    lambda z: z[::2],                           # same address, strided
+    lambda z: z.view(torch.int32),              # same address, other dtype
+    lambda z: z.view(2, 5),                     # same address, 2-D
+])
+def test_bundle_binding_key_sees_views_at_the_same_address(view):
+    """K1's wrapper checks w and z again whenever this key changes: a view
+    that starts where the bound tensor starts has another key."""
+    z = torch.zeros(10)
+    v = view(z)
+    assert v.data_ptr() == z.data_ptr()
+    assert ops._tensor_key(v) != ops._tensor_key(z)
+    assert ops._tensor_key(z) == ops._tensor_key(z.view(10))
+
+
+def test_bundle_chunk_is_a_few_candidates():
+    """The in-kernel search takes BUNDLE_CHUNK candidates a round: the
+    support solve accepts the first candidate in nearly every bundle, so a
+    chunk of a few bounds the loss evaluations that are never needed."""
+    assert 1 <= ops.BUNDLE_CHUNK <= 4
+    # fewer candidates than a chunk: the kernel's last chunk is short
+    assert ops.bundle_plan(3, 4, 10, 10, Q=1).Q == 1
+
+
+@pytest.mark.parametrize("K,warps", [(1, 1), (64, 1), (65, 2), (128, 2),
+                                     (129, 4), (278, 4), (5000, 4)])
+def test_sparse_direction_splits_long_columns(K, warps):
+    assert ops.sparse_direction_warps(K) == warps
