@@ -14,9 +14,10 @@ Phases:
                  bundle, from one carry cloned twice, and the same bundle
                  with the search forced past its first chunk and with
                  nothing passing), K2 pcdn_sparse_direction (with delta)
-                 and K3 pcdn_direction against their plain PyTorch
-                 versions on the card, at the shapes the solves below give
-                 them; K4a
+                 and K3 pcdn_direction (with the slab gather and delta, on
+                 a full bundle and gisette's ragged last one) against
+                 their plain PyTorch versions on the card, at the shapes
+                 the solves below give them; K4a
                  serve_margins_dense, K4b serve_margins_csc and K5
                  pcdn_linesearch at the serve phase's shapes; K6
                  flash_attention at the lm phase's prefill shape and at
@@ -33,7 +34,9 @@ Phases:
                  iteration must show no other device op a bundle).
   4. full     -- the same data at P = 512: the full scope, K2.
   5. dense    -- gisette at its published shape (6,000 x 5,000, dense and
-                 correlated), P = 512: K3.
+                 correlated), P = 512: K3 (the traced iteration must show
+                 it once a bundle, and no slab gather or matrix-vector
+                 product a bundle).
   6. cli      -- `repro_torch.launch.solve.main` on a9a, padded-CSC,
                  --use-kernels, through the normal entry point.
   7. serve    -- real-sim at its published width (72,310 x 20,958, the
@@ -480,33 +483,64 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
             *args), 200),
         bound=bound(nbytes, nops), library_ms=None)
 
-    # K3 at s = 6,000, P = 512 (dense layout)
+    # K3 at s = 6,000, P = 512 (dense layout), the slab gather, the loss
+    # factors and delta inside: a full bundle and gisette's ragged last
+    # one (392 live columns, 120 sentinels)
     dense = make_problem(Xg, y_g, c=0.25, layout="dense", device=dev)
     nd = dense.n_features
     wd = torch.zeros((nd,), device=dev)
     on = torch.randperm(nd, generator=gen)[: nd // 10].to(dev)
     wd[on] = 0.05 * torch.randn((on.numel(),), generator=gen).to(dev)
     zd = dense.margins(wd)
-    idx = B.partition(gen, nd, 512, device=dev)[0]
-    slab = dense.design.gather_slab(idx)
+    XT = dense.design.feature_major()
+    parts = B.partition(gen, nd, 512, device=dev)
+    s = dense.n_samples
+    max_clusters = ops.direction_max_clusters(XT.device)
+    plan = ops.direction_plan(s, 512, XT.element_size(), max_clusters)
+    errs = []
+    for label, idx in (("full bundle", parts[0]),
+                       ("ragged last bundle", parts[-1])):
+        w_B, _ = B.gather_vec(wd, idx)
+        args = (XT, idx, zd, dense.y, w_B, 0.25)
+        got = ops.pcdn_direction(*args)
+        want = ref.pcdn_direction_ref(*args)
+        e = [rel_err(torch, a, b) for a, b in zip(got, want)]
+        n_live = int((idx < nd).sum())
+        sentinel_zero = not torch.any(got[0][idx >= nd])
+        log(f"[kernels] pcdn_direction {label} s={s} P={idx.shape[0]} "
+            f"(live {n_live}; plan: {plan.ctas} CTAs in {plan.clusters} "
+            f"clusters of {ops.DIRECTION_CLUSTER}, the card holding "
+            f"{max_clusters} at once, {plan.cc} columns a cluster, "
+            f"{plan.sl} rows a CTA, resident {plan.resident}, "
+            f"{plan.smem_bytes} B shared): "
+            + ", ".join(f"{nm} err {x[0]:.3e} (rel {x[1]:.2e})"
+                        for nm, x in zip(("d", "g", "h", "delta"), e))
+            + f"; sentinel d = 0 {sentinel_zero}; tolerance rel "
+              f"{KERNEL_RTOL}")
+        assert all(x[1] <= KERNEL_RTOL for x in e), e
+        assert sentinel_zero
+        errs += [x[0] for x in e]
+    idx = parts[0]
     w_B, _ = B.gather_vec(wd, idx)
-    args = (slab.XB, dense.grad_factor(zd), dense.hess_factor(zd), w_B)
-    got = ops.pcdn_direction(*args)
-    want = ref.pcdn_direction_ref(*args)
-    errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
-    s, P = slab.XB.shape
-    log(f"[kernels] pcdn_direction s={s} P={P}: "
-        + ", ".join(f"{nm} err {e[0]:.3e} (rel {e[1]:.2e})"
-                    for nm, e in zip("dgh", errs))
-        + f"; tolerance rel {KERNEL_RTOL}")
-    assert all(e[1] <= KERNEL_RTOL for e in errs), errs
-    nbytes = s * P * 4 + 2 * s * 4 + P * 4 + 3 * P * 4
-    nops = 5 * s * P
+    args = (XT, idx, zd, dense.y, w_B, 0.25)
+    top = device_ops(torch, lambda: ops.pcdn_direction(*args))
+    log(f"[kernels] pcdn_direction, device ops of one call ("
+        f"{sum(c for _, c, _ in top)} stream ops):")
+    log_top("kernels", top, 1, "call")
+    assert sum(c for _, c, _ in top) <= 1, top
+    # bytes: the bundle's live columns once, z and y, delta written, idx,
+    # w_B, d/g/h; operations: ~7 a value (g, h, delta)
+    P = idx.shape[0]
+    n_live = int((idx < nd).sum())
+    nbytes = n_live * s * XT.element_size() + 3 * s * 4 + 2 * P * 4 + \
+        3 * P * 4
     out["pcdn_direction"] = dict(
-        max_abs_err=max(e[0] for e in errs),
+        max_abs_err=max(errs),
         **timings(torch, lambda: ops.pcdn_direction(*args),
                   lambda: ref.pcdn_direction_ref(*args), flush),
-        bound=bound(nbytes, nops), library_ms=None)
+        enqueue_us=enqueue_us(torch, lambda: ops.pcdn_direction(*args),
+                              200),
+        bound=bound(nbytes, 7 * s * n_live), library_ms=None)
     out.update(serve_kernel_checks(torch, serve, flush))
     out.update(flash_kernel_checks(torch, flush))
     for name, r in out.items():
@@ -676,24 +710,32 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
     col_nnz = torch.sum(rows < B, dim=1)
     nnz_u = col_nnz[torch.unique(live_idx)]
     need = int((4 * torch.clamp(nnz_u + 1, max=k_max) + 4 * nnz_u).sum())
+    plan = ops.csc_plan(B, K, A, k_max)
     log(f"[kernels] serve_margins_csc B={B} n={n} k_max={k_max} (the "
-        f"stream's {req.max_col_nnz()}) K={K} A={A}: err {e[0]:.3e} (rel "
-        f"{e[1]:.2e}), tolerance rel {KERNEL_RTOL}; library sparse.mm vs "
-        f"plain rel {e_lib[1]:.2e}; the union's {U} columns hold "
-        f"{int(nnz_u.sum())} live entries, {need} bytes needed of them")
+        f"stream's {req.max_col_nnz()}) K={K} A={A} (plan: {plan.ctas} "
+        f"CTAs, a cluster of {plan.cluster} a model, {plan.ranges} row "
+        f"range): err {e[0]:.3e} (rel {e[1]:.2e}), tolerance rel "
+        f"{KERNEL_RTOL}; library sparse.mm vs plain rel {e_lib[1]:.2e}; "
+        f"the union's {U} columns hold {int(nnz_u.sum())} live entries, "
+        f"{need} bytes needed of them")
     assert e[1] <= KERNEL_RTOL, e
+    top = device_ops(torch, lambda: ops.serve_margins_csc(*args))
+    log(f"[kernels] serve_margins_csc, device ops of one call ("
+        f"{sum(c for _, c, _ in top)} stream ops):")
+    log_top("kernels", top, 1, "call")
+    assert sum(c for _, c, _ in top) <= 1, top
     out["serve_margins_csc"] = dict(
         max_abs_err=e[0],
         **timings(torch, lambda: ops.serve_margins_csc(*args),
                   lambda: ref.serve_margins_csc_ref(*args), flush),
+        enqueue_us=enqueue_us(torch, lambda: ops.serve_margins_csc(*args),
+                              200),
         bound=bound(need + K * A * 8 + B * K * 4,
                     2 * int(col_nnz[live_idx].sum())),
         library_ms=device_ms(torch, lambda: torch.sparse.mm(A_csr, Wt), 100,
                              flush))
-    # K4b's two design choices, timed: one feature slice a model, and the
-    # request stream's fixed column width (the JAX policy's)
-    t_one = device_ms(torch, lambda: ops.serve_margins_csc(
-        *args, n_slices=1), 20, flush)
+    # the request stream's fixed column width (the JAX policy's) against
+    # the chunk's own, L2-cold
     wide = csr_to_padded_csc(head, k_max=req.max_col_nnz())
     wide_args = (torch.as_tensor(wide.col_rows, device=DEVICE),
                  torch.as_tensor(wide.col_vals, device=DEVICE),
@@ -702,8 +744,7 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
     assert e[1] <= KERNEL_RTOL, e
     t_wide = device_ms(torch, lambda: ops.serve_margins_csc(*wide_args),
                        100, flush)
-    log(f"[kernels] serve_margins_csc, L2-cold: one feature slice a model "
-        f"{t_one * 1e3:.2f} us; at the stream's width (k_max "
+    log(f"[kernels] serve_margins_csc, L2-cold: at the stream's width (k_max "
         f"{wide.k_max}) {t_wide * 1e3:.2f} us")
 
     # K5: the candidates' loss deltas over the training set
@@ -1479,6 +1520,16 @@ def run_solve(torch, name, data, n_outer, fused=False):
             assert len(per_bundle) == 1 and per_bundle[0][1] == b and \
                 "bundle_step_kernel" in per_bundle[0][0], per_bundle
             assert n_ops - b < b // 2, (n_ops, b)
+        if name == "dense":
+            # K3 once a bundle, and no slab gather (index_select) or
+            # matrix-vector product (X_B d) a bundle around it
+            k3 = [n for k, n, _ in top if "dense_direction_kernel" in k]
+            assert k3 == [b], (k3, b)
+            around = [k for k, _, _ in per_bundle
+                      if any(w in k.lower() for w in
+                             ("indexselect", "index_select", "gemv",
+                              "gemm"))]
+            assert not around, around
     else:
         log(f"[{name}] device busy: not measured (profiler saw no "
             f"device time)")

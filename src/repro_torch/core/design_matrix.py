@@ -150,6 +150,17 @@ class DenseDesign(DesignMatrix):
         """delta_z = X_B @ d_B, the (s,) margin delta of a bundle step."""
         return slab.XB @ d
 
+    def feature_major(self) -> Tensor:
+        """(n, s) contiguous copy of X, in which column j is the
+        contiguous row j: the layout the dense bundle kernel (K3) reads a
+        bundle's columns from. Built at the first call (one transpose) and
+        cached on the design."""
+        XT = getattr(self, "_xt_cache", None)
+        if XT is None:
+            XT = self.X.T.contiguous()
+            object.__setattr__(self, "_xt_cache", XT)
+        return XT
+
     def to_dense(self) -> Tensor:
         return self.X
 

@@ -16,13 +16,14 @@ With `use_kernels`, the bundle math runs in the hand-written CUDA kernels
 (kernels/ops.py): `pcdn_bundle` (K1) for the padded-CSC support scope with
 the batched search, `pcdn_sparse_direction` (K2) for the padded-CSC full
 scope and the support scope with backtracking, `pcdn_direction` (K3) for
-the dense layout.
+the dense layout (on the design's feature-major copy, with the slab
+gather, the loss factors and the margin delta inside).
 
 Device work and host syncs per bundle. The fused support step is one K1
 launch and nothing else: no host sync, no other device operation (its
 workspace is filled once per outer iteration, and the outer iteration
 reads the bundles' step counts once, from a (b,) tensor). The full scope
-runs K2 (the loss factors and the margin delta inside it), the Armijo
+runs K2 or K3 (the loss factors and the margin delta inside), the Armijo
 search over all samples with one host sync per candidate chunk evaluated
 (`armijo_chunked`), and the w and z updates. Backtracking costs one host
 sync per candidate.
@@ -36,8 +37,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import bundles as B
-from repro_torch.core.design_matrix import (PaddedCSCDesign, SparseSlab,
-                                            _take_fill)
+from repro_torch.core.design_matrix import PaddedCSCDesign, _take_fill
 from repro_torch.core.direction import delta_decrement, newton_direction
 from repro_torch.core.linesearch import (ArmijoParams, armijo_backtracking,
                                          armijo_chunked, armijo_support,
@@ -197,22 +197,24 @@ def make_bundle_step(problem: L1Problem, cfg: PCDNConfig,
 
     ls = _line_search_fn(cfg)
     n_steps, alpha = _step_outputs(n_bundles, dev)
+    sparse = isinstance(design, PaddedCSCDesign)
+    XT = design.feature_major() if cfg.use_kernels and not sparse else None
 
     def full_step(w, z, idx, t):
-        slab = design.gather_slab(idx)
         w_B, _ = B.gather_vec(w, idx)
-        if cfg.use_kernels and isinstance(slab, SparseSlab):
+        if XT is not None:
+            # the slab gather, the loss factors and X_B d inside K3
+            d, g, h, delta_z = kops.pcdn_direction(
+                XT, idx, z, problem.y, w_B, c, kind=problem.loss_name, l2=l2)
+        elif cfg.use_kernels:
+            slab = design.gather_slab(idx)
             d, g, h, delta_z = kops.pcdn_sparse_direction(
                 slab.rows, slab.vals, z, problem.y, w_B, c,
                 kind=problem.loss_name, l2=l2)
         else:
-            if cfg.use_kernels:
-                d, g, h = kops.pcdn_direction(
-                    slab.XB, problem.grad_factor(z), problem.hess_factor(z),
-                    w_B, l2=l2)
-            else:
-                g, h = problem.bundle_grad_hess(z, slab, w_B)
-                d = newton_direction(g, h, w_B)
+            slab = design.gather_slab(idx)
+            g, h = problem.bundle_grad_hess(z, slab, w_B)
+            d = newton_direction(g, h, w_B)
             delta_z = design.slab_matvec(slab, d)
         Delta = delta_decrement(g, h, w_B, d, gamma)
         res = ls(loss, c, z, delta_z, problem.y, w_B, d, Delta, cfg.armijo,

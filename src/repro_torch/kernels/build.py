@@ -43,10 +43,16 @@ _L = ctypes.POINTER(ctypes.c_longlong)
 # argtypes of every exported C function (pointers and the stream are
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int)
 SIGNATURES = {
+    # XT, idx, z, y, w_B, c, kind, l2, n, s, P, then the plan (cc, ctas,
+    # sl, tile, resident, vec), d, g, h, delta, the partials, the counters,
+    # stream; the plan's shared-memory floats for a row tile
     "pcdn_direction": {
-        f"pcdn_direction_{t}": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P,
-                                _P, _P, _P, _P]
-        for t in ("f32", "bf16")},
+        **{f"pcdn_direction_{t}": [_P, _P, _P, _P, _P, _F, _I, _F, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                   _P, _P, _P, _P]
+           for t in ("f32", "bf16")},
+        "pcdn_direction_smem_floats": [_I],
+        "pcdn_direction_max_clusters": []},
     "pcdn_sparse_direction": {
         f"pcdn_sparse_direction_{t}": [_P, _P, _P, _P, _P, _F, _I, _F, _I,
                                        _I, _I, _I, _P, _P, _P, _P, _P]
@@ -59,9 +65,11 @@ SIGNATURES = {
         f"serve_margins_dense_{a}_{b}": [_P, _P, _P, _I, _I, _I, _I, _I, _P,
                                          _P, _P]
         for a in ("f32", "bf16") for b in ("f32", "bf16")},
+    # col_rows, col_vals, idx, val, n, k_max, K, A, B, then the plan
+    # (cluster, ranges, range rows), out, stream
     "serve_margins_csc": {
         f"serve_margins_csc_{a}_{b}": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _P, _P, _P]
+                                       _I, _I, _I, _P, _P]
         for a in ("f32", "bf16") for b in ("f32", "bf16")},
     "pcdn_linesearch": {
         "pcdn_linesearch_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -77,9 +85,17 @@ SIGNATURES = {
 
 # zero-argument C functions returning a launch constant of the library:
 # `load` reads them once into KernelLibrary.consts
-CONSTANTS = {"pcdn_bundle": ("pcdn_bundle_max_q", "pcdn_bundle_chunk",
+CONSTANTS = {"pcdn_direction": ("pcdn_direction_threads",
+                                "pcdn_direction_cluster",
+                                "pcdn_direction_max_cluster_cols",
+                                "pcdn_direction_tile_rows"),
+             "pcdn_bundle": ("pcdn_bundle_max_q", "pcdn_bundle_chunk",
                              "pcdn_bundle_max_cluster", "pcdn_bundle_threads",
                              "pcdn_bundle_args_size"),
+             "serve_margins_csc": ("serve_margins_csc_threads",
+                                   "serve_margins_csc_max_cluster",
+                                   "serve_margins_csc_round",
+                                   "serve_margins_csc_max_range_rows"),
              "pcdn_linesearch": ("pcdn_linesearch_max_q",
                                  "pcdn_linesearch_threads")}
 

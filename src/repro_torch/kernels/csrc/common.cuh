@@ -68,6 +68,20 @@ __device__ __forceinline__ float d2phi(int kind, float z, float y) {
   return 1.0f;
 }
 
+// c phi'(z, y) and c phi''(z, y) together: the values of dphi and d2phi,
+// the logistic sigmoid formed once
+__device__ __forceinline__ void loss_factors(int kind, float c, float z,
+                                             float y, float& u, float& v) {
+  if (kind == kLogistic) {
+    const float t = sigmoid(y * z);
+    u = c * ((t - 1.0f) * y);
+    v = c * (t * (1.0f - t));
+    return;
+  }
+  u = c * dphi(kind, z, y);
+  v = c * d2phi(kind, z, y);
+}
+
 // max(h, floor) that keeps a NaN, as torch.clamp_min does
 __device__ __forceinline__ float hessian_floor(float h) {
   return (h < kHessianFloor) ? kHessianFloor : h;

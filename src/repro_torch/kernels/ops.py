@@ -81,6 +81,11 @@ def _raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
 def _stream(t: Tensor) -> int:
     return _raw_stream(t.get_device())
 
@@ -89,6 +94,22 @@ def _raise_if(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with "
                            f"cudaError_t {err}")
+
+
+_CHECKED: set = set()
+
+
+def _loaded(name: str, want: dict) -> "build.KernelLibrary":
+    """build.load(name), its launch constants checked against `want` (the
+    values this module plans with) the first time."""
+    lib = build.load(name)
+    if name not in _CHECKED:
+        got = {k: lib.consts[k] for k in want}
+        if got != want:
+            raise RuntimeError(f"{name}: the built kernel's constants {got} "
+                               f"differ from kernels/ops.py's {want}")
+        _CHECKED.add(name)
+    return lib
 
 
 _F32 = (torch.float32,)
@@ -100,40 +121,163 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _n_split(s: int, P: int, device) -> int:
-    """Row splits of the K3 launch: enough blocks to give every SM about
-    four (32 columns x n_split), each over at least 64 rows."""
-    sms = _sm_count(device)
-    p_tiles = -(-P // 32)
-    want = -(-4 * sms // p_tiles)
-    return int(max(1, min(want, -(-s // 64), 65535)))
+# -- K3 ------------------------------------------------------------------------
+# launch constants of kernels/csrc/pcdn_direction.cu (checked against the
+# built library's when it is first loaded)
+DIRECTION_THREADS = 512
+DIRECTION_CLUSTER = 8
+DIRECTION_MAX_CLUSTER_COLS = 64
+DIRECTION_TILE_ROWS = 4096
+SMEM_BUDGET = 232_448        # bytes of shared memory a block may use
 
 
-def pcdn_direction(XB: Tensor, u: Tensor, v: Tensor, w_B: Tensor,
-                   l2: float = 0.0):
-    """K3: bundle direction over a dense slab. XB (s, P) float32|bf16,
-    u/v (s,), w_B (P,) float32 -> (d, g, h), each (P,) float32."""
-    if _on_cpu(XB, u, v, w_B):
-        return ref.pcdn_direction_ref(XB, u, v, w_B, l2=l2)
-    s, P = XB.shape
-    _check("XB", XB, tuple(_VALUE_TYPES), (s, P))
-    _check("u", u, _F32, (s,))
-    _check("v", v, _F32, (s,))
-    _check("w_B", w_B, _F32, (P,))
+def direction_smem_bytes(tile: int, cc: int, resident: bool,
+                         itemsize: int) -> int:
+    """K3's shared memory for a row tile: u and v, the cluster's columns'
+    partial g, h, d and ids, the live columns' list and (offset, d) pairs,
+    16 words of flags and an mbarrier, each rounded up to 4 floats, then,
+    when `resident`, the cluster's column segments (`smem_bytes` in
+    pcdn_direction.cu)."""
+    tp = -(-tile // 4) * 4
+    floats = 2 * tp + 7 * DIRECTION_MAX_CLUSTER_COLS + 16
+    return 4 * floats + (cc * tp * itemsize if resident else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectionPlan:
+    """K3's launch for a bundle of P columns over s rows: `ctas` CTAs in
+    clusters of DIRECTION_CLUSTER, cluster c owning bundle columns
+    [c cc, (c + 1) cc) and its CTA of rank r rows [r sl, (r + 1) sl), in
+    tiles of `tile` rows; the column segments copied into shared memory
+    when `resident`, 16-byte loads when `vec`."""
+    s: int
+    P: int
+    itemsize: int
+    cc: int
+    ctas: int
+    sl: int
+    tile: int
+    resident: bool
+    vec: bool
+
+    @property
+    def clusters(self) -> int:
+        return self.ctas // DIRECTION_CLUSTER
+
+    @property
+    def smem_bytes(self) -> int:
+        return direction_smem_bytes(self.tile, self.cc, self.resident,
+                                    self.itemsize)
+
+
+@functools.lru_cache(maxsize=64)
+def direction_plan(s: int, P: int, itemsize: int,
+                   max_clusters: int) -> DirectionPlan:
+    """K3's launch plan for a card that holds `max_clusters` of its
+    clusters at once: one wave of clusters where the columns allow
+    (ceil(P / max_clusters) columns a cluster, at most
+    DIRECTION_MAX_CLUSTER_COLS; more clusters past that), the rows in
+    DIRECTION_CLUSTER slices of a multiple of 8 rows; the slices' column
+    segments resident in shared memory when they fit and s is a multiple
+    of 16 bytes of values (then the loads are 16 bytes too), else read
+    twice in tiles of DIRECTION_TILE_ROWS."""
     if s < 1 or P < 1:
-        raise ValueError(f"pcdn_direction: empty slab {(s, P)}")
-    lib = build.load("pcdn_direction")
-    n_split = _n_split(s, P, XB.device)
-    part = torch.empty((2, n_split, P), dtype=torch.float32,
-                       device=XB.device)
-    d, g, h = torch.empty((3, P), dtype=torch.float32, device=XB.device)
-    fn = getattr(lib, f"pcdn_direction_{_VALUE_TYPES[XB.dtype]}")
-    err = fn(_ptr(XB), _ptr(u), _ptr(v), _ptr(w_B), float(l2), s, P,
-             n_split, _ptr(part[0]), _ptr(part[1]), _ptr(d), _ptr(g),
-             _ptr(h), _stream(XB))
+        raise ValueError(f"pcdn_direction: empty slab s={s} P={P}")
+    if itemsize not in (2, 4):
+        raise ValueError(f"pcdn_direction: {itemsize}-byte values, the "
+                         f"kernel takes float32 or bfloat16")
+    if max_clusters < 1:
+        raise ValueError(f"pcdn_direction: the card holds {max_clusters} "
+                         f"clusters of the kernel at once")
+    cc = min(DIRECTION_MAX_CLUSTER_COLS, -(-P // min(max_clusters, P)))
+    ctas = DIRECTION_CLUSTER * -(-P // cc)
+    sl = -(-s // (8 * DIRECTION_CLUSTER)) * 8
+    vec = s % (16 // itemsize) == 0
+    resident = vec and \
+        direction_smem_bytes(sl, cc, True, itemsize) <= SMEM_BUDGET
+    tile = sl if resident else min(sl, DIRECTION_TILE_ROWS)
+    return DirectionPlan(s=s, P=P, itemsize=itemsize, cc=cc, ctas=ctas,
+                         sl=sl, tile=tile, resident=resident, vec=vec)
+
+
+_COUNTERS: dict = {}
+_MAX_CLUSTERS: dict = {}
+
+
+def direction_max_clusters(device: torch.device) -> int:
+    """Clusters of the K3 kernel that `device` holds at once (asked of the
+    CUDA runtime once a device)."""
+    key = _device_index(device)
+    n = _MAX_CLUSTERS.get(key)
+    if n is None:
+        with torch.cuda.device(key):
+            n = build.load("pcdn_direction").pcdn_direction_max_clusters()
+        if n < 1:
+            raise RuntimeError(f"pcdn_direction: cudaOccupancyMaxActive"
+                               f"Clusters failed or found no room ({n})")
+        n = _MAX_CLUSTERS[key] = int(n)
+    return n
+
+
+def _direction_counter(device: torch.device) -> Tensor:
+    """K3's arrival counters on `device`: one int32 for each rank of a
+    cluster, zeroed once here; each launch's last arrivals set them back
+    to 0."""
+    key = _device_index(device)
+    t = _COUNTERS.get(key)
+    if t is None:
+        t = _COUNTERS[key] = torch.zeros((DIRECTION_CLUSTER,),
+                                         dtype=torch.int32, device=device)
+    return t
+
+
+def pcdn_direction(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
+                   w_B: Tensor, c, kind: str = "logistic", l2: float = 0.0):
+    """K3: bundle direction over the dense layout, the slab gather, the
+    loss factors and the margin delta inside. XT (n, s) float32|bf16, the
+    dense design's feature-major copy (`DenseDesign.feature_major`), idx
+    (P,) int32 with sentinel n in the ragged last bundle, z/y (s,) float32
+    margins and labels, w_B (P,) float32, c a float -> (d, g, h), each
+    (P,), and delta = X_B d (s,), all float32. One launch, no other device
+    op; deterministic (every sum in a fixed order). Launches on one device
+    share its arrival counters (`_direction_counter`), so they run one
+    after another on one stream."""
+    if kind not in _KINDS:
+        raise KeyError(f"unknown loss {kind!r}")
+    if _on_cpu(XT, idx, z, y, w_B):
+        return ref.pcdn_direction_ref(XT, idx, z, y, w_B, c, kind=kind,
+                                      l2=l2)
+    n, s = XT.shape
+    P = idx.shape[0]
+    _check("XT", XT, tuple(_VALUE_TYPES), (n, s))
+    _check("idx", idx, _I32, (P,))
+    _check("z", z, _F32, (s,))
+    _check("y", y, _F32, (s,))
+    _check("w_B", w_B, _F32, (P,))
+    if n < 1:
+        raise ValueError("pcdn_direction: a design with no features")
+    lib = _loaded("pcdn_direction", {
+        "pcdn_direction_threads": DIRECTION_THREADS,
+        "pcdn_direction_cluster": DIRECTION_CLUSTER,
+        "pcdn_direction_max_cluster_cols": DIRECTION_MAX_CLUSTER_COLS,
+        "pcdn_direction_tile_rows": DIRECTION_TILE_ROWS})
+    plan = direction_plan(s, P, XT.element_size(),
+                          direction_max_clusters(XT.device))
+    # one allocation: d, g, h, delta, then the clusters' partials of delta
+    buf = torch.empty((3 * P + s * (1 + plan.clusters),),
+                      dtype=torch.float32, device=XT.device)
+    d, g, h = buf[:3 * P].view(3, P)
+    delta = buf[3 * P:3 * P + s]
+    part = buf[3 * P + s:]
+    fn = getattr(lib, f"pcdn_direction_{_VALUE_TYPES[XT.dtype]}")
+    err = fn(_ptr(XT), _ptr(idx), _ptr(z), _ptr(y), _ptr(w_B), float(c),
+             _KINDS[kind], float(l2), n, s, P, plan.cc, plan.ctas, plan.sl,
+             plan.tile, int(plan.resident), int(plan.vec), _ptr(d), _ptr(g),
+             _ptr(h), _ptr(delta), _ptr(part),
+             _ptr(_direction_counter(XT.device)), _stream(XT))
     _raise_if(err, "pcdn_direction")
     _LAUNCHES["pcdn_direction"] += 1
-    return d, g, h
+    return d, g, h, delta
 
 
 def sparse_direction_warps(K: int) -> int:
@@ -281,8 +425,12 @@ class BundleLaunch:
         _check("col_vals", col_vals, tuple(_VALUE_TYPES), (n, K))
         _check("y", y, _F32, (s,))
         _check("alphas", alphas, _F32, (self.plan.Q,))
-        lib = build.load("pcdn_bundle")
-        _check_bundle_consts(lib.consts)
+        lib = _loaded("pcdn_bundle", {
+            "pcdn_bundle_max_q": BUNDLE_MAX_Q,
+            "pcdn_bundle_chunk": BUNDLE_CHUNK,
+            "pcdn_bundle_max_cluster": BUNDLE_MAX_CLUSTER,
+            "pcdn_bundle_threads": BUNDLE_THREADS,
+            "pcdn_bundle_args_size": ctypes.sizeof(_BundleArgs)})
         self._fn = getattr(lib, f"pcdn_bundle_{_VALUE_TYPES[col_vals.dtype]}")
         self.workspace = torch.empty((self.plan.workspace_ints,),
                                      dtype=torch.int32, device=self.device)
@@ -299,8 +447,7 @@ class BundleLaunch:
             _KINDS[kind], n, K, s, p.P, p.Q, p.cluster, p.nseg)
         self._ref = ctypes.byref(self._args)
         self._bound = None
-        self._index = (self.device.index if self.device.index is not None
-                       else torch.cuda.current_device())
+        self._index = _device_index(self.device)
 
     def _bind(self, w: Tensor, z: Tensor, key: tuple) -> None:
         """Point the packed arguments at w and z, checked here once for each
@@ -314,18 +461,6 @@ class BundleLaunch:
         self._args.w = w.data_ptr()
         self._args.z = z.data_ptr()
         self._bound = key
-
-
-def _check_bundle_consts(consts: dict) -> None:
-    want = {"pcdn_bundle_max_q": BUNDLE_MAX_Q,
-            "pcdn_bundle_chunk": BUNDLE_CHUNK,
-            "pcdn_bundle_max_cluster": BUNDLE_MAX_CLUSTER,
-            "pcdn_bundle_threads": BUNDLE_THREADS,
-            "pcdn_bundle_args_size": ctypes.sizeof(_BundleArgs)}
-    got = {k: consts[k] for k in want}
-    if got != want:
-        raise RuntimeError(f"pcdn_bundle: the built kernel's constants "
-                           f"{got} differ from kernels/ops.py's {want}")
 
 
 def _tensor_key(t: Tensor) -> tuple:
@@ -422,24 +557,70 @@ def serve_margins_dense(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:
     return out
 
 
-def _csc_slices(K: int, A: int, B: int, device) -> int:
-    """Active-feature slices per model of the K4b launch: about four
-    blocks per SM, each slice at least 8 features, and the (slices, K, B)
-    partials at most 16M floats."""
-    want = -(-4 * _sm_count(device) // K)
-    return int(max(1, min(want, -(-A // 8), (1 << 24) // (K * B), 65535)))
+# -- K4b -----------------------------------------------------------------------
+# launch constants of kernels/csrc/serve_margins_csc.cu
+CSC_THREADS = 1024
+CSC_MAX_CLUSTER = 8
+CSC_ROUND = 8               # (feature, slot) pairs a thread has in flight
+CSC_MAX_RANGE_ROWS = 48 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class CscPlan:
+    """K4b's launch: for each of the K models one cluster of `cluster`
+    CTAs, each a slice of the model's A features, repeated for `ranges`
+    ranges of `range_rows` request rows; each CTA keeps a (range_rows,)
+    margin column in shared memory."""
+    B: int
+    K: int
+    A: int
+    k_max: int
+    cluster: int
+    ranges: int
+    range_rows: int
+
+    @property
+    def ctas(self) -> int:
+        return self.cluster * self.K * self.ranges
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.range_rows
+
+
+def csc_plan(B: int, K: int, A: int, k_max: int) -> CscPlan:
+    """K4b's launch plan, or a ValueError naming the limit: a cluster of
+    ceil(A k_max / (CSC_THREADS CSC_ROUND)) CTAs a model (one round of
+    pairs a thread where 8 CTAs suffice), at most CSC_MAX_CLUSTER; the
+    request rows in as few ranges of at most CSC_MAX_RANGE_ROWS as cover
+    them, balanced."""
+    if min(B, K, A, k_max) < 1:
+        raise ValueError(f"serve_margins_csc: empty input B={B} K={K} "
+                         f"A={A} k_max={k_max}")
+    if A * k_max > _INT32_MAX:
+        raise ValueError(f"serve_margins_csc: A * k_max = {A * k_max} "
+                         f"pairs, must be below 2**31")
+    if K > 65535:
+        raise ValueError(f"serve_margins_csc: {K} models, the grid takes "
+                         f"65535")
+    cluster = max(1, min(CSC_MAX_CLUSTER,
+                         -(-A * k_max // (CSC_THREADS * CSC_ROUND))))
+    ranges = -(-B // CSC_MAX_RANGE_ROWS)
+    if ranges > 65535:
+        raise ValueError(f"serve_margins_csc: {ranges} row ranges, the "
+                         f"grid takes 65535")
+    return CscPlan(B=B, K=K, A=A, k_max=k_max, cluster=cluster,
+                   ranges=ranges, range_rows=-(-B // ranges))
 
 
 def serve_margins_csc(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
-                      val: Tensor, n_requests: int,
-                      n_slices: int = None) -> Tensor:
+                      val: Tensor, n_requests: int) -> Tensor:
     """K4b: serving margins over a padded-CSC request batch. col_rows
     (n, k_max) int32 with sentinel n_requests at padding, col_vals
     (n, k_max) float32|bf16, idx/val (K, A) as for K4a -> (n_requests, K)
-    float32 (bias not added), a transposed view of the kernel's (K, B)
-    output. The model's active features are split into slices whose
-    partial margins a second launch sums in slice order; `n_slices`
-    overrides the count `_csc_slices` picks."""
+    float32 (bias not added). One launch: a cluster a model sums its
+    CTAs' margin columns in rank order, each column summed with
+    shared-memory atomics."""
     if _on_cpu(col_rows, col_vals, idx, val):
         return ref.serve_margins_csc_ref(col_rows, col_vals, idx, val,
                                          n_requests)
@@ -450,23 +631,24 @@ def serve_margins_csc(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
     _check("col_vals", col_vals, tuple(_VALUE_TYPES), (n, k_max))
     _check("idx", idx, _I32, (K, A))
     _check("val", val, tuple(_VALUE_TYPES), (K, A))
-    if B < 1 or n < 1 or k_max < 1 or K < 1 or A < 1:
-        raise ValueError(f"serve_margins_csc: empty input B={B} n={n} "
-                         f"k_max={k_max} K={K} A={A}")
-    lib = build.load("serve_margins_csc")
-    if n_slices is None:
-        n_slices = _csc_slices(K, A, B, col_rows.device)
-    # one allocation: the (K, B) output, then the (n_slices, K, B) partials
-    buf = torch.empty(((n_slices + 1) * K * B,), dtype=torch.float32,
-                      device=col_rows.device)
-    out, part = buf[:K * B].view(K, B), buf[K * B:]
+    if n < 1 or n * k_max > _INT32_MAX:
+        raise ValueError(f"serve_margins_csc: n={n}, k_max={k_max}: n * "
+                         f"k_max must be 1 to 2**31 - 1")
+    plan = csc_plan(B, K, A, k_max)
+    lib = _loaded("serve_margins_csc", {
+        "serve_margins_csc_threads": CSC_THREADS,
+        "serve_margins_csc_max_cluster": CSC_MAX_CLUSTER,
+        "serve_margins_csc_round": CSC_ROUND,
+        "serve_margins_csc_max_range_rows": CSC_MAX_RANGE_ROWS})
+    out = torch.empty((B, K), dtype=torch.float32, device=col_rows.device)
     fn = getattr(lib, f"serve_margins_csc_{_VALUE_TYPES[col_vals.dtype]}_"
                       f"{_VALUE_TYPES[val.dtype]}")
     err = fn(_ptr(col_rows), _ptr(col_vals), _ptr(idx), _ptr(val), n, k_max,
-             K, A, B, n_slices, _ptr(part), _ptr(out), _stream(col_rows))
+             K, A, B, plan.cluster, plan.ranges, plan.range_rows, _ptr(out),
+             _stream(col_rows))
     _raise_if(err, "serve_margins_csc")
     _LAUNCHES["serve_margins_csc"] += 1
-    return out.T
+    return out
 
 
 def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,

@@ -3,7 +3,9 @@
 Ports of `repro.kernels.ref`'s oracles. Each computes, in float32, exactly
 what its CUDA kernel computes (kernels/csrc/*.cu):
 
-  * `pcdn_direction_ref`        -- K3, dense bundle slab -> (d, g, h)
+  * `pcdn_direction_ref`        -- K3, dense bundle with the slab gather,
+                                   the loss factors and the margin delta
+                                   -> (d, g, h, delta)
   * `pcdn_sparse_direction_ref` -- K2, padded-CSC slab with the loss
                                    factors and the margin scatter
                                    -> (d, g, h, delta)
@@ -37,16 +39,28 @@ Tensor = torch.Tensor
 f32 = torch.float32
 
 
-def pcdn_direction_ref(XB: Tensor, u: Tensor, v: Tensor, w_B: Tensor,
+def pcdn_direction_ref(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
+                       w_B: Tensor, c, kind: str = "logistic",
                        l2: float = 0.0):
-    """(d, g, h) for a dense (s, P) bundle slab."""
-    XB = XB.to(f32)
-    g = XB.T @ u.to(f32)
-    h = torch.square(XB).T @ v.to(f32)
-    g = g + l2 * w_B
-    h = torch.clamp_min(h + l2, HESSIAN_FLOOR)
+    """(d, g, h, delta) for a dense bundle, as the reference's dense full
+    step composes it: the slab gather (a take of the bundle's columns,
+    sentinel idx >= n zeroed; here rows of the feature-major XT (n, s)),
+    the loss factors u, v = c phi'(z), c phi''(z), g/h over the slab, Eq.
+    5, and delta = X_B d of length s."""
+    loss = get_loss(kind)
+    n = XT.shape[0]
+    valid = idx < n
+    XB = XT[idx.clamp(max=n - 1).long()].to(f32) * \
+        valid[:, None].to(f32)                                    # (P, s)
+    z = z.to(f32)
+    y = y.to(f32)
+    c = float(c)
+    u = c * loss.dz(z, y)
+    v = c * loss.d2z(z, y)
+    g = XB @ u + l2 * w_B
+    h = torch.clamp_min(torch.square(XB) @ v + l2, HESSIAN_FLOOR)
     d = newton_direction(g, h, w_B.to(f32))
-    return d, g, h
+    return d, g, h, d @ XB
 
 
 def pcdn_sparse_direction_ref(rows: Tensor, vals: Tensor, z: Tensor,

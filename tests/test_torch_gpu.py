@@ -67,24 +67,54 @@ def test_sparse_direction_kernel(cuda, P, K, s, dtype, l2, kind):
     assert ops.launch_counts()["pcdn_sparse_direction"] == before + 1
 
 
-@pytest.mark.parametrize("s,P", [(1, 1), (77, 5), (1000, 37), (6000, 512)])
+@pytest.mark.parametrize("s,P,n,n_sentinel", [
+    (1, 1, 1, 0), (77, 5, 20, 0), (1000, 37, 100, 5),
+    (6000, 512, 5000, 120),       # gisette's ragged last bundle
+    (9000, 40, 50, 3),            # 13 clusters of 3 columns
+    (48000, 512, 600, 10),        # not resident: rows in two tiles
+    (6000, 1000, 2000, 0)])       # 16 clusters: two waves
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l2", [0.0, 0.3])
-def test_direction_kernel(cuda, s, P, dtype, l2):
+@pytest.mark.parametrize("kind", ["logistic", "squared_hinge", "squared"])
+def test_direction_kernel(cuda, s, P, n, n_sentinel, dtype, l2, kind):
     rng = _rng(s, P)
-    args = [torch.tensor(rng.standard_normal((s, P)), dtype=torch.float32,
-                         device=cuda).to(dtype),
+    XT = torch.tensor(rng.standard_normal((n, s)), dtype=torch.float32,
+                      device=cuda).to(dtype)
+    idx = rng.choice(n, P, replace=False).astype(np.int32)
+    w = rng.standard_normal(P)
+    if n_sentinel:
+        idx[-n_sentinel:] = n
+        w[-n_sentinel:] = 0.0
+    args = [XT, torch.tensor(idx, device=cuda),
             torch.tensor(rng.standard_normal(s), dtype=torch.float32,
                          device=cuda),
-            torch.tensor(np.abs(rng.standard_normal(s)) + 0.01,
+            torch.tensor(np.where(rng.random(s) < 0.5, -1.0, 1.0),
                          dtype=torch.float32, device=cuda),
-            torch.tensor(rng.standard_normal(P), dtype=torch.float32,
-                         device=cuda)]
-    got = ops.pcdn_direction(*args, l2=l2)
-    want = ref.pcdn_direction_ref(*args, l2=l2)
+            torch.tensor(w, dtype=torch.float32, device=cuda), 1.5]
+    before = ops.launch_counts()["pcdn_direction"]
+    got = ops.pcdn_direction(*args, kind=kind, l2=l2)
+    again = ops.pcdn_direction(*args, kind=kind, l2=l2)
+    want = ref.pcdn_direction_ref(*args, kind=kind, l2=l2)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
+    assert got[3].shape == (s,)
+    for a, b in zip(got, want):   # d, g, h, delta
         _close(a, b)
+    # every sum in a fixed order; the arrival counters back at 0
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert not torch.any(ops._direction_counter(XT.device))
+    if n_sentinel:
+        assert not torch.any(got[0][-n_sentinel:])
+    assert ops.launch_counts()["pcdn_direction"] == before + 2
+
+
+def test_direction_plan_matches_the_kernel(cuda):
+    """The plan's shared-memory layout is the kernel's (a tile's floats)."""
+    from repro_torch.kernels import build
+    lib = build.load("pcdn_direction")
+    for tile in (8, 80, 752, 4096):
+        floats = ops.direction_smem_bytes(tile, 1, False, 4) // 4
+        assert lib.pcdn_direction_smem_floats(tile) == floats
 
 
 def _bundle_design(cuda, seed, s, n, K, same_sign=False, dtype=None):
@@ -256,10 +286,16 @@ def test_wrappers_refuse_what_kernels_do_not_take(cuda):
                               device=cuda), 1.0, 4, 1)
     with pytest.raises(ValueError, match="int32"):
         ops.pcdn_bundle(launch, w, u, rows[:, 0], 0)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        ops.pcdn_direction(torch.zeros((4, 10), device=cuda).T, u, u, w)
+        ops.pcdn_direction(torch.zeros((10, 4), device=cuda).T, idx, u, u, w,
+                           1.0)
     with pytest.raises(ValueError, match="devices"):
-        ops.pcdn_direction(torch.zeros((10, 4), device=cuda), u.cpu(), u, w)
+        ops.pcdn_direction(torch.zeros((4, 10), device=cuda), idx.cpu(), u,
+                           u, w, 1.0)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.pcdn_direction(torch.zeros((4, 10), device=cuda), idx.long(), u,
+                           u, w, 1.0)
 
 
 @pytest.mark.parametrize("layout,P,scope,kernel", [
@@ -331,22 +367,27 @@ def test_serve_margins_dense_kernel(cuda, B, n, K, A, x_dtype, v_dtype):
 
 @pytest.mark.parametrize("B,n,k_max,K,A", [(1, 10, 1, 1, 1),
                                            (33, 300, 9, 5, 40),
+                                           (256, 20958, 6, 8, 10901),
                                            (256, 20958, 80, 8, 3000),
                                            (60000, 2000, 40, 2, 500)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_serve_margins_csc_kernel(cuda, B, n, k_max, K, A, dtype):
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v_dtype", [torch.float32, torch.bfloat16])
+def test_serve_margins_csc_kernel(cuda, B, n, k_max, K, A, x_dtype, v_dtype):
     rng = _rng(B, n, k_max)
     rows = rng.integers(0, B + 1, size=(n, k_max)).astype(np.int32)
     vals = rng.standard_normal((n, k_max)).astype(np.float32)
     vals[rows == B] = 5.0                  # the sentinel row drops it
     idx, val = _bank_arrays(cuda, B + n, K, min(A, n), n)
-    args = (torch.tensor(rows, device=cuda),
-            torch.tensor(vals, device=cuda).to(dtype), idx, val.to(dtype), B)
-    got = ops.serve_margins_csc(*args)
-    want = ref.serve_margins_csc_ref(*args)
+    val = val.to(v_dtype)
+    head = (torch.tensor(rows, device=cuda),
+            torch.tensor(vals, device=cuda).to(x_dtype))
+    want = ref.serve_margins_csc_ref(*head, idx, val, B)
+    before = ops.launch_counts()["serve_margins_csc"]
+    got = ops.serve_margins_csc(*head, idx, val, B)
     torch.cuda.synchronize()
-    assert got.shape == (B, K)
+    assert got.shape == (B, K) and got.is_contiguous()
     _close_to(got, want, RTOL)
+    assert ops.launch_counts()["serve_margins_csc"] == before + 1
 
 
 @pytest.mark.parametrize("s,Q", [(1, 1), (1000, 7), (57848, 40),

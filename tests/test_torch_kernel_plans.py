@@ -259,3 +259,126 @@ def test_bundle_chunk_is_a_few_candidates():
                                      (129, 4), (278, 4), (5000, 4)])
 def test_sparse_direction_splits_long_columns(K, warps):
     assert ops.sparse_direction_warps(K) == warps
+
+
+# -- K3: columns a CTA, whole clusters; K4b: a cluster a group ---------------
+
+# clusters of 8 of the K3 kernel an H100 SXM holds at once (one CTA an
+# SM; cudaOccupancyMaxActiveClusters on the card)
+H100_K3_CLUSTERS = 15
+
+
+@pytest.mark.parametrize("s,P,itemsize,max_clusters,cc,ctas,resident", [
+    (6000, 512, 4, 15, 35, 120, True),    # gisette's dense solve, float32
+    (6000, 512, 2, 15, 35, 120, True),    # the same in bf16
+    (6000, 512, 4, 30, 18, 232, True),    # a card that holds 30 clusters
+    (1, 1, 4, 15, 1, 8, False),           # one row: no 16-byte rows
+    (77, 5, 4, 15, 1, 40, False),
+    (300, 37, 2, 15, 3, 104, False),      # 13 clusters of 3 columns
+    (6000, 1000, 4, 15, 64, 128, True),   # past 64 columns: two waves
+    (8192, 512, 4, 15, 35, 120, True),
+    (48_000, 512, 4, 15, 35, 120, False),  # rows in tiles: read twice
+    (100_000, 512, 4, 15, 35, 120, False),
+    (500, 5000, 4, 15, 64, 632, True),
+])
+def test_direction_plan(s, P, itemsize, max_clusters, cc, ctas, resident):
+    plan = ops.direction_plan(s, P, itemsize, max_clusters)
+    assert (plan.cc, plan.ctas, plan.resident) == (cc, ctas, resident)
+    assert plan.ctas % ops.DIRECTION_CLUSTER == 0
+    assert plan.clusters == plan.ctas // ops.DIRECTION_CLUSTER
+    assert 1 <= plan.cc <= ops.DIRECTION_MAX_CLUSTER_COLS
+    # every bundle column has a cluster, and none is empty
+    assert plan.clusters * plan.cc >= P > (plan.clusters - 1) * plan.cc
+    # one wave of clusters unless the columns a cluster are at their cap
+    assert plan.clusters <= max_clusters or \
+        plan.cc == ops.DIRECTION_MAX_CLUSTER_COLS
+    # the rows in one slice a CTA, each a multiple of 8 rows
+    assert plan.sl % 8 == 0
+    assert plan.sl * ops.DIRECTION_CLUSTER >= s > \
+        (plan.sl - 8) * ops.DIRECTION_CLUSTER
+    assert plan.tile == (plan.sl if plan.resident else
+                         min(plan.sl, ops.DIRECTION_TILE_ROWS))
+    assert plan.smem_bytes <= ops.SMEM_BUDGET
+    # 16-byte loads only where every column's rows start on 16 bytes, and
+    # the bulk copies only with them
+    assert plan.vec == (s % (16 // itemsize) == 0)
+    assert plan.vec or not plan.resident
+    # the resident segments start on 16 bytes, each a multiple of 16
+    assert ops.direction_smem_bytes(plan.tile, plan.cc, False,
+                                    itemsize) % 16 == 0
+    assert not plan.resident or plan.tile * itemsize % 16 == 0
+
+
+def test_direction_plan_at_gisette_and_its_ragged_last_bundle():
+    """gisette at P 512 on an H100: 15 clusters of 8 CTAs (one wave), 35
+    columns a cluster (the last 22), 752 rows a CTA (the last 736), the
+    slices' columns resident beside u and v (110 KB). The last of its 10
+    bundles holds 392 live columns and 120 sentinels: the plan is the
+    same; clusters 12-14 hold only sentinels, cluster 11 both."""
+    plan = ops.direction_plan(6000, 512, 4, H100_K3_CLUSTERS)
+    assert (plan.clusters, plan.cc, plan.sl) == (15, 35, 752)
+    assert plan.smem_bytes == 4 * (2 * 752 + 7 * 64 + 16) + \
+        35 * 752 * 4 == 113_152
+    assert 512 - 14 * plan.cc == 22 and 6000 - 7 * plan.sl == 736
+    owner = [p // plan.cc for p in range(392, 512)]
+    assert sorted(set(owner)) == [11, 12, 13, 14]
+    assert owner.count(11) == 12 * 35 - 392
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(s=0), "empty slab"), (dict(P=0), "empty slab"),
+    (dict(itemsize=8), "float32 or bfloat16"),
+    (dict(max_clusters=0), "holds 0 clusters")])
+def test_direction_plan_refusals(kw, match):
+    args = dict(s=6000, P=512, itemsize=4, max_clusters=H100_K3_CLUSTERS)
+    args.update(kw)
+    with pytest.raises(ValueError, match=match):
+        ops.direction_plan(**args)
+
+
+@pytest.mark.parametrize("B,K,A,k_max,cluster,ranges", [
+    (256, 8, 10_901, 6, 8, 1),      # the serve bucket, the path family
+    (256, 8, 10_901, 75, 8, 1),     # the same at the request stream's width
+    (256, 1, 10_901, 6, 8, 1),      # the c* model alone
+    (1, 1, 1, 1, 1, 1),
+    (33, 5, 40, 9, 1, 1),           # 360 pairs: one CTA a model
+    (20_000, 3, 3_000, 6, 3, 1),
+    (60_000, 2, 500, 40, 3, 2),     # wide rows: two ranges of 30,000
+    (100_000, 1, 10, 1, 1, 3),
+])
+def test_csc_plan(B, K, A, k_max, cluster, ranges):
+    plan = ops.csc_plan(B, K, A, k_max)
+    assert (plan.cluster, plan.ranges) == (cluster, ranges)
+    assert 1 <= plan.cluster <= ops.CSC_MAX_CLUSTER
+    # the ranges cover the rows, none empty
+    assert plan.range_rows * (plan.ranges - 1) < B <= \
+        plan.range_rows * plan.ranges
+    assert plan.range_rows <= ops.CSC_MAX_RANGE_ROWS
+    assert plan.smem_bytes <= ops.SMEM_BUDGET
+    # one round of pairs a thread, unless the cluster is at its cap
+    assert A * k_max <= plan.cluster * ops.CSC_THREADS * ops.CSC_ROUND or \
+        plan.cluster == ops.CSC_MAX_CLUSTER
+    assert plan.ctas == plan.cluster * K * plan.ranges
+
+
+def test_csc_plan_at_the_serve_shape():
+    """The serve bucket (B 256, K 8, A 10,901): 8 clusters of 8 CTAs (64),
+    each a 1 KB margin column and one round of 8 pairs a thread; no
+    scratch."""
+    plan = ops.csc_plan(256, 8, 10_901, 6)
+    assert (plan.ctas, plan.smem_bytes) == (64, 1024)
+    per_thread = -(-10_901 // plan.cluster) * 6 / ops.CSC_THREADS
+    assert per_thread <= ops.CSC_ROUND
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(B=0), "empty input"),
+    (dict(A=0), "empty input"),
+    (dict(A=2 ** 28, k_max=8), r"below 2\*\*31"),
+    (dict(K=70_000), "65535"),
+])
+def test_csc_plan_refusals(kw, match):
+    args = dict(B=256, K=8, A=10_901, k_max=6)
+    args.update(kw)
+    with pytest.raises(ValueError, match=match):
+        ops.csc_plan(**args)

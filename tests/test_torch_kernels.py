@@ -32,23 +32,100 @@ def _t(x, dtype=torch.float32):
     return torch.tensor(np.asarray(x), dtype=dtype)
 
 
-@pytest.mark.parametrize("s,P", [(64, 8), (77, 5), (300, 37)])
-@pytest.mark.parametrize("l2", [0.0, 0.3])
-def test_pcdn_direction_ref_matches(s, P, l2):
-    rng = np.random.default_rng(s * P)
-    XB = rng.standard_normal((s, P)).astype(np.float32)
-    u = rng.standard_normal(s).astype(np.float32)
-    v = (np.abs(rng.standard_normal(s)) + 0.01).astype(np.float32)
+KINDS = ["logistic", "squared_hinge", "squared"]
+
+
+def _dense_bundle(s, P, n, seed, n_sentinel=0):
+    """A dense design X (s, n), a bundle idx (P,) of distinct columns whose
+    last n_sentinel slots hold the sentinel n (the ragged last bundle), z,
+    y and w_B (0 at the sentinels, as gather_vec gives it)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((s, n)).astype(np.float32)
+    idx = rng.choice(n, P, replace=False).astype(np.int32)
+    z = rng.standard_normal(s).astype(np.float32)
+    y = np.where(rng.random(s) < 0.5, -1.0, 1.0).astype(np.float32)
     w = rng.standard_normal(P).astype(np.float32)
     w[::2] = 0.0
-    a = jops.pcdn_direction(jnp.asarray(XB), jnp.asarray(u), jnp.asarray(v),
-                            jnp.asarray(w), l2=l2)
-    b = tops.pcdn_direction(_t(XB), _t(u), _t(v), _t(w), l2=l2)
-    for x, y, nm in zip(b, a, "dgh"):
-        np.testing.assert_allclose(_np(x), _np(y), err_msg=nm, **TOL)
+    if n_sentinel:
+        idx[-n_sentinel:] = n
+        w[-n_sentinel:] = 0.0
+    return X, idx, z, y, w
 
 
-KINDS = ["logistic", "squared_hinge", "squared"]
+def _dense_reference(X, idx, z, y, w, c, kind, l2):
+    """The reference's dense full step around its kernel: gather_slab, u/v
+    from the reference loss, repro.kernels.ops.pcdn_direction -> (d, g, h)
+    and the design and slab, for slab_matvec."""
+    from repro.core.design_matrix import DenseDesign
+    from repro.core.losses import get_loss
+    design = DenseDesign(X=jnp.asarray(X))
+    slab = design.gather_slab(jnp.asarray(idx))
+    loss = get_loss(kind)
+    u = c * loss.dz(jnp.asarray(z), jnp.asarray(y))
+    v = c * loss.d2z(jnp.asarray(z), jnp.asarray(y))
+    dgh = jops.pcdn_direction(slab.XB, u, v, jnp.asarray(w), l2=l2)
+    return dgh, design, slab
+
+
+def _rounding_atol(XB, u, d, h):
+    """Each output's float32 rounding scale, added to TOL's atol: g and
+    delta are sums of terms of either sign (u_i X_ij; X_ij d_j) that may
+    cancel far below their size, so their atol is 1e-7 (about float32's
+    epsilon) times the sum of the terms' magnitudes, as for K5's sums in
+    tests/test_torch_serve_kernels.py; d inherits g's over h (Eq. 5
+    divides by h). delta is compared at the port's own d. h sums positive
+    terms: TOL alone."""
+    XB = np.abs(np.asarray(XB, np.float64))                  # (s, P)
+    a_g = 1e-7 * (np.abs(u) @ XB) + TOL["atol"]
+    a_d = a_g / np.asarray(h) + TOL["atol"]
+    a_delta = 1e-7 * (XB @ np.abs(d)) + TOL["atol"]
+    return a_g, a_d, a_delta
+
+
+def _check_dense_direction(X, idx, z, y, w, c, kind, l2):
+    (a, design, slab) = _dense_reference(X, idx, z, y, w, c, kind, l2)
+    b = tops.pcdn_direction(_t(np.ascontiguousarray(X.T)),
+                            _t(idx, torch.int32), _t(z), _t(y), _t(w), c,
+                            kind=kind, l2=l2)
+    from repro.core.losses import get_loss
+    u = c * np.asarray(get_loss(kind).dz(jnp.asarray(z), jnp.asarray(y)))
+    a_g, a_d, a_delta = _rounding_atol(slab.XB, u, _np(a[0]), _np(a[2]))
+    for x, y_, nm, atol in zip(b, a, "dgh", (a_d, a_g, TOL["atol"])):
+        np.testing.assert_array_less(np.abs(_np(x) - _np(y_)),
+                                     atol + TOL["rtol"] * np.abs(_np(y_)),
+                                     err_msg=nm)
+    want = _np(design.slab_matvec(slab, jnp.asarray(_np(b[0]))))
+    assert b[3].shape == (X.shape[0],)
+    np.testing.assert_array_less(np.abs(_np(b[3]) - want),
+                                 a_delta + TOL["rtol"] * np.abs(want),
+                                 err_msg="delta")
+    return b
+
+
+@pytest.mark.parametrize("s,P", [(64, 8), (77, 5), (300, 37)])
+@pytest.mark.parametrize("l2", [0.0, 0.3])
+@pytest.mark.parametrize("kind", KINDS)
+def test_pcdn_direction_ref_matches(s, P, l2, kind):
+    """K3's plain version (the slab gather from the feature-major copy,
+    the loss factors, the direction, the margin delta) against the
+    reference kernel fed the reference's gathered slab and u, v from the
+    reference loss at the same z, y; delta against the reference
+    DenseDesign.slab_matvec."""
+    X, idx, z, y, w = _dense_bundle(s, P, 3 * P + 5, s * P)
+    _check_dense_direction(X, idx, z, y, w, 1.5, kind, l2)
+
+
+@pytest.mark.parametrize("l2", [0.0, 0.3])
+@pytest.mark.parametrize("kind", KINDS)
+def test_pcdn_direction_ref_with_sentinel_columns(l2, kind):
+    """A ragged last bundle: the sentinel columns give d = g = 0, h =
+    max(l2, 1e-12), and add nothing to delta, as in the reference."""
+    X, idx, z, y, w = _dense_bundle(120, 24, 50, 7, n_sentinel=9)
+    d, g, h, _ = _check_dense_direction(X, idx, z, y, w, 2.0, kind, l2)
+    assert not torch.any(d[-9:]) and not torch.any(g[-9:])
+    assert torch.all(h[-9:] == max(l2, 1e-12))
+
+
 
 
 def _jax_design(rows, vals, s):
