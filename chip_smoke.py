@@ -17,9 +17,11 @@ Phases:
                  and K3 pcdn_direction (with the slab gather and delta, on
                  a full bundle and gisette's ragged last one) against
                  their plain PyTorch versions on the card, at the shapes
-                 the solves below give them; K4a
-                 serve_margins_dense, K4b serve_margins_csc and K5
-                 pcdn_linesearch at the serve phase's shapes; K6
+                 the solves below give them; K5 pcdn_linesearch at the
+                 scdn phase's (a real-sim batch's 8 rows of per-coordinate
+                 deltas, Q = 40); K4a serve_margins_dense and K4b
+                 serve_margins_csc at the serve phase's shapes, and K5's
+                 single row there; K6
                  flash_attention at the lm phase's prefill shape and at
                  yi-6b's and gemma-7b's head widths, tails, non-causal and
                  float32, per query row, with planted faults as controls,
@@ -37,9 +39,31 @@ Phases:
                  correlated), P = 512: K3 (the traced iteration must show
                  it once a bundle, and no slab gather or matrix-vector
                  product a bundle).
-  6. cli      -- `repro_torch.launch.solve.main` on a9a, padded-CSC,
-                 --use-kernels, through the normal entry point.
-  7. serve    -- real-sim at its published width (72,310 x 20,958, the
+  6. scdn     -- the Shotgun baseline (`core.scdn.solve`) on the same
+                 real-sim data in padded-CSC, c = 4, P_bar = 8: 2 rounds
+                 of 2,620 batches, each batch's 8 racing line searches one
+                 K5 launch on the (8, 57,848) per-coordinate deltas; one
+                 round from one carry and one set of indices through K5
+                 and through its plain version (F rel <= 1e-4); a slice
+                 of a round traced in a child process (`--baseline-profile
+                 scdn`); then gisette dense at P_bar = 64 for up to 30
+                 rounds through both routes, which must agree on whether
+                 and at which round the divergence guard trips.
+  7. tron     -- the TRON baseline (`core.tron.solve`) on real-sim in
+                 padded-CSC for 5 outer iterations (no kernel: the
+                 design's matvec / rmatvec); F finite, not rising; one
+                 iteration traced in a child process.
+  8. bf16     -- the support (K1), full (K2) and dense (K3) solves with the
+                 design stored in bf16, 10 iterations each: the kernels'
+                 launches; F against the same float32 solve, printed; F
+                 against float32 from a shared iterate each iteration
+                 (rel <= 1e-3, the reference's bf16 envelope) and the
+                 lockstep gate.
+  9. cli      -- `repro_torch.launch.solve.main` on a9a, padded-CSC,
+                 --use-kernels, through the normal entry point; then
+                 `--solver scdn` (K5), `--solver tron` (no kernel) and
+                 `--dtype bf16 --use-kernels` (K2).
+  10. serve   -- real-sim at its published width (72,310 x 20,958, the
                  first 57,848 rows train, the other 14,462 are requests):
                  an 8-point regularization path solved on the card and
                  saved with `save_model`, then `repro_torch.launch.
@@ -47,7 +71,7 @@ Phases:
                  (padded-CSC requests), for the c* model and the path
                  family, `--serve` with a mid-stream hot-swap, and one
                  dense chunk traced in a child process (`--chunk-profile`).
-  8. lm       -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
+  11. lm      -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
                  width (24 layers, bf16, random weights from a seed): a
                  4096-token prefill of 4 prompts, which runs K6 once a
                  layer, then 32 greedy tokens; the same at 32 tokens (the
@@ -85,8 +109,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
-PHASES = ("build", "kernels", "support", "full", "dense", "cli",
-          "serve", "lm")  # in order
+PHASES = ("build", "kernels", "support", "full", "dense", "scdn", "tron",
+          "bf16", "cli", "serve", "lm")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -114,6 +138,23 @@ SOLVES = {"support": (0, 1, 4.0, "padded_csc", 32, "pcdn_bundle", "support"),
           "dense": (2, 3, 0.25, "dense", 512, "pcdn_direction", "full")}
 # objective non-increase, up to f32 rounding of the 57,848-term loss sum
 F_MONOTONE_RTOL = 1e-6
+# bf16 storage against float32 storage, one outer iteration from a shared
+# iterate: the reference's bf16 equivalence envelope
+# (repro.launch.common.BF16_MIN_TOL). Free runs are printed, not held to
+# it: on gisette (dense, P 512) they part by 1.8e-2 in 10 iterations
+# through Armijo decisions that flip (PERF.md, section 6)
+BF16_F_RTOL = 1e-3
+
+# the scdn phase: real-sim (make_data's) in padded-CSC at the support
+# solve's c, the paper's P_bar (section 5.1); SCDN_PROFILE_BATCHES of a
+# round traced in a child process; gisette at P_bar 64 for the guard
+SCDN_C = 4.0
+SCDN_P_BAR = 8
+SCDN_ROUNDS = 2
+SCDN_PROFILE_BATCHES = 200
+GISETTE_P_BAR = 64
+GISETTE_ROUNDS = 30
+TRON_OUTER = 5
 
 SOURCES = {
     "pcdn_bundle": ("src/repro_torch/kernels/csrc/pcdn_bundle.cu",
@@ -279,11 +320,18 @@ def row_rel_err(torch, got, want) -> tuple[float, float]:
 
 # -- data -----------------------------------------------------------------
 
+def make_realsim(seed: int):
+    """real-sim at its published shape, padded-CSC: (csc, y)."""
+    from repro_torch.data import make_sparse_classification
+    csc, y, _ = make_sparse_classification(57_848, 20_958, nnz_per_col=278,
+                                           seed=seed)
+    return csc, y
+
+
 def make_data(seed: int):
-    from repro_torch.data import make_sparse_classification, paper_like
+    from repro_torch.data import paper_like
     t0 = time.perf_counter()
-    csc, y_rs, _ = make_sparse_classification(57_848, 20_958,
-                                              nnz_per_col=278, seed=seed)
+    csc, y_rs = make_realsim(seed)
     Xg, y_g, spec_g = paper_like("gisette", scale=1.0, seed=seed)
     log(f"[data] real-sim s={csc.shape[0]} n={csc.shape[1]} "
         f"k_max={csc.k_max} nnz={csc.nnz} "
@@ -541,6 +589,8 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
         enqueue_us=enqueue_us(torch, lambda: ops.pcdn_direction(*args),
                               200),
         bound=bound(nbytes, 7 * s * n_live), library_ms=None)
+    out["pcdn_linesearch"] = linesearch_check(torch, sparse, w, z, gen,
+                                              flush)
     out.update(serve_kernel_checks(torch, serve, flush))
     out.update(flash_kernel_checks(torch, flush))
     for name, r in out.items():
@@ -554,6 +604,59 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
             + ("none" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.2f} us") + f" on {card}")
     return out
+
+
+def linesearch_check(torch, prob, w, z, gen, flush) -> dict:
+    """K5 at the scdn phase's shape: one SCDN batch of real-sim (P_bar
+    random features from the carry (w, z)), its (P_bar, s) per-coordinate
+    margin deltas (the first s columns of a (P_bar, s + 1) buffer) and the
+    Q = 40 candidates, against the plain version; timed, with the bound
+    counted from these deltas."""
+    from repro_torch.core import bundles as B
+    from repro_torch.core.direction import newton_direction
+    from repro_torch.core.linesearch import ArmijoParams, candidate_alphas
+    from repro_torch.kernels import ops, ref
+
+    design = prob.design
+    dev = z.device
+    idx = torch.randint(0, prob.n_features, (SCDN_P_BAR,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    slab = design.gather_slab(idx)
+    w_B, _ = B.gather_vec(w, idx)
+    g, h = prob.bundle_grad_hess(z, slab, w_B)
+    deltas = design.slab_coordinate_deltas(slab, newton_direction(g, h, w_B))
+    alphas = candidate_alphas(ArmijoParams(), torch.float32, dev)
+    args = (z, deltas, prob.y, alphas)
+    got = ops.pcdn_linesearch(*args)
+    want = ref.pcdn_linesearch_ref(*args)
+    torch.cuda.synchronize()
+    e = rel_err(torch, got, want)
+    P, s = deltas.shape
+    Q = alphas.shape[0]
+    live = deltas != 0
+    n_live = int(live.sum())
+    rows_live = int(live.any(dim=0).sum())
+    log(f"[kernels] pcdn_linesearch P={P} s={s} (row stride "
+        f"{deltas.stride(0)}) Q={Q}, live (row, sample) pairs {n_live} "
+        f"({n_live / (P * s):.5f} of the rows; per row "
+        f"{live.sum(dim=1).tolist()}), {rows_live} samples live in any "
+        f"row: err {e[0]:.3e} (rel {e[1]:.2e}), tolerance rel "
+        f"{KERNEL_RTOL}; {ops.linesearch_blocks(s, P, ops._sm_count(dev))} "
+        f"blocks a row")
+    assert e[1] <= KERNEL_RTOL, e
+    assert got.shape == (P, Q)
+    return dict(
+        max_abs_err=e[0],
+        **timings(torch, lambda: ops.pcdn_linesearch(*args),
+                  lambda: ref.pcdn_linesearch_ref(*args), flush),
+        enqueue_us=enqueue_us(torch, lambda: ops.pcdn_linesearch(*args),
+                              200),
+        # every delta row once, z and y at the samples live in any row,
+        # alphas, the (P, Q) output; ~10 flops per live (row, sample,
+        # candidate) loss term
+        bound=bound(4 * P * s + 8 * rows_live + 4 * Q + 4 * P * Q,
+                    10 * n_live * Q),
+        library_ms=None)
 
 
 def prepare_serve(torch) -> dict:
@@ -638,8 +741,10 @@ def prepare_serve(torch) -> dict:
 
 def serve_kernel_checks(torch, serve, flush) -> dict:
     """K4a, K4b at the serve phase's shapes (one full bucket of requests,
-    the K = 8 path family's bank) and K5 at the training set's (the
-    margins of the c* model and their change to the next path point)."""
+    the K = 8 path family's bank) and K5's single row at the training
+    set's (the margins of the c* model and their change to the next path
+    point; checked and timed, reported in the log only: K5's row of the
+    kernels line is the scdn shape's)."""
     from repro_torch.core.linesearch import ArmijoParams, candidate_alphas
     from repro_torch.data import csr_to_padded_csc
     from repro_torch.kernels import ops, ref
@@ -763,17 +868,15 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
     s = z.shape[0]
     Q = alphas.shape[0]
     s_live = int(torch.count_nonzero(delta))
-    log(f"[kernels] pcdn_linesearch s={s} (delta != 0: {s_live}) Q={Q}: "
-        f"err {e[0]:.3e} (rel {e[1]:.2e}), tolerance rel {KERNEL_RTOL}")
     assert e[1] <= KERNEL_RTOL, e
-    out["pcdn_linesearch"] = dict(
-        max_abs_err=e[0],
-        **timings(torch, lambda: ops.pcdn_linesearch(*args),
-                  lambda: ref.pcdn_linesearch_ref(*args), flush),
-        # delta everywhere, z and y where delta != 0, alphas, the output;
-        # ~10 flops per (sample, candidate) loss term
-        bound=bound(4 * s + 8 * s_live + 8 * Q, 10 * s_live * Q),
-        library_ms=None)
+    # delta everywhere, z and y where delta != 0, alphas, the output;
+    # ~10 flops per (sample, candidate) loss term
+    b_ms = bound(4 * s + 8 * s_live + 8 * Q, 10 * s_live * Q)[0]
+    t = device_ms(torch, lambda: ops.pcdn_linesearch(*args), 100, flush)
+    log(f"[kernels] pcdn_linesearch, one row at the serve phase's shape: "
+        f"s={s} (delta != 0: {s_live}) Q={Q}: err {e[0]:.3e} (rel "
+        f"{e[1]:.2e}), tolerance rel {KERNEL_RTOL}; {t * 1e3:.2f} us "
+        f"L2-cold, bound {b_ms * 1e3:.3f} us")
     return out
 
 
@@ -1548,6 +1651,272 @@ def run_solve(torch, name, data, n_outer, fused=False):
     return counts
 
 
+def log_profile(name: str, prof: dict, unit: str) -> None:
+    """A child's trace (`--baseline-profile`): busy against the untraced
+    wall of the same work, the idle share, the top device ops a unit."""
+    busy, wall, per = prof["busy_s"], prof["wall_s"], prof["units"]
+    if busy > 0:
+        log(f"[{name}] traced in a fresh process: {per} {unit}(s), device "
+            f"busy {busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms untraced wall "
+            f"(idle share {1 - busy / wall:.3f}); {busy / per * 1e6:.1f} us "
+            f"device, {(wall - busy) / per * 1e6:.1f} us host a {unit}; "
+            f"{sum(r[1] for r in prof['rows']) / per:.2f} device ops a "
+            f"{unit}; top device ops:")
+        log_top(name, [tuple(r) for r in prof["rows"] if r[2] > 0][:8], per,
+                unit)
+    else:
+        log(f"[{name}] {wall * 1e3:.3f} ms wall for {per} {unit}(s); idle "
+            f"share not measured (the profiler saw no device time)")
+
+
+def run_child_profile(name: str) -> dict:
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--baseline-profile",
+         name], capture_output=True, text=True, check=True, timeout=300)
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def baseline_profile(name: str) -> dict:
+    """`--baseline-profile scdn`: SCDN_PROFILE_BATCHES batches of an SCDN
+    round on real-sim from the zero carry; `tron`: one TRON outer iteration
+    (tron.solve at max_outer 1) on real-sim. Each run once untraced to warm
+    up, timed untraced (wall_s, the mean of 3), then traced once -> {"busy_s",
+    "wall_s", "rows", "units", "launches"}. Run in a child process by the
+    scdn and tron phases."""
+    import torch
+    from repro_torch.core import scdn, tron
+    from repro_torch.core.problem import make_problem
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    csc, y = make_realsim(DATA_SEED)
+    prob = make_problem(csc, y, c=SCDN_C, layout="padded_csc", device=DEVICE)
+    if name == "scdn":
+        round_ = scdn.make_round(prob, scdn.SCDNConfig(P_bar=SCDN_P_BAR))
+        gen = torch.Generator().manual_seed(1)
+        idxs = torch.randint(0, prob.n_features,
+                             (SCDN_PROFILE_BATCHES, SCDN_P_BAR),
+                             generator=gen, dtype=torch.int32)
+        w = torch.zeros((prob.n_features,), device=DEVICE)
+        zz = torch.zeros((prob.n_samples,), device=DEVICE)
+
+        def run():
+            round_(w, zz, gen, idxs=idxs)
+        units = SCDN_PROFILE_BATCHES
+    else:
+        def run():
+            tron.solve(prob, tron.TRONConfig(max_outer=1, tol_kkt=0.0))
+        units = 1
+    run()
+    wall = host_ms(torch, run, 3) / 1e3
+    ops.reset_launch_counts()
+    busy, rows, _ = device_profile(torch, run, n_top=None)
+    return {"busy_s": busy, "wall_s": wall, "rows": rows, "units": units,
+            "launches": ops.launch_counts()["pcdn_linesearch"]}
+
+
+def phase_scdn(torch, data, card: str) -> int:
+    """SCDN through `core.scdn.solve` on real-sim, K5 in every batch; the
+    lockstep round; the traced slice; gisette's divergence guard through
+    both routes. -> K5's launches in the solve."""
+    from repro_torch.core import scdn
+    from repro_torch.core.problem import make_problem
+    from repro_torch.kernels import ops, ref
+
+    csc, y_rs, Xg, y_g, _ = data
+    prob = make_problem(csc, y_rs, c=SCDN_C, layout="padded_csc",
+                        device=DEVICE)
+    cfg = scdn.SCDNConfig(P_bar=SCDN_P_BAR, max_rounds=SCDN_ROUNDS,
+                          tol_kkt=0.0)
+    n_batches = -(-prob.n_features // SCDN_P_BAR)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = scdn.solve(prob, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    F = res.history["objective"]
+    log(f"[scdn] real-sim padded-CSC c={SCDN_C} P_bar={SCDN_P_BAR}: "
+        f"{res.n_rounds} rounds of {n_batches} batches, F "
+        + " ".join(f"{f:.6f}" for f in F)
+        + f", kkt {res.history['kkt'][-1]:.3e}, diverged {res.diverged}; "
+        f"wall {dt:.2f}s ({dt / res.n_rounds * 1e3:.1f} ms a round, "
+        f"{dt / (res.n_rounds * n_batches) * 1e6:.1f} us a batch) on "
+        f"{card}; launches {counts}")
+    assert res.n_rounds == SCDN_ROUNDS and not res.diverged, res
+    assert np.all(np.isfinite(F)), F
+    assert counts["pcdn_linesearch"] == SCDN_ROUNDS * n_batches, counts
+    assert sum(counts.values()) == counts["pcdn_linesearch"], counts
+    launches = counts["pcdn_linesearch"]
+
+    # lockstep: one round from the solve's carry with one set of indices,
+    # through K5 and through its plain version
+    w = res.w
+    z = prob.margins(w)
+    idxs = torch.randint(0, prob.n_features, (n_batches, SCDN_P_BAR),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    out = {}
+    for label, fn in (("K5", None), ("plain", ref.pcdn_linesearch_ref)):
+        round_ = scdn.make_round(prob, cfg, fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = round_(w, z, torch.Generator(), idxs=idxs)
+        f = float(r[3])
+        out[label] = (f, time.perf_counter() - t0)
+    rel = abs(out["K5"][0] - out["plain"][0]) / abs(out["plain"][0])
+    log(f"[scdn] lockstep round from one carry and one set of indices: F "
+        f"K5 {out['K5'][0]:.6f} ({out['K5'][1]:.2f}s) vs plain "
+        f"{out['plain'][0]:.6f} ({out['plain'][1]:.2f}s): rel {rel:.2e} "
+        f"(tolerance {F_RTOL})")
+    assert rel <= F_RTOL, out
+    prof = run_child_profile("scdn")
+    assert prof["launches"] == SCDN_PROFILE_BATCHES, prof["launches"]
+    log_profile("scdn", prof, "batch")
+
+    # gisette dense at P_bar 64: where and whether the guard trips, the
+    # same through both routes
+    gprob = make_problem(Xg, y_g, c=SOLVES["dense"][2], layout="dense",
+                         device=DEVICE)
+    gcfg = scdn.SCDNConfig(P_bar=GISETTE_P_BAR, max_rounds=GISETTE_ROUNDS)
+    trips = {}
+    for label, fn in (("K5", None), ("plain", ref.pcdn_linesearch_ref)):
+        t0 = time.perf_counter()
+        g = scdn.solve(gprob, gcfg, _loss_deltas=fn)
+        torch.cuda.synchronize()
+        trips[label] = (g.diverged, g.n_rounds)
+        log(f"[scdn] gisette dense c={SOLVES['dense'][2]} P_bar="
+            f"{GISETTE_P_BAR}, {label} route: diverged {g.diverged} after "
+            f"{g.n_rounds} rounds (converged {g.converged}), F "
+            + " ".join(f"{f:.4g}" for f in g.history["objective"])
+            + f"; {time.perf_counter() - t0:.2f}s")
+    assert trips["K5"] == trips["plain"], trips
+    return launches
+
+
+def phase_tron(torch, data, card: str) -> None:
+    """TRON through `core.tron.solve` on real-sim, padded-CSC, TRON_OUTER
+    outer iterations: F finite and not rising; one iteration traced."""
+    from repro_torch.core import tron
+    from repro_torch.core.problem import make_problem
+    from repro_torch.kernels import ops
+
+    csc, y_rs = data[0], data[1]
+    prob = make_problem(csc, y_rs, c=SCDN_C, layout="padded_csc",
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tron.solve(prob, tron.TRONConfig(max_outer=TRON_OUTER,
+                                           tol_kkt=0.0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    F = res.history["objective"]
+    log(f"[tron] real-sim padded-CSC c={SCDN_C}: {res.n_outer} outer "
+        f"iterations, F " + " ".join(f"{f:.6f}" for f in F)
+        + f", kkt {res.history['kkt'][-1]:.3e}; wall {dt:.2f}s "
+        f"({dt / res.n_outer * 1e3:.1f} ms an iteration) on {card}; "
+        f"kernel launches {sum(ops.launch_counts().values())} (none "
+        f"expected)")
+    assert res.n_outer == TRON_OUTER and np.all(np.isfinite(F)), F
+    assert np.all(np.diff(F) <= F_MONOTONE_RTOL * np.abs(F[:-1])), F
+    assert sum(ops.launch_counts().values()) == 0
+    log_profile("tron", run_child_profile("tron"), "iteration")
+
+
+def phase_bf16(torch, data, n_outer: int) -> None:
+    """The three PCDN solve phases with the design stored in bf16: each
+    kernel solve's launches; its F against the float32 solve of the same
+    seed, printed (free runs: an Armijo decision that flips compounds, as
+    in the solve phases); the gate, bf16 against float32 from a shared
+    iterate (the bf16 run's w, each design's own margins of it, one
+    partition) at every iteration, F rel <= BF16_F_RTOL; and the lockstep
+    gate kernel vs plain at bf16."""
+    from repro_torch.core import PCDNConfig
+    from repro_torch.core.bundles import num_bundles
+    from repro_torch.core.problem import make_problem
+    from repro_torch.engine import LocalBackend
+    from repro_torch.engine import loop as engine_loop
+    from repro_torch.kernels import ops
+
+    f32, b16 = torch.float32, torch.bfloat16
+    for name, (i_x, i_y, c, layout, P, kernel, _) in SOLVES.items():
+        runs, backends = {}, {}
+        for dtype in (f32, b16):
+            prob = make_problem(data[i_x], data[i_y], c=c, layout=layout,
+                                dtype=dtype, device=DEVICE)
+            assert prob.dtype == dtype and prob.solve_dtype == f32
+            backends[dtype] = LocalBackend(prob, PCDNConfig(
+                P=P, use_kernels=True, tol_kkt=0.0, max_outer=n_outer,
+                seed=0))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = engine_loop.solve(backends[dtype], c, max_outer=n_outer,
+                                    tol_kkt=0.0)
+            torch.cuda.synchronize()
+            runs[dtype] = (res, time.perf_counter() - t0,
+                           ops.launch_counts())
+        res, dt, counts = runs[b16]
+        F16 = res.history.objective
+        F32 = runs[f32][0].history.objective
+        b = num_bundles(prob.n_features, P)
+        free = np.abs(F16 - F32) / np.abs(F32)
+        log(f"[bf16] {name}: {layout} bf16 storage, P={P}, {n_outer} "
+            f"iterations: F {F16[-1]:.6f}; the float32 solve of the same "
+            f"seed {F32[-1]:.6f}, free runs rel {free[-1]:.2e} (not gated; "
+            f"per iteration " + " ".join(f"{r:.1e}" for r in free)
+            + f"); wall {dt / n_outer * 1e3:.2f} ms an iteration (float32 "
+            f"{runs[f32][1] / n_outer * 1e3:.2f}); {kernel} launches "
+            f"{counts[kernel]}")
+        assert np.all(np.isfinite(F16)) and res.n_outer == n_outer, F16
+        assert counts[kernel] == b * n_outer, (counts, b)
+        # bf16 against float32 from a shared iterate
+        w, z, gen, active = backends[b16].init_state()
+        shared = []
+        for _ in range(n_outer):
+            twin = torch.Generator().set_state(gen.get_state())
+            out32 = backends[f32].outer(w, backends[f32].problem.margins(w),
+                                        twin, active, True, c)
+            w, z, gen, f16, _, _, _, active, _ = backends[b16].outer(
+                w, z, gen, active, True, c)
+            shared.append(abs(float(f16) - float(out32[3])) /
+                          abs(float(out32[3])))
+        log(f"[bf16] {name}: bf16 vs float32 from a shared iterate: F rel "
+            f"per iteration {' '.join(f'{r:.1e}' for r in shared)} "
+            f"(tolerance {BF16_F_RTOL}, the reference's bf16 envelope)")
+        assert max(shared) <= BF16_F_RTOL, shared
+        steps = lockstep(torch, prob, P, c, n_outer)
+        log(f"[bf16] {name}: lockstep kernel vs plain at bf16 from a shared "
+            f"carry: F rel per iteration "
+            f"{' '.join(f'{r:.1e}' for r in steps)} (tolerance {F_RTOL})")
+        assert max(steps) <= F_RTOL, steps
+
+
+def phase_cli(torch) -> None:
+    """`launch.solve.main` on a9a through the normal entry point: the PCDN
+    run with the kernels, then the baselines and bf16 storage."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import solve as solve_cli
+    for flags, kernel in (
+            (["--layout", "padded_csc", "--use-kernels", "--max-outer",
+              "20"], "pcdn_sparse_direction"),
+            (["--solver", "scdn", "--max-outer", "20"], "pcdn_linesearch"),
+            (["--solver", "tron", "--max-outer", "20"], None),
+            (["--dtype", "bf16", "--use-kernels", "--layout", "padded_csc",
+              "--max-outer", "20"], "pcdn_sparse_direction")):
+        ops.reset_launch_counts()
+        f = solve_cli.main(["--dataset", "a9a", *flags, "--device", DEVICE])
+        counts = ops.launch_counts()
+        log(f"[cli] {' '.join(flags)}: F={f:.6f} launches={counts}")
+        assert np.isfinite(f), f
+        if kernel is None:
+            assert sum(counts.values()) == 0, counts
+        else:
+            assert counts[kernel] > 0, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES[1:]),
@@ -1560,6 +1929,10 @@ def main(argv=None) -> int:
                     help="trace one outer iteration of a solve phase and "
                          "print its JSON line (the solve phases run this in "
                          "a child process)")
+    ap.add_argument("--baseline-profile", choices=("scdn", "tron"),
+                    help="trace a slice of an SCDN round or one TRON "
+                         "iteration and print its JSON line (the scdn and "
+                         "tron phases run this in a child process)")
     ap.add_argument("--chunk-profile", nargs=2,
                     metavar=("FAMILY", "REQUESTS"),
                     help="trace one dense serve chunk and print its JSON "
@@ -1590,6 +1963,10 @@ def main(argv=None) -> int:
     if args.solve_profile:
         print(json.dumps(solve_profile(args.solve_profile)), flush=True)
         return 0
+    if args.baseline_profile:
+        print(json.dumps(baseline_profile(args.baseline_profile)),
+              flush=True)
+        return 0
 
     # full-precision float32 products on the plain paths (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1603,7 +1980,8 @@ def main(argv=None) -> int:
 
     phase_build()  # every later phase needs the kernels
     data = None
-    if set(phases) & {"kernels", "support", "full", "dense"}:
+    if set(phases) & {"kernels", "support", "full", "dense", "scdn", "tron",
+                      "bf16"}:
         data = make_data(DATA_SEED)
     serve = None
     if set(phases) & {"kernels", "serve"}:
@@ -1617,16 +1995,15 @@ def main(argv=None) -> int:
             kernel = SOLVES[name][5]
             launches[kernel] = run_solve(torch, name, data, N_OUTER,
                                          fused=name == "support")[kernel]
+    if "scdn" in phases:
+        launches["pcdn_linesearch"] = phase_scdn(torch, data,
+                                                 f"{card} ({smi})")
+    if "tron" in phases:
+        phase_tron(torch, data, f"{card} ({smi})")
+    if "bf16" in phases:
+        phase_bf16(torch, data, N_OUTER)
     if "cli" in phases:
-        from repro_torch.kernels import ops
-        from repro_torch.launch import solve as solve_cli
-        ops.reset_launch_counts()
-        f = solve_cli.main(["--dataset", "a9a", "--layout", "padded_csc",
-                            "--use-kernels", "--max-outer", "20",
-                            "--device", DEVICE])
-        counts = ops.launch_counts()
-        log(f"[cli] F={f:.6f} launches={counts}")
-        assert np.isfinite(f) and counts["pcdn_sparse_direction"] > 0, counts
+        phase_cli(torch)
     if "serve" in phases:
         launches.update(phase_serve(torch, serve, f"{card} ({smi})"))
     if "lm" in phases:

@@ -17,7 +17,11 @@ whose last slot collects the sentinel entries and is cut off, or clamp the
 index and zero the update (`scatter_support`). Both add exact zeros only,
 so padding contributes nothing to any reduction.
 
-Everything is float32 here; bf16 storage is a later slice.
+Mixed precision, as in the reference: the values may be stored in bf16
+(`dtype=torch.bfloat16` at construction) while every product below
+accumulates in float32 (`acc_dtype`; the casts are no-ops for float32
+storage). The solver state (w, z, u, v) stays float32; only the design
+values shrink.
 """
 from __future__ import annotations
 
@@ -91,6 +95,7 @@ class DesignMatrix:
     gather_slab(idx)     -> Slab  for a (P,) bundle with sentinel == n
     slab_grad_hess(...)  -> (g, h) raw bundle reductions (no l2 / floor)
     slab_matvec(...)     -> (s,)  X_B @ d_B (dense margins delta)
+    slab_coordinate_deltas(...) -> (P, s) d_j X[:, j], one row a coordinate
     """
 
     layout: str = "abstract"
@@ -120,17 +125,23 @@ class DenseDesign(DesignMatrix):
         return self.X.dtype
 
     @property
+    def acc_dtype(self):
+        """Accumulation dtype: float32 for bf16 storage, else the
+        storage's."""
+        return torch.promote_types(self.X.dtype, torch.float32)
+
+    @property
     def device(self):
         return self.X.device
 
     def matvec(self, w: Tensor) -> Tensor:
-        return self.X @ w
+        return self.X.to(self.acc_dtype) @ w
 
     def rmatvec(self, u: Tensor) -> Tensor:
-        return self.X.T @ u
+        return self.X.T.to(self.acc_dtype) @ u
 
     def column_norms_sq(self) -> Tensor:
-        return torch.sum(torch.square(self.X), dim=0)
+        return torch.sum(torch.square(self.X.to(self.acc_dtype)), dim=0)
 
     def gather_slab(self, idx: Tensor) -> DenseSlab:
         """idx: (P,) int32 with sentinel n -> contiguous (s, P) slab."""
@@ -142,19 +153,25 @@ class DenseDesign(DesignMatrix):
 
     def slab_grad_hess(self, slab: DenseSlab, u: Tensor, v: Tensor):
         """g_j = sum_i u_i X_ij ; h_j = sum_i v_i X_ij^2 (raw, no l2/floor)."""
-        g = slab.XB.T @ u
-        h = torch.square(slab.XB).T @ v
+        XB = slab.XB.to(self.acc_dtype)
+        g = XB.T @ u
+        h = torch.square(XB).T @ v
         return g, h
 
     def slab_matvec(self, slab: DenseSlab, d: Tensor) -> Tensor:
         """delta_z = X_B @ d_B, the (s,) margin delta of a bundle step."""
-        return slab.XB @ d
+        return slab.XB.to(self.acc_dtype) @ d
+
+    def slab_coordinate_deltas(self, slab: DenseSlab, d: Tensor) -> Tensor:
+        """(P, s) per-coordinate margin deltas d_j * X[:, j]: the blind
+        one-coordinate steps SCDN's racing line searches evaluate."""
+        return (slab.XB.T.to(self.acc_dtype) * d[:, None]).contiguous()
 
     def feature_major(self) -> Tensor:
         """(n, s) contiguous copy of X, in which column j is the
         contiguous row j: the layout the dense bundle kernel (K3) reads a
-        bundle's columns from. Built at the first call (one transpose) and
-        cached on the design."""
+        bundle's columns from, in the storage dtype. Built at the first
+        call (one transpose) and cached on the design."""
         XT = getattr(self, "_xt_cache", None)
         if XT is None:
             XT = self.X.T.contiguous()
@@ -195,6 +212,12 @@ class PaddedCSCDesign(DesignMatrix):
         return self.col_vals.dtype
 
     @property
+    def acc_dtype(self):
+        """Accumulation dtype: float32 for bf16 storage, else the
+        storage's."""
+        return torch.promote_types(self.col_vals.dtype, torch.float32)
+
+    @property
     def device(self):
         return self.col_vals.device
 
@@ -208,15 +231,17 @@ class PaddedCSCDesign(DesignMatrix):
 
     def matvec(self, w: Tensor) -> Tensor:
         """z = X @ w as one scatter-add of every weighted nonzero."""
-        return self._scatter_rows(self.col_rows, self.col_vals * w[:, None])
+        return self._scatter_rows(
+            self.col_rows, self.col_vals.to(self.acc_dtype) * w[:, None])
 
     def rmatvec(self, u: Tensor) -> Tensor:
         """X^T u: gather u at each column's rows, masked segment sum."""
         ug = _take_fill(u, self.col_rows, 0.0)
-        return torch.sum(ug * self.col_vals, dim=1)
+        return torch.sum(ug * self.col_vals.to(self.acc_dtype), dim=1)
 
     def column_norms_sq(self) -> Tensor:
-        return torch.sum(torch.square(self.col_vals), dim=1)
+        return torch.sum(torch.square(self.col_vals.to(self.acc_dtype)),
+                         dim=1)
 
     def gather_slab(self, idx: Tensor) -> SparseSlab:
         """O(P * k_max) bundle gather -- never touches the other columns."""
@@ -230,15 +255,34 @@ class PaddedCSCDesign(DesignMatrix):
 
     def slab_grad_hess(self, slab: SparseSlab, u: Tensor, v: Tensor):
         """Masked segment reductions over the padded column layout."""
+        vals = slab.vals.to(self.acc_dtype)
         ug = _take_fill(u, slab.rows, 0.0)
         vg = _take_fill(v, slab.rows, 0.0)
-        g = torch.sum(ug * slab.vals, dim=1)
-        h = torch.sum(vg * torch.square(slab.vals), dim=1)
+        g = torch.sum(ug * vals, dim=1)
+        h = torch.sum(vg * torch.square(vals), dim=1)
         return g, h
 
     def slab_matvec(self, slab: SparseSlab, d: Tensor) -> Tensor:
-        """delta_z via scatter-add at the slab rows."""
-        return self._scatter_rows(slab.rows, slab.vals * d[:, None])
+        """delta_z via scatter-add at the slab rows (duplicate rows
+        accumulate)."""
+        return self._scatter_rows(slab.rows,
+                                  slab.vals.to(self.acc_dtype) * d[:, None])
+
+    def slab_coordinate_deltas(self, slab: SparseSlab, d: Tensor) -> Tensor:
+        """(P, s) per-coordinate margin deltas: coordinate j's rows
+        scattered into row j of a (P, s + 1) buffer, whose last column
+        collects the sentinel entries and is cut off (a view with row
+        stride s + 1)."""
+        s = self._n_samples
+        P = slab.rows.shape[0]
+        out = torch.zeros((P, s + 1), dtype=self.acc_dtype,
+                          device=d.device)
+        flat = slab.rows + (s + 1) * torch.arange(
+            P, dtype=slab.rows.dtype, device=slab.rows.device)[:, None]
+        out.view(-1).index_add_(
+            0, flat.reshape(-1),
+            (slab.vals.to(self.acc_dtype) * d[:, None]).reshape(-1))
+        return out[:, :s]
 
     # -- support-scoped slab protocol ----------------------------------------
     def slab_row_support(self, slab: SparseSlab) -> SlabSupport:
@@ -248,8 +292,9 @@ class PaddedCSCDesign(DesignMatrix):
                                u_R: Tensor, v_R: Tensor):
         """`slab_grad_hess` with u/v given only at the support rows (pos is
         always in bounds; padding values are 0)."""
-        g = torch.sum(u_R[pos] * slab.vals, dim=1)
-        h = torch.sum(v_R[pos] * torch.square(slab.vals), dim=1)
+        vals = slab.vals.to(self.acc_dtype)
+        g = torch.sum(u_R[pos] * vals, dim=1)
+        h = torch.sum(v_R[pos] * torch.square(vals), dim=1)
         return g, h
 
     def slab_matvec_support(self, slab: SparseSlab, pos: Tensor,
@@ -258,7 +303,8 @@ class PaddedCSCDesign(DesignMatrix):
         sentinel support slots stay exactly 0."""
         r_max = pos.shape[0] * pos.shape[1]
         out = torch.zeros((r_max,), dtype=d.dtype, device=d.device)
-        out.index_add_(0, pos.reshape(-1), (slab.vals * d[:, None]).reshape(-1))
+        out.index_add_(0, pos.reshape(-1),
+                       (slab.vals.to(self.acc_dtype) * d[:, None]).reshape(-1))
         return out
 
     def scatter_support(self, z: Tensor, support: Tensor,
@@ -284,16 +330,19 @@ class PaddedCSCDesign(DesignMatrix):
 
     # -- constructors ---------------------------------------------------------
     @classmethod
-    def from_arrays(cls, col_rows, col_vals, n_samples: int,
-                    device="cpu") -> "PaddedCSCDesign":
+    def from_arrays(cls, col_rows, col_vals, n_samples: int, device="cpu",
+                    dtype=torch.float32) -> "PaddedCSCDesign":
+        """Values cast to float32, then stored in `dtype` (bf16 rounds to
+        nearest even, as the reference's cast does)."""
+        vals = torch.as_tensor(np.asarray(col_vals, np.float32),
+                               device=device)
         return cls(col_rows=torch.as_tensor(np.asarray(col_rows, np.int32),
                                             device=device),
-                   col_vals=torch.as_tensor(np.asarray(col_vals, np.float32),
-                                            device=device),
-                   _n_samples=int(n_samples))
+                   col_vals=vals.to(dtype), _n_samples=int(n_samples))
 
     @classmethod
-    def from_dense(cls, X, k_max=None, device="cpu") -> "PaddedCSCDesign":
+    def from_dense(cls, X, k_max=None, device="cpu",
+                   dtype=torch.float32) -> "PaddedCSCDesign":
         """Convert a dense matrix (same column layout as the reference)."""
         X = np.asarray(X, dtype=np.float32)
         s, n = X.shape
@@ -311,14 +360,15 @@ class PaddedCSCDesign(DesignMatrix):
         pos = np.arange(nz_rows.shape[0]) - indptr[nz_rows]
         col_rows[nz_rows, pos] = nz_cols
         col_vals[nz_rows, pos] = X.T[nz_rows, nz_cols]
-        return cls.from_arrays(col_rows, col_vals, s, device)
+        return cls.from_arrays(col_rows, col_vals, s, device, dtype)
 
 
-def as_design(X, layout: str = "auto", k_max=None,
+def as_design(X, dtype=torch.float32, layout: str = "auto", k_max=None,
               device="cpu") -> DesignMatrix:
     """Coerce a dense array or a PaddedCSC-like object into a DesignMatrix
-    on `device` (float32). "auto" keeps arrays dense and padded-CSC input
-    sparse; forcing padded-CSC input dense is refused."""
+    on `device`, its values stored in `dtype` (float32 or bfloat16). "auto"
+    keeps arrays dense and padded-CSC input sparse; forcing padded-CSC input
+    dense is refused. A DesignMatrix passes through as it is."""
     if isinstance(X, DesignMatrix):
         return X
     if all(hasattr(X, a) for a in ("col_rows", "col_vals", "shape")):
@@ -330,9 +380,9 @@ def as_design(X, layout: str = "auto", k_max=None,
                 f"k_max={k_max} conflicts with the prebuilt PaddedCSC "
                 f"width {X.col_rows.shape[1]}; re-pad at conversion time.")
         return PaddedCSCDesign.from_arrays(X.col_rows, X.col_vals,
-                                           int(X.shape[0]), device)
+                                           int(X.shape[0]), device, dtype)
     if layout == "padded_csc":
         return PaddedCSCDesign.from_dense(np.asarray(X), k_max=k_max,
-                                          device=device)
+                                          device=device, dtype=dtype)
     return DenseDesign(X=torch.as_tensor(np.asarray(X, np.float32),
-                                         device=device))
+                                         device=device).to(dtype))

@@ -9,7 +9,10 @@ over X happens inside the search. Port of `repro.core.linesearch`, with the
 same four variants:
 
   * `armijo_backtracking` -- the faithful sequential loop (Algorithm 4);
-  * `armijo_batched`      -- all Q candidates in one vectorized pass;
+  * `armijo_batched`      -- all Q candidates in one pass, the loss part
+    from the batched line-search kernel (K5, `kernels.ops.pcdn_linesearch`;
+    its plain version on the CPU); with a (P, s) delta, P one-coordinate
+    searches at once (SCDN's racing updates);
   * `armijo_chunked`      -- the full-scope default: chunks of 8 candidates
     with early exit. In eager PyTorch the exit test reads a device flag,
     so it costs one host sync per chunk evaluated;
@@ -119,12 +122,42 @@ def select_first_satisfying(f_deltas: Tensor, alphas: Tensor, Delta: Tensor,
 
 
 def armijo_batched(loss: Loss, c, z, delta, y, w_B, d_B, Delta,
-                   params: ArmijoParams, l2: float = 0.0) -> LineSearchResult:
-    """One vectorized pass over all candidates."""
+                   params: ArmijoParams, l2: float = 0.0,
+                   loss_deltas=None) -> LineSearchResult:
+    """One pass over all Q candidates: the loss part c * sum_i [phi(z_i +
+    alpha delta_i) - phi(z_i)] from `loss_deltas` (default K5,
+    `kernels.ops.pcdn_linesearch`), then the l1 (and l2) part over the
+    coordinates.
+
+    delta (s,) with w_B, d_B (P,) and a scalar Delta: one P-dimensional
+    search. delta (P, s) with w_B, d_B, Delta (P,): P one-coordinate
+    searches, row j along d_B[j] e_j; alpha and n_steps are then (P,),
+    each the first candidate of its row with f <= sigma alpha Delta_j.
+    """
+    if loss_deltas is None:
+        from repro_torch.kernels import ops
+        loss_deltas = ops.pcdn_linesearch
     alphas = candidate_alphas(params, z.dtype, z.device)
-    f_deltas = objective_delta_batched(loss, c, z, delta, y, w_B, d_B,
-                                       alphas, l2)
-    return select_first_satisfying(f_deltas, alphas, Delta, params.sigma)
+    lo = c * loss_deltas(z, delta, y, alphas, kind=loss.name)
+    if delta.ndim == 1:
+        wq = w_B[None, :] + alphas[:, None] * d_B[None, :]
+        out = lo + (torch.sum(torch.abs(wq), dim=-1) -
+                    torch.sum(torch.abs(w_B)))
+        if l2:
+            out = out + 0.5 * l2 * (torch.sum(torch.square(wq), dim=-1) -
+                                    torch.sum(torch.square(w_B)))
+        return select_first_satisfying(out, alphas, Delta, params.sigma)
+    wq = w_B[:, None] + alphas[None, :] * d_B[:, None]          # (P, Q)
+    out = lo + (torch.abs(wq) - torch.abs(w_B)[:, None])
+    if l2:
+        out = out + 0.5 * l2 * (torch.square(wq) -
+                                torch.square(w_B)[:, None])
+    ok = out <= params.sigma * alphas[None, :] * Delta[:, None]
+    any_ok = torch.any(ok, dim=1)
+    first = torch.argmax(ok.to(torch.int32), dim=1)
+    alpha = torch.where(any_ok, alphas[first], torch.zeros_like(alphas[0]))
+    return LineSearchResult(alpha=alpha, n_steps=(first + 1).to(torch.int32),
+                            accepted=any_ok)
 
 
 def armijo_chunked(loss: Loss, c, z, delta, y, w_B, d_B, Delta,

@@ -61,6 +61,10 @@ class PCDNConfig:
     ls_chunk: int = 8            # candidate chunk of the full-scope search
     seed: int = 0                # torch.Generator seed of the partitions
     use_kernels: bool = False    # route bundle math through CUDA kernels
+    # storage dtype of the design values ("float32" | "bfloat16"), recorded
+    # for reports; the solver state stays float32 either way, and the
+    # design itself is built with it (make_problem(dtype=...))
+    dtype: str = "float32"
     shrink: bool = False         # mask near-optimal zero features out
     shrink_tol: float = 0.01     # shrink j when w_j == 0, |g_j| < 1 - tol
     recheck_every: int = 1       # full-set KKT recheck period

@@ -5,8 +5,10 @@
 Port of `repro.core.problem`: the design matrix behind the `DesignMatrix`
 interface, labels y (s,), the regularization weight c, the loss, and an
 optional elastic-net (lambda2/2)||w||^2 term that folds into the gradient
-and Hessian diagonals. `c` is a plain Python float: the CUDA kernels take
-it as a run-time argument, so changing it never rebuilds anything.
+and Hessian diagonals. The design may store bf16 values; the labels and
+the solver state (w, z) stay float32 (`solve_dtype`). `c` is a plain
+Python float: the CUDA kernels take it as a run-time argument, so changing
+it never rebuilds anything.
 """
 from __future__ import annotations
 
@@ -58,6 +60,12 @@ class L1Problem:
     def device(self):
         return self.design.device
 
+    @property
+    def solve_dtype(self):
+        """Dtype of the solver state (w, z, labels): float32 under bf16
+        storage, the design's dtype otherwise."""
+        return self.design.acc_dtype
+
     # -- objective -----------------------------------------------------------
     def margins(self, w: Tensor) -> Tensor:
         return self.design.matvec(w)
@@ -68,6 +76,9 @@ class L1Problem:
         if self.elastic_net_l2:
             f = f + 0.5 * self.elastic_net_l2 * torch.sum(torch.square(w))
         return f
+
+    def objective(self, w: Tensor) -> Tensor:
+        return self.objective_from_margins(self.margins(w), w)
 
     # -- per-sample factors ----------------------------------------------------
     def grad_factor(self, z: Tensor) -> Tensor:
@@ -150,14 +161,16 @@ class L1Problem:
 
 
 def make_problem(X, y, c: float, loss: str = "logistic",
-                 elastic_net_l2: float = 0.0, layout: str = "auto",
-                 k_max: Optional[int] = None,
+                 elastic_net_l2: float = 0.0, dtype=torch.float32,
+                 layout: str = "auto", k_max: Optional[int] = None,
                  device="cuda") -> L1Problem:
     """Build an L1Problem on `device` from a dense array, a PaddedCSC
-    object or a DesignMatrix. Float64 inputs are cast to float32 (the
-    reference runs without x64)."""
+    object or a DesignMatrix, its values stored in `dtype` (float32 or
+    bfloat16; float64 inputs are cast, as the reference runs without
+    x64). The labels are float32 either way."""
     dev = resolve_device(device)
-    design = as_design(X, layout=layout, k_max=k_max, device=dev)
+    design = as_design(X, dtype=dtype, layout=layout, k_max=k_max,
+                       device=dev)
     y = torch.as_tensor(np.asarray(y, np.float32), device=dev)
     return L1Problem(design=design, y=y, c=float(c), loss_name=loss,
                      elastic_net_l2=float(elastic_net_l2))

@@ -33,7 +33,9 @@ class LocalBackend:
 
     @property
     def dtype(self):
-        return torch.float32
+        """Solver-state dtype: float32 even when the design stores bf16
+        values."""
+        return self.problem.solve_dtype
 
     @property
     def device(self):
@@ -47,7 +49,8 @@ class LocalBackend:
             w = torch.zeros((n,), dtype=self.dtype, device=dev)
             z = torch.zeros((s,), dtype=self.dtype, device=dev)
         else:
-            w = torch.as_tensor(np.asarray(w0, np.float32), device=dev)
+            w = torch.as_tensor(np.asarray(w0, np.float32), dtype=self.dtype,
+                                device=dev)
             z = self.problem.margins(w)
         gen = torch.Generator().manual_seed(self.cfg.seed)
         return EngineState(w=w, z=z, gen=gen,

@@ -7,12 +7,12 @@ Port of `repro.engine.loop`. A backend hands out an outer iteration
 
 and this module drives it: the KKT stop, the optional relative-objective
 stop, the always-on non-finite detector with rollback to the last good
-iterate, per-iteration history, and `start_iter`. The
-carry's `gen` is the torch.Generator of the bundle partitions; the
-rollback restores its state too. After each iteration the loop waits for
-the device (`torch.cuda.synchronize`) before it stamps the time.
-Telemetry, progress callbacks, diagnostics, the divergence guard and its
-post-mortem belong to later slices of the port.
+iterate, per-iteration history, `start_iter`, and the optional divergence
+guard (SCDN's). The carry's `gen` is the torch.Generator of the bundle
+partitions; the rollback restores its state too. After each iteration the
+loop waits for the device (`torch.cuda.synchronize`) before it stamps the
+time. Telemetry, progress callbacks and the divergence post-mortem
+(`diag/`) belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -52,13 +52,18 @@ class SolveResult(NamedTuple):
     n_outer: int
     converged: bool
     history: SolveHistory
-    nonfinite: bool = False  # NaN/inf in (f, kkt): w is the last good one
+    diverged: bool = False     # divergence guard OR non-finite detector
+    # the reference's divergence post-mortem (repro.diag.forensics); None
+    # until the port has diag/
+    postmortem: Optional[dict] = None
+    nonfinite: bool = False    # NaN/inf in (f, kkt): w is the last good one
 
 
 def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
                    max_outer: int, tol_kkt: float,
                    recheck_every: int = 1, tol_rel_obj: float = 0.0,
                    f_star: Optional[float] = None,
+                   divergence_guard: Optional[Callable[[float], bool]] = None,
                    start_iter: int = 0,
                    ) -> Tuple[EngineState, SolveResult]:
     """Host-side convergence loop around a backend outer iteration.
@@ -67,8 +72,10 @@ def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
     resumed solve keeps the recheck cadence); iteration 0 always rechecks.
     Stops at kkt <= tol_kkt or, given f_star and tol_rel_obj > 0, at
     f - f_star <= tol_rel_obj * |f_star|. A NaN/inf objective or KKT stops
-    the loop with nonfinite = True and returns the carry from before that
-    iteration.
+    the loop with diverged = nonfinite = True and returns the carry from
+    before that iteration. divergence_guard(f) -> True after a finite
+    iteration stops the loop with diverged = True (converged stays False),
+    keeping that iteration's carry.
     """
     w, z, gen, active = state
     c = float(c)
@@ -76,7 +83,7 @@ def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
               "wall_time", "n_active")
     hist = {k: [] for k in fields}
     t0 = time.perf_counter()
-    converged = nonfinite = False
+    converged = diverged = nonfinite = False
     f = f_good = float("nan")
     k = start_iter - 1
     for k in range(start_iter, max_outer):
@@ -95,12 +102,15 @@ def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
         hist["wall_time"].append(time.perf_counter() - t0)
         hist["n_active"].append(int(n_active))
         if not (np.isfinite(f) and np.isfinite(kkt_f)):
-            nonfinite = True
+            diverged = nonfinite = True
             w, z, gen_state, active = prev_state
             gen.set_state(gen_state)
             f = f_good
             break
         f_good = f
+        if divergence_guard is not None and divergence_guard(f):
+            diverged = True
+            break
         if kkt_f <= tol_kkt:
             converged = True
             break
@@ -111,7 +121,7 @@ def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
     history = SolveHistory(**{k_: np.asarray(v) for k_, v in hist.items()})
     result = SolveResult(w=w, objective=f, n_outer=k + 1,
                          converged=converged, history=history,
-                         nonfinite=nonfinite)
+                         diverged=diverged, nonfinite=nonfinite)
     return EngineState(w, z, gen, active), result
 
 

@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.POINTER(ctypes.c_longlong)
+_LL = ctypes.c_longlong
 
 # argtypes of every exported C function (pointers and the stream are
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int)
@@ -71,8 +72,11 @@ SIGNATURES = {
         f"serve_margins_csc_{a}_{b}": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _I, _I, _I, _P, _P]
         for a in ("f32", "bf16") for b in ("f32", "bf16")},
+    # z, delta, delta's row stride, y, alphas, kind, s, P, Q, n_blocks,
+    # partials, out, stream
     "pcdn_linesearch": {
-        "pcdn_linesearch_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        "pcdn_linesearch_f32": [_P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _P,
+                                _P, _P],
     },
     # q, k, v, o, B, H, G, Sq, Skv, D, causal, scale, 12 strides, stream;
     # the host ns the last wgmma launch spent encoding its tensor maps
@@ -97,7 +101,8 @@ CONSTANTS = {"pcdn_direction": ("pcdn_direction_threads",
                                    "serve_margins_csc_round",
                                    "serve_margins_csc_max_range_rows"),
              "pcdn_linesearch": ("pcdn_linesearch_max_q",
-                                 "pcdn_linesearch_threads")}
+                                 "pcdn_linesearch_threads",
+                                 "pcdn_linesearch_max_rows")}
 
 
 class KernelLibrary(ctypes.CDLL):

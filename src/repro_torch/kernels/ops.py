@@ -651,12 +651,20 @@ def serve_margins_csc(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
     return out
 
 
+# -- K5 ------------------------------------------------------------------------
+# threads a block of kernels/csrc/pcdn_linesearch.cu (checked against the
+# built library's when it is first loaded)
+LINESEARCH_THREADS = 256
+
+
 def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
                     kind: str = "logistic") -> Tensor:
-    """K5: batched candidate loss deltas. z, delta, y (s,) float32, alphas
-    (Q,) float32 -> (Q,) float32 with out[q] = sum_i phi(z_i + alphas[q] *
-    delta_i, y_i) - phi(z_i, y_i); the caller scales by c and adds the l1
-    part. Deterministic: block partials are summed in block order."""
+    """K5: batched candidate loss deltas. z, y (s,) float32, delta (s,) or
+    (P, s) float32 (rows may be a strided view: unit stride along s), alphas
+    (Q,) float32 -> (Q,) or (P, Q) float32 with out[p, q] = sum_i phi(z_i +
+    alphas[q] * delta[p, i], y_i) - phi(z_i, y_i); the caller scales by c
+    and adds the l1 part. One launch for all P rows (a grid row each).
+    Deterministic: block partials are summed in block order."""
     if kind not in _KINDS:
         raise KeyError(f"unknown loss {kind!r}")
     if _on_cpu(z, delta, y, alphas):
@@ -664,25 +672,43 @@ def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
     s = z.shape[0]
     Q = alphas.shape[0]
     _check("z", z, _F32, (s,))
-    _check("delta", delta, _F32, (s,))
     _check("y", y, _F32, (s,))
     _check("alphas", alphas, _F32, (Q,))
-    lib = build.load("pcdn_linesearch")
+    rows = delta if delta.ndim == 2 else delta[None]
+    P = rows.shape[0]
+    if delta.dtype not in _F32:
+        raise TypeError(f"delta: dtype {delta.dtype}, expected float32")
+    if delta.ndim not in (1, 2) or rows.shape[1] != s:
+        raise ValueError(f"delta: shape {tuple(delta.shape)}, expected "
+                         f"({s},) or (P, {s})")
+    ld = rows.stride(0) if P > 1 else s
+    if rows.stride(1) != 1 or ld < s:
+        raise ValueError(f"delta: strides {rows.stride()} (each row must "
+                         f"be contiguous, rows {s} or more apart)")
+    lib = _loaded("pcdn_linesearch",
+                  {"pcdn_linesearch_threads": LINESEARCH_THREADS})
     max_q = lib.consts["pcdn_linesearch_max_q"]
-    if s < 1 or not 1 <= Q <= max_q:
+    max_rows = lib.consts["pcdn_linesearch_max_rows"]
+    if s < 1 or not 1 <= Q <= max_q or not 1 <= P <= max_rows:
         raise ValueError(f"pcdn_linesearch: unsupported sizes s={s} Q={Q} "
-                         f"(Q <= {max_q})")
-    threads = lib.consts["pcdn_linesearch_threads"]
-    n_blocks = int(min(-(-s // threads), 4 * _sm_count(z.device)))
-    buf = torch.empty((n_blocks * Q + Q,), dtype=torch.float32,
+                         f"P={P} (Q <= {max_q}, P <= {max_rows})")
+    n_blocks = linesearch_blocks(s, P, _sm_count(z.device))
+    buf = torch.empty((P * n_blocks * Q + P * Q,), dtype=torch.float32,
                       device=z.device)
-    partials, out = buf[:n_blocks * Q], buf[n_blocks * Q:]
-    err = lib.pcdn_linesearch_f32(_ptr(z), _ptr(delta), _ptr(y),
-                                  _ptr(alphas), _KINDS[kind], s, Q, n_blocks,
-                                  _ptr(partials), _ptr(out), _stream(z))
+    partials, out = buf[:P * n_blocks * Q], buf[P * n_blocks * Q:]
+    err = lib.pcdn_linesearch_f32(_ptr(z), _ptr(rows), ld, _ptr(y),
+                                  _ptr(alphas), _KINDS[kind], s, P, Q,
+                                  n_blocks, _ptr(partials), _ptr(out),
+                                  _stream(z))
     _raise_if(err, "pcdn_linesearch")
     _LAUNCHES["pcdn_linesearch"] += 1
-    return out
+    return out.view(P, Q) if delta.ndim == 2 else out
+
+
+def linesearch_blocks(s: int, P: int, sms: int) -> int:
+    """K5's blocks a row: one a LINESEARCH_THREADS samples, at most 4
+    blocks an SM over all P rows together (and at least one a row)."""
+    return int(max(1, min(-(-s // LINESEARCH_THREADS), 4 * sms // P)))
 
 
 _FLASH_HEAD_DIMS = (64, 128, 256)

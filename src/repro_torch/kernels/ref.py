@@ -18,7 +18,8 @@ what its CUDA kernel computes (kernels/csrc/*.cu):
                                    request slab -> (B, K)
   * `serve_margins_csc_ref`     -- K4b, serving margins over a padded-CSC
                                    request batch -> (B, K)
-  * `pcdn_linesearch_ref`       -- K5, the Q candidates' loss deltas (Q,)
+  * `pcdn_linesearch_ref`       -- K5, the Q candidates' loss deltas (Q,),
+                                   or (P, Q) for P rows of deltas
   * `attention_ref`             -- K6, dense softmax attention (the flash
                                    kernel's function)
 
@@ -159,13 +160,14 @@ def pcdn_bundle_step_ref(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
 
 def pcdn_linesearch_ref(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
                         kind: str = "logistic") -> Tensor:
-    """(Q,) per-candidate loss deltas: sum_i phi(z + a*delta) - phi(z)."""
+    """Per-candidate loss deltas sum_i phi(z + a*delta) - phi(z): (Q,) for
+    delta (s,), (P, Q) for delta (P, s) (a row each, as `jax.vmap` of the
+    reference's oracle over delta's leading axis gives)."""
     loss = get_loss(kind)
     z = z.to(f32)
     y = y.to(f32)
-    zq = z[None, :] + alphas.to(f32)[:, None] * delta.to(f32)[None, :]
-    return torch.sum(loss.value(zq, y[None, :]) - loss.value(z, y)[None, :],
-                     dim=-1)
+    zq = z + alphas.to(f32)[:, None] * delta.to(f32)[..., None, :]
+    return torch.sum(loss.value(zq, y) - loss.value(z, y), dim=-1)
 
 
 def serve_margins_dense_ref(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:

@@ -1,10 +1,10 @@
 """Shared CLI plumbing of the port's solve and predict entry points.
 
 The flags mirror `repro.launch.common` for what the port carries:
-`--layout / --use-kernels / --device`, the solver knobs and
+`--layout / --use-kernels / --dtype / --device`, the solver knobs and
 `--warm-start`. The port runs on the local backend only, so there is no
-`--backend`; `--device` (default cuda) is the explicit device every entry
-point of the port takes.
+`--backend` (and no sharded branch in the bf16 envelope); `--device`
+(default cuda) is the explicit device every entry point of the port takes.
 """
 from __future__ import annotations
 
@@ -18,9 +18,33 @@ import torch
 from repro_torch.core import PCDNConfig
 from repro_torch.data import load_libsvm, paper_like
 
-# --dtype values -> storage dtype of the serve bank (margins accumulate
-# in float32 either way)
+# --dtype values -> storage dtype of the design values / serve bank (the
+# solver state and the margins stay float32 either way)
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+DTYPE_NAMES = {"fp32": "float32", "bf16": "bfloat16"}
+
+# the reference's bf16 equivalence envelope (its BENCH_kernels.json
+# trajectory study): the losses it covers and the tightest stopping
+# tolerance its measured objective rel-diff supports
+BF16_LOSSES = ("logistic", "squared_hinge")
+BF16_MIN_TOL = 1e-3
+
+
+def check_dtype_envelope(args, ap: argparse.ArgumentParser,
+                         loss: str | None = None):
+    """Refuse bf16 outside the studied equivalence envelope (the
+    reference's rule for its local backend): a loss it did not study, or a
+    stopping tolerance tighter than BF16_MIN_TOL."""
+    if getattr(args, "dtype", "fp32") != "bf16":
+        return
+    if loss is not None and loss not in BF16_LOSSES:
+        ap.error(f"--dtype bf16 is unstudied for loss {loss!r} "
+                 f"(studied envelope: {', '.join(BF16_LOSSES)})")
+    tol = getattr(args, "tol", None)
+    if tol is not None and tol < BF16_MIN_TOL:
+        ap.error(f"--tol {tol:g} is tighter than the bf16 equivalence "
+                 f"envelope (max objective rel-diff ~{BF16_MIN_TOL:g}); "
+                 f"use --tol >= {BF16_MIN_TOL:g} or --dtype fp32")
 
 
 def add_backend_args(ap: argparse.ArgumentParser):
@@ -34,6 +58,14 @@ def add_backend_args(ap: argparse.ArgumentParser):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the solve runs; cuda raises when no card "
                          "is present")
+
+
+def add_dtype_arg(ap: argparse.ArgumentParser):
+    ap.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],
+                    help="storage dtype of the design values: bf16 halves "
+                         "the design's memory with float32 accumulation "
+                         "everywhere; gated to the studied envelope "
+                         "(logistic/squared_hinge, --tol >= 1e-3)")
 
 
 def add_solver_args(ap: argparse.ArgumentParser):
@@ -72,7 +104,8 @@ def load_dataset(args, with_test: bool = False):
 def build_pcdn_config(args, **overrides) -> PCDNConfig:
     kw = dict(P=args.P, max_outer=args.max_outer, tol_kkt=args.tol,
               seed=args.seed, shrink=args.shrink,
-              use_kernels=args.use_kernels, ls_scope=args.ls_scope)
+              use_kernels=args.use_kernels, ls_scope=args.ls_scope,
+              dtype=DTYPE_NAMES[getattr(args, "dtype", "fp32")])
     kw.update(overrides)
     return PCDNConfig(**kw)
 

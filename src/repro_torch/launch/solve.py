@@ -1,9 +1,11 @@
 """PCDN solver driver of the port:
 ``python -m repro_torch.launch.solve --dataset a9a --use-kernels --layout padded_csc``
 
-Loads or generates an l1 classification problem, runs PCDN (or CDN) on the
-chosen device -- the card by default -- and prints the final objective and
-the held-out accuracy, as `repro.launch.solve` does on its local backend.
+Loads or generates an l1 classification problem, runs the selected solver
+(pcdn / cdn / scdn / tron) on the chosen device -- the card by default --
+with the design stored in fp32 or bf16 (`--dtype`, pcdn/cdn only), and
+prints the final objective and the held-out accuracy, as
+`repro.launch.solve` does on its local backend.
 
 ``--out`` writes a report that is at once a servable model artifact (the
 `repro.serve/model@1` schema both packages read), a ``--warm-start`` input
@@ -17,7 +19,7 @@ import time
 
 import numpy as np
 
-from repro_torch.core import cdn_config, make_problem
+from repro_torch.core import cdn_config, make_problem, scdn, tron
 from repro_torch.data.synthetic import train_accuracy
 from repro_torch.engine import LocalBackend
 from repro_torch.engine import loop as engine_loop
@@ -29,19 +31,28 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="real-sim",
                     help="paper dataset profile name or a .libsvm path")
-    ap.add_argument("--solver", default="pcdn", choices=["pcdn", "cdn"])
+    ap.add_argument("--solver", default="pcdn",
+                    choices=["pcdn", "cdn", "scdn", "tron"])
     ap.add_argument("--loss", default="logistic",
                     choices=["logistic", "squared_hinge"])
     ap.add_argument("--c", type=float, default=None,
                     help="regularization (default: paper's c* per dataset)")
     common.add_solver_args(ap)
     common.add_backend_args(ap)
+    common.add_dtype_arg(ap)
     ap.add_argument("--out", default=None,
                     help="write the combined report (model artifact + "
                          "warm-start record + history) here")
     ap.add_argument("--save-model", default=None, metavar="PATH",
                     help="write just the serve artifact (no history)")
     args = ap.parse_args(argv)
+    if args.warm_start and args.solver not in ("pcdn", "cdn"):
+        ap.error("--warm-start requires --solver pcdn or cdn")
+    if args.shrink and args.solver not in ("pcdn", "cdn"):
+        ap.error("--shrink requires --solver pcdn or cdn")
+    if args.dtype == "bf16" and args.solver not in ("pcdn", "cdn"):
+        ap.error("--dtype bf16 is studied for --solver pcdn/cdn only")
+    common.check_dtype_envelope(args, ap, loss=args.loss)
 
     X, y, Xte, yte, spec = common.load_dataset(args, with_test=True)
     if spec is not None:
@@ -53,32 +64,46 @@ def main(argv=None):
           f"c={c} loss={args.loss} solver={args.solver} P={args.P} "
           f"device={args.device}")
     prob = make_problem(X, y, c=c, loss=args.loss, layout=args.layout,
-                        device=args.device)
-    if args.solver == "pcdn":
-        cfg = common.build_pcdn_config(args)
-    else:
-        cfg = cdn_config(max_outer=args.max_outer, tol_kkt=args.tol,
-                         seed=args.seed, shrink=args.shrink,
-                         use_kernels=args.use_kernels,
-                         ls_scope=args.ls_scope)
-    w0 = (common.load_warm_start(args.warm_start, prob.n_features)
-          if args.warm_start else None)
+                        dtype=common.DTYPES[args.dtype], device=args.device)
     t0 = time.time()
-    backend = LocalBackend(prob, cfg)
-    res = engine_loop.solve(backend, c, w0, max_outer=cfg.max_outer,
-                            tol_kkt=cfg.tol_kkt,
-                            recheck_every=cfg.recheck_every,
-                            tol_rel_obj=cfg.tol_rel_obj)
-    w = backend.host_weights(res.w)
+    if args.solver in ("pcdn", "cdn"):
+        if args.solver == "pcdn":
+            cfg = common.build_pcdn_config(args)
+        else:
+            cfg = cdn_config(max_outer=args.max_outer, tol_kkt=args.tol,
+                             seed=args.seed, shrink=args.shrink,
+                             use_kernels=args.use_kernels,
+                             ls_scope=args.ls_scope,
+                             dtype=common.DTYPE_NAMES[args.dtype])
+        w0 = (common.load_warm_start(args.warm_start, prob.n_features)
+              if args.warm_start else None)
+        backend = LocalBackend(prob, cfg)
+        res = engine_loop.solve(backend, c, w0, max_outer=cfg.max_outer,
+                                tol_kkt=cfg.tol_kkt,
+                                recheck_every=cfg.recheck_every,
+                                tol_rel_obj=cfg.tol_rel_obj)
+        n_outer = res.n_outer
+        history = common.history_dict(res.history)
+    elif args.solver == "scdn":
+        res = scdn.solve(prob, scdn.SCDNConfig(max_rounds=args.max_outer,
+                                               tol_kkt=args.tol,
+                                               seed=args.seed))
+        n_outer = res.n_rounds
+    else:
+        res = tron.solve(prob, tron.TRONConfig(max_outer=args.max_outer,
+                                               tol_kkt=args.tol))
+        n_outer = res.n_outer
+    if args.solver in ("scdn", "tron"):     # their history is a dict
+        history = {k: np.asarray(v).tolist() for k, v in res.history.items()}
+    w = res.w.detach().cpu().numpy()
     dt = time.time() - t0
     nnz = int(np.sum(w != 0))
     print(f"[solve] F={res.objective:.6f} converged={res.converged} "
-          f"nnz={nnz} n_outer={res.n_outer} time={dt:.1f}s")
+          f"nnz={nnz} n_outer={n_outer} time={dt:.1f}s")
     if Xte is not None:
         acc = train_accuracy(Xte, yte, w)
         print(f"[solve] test accuracy: {acc:.4f}")
     if args.out or args.save_model:
-        history = common.history_dict(res.history)
         meta = {"objective": float(res.objective),
                 "converged": bool(res.converged), "nnz": nnz}
         if history.get("kkt"):
@@ -90,7 +115,7 @@ def main(argv=None):
             provenance=art.solver_provenance(
                 solver=args.solver, dataset=args.dataset, backend="local",
                 P=args.P, tol_kkt=args.tol, seed=args.seed,
-                shrink=bool(args.shrink), loss=args.loss, dtype="fp32",
+                shrink=bool(args.shrink), loss=args.loss, dtype=args.dtype,
                 package="repro_torch", device=args.device))
         if args.save_model:
             art.save_model(args.save_model, family)

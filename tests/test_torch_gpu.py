@@ -412,6 +412,61 @@ def test_linesearch_kernel(cuda, s, Q, kind):
     assert torch.equal(got, again)               # block order: deterministic
 
 
+@pytest.mark.parametrize("P,s,Q,ld", [(1, 10, 1, 10), (8, 57848, 40, 57849),
+                                      (64, 6000, 40, 6000),
+                                      (3, 300000, 7, 300001)])
+@pytest.mark.parametrize("kind", ["logistic", "squared_hinge", "squared"])
+def test_linesearch_kernel_rows(cuda, P, s, Q, ld, kind):
+    """P rows of deltas (mostly zero, as SCDN's are) in one launch, rows
+    ld apart (the padded-CSC coordinate deltas are a (P, s + 1) buffer's
+    first s columns)."""
+    rng = _rng(P, s, Q)
+    buf = rng.standard_normal((P, ld)) * 0.1
+    buf[rng.random((P, ld)) < 0.99] = 0.0
+    delta = torch.tensor(buf, dtype=torch.float32, device=cuda)[:, :s]
+    args = [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                         device=cuda), delta,
+            torch.tensor(np.where(rng.random(s) < 0.5, -1.0, 1.0),
+                         dtype=torch.float32, device=cuda),
+            torch.tensor(0.5 ** np.arange(Q), dtype=torch.float32,
+                         device=cuda)]
+    before = ops.launch_counts()["pcdn_linesearch"]
+    got = ops.pcdn_linesearch(*args, kind=kind)
+    assert ops.launch_counts()["pcdn_linesearch"] == before + 1
+    want = ref.pcdn_linesearch_ref(*args, kind=kind)
+    again = ops.pcdn_linesearch(*args, kind=kind)
+    torch.cuda.synchronize()
+    assert got.shape == (P, Q)
+    _close_to(got, want, RTOL)
+    assert torch.equal(got, again)               # block order: deterministic
+    one = ops.pcdn_linesearch(args[0], delta[P - 1].contiguous(), *args[2:],
+                              kind=kind)
+    _close_to(one, want[P - 1], RTOL)
+
+
+@pytest.mark.parametrize("layout", ["dense", "padded_csc"])
+def test_scdn_round_kernel_matches_plain(cuda, layout):
+    """One SCDN round from one carry and one set of indices, through K5 and
+    through its plain version: one K5 launch a batch, F rel <= 1e-4."""
+    from repro_torch.core import make_problem, scdn
+    from repro_torch.data import make_classification
+    X, y, _ = make_classification(3000, 400, sparsity=0.95, seed=3)
+    prob = make_problem(X, y, c=1.0, layout=layout, device=cuda)
+    cfg = scdn.SCDNConfig(P_bar=8)
+    idxs = _rng(7).integers(0, 400, (50, 8))
+    w0 = torch.zeros(400, device=cuda)
+    z0 = torch.zeros(3000, device=cuda)
+    gen = torch.Generator()
+    ops.reset_launch_counts()
+    out_k = scdn.make_round(prob, cfg)(w0, z0, gen, idxs=idxs)
+    assert ops.launch_counts()["pcdn_linesearch"] == 50
+    out_p = scdn.make_round(prob, cfg, ref.pcdn_linesearch_ref)(
+        w0, z0, gen, idxs=idxs)
+    assert ops.launch_counts()["pcdn_linesearch"] == 50
+    f_k, f_p = float(out_k[3]), float(out_p[3])
+    assert abs(f_k - f_p) <= 1e-4 * abs(f_p)
+
+
 def test_serve_loop_swaps_in_place_on_the_card(cuda):
     from repro_torch.kernels import build
     from repro_torch.serve import artifact as art

@@ -49,6 +49,12 @@ def test_scan_covers_the_package():
     assert lm <= paths, lm - paths
 
 
+def test_scan_covers_the_baselines():
+    paths = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"src/repro_torch/core/scdn.py",
+            "src/repro_torch/core/tron.py"} <= paths
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

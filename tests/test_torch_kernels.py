@@ -258,3 +258,59 @@ def test_pcdn_bundle_backtracks_like_reference():
     assert float(b[2]) == float(a[2])
     np.testing.assert_allclose(_np(b[0]), _np(a[0]), **TOL)
     np.testing.assert_allclose(_np(b[1]), _np(a[1]), **TOL)
+
+
+# -- K5 with a leading coordinate axis (SCDN's racing line searches) ----------
+
+def _linesearch_rows(P, s, Q, seed):
+    """z, y (s,), P rows of deltas each nonzero on a few samples only (as
+    SCDN's one-coordinate margin deltas are), alphas (Q,)."""
+    rng = np.random.default_rng(seed)
+    z = (2.0 * rng.standard_normal(s)).astype(np.float32)
+    y = np.where(rng.random(s) < 0.5, -1.0, 1.0).astype(np.float32)
+    delta = (0.3 * rng.standard_normal((P, s))).astype(np.float32)
+    delta[rng.random((P, s)) < 0.9] = 0.0
+    alphas = (0.5 ** np.arange(Q)).astype(np.float32)
+    return z, delta, y, alphas
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("P,s,Q", [(1, 50, 40), (8, 300, 40), (5, 77, 3)])
+def test_linesearch_rows_match_vmapped_reference(kind, P, s, Q):
+    """(P, s) deltas -> (P, Q) against jax.vmap of the reference's oracle
+    over the rows, rtol 1e-5 with each row's float32 rounding scale (1e-7
+    times the sum of |phi| over the samples) as atol."""
+    import jax
+    from repro.core.losses import get_loss
+    from repro.kernels import ref as jref
+    z, delta, y, alphas = _linesearch_rows(P, s, Q, P * s + Q)
+    oracle = jax.vmap(lambda d: jref.pcdn_linesearch_ref(
+        jnp.asarray(z), d, jnp.asarray(y), jnp.asarray(alphas), kind=kind))(
+        jnp.asarray(delta))
+    got = tops.pcdn_linesearch(_t(z), _t(delta), _t(y), _t(alphas),
+                               kind=kind)
+    assert got.shape == (P, Q) and got.dtype == torch.float32
+    terms = np.abs(np.asarray(get_loss(kind).value(jnp.asarray(z),
+                                                   jnp.asarray(y))))
+    np.testing.assert_allclose(_np(got), _np(oracle), rtol=1e-5,
+                               atol=1e-7 * float(terms.sum()))
+    # each row is the (s,) call on that row
+    for p in range(P):
+        row = tops.pcdn_linesearch(_t(z), _t(delta[p]), _t(y), _t(alphas),
+                                   kind=kind)
+        assert row.shape == (Q,)
+        np.testing.assert_allclose(_np(got[p]), _np(row), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_linesearch_rows_take_a_strided_view():
+    """The padded-CSC coordinate deltas are the first s columns of a
+    (P, s + 1) buffer: the wrapper takes the view as it is."""
+    z, delta, y, alphas = _linesearch_rows(6, 120, 40, 9)
+    buf = torch.zeros((6, 121))
+    buf[:, :120] = _t(delta)
+    view = buf[:, :120]
+    assert not view.is_contiguous()
+    a = tops.pcdn_linesearch(_t(z), view, _t(y), _t(alphas))
+    b = tops.pcdn_linesearch(_t(z), _t(delta), _t(y), _t(alphas))
+    assert torch.equal(a, b)
