@@ -8,7 +8,7 @@
 
 Phases:
   0. device   -- the card's name, count, power limit (nvidia-smi).
-  1. build    -- nvcc builds the seven kernels from kernels/csrc
+  1. build    -- nvcc builds the eight kernel sources from kernels/csrc
                  (sm_90a); always runs.
   2. kernels  -- K1 pcdn_bundle (the whole support step of a real-sim
                  bundle, from one carry cloned twice, and the same bundle
@@ -17,9 +17,16 @@ Phases:
                  and K3 pcdn_direction (with the slab gather and delta, on
                  a full bundle and gisette's ragged last one) against
                  their plain PyTorch versions on the card, at the shapes
-                 the solves below give them; K5 pcdn_linesearch at the
-                 scdn phase's (a real-sim batch's 8 rows of per-coordinate
-                 deltas, Q = 40); K4a serve_margins_dense and K4b
+                 the solves below give them; K5's batch entry scdn_batch
+                 on one real-sim SCDN batch (P_bar 8, Q 40) from a carry
+                 solved by one round, with a duplicate index and a column
+                 holding a duplicate row (loss deltas, alpha, w and z, two
+                 calls bit-equal, and the early-exit call SCDN makes
+                 bit-equal to them), and K5's rows entry pcdn_linesearch
+                 at gisette's shape (64 x 6,000, the dense SCDN path's:
+                 the kernels line's row) and on a real-sim batch's 8 rows
+                 of per-coordinate deltas; K4a
+                 serve_margins_dense and K4b
                  serve_margins_csc at the serve phase's shapes, and K5's
                  single row there; K6
                  flash_attention at the lm phase's prefill shape and at
@@ -41,14 +48,15 @@ Phases:
                  product a bundle).
   6. scdn     -- the Shotgun baseline (`core.scdn.solve`) on the same
                  real-sim data in padded-CSC, c = 4, P_bar = 8: 2 rounds
-                 of 2,620 batches, each batch's 8 racing line searches one
-                 K5 launch on the (8, 57,848) per-coordinate deltas; one
-                 round from one carry and one set of indices through K5
-                 and through its plain version (F rel <= 1e-4); a slice
-                 of a round traced in a child process (`--baseline-profile
-                 scdn`); then gisette dense at P_bar = 64 for up to 30
-                 rounds through both routes, which must agree on whether
-                 and at which round the divergence guard trips.
+                 of 2,620 batches, each batch one launch of K5's batch
+                 entry (scdn_batch) and no other kernel; one round from one
+                 carry and one set of indices through it and through its
+                 plain version (F rel <= 1e-4); a slice of a round traced
+                 in a child process (`--baseline-profile scdn`: at most 4
+                 device ops a batch); then gisette dense at P_bar = 64 for
+                 up to 30 rounds through both routes (K5's rows entry once
+                 a batch, and its plain version), which must agree on
+                 whether and at which round the divergence guard trips.
   7. tron     -- the TRON baseline (`core.tron.solve`) on real-sim in
                  padded-CSC for 5 outer iterations (no kernel: the
                  design's matvec / rmatvec); F finite, not rising; one
@@ -61,8 +69,9 @@ Phases:
                  lockstep gate.
   9. cli      -- `repro_torch.launch.solve.main` on a9a, padded-CSC,
                  --use-kernels, through the normal entry point; then
-                 `--solver scdn` (K5), `--solver tron` (no kernel) and
-                 `--dtype bf16 --use-kernels` (K2).
+                 `--solver scdn` (dense: K5's rows entry), `--solver scdn
+                 --layout padded_csc` (K5's batch entry), `--solver tron`
+                 (no kernel) and `--dtype bf16 --use-kernels` (K2).
   10. serve   -- real-sim at its published width (72,310 x 20,958, the
                  first 57,848 rows train, the other 14,462 are requests):
                  an 8-point regularization path solved on the card and
@@ -154,6 +163,16 @@ SCDN_ROUNDS = 2
 SCDN_PROFILE_BATCHES = 200
 GISETTE_P_BAR = 64
 GISETTE_ROUNDS = 30
+# K5's batch entry against its plain version: w and z after one batch,
+# max abs error over max |plain| (float32 sums in another order: a row's
+# coordinates' terms in coordinate order in both, phi's sums by distinct
+# row in the kernel's fixed tree); its bound, averaged over this many
+# batches of a round
+SCDN_WZ_RTOL = 1e-5
+SCDN_BOUND_BATCHES = 100
+# device ops a traced SCDN batch may show (one launch, and the round's
+# clones, objective and KKT spread over its batches)
+SCDN_MAX_OPS = 4
 TRON_OUTER = 5
 
 SOURCES = {
@@ -172,6 +191,8 @@ SOURCES = {
         "src/repro/kernels/pcdn_margin.py:121"),
     "pcdn_linesearch": ("src/repro_torch/kernels/csrc/pcdn_linesearch.cu",
                         "src/repro/kernels/pcdn_linesearch.py:62"),
+    "scdn_batch": ("src/repro_torch/kernels/csrc/scdn_batch.cu",
+                   "src/repro/kernels/pcdn_linesearch.py:62"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
 }
@@ -589,9 +610,17 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
         enqueue_us=enqueue_us(torch, lambda: ops.pcdn_direction(*args),
                               200),
         bound=bound(nbytes, 7 * s * n_live), library_ms=None)
-    out["pcdn_linesearch"] = linesearch_check(torch, sparse, w, z, gen,
-                                              flush)
-    out.update(serve_kernel_checks(torch, serve, flush))
+    # K5's rows entry: the row's numbers at gisette's shape, the dense SCDN
+    # path whose launches the row counts; real-sim's and the one-row
+    # serve-shape check kept beside them
+    real_sim = linesearch_check(torch, sparse, w, z, gen, flush)
+    out["pcdn_linesearch"] = linesearch_check(
+        torch, dense, wd, zd, gen, flush, P=GISETTE_P_BAR, label="gisette")
+    out["pcdn_linesearch"]["real_sim"] = real_sim
+    out["scdn_batch"] = scdn_batch_check(torch, sparse, gen, flush)
+    serve_out = serve_kernel_checks(torch, serve, flush)
+    out["pcdn_linesearch"]["one_row"] = serve_out.pop("pcdn_linesearch row")
+    out.update(serve_out)
     out.update(flash_kernel_checks(torch, flush))
     for name, r in out.items():
         enq = (f", the wrapper's enqueue {r['enqueue_us']:.2f} us"
@@ -603,13 +632,23 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
             f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}); library "
             + ("none" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.2f} us") + f" on {card}")
+    log(f"[kernels] pcdn_linesearch above is at gisette's shape "
+        f"({GISETTE_P_BAR} x 6000); at real-sim's ({SCDN_P_BAR} x 57848): "
+        f"device {real_sim['ms'] * 1e3:.2f} us L2-cold, "
+        f"{real_sim['warm_ms'] * 1e3:.2f} us L2-warm; plain version device "
+        f"{real_sim['plain_ms'] * 1e3:.2f} us; the wrapper's enqueue "
+        f"{real_sim['enqueue_us']:.2f} us; bound "
+        f"{real_sim['bound'][0] * 1e3:.3f} us ({real_sim['bound'][1]}) on "
+        f"{card}")
     return out
 
 
-def linesearch_check(torch, prob, w, z, gen, flush) -> dict:
-    """K5 at the scdn phase's shape: one SCDN batch of real-sim (P_bar
-    random features from the carry (w, z)), its (P_bar, s) per-coordinate
-    margin deltas (the first s columns of a (P_bar, s + 1) buffer) and the
+def linesearch_check(torch, prob, w, z, gen, flush, P=SCDN_P_BAR,
+                     label="real-sim") -> dict:
+    """K5's rows entry at an SCDN batch's shape: P random features from the
+    carry (w, z), their (P, s) per-coordinate margin deltas (on real-sim's
+    padded-CSC layout the first s columns of a (P, s + 1) buffer; on
+    gisette's dense layout, the dense SCDN path's input, all live) and the
     Q = 40 candidates, against the plain version; timed, with the bound
     counted from these deltas."""
     from repro_torch.core import bundles as B
@@ -619,7 +658,7 @@ def linesearch_check(torch, prob, w, z, gen, flush) -> dict:
 
     design = prob.design
     dev = z.device
-    idx = torch.randint(0, prob.n_features, (SCDN_P_BAR,), generator=gen,
+    idx = torch.randint(0, prob.n_features, (P,), generator=gen,
                         dtype=torch.int32).to(dev)
     slab = design.gather_slab(idx)
     w_B, _ = B.gather_vec(w, idx)
@@ -636,7 +675,7 @@ def linesearch_check(torch, prob, w, z, gen, flush) -> dict:
     live = deltas != 0
     n_live = int(live.sum())
     rows_live = int(live.any(dim=0).sum())
-    log(f"[kernels] pcdn_linesearch P={P} s={s} (row stride "
+    log(f"[kernels] pcdn_linesearch {label} P={P} s={s} (row stride "
         f"{deltas.stride(0)}) Q={Q}, live (row, sample) pairs {n_live} "
         f"({n_live / (P * s):.5f} of the rows; per row "
         f"{live.sum(dim=1).tolist()}), {rows_live} samples live in any "
@@ -657,6 +696,147 @@ def linesearch_check(torch, prob, w, z, gen, flush) -> dict:
         bound=bound(4 * P * s + 8 * rows_live + 4 * Q + 4 * P * Q,
                     10 * n_live * Q),
         library_ms=None)
+
+
+def scdn_batch_check(torch, prob, gen, flush) -> dict:
+    """K5's batch entry at the scdn phase's shape: real-sim, P_bar 8, Q 40.
+    A carry solved by one SCDN round from 0, then one batch that holds a
+    duplicate index and a column with a duplicate row (of a coordinate
+    with w_j != 0, so its d is likely != 0), through the kernel (with the
+    (P, Q) loss deltas, twice: the same bits; and without them, the
+    early-exit branch SCDN runs: the same bits as with them) and through
+    `ref.scdn_batch_ref` from clones of the carry: alpha equal, loss deltas
+    rel <= 1e-4, w and z rel <= 1e-5. Timed as the round calls it (each
+    call the next batch of a round, on a carry the calls evolve), with the
+    bound counted from the plain version's run over the same batches."""
+    from repro_torch.core import scdn
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device(DEVICE)
+    design = prob.design
+    n, s, K = prob.n_features, prob.n_samples, design.k_max
+    round_ = scdn.make_round(prob, scdn.SCDNConfig(P_bar=SCDN_P_BAR))
+    launch = round_.launch()
+    w, z, _, f, _ = round_(torch.zeros((n,), device=dev),
+                           torch.zeros((s,), device=dev), gen)
+    assert bool(torch.isfinite(f)) and bool(torch.all(torch.isfinite(z)))
+    rows = design.col_rows.cpu().numpy()
+    w_np = w.cpu().numpy()
+    dup = [j for j in np.flatnonzero(w_np)
+           if np.unique(rows[j][rows[j] < s]).size < int((rows[j] < s).sum())]
+    assert dup, "no column of the carry's support holds a duplicate row"
+    idx = torch.randint(0, n, (SCDN_P_BAR,), generator=gen,
+                        dtype=torch.int32)
+    idx[0] = int(dup[0])
+    idx[3] = idx[1]                                   # a duplicate index
+    idx = idx.to(dev)
+    P, Q = SCDN_P_BAR, launch.plan.Q
+    runs = []
+    for _ in range(2):
+        w_k, z_k = w.clone(), z.clone()
+        a_k = torch.empty((P,), device=dev)
+        lo_k = torch.empty((P, Q), device=dev)
+        ops.scdn_batch(launch, w_k, z_k, idx, a_k, lo_k)
+        runs.append((w_k, z_k, a_k, lo_k))
+    # the branch SCDN runs: no loss deltas, the search stops at the first
+    # pass that holds a passing candidate
+    w_e, z_e = w.clone(), z.clone()
+    a_e = torch.empty((P,), device=dev)
+    ops.scdn_batch(launch, w_e, z_e, idx, a_e)
+    w_p, z_p = w.clone(), z.clone()
+    a_p, lo_p = ref.scdn_batch_ref(design.col_rows, design.col_vals, idx,
+                                   w_p, z_p, prob.y, launch.alphas, prob.c)
+    torch.cuda.synchronize()
+    w_k, z_k, a_k, lo_k = runs[0]
+    e_lo = rel_err(torch, lo_k, lo_p)
+    e_w = rel_err(torch, w_k, w_p)
+    e_z = rel_err(torch, z_k, z_p)
+    e_we = rel_err(torch, w_e, w_p)
+    e_ze = rel_err(torch, z_e, z_p)
+    same = all(torch.equal(x, y) for x, y in zip(runs[0], runs[1]))
+    same_early = (torch.equal(w_e, w_k) and torch.equal(z_e, z_k)
+                  and torch.equal(a_e, a_k))
+    live_d = int(torch.count_nonzero(lo_p.abs().sum(dim=1)))
+    log(f"[kernels] scdn_batch P={P} k_max={K} s={s} Q={Q} (cluster "
+        f"{launch.plan.cluster} x {ops.SCDN_THREADS} threads, "
+        f"{launch.plan.cpc} coordinate a CTA, {launch.plan.smem_bytes} B "
+        f"shared) on a carry after one round (F {float(f):.6f}), idx "
+        f"{idx.tolist()} (duplicate index {int(idx[1])}, column "
+        f"{int(dup[0])} with a duplicate row; {live_d} coordinates with d "
+        f"!= 0): loss deltas err {e_lo[0]:.3e} (rel {e_lo[1]:.2e}), w err "
+        f"{e_w[0]:.3e} (rel {e_w[1]:.2e}), z err {e_z[0]:.3e} (rel "
+        f"{e_z[1]:.2e}), alpha {a_k.tolist()} vs {a_p.tolist()}; two calls "
+        f"bit-equal {same}; without loss deltas (early exit): w rel "
+        f"{e_we[1]:.2e}, z rel {e_ze[1]:.2e}, alpha {a_e.tolist()}, "
+        f"bit-equal to the full scan {same_early}; tolerance rel "
+        f"{KERNEL_RTOL} (loss deltas), {SCDN_WZ_RTOL} (w, z), alpha equal")
+    assert torch.equal(a_k, a_p), (a_k, a_p)
+    assert torch.equal(a_e, a_p), (a_e, a_p)
+    assert e_lo[1] <= KERNEL_RTOL, e_lo
+    assert e_w[1] <= SCDN_WZ_RTOL and e_z[1] <= SCDN_WZ_RTOL, (e_w, e_z)
+    assert e_we[1] <= SCDN_WZ_RTOL and e_ze[1] <= SCDN_WZ_RTOL, (e_we, e_ze)
+    assert same
+    assert same_early
+    top = device_ops(torch, lambda: ops.scdn_batch(launch, w_k, z_k, idx,
+                                                   a_k))
+    log(f"[kernels] scdn_batch, device ops of one call ("
+        f"{sum(c for _, c, _ in top)} stream ops):")
+    log_top("kernels", top, 1, "call")
+    assert sum(c for _, c, _ in top) == 1, top
+
+    # timed as the round calls it: each call the next batch of a round
+    batches = torch.randint(0, n, (round_.n_batches, P), generator=gen,
+                            dtype=torch.int32).to(dev).unbind(0)
+    alpha_buf = torch.empty((P,), device=dev)
+
+    def stepper(fn):
+        wc, zc, it = w.clone(), z.clone(), [0]
+
+        def call():
+            t = it[0] % len(batches)
+            it[0] += 1
+            fn(wc, zc, batches[t])
+        return call
+
+    def plain(wc, zc, idx_t):
+        ref.scdn_batch_ref(design.col_rows, design.col_vals, idx_t, wc, zc,
+                           prob.y, launch.alphas, prob.c)
+
+    k5 = stepper(lambda wc, zc, idx_t: ops.scdn_batch(launch, wc, zc, idx_t,
+                                                      alpha_buf))
+    r = dict(max_abs_err=max(e_lo[0], e_w[0], e_z[0]),
+             **timings(torch, k5, stepper(plain), flush),
+             enqueue_us=enqueue_us(torch, k5, 200), library_ms=None)
+    # the bound, over the round's first SCDN_BOUND_BATCHES batches from the
+    # carry (the plain version's run): bytes the slab (P k_max (4 + 4)),
+    # idx, w read and written and alpha (P each), z and y read at each
+    # batch's distinct live rows and z written at those of its d != 0
+    # coordinates; operations ~20 a live entry (the loss factors, g, h)
+    # and ~10 a (distinct row, candidate) pair of the d != 0 coordinates,
+    # for the candidates up to the accepted one
+    wc, zc = w.clone(), z.clone()
+    nbytes = nops = 0.0
+    cr = design.col_rows
+    for idx_t in batches[:SCDN_BOUND_BATCHES]:
+        a_t, lo_t = ref.scdn_batch_ref(cr, design.col_vals, idx_t, wc, zc,
+                                       prob.y, launch.alphas, prob.c)
+        rows_t = cr[idx_t.long()]
+        live = rows_t < s
+        moved = lo_t.abs().sum(dim=1) != 0                # d != 0
+        rows_read = int(torch.unique(rows_t[live]).numel())
+        rows_written = int(torch.unique(rows_t[live & moved[:, None]])
+                           .numel())
+        steps = torch.where(a_t > 0, torch.round(-torch.log2(a_t)) + 1,
+                            float(Q))
+        pairs = sum(int(torch.unique(rows_t[p][live[p]]).numel()) *
+                    float(steps[p]) for p in range(P) if bool(moved[p]))
+        nbytes += P * K * 8 + P * 16 + rows_read * 8 + rows_written * 4
+        nops += 20 * int(live.sum()) + 10 * pairs
+    r["bound"] = bound(nbytes / SCDN_BOUND_BATCHES,
+                       nops / SCDN_BOUND_BATCHES)
+    log(f"[kernels] scdn_batch over the round's first {SCDN_BOUND_BATCHES} "
+        f"batches: bound {r['bound'][0] * 1e3:.4f} us ({r['bound'][1]})")
+    return r
 
 
 def prepare_serve(torch) -> dict:
@@ -877,6 +1057,8 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
         f"s={s} (delta != 0: {s_live}) Q={Q}: err {e[0]:.3e} (rel "
         f"{e[1]:.2e}), tolerance rel {KERNEL_RTOL}; {t * 1e3:.2f} us "
         f"L2-cold, bound {b_ms * 1e3:.3f} us")
+    out["pcdn_linesearch row"] = dict(ms=t, bound_ms=b_ms,
+                                      max_abs_err=e[0])
     return out
 
 
@@ -1712,13 +1894,14 @@ def baseline_profile(name: str) -> dict:
     ops.reset_launch_counts()
     busy, rows, _ = device_profile(torch, run, n_top=None)
     return {"busy_s": busy, "wall_s": wall, "rows": rows, "units": units,
-            "launches": ops.launch_counts()["pcdn_linesearch"]}
+            "launches": {k: v for k, v in ops.launch_counts().items() if v}}
 
 
-def phase_scdn(torch, data, card: str) -> int:
-    """SCDN through `core.scdn.solve` on real-sim, K5 in every batch; the
-    lockstep round; the traced slice; gisette's divergence guard through
-    both routes. -> K5's launches in the solve."""
+def phase_scdn(torch, data, card: str) -> dict:
+    """SCDN through `core.scdn.solve` on real-sim, one launch of K5's batch
+    entry a batch; the lockstep round; the traced slice; gisette's
+    divergence guard (the dense layout: K5's rows entry) through both
+    routes. -> the launches of each kernel in its main-path run."""
     from repro_torch.core import scdn
     from repro_torch.core.problem import make_problem
     from repro_torch.kernels import ops, ref
@@ -1741,25 +1924,25 @@ def phase_scdn(torch, data, card: str) -> int:
         f"{res.n_rounds} rounds of {n_batches} batches, F "
         + " ".join(f"{f:.6f}" for f in F)
         + f", kkt {res.history['kkt'][-1]:.3e}, diverged {res.diverged}; "
-        f"wall {dt:.2f}s ({dt / res.n_rounds * 1e3:.1f} ms a round, "
-        f"{dt / (res.n_rounds * n_batches) * 1e6:.1f} us a batch) on "
+        f"wall {dt:.3f}s ({dt / res.n_rounds * 1e3:.2f} ms a round, "
+        f"{dt / (res.n_rounds * n_batches) * 1e6:.2f} us a batch) on "
         f"{card}; launches {counts}")
     assert res.n_rounds == SCDN_ROUNDS and not res.diverged, res
     assert np.all(np.isfinite(F)), F
-    assert counts["pcdn_linesearch"] == SCDN_ROUNDS * n_batches, counts
-    assert sum(counts.values()) == counts["pcdn_linesearch"], counts
-    launches = counts["pcdn_linesearch"]
+    assert counts["scdn_batch"] == SCDN_ROUNDS * n_batches, counts
+    assert sum(counts.values()) == counts["scdn_batch"], counts
+    launches = {"scdn_batch": counts["scdn_batch"]}
 
     # lockstep: one round from the solve's carry with one set of indices,
-    # through K5 and through its plain version
+    # through K5's batch entry and through its plain version
     w = res.w
     z = prob.margins(w)
     idxs = torch.randint(0, prob.n_features, (n_batches, SCDN_P_BAR),
                          generator=torch.Generator().manual_seed(2),
                          dtype=torch.int32)
     out = {}
-    for label, fn in (("K5", None), ("plain", ref.pcdn_linesearch_ref)):
-        round_ = scdn.make_round(prob, cfg, fn)
+    for label, fn in (("K5", None), ("plain", ref.scdn_batch_ref)):
+        round_ = scdn.make_round(prob, cfg, _batch=fn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = round_(w, z, torch.Generator(), idxs=idxs)
@@ -1767,30 +1950,44 @@ def phase_scdn(torch, data, card: str) -> int:
         out[label] = (f, time.perf_counter() - t0)
     rel = abs(out["K5"][0] - out["plain"][0]) / abs(out["plain"][0])
     log(f"[scdn] lockstep round from one carry and one set of indices: F "
-        f"K5 {out['K5'][0]:.6f} ({out['K5'][1]:.2f}s) vs plain "
+        f"K5 {out['K5'][0]:.6f} ({out['K5'][1]:.3f}s) vs plain "
         f"{out['plain'][0]:.6f} ({out['plain'][1]:.2f}s): rel {rel:.2e} "
         f"(tolerance {F_RTOL})")
     assert rel <= F_RTOL, out
     prof = run_child_profile("scdn")
-    assert prof["launches"] == SCDN_PROFILE_BATCHES, prof["launches"]
+    assert prof["launches"] == {"scdn_batch": SCDN_PROFILE_BATCHES}, \
+        prof["launches"]
     log_profile("scdn", prof, "batch")
+    ops_a_batch = sum(row[1] for row in prof["rows"] if row[2] > 0) / \
+        prof["units"]
+    assert prof["busy_s"] > 0 and ops_a_batch <= SCDN_MAX_OPS, ops_a_batch
 
     # gisette dense at P_bar 64: where and whether the guard trips, the
-    # same through both routes
+    # same through both routes (K5's rows entry once a batch)
     gprob = make_problem(Xg, y_g, c=SOLVES["dense"][2], layout="dense",
                          device=DEVICE)
     gcfg = scdn.SCDNConfig(P_bar=GISETTE_P_BAR, max_rounds=GISETTE_ROUNDS)
     trips = {}
     for label, fn in (("K5", None), ("plain", ref.pcdn_linesearch_ref)):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
         g = scdn.solve(gprob, gcfg, _loss_deltas=fn)
         torch.cuda.synchronize()
+        counts = ops.launch_counts()
         trips[label] = (g.diverged, g.n_rounds)
         log(f"[scdn] gisette dense c={SOLVES['dense'][2]} P_bar="
             f"{GISETTE_P_BAR}, {label} route: diverged {g.diverged} after "
             f"{g.n_rounds} rounds (converged {g.converged}), F "
             + " ".join(f"{f:.4g}" for f in g.history["objective"])
-            + f"; {time.perf_counter() - t0:.2f}s")
+            + f"; {time.perf_counter() - t0:.2f}s; launches {counts}")
+        if fn is None:
+            batches = g.n_rounds * -(-gprob.n_features // GISETTE_P_BAR)
+            assert counts["pcdn_linesearch"] == batches, counts
+            assert sum(counts.values()) == batches, counts
+            launches["pcdn_linesearch"] = batches
+        else:
+            assert sum(counts.values()) == 0, counts
     assert trips["K5"] == trips["plain"], trips
     return launches
 
@@ -1903,6 +2100,8 @@ def phase_cli(torch) -> None:
             (["--layout", "padded_csc", "--use-kernels", "--max-outer",
               "20"], "pcdn_sparse_direction"),
             (["--solver", "scdn", "--max-outer", "20"], "pcdn_linesearch"),
+            (["--solver", "scdn", "--layout", "padded_csc", "--max-outer",
+              "20"], "scdn_batch"),
             (["--solver", "tron", "--max-outer", "20"], None),
             (["--dtype", "bf16", "--use-kernels", "--layout", "padded_csc",
               "--max-outer", "20"], "pcdn_sparse_direction")):
@@ -1996,8 +2195,7 @@ def main(argv=None) -> int:
             launches[kernel] = run_solve(torch, name, data, N_OUTER,
                                          fused=name == "support")[kernel]
     if "scdn" in phases:
-        launches["pcdn_linesearch"] = phase_scdn(torch, data,
-                                                 f"{card} ({smi})")
+        launches.update(phase_scdn(torch, data, f"{card} ({smi})"))
     if "tron" in phases:
         phase_tron(torch, data, f"{card} ({smi})")
     if "bf16" in phases:
@@ -2023,6 +2221,11 @@ def main(argv=None) -> int:
                 row["launches_by_variant"] = launches[f"{name} variants"]
             if "variant_ms" in r:
                 row["variant_ms"] = r["variant_ms"]
+            if "real_sim" in r:  # K5's rows entry: the row is at gisette's
+                row["real_sim_ms"] = r["real_sim"]["ms"]
+                row["real_sim_bound_ms"] = r["real_sim"]["bound"][0]
+                row["one_row_ms"] = r["one_row"]["ms"]
+                row["one_row_bound_ms"] = r["one_row"]["bound_ms"]
             rows.append(row)
         print(json.dumps({"kernels": rows}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -12,13 +12,16 @@ The per-coordinate searches do not account for each other, so the combined
 step can increase F_c, and the method diverges when P_bar exceeds the
 spectral threshold (paper section 2.2).
 
-A batch's P_bar line searches are one call of `armijo_batched` on the
-(P_bar, s) per-coordinate margin deltas: one launch of the batched
-line-search kernel (K5) for all of them on the card, its plain version on
-the CPU. A round's (n_batches, P_bar) indices are drawn at once from the
-carry's CPU `torch.Generator` and copied to the device once; they differ
-from the reference's `jax.random` draws, so parity tests feed `one_batch`
-shared indices.
+On the padded-CSC layout a whole batch is one call of `ops.scdn_batch`:
+one launch of K5's batch entry on the card (the gathers, the P_bar
+directions and racing line searches over each coordinate's own rows, and
+the w and z updates), `ref.scdn_batch_ref` on the CPU. On the dense
+layout the batch is composed of eager ops, its P_bar line searches one
+call of `armijo_batched` on the (P_bar, s) per-coordinate margin deltas
+(one launch of K5's rows entry). A round's (n_batches, P_bar) indices are
+drawn at once from the carry's CPU `torch.Generator` and copied to the
+device once; they differ from the reference's `jax.random` draws, so
+parity tests feed `one_batch` shared indices.
 """
 from __future__ import annotations
 
@@ -30,9 +33,11 @@ import torch
 
 from repro_torch.core import bundles as B
 from repro_torch.core.direction import newton_direction
-from repro_torch.core.linesearch import ArmijoParams, armijo_batched
+from repro_torch.core.linesearch import (ArmijoParams, armijo_batched,
+                                         candidate_alphas)
 from repro_torch.core.problem import L1Problem
 from repro_torch.engine.loop import EngineState, run_outer_loop
+from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 
@@ -59,21 +64,48 @@ class Round:
     """One epoch-equivalent, built by `make_round`: ceil(n / P_bar) batches
     of P_bar racing updates.
 
-    `one_batch(w, z, idx)` applies one batch for the (P_bar,) indices idx
-    to w and z IN PLACE and returns the (P_bar,) accepted alphas.
-    `__call__(w, z, gen, idxs=None)` copies the carry once, draws the
-    round's (n_batches, P_bar) indices from `gen` (or takes `idxs`), runs
-    the batches and returns (w, z, gen, f, kkt), f and kkt on the device.
+    `one_batch(w, z, idx, alpha=None)` applies one batch for the (P_bar,)
+    indices idx to w and z IN PLACE and returns the (P_bar,) accepted
+    alphas (written into `alpha` when given). `__call__(w, z, gen,
+    idxs=None)` copies the carry once, draws the round's (n_batches,
+    P_bar) indices from `gen` (or takes `idxs`), runs the batches and
+    returns (w, z, gen, f, kkt), f and kkt on the device.
     """
 
     def __init__(self, problem: L1Problem, cfg: SCDNConfig,
+                 batch: Optional[Callable] = None,
                  loss_deltas: Optional[Callable] = None):
         self.problem = problem
         self.cfg = cfg
         self.n_batches = -(-problem.n_features // cfg.P_bar)
+        self.sparse = problem.design.layout == "padded_csc"
+        self._batch = batch
         self._loss_deltas = loss_deltas
+        self._launch = None
 
-    def one_batch(self, w: Tensor, z: Tensor, idx: Tensor) -> Tensor:
+    def launch(self) -> "ops.ScdnBatchLaunch":
+        """K5's batch launch for this round's problem (padded-CSC), built
+        at the first call."""
+        if self._launch is None:
+            prob, arm = self.problem, self.cfg.armijo
+            design = prob.design
+            self._launch = ops.ScdnBatchLaunch(
+                design.col_rows, design.col_vals, prob.y,
+                candidate_alphas(arm, prob.solve_dtype, prob.device),
+                prob.c, self.cfg.P_bar, kind=prob.loss.name,
+                l2=prob.elastic_net_l2, sigma=arm.sigma, gamma=arm.gamma)
+        return self._launch
+
+    def one_batch(self, w: Tensor, z: Tensor, idx: Tensor,
+                  alpha: Optional[Tensor] = None) -> Tensor:
+        if self.sparse:
+            if self._batch is None:
+                return ops.scdn_batch(self.launch(), w, z, idx, alpha)
+            L = self.launch()
+            a, _ = self._batch(L.col_rows, L.col_vals, idx, w, z, L.y,
+                               L.alphas, L.c, kind=L.kind, sigma=L.sigma,
+                               gamma=L.gamma, l2=L.l2)
+            return a if alpha is None else alpha.copy_(a)
         prob, cfg = self.problem, self.cfg
         design = prob.design
         slab = design.gather_slab(idx)
@@ -91,7 +123,7 @@ class Round:
         # duplicate indices: index_add_ and the slab product add both
         B.scatter_add(w, idx, upd)
         z.add_(design.slab_matvec(slab, upd))
-        return res.alpha
+        return res.alpha if alpha is None else alpha.copy_(res.alpha)
 
     def __call__(self, w: Tensor, z: Tensor, gen: torch.Generator,
                  idxs: Optional[Tensor] = None):
@@ -102,19 +134,26 @@ class Round:
         idxs = torch.as_tensor(idxs, dtype=torch.int32).to(w.device)
         w = w.clone()
         z = z.clone()
-        for idx in idxs.unbind(0):
-            self.one_batch(w, z, idx)
+        # the batch kernel's accepted steps, a row a batch (one allocation
+        # a round, none a batch)
+        outs = (torch.empty(idxs.shape, dtype=w.dtype, device=w.device)
+                .unbind(0) if self.sparse else [None] * len(idxs))
+        for idx, alpha in zip(idxs.unbind(0), outs):
+            self.one_batch(w, z, idx, alpha)
         f = self.problem.objective_from_margins(z, w)
         kkt = self.problem.kkt_violation(w, z)
         return w, z, gen, f, kkt
 
 
 def make_round(problem: L1Problem, cfg: SCDNConfig,
+               _batch: Optional[Callable] = None,
                _loss_deltas: Optional[Callable] = None) -> Round:
     """One epoch-equivalent: ceil(n/P_bar) batches of P_bar racing updates.
-    `_loss_deltas` replaces the batched line search's loss-delta function
-    (K5 by default), e.g. by its plain version for a lockstep check."""
-    return Round(problem, cfg, _loss_deltas)
+    For a lockstep check against the plain versions: `_batch` replaces
+    the padded-CSC batch (`ops.scdn_batch`, K5's batch entry), e.g. by
+    `ref.scdn_batch_ref`; `_loss_deltas` the dense batch's loss-delta
+    function (K5's rows entry), e.g. by `ref.pcdn_linesearch_ref`."""
+    return Round(problem, cfg, _batch, _loss_deltas)
 
 
 def solve(problem: L1Problem, cfg: SCDNConfig,
@@ -124,9 +163,9 @@ def solve(problem: L1Problem, cfg: SCDNConfig,
     """The engine's host loop over SCDN rounds, with SCDN's divergence
     guard: a round whose objective exceeds divergence_factor * F_c(0), or
     is non-finite, stops the run with `diverged` set. `f_star` is taken
-    and unused, as in the reference."""
+    and unused, as in the reference. `_loss_deltas` as for `make_round`."""
     n = problem.n_features
-    round_fn = make_round(problem, cfg, _loss_deltas)
+    round_fn = make_round(problem, cfg, _loss_deltas=_loss_deltas)
 
     def outer(w, z, gen, active, recheck, c):
         """The round in the engine's outer contract: no shrinking, and c

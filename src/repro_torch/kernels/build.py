@@ -30,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
            "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch",
-           "flash_attention")
+           "scdn_batch", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -78,6 +78,12 @@ SIGNATURES = {
         "pcdn_linesearch_f32": [_P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _P,
                                 _P, _P],
     },
+    # a pointer to the launch's ScdnArgs (ops._ScdnArgs), idx, alpha, the
+    # (P, Q) loss deltas or null, stream; the plan's shared-memory bytes
+    "scdn_batch": {
+        "scdn_batch_f32": [_P, _P, _P, _P, _P],
+        "scdn_batch_smem_bytes": [_I, _I, _I, _I],
+    },
     # q, k, v, o, B, H, G, Sq, Skv, D, causal, scale, 12 strides, stream;
     # the host ns the last wgmma launch spent encoding its tensor maps
     "flash_attention": {
@@ -102,7 +108,11 @@ CONSTANTS = {"pcdn_direction": ("pcdn_direction_threads",
                                    "serve_margins_csc_max_range_rows"),
              "pcdn_linesearch": ("pcdn_linesearch_max_q",
                                  "pcdn_linesearch_threads",
-                                 "pcdn_linesearch_max_rows")}
+                                 "pcdn_linesearch_max_rows"),
+             "scdn_batch": ("scdn_batch_threads", "scdn_batch_max_q",
+                            "scdn_batch_chunk", "scdn_batch_max_cluster",
+                            "scdn_batch_smem_budget",
+                            "scdn_batch_args_size")}
 
 
 class KernelLibrary(ctypes.CDLL):

@@ -1,6 +1,8 @@
 """Dispatchers for the port's kernels: the three solver kernels (K1-K3),
-the two serving-margin kernels (K4a, K4b), the batched line search (K5)
-and flash attention (K6), the LM's blockwise prefill attention.
+the two serving-margin kernels (K4a, K4b), the batched line search (K5:
+its (P, s) rows entry, and its batch entry, a whole SCDN batch on the
+padded-CSC layout) and flash attention (K6), the LM's blockwise prefill
+attention.
 
 Each wrapper looks at where its tensors live:
 
@@ -29,7 +31,7 @@ Tensor = torch.Tensor
 
 KERNELS = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
            "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch",
-           "flash_attention")
+           "scdn_batch", "flash_attention")
 _LAUNCHES = {name: 0 for name in KERNELS}
 
 # loss kind codes, as kernels/csrc/common.cuh numbers them
@@ -709,6 +711,210 @@ def linesearch_blocks(s: int, P: int, sms: int) -> int:
     """K5's blocks a row: one a LINESEARCH_THREADS samples, at most 4
     blocks an SM over all P rows together (and at least one a row)."""
     return int(max(1, min(-(-s // LINESEARCH_THREADS), 4 * sms // P)))
+
+
+# -- K5, batch entry -----------------------------------------------------------
+# launch constants of kernels/csrc/scdn_batch.cu (checked against the built
+# library's when it is loaded)
+SCDN_THREADS = 256
+SCDN_MAX_Q = 40
+SCDN_CHUNK = 8              # candidates a pass of the in-kernel search
+SCDN_MAX_CLUSTER = 8
+SCDN_BITMAP_WORDS = 2048    # a CTA's row map: 65,536 bits
+# dynamic shared memory a launch may take: a block's 232,448 bytes less
+# room for the kernel's static arrays
+SCDN_SMEM_BUDGET = SMEM_BUDGET - 1024
+
+
+def scdn_batch_smem_bytes(K: int, slots: int, cpc: int, P: int) -> int:
+    """The batch kernel's dynamic shared memory in bytes, words of 4: a row
+    table of `slots` rows and distinct-row indices for each of the CTA's
+    cpc coordinates, the table's lowest-entry and count columns, the row
+    map, six (K,) entry and row arrays, three (K,) row arrays for each
+    coordinate, the batch's P indices and four words a coordinate
+    (`smem_words` in scdn_batch.cu)."""
+    return 4 * (2 * slots * cpc + 2 * slots + SCDN_BITMAP_WORDS + 6 * K +
+                3 * K * cpc + P + 4 * cpc)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScdnBatchPlan:
+    """K5's batch launch for P coordinates of padded-CSC width K, Q
+    candidates, s samples: one cluster of `cluster` CTAs, coordinate p on
+    CTA p % cluster (the CTA's p // cluster-th, `cpc` a CTA at most), a
+    column's rows merged in a table of `slots` (a power of two, at least
+    twice K: at most half full)."""
+    P: int
+    K: int
+    Q: int
+    s: int
+    cluster: int
+    cpc: int
+    slots: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return scdn_batch_smem_bytes(self.K, self.slots, self.cpc, self.P)
+
+
+@functools.lru_cache(maxsize=64)
+def scdn_batch_plan(P: int, k_max: int, Q: int, s: int) -> ScdnBatchPlan:
+    """K5's batch launch plan, or a ValueError naming the limit: a CTA a
+    coordinate up to SCDN_MAX_CLUSTER (the portable cluster size), then
+    ceil(P / 8) coordinates a CTA; every array of the batch in shared
+    memory, so k_max and P are bounded by SCDN_SMEM_BUDGET."""
+    if min(P, k_max, s) < 1:
+        raise ValueError(f"scdn_batch: empty batch or design P={P} "
+                         f"k_max={k_max} s={s} (each must be >= 1)")
+    if not 1 <= Q <= SCDN_MAX_Q:
+        raise ValueError(f"scdn_batch: Q={Q} candidates, the kernel takes "
+                         f"1 to {SCDN_MAX_Q}")
+    if s >= _INT32_MAX:
+        raise ValueError(f"scdn_batch: s = {s} samples, must be below 2**31 "
+                         f"(int32 rows)")
+    cluster = min(P, SCDN_MAX_CLUSTER)
+    cpc = -(-P // cluster)
+    slots = 2 << (k_max - 1).bit_length()
+    one = scdn_batch_smem_bytes(k_max, slots, 1, min(P, SCDN_MAX_CLUSTER))
+    if one > SCDN_SMEM_BUDGET:
+        raise ValueError(f"scdn_batch: k_max = {k_max} needs {one} bytes of "
+                         f"shared memory a CTA, more than the "
+                         f"{SCDN_SMEM_BUDGET} a launch may take")
+    plan = ScdnBatchPlan(P=P, K=k_max, Q=Q, s=s, cluster=cluster, cpc=cpc,
+                         slots=slots)
+    if plan.smem_bytes > SCDN_SMEM_BUDGET:
+        raise ValueError(f"scdn_batch: P = {P} coordinates ({cpc} a CTA of "
+                         f"one {cluster}-CTA cluster) at k_max = {k_max} "
+                         f"need {plan.smem_bytes} bytes of shared memory a "
+                         f"CTA, more than the {SCDN_SMEM_BUDGET} one cluster "
+                         f"launch may take")
+    return plan
+
+
+class _ScdnArgs(ctypes.Structure):
+    """kernels/csrc/scdn_batch.cu's ScdnArgs, field for field."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "col_rows", "col_vals", "w", "z", "y", "alphas")] + \
+        [(name, ctypes.c_float) for name in ("c", "l2", "sigma", "gamma")] + \
+        [(name, ctypes.c_int) for name in (
+            "kind", "n", "K", "s", "P", "Q", "cluster", "cpc", "slots")]
+
+
+class ScdnBatchLaunch:
+    """K5's batch entry bound to an SCDN round: the padded-CSC design's
+    columns (n, K) float32, the labels y (s,), the candidates alphas (Q,),
+    the loss and its scalars, and P coordinates a batch. On the card it
+    also holds the launch plan and the arguments, packed once here;
+    `scdn_batch(launch, w, z, idx, alpha)` runs a batch."""
+
+    def __init__(self, col_rows: Tensor, col_vals: Tensor, y: Tensor,
+                 alphas: Tensor, c, P: int, *, kind: str = "logistic",
+                 l2: float = 0.0, sigma: float = 0.01, gamma: float = 0.0):
+        if kind not in _KINDS:
+            raise KeyError(f"unknown loss {kind!r}")
+        if col_vals.dtype != torch.float32:
+            raise TypeError(f"scdn_batch: design values {col_vals.dtype}; "
+                            f"the batch kernel takes float32 (SCDN refuses "
+                            f"bf16 storage, as the reference does)")
+        n, K = col_rows.shape
+        s = y.shape[0]
+        self.plan = scdn_batch_plan(int(P), K, alphas.shape[0], s)
+        self.n = n
+        self.col_rows, self.col_vals, self.y, self.alphas = (
+            col_rows, col_vals, y, alphas)
+        self.c, self.kind, self.l2 = float(c), kind, float(l2)
+        self.sigma, self.gamma = float(sigma), float(gamma)
+        self.device = col_rows.device
+        self.on_cpu = _on_cpu(col_rows, col_vals, y, alphas)
+        if self.on_cpu:
+            return
+        p = self.plan
+        _check("col_rows", col_rows, _I32, (n, K))
+        _check("col_vals", col_vals, _F32, (n, K))
+        _check("y", y, _F32, (s,))
+        _check("alphas", alphas, _F32, (p.Q,))
+        lib = _loaded("scdn_batch", {
+            "scdn_batch_threads": SCDN_THREADS,
+            "scdn_batch_max_q": SCDN_MAX_Q,
+            "scdn_batch_chunk": SCDN_CHUNK,
+            "scdn_batch_max_cluster": SCDN_MAX_CLUSTER,
+            "scdn_batch_smem_budget": SCDN_SMEM_BUDGET,
+            "scdn_batch_args_size": ctypes.sizeof(_ScdnArgs)})
+        got = lib.scdn_batch_smem_bytes(K, p.slots, p.cpc, p.P)
+        if got != p.smem_bytes:
+            raise RuntimeError(f"scdn_batch: the kernel's shared memory "
+                               f"{got} B differs from the plan's "
+                               f"{p.smem_bytes} B")
+        self._fn = lib.scdn_batch_f32
+        self._args = _ScdnArgs(
+            _ptr(col_rows), _ptr(col_vals), None, None, _ptr(y),
+            _ptr(alphas), self.c, self.l2, self.sigma, self.gamma,
+            _KINDS[kind], n, K, s, p.P, p.Q, p.cluster, p.cpc, p.slots)
+        self._ref = ctypes.byref(self._args)
+        self._bound = None
+        self._index = _device_index(self.device)
+
+    def _bind(self, w: Tensor, z: Tensor, key: tuple) -> None:
+        """Point the packed arguments at w and z, checked here once for each
+        `key` (`_tensor_key` of w and of z)."""
+        _check("w", w, _F32, (self.n,))
+        _check("z", z, _F32, (self.plan.s,))
+        if w.device != self.device or z.device != self.device:
+            raise ValueError(f"scdn_batch: w on {w.device}, z on {z.device}, "
+                             f"the launch on {self.device}")
+        self._args.w = w.data_ptr()
+        self._args.z = z.data_ptr()
+        self._bound = key
+
+
+def scdn_batch(launch: ScdnBatchLaunch, w: Tensor, z: Tensor, idx: Tensor,
+               alpha: Tensor | None = None,
+               loss_deltas: Tensor | None = None) -> Tensor:
+    """K5's batch entry: one SCDN batch of the (P,) coordinates idx (int32,
+    duplicates allowed) on the padded-CSC layout, w and z updated IN PLACE
+    (`ref.scdn_batch_ref`'s function). Writes the accepted steps into
+    `alpha` (P,) float32 (allocated when None) and returns it; with
+    `loss_deltas`, a (P, Q) float32 buffer, also every candidate's loss
+    delta sum_r phi(z_r + a_q delta_pr) - phi(z_r) (the search then
+    evaluates every candidate). On the card: one kernel launch, no other
+    device operation and no host sync; deterministic."""
+    p = launch.plan
+    if launch.on_cpu:
+        _on_cpu(w, z, idx, launch.y)
+        a, lo = ref.scdn_batch_ref(
+            launch.col_rows, launch.col_vals, idx, w, z, launch.y,
+            launch.alphas, launch.c, kind=launch.kind, sigma=launch.sigma,
+            gamma=launch.gamma, l2=launch.l2)
+        if loss_deltas is not None:
+            loss_deltas.copy_(lo)
+        return a if alpha is None else alpha.copy_(a)
+    key = (*_tensor_key(w), *_tensor_key(z))
+    if key != launch._bound:
+        launch._bind(w, z, key)
+    if idx.dtype != torch.int32 or idx.shape != (p.P,) or \
+            idx.device != launch.device or not idx.is_contiguous():
+        raise ValueError(f"scdn_batch: idx must be a contiguous ({p.P},) "
+                         f"int32 tensor on {launch.device}; got "
+                         f"{tuple(idx.shape)} {idx.dtype} on {idx.device}")
+    if alpha is None:
+        alpha = torch.empty((p.P,), dtype=torch.float32, device=launch.device)
+    elif alpha.dtype != torch.float32 or alpha.shape != (p.P,) or \
+            alpha.device != launch.device or not alpha.is_contiguous():
+        raise ValueError(f"scdn_batch: alpha must be a contiguous ({p.P},) "
+                         f"float32 tensor on {launch.device}")
+    lo_ptr = None
+    if loss_deltas is not None:
+        if loss_deltas.device != launch.device:
+            raise ValueError(f"scdn_batch: loss_deltas on "
+                             f"{loss_deltas.device}, the launch on "
+                             f"{launch.device}")
+        _check("loss_deltas", loss_deltas, _F32, (p.P, p.Q))
+        lo_ptr = loss_deltas.data_ptr()
+    err = launch._fn(launch._ref, idx.data_ptr(), alpha.data_ptr(), lo_ptr,
+                     _raw_stream(launch._index))
+    _raise_if(err, "scdn_batch")
+    _LAUNCHES["scdn_batch"] += 1
+    return alpha
 
 
 _FLASH_HEAD_DIMS = (64, 128, 256)

@@ -20,6 +20,9 @@ what its CUDA kernel computes (kernels/csrc/*.cu):
                                    request batch -> (B, K)
   * `pcdn_linesearch_ref`       -- K5, the Q candidates' loss deltas (Q,),
                                    or (P, Q) for P rows of deltas
+  * `scdn_batch_ref`            -- K5's batch entry, one whole SCDN batch
+                                   on the padded-CSC layout: w, z updated
+                                   in place -> (alpha, loss_deltas)
   * `attention_ref`             -- K6, dense softmax attention (the flash
                                    kernel's function)
 
@@ -168,6 +171,77 @@ def pcdn_linesearch_ref(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
     y = y.to(f32)
     zq = z + alphas.to(f32)[:, None] * delta.to(f32)[..., None, :]
     return torch.sum(loss.value(zq, y) - loss.value(z, y), dim=-1)
+
+
+def scdn_batch_ref(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
+                   w: Tensor, z: Tensor, y: Tensor, alphas: Tensor, c,
+                   kind: str = "logistic", sigma: float = 0.01,
+                   gamma: float = 0.0, l2: float = 0.0):
+    """K5's batch entry: one SCDN batch of P racing one-coordinate steps on
+    the padded-CSC layout, w and z updated IN PLACE -> (alpha (P,),
+    loss_deltas (P, Q)).
+
+    For each slot p, j = idx[p] (duplicates allowed, sentinel n adds
+    nothing): g_p, h_p over the column's entries (the l2 fold, the
+    Hessian floor), d_p by Eq. 5 and Delta_p = g d + gamma h d^2 +
+    |w_j + d| - |w_j|. The column's duplicate rows are merged first:
+    delta_pr = d_p * sum_{k: r_pk = r} x_pk (x summed in k order) over
+    its distinct rows r, and
+
+        loss_deltas[p, q] = sum_r phi(z_r + alpha_q delta_pr) - phi(z_r)
+        L_pq = c loss_deltas[p, q] + |w_j + alpha_q d_p| - |w_j|
+
+    alpha_p is the first alpha_q with L_pq <= sigma alpha_q Delta_p, else
+    0. Only then, every slot having read the same w and z: w[j] +=
+    alpha_p d_p and z[r_pk] += x_pk alpha_p d_p for every entry (every
+    duplicate adds). `l2` folds into g and h only, as in the reference's
+    batch, whose searches have no l2 term."""
+    loss = get_loss(kind)
+    s = z.shape[0]
+    P = idx.shape[0]
+    design = PaddedCSCDesign(col_rows, col_vals, s)
+    slab = design.gather_slab(idx)
+    vals = slab.vals.to(f32)
+    w_B, _ = B.gather_vec(w, idx)
+    c = float(c)
+    valid = (slab.rows >= 0) & (slab.rows < s)
+    safe = slab.rows.clamp(0, s - 1).long()
+    zero = torch.zeros((), dtype=f32, device=z.device)
+    u = torch.where(valid, c * loss.dz(z[safe], y[safe]), zero)
+    v = torch.where(valid, c * loss.d2z(z[safe], y[safe]), zero)
+    g = torch.sum(u * vals, dim=1)
+    h = torch.sum(v * torch.square(vals), dim=1)
+    if l2:
+        g = g + l2 * w_B
+        h = h + l2
+    h = torch.clamp_min(h, HESSIAN_FLOOR)
+    d = newton_direction(g, h, w_B)
+    Delta = g * d + gamma * (h * torch.square(d)) + \
+        (torch.abs(w_B + d) - torch.abs(w_B))
+    # each slot's distinct rows: (slot, row) keys, sorted; index_add_ sums
+    # a key's entries in entry order
+    slot = torch.arange(P, device=z.device)[:, None].expand_as(slab.rows)
+    keys = (slot * s + safe)[valid]
+    uniq, inv = torch.unique(keys, return_inverse=True)
+    xs = torch.zeros(uniq.shape, dtype=f32, device=z.device)
+    xs.index_add_(0, inv, vals[valid])
+    p_of, r_of = uniq // s, uniq % s
+    delta = d[p_of] * xs
+    alphas = alphas.to(f32)
+    z_r, y_r = z[r_of].to(f32), y[r_of].to(f32)
+    terms = loss.value(z_r[:, None] + alphas[None, :] * delta[:, None],
+                       y_r[:, None]) - loss.value(z_r, y_r)[:, None]
+    lo = torch.zeros((P, alphas.shape[0]), dtype=f32, device=z.device)
+    lo.index_add_(0, p_of, terms)
+    wq = w_B[:, None] + alphas[None, :] * d[:, None]
+    out = c * lo + (torch.abs(wq) - torch.abs(w_B)[:, None])
+    ok = out <= sigma * alphas[None, :] * Delta[:, None]
+    first = torch.argmax(ok.to(torch.int32), dim=1)
+    alpha = torch.where(torch.any(ok, dim=1), alphas[first], zero)
+    upd = alpha * d
+    B.scatter_add(w, idx, upd)
+    z.add_(design.slab_matvec(slab, upd))
+    return alpha, lo
 
 
 def serve_margins_dense_ref(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:

@@ -444,10 +444,102 @@ def test_linesearch_kernel_rows(cuda, P, s, Q, ld, kind):
     _close_to(one, want[P - 1], RTOL)
 
 
+def _scdn_batch_inputs(cuda, P, s, n, k_max, seed):
+    """make_sparse_classification data on the card (columns hold duplicate
+    rows), a sparse carry w and its margins, and a batch of P indices with
+    a duplicate index and a column holding a duplicate row."""
+    from repro_torch.core import make_problem
+    from repro_torch.data import make_sparse_classification
+    csc, y, _ = make_sparse_classification(s, n, nnz_per_col=k_max,
+                                           seed=seed)
+    prob = make_problem(csc, y, c=2.0, layout="padded_csc", device=cuda)
+    rng = _rng(seed, P)
+    w = np.where(rng.random(n) < 0.3, 0.3 * rng.standard_normal(n), 0.0)
+    w = torch.tensor(w, dtype=torch.float32, device=cuda)
+    idx = rng.integers(0, n, P)
+    dup = [j for j in range(n) if np.unique(
+        csc.col_rows[j][csc.col_rows[j] < s]).size <
+        int((csc.col_rows[j] < s).sum())]
+    if dup:
+        idx[0] = dup[0]
+    if P > 2:
+        idx[-1] = idx[1]
+    return prob, w, prob.margins(w), torch.tensor(idx, dtype=torch.int32,
+                                                  device=cuda)
+
+
+@pytest.mark.parametrize("P,s,n,k_max,kind,l2", [
+    (8, 57848, 2000, 278, "logistic", 0.0),     # real-sim's rows, k_max
+    (8, 600, 120, 40, "squared_hinge", 0.0),    # rows shared across CTAs
+    (3, 500, 50, 30, "squared", 0.2),
+    (20, 3000, 400, 60, "logistic", 0.1),       # 3 coordinates a CTA
+    (64, 6000, 500, 100, "logistic", 0.0),      # 8 coordinates a CTA
+    (1, 10, 4, 5, "logistic", 0.0),
+    (8, 100000, 300, 50, "logistic", 0.0),      # rows past the map's 65,536
+    (8, 2000, 100, 1500, "logistic", 0.0),      # two load rounds a column
+])
+def test_scdn_batch_kernel(cuda, P, s, n, k_max, kind, l2):
+    """K5's batch entry against `ref.scdn_batch_ref` from one carry, with
+    duplicate indices and duplicate rows: the loss deltas rel <= 1e-4,
+    alpha equal, w and z rel <= 1e-5; one launch; two calls give the same
+    bits; without the loss-delta buffer (the early-exit search) the same
+    alpha, w and z."""
+    prob, w, z, idx = _scdn_batch_inputs(cuda, P, s, n, k_max, P + s)
+    alphas = torch.tensor(0.5 ** np.arange(40), dtype=torch.float32,
+                          device=cuda)
+    d = prob.design
+    launch = ops.ScdnBatchLaunch(d.col_rows, d.col_vals, prob.y, alphas,
+                                 prob.c, P, kind=kind, l2=l2)
+    runs = []
+    for loss_buf in (True, True, False):
+        w_k, z_k = w.clone(), z.clone()
+        a_k = torch.empty(P, device=cuda)
+        lo_k = torch.empty((P, 40), device=cuda) if loss_buf else None
+        before = ops.launch_counts()["scdn_batch"]
+        ops.scdn_batch(launch, w_k, z_k, idx, a_k, lo_k)
+        assert ops.launch_counts()["scdn_batch"] == before + 1
+        runs.append((w_k, z_k, a_k, lo_k))
+    w_p, z_p = w.clone(), z.clone()
+    a_p, lo_p = ref.scdn_batch_ref(d.col_rows, d.col_vals, idx, w_p, z_p,
+                                   prob.y, alphas, prob.c, kind=kind, l2=l2)
+    torch.cuda.synchronize()
+    w_k, z_k, a_k, lo_k = runs[0]
+    assert torch.equal(a_k, a_p), (a_k, a_p)
+    _close(lo_k, lo_p)
+    _close_to(w_k, w_p, 1e-5)
+    _close_to(z_k, z_p, 1e-5)
+    assert torch.equal(w_k != w, w_p != w)        # the same coordinates moved
+    if P > 1:  # the one coordinate of (1, 10, 4, 5) has d = 0 at its carry
+        assert torch.count_nonzero(w_p - w) > 0   # the batch moves w
+    for w2, z2, a2, lo2 in runs[1:]:              # deterministic
+        assert torch.equal(w2, w_k) and torch.equal(z2, z_k)
+        assert torch.equal(a2, a_k)
+        assert lo2 is None or torch.equal(lo2, lo_k)
+
+
+def test_scdn_batch_refuses_what_the_kernel_does_not_take(cuda):
+    prob, w, z, idx = _scdn_batch_inputs(cuda, 8, 600, 120, 40, 1)
+    alphas = torch.ones(40, device=cuda)
+    d = prob.design
+    with pytest.raises(TypeError, match="float32"):
+        ops.ScdnBatchLaunch(d.col_rows, d.col_vals.to(torch.bfloat16),
+                            prob.y, alphas, 1.0, 8)
+    launch = ops.ScdnBatchLaunch(d.col_rows, d.col_vals, prob.y, alphas,
+                                 1.0, 8)
+    with pytest.raises(ValueError, match="int32"):
+        ops.scdn_batch(launch, w, z, idx.long())
+    with pytest.raises(ValueError, match="shape"):
+        ops.scdn_batch(launch, w, z[:100], idx)
+    with pytest.raises(ValueError, match="alpha"):
+        ops.scdn_batch(launch, w, z, idx, torch.empty(7, device=cuda))
+
+
 @pytest.mark.parametrize("layout", ["dense", "padded_csc"])
 def test_scdn_round_kernel_matches_plain(cuda, layout):
-    """One SCDN round from one carry and one set of indices, through K5 and
-    through its plain version: one K5 launch a batch, F rel <= 1e-4."""
+    """One SCDN round from one carry and one set of indices, through the
+    kernels and through their plain versions: one K5 batch launch a batch
+    on padded-CSC (no other kernel), one launch of K5's rows entry a batch
+    on dense; F rel <= 1e-4."""
     from repro_torch.core import make_problem, scdn
     from repro_torch.data import make_classification
     X, y, _ = make_classification(3000, 400, sparsity=0.95, seed=3)
@@ -457,12 +549,15 @@ def test_scdn_round_kernel_matches_plain(cuda, layout):
     w0 = torch.zeros(400, device=cuda)
     z0 = torch.zeros(3000, device=cuda)
     gen = torch.Generator()
+    kernel = "scdn_batch" if layout == "padded_csc" else "pcdn_linesearch"
     ops.reset_launch_counts()
     out_k = scdn.make_round(prob, cfg)(w0, z0, gen, idxs=idxs)
-    assert ops.launch_counts()["pcdn_linesearch"] == 50
-    out_p = scdn.make_round(prob, cfg, ref.pcdn_linesearch_ref)(
+    assert ops.launch_counts()[kernel] == 50
+    assert sum(ops.launch_counts().values()) == 50
+    out_p = scdn.make_round(prob, cfg, _batch=ref.scdn_batch_ref,
+                            _loss_deltas=ref.pcdn_linesearch_ref)(
         w0, z0, gen, idxs=idxs)
-    assert ops.launch_counts()["pcdn_linesearch"] == 50
+    assert sum(ops.launch_counts().values()) == 50
     f_k, f_p = float(out_k[3]), float(out_p[3])
     assert abs(f_k - f_p) <= 1e-4 * abs(f_p)
 
