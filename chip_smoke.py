@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases kernels   # build + kernel check only
     python3 chip_smoke.py --phases serve     # build + the serving path
     python3 chip_smoke.py --phases lm        # build + the LM serving path
+    python3 chip_smoke.py --phases path      # build + the regularization path
+    python3 chip_smoke.py --support-wall     # support wall, for A/Bs only
 
 Phases:
   0. device   -- the card's name, count, power limit (nvidia-smi).
@@ -80,7 +82,23 @@ Phases:
                  (padded-CSC requests), for the c* model and the path
                  family, `--serve` with a mid-stream hot-swap, and one
                  dense chunk traced in a child process (`--chunk-profile`).
-  11. lm      -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
+  11. path    -- the serve phase's rows (training rows train, request
+                 rows validate): `path.run_path` at P = 32 (the support
+                 scope: K1 every bundle), 8 points at span 100 to KKT 1e-3
+                 or 20 iterations, with record_aux and the metrics and
+                 trace planes on (the files validate; K1's launch counter
+                 = its launch count = the bundles run = bundle_q's count,
+                 1 <= q <= 40; one `path.point` span a point; the per-point
+                 walls printed); `repro_torch.launch.path.main` on the
+                 training rows as .libsvm, a sweep and `--mode batch` (each
+                 batch problem's F against a solo solve from its seed, rel
+                 1e-4); `serve.ovr.fit_ovr` on 4 seeded classes, 5
+                 iterations; the support iteration's wall with telemetry
+                 off, metrics, metrics + trace and record_aux, interleaved;
+                 one iteration with record_aux traced in a child process
+                 (`--solve-profile support --record-aux`: K1 alone once a
+                 bundle).
+  12. lm      -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
                  width (24 layers, bf16, random weights from a seed): a
                  4096-token prefill of 4 prompts, which runs K6 once a
                  layer, then 32 greedy tokens; the same at 32 tokens (the
@@ -119,7 +137,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
 PHASES = ("build", "kernels", "support", "full", "dense", "scdn", "tron",
-          "bf16", "cli", "serve", "lm")  # in order
+          "bf16", "cli", "serve", "path", "lm")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -220,6 +238,27 @@ SERVE_MAX_BATCH = 256
 SERVE_RATE = 2000.0
 SERVE_REQUESTS = 4000
 SERVE_SLO_MS = 50.0
+
+# the path phase: `serve_data`'s training rows (the published real-sim
+# shape) and its request rows as the validation split. (a) run_path at P
+# 32 (auto -> the support scope: K1 every bundle), 8 points at the
+# reference's default span, to KKT 1e-3 or 20 outer iterations a point,
+# with record_aux and both telemetry planes on; (b) `launch.path.main` on
+# the training rows written as .libsvm, a sweep and a batch; (c) fit_ovr
+# on 4 classes for 5 outer iterations; then the support phase's iteration
+# (its real-sim, c 4, P 32) timed with telemetry off and on,
+# PATH_TIMING_ITERS iterations a reading
+PATH_P = 32
+PATH_POINTS = 8
+PATH_TOL = 1e-3
+PATH_MAX_OUTER = 20
+PATH_Q = 40                # candidates the search allows (ArmijoParams)
+PATH_CLI_SWEEP = ("2", "3")     # --points, --max-outer
+PATH_CLI_BATCH = ("4", "5")
+PATH_BATCH_RTOL = 1e-4     # batch problem F against its solo solve
+PATH_OVR_CLASSES = 4
+PATH_OVR_OUTER = 5
+PATH_TIMING_ITERS = 20
 
 # the lm phase: qwen2-0.5b at its published width, 4 prompts of 4096
 # tokens (BLOCKWISE_MIN_KV = 2048 or more: K6 in every layer) and 32 new
@@ -839,22 +878,14 @@ def scdn_batch_check(torch, prob, gen, flush) -> dict:
     return r
 
 
-def prepare_serve(torch) -> dict:
-    """The serve phase's data and models, from DATA_SEED: real-sim at its
-    published width, split into the published training rows and request
-    rows (written as .libsvm from their CSR rows: they are 1.2 GB dense);
-    an 8-point geometric path from c* down, each point warm-started from
-    the previous w, solved on the card through the kernels; and the
-    artifacts `launch.predict` serves, written with `save_model` under
-    build/ (listed in .gitignore)."""
-    from repro_torch.core import PCDNConfig
-    from repro_torch.core.problem import make_problem
+def serve_data() -> dict:
+    """The serve and path phases' data, from DATA_SEED: real-sim at its
+    published width, split into the published training rows (padded-CSC)
+    and the request rows (CSR, also written as .libsvm from their rows:
+    they are 1.2 GB dense), under build/ (listed in .gitignore)."""
     from repro_torch.data import (csr_to_padded_csc,
                                   make_sparse_classification,
                                   save_libsvm_csr)
-    from repro_torch.engine import LocalBackend
-    from repro_torch.engine import loop as engine_loop
-    from repro_torch.serve import artifact as art
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -863,7 +894,8 @@ def prepare_serve(torch) -> dict:
         SERVE_ROWS, SERVE_FEATURES, nnz_per_col=SERVE_NNZ_PER_COL,
         w_nnz_frac=SERVE_W_NNZ_FRAC, seed=DATA_SEED)
     csr = csc.to_csr()
-    train = csr_to_padded_csc(csr.rows(0, SERVE_TRAIN))
+    train_csr = csr.rows(0, SERVE_TRAIN)
+    train = csr_to_padded_csc(train_csr)
     requests = csr.rows(SERVE_TRAIN, SERVE_ROWS)
     req_path = work / "requests.libsvm"
     save_libsvm_csr(str(req_path), requests, y[SERVE_TRAIN:])
@@ -872,7 +904,23 @@ def prepare_serve(torch) -> dict:
         f"{requests.shape[0]} rows (nnz {requests.nnz}, max column nnz "
         f"{requests.max_col_nnz()}) -> {req_path.name}; "
         f"{time.perf_counter() - t0:.1f}s")
+    return {"train": train, "train_csr": train_csr, "y": y,
+            "requests": requests, "requests_path": req_path, "work": work}
 
+
+def prepare_serve(torch, data: dict) -> dict:
+    """The serve phase's models on `serve_data`'s rows: an 8-point
+    geometric path from c* down, each point warm-started from the previous
+    w, solved on the card through the kernels; and the artifacts
+    `launch.predict` serves, written with `save_model` under build/."""
+    from repro_torch.core import PCDNConfig
+    from repro_torch.core.problem import make_problem
+    from repro_torch.engine import LocalBackend
+    from repro_torch.engine import loop as engine_loop
+    from repro_torch.serve import artifact as art
+
+    work, train, y = data["work"], data["train"], data["y"]
+    requests, req_path = data["requests"], data["requests_path"]
     prob = make_problem(train, y[:SERVE_TRAIN], c=SERVE_C_STAR,
                         layout="padded_csc", device=DEVICE)
     backend = LocalBackend(prob, PCDNConfig(
@@ -1677,11 +1725,13 @@ def log_top(name: str, top, per: int, unit: str) -> None:
             f"{calls // max(per, 1):4d} calls/{unit}  {key[:90]}")
 
 
-def solve_profile(name: str) -> dict:
+def solve_profile(name: str, record_aux: bool = False) -> dict:
     """One outer iteration of solve phase `name` from the initial state,
     traced after an untraced run of the same iteration, in a process of its
-    own (`--solve-profile`): -> {"busy_s", "rows": [(op, calls, seconds)],
-    "launches": the kernel's count in the traced iteration}."""
+    own (`--solve-profile`; with `--record-aux`, the iteration returns the
+    per-bundle (q, alpha) plane and copies it to the host, as the engine
+    loop does): -> {"busy_s", "rows": [(op, calls, seconds)], "launches":
+    the kernel's count in the traced iteration}."""
     import torch
     from repro_torch.core import PCDNConfig
     from repro_torch.core.problem import make_problem
@@ -1694,11 +1744,15 @@ def solve_profile(name: str) -> dict:
     prob = make_problem(data[i_x], data[i_y], c=c, layout=layout,
                         device=DEVICE)
     backend = LocalBackend(prob, PCDNConfig(P=P, use_kernels=True,
-                                            tol_kkt=0.0, seed=0))
+                                            tol_kkt=0.0, seed=0,
+                                            record_aux=record_aux))
 
     def iteration():
         st = backend.init_state()
-        backend.outer(st.w, st.z, st.gen, st.active, True, c)
+        out = backend.outer(st.w, st.z, st.gen, st.active, True, c)
+        if record_aux:
+            q, alpha = out[9]
+            q.cpu(), alpha.cpu()
 
     iteration()
     torch.cuda.synchronize()
@@ -1706,6 +1760,40 @@ def solve_profile(name: str) -> dict:
     busy, rows, _ = device_profile(torch, iteration, n_top=None)
     return {"busy_s": busy, "rows": rows,
             "launches": ops.launch_counts()[kernel]}
+
+
+def support_wall(readings: int = 4) -> dict:
+    """The support phase's steady outer-iteration wall with telemetry
+    off, in a process of its own (`--support-wall`): its real-sim, c, P
+    and kernel; 3 warm-up iterations, then `readings` solves of
+    PATH_TIMING_ITERS iterations each, wall over the iterations. Uses only
+    the engine and the kernels, so the same script times an older tree's
+    `src` (copied beside it) for a parent / change / change / parent A/B.
+    -> {"ms": [per reading], "launches": K1's count in the readings}."""
+    import torch
+    from repro_torch.core import PCDNConfig
+    from repro_torch.core.problem import make_problem
+    from repro_torch.engine import LocalBackend
+    from repro_torch.engine import loop as engine_loop
+    from repro_torch.kernels import ops
+
+    data = make_data(DATA_SEED)
+    i_x, i_y, c, layout, P, kernel, _ = SOLVES["support"]
+    prob = make_problem(data[i_x], data[i_y], c=c, layout=layout,
+                        device=DEVICE)
+    backend = LocalBackend(prob, PCDNConfig(P=P, use_kernels=True,
+                                            tol_kkt=0.0, seed=0))
+    engine_loop.solve(backend, c, max_outer=3, tol_kkt=0.0)
+    ops.reset_launch_counts()
+    walls = []
+    for _ in range(readings):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine_loop.solve(backend, c, max_outer=PATH_TIMING_ITERS,
+                          tol_kkt=0.0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / PATH_TIMING_ITERS * 1e3)
+    return {"ms": walls, "launches": ops.launch_counts()[kernel]}
 
 
 def lockstep(torch, prob, P, c, n_iter: int) -> list:
@@ -1773,6 +1861,11 @@ def run_solve(torch, name, data, n_outer, fused=False):
             f"mean_q={res.history.ls_steps.mean():.3f} wall={dt:.2f}s "
             f"({dt / n_outer * 1e3:.1f} ms/iter, "
             f"{dt / (n_outer * b) * 1e6:.1f} us/bundle) launches={counts}")
+        # a process's first solve pays its cold start in iteration 0
+        wt = res.history.wall_time
+        log(f"[{name}] use_kernels={use_kernels} iteration 0 "
+            f"{wt[0] * 1e3:.2f} ms, iterations 1-{n_outer - 1} "
+            f"{np.diff(wt).mean() * 1e3:.2f} ms an iteration")
     res_k, dt_k, counts = results[True]
     res_p = results[False][0]
     b = num_bundles(prob.n_features, P)
@@ -2091,6 +2184,257 @@ def phase_bf16(torch, data, n_outer: int) -> None:
         assert max(steps) <= F_RTOL, steps
 
 
+def phase_path(torch, rows, data, card: str) -> dict:
+    """The regularization path on the card (`serve_data`'s rows): (a)
+    `run_path` in-process with the metrics and trace planes on and the
+    record_aux plane; (b) `repro_torch.launch.path.main` on the training
+    rows as .libsvm, a sweep and a batch, each batch problem's F against a
+    solo solve from its seed; (c) `fit_ovr` on a 4-class labelling; the
+    support phase's iteration (`data`, as SOLVES["support"] has it) timed
+    with telemetry off and on; K1's device ops a bundle with record_aux
+    on, traced in a child process. -> the phase's launch counts."""
+    from repro_torch import obs
+    from repro_torch.core import PCDNConfig, pcdn, resolve_ls_scope
+    from repro_torch.core.bundles import num_bundles
+    from repro_torch.core.design_matrix import as_design
+    from repro_torch.core.problem import make_problem
+    from repro_torch.data import (csr_to_padded_csc, load_libsvm,
+                                  save_libsvm_csr)
+    from repro_torch.engine import LocalBackend
+    from repro_torch.engine import loop as engine_loop
+    from repro_torch.kernels import ops
+    from repro_torch.launch import path as path_cli
+    from repro_torch.obs import validate as obs_validate
+    from repro_torch.path import PathConfig, run_path
+    from repro_torch.serve.ovr import fit_ovr
+
+    work = rows["work"]
+    y_train = rows["y"][:SERVE_TRAIN]
+    y_val = rows["y"][SERVE_TRAIN:]
+    ops.reset_launch_counts()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) run_path with telemetry
+    prob = make_problem(rows["train"], y_train, c=1.0, layout="padded_csc",
+                        device=DEVICE)
+    solver = PCDNConfig(P=PATH_P, use_kernels=True, record_aux=True,
+                        tol_kkt=PATH_TOL, max_outer=PATH_MAX_OUTER)
+    assert resolve_ls_scope(solver, prob) == "support"
+    b = num_bundles(prob.n_features, PATH_P)
+    val = as_design(csr_to_padded_csc(rows["requests"]), device=DEVICE)
+    m_path, t_path = work / "path_a.jsonl", work / "path_a.trace.json"
+    m_path.unlink(missing_ok=True)
+    obs.registry.reset()
+    obs.enable(metrics=True, trace_=True)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_path(prob, PathConfig(solver=solver, n_points=PATH_POINTS),
+                   val_design=val, val_y=y_val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    snap = obs.registry.get_registry().snapshot()
+    obs.write_metrics(str(m_path), meta={"cli": "chip_smoke path (a)",
+                                         "card": card})
+    obs.trace.save(str(t_path))
+    obs.disable()
+    obs.registry.reset()
+    add(counts)
+    n_events = obs.validate_trace_file(str(t_path))
+    assert obs_validate.validate_metrics_file(str(m_path)) == 1
+    assert obs_validate.main([str(m_path), str(t_path)]) == 0
+    n_outer = sum(p.n_outer for p in res.points)
+    ran = n_outer * b
+    kc = snap["counters"]
+    hq = snap["histograms"]["solver.bundle_q"]
+    assert kc["kernels.pcdn_bundle.launches"] == counts["pcdn_bundle"] \
+        == ran, (kc, counts, ran)
+    assert sum(counts.values()) == counts["pcdn_bundle"], counts
+    assert hq["count"] == ran and 1 <= hq["min"] and hq["max"] <= PATH_Q, hq
+    assert kc["solver.outer_iters"] == n_outer, (kc, n_outer)
+    assert kc["path.points"] == PATH_POINTS
+    events = json.load(open(t_path))["traceEvents"]
+    point_spans = [e for e in events if e["name"] == "path.point"]
+    assert len(point_spans) == PATH_POINTS, len(point_spans)
+    assert all(np.isfinite(p.objective) for p in res.points), res.points
+    assert res.best_index is not None
+    log(f"[path] (a) run_path, real-sim {prob.n_samples} x "
+        f"{prob.n_features}, P={PATH_P} (support: K1 every bundle, {b} "
+        f"bundles an iteration), {PATH_POINTS} points from c_max "
+        f"{res.c_max:.6g} at span 100, tol {PATH_TOL}, max-outer "
+        f"{PATH_MAX_OUTER}, record_aux, metrics + trace on: {wall:.2f}s "
+        f"wall, {n_outer} outer iterations, {ran} K1 launches = the "
+        f"counter = bundle_q's count (q in [{hq['min']:.0f}, "
+        f"{hq['max']:.0f}], mean {hq['mean']:.3f}); trace {n_events} "
+        f"events; best point {res.best_index} (c={res.best.c:.5g}, val "
+        f"accuracy {res.best.val_accuracy:.4f})")
+    for i, p in enumerate(res.points):
+        log(f"[path]   point {i}: c={p.c:.5g} wall {p.seconds * 1e3:.2f} ms "
+            f"n_outer={p.n_outer} converged={p.converged} kkt={p.kkt:.3e} "
+            f"F={p.objective:.6f} nnz={p.nnz} val_acc={p.val_accuracy:.4f}")
+
+    # (b) launch.path on the training rows as .libsvm
+    train_path = work / "train.libsvm"
+    t0 = time.perf_counter()
+    save_libsvm_csr(str(train_path), rows["train_csr"], y_train)
+    log(f"[path] (b) training rows -> {train_path.name}: "
+        f"{time.perf_counter() - t0:.1f}s")
+    cli_common = ["--dataset", str(train_path), "--layout", "padded_csc",
+                  "--use-kernels", "--P", str(PATH_P), "--device", DEVICE]
+    payloads = {}
+    for mode, (points, max_outer) in (("sweep", PATH_CLI_SWEEP),
+                                      ("batch", PATH_CLI_BATCH)):
+        m_cli = work / f"path_{mode}.jsonl"
+        t_cli = work / f"path_{mode}.trace.json"
+        o_cli = work / f"path_{mode}.json"
+        m_cli.unlink(missing_ok=True)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        payloads[mode] = path_cli.main(cli_common + [
+            "--mode", mode, "--points", points, "--max-outer", max_outer,
+            "--metrics-out", str(m_cli), "--trace-out", str(t_cli),
+            "--progress", "--out", str(o_cli)])
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        add(counts)
+        assert obs_validate.main([str(m_cli), str(t_cli)]) == 0
+        rec = json.loads(open(m_cli).read())
+        cli_points = payloads[mode]["points"]
+        assert all(np.isfinite(p["objective"]) for p in cli_points)
+        assert rec["metrics"]["counters"][
+            "kernels.pcdn_bundle.launches"] == counts["pcdn_bundle"] > 0
+        log(f"[path] (b) launch.path --mode {mode} --points {points} "
+            f"--max-outer {max_outer}: {wall:.2f}s wall (load + solve), "
+            f"K1 launches {counts['pcdn_bundle']}; F "
+            + " ".join(f"{p['objective']:.6f}" for p in cli_points))
+    X_file, y_file = load_libsvm(str(train_path), layout="padded_csc")
+    file_prob = make_problem(X_file, y_file, c=1.0, layout="padded_csc",
+                             device=DEVICE)
+    rels = []
+    for p in payloads["batch"]["points"]:
+        solo = pcdn.solve(file_prob.with_c(p["c"]), PCDNConfig(
+            P=PATH_P, use_kernels=True, tol_kkt=PATH_TOL,
+            max_outer=int(PATH_CLI_BATCH[1]), seed=0))
+        rels.append((abs(p["objective"] - solo.objective)
+                     / abs(solo.objective), p["n_outer"], solo.n_outer))
+    log(f"[path] (b) batch problems against solo solves from the same "
+        f"seed (F rel, batch / solo outer iterations): "
+        + "; ".join(f"{r:.1e} ({a}/{s_})" for r, a, s_ in rels)
+        + f" (tolerance {PATH_BATCH_RTOL})")
+    rels = [r for r, _, _ in rels]
+    assert max(rels) <= PATH_BATCH_RTOL, rels
+
+    # (c) fit_ovr on a 4-class labelling of the training rows
+    gen = np.random.default_rng(DATA_SEED)
+    planes = torch.as_tensor(gen.standard_normal(
+        (prob.n_features, PATH_OVR_CLASSES)).astype(np.float32),
+        device=DEVICE)
+    margins = torch.stack([prob.margins(planes[:, k].contiguous())
+                           for k in range(PATH_OVR_CLASSES)], dim=1)
+    labels = torch.argmax(margins, dim=1).cpu().numpy()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ovr = fit_ovr(rows["train"], labels, SERVE_C_STAR, PCDNConfig(
+        P=PATH_P, use_kernels=True, tol_kkt=PATH_TOL,
+        max_outer=PATH_OVR_OUTER), layout="padded_csc", problem=prob,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    add(counts)
+    F = ovr.batch.objective.cpu().numpy()
+    iters = int(ovr.batch.n_outer.max())
+    assert np.all(np.isfinite(F)), F
+    assert counts["pcdn_bundle"] == iters * PATH_OVR_CLASSES * b, counts
+    log(f"[path] (c) fit_ovr, {PATH_OVR_CLASSES} classes (argmax of "
+        f"seeded hyperplanes; class sizes "
+        f"{np.bincount(labels, minlength=PATH_OVR_CLASSES).tolist()}), "
+        f"c={SERVE_C_STAR}, {iters} outer iterations: {wall:.2f}s, K1 "
+        f"launches {counts['pcdn_bundle']}; F "
+        + " ".join(f"{f:.6f}" for f in F)
+        + f"; train accuracy {ovr.train_accuracy:.4f}")
+
+    # the support phase's iteration, telemetry off and on, interleaved
+    i_x, i_y, c_s, layout, P_s, _, _ = SOLVES["support"]
+    sprob = make_problem(data[i_x], data[i_y], c=c_s, layout=layout,
+                         device=DEVICE)
+    b_s = num_bundles(sprob.n_features, P_s)
+    off = LocalBackend(sprob, PCDNConfig(P=P_s, use_kernels=True,
+                                         tol_kkt=0.0, seed=0))
+    aux = LocalBackend(sprob, PCDNConfig(P=P_s, use_kernels=True,
+                                         tol_kkt=0.0, seed=0,
+                                         record_aux=True))
+    modes = {"off": (off, False, False), "metrics": (off, True, False),
+             "metrics+trace": (off, True, True), "record_aux": (aux, False,
+                                                                False)}
+    order = ["off", "metrics", "metrics+trace", "record_aux",
+             "record_aux", "metrics+trace", "metrics", "off"] * 2
+    readings = {m: [] for m in modes}
+    halves = []
+    half = PATH_TIMING_ITERS // 2
+    for m in order:
+        backend, metrics, tracing = modes[m]
+        obs.enable(metrics=metrics, trace_=tracing)
+        gc2 = gc.get_stats()[2]["collections"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = engine_loop.solve(backend, c_s, max_outer=PATH_TIMING_ITERS,
+                              tol_kkt=0.0)
+        torch.cuda.synchronize()
+        readings[m].append((time.perf_counter() - t0) / PATH_TIMING_ITERS)
+        obs.disable()
+        obs.registry.reset()
+        assert r.n_outer == PATH_TIMING_ITERS and np.isfinite(r.objective)
+        # the history's cumulative wall (synced each iteration) split at
+        # the half: the support phase times iterations 0-9 alone
+        wt, q = r.history.wall_time, r.history.ls_steps
+        halves.append((m, wt[half - 1] / half * 1e3,
+                       (wt[-1] - wt[half - 1]) / half * 1e3,
+                       q[:half].mean(), q[half:].mean(),
+                       gc.get_stats()[2]["collections"] - gc2))
+    log(f"[path] support phase's iteration wall (real-sim, P={P_s}, "
+        f"{b_s} bundles, c={c_s}, {PATH_TIMING_ITERS} iterations a "
+        f"reading, interleaved {' / '.join(order[:8])}, twice; {card}): "
+        + "; ".join(f"{m} " + ", ".join(f"{v * 1e3:.3f}" for v in vs)
+                    + f" ms (mean {np.mean(vs) * 1e3:.3f})"
+                    for m, vs in readings.items()))
+    log(f"[path]   per reading (ms an iteration over iterations 0-{half - 1}"
+        f" / {half}-{PATH_TIMING_ITERS - 1}, mean q over each, gen-2 GC "
+        f"collections): "
+        + "; ".join(f"{m} {a:.3f} / {b_:.3f}, q {qa:.3f} / {qb:.3f}, "
+                    f"gc {g}" for m, a, b_, qa, qb, g in halves))
+
+    # K1's device ops a bundle with record_aux on, in a fresh process
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--solve-profile",
+         "support", "--record-aux"], capture_output=True, text=True,
+        check=True, timeout=300)
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    assert prof["launches"] == b_s, (prof["launches"], b_s)
+    top = [tuple(r) for r in prof["rows"] if r[2] > 0]
+    if prof["busy_s"] > 0:
+        n_ops = sum(r[1] for r in top)
+        per_bundle = [r for r in top if r[1] >= b_s]
+        log(f"[path] record_aux on, one support iteration traced in a "
+            f"fresh process: {n_ops} device ops, {n_ops / b_s:.2f} a "
+            f"bundle, busy {prof['busy_s'] * 1e3:.2f} ms; launched at "
+            f"least once a bundle: "
+            + "; ".join(f"{k[:70]} x{n}" for k, n, _ in per_bundle))
+        assert len(per_bundle) == 1 and per_bundle[0][1] == b_s and \
+            "bundle_step_kernel" in per_bundle[0][0], per_bundle
+        assert n_ops - b_s < b_s // 2, (n_ops, b_s)
+    else:
+        log("[path] record_aux device ops: not measured (the profiler saw "
+            "no device time)")
+    log(f"[path] launches over the phase: {total}")
+    return total
+
+
 def phase_cli(torch) -> None:
     """`launch.solve.main` on a9a through the normal entry point: the PCDN
     run with the kernels, then the baselines and bf16 storage."""
@@ -2128,6 +2472,15 @@ def main(argv=None) -> int:
                     help="trace one outer iteration of a solve phase and "
                          "print its JSON line (the solve phases run this in "
                          "a child process)")
+    ap.add_argument("--record-aux", action="store_true",
+                    help="with --solve-profile: trace the iteration with "
+                         "the per-bundle (q, alpha) plane on (the path "
+                         "phase runs this in a child process)")
+    ap.add_argument("--support-wall", action="store_true",
+                    help="time the support phase's steady iteration with "
+                         "telemetry off and print its JSON line; no phase "
+                         "runs it, it exists for parent / change A/Bs "
+                         "(copied beside an older tree's src)")
     ap.add_argument("--baseline-profile", choices=("scdn", "tron"),
                     help="trace a slice of an SCDN round or one TRON "
                          "iteration and print its JSON line (the scdn and "
@@ -2160,7 +2513,12 @@ def main(argv=None) -> int:
         print(json.dumps(lm_profile()), flush=True)
         return 0
     if args.solve_profile:
-        print(json.dumps(solve_profile(args.solve_profile)), flush=True)
+        print(json.dumps(solve_profile(args.solve_profile,
+                                       record_aux=args.record_aux)),
+              flush=True)
+        return 0
+    if args.support_wall:
+        print(json.dumps(support_wall()), flush=True)
         return 0
     if args.baseline_profile:
         print(json.dumps(baseline_profile(args.baseline_profile)),
@@ -2180,11 +2538,14 @@ def main(argv=None) -> int:
     phase_build()  # every later phase needs the kernels
     data = None
     if set(phases) & {"kernels", "support", "full", "dense", "scdn", "tron",
-                      "bf16"}:
+                      "bf16", "path"}:
         data = make_data(DATA_SEED)
     serve = None
+    rows = None
+    if set(phases) & {"kernels", "serve", "path"}:
+        rows = serve_data()
     if set(phases) & {"kernels", "serve"}:
-        serve = prepare_serve(torch)
+        serve = prepare_serve(torch, rows)
     kernels = {}
     if "kernels" in phases:
         kernels = phase_kernels(torch, data, serve, f"{card} ({smi})")
@@ -2204,6 +2565,15 @@ def main(argv=None) -> int:
         phase_cli(torch)
     if "serve" in phases:
         launches.update(phase_serve(torch, serve, f"{card} ({smi})"))
+    if "path" in phases:
+        by_phase = {}
+        for kernel, n in phase_path(torch, rows, data,
+                                    f"{card} ({smi})").items():
+            if n:
+                by_phase[kernel] = {"path": n}
+                if kernel in launches:
+                    by_phase[kernel]["earlier phases"] = launches[kernel]
+                launches[kernel] = launches.get(kernel, 0) + n
     if "lm" in phases:
         launches.update(phase_lm(torch, f"{card} ({smi})"))
 
@@ -2219,6 +2589,8 @@ def main(argv=None) -> int:
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
             if f"{name} variants" in launches:
                 row["launches_by_variant"] = launches[f"{name} variants"]
+            if "path" in phases and name in by_phase:
+                row["launches_by_phase"] = by_phase[name]
             if "variant_ms" in r:
                 row["variant_ms"] = r["variant_ms"]
             if "real_sim" in r:  # K5's rows entry: the row is at gisette's

@@ -68,6 +68,15 @@ class PCDNConfig:
     shrink: bool = False         # mask near-optimal zero features out
     shrink_tol: float = 0.01     # shrink j when w_j == 0, |g_j| < 1 - tol
     recheck_every: int = 1       # full-set KKT recheck period
+    # per-bundle line-search telemetry as a 10th outer output: (q (b,)
+    # int32, alpha (b,)), the (b,) step counts and alphas the bundle steps
+    # already write on the device (K1's own outputs on the fused support
+    # step). Off: the outer iteration returns the 9-tuple and launches
+    # exactly what it launches without it.
+    record_aux: bool = False
+    # the per-feature KKT violation vector (n,), already computed for the
+    # stop criterion, appended after the optional aux tuple
+    record_kkt_vec: bool = False
 
 
 def cdn_config(**kw) -> PCDNConfig:
@@ -241,6 +250,8 @@ def make_path_outer(problem: L1Problem, cfg: PCDNConfig):
 
         outer(w, z, gen, active, recheck, c, idxs=None, b_active=None)
           -> (w, z, gen, f, kkt, nnz, mean_q, active, n_active)
+             [+ ((q, alpha),) with cfg.record_aux]
+             [+ (viol,) with cfg.record_kkt_vec]
 
     Same contract as the reference's `make_path_outer`, with a
     `torch.Generator` in place of the PRNG key. `c` is a float, so one
@@ -251,6 +262,13 @@ def make_path_outer(problem: L1Problem, cfg: PCDNConfig):
     mean_q and n_active stay on the device; `kkt` is the full-set
     violation. Shrinking masks j when w_j == 0 and |g_j| < 1 - shrink_tol;
     `recheck` un-shrinks any feature whose violation exceeds tol_kkt.
+
+    record_aux appends (q (b,) int32, alpha (b,) float32): each bundle's
+    Armijo step count and accepted alpha, the tensors the bundle steps
+    wrote on the device (no extra op a bundle). Under shrinking they have
+    the reference's b_max = idxs.shape[0] slots, with q = -1 and alpha =
+    nan past b_active. record_kkt_vec appends the (n,) per-feature
+    violation vector whose max is `kkt`.
     """
     n = problem.n_features
 
@@ -286,15 +304,29 @@ def make_path_outer(problem: L1Problem, cfg: PCDNConfig):
                 active = active | (viol > cfg.tol_kkt)
         nnz = torch.sum(w != 0)
         n_active = torch.sum(active.to(torch.int32))
-        return w, z, gen, f, kkt, nnz, mean_q, active, n_active
+        out = (w, z, gen, f, kkt, nnz, mean_q, active, n_active)
+        if cfg.record_aux:
+            qs, alphas = step.n_steps, step.alpha
+            b_max = idxs.shape[0]
+            if b_active < b_max:
+                # sentinel slots: bundles past b_active never ran
+                qs = torch.cat([qs, qs.new_full((b_max - b_active,), -1)])
+                alphas = torch.cat([alphas, alphas.new_full(
+                    (b_max - b_active,), float("nan"))])
+            out = out + ((qs, alphas),)
+        if cfg.record_kkt_vec:
+            out = out + (viol,)
+        return out
 
     return outer
 
 
 def solve(problem: L1Problem, cfg: PCDNConfig, w0=None,
-          f_star: Optional[float] = None):
+          f_star: Optional[float] = None,
+          callback: Optional[Callable] = None):
     """Run PCDN until the KKT (or relative-objective) stop or max_outer,
-    through the engine's host loop on a `LocalBackend`."""
+    through the engine's host loop on a `LocalBackend`; callback(k, w, f,
+    kkt, mean_q) after every iteration."""
     from repro_torch.engine import loop as engine_loop
     from repro_torch.engine.local import LocalBackend
 
@@ -302,4 +334,4 @@ def solve(problem: L1Problem, cfg: PCDNConfig, w0=None,
     return engine_loop.solve(
         backend, problem.c, w0=w0, max_outer=cfg.max_outer,
         tol_kkt=cfg.tol_kkt, recheck_every=cfg.recheck_every,
-        tol_rel_obj=cfg.tol_rel_obj, f_star=f_star)
+        tol_rel_obj=cfg.tol_rel_obj, f_star=f_star, callback=callback)

@@ -40,6 +40,11 @@ class L1Problem:
         """Replace the regularization weight (same design and labels)."""
         return dataclasses.replace(self, c=float(c))
 
+    def with_labels(self, y: Tensor) -> "L1Problem":
+        """Replace the labels (same design); the batch solver's per-problem
+        labels. y: (s,) float32 on the design's device."""
+        return dataclasses.replace(self, y=y)
+
     @property
     def loss(self) -> Loss:
         return get_loss(self.loss_name)
@@ -174,3 +179,22 @@ def make_problem(X, y, c: float, loss: str = "logistic",
     y = torch.as_tensor(np.asarray(y, np.float32), device=dev)
     return L1Problem(design=design, y=y, c=float(c), loss_name=loss,
                      elastic_net_l2=float(elastic_net_l2))
+
+
+def validation_accuracy(design, y, w, device="cuda") -> float:
+    """Classification accuracy of sign(X_val @ w) against +-1 labels.
+
+    `design` may be anything `as_design` accepts (a dense array, a
+    PaddedCSC object, a DesignMatrix, which keeps its own device), so a
+    held-out split is never densified. Zero margins count as +1, as in
+    data.synthetic.train_accuracy.
+    """
+    if isinstance(design, DesignMatrix):
+        d = design
+    else:
+        d = as_design(design, device=resolve_device(device))
+    w_t = torch.as_tensor(np.asarray(w, np.float32), device=d.device)
+    z = d.matvec(w_t.to(d.acc_dtype)).cpu().numpy()
+    pred = np.sign(z)
+    pred[pred == 0] = 1.0
+    return float(np.mean(pred == np.asarray(y)))

@@ -57,5 +57,13 @@ class LocalBackend:
                            active=torch.ones((n,), dtype=torch.bool,
                                              device=dev))
 
+    def margins(self, w: Tensor) -> Tensor:
+        """z = X w, recomputed (the path sweep refreshes z once a point)."""
+        return self.problem.margins(w)
+
+    def c_max(self) -> float:
+        """The analytic start of a regularization path."""
+        return self.problem.c_max()
+
     def host_weights(self, w: Tensor) -> np.ndarray:
         return w.detach().cpu().numpy()

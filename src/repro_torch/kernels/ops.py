@@ -16,6 +16,15 @@ Each wrapper looks at where its tensors live:
 `launch_counts()` / `reset_launch_counts()` read and clear the counts, so a
 run can show that its main path went through the kernels;
 `flash_variant_counts()` splits K6's count by the variant that ran.
+
+Telemetry (`repro_torch.obs`): while the metrics registry or the trace
+writer is on, every dispatch, to the kernel or to the plain version, adds
+one to the registry's `kernels.<name>.launches` and records a span
+`kernels.<name>` on the `kernels` track with args {"impl": "cuda" |
+"plain"}. The span is host time, which on a CUDA tensor is the enqueue
+time of the launch, not the kernel's device time (`chip_smoke.py` times
+the kernels with CUDA events). With both planes off a dispatch pays one
+attribute check (`obs.gate.on`) and the decorator's call.
 """
 from __future__ import annotations
 
@@ -25,7 +34,9 @@ import functools
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build, ref
+from repro_torch.obs import gate as _obs_gate
 
 Tensor = torch.Tensor
 
@@ -48,6 +59,26 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
     for name in _FLASH_VARIANT_LAUNCHES:
         _FLASH_VARIANT_LAUNCHES[name] = 0
+
+
+def _observed(name: str, arg: int = 0):
+    """The dispatcher's launch counter and span while a telemetry plane is
+    on; `arg` is the position of a tensor argument whose device names the
+    route."""
+    counter = f"kernels.{name}.launches"
+    span_name = f"kernels.{name}"
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def dispatch(*args, **kwargs):
+            if not _obs_gate.on:
+                return fn(*args, **kwargs)
+            impl = "plain" if args[arg].device.type == "cpu" else "cuda"
+            obs.inc(counter)
+            with obs.span(span_name, "kernels", args={"impl": impl}):
+                return fn(*args, **kwargs)
+        return dispatch
+    return deco
 
 
 def _on_cpu(*tensors: Tensor) -> bool:
@@ -233,6 +264,7 @@ def _direction_counter(device: torch.device) -> Tensor:
     return t
 
 
+@_observed("pcdn_direction")
 def pcdn_direction(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
                    w_B: Tensor, c, kind: str = "logistic", l2: float = 0.0):
     """K3: bundle direction over the dense layout, the slab gather, the
@@ -288,6 +320,7 @@ def sparse_direction_warps(K: int) -> int:
     return 1 if K <= 64 else (2 if K <= 128 else 4)
 
 
+@_observed("pcdn_sparse_direction")
 def pcdn_sparse_direction(rows: Tensor, vals: Tensor, z: Tensor, y: Tensor,
                           w_B: Tensor, c, kind: str = "logistic",
                           l2: float = 0.0):
@@ -473,6 +506,7 @@ def _tensor_key(t: Tensor) -> tuple:
     return t.data_ptr(), t.shape, t.stride(), t.dtype
 
 
+@_observed("pcdn_bundle", arg=1)
 def pcdn_bundle(launch: BundleLaunch, w: Tensor, z: Tensor, idx: Tensor,
                 t: int) -> None:
     """K1: the whole support-restricted bundle step for the (P,) bundle idx
@@ -521,6 +555,7 @@ def dense_tile_width(B: int, n: int, K: int, sms: int) -> int:
     return int(min(max(width, 32), 1536))
 
 
+@_observed("serve_margins_dense")
 def serve_margins_dense(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:
     """K4a: serving margins over a dense request slab. X (B, n) float32|
     bf16, idx (K, A) int32 with sentinel n at padding, val (K, A) float32|
@@ -615,6 +650,7 @@ def csc_plan(B: int, K: int, A: int, k_max: int) -> CscPlan:
                    ranges=ranges, range_rows=-(-B // ranges))
 
 
+@_observed("serve_margins_csc")
 def serve_margins_csc(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
                       val: Tensor, n_requests: int) -> Tensor:
     """K4b: serving margins over a padded-CSC request batch. col_rows
@@ -659,6 +695,7 @@ def serve_margins_csc(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
 LINESEARCH_THREADS = 256
 
 
+@_observed("pcdn_linesearch")
 def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
                     kind: str = "logistic") -> Tensor:
     """K5: batched candidate loss deltas. z, y (s,) float32, delta (s,) or
@@ -867,6 +904,7 @@ class ScdnBatchLaunch:
         self._bound = key
 
 
+@_observed("scdn_batch", arg=1)
 def scdn_batch(launch: ScdnBatchLaunch, w: Tensor, z: Tensor, idx: Tensor,
                alpha: Tensor | None = None,
                loss_deltas: Tensor | None = None) -> Tensor:
@@ -947,6 +985,7 @@ def flash_encode_us() -> float:
     return build.load("flash_attention").flash_attention_encode_ns() / 1e3
 
 
+@_observed("flash_attention")
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                     sm_scale: float | None = None, *,
                     variant: str | None = None) -> Tensor:

@@ -1,10 +1,12 @@
-"""Shared CLI plumbing of the port's solve and predict entry points.
+"""Shared CLI plumbing of the port's solve, path and predict entry points.
 
 The flags mirror `repro.launch.common` for what the port carries:
-`--layout / --use-kernels / --dtype / --device`, the solver knobs and
-`--warm-start`. The port runs on the local backend only, so there is no
+`--layout / --use-kernels / --dtype / --device`, the solver knobs,
+`--warm-start`, the telemetry flags `--metrics-out / --trace-out` and
+`--progress`. The port runs on the local backend only, so there is no
 `--backend` (and no sharded branch in the bf16 envelope); `--device`
 (default cuda) is the explicit device every entry point of the port takes.
+The diagnostics and fault-tolerance flags wait for `diag/` and `fault/`.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import PCDNConfig
 from repro_torch.data import load_libsvm, paper_like
 
@@ -88,16 +91,82 @@ def add_solver_args(ap: argparse.ArgumentParser):
                          "--out report carries)")
 
 
+def add_obs_args(ap: argparse.ArgumentParser):
+    """Telemetry flags, identical in the solve / path / predict CLIs."""
+    ap.add_argument("--metrics-out", default=None, metavar="JSONL",
+                    help="enable the metrics registry and append one "
+                         "JSONL run record (counters, gauges, p50/p99 "
+                         "histograms) to this file on exit; "
+                         "REPRO_METRICS=off force-disables")
+    ap.add_argument("--trace-out", default=None, metavar="JSON",
+                    help="record a Chrome-trace / Perfetto trace-event "
+                         "file of the run (load at ui.perfetto.dev); "
+                         "validate with `python -m repro_torch.obs."
+                         "validate`")
+
+
+def add_progress_arg(ap: argparse.ArgumentParser):
+    ap.add_argument("--progress", action="store_true",
+                    help="live one-line solve status on stderr (iter, "
+                         "objective, KKT, mean_q); off by default so logs "
+                         "stay clean")
+
+
+def make_progress_callback(args):
+    """The engine callback behind `--progress`: one stderr status line,
+    rewritten in place (carriage return, no scroll). None when the flag is
+    off, so the engine loop skips the call."""
+    if not getattr(args, "progress", False):
+        return None
+    import sys
+
+    def cb(k, w, f, kkt, mean_q):
+        print(f"\r[progress] iter {k:4d}  F={f:.6f}  kkt={kkt:.3e}  "
+              f"mean_q={mean_q:5.2f}", end="", file=sys.stderr, flush=True)
+    return cb
+
+
+def finish_progress(args) -> None:
+    """Terminate the in-place `--progress` line before normal output."""
+    if getattr(args, "progress", False):
+        import sys
+        print(file=sys.stderr, flush=True)
+
+
+def setup_obs(args) -> None:
+    """Switch the telemetry planes on per the CLI flags (before any
+    instrumented work runs)."""
+    if getattr(args, "metrics_out", None):
+        obs.registry.enable()
+        obs.registry.reset()
+    if getattr(args, "trace_out", None):
+        obs.trace.enable(process_name="repro_torch")
+
+
+def finish_obs(args, meta: dict | None = None) -> None:
+    """Flush the telemetry outputs the CLI flags requested."""
+    if getattr(args, "metrics_out", None):
+        obs.write_metrics(args.metrics_out, meta)
+        print(f"[obs] metrics appended to {args.metrics_out}")
+        obs.registry.disable()
+    if getattr(args, "trace_out", None):
+        if obs.trace.save(args.trace_out):
+            print(f"[obs] trace written to {args.trace_out}")
+
+
 def load_dataset(args, with_test: bool = False):
     """-> (X, y, Xte, yte, spec). File datasets have no test split and a
-    None spec; profile names go through `paper_like`."""
+    None spec; profile names go through `paper_like` (at `--scale` where
+    the CLI has it)."""
     if os.path.exists(args.dataset):
         layout = "padded_csc" if args.layout == "padded_csc" else "dense"
         X, y = load_libsvm(args.dataset, layout=layout)
         return X, y, None, None, None
+    scale = getattr(args, "scale", None)
     if with_test:
-        return paper_like(args.dataset, with_test=True, seed=args.seed)
-    X, y, spec = paper_like(args.dataset, seed=args.seed)
+        return paper_like(args.dataset, with_test=True, seed=args.seed,
+                          scale=scale)
+    X, y, spec = paper_like(args.dataset, seed=args.seed, scale=scale)
     return X, y, None, None, spec
 
 
@@ -105,9 +174,18 @@ def build_pcdn_config(args, **overrides) -> PCDNConfig:
     kw = dict(P=args.P, max_outer=args.max_outer, tol_kkt=args.tol,
               seed=args.seed, shrink=args.shrink,
               use_kernels=args.use_kernels, ls_scope=args.ls_scope,
-              dtype=DTYPE_NAMES[getattr(args, "dtype", "fp32")])
+              dtype=DTYPE_NAMES[getattr(args, "dtype", "fp32")],
+              record_aux=_record_aux(args))
     kw.update(overrides)
     return PCDNConfig(**kw)
+
+
+def _record_aux(args) -> bool:
+    """The per-bundle (q, alpha) aux outputs ride along exactly when the
+    CLI asked for telemetry; without the flags the outer iteration
+    launches what the uninstrumented solver launches."""
+    return bool(getattr(args, "metrics_out", None)
+                or getattr(args, "trace_out", None))
 
 
 def load_warm_start(path: str, n: int) -> np.ndarray:

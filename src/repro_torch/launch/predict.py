@@ -26,6 +26,10 @@ admission-to-response p50/p99, padding efficiency and SLO violations.
 live for path artifacts) at `--swap-at` of the run; the report says
 whether every bank tensor kept its storage across the swap and which
 kernel libraries, if any, were loaded after warm-up.
+
+`--metrics-out` / `--trace-out` record the run's telemetry: the batcher's
+or the loop's `serve.*` metrics and spans and the kernels' launch counts
+and enqueue spans (validate with `python -m repro_torch.obs.validate`).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import numpy as np
 from repro_torch.data import load_libsvm, paper_like
 from repro_torch.data.libsvm import CSRMatrix, csr_to_padded_csc
 from repro_torch.device import resolve_device
+from repro_torch.launch import common
 from repro_torch.launch.common import DTYPES
 from repro_torch.serve.artifact import ModelFamily, load_model, pick_best_c
 from repro_torch.serve.batcher import MicroBatcher
@@ -209,6 +214,12 @@ def _run_serve(args, family) -> dict:
         with open(args.out, "w") as fh:
             json.dump(payload, fh, indent=1, default=float)
         print(f"[serve] wrote {args.out}")
+    common.finish_obs(args, meta={
+        "cli": "predict--serve", "model": args.model,
+        "dataset": args.dataset, "device": str(bank.device),
+        "rate_rps": args.rate, "p99_s": drive["p99_s"],
+        "rejects": drive["rejects"],
+        "libraries_loaded_after_warmup": len(late_libs)})
     return payload
 
 
@@ -266,8 +277,10 @@ def main(argv=None):
     ap.add_argument("--swap-at", type=float, default=0.5,
                     help="[--serve] fire the swap at this fraction of "
                          "the run")
+    common.add_obs_args(ap)
     args = ap.parse_args(argv)
     resolve_device(args.device)
+    common.setup_obs(args)
 
     family = load_model(args.model)
     if args.best_c is not None:
@@ -333,6 +346,11 @@ def main(argv=None):
         with open(args.out, "w") as fh:
             json.dump(payload, fh, indent=1, default=float)
         print(f"[predict] wrote {args.out}")
+    common.finish_obs(args, meta={
+        "cli": "predict", "model": args.model, "dataset": args.dataset,
+        "layout": args.layout, "device": str(bank.device),
+        "n_requests": int(n_req),
+        "steady_rows_per_s": stats.get("steady_rows_per_s")})
     return payload
 
 

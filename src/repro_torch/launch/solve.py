@@ -11,6 +11,9 @@ prints the final objective and the held-out accuracy, as
 `repro.serve/model@1` schema both packages read), a ``--warm-start`` input
 (its top-level sparse weight record) and a history log; ``--save-model``
 writes just the artifact, for `repro_torch.launch.predict`.
+``--metrics-out`` / ``--trace-out`` record the run's telemetry (and turn on
+the per-bundle aux plane, pcdn/cdn); ``--progress`` prints a live status
+line.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import time
 
 import numpy as np
 
-from repro_torch.core import cdn_config, make_problem, scdn, tron
+from repro_torch.core import make_problem, scdn, tron
 from repro_torch.data.synthetic import train_accuracy
 from repro_torch.engine import LocalBackend
 from repro_torch.engine import loop as engine_loop
@@ -45,6 +48,8 @@ def main(argv=None):
                          "warm-start record + history) here")
     ap.add_argument("--save-model", default=None, metavar="PATH",
                     help="write just the serve artifact (no history)")
+    common.add_obs_args(ap)
+    common.add_progress_arg(ap)
     args = ap.parse_args(argv)
     if args.warm_start and args.solver not in ("pcdn", "cdn"):
         ap.error("--warm-start requires --solver pcdn or cdn")
@@ -65,23 +70,22 @@ def main(argv=None):
           f"device={args.device}")
     prob = make_problem(X, y, c=c, loss=args.loss, layout=args.layout,
                         dtype=common.DTYPES[args.dtype], device=args.device)
+    common.setup_obs(args)
+    progress = common.make_progress_callback(args)
     t0 = time.time()
     if args.solver in ("pcdn", "cdn"):
-        if args.solver == "pcdn":
-            cfg = common.build_pcdn_config(args)
-        else:
-            cfg = cdn_config(max_outer=args.max_outer, tol_kkt=args.tol,
-                             seed=args.seed, shrink=args.shrink,
-                             use_kernels=args.use_kernels,
-                             ls_scope=args.ls_scope,
-                             dtype=common.DTYPE_NAMES[args.dtype])
+        # CDN = PCDN with bundle size 1 and a backtracking search
+        cfg = (common.build_pcdn_config(args) if args.solver == "pcdn"
+               else common.build_pcdn_config(args, P=1,
+                                             ls_kind="backtracking"))
         w0 = (common.load_warm_start(args.warm_start, prob.n_features)
               if args.warm_start else None)
         backend = LocalBackend(prob, cfg)
         res = engine_loop.solve(backend, c, w0, max_outer=cfg.max_outer,
                                 tol_kkt=cfg.tol_kkt,
                                 recheck_every=cfg.recheck_every,
-                                tol_rel_obj=cfg.tol_rel_obj)
+                                tol_rel_obj=cfg.tol_rel_obj,
+                                callback=progress)
         n_outer = res.n_outer
         history = common.history_dict(res.history)
     elif args.solver == "scdn":
@@ -97,6 +101,7 @@ def main(argv=None):
         history = {k: np.asarray(v).tolist() for k, v in res.history.items()}
     w = res.w.detach().cpu().numpy()
     dt = time.time() - t0
+    common.finish_progress(args)
     nnz = int(np.sum(w != 0))
     print(f"[solve] F={res.objective:.6f} converged={res.converged} "
           f"nnz={nnz} n_outer={n_outer} time={dt:.1f}s")
@@ -128,6 +133,11 @@ def main(argv=None):
                 "objective": float(res.objective),
                 "converged": bool(res.converged), "nnz": nnz,
                 "seconds": dt, **record, "history": history})
+    common.finish_obs(args, meta={
+        "cli": "solve", "dataset": args.dataset, "solver": args.solver,
+        "backend": "local", "device": args.device,
+        "objective": float(res.objective),
+        "converged": bool(res.converged), "nnz": nnz, "seconds": dt})
     return res.objective
 
 

@@ -14,11 +14,10 @@ solver's l1 solutions (port of `repro.serve`).
   * `serve.loop`     -- continuous-batching serving loop: request queue,
     deadline-aware flushing, multi-model routing, hot-swap in place into
     capacity-padded banks.
+  * `serve.ovr`      -- one-vs-rest multiclass training through the batch
+    solver (`path.batch.solve_batch`), packaged as a kind="ovr" family.
 
-Not here yet: `serve.ovr` (one-vs-rest training), which trains through the
-batch solver of the path slice; an OVR artifact saved by the JAX package is
-served all the same. `scorer_cache_sizes` has no counterpart (see
-`serve.predict`).
+`scorer_cache_sizes` has no counterpart (see `serve.predict`).
 """
 from repro_torch.serve.artifact import (SCHEMA, ModelArtifact, ModelFamily,
                                         artifact_from_solution, load_model,
@@ -28,6 +27,8 @@ from repro_torch.serve.batcher import BucketStats, MicroBatcher
 from repro_torch.serve.loop import (ServeFuture, ServeLoop, ServeOverload,
                                     ServeResult, SlotQuarantined,
                                     SwapCapacityError, drive_poisson)
+from repro_torch.serve.ovr import (OVRResult, encode_labels, fit_ovr,
+                                   ovr_family, ovr_label_matrix, ovr_margins)
 from repro_torch.serve.policy import (BucketPolicy, LatencyModel,
                                       default_buckets)
 from repro_torch.serve.predict import (ModelBank, decide, margins_dense,
@@ -44,4 +45,6 @@ __all__ = [
     "BucketPolicy", "LatencyModel",
     "ServeLoop", "ServeFuture", "ServeResult", "ServeOverload",
     "SlotQuarantined", "SwapCapacityError", "drive_poisson",
+    "OVRResult", "encode_labels", "ovr_label_matrix", "fit_ovr",
+    "ovr_margins", "ovr_family",
 ]

@@ -26,8 +26,11 @@ Per bucket the batcher accounts calls, rows, padding, warm-up (first
 call) latency and steady-state latency, and keeps a fixed-bucket latency
 histogram of its steady-state calls, so `stats()` reports p50/p99 per
 bucket. Margins come back to the host with `.cpu()`, which waits for the
-device, so the timings are of finished work. The obs counters and spans
-the JAX batcher also emits wait for the port's obs slice.
+device, so the timings are of finished work. With the metrics registry
+on it also counts `serve.calls`, `serve.rows`, `serve.pad_rows` and
+`serve.compiles` (in the port: the first call of a bucket) and observes
+`serve.latency_s` (per bucket too) and `serve.warmup_s`; with the trace
+on, each chunk is a `serve.chunk` span on the `serve` track.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.obs import Histogram
 from repro_torch.serve.policy import BucketPolicy, default_buckets
 from repro_torch.serve.predict import (ModelBank, margins_dense,
@@ -156,10 +160,12 @@ class MicroBatcher:
                 return margins_padded_csc(self.bank, packed,
                                           use_kernels=self.use_kernels)
         st = self._stats[bucket]
+        t0_ns = time.perf_counter_ns()
         t0 = time.perf_counter()
         z = run().cpu().numpy()        # waits until the device is done
         dt = time.perf_counter() - t0
-        if st.calls > 0:
+        warm = st.calls > 0
+        if warm:
             st.busy_seconds += dt
             st.latency.observe(dt)
         else:
@@ -168,6 +174,19 @@ class MicroBatcher:
         st.calls += 1
         st.rows += r
         st.pad_rows += bucket - r
+        if obs.metrics_enabled():
+            obs.inc("serve.calls")
+            obs.inc("serve.rows", r)
+            obs.inc("serve.pad_rows", bucket - r)
+            if warm:
+                obs.observe(f"serve.latency_s.bucket_{bucket}", dt)
+                obs.observe("serve.latency_s", dt)
+            else:
+                obs.inc("serve.compiles")
+                obs.observe("serve.warmup_s", dt)
+        obs.complete("serve.chunk", "serve", t0_ns, time.perf_counter_ns(),
+                     args={"bucket": bucket, "rows": r,
+                           "pad_rows": bucket - r, "warmup": not warm})
         return z[:r]
 
     # -- accounting ----------------------------------------------------------

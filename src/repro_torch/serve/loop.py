@@ -44,8 +44,15 @@ and allocates, the second seeds the latency model. Dense-layout routes
 are resolved per (slot, bucket) at warm-up (`route="auto"` consults
 serve.predict.pick_route) and stay pinned across swaps.
 
-The obs gauges, counters and trace spans of the JAX loop wait for the
-port's obs slice; the histograms are here.
+Telemetry, as the JAX loop has it: with the metrics registry on, the
+`serve.loop.*` counters (requests, rejects, responses, rows, pad_rows,
+flush.<reason>, slo_violations, errors, quarantines, installs),
+`serve.batch_retries`, `serve.batch_failures`, `serve.compiles` (in the
+port: the first call of each (slot, bucket) at warm-up), the
+`serve.queue_depth` gauge and the `serve.latency_s.bucket_<b>` and
+`serve.e2e_latency_s` histograms; with the trace on, `serve.warmup`,
+`serve.flush` and `serve.install` spans and `serve.quarantine` instants on
+the `serve` track.
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import sync
 from repro_torch.kernels import build
 from repro_torch.obs import Histogram
@@ -309,6 +317,8 @@ class ServeLoop:
         (including across hot-swaps) loads no library and builds no
         densified stack; seed each slot's latency model with the second
         call's time."""
+        t0_ns = time.perf_counter_ns()
+        first_calls = 0
         for slot in self._slots.values():
             for bucket in self.policy.buckets:
                 r = self.route
@@ -317,9 +327,16 @@ class ServeLoop:
                 slot.routes[bucket] = r
                 X = np.zeros((bucket, slot.bank.n_features), np.float32)
                 self._margins(slot.bank, X, r)                # first call
+                first_calls += 1
                 t0 = time.perf_counter()
                 self._margins(slot.bank, X, r)                # steady call
                 slot.latency.observe(bucket, time.perf_counter() - t0)
+        if obs.metrics_enabled():
+            obs.inc("serve.compiles", first_calls)
+        obs.complete("serve.warmup", "serve", t0_ns, time.perf_counter_ns(),
+                     args={"compiles": first_calls,
+                           "models": len(self._slots),
+                           "buckets": list(self.policy.buckets)})
 
     def _margins(self, bank: ModelBank, X: np.ndarray,
                  route: str) -> np.ndarray:
@@ -367,6 +384,8 @@ class ServeLoop:
                     f"restore it")
             if self.max_queue is not None and self._depth >= self.max_queue:
                 self._rejects += 1
+                if obs.metrics_enabled():
+                    obs.inc("serve.loop.rejects")
                 raise ServeOverload(
                     f"queue full ({self._depth}/{self.max_queue})")
             self._next_id += 1
@@ -374,6 +393,9 @@ class ServeLoop:
                                          now + budget, fut))
             self._depth += 1
             self._requests += 1
+            if obs.metrics_enabled():
+                obs.inc("serve.loop.requests")
+                obs.set_gauge("serve.queue_depth", self._depth)
             self._work.notify()
         return fut
 
@@ -521,6 +543,8 @@ class ServeLoop:
     def _pop_locked(self, slot: _ModelSlot, take: int, reason: str):
         reqs = [slot.pending.popleft() for _ in range(take)]
         self._depth -= take
+        if obs.metrics_enabled():
+            obs.set_gauge("serve.queue_depth", self._depth)
         # the version snapshot: installs also run on the scheduler thread,
         # so this batch's compute happens-before any later install
         return slot, reqs, reason, slot.version
@@ -528,6 +552,7 @@ class ServeLoop:
     def _score(self, slot: _ModelSlot, reqs, reason: str,
                version: int) -> None:
         bucket = self.policy.bucket_for(len(reqs))
+        t0_ns = time.perf_counter_ns()
         t0 = time.perf_counter()
         z = err = None
         for attempt in range(1 + self.batch_retries):
@@ -542,6 +567,8 @@ class ServeLoop:
                 if attempt < self.batch_retries:
                     with self._lock:
                         slot.retries += 1
+                    if obs.metrics_enabled():
+                        obs.inc("serve.batch_retries")
         if err is not None:                     # serve on: fail the batch
             with self._lock:
                 self._errors += len(reqs)
@@ -549,8 +576,18 @@ class ServeLoop:
                 slot.consecutive_failures += 1
                 if (self.quarantine_after is not None
                         and slot.consecutive_failures
-                        >= self.quarantine_after):
+                        >= self.quarantine_after
+                        and not slot.quarantined):
                     slot.quarantined = True
+                    if obs.metrics_enabled():
+                        obs.inc("serve.loop.quarantines")
+                    obs.instant("serve.quarantine", "serve",
+                                args={"model": slot.name,
+                                      "failures":
+                                      slot.consecutive_failures})
+            if obs.metrics_enabled():
+                obs.inc("serve.loop.errors", len(reqs))
+                obs.inc("serve.batch_failures")
             for p in reqs:
                 p.future._set_error(err)
             return
@@ -567,9 +604,24 @@ class ServeLoop:
                 hist = slot.compute[bucket] = Histogram()
             hist.observe(dt)
             self._responses += len(reqs)
-            slot.slo_violations += sum(1 for p in reqs if t_done > p.deadline)
+            late = sum(1 for p in reqs if t_done > p.deadline)
+            slot.slo_violations += late
             for p in reqs:
                 slot.e2e.observe(t_done - p.t_submit)
+        if obs.metrics_enabled():
+            obs.inc("serve.loop.responses", len(reqs))
+            obs.inc("serve.loop.rows", len(reqs))
+            obs.inc("serve.loop.pad_rows", bucket - len(reqs))
+            obs.inc(f"serve.loop.flush.{reason}")
+            if late:
+                obs.inc("serve.loop.slo_violations", late)
+            obs.observe(f"serve.latency_s.bucket_{bucket}", dt)
+            for p in reqs:
+                obs.observe("serve.e2e_latency_s", t_done - p.t_submit)
+        obs.complete("serve.flush", "serve", t0_ns, time.perf_counter_ns(),
+                     args={"model": slot.name, "bucket": bucket,
+                           "rows": len(reqs), "pad_rows": bucket - len(reqs),
+                           "reason": reason, "version": version})
         for i, p in enumerate(reqs):
             p.future._set(ServeResult(
                 id=p.id, model=slot.name, margins=z[i], version=version,
@@ -580,6 +632,7 @@ class ServeLoop:
         while self._installs:
             name, new_bank, ticket = self._installs.popleft()
             slot = self._slots[name]
+            t0_ns = time.perf_counter_ns()
             dst = slot.bank
             for d, s in zip(dst.tensors(), new_bank.tensors()):
                 d.copy_(s)
@@ -594,6 +647,11 @@ class ServeLoop:
             slot.consecutive_failures = 0
             slot.quarantined = False
             ticket.version = slot.version
+            if obs.metrics_enabled():
+                obs.inc("serve.loop.installs")
+            obs.complete("serve.install", "serve", t0_ns,
+                         time.perf_counter_ns(),
+                         args={"model": name, "version": slot.version})
             ticket.installed.set()
 
     # -- accounting ----------------------------------------------------------

@@ -322,6 +322,101 @@ def test_solve_runs_through_kernel(cuda, layout, P, scope, kernel):
     assert abs(f_k - f_p) <= 1e-4 * abs(f_p)
 
 
+# -- the record_aux plane, telemetry and the batch solver on the card --------
+
+def _support_problem(cuda, s=4000, n=512, seed=3):
+    from repro_torch.core import make_problem
+    from repro_torch.data import make_classification
+    X, y, _ = make_classification(s, n, sparsity=0.97, seed=seed)
+    return make_problem(X, y, c=2.0, layout="padded_csc", device=cuda)
+
+
+def test_record_aux_plane_from_k1_equals_plain_step(cuda):
+    """The outer iteration's (q, alpha) with record_aux is K1's own
+    (n_bundles,) output; bundle for bundle from one carry and one
+    partition, the plain step gives the same q and alpha."""
+    from repro_torch.core import PCDNConfig, bundles, pcdn
+    prob = _support_problem(cuda)
+    kw = dict(P=8, ls_scope="support", tol_kkt=0.0, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    idxs = bundles.partition(gen, prob.n_features, 8, device=cuda)
+    b = idxs.shape[0]
+    outer = pcdn.make_path_outer(prob, PCDNConfig(use_kernels=True,
+                                                  record_aux=True, **kw))
+    w0 = torch.zeros(prob.n_features, device=cuda)
+    z0 = torch.zeros(prob.n_samples, device=cuda)
+    active = torch.ones(prob.n_features, dtype=torch.bool, device=cuda)
+    ops.reset_launch_counts()
+    out = outer(w0, z0, gen, active, True, 2.0, idxs=idxs)
+    assert ops.launch_counts()["pcdn_bundle"] == b and len(out) == 10
+    q, alpha = out[9]
+    assert q.shape == alpha.shape == (b,) and q.device.type == "cuda"
+    assert float(out[6]) == pytest.approx(float(q.float().mean()),
+                                          rel=1e-6)
+    k_step = pcdn.make_bundle_step(prob, PCDNConfig(use_kernels=True, **kw),
+                                   n_bundles=b)
+    p_step = pcdn.make_bundle_step(prob, PCDNConfig(use_kernels=False, **kw),
+                                   n_bundles=b)
+    w_k, z_k = w0.clone(), z0.clone()
+    for t in range(b):
+        w_p, z_p = w_k.clone(), z_k.clone()
+        k_step.update(w_k, z_k, idxs[t], t)
+        p_step.update(w_p, z_p, idxs[t], t)
+        assert int(k_step.n_steps[t]) == int(p_step.n_steps[t]), t
+        assert float(k_step.alpha[t]) == float(p_step.alpha[t]), t
+    # the outer's plane: each bundle's accepted alpha is beta^(q-1), or 0
+    # when no candidate passed (q = 1)
+    q_np, a_np = q.cpu().numpy(), alpha.cpu().numpy()
+    assert np.all((q_np >= 1) & (q_np <= 40))
+    assert np.all((a_np == 0.5 ** (q_np - 1)) | ((a_np == 0) & (q_np == 1)))
+
+
+def test_launch_counter_equals_bundles_run(cuda):
+    from repro_torch import obs
+    from repro_torch.core import PCDNConfig, pcdn
+    prob = _support_problem(cuda)
+    cfg = PCDNConfig(P=8, ls_scope="support", use_kernels=True,
+                     record_aux=True, tol_kkt=0.0, max_outer=3)
+    ops.reset_launch_counts()
+    obs.enable(metrics=True, trace_=True)
+    try:
+        res = pcdn.solve(prob, cfg)
+        snap = obs.registry.get_registry().snapshot()
+        events = obs.trace.get_tracer().to_dict()["traceEvents"]
+    finally:
+        obs.disable()
+        obs.registry.reset()
+    b = -(-prob.n_features // 8)
+    assert ops.launch_counts()["pcdn_bundle"] == 3 * b
+    assert snap["counters"]["kernels.pcdn_bundle.launches"] == 3 * b
+    assert snap["histograms"]["solver.bundle_q"]["count"] == 3 * b
+    assert int(np.sum(res.history.bundle_q >= 1)) == 3 * b
+    spans = [e for e in events if e["name"] == "kernels.pcdn_bundle"]
+    assert len(spans) == 3 * b
+    assert {e["args"]["impl"] for e in spans} == {"cuda"}
+    obs.validate_trace({"traceEvents": events})
+
+
+def test_solve_batch_on_cuda_matches_solo_solves(cuda):
+    from repro_torch.core import PCDNConfig, pcdn
+    from repro_torch.path import problem_grid, solve_batch
+    prob = _support_problem(cuda)
+    cfg = PCDNConfig(P=8, ls_scope="support", use_kernels=True,
+                     tol_kkt=0.0, max_outer=5)
+    cs = problem_grid(prob, n_points=3, span=20.0)
+    seeds = [0, 1, 2]
+    ops.reset_launch_counts()
+    res = solve_batch(prob, cfg, cs, seeds=seeds)
+    b = -(-prob.n_features // 8)
+    assert ops.launch_counts()["pcdn_bundle"] == 3 * 5 * b
+    for i, c in enumerate(cs):
+        solo = pcdn.solve(prob.with_c(c), PCDNConfig(
+            P=8, ls_scope="support", use_kernels=True, tol_kkt=0.0,
+            max_outer=5, seed=seeds[i]))
+        f = float(res.objective[i])
+        assert abs(f - solo.objective) <= 1e-4 * abs(solo.objective), i
+
+
 # -- serving margins (K4a, K4b) and the batched line search (K5) --------------
 
 def _bank_arrays(cuda, seed, K, A, n):

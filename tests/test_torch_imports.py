@@ -47,6 +47,11 @@ def test_scan_covers_the_package():
         "configs/__init__", "configs/qwen2_0_5b", "train/steps",
         "utils/params", "launch/serve")}
     assert lm <= paths, lm - paths
+    sweep = {f"src/repro_torch/{m}.py" for m in (
+        "obs/registry", "obs/trace", "obs/validate", "obs/gate",
+        "path/grid", "path/driver", "path/batch", "launch/path",
+        "serve/ovr")}
+    assert sweep <= paths, sweep - paths
 
 
 def test_scan_covers_the_baselines():
