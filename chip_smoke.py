@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases serve     # build + the serving path
     python3 chip_smoke.py --phases lm        # build + the LM serving path
     python3 chip_smoke.py --phases path      # build + the regularization path
+    python3 chip_smoke.py --phases fault     # build + diagnostics, faults
     python3 chip_smoke.py --support-wall     # support wall, for A/Bs only
 
 Phases:
@@ -98,7 +99,29 @@ Phases:
                  one iteration with record_aux traced in a child process
                  (`--solve-profile support --record-aux`: K1 alone once a
                  bundle).
-  12. lm      -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
+  12. fault   -- diagnostics and fault tolerance through the CLIs, on the
+                 support cell's real-sim as .libsvm (c 4), each CLI run a
+                 child process: REPRO_FAULT_PLAN puts a NaN into the
+                 margins at iteration 3 of a P 64 solve (full scope: K2),
+                 which rolls back and backs off to P 32 (support: K1),
+                 its metrics counters = iterations x bundles of each
+                 attempt; with --retries 0 the post-mortem, the
+                 --diag-out report and its re-rendering by `python -m
+                 repro_torch.diag.report`; a P 32 solve SIGKILLed at
+                 iteration 7 with --ckpt-every 3 and resumed at 6 (F rel
+                 1e-6 of an uninterrupted run, w bit-equality printed),
+                 its checkpoint restored on the CPU bit for bit and one
+                 iteration from it through the plain versions there and
+                 K1 here (F rel 1e-4); the path phase's rows swept (4
+                 points, 10 iterations) with a SIGKILL after point 1 and
+                 resumed; `diag.safep.certify` on the card's design (omega
+                 against the CSR rows; rho at its defaults below scipy's
+                 eigsh, the shortfall printed; the power iteration run
+                 3000 steps with no early stop against eigsh at rel
+                 1e-3); the iteration wall with the --diag-out planes and
+                 with a checkpoint every 3 iterations against neither,
+                 interleaved, and one snapshot's write time.
+  13. lm      -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
                  width (24 layers, bf16, random weights from a seed): a
                  4096-token prefill of 4 prompts, which runs K6 once a
                  layer, then 32 greedy tokens; the same at 32 tokens (the
@@ -126,6 +149,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -137,7 +161,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
 PHASES = ("build", "kernels", "support", "full", "dense", "scdn", "tron",
-          "bf16", "cli", "serve", "path", "lm")  # in order
+          "bf16", "cli", "serve", "path", "fault", "lm")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -259,6 +283,35 @@ PATH_BATCH_RTOL = 1e-4     # batch problem F against its solo solve
 PATH_OVR_CLASSES = 4
 PATH_OVR_OUTER = 5
 PATH_TIMING_ITERS = 20
+
+# the fault phase: the support cell's real-sim (make_data's, c 4) as
+# .libsvm through the port's CLIs. A NaN into the margins at iteration 3
+# of a P 64 solve (4 * 64 * k_max > s: the full scope, K2) backs off to P
+# 32 (the support scope, K1); the solve that is killed at iteration 7
+# checkpoints every 3 (resumes at 6); the path sweep is the path phase's
+# rows, killed after point 1. Resumed runs against uninterrupted ones: F
+# rel 1e-6 (K1's and K2's float atomics may move the last bits on the
+# card; on the CPU the port resumes bit for bit). rho against eigsh: rel
+# 1e-3 for the power iteration run FAULT_POWER_STEPS steps with no early
+# stop. certify at its (the reference's) defaults is held only to stay
+# below the top eigenvalue, and its shortfall is printed: on this data the
+# top two eigenvalues are 3e-3 apart and the start vector barely meets the
+# top one, so the Rayleigh quotient sits near the second for ~1000 steps,
+# where float32 noise meets the 1e-9 stop test (an H100 run: stopped at
+# 278 steps, 3.0e-3 low; 3000 steps with no stop, 1.3e-6; PERF.md).
+# Costs: FAULT_COST_ITERS support iterations a reading
+FAULT_P = 64
+FAULT_NAN_AT = 3
+FAULT_MAX_OUTER = 12
+FAULT_CRASH_AT = 7
+FAULT_CKPT_EVERY = 3
+FAULT_SOLVE_OUTER = 10
+FAULT_PATH_POINTS = 4
+FAULT_PATH_OUTER = 10
+FAULT_RESUME_RTOL = 1e-6
+FAULT_RHO_RTOL = 1e-3
+FAULT_POWER_STEPS = 3000
+FAULT_COST_ITERS = 10
 
 # the lm phase: qwen2-0.5b at its published width, 4 prompts of 4096
 # tokens (BLOCKWISE_MIN_KV = 2048 or more: K6 in every layer) and 32 new
@@ -2435,6 +2488,398 @@ def phase_path(torch, rows, data, card: str) -> dict:
     return total
 
 
+def _child(args, env=None, timeout=300):
+    """Start `python -m <args>` on the checkout's src, the fault plan (if
+    any) in REPRO_FAULT_PLAN. -> the Popen (stdout and stderr piped)."""
+    import os
+    e = dict(os.environ)
+    e["PYTHONPATH"] = str(SRC)
+    e.pop("REPRO_FAULT_PLAN", None)
+    e.update(env or {})
+    proc = subprocess.Popen([sys.executable, "-m", *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=e, cwd=str(ROOT))
+    proc.smoke_timeout = timeout
+    return proc
+
+
+def _finish(name, proc, rc=0):
+    """Wait for a child of `_child`; its rc must be `rc`. -> stdout."""
+    out, err = proc.communicate(timeout=proc.smoke_timeout)
+    if proc.returncode != rc:
+        raise AssertionError(f"[fault] {name}: exit {proc.returncode} "
+                             f"(expected {rc})\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    return out
+
+
+def _counters(path) -> dict:
+    """The kernel launch counters of a child's --metrics-out record."""
+    rec = json.loads(Path(path).read_text().strip().splitlines()[-1])
+    c = rec["metrics"]["counters"]
+    return {k: int(c.get(f"kernels.{k}.launches", 0))
+            for k in ("pcdn_sparse_direction", "pcdn_bundle")}
+
+
+def _solve_rows(ck_dir, step):
+    from repro_torch.fault import CheckpointManager
+    return CheckpointManager(str(ck_dir)).load_raw(step)
+
+
+def phase_fault(torch, rows, data, card: str) -> dict:
+    """Diagnostics and fault tolerance through the port's CLIs, on the
+    support cell's real-sim (make_data's, written as .libsvm) at c 4: (1)
+    a NaN into the margins at iteration 3 of a P 64 solve (the full scope,
+    K2) rolls back and backs off to P 32 (the support scope, K1), the
+    launch counters equal to iterations x bundles of each attempt; (2) the
+    same with --retries 0: the post-mortem in --out and in the --diag-out
+    report, re-rendered from --out by `python -m repro_torch.diag.report`;
+    (3) a solve SIGKILLed at iteration 7 (checkpoints every 3) resumed
+    against an uninterrupted one, the checkpoint's image restored on the
+    CPU bit for bit, and one iteration from it through the plain versions
+    on the CPU and through K1 on the card; (4) a path sweep over the path
+    phase's rows SIGKILLed after point 1 and resumed; (5) the certified P
+    on the card's design against scipy's eigsh; (6) the costs of the
+    --diag-out planes and of a checkpoint every 3 iterations, and one
+    snapshot's write. The CLI runs are child processes, the independent
+    ones started together. -> the K1 / K2 launches the phase counted."""
+    import scipy.sparse as sps
+    import scipy.sparse.linalg as spla
+    from repro_torch.core import PCDNConfig, resolve_ls_scope
+    from repro_torch.core import bundles as B
+    from repro_torch.core.bundles import num_bundles
+    from repro_torch.core.problem import make_problem
+    from repro_torch.data import load_libsvm, save_libsvm_csr
+    from repro_torch.diag import safep
+    from repro_torch.engine import LocalBackend
+    from repro_torch.engine import loop as engine_loop
+    from repro_torch.fault import SolveCheckpointer, next_bundle_size
+    from repro_torch.kernels import ops
+
+    work = rows["work"] / "fault"
+    if work.exists():
+        import shutil
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    c = SOLVES["support"][2]
+    csc, y = data[0], data[1]
+    t0 = time.perf_counter()
+    rs_path = work / "realsim.libsvm"
+    save_libsvm_csr(str(rs_path), csc.to_csr(), y)
+    path_rows = work / "train.libsvm"
+    save_libsvm_csr(str(path_rows), rows["train_csr"], rows["y"][:SERVE_TRAIN])
+    X_file, y_file = load_libsvm(str(rs_path), layout="padded_csc")
+    prob = make_problem(X_file, y_file, c=c, layout="padded_csc",
+                        device=DEVICE)
+    n = prob.n_features
+    b64, b32 = num_bundles(n, FAULT_P), num_bundles(n, FAULT_P // 2)
+    scopes = {P: resolve_ls_scope(PCDNConfig(P=P, use_kernels=True), prob)
+              for P in (FAULT_P, FAULT_P // 2)}
+    assert scopes == {FAULT_P: "full", FAULT_P // 2: "support"}, scopes
+    log(f"[fault] data: real-sim {prob.n_samples} x {n} (k_max "
+        f"{X_file.k_max}) -> {rs_path.name}, the path phase's rows -> "
+        f"{path_rows.name}: {time.perf_counter() - t0:.1f}s; P {FAULT_P}: "
+        f"{scopes[FAULT_P]} scope (K2), {b64} bundles; P {FAULT_P // 2}: "
+        f"{scopes[FAULT_P // 2]} scope (K1), {b32} bundles")
+    counted = {"pcdn_sparse_direction": 0, "pcdn_bundle": 0}
+
+    def add(counts):
+        for k in counted:
+            counted[k] += counts.get(k, 0)
+
+    solve = ["repro_torch.launch.solve", "--dataset", str(rs_path),
+             "--layout", "padded_csc", "--use-kernels", "--device", DEVICE,
+             "--c", str(c), "--tol", "1e-3"]
+    nan_plan = {"REPRO_FAULT_PLAN": json.dumps(
+        {"nan_at_iter": FAULT_NAN_AT, "nan_target": "margins"})}
+
+    def nan_run(tag, extra):
+        return _child(solve + [
+            "--P", str(FAULT_P), "--max-outer", str(FAULT_MAX_OUTER),
+            "--diag-out", str(work / f"{tag}.md"), "--out",
+            str(work / f"{tag}.json"), "--metrics-out",
+            str(work / f"{tag}.jsonl")] + extra, env=nan_plan)
+
+    # (1) rollback with P backoff, alone (its timings printed)
+    t0 = time.perf_counter()
+    out = _finish("rollback", nan_run("rollback", []))
+    wall = time.perf_counter() - t0
+    rep = json.loads((work / "rollback.json").read_text())
+    fl = rep["faults"]
+    p_new = next_bundle_size(FAULT_P, fl["p_cert"])
+    b_new = num_bundles(n, p_new)
+    assert fl["rollbacks"] == 1, fl
+    assert fl["p_schedule"] == [FAULT_P, p_new], fl
+    assert resolve_ls_scope(PCDNConfig(P=p_new, use_kernels=True),
+                            prob) == "support", p_new
+    assert np.isfinite(rep["objective"]), rep["objective"]
+    it = rep["history"]["outer_iter"]
+    assert it == list(range(len(it))), it
+    cnt = _counters(work / "rollback.jsonl")
+    add(cnt)
+    want = {"pcdn_sparse_direction": (FAULT_NAN_AT + 1) * b64,
+            "pcdn_bundle": (len(it) - FAULT_NAN_AT) * b_new}
+    assert cnt == want, (cnt, want)
+    cert_s = float(re.search(r"P_cert=\d+ \(([\d.]+)s\)", out).group(1))
+    rebuild_ms = float(re.search(r"rebuilt the backend at P=\d+ in "
+                                 r"([\d.]+) ms", out).group(1))
+    log(f"[fault] (1) NaN in the margins at iteration {FAULT_NAN_AT}, P "
+        f"{FAULT_P}: rollbacks {fl['rollbacks']}, p_schedule "
+        f"{fl['p_schedule']}, P_cert {fl['p_cert']}, {len(it)} iterations "
+        f"(outer_iter 0..{it[-1]}), F {rep['objective']:.6f}, converged "
+        f"{rep['converged']}; K2 launches {cnt['pcdn_sparse_direction']} = "
+        f"{FAULT_NAN_AT + 1} x {b64}, K1 launches {cnt['pcdn_bundle']} = "
+        f"{len(it) - FAULT_NAN_AT} x {b_new}; lazy certify {cert_s:.3f} s, "
+        f"rebuild at P {p_new} {rebuild_ms:.3f} ms; child wall {wall:.1f}s "
+        f"(start, load, solve, certify twice: lazily and for --diag-out)")
+
+    # (2) and the uninterrupted / crashing runs of (3) and (4), together
+    t0 = time.perf_counter()
+    crash = {"REPRO_FAULT_PLAN": json.dumps(
+        {"crash_at_iter": FAULT_CRASH_AT, "crash_kind": "sigkill"})}
+    solve32 = solve + ["--P", str(FAULT_P // 2), "--max-outer",
+                       str(FAULT_SOLVE_OUTER)]
+    path = ["repro_torch.launch.path", "--dataset", str(path_rows),
+            "--layout", "padded_csc", "--use-kernels", "--device", DEVICE,
+            "--P", str(PATH_P), "--points", str(FAULT_PATH_POINTS),
+            "--max-outer", str(FAULT_PATH_OUTER), "--tol", str(PATH_TOL)]
+    procs = {
+        "retries0": nan_run("retries0", ["--retries", "0"]),
+        "solve_ref": _child(solve32 + [
+            "--out", str(work / "solve_ref.json"), "--metrics-out",
+            str(work / "solve_ref.jsonl")]),
+        "solve_crash": _child(solve32 + [
+            "--ckpt-dir", str(work / "ck_solve"), "--ckpt-every",
+            str(FAULT_CKPT_EVERY)], env=crash),
+        "path_ref": _child(path + ["--out", str(work / "path_ref.json"),
+                                   "--metrics-out",
+                                   str(work / "path_ref.jsonl")]),
+        "path_crash": _child(path + ["--ckpt-dir", str(work / "ck_path")],
+                             env={"REPRO_FAULT_PLAN": json.dumps(
+                                 {"crash_at_point": 1,
+                                  "crash_kind": "sigkill"})}),
+    }
+    outs = {k: _finish(k, p, rc=-9 if k.endswith("crash") else 0)
+            for k, p in procs.items()}
+    for k in ("retries0", "solve_ref", "path_ref"):
+        add(_counters(work / f"{k}.jsonl"))
+    procs = {
+        "solve_resume": _child(solve32 + [
+            "--ckpt-dir", str(work / "ck_solve"), "--ckpt-every",
+            str(FAULT_CKPT_EVERY), "--resume", "--out",
+            str(work / "solve_res.json"), "--metrics-out",
+            str(work / "solve_res.jsonl")]),
+        "path_resume": _child(path + [
+            "--ckpt-dir", str(work / "ck_path"), "--resume", "--out",
+            str(work / "path_res.json"), "--metrics-out",
+            str(work / "path_res.jsonl")]),
+        "report": _child(["repro_torch.diag.report", "--report",
+                          str(work / "retries0.json"), "-o",
+                          str(work / "retries0_again.md")]),
+    }
+    outs.update({k: _finish(k, p) for k, p in procs.items()})
+    for k in ("solve_res", "path_res"):
+        add(_counters(work / f"{k}.jsonl"))
+    log(f"[fault] children of (2)-(4): 5 started together, then 3: "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # (2) --retries 0: the post-mortem and the report
+    rep = json.loads((work / "retries0.json").read_text())
+    pm = rep["postmortem"]
+    assert rep["faults"]["rollbacks"] == 1, rep["faults"]
+    assert "surfacing post-mortem" in outs["retries0"]
+    for key in ("objective_growth", "deepest_mean_q", "heatmap",
+                "worst_bundles", "alpha_floor"):
+        assert key in pm, key
+    k2 = _counters(work / "retries0.jsonl")["pcdn_sparse_direction"]
+    assert pm["heatmap"]["bundles_ran"] == k2 == (FAULT_NAN_AT + 1) * b64, \
+        (pm["heatmap"]["bundles_ran"], k2)
+    md = (work / "retries0.md").read_text()
+    sections = {"summary": "## Run summary", "convergence": "## Convergence",
+                "attribution": "## Top KKT offenders",
+                "backtracks": "## Backtrack forensics",
+                "postmortem": "## Divergence post-mortem",
+                "safep": "## Certified parallelism"}
+    missing = [k for k, v in sections.items() if v not in md]
+    assert not missing, missing
+    assert (work / "retries0_again.md").read_text() == md
+    log(f"[fault] (2) --retries 0: diverged, post-mortem trip_iter "
+        f"{pm['trip_iter']}, objective_growth {pm['objective_growth']}, "
+        f"deepest_mean_q {pm['deepest_mean_q']}, alpha_floor "
+        f"{pm['alpha_floor']}, heatmap bundles_ran "
+        f"{pm['heatmap']['bundles_ran']} = K2 launches {k2}; the report has "
+        f"{', '.join(sections)}; `python -m repro_torch.diag.report "
+        f"--report` re-renders it byte for byte")
+
+    # (3) the solve's crash and resume
+    res = json.loads((work / "solve_res.json").read_text())
+    ref = json.loads((work / "solve_ref.json").read_text())
+    resumed_at = FAULT_CRASH_AT - FAULT_CRASH_AT % FAULT_CKPT_EVERY
+    assert f"resuming solve at outer iteration {resumed_at}" in \
+        outs["solve_resume"], outs["solve_resume"][-2000:]
+    f_rel = abs(res["objective"] - ref["objective"]) / abs(ref["objective"])
+    w_equal = (res["w_indices"] == ref["w_indices"]
+               and res["w_values"] == ref["w_values"])
+    assert f_rel <= FAULT_RESUME_RTOL, (res["objective"], ref["objective"])
+    log(f"[fault] (3) solve SIGKILLed at iteration {FAULT_CRASH_AT} "
+        f"(checkpoints every {FAULT_CKPT_EVERY}), resumed at {resumed_at}: "
+        f"F {res['objective']:.9g} against uninterrupted "
+        f"{ref['objective']:.9g} (rel {f_rel:.3e}, limit "
+        f"{FAULT_RESUME_RTOL}); w bit-equal: {w_equal}")
+    ck = SolveCheckpointer(str(work / "ck_solve"))
+    step = ck.manager.latest_step()
+    leaves = _solve_rows(work / "ck_solve", step)
+    cfg = PCDNConfig(P=FAULT_P // 2, use_kernels=True, tol_kkt=0.0, seed=0)
+    cpu_prob = make_problem(X_file, y_file, c=c, layout="padded_csc",
+                            device="cpu")
+    st_cpu, meta = ck.restore_solve(LocalBackend(cpu_prob, cfg))
+    for k in ("w", "z", "active"):
+        got = getattr(st_cpu, k).numpy()
+        assert got.dtype == leaves[k].dtype and \
+            np.array_equal(got, leaves[k]), k
+    st_gpu, _ = ck.restore_solve(LocalBackend(prob, cfg))
+    idxs = B.partition(torch.Generator().set_state(st_cpu.gen.get_state()),
+                       n, FAULT_P // 2)
+    t0 = time.perf_counter()
+    out_cpu = LocalBackend(cpu_prob, cfg).outer(
+        st_cpu.w, st_cpu.z, st_cpu.gen, st_cpu.active, True, c, idxs=idxs)
+    cpu_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    out_gpu = LocalBackend(prob, cfg).outer(
+        st_gpu.w, st_gpu.z, st_gpu.gen, st_gpu.active, True, c,
+        idxs=idxs.to(DEVICE))
+    torch.cuda.synchronize()
+    k1 = ops.launch_counts()["pcdn_bundle"]
+    add(ops.launch_counts())
+    f_cpu, f_gpu = float(out_cpu[3]), float(out_gpu[3])
+    rel = abs(f_gpu - f_cpu) / abs(f_cpu)
+    assert k1 == b32, (k1, b32)
+    assert rel <= F_RTOL, (f_gpu, f_cpu)
+    log(f"[fault] (3) the card-written checkpoint (step {step}, iteration "
+        f"{meta['outer_iter']}) restored on the CPU: w, z, active bit-equal "
+        f"to its arrays; one iteration from it with one partition: plain "
+        f"versions on the CPU F {f_cpu:.9g} ({cpu_s:.1f}s), K1 on the card "
+        f"F {f_gpu:.9g} ({k1} launches), rel {rel:.3e} (limit {F_RTOL})")
+
+    # (4) the path sweep's crash and resume
+    pres = json.loads((work / "path_res.json").read_text())
+    pref = json.loads((work / "path_ref.json").read_text())
+    assert f"resuming path sweep at point 2/{FAULT_PATH_POINTS}" in \
+        outs["path_resume"]
+    assert pres["best_index"] == pref["best_index"]
+    rels = [abs(a["objective"] - b["objective"]) / abs(b["objective"])
+            for a, b in zip(pres["points"], pref["points"])]
+    assert len(rels) == FAULT_PATH_POINTS and \
+        max(rels) <= FAULT_RESUME_RTOL, rels
+    log(f"[fault] (4) path sweep ({FAULT_PATH_POINTS} points, max-outer "
+        f"{FAULT_PATH_OUTER}, P {PATH_P}) SIGKILLed after point 1, resumed "
+        f"at point 2: best index {pres['best_index']} (a file dataset has "
+        f"no validation split) in both; per-point F rel "
+        + ", ".join(f"{r:.3e}" for r in rels)
+        + f" (limit {FAULT_RESUME_RTOL}); F "
+        + " ".join(f"{p['objective']:.9g}" for p in pres["points"]))
+
+    # (5) the certified P on the card's design against eigsh
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cert = safep.certify(prob.design, observed_p=FAULT_P)
+    cert_wall = time.perf_counter() - t0
+    csr = load_libsvm(str(rs_path), layout="csr")[0]
+    nz_rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+    omega = int(np.bincount(nz_rows[csr.data != 0],
+                            minlength=csr.shape[0]).max())
+    assert cert["omega"] == omega, (cert["omega"], omega)
+    Xs = sps.csr_matrix((csr.data.astype(np.float64), csr.indices,
+                         csr.indptr), shape=csr.shape)
+    norms = np.sqrt(np.asarray(Xs.multiply(Xs).sum(axis=0)).ravel())
+    scale = np.divide(1.0, norms, out=np.zeros_like(norms),
+                      where=norms > 0)
+    Xn = (Xs @ sps.diags(scale)).tocsr()
+    XnT = Xn.T.tocsr()
+    op = spla.LinearOperator((n, n), matvec=lambda v: XnT @ (Xn @ v),
+                             dtype=np.float64)
+    t0 = time.perf_counter()
+    # two Lanczos values: the top pair is 3e-3 apart on this data
+    top2 = np.sort(spla.eigsh(op, k=2, which="LA",
+                              return_eigenvectors=False))[::-1]
+    lam = float(top2[0])
+    eig_s = time.perf_counter() - t0
+    cert_rel = (lam - cert["rho_normalized"]) / lam
+    # a Rayleigh quotient never exceeds the top eigenvalue
+    assert cert["rho_normalized"] <= lam * (1 + 1e-6), \
+        (cert["rho_normalized"], lam)
+    t0 = time.perf_counter()
+    deep = safep.power_iteration_rho(prob.design, n_iter=FAULT_POWER_STEPS,
+                                     tol=0.0)
+    deep_s = time.perf_counter() - t0
+    rho_rel = abs(deep["rho"] - lam) / lam
+    assert rho_rel <= FAULT_RHO_RTOL, (deep["rho"], lam)
+    log(f"[fault] (5) certify at its defaults (n_iter 1000, tol 1e-9) on "
+        f"the card's padded-CSC design: rho {cert['rho_normalized']:.9g}, "
+        f"power_iters {cert['power_iters']}, converged "
+        f"{cert['power_converged']}, {cert_rel:.3e} below eigsh's top "
+        f"eigenvalue {lam:.9g} (second {float(top2[1]):.9g}; float64 "
+        f"LinearOperator over the column-normalised design, {eig_s:.2f}s); "
+        f"P_spectral {cert['P_spectral']} (n / eigsh's: "
+        f"{int(np.floor(n / lam))}), omega {cert['omega']} (= the CSR "
+        f"rows' count), P_eso {cert['P_eso']}, P_cert {cert['P_cert']}; "
+        f"wall {cert_wall:.3f}s. The same power iteration run "
+        f"{FAULT_POWER_STEPS} steps with no early stop: rho "
+        f"{deep['rho']:.9g}, rel {rho_rel:.3e} to eigsh (limit "
+        f"{FAULT_RHO_RTOL}), {deep_s:.2f}s")
+
+    # (6) costs, interleaved in this process
+    i_x, i_y, c_s, layout, P_s, _, _ = SOLVES["support"]
+    sprob = make_problem(data[i_x], data[i_y], c=c_s, layout=layout,
+                         device=DEVICE)
+    base = dict(P=P_s, use_kernels=True, tol_kkt=0.0, seed=0)
+    off = LocalBackend(sprob, PCDNConfig(**base))
+    planes = LocalBackend(sprob, PCDNConfig(**base, record_aux=True,
+                                            record_kkt_vec=True))
+    ck_cost = SolveCheckpointer(str(work / "ck_cost"), every=3)
+    modes = {"off": (off, None), "diag planes": (planes, None),
+             "ckpt every 3": (off, ck_cost.solve_callback(off))}
+    order = ["off", "diag planes", "ckpt every 3", "ckpt every 3",
+             "diag planes", "off"] * 2
+    readings = {m: [] for m in modes}
+    engine_loop.solve(off, c_s, max_outer=2, tol_kkt=0.0)   # warm
+    ops.reset_launch_counts()
+    for m in order:
+        backend, cb = modes[m]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, r = engine_loop.run_outer_loop(
+            backend.outer, backend.init_state(), c_s,
+            max_outer=FAULT_COST_ITERS, tol_kkt=0.0, state_callback=cb)
+        torch.cuda.synchronize()
+        readings[m].append((time.perf_counter() - t0) / FAULT_COST_ITERS)
+        assert r.n_outer == FAULT_COST_ITERS and np.isfinite(r.objective)
+    add(ops.launch_counts())
+    assert ops.launch_counts()["pcdn_bundle"] == \
+        len(order) * FAULT_COST_ITERS * num_bundles(sprob.n_features, P_s)
+    st = off.init_state()
+    writes = []
+    for k in range(5):
+        t0 = time.perf_counter()
+        d = ck_cost.save_solve(off, st, outer_iter=100 + k)
+        writes.append((time.perf_counter() - t0) * 1e3)
+    mb = (Path(d) / "arrays.npz").stat().st_size / 1e6
+    log(f"[fault] (6) support iteration wall (real-sim, P {P_s}, c {c_s}, "
+        f"{FAULT_COST_ITERS} iterations a reading, interleaved "
+        f"{' / '.join(order[:6])}, twice; {card}): "
+        + "; ".join(f"{m} " + ", ".join(f"{v * 1e3:.3f}" for v in vs)
+                    + f" ms (mean {np.mean(vs) * 1e3:.3f})"
+                    for m, vs in readings.items())
+        + f"; one snapshot (w, z, active, key: arrays.npz {mb:.3f} MB, "
+          f"fsynced, renamed): " + ", ".join(f"{v:.3f}" for v in writes)
+        + " ms")
+    log(f"[fault] phase wall {time.perf_counter() - t_phase:.1f}s; K1 / K2 "
+        f"launches counted (child runs' metrics counters, killed runs "
+        f"uncounted, and this process's runs): {counted}")
+    return counted
+
+
 def phase_cli(torch) -> None:
     """`launch.solve.main` on a9a through the normal entry point: the PCDN
     run with the kernels, then the baselines and bf16 storage."""
@@ -2538,11 +2983,11 @@ def main(argv=None) -> int:
     phase_build()  # every later phase needs the kernels
     data = None
     if set(phases) & {"kernels", "support", "full", "dense", "scdn", "tron",
-                      "bf16", "path"}:
+                      "bf16", "path", "fault"}:
         data = make_data(DATA_SEED)
     serve = None
     rows = None
-    if set(phases) & {"kernels", "serve", "path"}:
+    if set(phases) & {"kernels", "serve", "path", "fault"}:
         rows = serve_data()
     if set(phases) & {"kernels", "serve"}:
         serve = prepare_serve(torch, rows)
@@ -2574,6 +3019,9 @@ def main(argv=None) -> int:
                 if kernel in launches:
                     by_phase[kernel]["earlier phases"] = launches[kernel]
                 launches[kernel] = launches.get(kernel, 0) + n
+    fault_launches = {}
+    if "fault" in phases:
+        fault_launches = phase_fault(torch, rows, data, f"{card} ({smi})")
     if "lm" in phases:
         launches.update(phase_lm(torch, f"{card} ({smi})"))
 
@@ -2591,6 +3039,10 @@ def main(argv=None) -> int:
                 row["launches_by_variant"] = launches[f"{name} variants"]
             if "path" in phases and name in by_phase:
                 row["launches_by_phase"] = by_phase[name]
+            if name in fault_launches:
+                # a side field: the fault phase's launches are not part
+                # of the main path's count above
+                row["fault_phase_launches"] = fault_launches[name]
             if "variant_ms" in r:
                 row["variant_ms"] = r["variant_ms"]
             if "real_sim" in r:  # K5's rows entry: the row is at gisette's

@@ -164,6 +164,11 @@ class L1Problem:
                              "(no feature correlates with the labels)")
         return 1.0 / denom
 
+    # -- Lemma 1 quantities ----------------------------------------------------
+    def column_norms_sq(self) -> Tensor:
+        """(X^T X)_jj for j in N: the lambda_j of Lemma 1 / Theorem 2."""
+        return self.design.column_norms_sq()
+
 
 def make_problem(X, y, c: float, loss: str = "logistic",
                  elastic_net_l2: float = 0.0, dtype=torch.float32,
@@ -198,3 +203,40 @@ def validation_accuracy(design, y, w, device="cuda") -> float:
     pred = np.sign(z)
     pred[pred == 0] = 1.0
     return float(np.mean(pred == np.asarray(y)))
+
+
+def expected_max_column_norm(problem: L1Problem, P: int) -> float:
+    """E_B[ lambda_bar(B) ] for uniform random size-P bundles (Lemma 1a).
+
+    f(P) = (1/C(n,P)) * sum_k lambda_(k) * C(k-1, P-1), computed stably in
+    log space with numpy on the host (analysis-time only).
+    """
+    lam = np.sort(problem.column_norms_sq().double().cpu().numpy())
+    return float(expected_max_of_sample(lam, P))
+
+
+def expected_max_of_sample(lam_sorted: np.ndarray, P: int) -> float:
+    """E[max of a uniform size-P subset] given sorted values (Lemma 1a,
+    Eq. 22).
+
+    The weight of the k-th smallest value (1-indexed) is
+    C(k-1,P-1)/C(n,P), computed in log space via cumulative
+    log-factorials.
+    """
+    lam_sorted = np.asarray(lam_sorted, dtype=np.float64)
+    n = lam_sorted.shape[0]
+    P = int(P)
+    if not 1 <= P <= n:
+        raise ValueError(f"P={P} out of [1, {n}]")
+    if P == 1:
+        return float(lam_sorted.mean())
+    # log k! for k = 0..n
+    logfact = np.concatenate([[0.0], np.cumsum(np.log(np.arange(1, n + 1)))])
+
+    def logC(a: np.ndarray, b: int) -> np.ndarray:  # log C(a, b), a >= b
+        return logfact[a] - logfact[b] - logfact[a - b]
+
+    k = np.arange(P, n + 1)  # only k >= P contribute
+    logw = logC(k - 1, P - 1) - logC(np.array([n]), P)
+    w = np.exp(logw)
+    return float(np.sum(w * lam_sorted[P - 1:]))

@@ -1,5 +1,6 @@
 """Local execution backend: the outer iteration of `core.pcdn` over one
-`L1Problem` on one device. Port of `repro.engine.local`."""
+`L1Problem` on one device. Port of `repro.engine.local`, with the
+checkpoint image's two ends: `host_margins` and `restore_state`."""
 from __future__ import annotations
 
 from typing import Optional
@@ -67,3 +68,36 @@ class LocalBackend:
 
     def host_weights(self, w: Tensor) -> np.ndarray:
         return w.detach().cpu().numpy()
+
+    def host_margins(self, z: Tensor) -> np.ndarray:
+        """(n_samples,) host margins: the checkpoint image of z."""
+        return z.detach().cpu().numpy()
+
+    def restore_state(self, w, z=None, active=None, key=None,
+                      gen_state=None) -> EngineState:
+        """EngineState on the backend's device from host arrays (a
+        `fault.checkpoint` snapshot, written by this package or the
+        reference). Missing pieces follow `init_state`: z is recomputed
+        from w, active is all-True. `gen_state` is a
+        `torch.Generator.get_state()` image; without it (a checkpoint the
+        reference wrote) the generator is seeded from cfg.seed, the
+        reference's own `key=None` rule. `key`, the reference's PRNG key,
+        is accepted and unused: the packages draw partitions differently.
+        """
+        del key
+        n, s, dev = self.n_features, self.n_samples, self.device
+        w = torch.tensor(np.asarray(w), dtype=self.dtype, device=dev)
+        if w.shape[0] != n:
+            raise ValueError(f"checkpoint has {w.shape[0]} features, "
+                             f"problem has {n}")
+        z = (self.problem.margins(w) if z is None
+             else torch.tensor(np.asarray(z).reshape(s), dtype=self.dtype,
+                               device=dev))
+        active = (torch.ones((n,), dtype=torch.bool, device=dev)
+                  if active is None
+                  else torch.tensor(np.asarray(active).reshape(n),
+                                    dtype=torch.bool, device=dev))
+        gen = torch.Generator().manual_seed(self.cfg.seed)
+        if gen_state is not None:
+            gen.set_state(gen_state)
+        return EngineState(w=w, z=z, gen=gen, active=active)

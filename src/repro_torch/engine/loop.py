@@ -17,8 +17,11 @@ structure: a (q, alpha) tuple is the per-bundle aux plane
 sync the loop already does. The carry's `gen` is the torch.Generator of
 the bundle partitions; the rollback restores its state too. After each
 iteration the loop waits for the device (`torch.cuda.synchronize`) before
-it stamps the time. The divergence post-mortem (`diag/`) is not ported
-yet: `SolveResult.postmortem` stays None.
+it stamps the time. A non-finite or divergence-guard trip attaches the
+divergence post-mortem (`diag.forensics`) to `SolveResult.postmortem` and
+emits the `engine.divergence_postmortem` instant; `state_callback` (the
+periodic checkpoint of `fault.SolveCheckpointer`) sees every finite
+iteration's carry and never a poisoned one.
 
 `run_lockstep_loop` is the freeze-on-convergence loop of the batch solver
 (`path/batch.py`).
@@ -69,10 +72,34 @@ class SolveResult(NamedTuple):
     converged: bool
     history: SolveHistory
     diverged: bool = False     # divergence guard OR non-finite detector
-    # the reference's divergence post-mortem (repro.diag.forensics); None
-    # until the port has diag/
+    # divergence post-mortem (diag.forensics.divergence_postmortem),
+    # attached when the divergence guard or the non-finite detector trips;
+    # None otherwise
     postmortem: Optional[dict] = None
     nonfinite: bool = False    # NaN/inf in (f, kkt): w is the last good one
+    # the rollback / P-backoff record fault.resilient_solve attaches:
+    # {"rollbacks", "p_schedule", "p_cert", "resumed_from"}; None on
+    # fault-free solves
+    faults: Optional[dict] = None
+
+
+def _build_postmortem(hist: dict, aux_q: list, aux_alpha: list,
+                      k: int) -> dict:
+    """The divergence post-mortem from the rows recorded so far, richer
+    when the per-bundle aux rode along, and its trace instant. A local
+    import: diag consumes the engine."""
+    from repro_torch.diag import forensics
+    postmortem = forensics.divergence_postmortem(
+        objective=np.asarray(hist["objective"]),
+        kkt=np.asarray(hist["kkt"]),
+        ls_steps=np.asarray(hist["ls_steps"]),
+        bundle_q=np.asarray(aux_q) if aux_q else None,
+        bundle_alpha=np.asarray(aux_alpha) if aux_alpha else None)
+    obs.instant("engine.divergence_postmortem", "engine",
+                args={"k": k,
+                      "objective_growth": postmortem["objective_growth"],
+                      "deepest_mean_q": postmortem["deepest_mean_q"]})
+    return postmortem
 
 
 def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
@@ -82,6 +109,8 @@ def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
                    callback: Optional[Callable] = None,
                    divergence_guard: Optional[Callable[[float], bool]] = None,
                    start_iter: int = 0,
+                   state_callback: Optional[Callable] = None,
+                   check_finite_w: bool = False,
                    ) -> Tuple[EngineState, SolveResult]:
     """Host-side convergence loop around a backend outer iteration.
 
@@ -90,9 +119,15 @@ def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
     Stops at kkt <= tol_kkt or, given f_star and tol_rel_obj > 0, at
     f - f_star <= tol_rel_obj * |f_star|. A NaN/inf objective or KKT stops
     the loop with diverged = nonfinite = True and returns the carry from
-    before that iteration. divergence_guard(f) -> True after a finite
-    iteration stops the loop with diverged = True (converged stays False),
-    keeping that iteration's carry.
+    before that iteration (generator state included); check_finite_w=True
+    also scans the whole of w each iteration (the mode
+    `fault.resilient_solve` runs its retries in). divergence_guard(f) ->
+    True after a finite iteration stops the loop with diverged = True
+    (converged stays False), keeping that iteration's carry. Either trip
+    attaches `postmortem`.
+    state_callback(k, EngineState, f, kkt) fires after each finite
+    iteration (before the guard and the stop tests): the periodic
+    checkpoint hook.
 
     Outputs past the 9-tuple: a 2-tuple (q (b,), alpha (b,)) goes to
     `SolveHistory.bundle_q/bundle_alpha` (and, with the registry on, to
@@ -110,6 +145,7 @@ def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
     kkt_rows: list = []
     t0 = time.perf_counter()
     converged = diverged = nonfinite = False
+    postmortem = None
     f = f_good = float("nan")
     prev_active = None
     k = start_iter - 1
@@ -170,21 +206,30 @@ def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
                            "mean_q": mean_q_f, "n_active": n_active_i})
         if callback is not None:
             callback(k, w, f, kkt_f, mean_q_f)
-        if not (np.isfinite(f) and np.isfinite(kkt_f)):
+        finite = bool(np.isfinite(f) and np.isfinite(kkt_f))
+        if finite and check_finite_w:
+            finite = bool(torch.all(torch.isfinite(w)))
+        if not finite:
             diverged = nonfinite = True
             obs.inc("solver.nonfinite_trips")
             obs.instant("engine.nonfinite_guard", "engine",
                         args={"k": k, "objective": f, "kkt": kkt_f})
+            postmortem = _build_postmortem(hist, aux_q, aux_alpha, k)
+            # the poisoned carry never leaks into warm starts, checkpoints
+            # or the returned weights
             w, z, gen_state, active = prev_state
             gen.set_state(gen_state)
             f = f_good
             break
         f_good = f
+        if state_callback is not None:
+            state_callback(k, EngineState(w, z, gen, active), f, kkt_f)
         if divergence_guard is not None and divergence_guard(f):
             diverged = True
             obs.inc("solver.divergence_trips")
             obs.instant("engine.divergence_guard", "engine",
                         args={"k": k, "objective": f})
+            postmortem = _build_postmortem(hist, aux_q, aux_alpha, k)
             break
         if kkt_f <= tol_kkt:
             converged = True
@@ -200,7 +245,8 @@ def run_outer_loop(outer: Callable, state: EngineState, c: float, *,
         kkt_vec=np.asarray(kkt_rows) if kkt_rows else None)
     result = SolveResult(w=w, objective=f, n_outer=k + 1,
                          converged=converged, history=history,
-                         diverged=diverged, nonfinite=nonfinite)
+                         diverged=diverged, postmortem=postmortem,
+                         nonfinite=nonfinite)
     return EngineState(w, z, gen, active), result
 
 

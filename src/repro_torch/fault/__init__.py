@@ -1,6 +1,28 @@
-"""Fault tolerance of the port: only the atomic writes the serve artifacts
-need so far (`fault.atomic`); checkpoints, injection and resilient solves
-come with their own slice."""
-from repro_torch.fault.atomic import atomic_write_json
+"""Fault tolerance of the port (mirrors `repro.fault`).
 
-__all__ = ["atomic_write_json"]
+Crash-safe checkpoint/resume for solves and path sweeps (the on-disk
+format is the reference's, so checkpoints cross between the packages),
+non-finite rollback with automatic P-backoff toward the certified safe
+bundle size, the deterministic fault-injection harness driven by the
+same `REPRO_FAULT_PLAN` variable, and the atomic writes the serve
+artifacts use. The reference's step-loop runner (`fault/runner.py`)
+drives the LM training step and is not ported with this package.
+"""
+from repro_torch.fault.atomic import (atomic_write_bytes, atomic_write_json,
+                                      atomic_write_text, fsync_dir)
+from repro_torch.fault.checkpoint import (CheckpointManager,
+                                          SolveCheckpointer, host_state)
+from repro_torch.fault.inject import (CRASH_KINDS, ENV_VAR, NAN_TARGETS,
+                                      FaultPlan, InjectedCrash,
+                                      corrupt_checkpoint, plan_from_env,
+                                      wrap_outer)
+from repro_torch.fault.resilient import next_bundle_size, resilient_solve
+
+__all__ = [
+    "atomic_write_bytes", "atomic_write_json", "atomic_write_text",
+    "fsync_dir",
+    "CheckpointManager", "SolveCheckpointer", "host_state",
+    "CRASH_KINDS", "ENV_VAR", "NAN_TARGETS", "FaultPlan", "InjectedCrash",
+    "corrupt_checkpoint", "plan_from_env", "wrap_outer",
+    "next_bundle_size", "resilient_solve",
+]

@@ -58,7 +58,11 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
     fsync_dir(parent)
 
 
+def atomic_write_text(path: str, text: str) -> None:
+    atomic_write_bytes(path, text.encode("utf-8"))
+
+
 def atomic_write_json(path: str, obj, **dump_kwargs) -> None:
     """Atomic `json.dump`. Serialization happens BEFORE the temp file is
     created, so an unserializable object leaves no debris at all."""
-    atomic_write_bytes(path, json.dumps(obj, **dump_kwargs).encode("utf-8"))
+    atomic_write_text(path, json.dumps(obj, **dump_kwargs))

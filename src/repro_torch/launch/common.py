@@ -2,11 +2,13 @@
 
 The flags mirror `repro.launch.common` for what the port carries:
 `--layout / --use-kernels / --dtype / --device`, the solver knobs,
-`--warm-start`, the telemetry flags `--metrics-out / --trace-out` and
-`--progress`. The port runs on the local backend only, so there is no
-`--backend` (and no sharded branch in the bf16 envelope); `--device`
-(default cuda) is the explicit device every entry point of the port takes.
-The diagnostics and fault-tolerance flags wait for `diag/` and `fault/`.
+`--warm-start`, the telemetry flags `--metrics-out / --trace-out`, the
+diagnostics flags `--diag-out / --progress` and the fault-tolerance flags
+`--ckpt-dir / --ckpt-every / --resume / --retries`, with the reference's
+defaults and refusals. The port runs on the local backend only, so there
+is no `--backend` (and no sharded branch in the bf16 envelope);
+`--device` (default cuda) is the explicit device every entry point of the
+port takes.
 """
 from __future__ import annotations
 
@@ -105,11 +107,55 @@ def add_obs_args(ap: argparse.ArgumentParser):
                          "validate`")
 
 
-def add_progress_arg(ap: argparse.ArgumentParser):
+def add_diag_args(ap: argparse.ArgumentParser):
+    """Diagnostics flags, identical in the solve / path CLIs."""
+    ap.add_argument("--diag-out", default=None, metavar="MD",
+                    help="write a markdown solver-health report here "
+                         "(top-k KKT offenders, backtrack forensics, "
+                         "certified-P table); turns on the per-feature "
+                         "KKT attribution harvest (record_kkt_vec) and "
+                         "the per-bundle aux for this run")
     ap.add_argument("--progress", action="store_true",
                     help="live one-line solve status on stderr (iter, "
                          "objective, KKT, mean_q); off by default so logs "
                          "stay clean")
+
+
+def add_fault_args(ap: argparse.ArgumentParser):
+    """Fault-tolerance flags, identical in the solve / path CLIs."""
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="crash-safe checkpoint directory (atomic "
+                         "write-then-rename with a COMMITTED marker); "
+                         "solve runs snapshot every --ckpt-every "
+                         "iterations, path sweeps after every grid "
+                         "point; checkpoints are unpadded host arrays in "
+                         "the reference's format, so either package "
+                         "resumes them")
+    ap.add_argument("--ckpt-every", type=int, default=10, metavar="N",
+                    help="solve-checkpoint cadence in outer iterations "
+                         "(default 10; path sweeps always checkpoint "
+                         "per point)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest committed checkpoint "
+                         "in --ckpt-dir (incomplete or corrupted steps "
+                         "are skipped); on the CPU the resumed run "
+                         "reproduces the uninterrupted one bit-for-bit")
+    ap.add_argument("--retries", type=int, default=2, metavar="K",
+                    help="max non-finite rollbacks before the solve "
+                         "surfaces the post-mortem (each retry halves "
+                         "the bundle size toward the certified safe P)")
+
+
+def make_checkpointer(args, ap: argparse.ArgumentParser):
+    """The `fault.SolveCheckpointer` behind --ckpt-dir, or None."""
+    if getattr(args, "resume", False) and not getattr(args, "ckpt_dir", None):
+        ap.error("--resume needs --ckpt-dir")
+    if not getattr(args, "ckpt_dir", None):
+        return None
+    from repro_torch.fault import SolveCheckpointer
+    if args.ckpt_every < 1:
+        ap.error(f"--ckpt-every must be >= 1, got {args.ckpt_every}")
+    return SolveCheckpointer(args.ckpt_dir, every=args.ckpt_every)
 
 
 def make_progress_callback(args):
@@ -131,6 +177,31 @@ def finish_progress(args) -> None:
     if getattr(args, "progress", False):
         import sys
         print(file=sys.stderr, flush=True)
+
+
+def write_diag(args, report: dict, design=None, tol_kkt=None) -> None:
+    """Render the `--diag-out` health report.
+
+    `report` is the payload `--out` writes (history + provenance +
+    optional postmortem); given `design` (the CLI's own, on its device)
+    the certified-P table is computed here, so the report never reloads
+    the dataset.
+    """
+    if not getattr(args, "diag_out", None):
+        return
+    from repro_torch import diag
+    safep_record = None
+    if design is not None:
+        safep_record = diag.safep.certify(
+            design, seed=getattr(args, "seed", 0),
+            observed_p=getattr(args, "P", None))
+        report.setdefault("diag", {})["safep"] = safep_record
+    payload = diag.build_payload(report=report,
+                                 safep_record=safep_record,
+                                 tol_kkt=tol_kkt)
+    with open(args.diag_out, "w") as fh:
+        fh.write(diag.render_markdown(payload))
+    print(f"[diag] health report written to {args.diag_out}")
 
 
 def setup_obs(args) -> None:
@@ -175,17 +246,26 @@ def build_pcdn_config(args, **overrides) -> PCDNConfig:
               seed=args.seed, shrink=args.shrink,
               use_kernels=args.use_kernels, ls_scope=args.ls_scope,
               dtype=DTYPE_NAMES[getattr(args, "dtype", "fp32")],
-              record_aux=_record_aux(args))
+              record_aux=_record_aux(args),
+              record_kkt_vec=_record_kkt_vec(args))
     kw.update(overrides)
     return PCDNConfig(**kw)
 
 
 def _record_aux(args) -> bool:
     """The per-bundle (q, alpha) aux outputs ride along exactly when the
-    CLI asked for telemetry; without the flags the outer iteration
-    launches what the uninstrumented solver launches."""
+    CLI asked for telemetry or diagnostics (the health report's backtrack
+    forensics read them); without the flags the outer iteration launches
+    what the uninstrumented solver launches."""
     return bool(getattr(args, "metrics_out", None)
-                or getattr(args, "trace_out", None))
+                or getattr(args, "trace_out", None)
+                or getattr(args, "diag_out", None))
+
+
+def _record_kkt_vec(args) -> bool:
+    """The per-feature KKT attribution rides along exactly when
+    `--diag-out` asked for a health report."""
+    return bool(getattr(args, "diag_out", None))
 
 
 def load_warm_start(path: str, n: int) -> np.ndarray:

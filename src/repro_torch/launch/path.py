@@ -12,8 +12,12 @@ the best c by held-out accuracy. Writes a JSON report with --out (and a
 one kind="path" serve artifact with --save-model. As in the reference,
 only profile datasets get a --val-frac split; a file dataset has none.
 
-The port runs the local backend only (no --backend sharded), and the
-diagnostics and fault flags wait for `diag/` and `fault/`.
+Sweep mode takes the reference's fault and diagnostics flags:
+--ckpt-dir checkpoints after every grid point, --resume continues from
+the newest committed point, the REPRO_FAULT_PLAN variable injects faults,
+and --diag-out writes the health report of the last grid point; batch
+mode refuses them, as the reference does. The port runs the local backend
+only (no --backend sharded).
 """
 from __future__ import annotations
 
@@ -81,11 +85,19 @@ def main(argv=None):
                          "artifact family: every grid point becomes a "
                          "servable model")
     common.add_obs_args(ap)
-    common.add_progress_arg(ap)
+    common.add_diag_args(ap)
+    common.add_fault_args(ap)
     args = ap.parse_args(argv)
+    if args.mode == "batch" and (args.ckpt_dir or args.resume):
+        ap.error("--ckpt-dir/--resume require --mode sweep (the lockstep "
+                 "batch engine solves all points at once — there is no "
+                 "point cursor to checkpoint)")
     if args.mode == "batch" and args.shrink:
         ap.error("--shrink requires --mode sweep (the batch engine has no "
                  "active-set masking)")
+    if args.mode == "batch" and args.diag_out:
+        ap.error("--diag-out requires --mode sweep (the lockstep batch "
+                 "engine keeps no per-iteration history)")
     common.check_dtype_envelope(args, ap, loss=args.loss)
     resolve_device(args.device)
 
@@ -131,9 +143,13 @@ def main(argv=None):
         cfg = PathConfig(solver=solver, n_points=args.points,
                          span=args.span, c_final=args.c_final,
                          warm_start=not args.cold)
+        from repro_torch import fault
         res = run_path(prob, cfg, val_design=Xval, val_y=yval,
                        verbose=True,
-                       callback=common.make_progress_callback(args))
+                       callback=common.make_progress_callback(args),
+                       ckpt=common.make_checkpointer(args, ap),
+                       resume=args.resume,
+                       fault_plan=fault.plan_from_env())
         common.finish_progress(args)
         payload = {"mode": "sweep", "backend": "local", **path_summary(res)}
         weights = res.weights
@@ -162,6 +178,26 @@ def main(argv=None):
         art.save_model(args.save_model, family)
         print(f"[path] wrote model family ({len(family)} points) to "
               f"{args.save_model}")
+    if args.diag_out:
+        last = res.points[-1] if res.points else None
+        diag_report = {
+            "provenance": art.solver_provenance(
+                solver="pcdn", dataset=args.dataset, backend="local",
+                mode=args.mode, P=args.P, tol_kkt=args.tol, seed=args.seed,
+                shrink=bool(args.shrink), loss=args.loss, dtype=args.dtype,
+                package="repro_torch", device=args.device),
+            "loss": args.loss, "n_features": int(prob.n_features),
+            "objective": last.objective if last else None,
+            "converged": last.converged if last else None,
+            "nnz": last.nnz if last else None,
+            "seconds": res.total_seconds,
+            "history": (common.history_dict(res.last_history)
+                        if res.last_history is not None else None),
+            "postmortem": res.last_postmortem}
+        if res.best is not None:
+            diag_report["best_c"] = res.best.c
+        common.write_diag(args, diag_report, design=prob.design,
+                          tol_kkt=args.tol)
     common.finish_obs(args, meta={
         "cli": "path", "dataset": args.dataset, "mode": args.mode,
         "backend": "local", "device": args.device,

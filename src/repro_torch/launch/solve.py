@@ -14,6 +14,13 @@ writes just the artifact, for `repro_torch.launch.predict`.
 ``--metrics-out`` / ``--trace-out`` record the run's telemetry (and turn on
 the per-bundle aux plane, pcdn/cdn); ``--progress`` prints a live status
 line.
+
+pcdn and cdn run through `fault.resilient_solve`, as in the reference: a
+non-finite iterate rolls back and retries at a smaller P (``--retries``),
+``--ckpt-dir`` / ``--ckpt-every`` / ``--resume`` checkpoint and resume
+the solve, and the ``REPRO_FAULT_PLAN`` variable injects faults.
+``--diag-out`` writes the markdown health report (KKT attribution,
+backtrack forensics, the certified-P table on the solve's own design).
 """
 from __future__ import annotations
 
@@ -22,10 +29,10 @@ import time
 
 import numpy as np
 
-from repro_torch.core import make_problem, scdn, tron
+from repro_torch import fault
+from repro_torch.core import make_problem, scdn, tron, with_bundle_size
 from repro_torch.data.synthetic import train_accuracy
 from repro_torch.engine import LocalBackend
-from repro_torch.engine import loop as engine_loop
 from repro_torch.launch import common
 from repro_torch.serve import artifact as art
 
@@ -49,8 +56,16 @@ def main(argv=None):
     ap.add_argument("--save-model", default=None, metavar="PATH",
                     help="write just the serve artifact (no history)")
     common.add_obs_args(ap)
-    common.add_progress_arg(ap)
+    common.add_diag_args(ap)
+    common.add_fault_args(ap)
     args = ap.parse_args(argv)
+    if ((args.ckpt_dir or args.resume)
+            and args.solver not in ("pcdn", "cdn")):
+        ap.error("--ckpt-dir/--resume require --solver pcdn or cdn (the "
+                 "checkpoint image is the bundle solver's EngineState)")
+    if args.diag_out and args.solver not in ("pcdn", "cdn"):
+        ap.error("--diag-out requires --solver pcdn or cdn (the KKT "
+                 "attribution harvest is a bundle-solver output)")
     if args.warm_start and args.solver not in ("pcdn", "cdn"):
         ap.error("--warm-start requires --solver pcdn or cdn")
     if args.shrink and args.solver not in ("pcdn", "cdn"):
@@ -72,6 +87,8 @@ def main(argv=None):
                         dtype=common.DTYPES[args.dtype], device=args.device)
     common.setup_obs(args)
     progress = common.make_progress_callback(args)
+    ckpt = common.make_checkpointer(args, ap)
+    plan = fault.plan_from_env()
     t0 = time.time()
     if args.solver in ("pcdn", "cdn"):
         # CDN = PCDN with bundle size 1 and a backtracking search
@@ -80,12 +97,17 @@ def main(argv=None):
                                              ls_kind="backtracking"))
         w0 = (common.load_warm_start(args.warm_start, prob.n_features)
               if args.warm_start else None)
-        backend = LocalBackend(prob, cfg)
-        res = engine_loop.solve(backend, c, w0, max_outer=cfg.max_outer,
-                                tol_kkt=cfg.tol_kkt,
-                                recheck_every=cfg.recheck_every,
-                                tol_rel_obj=cfg.tol_rel_obj,
-                                callback=progress)
+
+        def factory(P):
+            return LocalBackend(prob, with_bundle_size(cfg, P))
+
+        res = fault.resilient_solve(
+            factory, c, P=cfg.P, w0=w0, max_outer=cfg.max_outer,
+            tol_kkt=cfg.tol_kkt, recheck_every=cfg.recheck_every,
+            tol_rel_obj=cfg.tol_rel_obj, callback=progress,
+            checkpointer=ckpt, resume=args.resume,
+            max_retries=args.retries, design=prob.design, plan=plan)
+        w = res.w                      # resilient_solve returns host w
         n_outer = res.n_outer
         history = common.history_dict(res.history)
     elif args.solver == "scdn":
@@ -99,15 +121,41 @@ def main(argv=None):
         n_outer = res.n_outer
     if args.solver in ("scdn", "tron"):     # their history is a dict
         history = {k: np.asarray(v).tolist() for k, v in res.history.items()}
-    w = res.w.detach().cpu().numpy()
+        w = res.w.detach().cpu().numpy()
     dt = time.time() - t0
     common.finish_progress(args)
     nnz = int(np.sum(w != 0))
+    faults = getattr(res, "faults", None)
+    postmortem = getattr(res, "postmortem", None)
+    if faults:
+        print(f"[fault] rollbacks={faults['rollbacks']} "
+              f"p_schedule={faults['p_schedule']} "
+              f"p_cert={faults['p_cert']} "
+              f"resumed_from={faults['resumed_from']}")
     print(f"[solve] F={res.objective:.6f} converged={res.converged} "
           f"nnz={nnz} n_outer={n_outer} time={dt:.1f}s")
     if Xte is not None:
         acc = train_accuracy(Xte, yte, w)
         print(f"[solve] test accuracy: {acc:.4f}")
+    prov = art.solver_provenance(
+        solver=args.solver, dataset=args.dataset, backend="local",
+        P=args.P, tol_kkt=args.tol, seed=args.seed,
+        shrink=bool(args.shrink), loss=args.loss, dtype=args.dtype,
+        package="repro_torch", device=args.device)
+    diag_block = None
+    if args.diag_out:
+        # rendered first, so --out carries the certified-P record too and
+        # `python -m repro_torch.diag.report --report` re-renders the same
+        # markdown from it
+        diag_report = {
+            "provenance": prov, "loss": args.loss,
+            "n_features": int(w.shape[0]),
+            "objective": float(res.objective),
+            "converged": bool(res.converged), "nnz": nnz, "seconds": dt,
+            "history": history, "postmortem": postmortem}
+        common.write_diag(args, diag_report, design=prob.design,
+                          tol_kkt=args.tol)
+        diag_block = diag_report["diag"]
     if args.out or args.save_model:
         meta = {"objective": float(res.objective),
                 "converged": bool(res.converged), "nnz": nnz}
@@ -117,11 +165,7 @@ def main(argv=None):
         family = art.ModelFamily(
             kind="binary",
             models=(art.artifact_from_solution(w, args.loss, c, meta=meta),),
-            provenance=art.solver_provenance(
-                solver=args.solver, dataset=args.dataset, backend="local",
-                P=args.P, tol_kkt=args.tol, seed=args.seed,
-                shrink=bool(args.shrink), loss=args.loss, dtype=args.dtype,
-                package="repro_torch", device=args.device))
+            provenance=prov)
         if args.save_model:
             art.save_model(args.save_model, family)
         if args.out:
@@ -129,10 +173,16 @@ def main(argv=None):
             # --warm-start input; n_features comes from the artifact block
             record = common.sparse_weight_record(w)
             record.pop("n_features")
-            art.save_model(args.out, family, extra={
-                "objective": float(res.objective),
-                "converged": bool(res.converged), "nnz": nnz,
-                "seconds": dt, **record, "history": history})
+            extra = {"objective": float(res.objective),
+                     "converged": bool(res.converged), "nnz": nnz,
+                     "seconds": dt, **record, "history": history}
+            if postmortem:
+                extra["postmortem"] = postmortem
+            if faults:
+                extra["faults"] = faults
+            if diag_block:
+                extra["diag"] = diag_block
+            art.save_model(args.out, family, extra=extra)
     common.finish_obs(args, meta={
         "cli": "solve", "dataset": args.dataset, "solver": args.solver,
         "backend": "local", "device": args.device,

@@ -9,10 +9,10 @@ Per point the driver records objective / nnz / full-set KKT / iterations
 and wall time (the device waited for) and, given a validation split, the
 held-out accuracy, and picks the best c by it. With the trace on, each
 point is a `path.point` span on the `path` track, and `path.points`
-counts them.
-
-The reference's checkpoint / resume / fault-injection arguments wait for
-the port's `fault/`: `run_path` refuses them.
+counts them. With a `fault.SolveCheckpointer` the sweep checkpoints at
+every grid-point boundary and resumes from the newest committed point
+(its c-grid checked against the live one); a `fault.FaultPlan` injects
+faults at global iteration and point indices.
 """
 from __future__ import annotations
 
@@ -95,16 +95,18 @@ def run_path(problem: Optional[L1Problem], cfg: PathConfig,
     backend: an engine backend; defaults to a `LocalBackend` over
     `problem`. val_design / val_y: an optional held-out split (anything
     `as_design` accepts; placed on the backend's device once) scored after
-    each point; enables the best-c pick. callback: forwarded to every point's engine loop (`--progress`:
-    (k, w, f, kkt, mean_q)). ckpt, resume and fault_plan are the
-    reference's fault-tolerance arguments, not ported yet: passing one
-    raises.
+    each point; enables the best-c pick. callback: forwarded to every
+    point's engine loop (`--progress`: (k, w, f, kkt, mean_q)).
+    ckpt: optional `fault.SolveCheckpointer`: the finished carry, the
+    per-point records and the weight rows are checkpointed after EVERY
+    grid point. resume=True restarts from the newest committed point
+    checkpoint (the same host image and generator state the
+    uninterrupted run had, so the resumed sweep matches it); the stored
+    c-grid must equal the live one. fault_plan: optional
+    `fault.FaultPlan`; its iteration hooks count outer iterations across
+    the sweep, and `crash_at_point` fires right AFTER a point's
+    checkpoint commits.
     """
-    if ckpt is not None or resume or fault_plan is not None:
-        raise NotImplementedError(
-            "run_path: checkpoint/resume and fault injection (ckpt=, "
-            "resume=, fault_plan=) need the port's fault/ package, which "
-            "is not ported yet")
     if (val_design is None) != (val_y is None):
         raise ValueError("pass both val_design and val_y or neither")
     if backend is None:
@@ -124,8 +126,24 @@ def run_path(problem: Optional[L1Problem], cfg: PathConfig,
     points: list[PathPoint] = []
     res = None
     weights = np.zeros((len(cs), n), np.float32)
+    i_start = 0
+    if resume and ckpt is not None:
+        got = ckpt.restore_path(backend, cs=cs, c_max=c_max)
+        if got is not None:
+            state, meta, saved_w = got
+            i_start = int(meta["point_index"]) + 1
+            points = [PathPoint(**p) for p in meta["points"]]
+            weights[:i_start] = saved_w[:i_start]
+            if verbose:
+                print(f"[fault] resuming path sweep at point "
+                      f"{i_start}/{len(cs)}", flush=True)
+    outer_fn = backend.outer
+    if fault_plan is not None:
+        from repro_torch.fault import inject as fault_inject
+        outer_fn = fault_inject.wrap_outer(backend.outer, fault_plan)
     t_total0 = time.perf_counter()
-    for i, c in enumerate(cs):
+    for i in range(i_start, len(cs)):
+        c = cs[i]
         t0_ns = time.perf_counter_ns()
         t0 = time.perf_counter()
         if not cfg.warm_start:
@@ -135,7 +153,7 @@ def run_path(problem: Optional[L1Problem], cfg: PathConfig,
             # float32 drift of z from building up along the sweep
             state = state._replace(z=backend.margins(state.w))
         state, res = engine_loop.run_outer_loop(
-            backend.outer, state, float(c),
+            outer_fn, state, float(c),
             max_outer=solver.max_outer, tol_kkt=solver.tol_kkt,
             recheck_every=solver.recheck_every,
             tol_rel_obj=solver.tol_rel_obj, callback=callback)
@@ -162,6 +180,11 @@ def run_path(problem: Optional[L1Problem], cfg: PathConfig,
             print(f"[path] c={p.c:.5g} F={p.objective:.5f} nnz={p.nnz} "
                   f"kkt={p.kkt:.2e} iters={p.n_outer} "
                   f"t={p.seconds:.2f}s{extra}", flush=True)
+        if ckpt is not None:
+            ckpt.save_path(backend, state, point_index=i, cs=cs,
+                           c_max=c_max, points=points, weights=weights)
+        if fault_plan is not None:
+            fault_plan.fire_point(i)
 
     return PathResult(c_max=c_max, cs=cs, points=points, weights=weights,
                       best_index=pick_best(points),

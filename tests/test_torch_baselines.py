@@ -229,8 +229,11 @@ def test_nonfinite_trip_sets_diverged_as_the_reference():
     np.testing.assert_array_equal(tres.w.numpy(), np.asarray(jres.w))
     np.testing.assert_array_equal(tst.z.numpy(), np.asarray(jst.z))
     assert tres.w.tolist() == [2.0, 2.0, 2.0]
-    # the post-mortem comes with diag/, a later slice: None until then
-    assert tres.postmortem is None and jres.postmortem is not None
+    # the trip attaches the reference's post-mortem, from the same rows
+    assert tres.postmortem is not None and jres.postmortem is not None
+    assert sorted(tres.postmortem) == sorted(jres.postmortem)
+    for k, v in jres.postmortem.items():
+        np.testing.assert_array_equal(tres.postmortem[k], v)
 
 
 def test_divergence_guard_trips_as_the_reference():

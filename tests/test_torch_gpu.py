@@ -924,3 +924,91 @@ def test_serve_margins_dense_unsorted_ids_drop_terms(cuda):
     assert 0 < kept.sum() < A
     np.testing.assert_allclose(got[:, 1], model, rtol=1e-5, atol=1e-5)
     assert np.max(np.abs(got[:, 1] - want[:, 1])) > 0.1
+
+
+# -- diagnostics and fault tolerance on the card -----------------------------
+
+def test_certify_on_a_cuda_design_matches_the_cpu_port(cuda):
+    """The power iteration's products on the card (index_add_ and
+    gathers) give the CPU port's rho to rel 1e-5, and the same omega and
+    bounds."""
+    from repro_torch.core import make_problem
+    from repro_torch.data import make_classification
+    from repro_torch.diag import safep
+    X, y, _ = make_classification(4000, 512, sparsity=0.97, seed=3)
+    for layout in ("padded_csc", "dense"):
+        got = safep.certify(make_problem(X, y, c=2.0, layout=layout,
+                                         device=cuda).design)
+        want = safep.certify(make_problem(X, y, c=2.0, layout=layout,
+                                          device="cpu").design)
+        assert got["rho_normalized"] == pytest.approx(
+            want["rho_normalized"], rel=1e-5)
+        for k in ("omega", "P_eso", "P_spectral", "P_cert"):
+            assert got[k] == want[k], (layout, k)
+
+
+def test_checkpoint_image_of_a_cuda_carry(cuda, tmp_path):
+    """A carry solved on the card through K1 checkpoints as host arrays
+    that restore bit for bit on the CPU and on the card, generator state
+    included."""
+    from repro_torch.core import PCDNConfig, make_problem
+    from repro_torch.data import make_classification
+    from repro_torch.engine import LocalBackend
+    from repro_torch.engine import loop as engine_loop
+    from repro_torch.fault import SolveCheckpointer
+    X, y, _ = make_classification(4000, 512, sparsity=0.97, seed=3)
+    cfg = PCDNConfig(P=4, use_kernels=True, tol_kkt=0.0)
+    gpu = LocalBackend(make_problem(X, y, c=2.0, layout="padded_csc",
+                                    device=cuda), cfg)
+    cpu = LocalBackend(make_problem(X, y, c=2.0, layout="padded_csc",
+                                    device="cpu"), cfg)
+    ck = SolveCheckpointer(str(tmp_path / "ck"), every=2)
+    ops.reset_launch_counts()
+    state, _ = engine_loop.run_outer_loop(
+        gpu.outer, gpu.init_state(), 2.0, max_outer=4, tol_kkt=0.0,
+        state_callback=ck.solve_callback(gpu))
+    assert ops.launch_counts()["pcdn_bundle"] == 4 * 128
+    leaves = ck.manager.load_raw(3)
+    for k in ("w", "z", "active"):
+        np.testing.assert_array_equal(getattr(state, k).cpu().numpy(),
+                                      leaves[k])
+    for backend in (cpu, gpu):
+        st, meta = ck.restore_solve(backend)
+        assert meta["outer_iter"] == 3
+        assert st.w.device.type == backend.device.type
+        for k in ("w", "z", "active"):
+            np.testing.assert_array_equal(getattr(st, k).cpu().numpy(),
+                                          leaves[k])
+        assert torch.equal(st.gen.get_state(), state.gen.get_state())
+
+
+def test_rollback_through_k2_then_k1(cuda):
+    """A NaN at iteration 2 of a P 8 solve (the full scope: K2) rolls back
+    and backs off to P 4 (the support scope: K1); the launches are the
+    iterations each attempt ran times its bundle count."""
+    from repro_torch.core import (PCDNConfig, make_problem,
+                                  resolve_ls_scope, with_bundle_size)
+    from repro_torch.data import make_classification
+    from repro_torch.engine import LocalBackend
+    from repro_torch.fault import FaultPlan, resilient_solve
+    X, y, _ = make_classification(4000, 512, sparsity=0.97, seed=3)
+    prob = make_problem(X, y, c=2.0, layout="padded_csc", device=cuda)
+    cfg = PCDNConfig(P=8, use_kernels=True, tol_kkt=1e-3, max_outer=15)
+    assert resolve_ls_scope(cfg, prob) == "full"
+
+    def factory(P):
+        return LocalBackend(prob, with_bundle_size(cfg, P))
+
+    ops.reset_launch_counts()
+    res = resilient_solve(factory, 2.0, P=8, max_outer=15, tol_kkt=1e-3,
+                          design=prob.design,
+                          plan=FaultPlan(nan_at_iter=2))
+    counts = ops.launch_counts()
+    p_new = res.faults["p_schedule"][1]
+    assert res.faults["p_schedule"] == [8, 4] and res.faults["rollbacks"] == 1
+    assert resolve_ls_scope(with_bundle_size(cfg, p_new), prob) == "support"
+    n_iter = res.history.outer_iter.shape[0]
+    assert counts["pcdn_sparse_direction"] == 3 * 64
+    assert counts["pcdn_bundle"] == (n_iter - 2) * 128
+    assert np.isfinite(res.objective) and np.all(np.isfinite(res.w))
+    assert (np.diff(res.history.outer_iter) == 1).all()

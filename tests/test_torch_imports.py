@@ -97,3 +97,12 @@ def test_kernel_wrappers_take_plain_version_on_cpu_without_counting():
     assert float(h) == pytest.approx(2.5)
     assert delta.tolist() == pytest.approx([float(d), 2 * float(d), 0.0])
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_scan_covers_diag_and_fault():
+    paths = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    want = {f"src/repro_torch/{m}.py" for m in (
+        "diag/__init__", "diag/kkt", "diag/forensics", "diag/safep",
+        "diag/report", "fault/__init__", "fault/atomic",
+        "fault/checkpoint", "fault/inject", "fault/resilient")}
+    assert want <= paths, want - paths

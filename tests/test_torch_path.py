@@ -228,13 +228,33 @@ def test_pick_best_ties_go_to_the_sparser():
     assert pick_best([pt(None, 1)]) is None
 
 
-@pytest.mark.parametrize("kw", [dict(ckpt=object()), dict(resume=True),
-                                dict(fault_plan=object())])
-def test_run_path_refuses_fault_arguments(data, kw):
+@pytest.mark.parametrize("kw", [dict(ckpt="solve kind"), dict(resume=True),
+                                dict(fault_plan="crash_at_point")])
+def test_run_path_refuses_fault_arguments(data, kw, tmp_path):
+    """run_path takes the reference's fault arguments and refuses what the
+    reference refuses: a solve checkpoint in a sweep's directory, a resume
+    onto another c-grid, and (the plan's own refusal to go on) a planned
+    crash right after a point's checkpoint commits."""
+    from repro_torch import fault
     X, y, _ = data
     tp = make_problem(X, y, c=1.0, **CPU)
-    with pytest.raises(NotImplementedError, match="fault"):
-        run_path(tp, PathConfig(solver=PCDNConfig(P=16), n_points=2), **kw)
+    cfg = PathConfig(solver=PCDNConfig(P=16), n_points=2)
+    ck = fault.SolveCheckpointer(str(tmp_path / "ck"))
+    if "ckpt" in kw:
+        backend = LocalBackend(tp, cfg.solver)
+        ck.save_solve(backend, backend.init_state(), outer_iter=0)
+        with pytest.raises(ValueError, match="separate --ckpt-dir"):
+            run_path(tp, cfg, ckpt=ck, resume=True)
+    elif "resume" in kw:
+        run_path(tp, cfg, ckpt=ck)
+        with pytest.raises(ValueError, match="different c-grid"):
+            run_path(tp, PathConfig(solver=PCDNConfig(P=16), n_points=3),
+                     ckpt=ck, **kw)
+    else:
+        with pytest.raises(fault.InjectedCrash, match="path point 0"):
+            run_path(tp, cfg, ckpt=ck,
+                     fault_plan=fault.FaultPlan(crash_at_point=0))
+        assert ck.manager.steps() == [0]
 
 
 def test_run_path_argument_checks(data, val):
