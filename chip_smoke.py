@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases lm        # build + the LM serving path
     python3 chip_smoke.py --phases path      # build + the regularization path
     python3 chip_smoke.py --phases fault     # build + diagnostics, faults
+    python3 chip_smoke.py --phases sharded   # build + the sharded backend
     python3 chip_smoke.py --support-wall     # support wall, for A/Bs only
 
 Phases:
@@ -16,9 +17,13 @@ Phases:
   2. kernels  -- K1 pcdn_bundle (the whole support step of a real-sim
                  bundle, from one carry cloned twice, and the same bundle
                  with the search forced past its first chunk and with
-                 nothing passing), K2 pcdn_sparse_direction (with delta)
-                 and K3 pcdn_direction (with the slab gather and delta, on
-                 a full bundle and gisette's ragged last one) against
+                 nothing passing; two launches bit-equal), K2
+                 pcdn_sparse_direction (with delta; two calls bit-equal)
+                 and its sharded entries (the partials, and the scatter,
+                 bit-equal to its plain version on the CPU), and K3
+                 pcdn_direction (with the slab gather and delta, on a full
+                 bundle and gisette's ragged last one) and its partials
+                 entry, against
                  their plain PyTorch versions on the card, at the shapes
                  the solves below give them; K5's batch entry scdn_batch
                  on one real-sim SCDN batch (P_bar 8, Q 40) from a carry
@@ -109,7 +114,8 @@ Phases:
                  --diag-out report and its re-rendering by `python -m
                  repro_torch.diag.report`; a P 32 solve SIGKILLed at
                  iteration 7 with --ckpt-every 3 and resumed at 6 (F rel
-                 1e-6 of an uninterrupted run, w bit-equality printed),
+                 1e-6 of an uninterrupted run and w bit-equal to it,
+                 asserted),
                  its checkpoint restored on the CPU bit for bit and one
                  iteration from it through the plain versions there and
                  K1 here (F rel 1e-4); the path phase's rows swept (4
@@ -121,7 +127,25 @@ Phases:
                  1e-3); the iteration wall with the --diag-out planes and
                  with a checkpoint every 3 iterations against neither,
                  interleaved, and one snapshot's write time.
-  13. lm      -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
+  13. sharded -- the sharded backend (`engine.sharded`) on the support
+                 and full cells' real-sim and the dense cell's gisette:
+                 (a) a world of 1 on NCCL with the kernels (K2's partials
+                 and scatter entries, K3's partials entry), real-sim full
+                 P 512 and support P 32, gisette dense P 512, 10
+                 iterations each from shared carries and partitions
+                 against the local backend with the kernels (F rel
+                 1e-4), the walls, the reductions a bundle, the entries'
+                 launches; (b) two ranks sharing the card over gloo in a
+                 torchrun child (`--sharded-ranks`), 5 iterations: (2 x
+                 1) at P 512 against (a)'s carries and partitions, (1 x
+                 2) the kernel route against the plain route; (c) the
+                 CLIs on real-sim as .libsvm: torchrun with 2 ranks, a
+                 world-1 P 32 solve SIGKILLed at 5 and resumed (w
+                 bit-equal to the uninterrupted run, asserted),
+                 checkpoints crossing between the local and sharded
+                 backends (the restored carry's F within 1e-6 of its
+                 writer's) and both resumes run.
+  14. lm      -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
                  width (24 layers, bf16, random weights from a seed): a
                  4096-token prefill of 4 prompts, which runs K6 once a
                  layer, then 32 greedy tokens; the same at 32 tokens (the
@@ -161,7 +185,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
 PHASES = ("build", "kernels", "support", "full", "dense", "scdn", "tron",
-          "bf16", "cli", "serve", "path", "fault", "lm")  # in order
+          "bf16", "cli", "serve", "path", "fault", "sharded",
+          "lm")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -169,11 +194,11 @@ FP32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12   # dense, tensor cores
 
 # solve-phase tolerance: kernel vs plain objective after one outer
-# iteration from a shared carry (f32 sums in another order, atomics in K1)
+# iteration from a shared carry (f32 sums in another order)
 F_RTOL = 1e-4
 # kernel-phase tolerance on d/g/h/delta and K1's w and z: max |kernel -
-# plain| over max |plain| (f32 reductions in another order; K1's and K2's
-# atomic scatters; K4b's shared-memory atomics; K5's block partials)
+# plain| over max |plain| (f32 reductions in another order; K4b's
+# shared-memory atomics; K5's block partials)
 KERNEL_RTOL = 1e-4
 # K4a sums in a fixed order with no atomics: held closer
 K4A_RTOL = 1e-5
@@ -237,6 +262,18 @@ SOURCES = {
                    "src/repro/kernels/pcdn_linesearch.py:62"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
+    # the sharded backend's entries: K3's and K2's shard-local partials
+    # (the reference calls its Pallas K3/K2 with l2 = 0 for them), and
+    # K2's scatter, which replaces the reference's jnp scatter of X_B d
+    "pcdn_direction_partials": (
+        "src/repro_torch/kernels/csrc/pcdn_direction.cu",
+        "src/repro/kernels/pcdn_direction.py:68"),
+    "pcdn_sparse_direction_partials": (
+        "src/repro_torch/kernels/csrc/pcdn_sparse_direction.cu",
+        "src/repro/kernels/pcdn_sparse_direction.py:85"),
+    "pcdn_sparse_scatter": (
+        "src/repro_torch/kernels/csrc/pcdn_sparse_direction.cu",
+        "src/repro/engine/sharded.py:240"),
 }
 
 # the serve phase: real-sim at its published width, with the published
@@ -284,19 +321,43 @@ PATH_OVR_CLASSES = 4
 PATH_OVR_OUTER = 5
 PATH_TIMING_ITERS = 20
 
+# the sharded phase: (label, design and labels at these places of
+# make_data's tuple, c, layout, P, scope), each at a world of 1 on NCCL
+# for SHARDED_OUTER iterations in lockstep with the local backend (both
+# with the kernels); the first SHARDED_RANK_OUTER of real-sim's full
+# scope recorded for two ranks on the one card over gloo ((2 x 1) against
+# them, and (1 x 2) kernel route against plain route); then the CLIs on
+# real-sim as .libsvm: torchrun with two ranks, a world-1 support solve
+# (P 32, c 4) SIGKILLed at SHARDED_CRASH_AT with a checkpoint every 2 and
+# resumed (w bit-equal to the uninterrupted run), and checkpoints crossing
+# between the local and sharded backends (the restored carry's F within
+# SHARDED_CROSS_RTOL of the F its writer recorded)
+SHARDED_CASES = (("real-sim full", 0, 1, 4.0, "padded_csc", 512, "full"),
+                 ("real-sim support", 0, 1, 4.0, "padded_csc", 32,
+                  "support"),
+                 ("gisette dense", 2, 3, 0.25, "dense", 512, "full"))
+SHARDED_OUTER = 10
+SHARDED_RANK_OUTER = 5
+SHARDED_CLI_OUTER = 8
+SHARDED_CRASH_AT = 5
+SHARDED_CROSS_RTOL = 1e-6
+SHARDED_ENTRIES = ("pcdn_sparse_direction_partials", "pcdn_sparse_scatter",
+                   "pcdn_direction_partials")
+
 # the fault phase: the support cell's real-sim (make_data's, c 4) as
 # .libsvm through the port's CLIs. A NaN into the margins at iteration 3
 # of a P 64 solve (4 * 64 * k_max > s: the full scope, K2) backs off to P
 # 32 (the support scope, K1); the solve that is killed at iteration 7
 # checkpoints every 3 (resumes at 6); the path sweep is the path phase's
 # rows, killed after point 1. Resumed runs against uninterrupted ones: F
-# rel 1e-6 (K1's and K2's float atomics may move the last bits on the
-# card; on the CPU the port resumes bit for bit). rho against eigsh: rel
-# 1e-3 for the power iteration run FAULT_POWER_STEPS steps with no early
-# stop. certify at its (the reference's) defaults is held only to stay
-# below the top eigenvalue, and its shortfall is printed: on this data the
-# top two eigenvalues are 3e-3 apart and the start vector barely meets the
-# top one, so the Rayleigh quotient sits near the second for ~1000 steps,
+# rel 1e-6, and the resumed solve's w bit-equal (K1 and K2 sum each row's
+# margin delta in a fixed order; the sweep's per-point margin refresh is
+# an index_add_, whose float atomics may move z's last bits). rho against
+# eigsh: rel 1e-3 for the power iteration run FAULT_POWER_STEPS steps with
+# no early stop. certify at its (the reference's) defaults is held only to
+# stay below the top eigenvalue, and its shortfall is printed: on this data
+# the top two eigenvalues are 3e-3 apart and the start vector barely meets
+# the top one, so the Rayleigh quotient sits near the second for ~1000 steps,
 # where float32 noise meets the 1e-9 stop test (an H100 run: stopped at
 # 278 steps, 3.0e-3 low; 3000 steps with no stop, 1.3e-6; PERF.md).
 # Costs: FAULT_COST_ITERS support iterations a reading
@@ -540,19 +601,31 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
         kept = torch.equal(w_k[out_w], w[out_w]) and \
             torch.equal(z_k[out_z], z[out_z])
         R = P * K
-        reset = bool(torch.all(launch.workspace[:s + R] == -1)) and \
-            bool(torch.all(launch.workspace[s + R:s + 2 * R] == 0))
+        ws = launch.workspace
+        reset = bool(torch.all(ws[:s] == 2 ** 31 - 1)) and \
+            bool(torch.all(ws[s:2 * s] == 0)) and \
+            bool(torch.all(ws[2 * s:2 * s + R] == -1))
+        # a second launch on the same inputs: bit-equal (fixed-order sums)
+        w_2, z_2 = w.clone(), z.clone()
+        launch_2 = ops.BundleLaunch(design.col_rows, design.col_vals,
+                                    sparse.y, alphas, 4.0, P, 1, sigma=sigma)
+        ops.pcdn_bundle(launch_2, w_2, z_2, idx, 0)
+        torch.cuda.synchronize()
+        same = (torch.equal(w_2, w_k) and torch.equal(z_2, z_k) and
+                torch.equal(launch_2.n_steps, launch.n_steps) and
+                torch.equal(launch_2.alpha, launch.alpha))
         log(f"[kernels] pcdn_bundle {label}: P={P} K={K} s={s} R={P * K} "
             f"live rows {n_live} Q={Q} (cluster {launch.plan.cluster} x "
             f"{ops.BUNDLE_THREADS} threads, {launch.plan.nseg} warps a "
             f"column, chunk {ops.BUNDLE_CHUNK}): w err {e_w[0]:.3e} (rel "
             f"{e_w[1]:.2e}), z err {e_z[0]:.3e} (rel {e_z[1]:.2e}), alpha "
             f"{a_k} vs {a_p}, n_steps {q_k} vs {int(q_p)}; outside the "
-            f"bundle bit-equal {kept}; slot map reset {reset}; tolerance rel "
-            f"{KERNEL_RTOL}, alpha/n_steps equal")
+            f"bundle bit-equal {kept}; workspace reset {reset}; two launches "
+            f"bit-equal {same}; tolerance rel {KERNEL_RTOL}, alpha/n_steps "
+            f"equal")
         assert e_w[1] <= KERNEL_RTOL and e_z[1] <= KERNEL_RTOL, (e_w, e_z)
         assert a_k == float(a_p) and q_k == int(q_p), (a_k, a_p, q_k, q_p)
-        assert kept and reset, (kept, reset)
+        assert kept and reset and same, (kept, reset, same)
         if label == "first chunk fails":
             assert q_k > ops.BUNDLE_CHUNK, q_k
         if label == "nothing passes":
@@ -616,15 +689,18 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
     w_B, _ = B.gather_vec(w, idx)
     args = (slab.rows, slab.vals, z, sparse.y, w_B, 4.0)
     got = ops.pcdn_sparse_direction(*args)
+    again = ops.pcdn_sparse_direction(*args)
     want = ref.pcdn_sparse_direction_ref(*args)
     errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     P, K = slab.rows.shape
     log(f"[kernels] pcdn_sparse_direction P={P} K={K} s={s} ("
         f"{ops.sparse_direction_warps(K)} warps a column): "
         + ", ".join(f"{nm} err {e[0]:.3e} (rel {e[1]:.2e})"
                     for nm, e in zip(("d", "g", "h", "delta"), errs))
-        + f"; tolerance rel {KERNEL_RTOL}")
+        + f"; two calls bit-equal {same}; tolerance rel {KERNEL_RTOL}")
     assert all(e[1] <= KERNEL_RTOL for e in errs), errs
+    assert same
     valid = slab.rows < s
     n_rows = int(torch.unique(slab.rows[valid]).numel())
     top = device_ops(torch, lambda: ops.pcdn_sparse_direction(*args))
@@ -643,6 +719,8 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
         enqueue_us=enqueue_us(torch, lambda: ops.pcdn_sparse_direction(
             *args), 200),
         bound=bound(nbytes, nops), library_ms=None)
+    out.update(sharded_entry_checks(torch, slab, z, sparse.y, got[0], s,
+                                    flush))
 
     # K3 at s = 6,000, P = 512 (dense layout), the slab gather, the loss
     # factors and delta inside: a full bundle and gisette's ragged last
@@ -702,6 +780,16 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
         enqueue_us=enqueue_us(torch, lambda: ops.pcdn_direction(*args),
                               200),
         bound=bound(nbytes, 7 * s * n_live), library_ms=None)
+    # K3's partials entry (the sharded dense step), the same bundle
+    pargs = (XT, idx, zd, dense.y, 0.25)
+    out["pcdn_direction_partials"] = entry_check(
+        torch, "pcdn_direction_partials",
+        lambda: ops.pcdn_direction_partials(*pargs),
+        lambda: ref.pcdn_direction_partials_ref(*pargs), flush,
+        f"s={s} P={P} (live {n_live}; K3's plan)",
+        # the live columns once, z and y, idx, g and h; ~5 a value
+        bound(n_live * s * XT.element_size() + 2 * s * 4 + P * 4 + 2 * P * 4,
+              5 * s * n_live))
     # K5's rows entry: the row's numbers at gisette's shape, the dense SCDN
     # path whose launches the row counts; real-sim's and the one-row
     # serve-shape check kept beside them
@@ -732,6 +820,69 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
         f"{real_sim['enqueue_us']:.2f} us; bound "
         f"{real_sim['bound'][0] * 1e3:.3f} us ({real_sim['bound'][1]}) on "
         f"{card}")
+    return out
+
+
+def entry_check(torch, name, kernel, plain, flush, shape: str, bnd,
+                library=None) -> dict:
+    """A kernel entry against its plain version (rel KERNEL_RTOL), two
+    calls bit-equal, and its timings."""
+    got, again, want = kernel(), kernel(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    errs = [rel_err(torch, a, b) for a, b in zip(got, want)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[kernels] {name} {shape}: "
+        + ", ".join(f"err {e[0]:.3e} (rel {e[1]:.2e})" for e in errs)
+        + f"; two calls bit-equal {same}; tolerance rel {KERNEL_RTOL}")
+    assert all(e[1] <= KERNEL_RTOL for e in errs), errs
+    assert same
+    return dict(max_abs_err=max(e[0] for e in errs),
+                **timings(torch, kernel, plain, flush),
+                enqueue_us=enqueue_us(torch, kernel, 200), bound=bnd,
+                library_ms=(None if library is None
+                            else device_ms(torch, library, 100, flush)))
+
+
+def sharded_entry_checks(torch, slab, z, y, d, s, flush) -> dict:
+    """K2's two sharded entries at the full-scope real-sim bundle: the
+    partials over the slab, and the scatter of K2's own d, whose plain
+    version on the CPU (index_add_ in entry order) it equals bit for
+    bit. The scatter's library call: one index_add_ of the products."""
+    from repro_torch.kernels import ops, ref
+    P, K = slab.rows.shape
+    valid = slab.rows < s
+    n_live = int(valid.sum())
+    n_rows = int(torch.unique(slab.rows[valid]).numel())
+    out = {"pcdn_sparse_direction_partials": entry_check(
+        torch, "pcdn_sparse_direction_partials",
+        lambda: ops.pcdn_sparse_direction_partials(slab.rows, slab.vals, z,
+                                                   y, 4.0),
+        lambda: ref.pcdn_sparse_direction_partials_ref(slab.rows, slab.vals,
+                                                       z, y, 4.0), flush,
+        f"P={P} K={K} s={s}",
+        # the slab, z/y at its distinct rows, g and h; ~20 a live entry
+        bound(P * K * 8 + n_rows * 8 + 2 * P * 4, 20 * n_live))}
+    cpu = ref.pcdn_sparse_scatter_ref(slab.rows.cpu(), slab.vals.cpu(),
+                                      d.cpu(), s)
+    exact = torch.equal(ops.pcdn_sparse_scatter(slab.rows, slab.vals, d,
+                                                s).cpu(), cpu)
+    log(f"[kernels] pcdn_sparse_scatter equals its plain version on the "
+        f"CPU bit for bit: {exact}")
+    assert exact
+    flat = torch.where(valid, slab.rows, s).reshape(-1).long()
+    prod = (slab.vals * d[:, None]).reshape(-1)
+    out["pcdn_sparse_scatter"] = entry_check(
+        torch, "pcdn_sparse_scatter",
+        lambda: ops.pcdn_sparse_scatter(slab.rows, slab.vals, d, s),
+        lambda: ref.pcdn_sparse_scatter_ref(slab.rows, slab.vals, d, s),
+        flush, f"P={P} K={K} s={s}",
+        # the slab and d read, the (s,) delta written; 2 a live entry
+        bound(P * K * 8 + P * 4 + s * 4, 2 * n_live),
+        library=lambda: torch.zeros((s + 1,), device=d.device).index_add_(
+            0, flat, prod))
     return out
 
 
@@ -2722,6 +2873,7 @@ def phase_fault(torch, rows, data, card: str) -> dict:
     w_equal = (res["w_indices"] == ref["w_indices"]
                and res["w_values"] == ref["w_values"])
     assert f_rel <= FAULT_RESUME_RTOL, (res["objective"], ref["objective"])
+    assert w_equal, "the resumed solve's w is not bit-equal"
     log(f"[fault] (3) solve SIGKILLed at iteration {FAULT_CRASH_AT} "
         f"(checkpoints every {FAULT_CKPT_EVERY}), resumed at {resumed_at}: "
         f"F {res['objective']:.9g} against uninterrupted "
@@ -2880,6 +3032,294 @@ def phase_fault(torch, rows, data, card: str) -> dict:
     return counted
 
 
+def phase_sharded(torch, data, card: str) -> dict:
+    """The sharded backend on the card: (a) a world of 1 on NCCL with the
+    kernels (the three new entries), real-sim's full (P 512) and support
+    (P 32) scopes and gisette's dense layout (P 512), each outer iteration
+    from one shared carry and one partition against the local backend with
+    the kernels (F rel F_RTOL), the walls an iteration, the reductions a
+    bundle asked and issued, the entries' launches; (b) two ranks on the
+    one card over gloo in a torchrun child (`--sharded-ranks`); (c) the
+    CLIs. -> the entries' launches in (a), the main path's run."""
+    import shutil
+    from repro_torch.core import PCDNConfig
+    from repro_torch.core import bundles as B
+    from repro_torch.core.problem import make_problem
+    from repro_torch.data import save_libsvm_csr
+    from repro_torch.engine import LocalBackend
+    from repro_torch.engine.sharded import ShardedBackend, ShardedPCDNConfig
+    from repro_torch.fault import SolveCheckpointer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    work = ROOT / "build" / "chip_smoke" / "sharded"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(1, 1, device=DEVICE)
+    log(f"[sharded] (a) mesh {mesh.describe()}")
+    # a world of 1 with a card of its own: NCCL (gloo on a CPU rehearsal)
+    assert mesh.backend == ("nccl" if DEVICE == "cuda" else "gloo"), \
+        mesh.backend
+    dev = mesh.device
+    counted = {k: 0 for k in SHARDED_ENTRIES}
+    ranks_rec = {}
+    support = None
+    for label, xi, yi, c, layout, P, scope in SHARDED_CASES:
+        X, y = data[xi], data[yi]
+        t0 = time.perf_counter()
+        tb = ShardedBackend(X, y, mesh, ShardedPCDNConfig(
+            P_local=P, c=c, use_kernels=True, ls_scope=scope), layout=layout)
+        prob = make_problem(X, y, c=c, layout=layout, device=dev)
+        lb = LocalBackend(prob, PCDNConfig(P=P, use_kernels=True,
+                                           ls_scope=scope))
+        assert tb.outer.use_support == (scope == "support")
+        place_s = time.perf_counter() - t0
+        n = tb.n_features
+        gen = torch.Generator().manual_seed(DATA_SEED + 11)
+        st = tb.init_state()
+        w, z, act = st.w, st.z, st.active
+        walls_s, walls_l, rels = [], [], []
+        mine = {k: 0 for k in SHARDED_ENTRIES}
+        asked = issued = n_bundles = 0
+        keep = label == "real-sim full"
+        for k in range(SHARDED_OUTER):
+            idxs = B.partition(gen, n, P, device=dev)
+            if keep and k < SHARDED_RANK_OUTER:
+                ranks_rec.update({f"w{k}": w.cpu().numpy(),
+                                  f"z{k}": z.cpu().numpy(),
+                                  f"idxs{k}": idxs.cpu().numpy()})
+            mesh.reset_counts()
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_s = tb.outer(w, z, st.gen, act, True, c, idxs=[idxs])
+            torch.cuda.synchronize()
+            walls_s.append(time.perf_counter() - t0)
+            after = ops.launch_counts()
+            for e in SHARDED_ENTRIES:
+                mine[e] += after[e] - before[e]
+            asked += mesh.counts["asked"]
+            issued += mesh.counts["issued"]
+            n_bundles += idxs.shape[0]
+            t0 = time.perf_counter()
+            out_l = lb.outer(w, z, st.gen, act, True, c, idxs=idxs)
+            torch.cuda.synchronize()
+            walls_l.append(time.perf_counter() - t0)
+            f_s, f_l = float(out_s[3]), float(out_l[3])
+            rels.append(abs(f_s - f_l) / abs(f_l))
+            if keep and k < SHARDED_RANK_OUTER:
+                ranks_rec[f"f{k}"] = np.float64(f_s)
+            w, z, act = out_s[0], out_s[1], out_s[7]
+        for e in SHARDED_ENTRIES:
+            counted[e] += mine[e]
+        want = (("pcdn_direction_partials",) if layout == "dense" else
+                ("pcdn_sparse_direction_partials", "pcdn_sparse_scatter"))
+        log(f"[sharded] (a) {label}: P {P}, {scope} scope, "
+            f"{n_bundles // SHARDED_OUTER} bundles an iteration; F "
+            f"{f_s:.9g}; F rel against the local backend, worst of "
+            f"{SHARDED_OUTER} lockstep iterations {max(rels):.3e} (limit "
+            f"{F_RTOL}); wall an iteration sharded "
+            f"{1e3 * np.mean(walls_s[1:]):.2f} ms, local "
+            f"{1e3 * np.mean(walls_l[1:]):.2f} ms (first "
+            f"{1e3 * walls_s[0]:.2f} / {1e3 * walls_l[0]:.2f} ms); "
+            f"reductions a bundle asked {asked / n_bundles:.2f}, issued "
+            f"{issued / n_bundles:.2f}; launches {mine}; placed in "
+            f"{place_s:.1f}s on {card}")
+        assert max(rels) <= F_RTOL, rels
+        assert all(mine[e] > 0 for e in want), mine
+        if scope == "support":
+            support = (tb, prob, c)
+
+    # (b) two ranks sharing the card over gloo
+    csr = data[0].to_csr()
+    npz = work / "ranks.npz"
+    np.savez(npz, data=csr.data, indices=csr.indices, indptr=csr.indptr,
+             shape=np.asarray(csr.shape), y=data[1], c=4.0, P=512,
+             steps=SHARDED_RANK_OUTER, **ranks_rec)
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"),
+         "--sharded-ranks", str(npz), str(work / "ranks.json")],
+        capture_output=True, text=True, env=env, timeout=400)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    rk = json.loads((work / "ranks.json").read_text())
+    log(f"[sharded] (b) two ranks on one card ({rk['mesh']}), "
+        f"{time.perf_counter() - t0:.1f}s with start-up: (2 x 1) at P 512 "
+        f"against (a) from its carries and partitions, F rel worst "
+        f"{max(rk['2x1']['rels']):.3e}, wall an iteration "
+        f"{1e3 * np.mean(rk['2x1']['walls'][1:]):.2f} ms; (1 x 2) kernel "
+        f"route against plain route, F rel worst "
+        f"{max(rk['1x2']['rels']):.3e}, wall an iteration "
+        f"{1e3 * np.mean(rk['1x2']['walls'][1:]):.2f} ms (plain "
+        f"{1e3 * np.mean(rk['1x2']['plain_walls'][1:]):.2f} ms), "
+        f"launches {rk['1x2']['launches']}; reductions a bundle issued "
+        f"{rk['2x1']['issued_per_bundle']:.2f} / "
+        f"{rk['1x2']['issued_per_bundle']:.2f}; limit {F_RTOL}")
+    assert max(rk["2x1"]["rels"]) <= F_RTOL, rk["2x1"]
+    assert max(rk["1x2"]["rels"]) <= F_RTOL, rk["1x2"]
+    assert rk["1x2"]["launches"]["pcdn_sparse_direction_partials"] > 0
+    assert rk["1x2"]["launches"]["pcdn_sparse_scatter"] > 0
+
+    # (c) the CLIs on real-sim as .libsvm
+    t0 = time.perf_counter()
+    rs_path = work / "realsim.libsvm"
+    save_libsvm_csr(str(rs_path), csr, data[1])
+    base = ["repro_torch.launch.solve", "--dataset", str(rs_path),
+            "--layout", "padded_csc", "--use-kernels", "--device", DEVICE,
+            "--c", "4.0", "--tol", "1e-6", "--P", "32"]
+    sh = base + ["--backend", "sharded"]
+    ck_s, ck_l = work / "ck_sharded", work / "ck_local"
+    every = ["--ckpt-every", "2"]
+    outer = ["--max-outer", str(SHARDED_CLI_OUTER)]
+    two = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.solve",
+         *base[1:], "--backend", "sharded", "--data-parallel", "2",
+         "--max-outer", "3", "--out", str(work / "two.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    two.smoke_timeout = 300
+    kids = {
+        "full": _child(sh + outer + ["--out", str(work / "full.json")]),
+        "crash": _child(sh + outer + ["--ckpt-dir", str(ck_s)] + every,
+                        env={"REPRO_FAULT_PLAN": json.dumps(
+                            {"crash_at_iter": SHARDED_CRASH_AT,
+                             "crash_kind": "sigkill"})}),
+        "local": _child(base + ["--max-outer", "4", "--ckpt-dir", str(ck_l)]
+                        + every)}
+    outs = {"two": _finish("two ranks", two)}
+    for name, kid in kids.items():
+        outs[name] = _finish(name, kid, rc=-9 if name == "crash" else 0)
+    assert outs["two"].count("[solve] F=") == 1, outs["two"][-2000:]
+    assert "world=2" in outs["two"] and "backend=gloo" in outs["two"]
+    # checkpoints crossing: the carry one backend wrote, restored on the
+    # other, has the F its writer recorded
+    tb_sup, prob_sup, c = support
+    crossed = {}
+    for name, ck_dir, backend in (("local -> sharded", ck_l, tb_sup),
+                                  ("sharded -> local", ck_s,
+                                   LocalBackend(prob_sup, PCDNConfig(P=32)))):
+        ck = SolveCheckpointer(str(ck_dir))
+        st, meta = ck.restore_solve(backend)
+        f = float(prob_sup.objective_from_margins(st.z, st.w))
+        crossed[name] = (meta["outer_iter"], f, meta["objective"])
+        assert abs(f - meta["objective"]) <= \
+            SHARDED_CROSS_RTOL * abs(meta["objective"]), crossed
+    shutil.copytree(ck_s, work / "ck_sharded_for_local")
+    kids = {
+        "resume": _child(sh + outer + ["--ckpt-dir", str(ck_s), "--resume",
+                                       "--out", str(work / "res.json")]
+                         + every),
+        "local -> sharded": _child(sh + ["--max-outer", "6", "--ckpt-dir",
+                                         str(ck_l), "--resume"] + every),
+        "sharded -> local": _child(base + ["--max-outer", "6", "--ckpt-dir",
+                                           str(work / "ck_sharded_for_local"),
+                                           "--resume"] + every)}
+    for name, kid in kids.items():
+        outs[name] = _finish(name, kid)
+    full = json.loads((work / "full.json").read_text())
+    res = json.loads((work / "res.json").read_text())
+    w_equal = (res["w_indices"] == full["w_indices"]
+               and res["w_values"] == full["w_values"])
+    resumed = SHARDED_CRASH_AT - SHARDED_CRASH_AT % 2
+    for name in ("resume", "local -> sharded", "sharded -> local"):
+        assert "resuming solve at outer iteration" in outs[name], name
+    assert f"resuming solve at outer iteration {resumed}" in outs["resume"]
+    f_line = [ln for ln in outs["two"].splitlines()
+              if ln.startswith("[solve] F=")][0]
+    log(f"[sharded] (c) CLIs on {rs_path.name}: torchrun two ranks "
+        f"{f_line}; world-1 support solve "
+        f"SIGKILLed at {SHARDED_CRASH_AT}, resumed at {resumed}: F "
+        f"{res['objective']:.9g} against uninterrupted "
+        f"{full['objective']:.9g}, w bit-equal {w_equal}; checkpoints "
+        f"crossing (iteration, F restored, F written): {crossed}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    assert w_equal, "the resumed sharded solve's w is not bit-equal"
+    assert res["objective"] == full["objective"]
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    log(f"[sharded] phase {time.perf_counter() - t_phase:.1f}s")
+    return counted
+
+
+def sharded_ranks(npz_path: str, out_path: str) -> None:
+    """One rank of the sharded phase's (b), under torchrun with two ranks
+    on the one card (gloo): (2 x 1) at P 512 from the world-1 run's
+    carries and partitions; (1 x 2) the kernel route against the plain
+    route from shared carries and partitions. Rank 0 writes the JSON."""
+    import torch
+    from repro_torch.core import bundles as B
+    from repro_torch.data import CSRMatrix
+    from repro_torch.engine.sharded import ShardedBackend, ShardedPCDNConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rec = np.load(npz_path)
+    X = CSRMatrix(data=rec["data"], indices=rec["indices"],
+                  indptr=rec["indptr"], shape=tuple(int(a)
+                                                    for a in rec["shape"]))
+    y, c, P = rec["y"], float(rec["c"]), int(rec["P"])
+    steps = int(rec["steps"])
+    out = {}
+    mesh = make_host_mesh(2, 1, device=DEVICE)
+    out["mesh"] = mesh.describe()
+    b = ShardedBackend(X, y, mesh, ShardedPCDNConfig(
+        P_local=P, c=c, use_kernels=True, ls_scope="full"),
+        layout="padded_csc")
+    rels, walls = [], []
+    mesh.reset_counts()
+    for k in range(steps):
+        st = b.restore_state(rec[f"w{k}"], rec[f"z{k}"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = b.outer(st.w, st.z, st.gen, st.active, True, c,
+                    idxs=[rec[f"idxs{k}"]])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        f_ref = float(rec[f"f{k}"])
+        rels.append(abs(float(o[3]) - f_ref) / abs(f_ref))
+    n_b = steps * (-(-b.n_local // P))
+    out["2x1"] = dict(rels=rels, walls=walls,
+                      issued_per_bundle=mesh.counts["issued"] / n_b)
+    mesh2 = make_host_mesh(1, 2, device=DEVICE)
+    kw = dict(P_local=P // 2, c=c, ls_scope="full")
+    kb = ShardedBackend(X, y, mesh2, ShardedPCDNConfig(**kw,
+                                                       use_kernels=True),
+                        layout="padded_csc")
+    pb = ShardedBackend(X, y, mesh2, ShardedPCDNConfig(**kw),
+                        layout="padded_csc")
+    gen = torch.Generator().manual_seed(DATA_SEED + 13)
+    st = kb.init_state()
+    w, z, act = st.w, st.z, st.active
+    rels, walls, plain_walls = [], [], []
+    ops.reset_launch_counts()
+    mesh2.reset_counts()
+    for k in range(steps):
+        idxs = [B.partition(gen, kb.n_local, P // 2) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = kb.outer(w, z, st.gen, act, True, c, idxs=idxs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        op = pb.outer(w, z, st.gen, act, True, c, idxs=idxs)
+        torch.cuda.synchronize()
+        plain_walls.append(time.perf_counter() - t0)
+        rels.append(abs(float(ok[3]) - float(op[3])) / abs(float(op[3])))
+        w, z, act = ok[0], ok[1], ok[7]
+    n_b = 2 * steps * (-(-kb.n_local // (P // 2)))
+    out["1x2"] = dict(rels=rels, walls=walls, plain_walls=plain_walls,
+                      launches={k: ops.launch_counts()[k]
+                                for k in SHARDED_ENTRIES},
+                      issued_per_bundle=mesh2.counts["issued"] / n_b)
+    if mesh.rank == 0:
+        Path(out_path).write_text(json.dumps(out))
+
+
 def phase_cli(torch) -> None:
     """`launch.solve.main` on a9a through the normal entry point: the PCDN
     run with the kernels, then the baselines and bf16 storage."""
@@ -2930,6 +3370,9 @@ def main(argv=None) -> int:
                     help="trace a slice of an SCDN round or one TRON "
                          "iteration and print its JSON line (the scdn and "
                          "tron phases run this in a child process)")
+    ap.add_argument("--sharded-ranks", nargs=2, metavar=("NPZ", "OUT"),
+                    help="one rank of the sharded phase's two-rank run "
+                         "(the phase starts two under torchrun)")
     ap.add_argument("--chunk-profile", nargs=2,
                     metavar=("FAMILY", "REQUESTS"),
                     help="trace one dense serve chunk and print its JSON "
@@ -2953,6 +3396,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if args.chunk_profile:
         print(json.dumps(chunk_profile(*args.chunk_profile)), flush=True)
+        return 0
+    if args.sharded_ranks:
+        sharded_ranks(*args.sharded_ranks)
         return 0
     if args.lm_profile:
         print(json.dumps(lm_profile()), flush=True)
@@ -2983,7 +3429,7 @@ def main(argv=None) -> int:
     phase_build()  # every later phase needs the kernels
     data = None
     if set(phases) & {"kernels", "support", "full", "dense", "scdn", "tron",
-                      "bf16", "path", "fault"}:
+                      "bf16", "path", "fault", "sharded"}:
         data = make_data(DATA_SEED)
     serve = None
     rows = None
@@ -3022,6 +3468,8 @@ def main(argv=None) -> int:
     fault_launches = {}
     if "fault" in phases:
         fault_launches = phase_fault(torch, rows, data, f"{card} ({smi})")
+    if "sharded" in phases:
+        launches.update(phase_sharded(torch, data, f"{card} ({smi})"))
     if "lm" in phases:
         launches.update(phase_lm(torch, f"{card} ({smi})"))
 

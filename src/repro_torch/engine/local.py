@@ -73,6 +73,10 @@ class LocalBackend:
         """(n_samples,) host margins: the checkpoint image of z."""
         return z.detach().cpu().numpy()
 
+    def host_active(self, active: Tensor) -> np.ndarray:
+        """(n_features,) host mask: the checkpoint image of active."""
+        return active.detach().cpu().numpy()
+
     def restore_state(self, w, z=None, active=None, key=None,
                       gen_state=None) -> EngineState:
         """EngineState on the backend's device from host arrays (a

@@ -7,7 +7,8 @@ Layout:  <dir>/step_<N>/       (N zero-padded to 8 digits)
                                  with the leaves in sorted key order
             COMMITTED         -- written last; a step without it is
                                  incomplete and ignored on restore
-Leaves are full host arrays. Every file is fsynced, the step directory
+Leaves are full host arrays (a sharded backend gathers them over its
+mesh, and its rank 0 writes them). Every file is fsynced, the step directory
 lands by an atomic rename, stale `.tmp_ckpt_` directories of crashed
 writers are removed, and the `keep` newest steps are kept.
 
@@ -172,7 +173,7 @@ def host_state(backend, state) -> dict:
     return {
         "w": backend.host_weights(state.w),
         "z": backend.host_margins(state.z),
-        "active": state.active.detach().cpu().numpy(),
+        "active": backend.host_active(state.active),
         "key": _key_of(state.gen.get_state().numpy().tobytes()),
     }
 
@@ -206,11 +207,15 @@ class SolveCheckpointer:
 
     # -- single solves -------------------------------------------------------
     def save_solve(self, backend, state, *, outer_iter: int,
-                   extra: Optional[dict] = None) -> str:
+                   extra: Optional[dict] = None) -> Optional[str]:
+        """Every rank of a sharded backend calls this (the host image
+        gathers over the mesh); rank 0 alone writes (None elsewhere)."""
         meta = {"kind": self.KIND_SOLVE, "outer_iter": int(outer_iter),
                 **(extra or {}), GEN_STATE: _encode_gen(state.gen)}
-        return self.manager.save(int(outer_iter), host_state(backend, state),
-                                 extra=meta)
+        tree = host_state(backend, state)
+        if not getattr(backend, "is_writer", True):
+            return None
+        return self.manager.save(int(outer_iter), tree, extra=meta)
 
     def restore_solve(self, backend):
         """-> (EngineState on the backend, meta dict) or None."""
@@ -239,9 +244,12 @@ class SolveCheckpointer:
 
     # -- path sweeps ---------------------------------------------------------
     def save_path(self, backend, state, *, point_index: int, cs, c_max,
-                  points, weights, extra: Optional[dict] = None) -> str:
+                  points, weights,
+                  extra: Optional[dict] = None) -> Optional[str]:
         tree = {**host_state(backend, state),
                 "weights": np.asarray(weights)}
+        if not getattr(backend, "is_writer", True):
+            return None
         meta = {"kind": self.KIND_PATH, "point_index": int(point_index),
                 "c_max": float(c_max),
                 "cs": [float(c) for c in np.asarray(cs)],

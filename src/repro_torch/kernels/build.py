@@ -52,12 +52,29 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                                    _P, _P, _P, _P]
            for t in ("f32", "bf16")},
+        # the partials entry: XT, idx, z, y, c, kind, n, s, P, the plan,
+        # g, h, stream
+        **{f"pcdn_direction_partials_{t}": [_P, _P, _P, _P, _F, _I, _I, _I,
+                                            _I, _I, _I, _I, _I, _I, _I, _P,
+                                            _P, _P]
+           for t in ("f32", "bf16")},
         "pcdn_direction_smem_floats": [_I],
         "pcdn_direction_max_clusters": []},
+    # rows, vals, z, y, w_B, c, kind, l2, P, K, n_rows, warps a feature, d,
+    # g, h, delta (with the rows' list heads), the entries' links and
+    # terms, stream; the partials (rows, vals, z, y, c, kind, P, K, n_rows,
+    # warps, g, h, stream); the scatter (rows, vals, d, P, K, n_rows,
+    # delta, links, stream)
     "pcdn_sparse_direction": {
-        f"pcdn_sparse_direction_{t}": [_P, _P, _P, _P, _P, _F, _I, _F, _I,
-                                       _I, _I, _I, _P, _P, _P, _P, _P]
-        for t in ("f32", "bf16")},
+        **{f"pcdn_sparse_direction_{t}": [_P, _P, _P, _P, _P, _F, _I, _F, _I,
+                                          _I, _I, _I, _P, _P, _P, _P, _P, _P]
+           for t in ("f32", "bf16")},
+        **{f"pcdn_sparse_direction_partials_{t}": [_P, _P, _P, _P, _F, _I,
+                                                   _I, _I, _I, _I, _P, _P,
+                                                   _P]
+           for t in ("f32", "bf16")},
+        **{f"pcdn_sparse_scatter_{t}": [_P, _P, _P, _I, _I, _I, _P, _P, _P]
+           for t in ("f32", "bf16")}},
     # a pointer to the launch's BundleArgs (ops._BundleArgs), idx, t, stream
     "pcdn_bundle": {
         f"pcdn_bundle_{t}": [_P, _P, _I, _P] for t in ("f32", "bf16")},

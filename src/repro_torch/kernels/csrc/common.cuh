@@ -163,4 +163,71 @@ __device__ __forceinline__ void accumulate_round(const SegmentRound& sr,
   }
 }
 
+// -- fixed-order sums of scattered entries (K1, K2) ---------------------------
+//
+// A bundle step adds x d for every live entry of its padded-CSC slab into
+// the entry's row. A float atomicAdd would sum a row's entries in an order
+// that changes from run to run. Instead each entry writes its term and
+// pushes itself onto its row's list (an integer atomicExch: `chain_push`),
+// and after a barrier one thread a row sums the row's terms in ascending
+// entry id (`ordered_chain_sum`) -- the order in which the plain versions'
+// index_add_ adds them, the same in every run. Lists hold entry id + 1,
+// so 0 ends a list and a zero-filled head array is empty.
+constexpr int kChainSort = 64;  // list entries sorted in local memory
+
+__device__ __forceinline__ void chain_push(int* head, int* next, int row,
+                                           int e) {
+  next[e] = atomicExch(head + row, e + 1);
+}
+
+// the terms of the list that starts at `first` (an id + 1), summed from
+// 0.0f in ascending id. Each entry's term is loaded with its link, and
+// the caller's own entry `own` (its link and term already in registers)
+// costs no load, so a list of L entries holding it costs L - 1 dependent
+// round trips
+__device__ __forceinline__ float ordered_chain_sum(int first,
+                                                   const int* next,
+                                                   const float* term,
+                                                   int own, int own_next,
+                                                   float own_term) {
+  int ids[kChainSort];
+  float vals[kChainSort];
+  int n = 0;
+  for (int e1 = first; e1 != 0;) {
+    if (n == kChainSort) {
+      n = -1;
+      break;
+    }
+    const int e = e1 - 1;
+    const float t = e == own ? own_term : __ldcg(term + e);
+    e1 = e == own ? own_next : __ldcg(next + e);
+    int i = n++;
+    while (i > 0 && ids[i - 1] > e) {  // insertion: ascending ids
+      ids[i] = ids[i - 1];
+      vals[i] = vals[i - 1];
+      --i;
+    }
+    ids[i] = e;
+    vals[i] = t;
+  }
+  float sum = 0.0f;
+  if (n >= 0) {
+    for (int i = 0; i < n; ++i) sum += vals[i];
+    return sum;
+  }
+  // a longer list: a walk for each term, each finding the next larger id
+  int last = -1;
+  for (;;) {
+    int best = 0x7fffffff;
+    for (int e1 = first; e1 != 0; e1 = __ldcg(next + e1 - 1)) {
+      const int e = e1 - 1;
+      if (e > last && e < best) best = e;
+    }
+    if (best == 0x7fffffff) break;
+    sum += __ldcg(term + best);
+    last = best;
+  }
+  return sum;
+}
+
 }  // namespace pcdn

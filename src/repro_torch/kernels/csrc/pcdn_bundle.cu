@@ -26,38 +26,51 @@
 // dependent memory round trips and barriers.
 // Design: one launch of one thread-block cluster (up to 8 CTAs of 512
 // threads; fewer CTAs measured slower), in phases:
-//   1. columns, support, direction, delta_R: groups of warps take the
+//   1. columns, support, direction, terms: groups of warps take the
 //      bundle's features, a column split over a group's warps (common.cuh
-//      load_round: all of a round's loads at once). Every live entry
-//      claims its row in an (s,) slot map with atomicCAS (-1 between
-//      bundles): the row's first entry owns it, and the slot is that
-//      entry's own (slot i of entry i), where it writes the row, z and y.
-//      This replaces both sorts with O(P K) work at any s; the slot order
-//      is free, as the kernel returns no support. The warps' g/h partials
-//      meet in shared memory in a fixed order; one thread a feature applies
-//      the fold, the floor and Eq. 5 and adds its terms of Delta; then the
-//      group adds x d into each entry's slot (atomicAdd; slot delta is 0
-//      between bundles, so no entry waits for its row's owner).
+//      load_round: all of a round's loads at once). Every live entry i
+//      (i = j K + k, its place in the (P, K) slab) writes its row, z and y
+//      into slot i and bids for its row in an (s,) map with atomicMin (the
+//      row's owner is its smallest entry id, whatever the order of the
+//      bids). This replaces both sorts with O(P K) work at any s. The
+//      warps' g/h partials meet in shared memory in a fixed order; one
+//      thread a feature applies the fold, the floor and Eq. 5 and adds its
+//      terms of Delta; then each entry whose term x d is not 0 writes it
+//      and pushes itself onto its row's list (common.cuh chain_push; a
+//      term of 0 changes no sum, so a feature with d = 0 pushes nothing).
 //   2. one cluster barrier, after each CTA has pushed its Delta terms into
 //      every CTA's shared memory (distributed shared memory; a split
 //      barrier arrived at the start makes sure every CTA has started).
-//   3. the candidates, a chunk at a time: each CTA scans its share of the
-//      R slots, kept in registers (slots that are not live or have delta
-//      0 add exactly 0), and the l1/l2 terms of its own features, and
+//   3. each CTA's threads take the R slots in a fixed stride; a slot is
+//      live when its entry owns its row, and its delta_R is the row's
+//      terms summed in ascending entry id (common.cuh ordered_chain_sum):
+//      the plain version's order, the same in every run. A thread loads
+//      its slots' row, z, y, link and term at once, then their rows'
+//      owner and list head at once; a row whose list is its owner alone
+//      (most rows of a sparse bundle) needs no walk. Then the
+//      candidates, a chunk at a time: each CTA scans its live slots, kept
+//      in registers (slots that are not live or have delta 0 add exactly
+//      0), and the l1/l2 terms of its own features, and
 //      pushes its partials into every CTA; after the chunk's barrier each
 //      CTA's thread 0 adds them in rank order, so every CTA reaches the
 //      same decision, and the search stops at the first chunk that holds a
 //      passing candidate. No CTA touches another's shared memory after
 //      that barrier, so none waits for the others to finish.
 //   4. apply: w at the CTA's features, z at its live slots (each row owns
-//      one slot: no races), the map, slot rows and slot deltas back to
-//      -1/-1/0, n_steps[t] and alpha[t].
-// The workspace (the map and the R = P K slots) is allocated and filled
-// once per outer iteration by the caller; the kernel writes every slot it
-// reads and leaves the workspace as it found it. The atomics sum a row's
-// entries in a run-dependent order, so delta_R and the f_q may differ
-// from the plain version in the last bits, which the stated tolerances
-// cover.
+//      one slot: no races), the map, the lists' heads and the slot rows
+//      back to INT_MAX/0/-1, n_steps[t] and alpha[t].
+// The workspace (the map, the heads and the R = P K slots) is allocated
+// and filled once per outer iteration by the caller; the kernel writes
+// every slot it reads and leaves the workspace as it found it. Every sum
+// runs in a fixed order (the rows' terms in entry order, the partials in
+// warp and rank order, the slots in a fixed stride), so two launches on
+// the same inputs give bit-equal w, z, n_steps and alpha. The design
+// before this one added the terms with float atomicAdd into the slot of
+// the row's first bidder (atomicCAS), which made delta_R, and so a
+// resumed solve's w, differ between runs in the last bits; it took 16.7
+// us a bundle against this one's 26 on an H100 (PERF.md). A variant that kept each
+// thread's phase-1 entries in registers through phase 3 (no slot loads)
+// but pushed every live entry in phase 1 measured 31 us.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -95,15 +108,20 @@ constexpr int kTerms = 5;  // sum g d, sum h d^2, |w + d|_1, |w|_1, |w|^2
 // slots a thread keeps in registers from the search to the update
 constexpr int kKeep = 3;
 
-// int32 map[s] and slot row[R]: -1 between bundles; float slot
-// delta[R]: 0 between bundles; then each entry's slot, the slots' z and y
-// (R each), and the bundle's w_B, d (P each). Slot i belongs to entry i:
-// a slot is live when its entry owns its row (row >= 0).
+constexpr int kNoOwner = 0x7fffffff;
+
+// int32 map[s]: kNoOwner between bundles, then each row's smallest entry
+// id; int32 head[s]: 0 between bundles, then the row's list (common.cuh);
+// int32 slot_row[R]: -1 between bundles; then each entry's list link and
+// term, the slots' delta, z and y (R each), and the bundle's w_B, d (P
+// each). Slot i belongs to entry i: it is live when entry i owns its row.
 struct Workspace {
   int* map;
+  int* head;
   int* slot_row;
+  int* next;
+  float* term;
   float* slot_d;
-  int* epos;
   float* slot_z;
   float* slot_y;
   float* w_B;
@@ -112,10 +130,12 @@ struct Workspace {
   __device__ explicit Workspace(const BundleArgs& a) {
     const size_t R = static_cast<size_t>(a.P) * a.K;
     map = a.ws;
-    slot_row = map + a.s;
-    slot_d = reinterpret_cast<float*>(slot_row + R);
-    epos = reinterpret_cast<int*>(slot_d + R);
-    slot_z = reinterpret_cast<float*>(epos + R);
+    head = map + a.s;
+    slot_row = head + a.s;
+    next = slot_row + R;
+    term = reinterpret_cast<float*>(next + R);
+    slot_d = term + R;
+    slot_z = slot_d + R;
     slot_y = slot_z + R;
     w_B = slot_y + R;
     d = w_B + a.P;
@@ -171,7 +191,7 @@ bundle_step_kernel(const BundleArgs a, const int* __restrict__ idx, int t) {
   const int k1 = min(K, k0 + seg_len);
   const bool leader = seg == 0 && lane == 0;
 
-  // -- phase 1: columns, slots, g/h, d, and delta_R --------------------------
+  // -- phase 1: columns, slots, lists, g/h, d, and the terms -----------------
   float terms[kTerms] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int rd = 0; rd < rounds; ++rd) {
     const int j = rd * G + rank * gpc + grp;
@@ -180,41 +200,31 @@ bundle_step_kernel(const BundleArgs a, const int* __restrict__ idx, int t) {
     const float wj = (live_col && leader) ? a.w[col] : 0.0f;
     const int* rows = a.col_rows + static_cast<size_t>(col) * K;
     const T* vals = col_vals + static_cast<size_t>(col) * K;
-    // the first round of the segment stays in registers for the scatter
-    int first_slot[kUnroll];
+    // the first round of the segment stays in registers for the terms
     float first_x[kUnroll];
+    int first_row[kUnroll];
     float acc_g = 0.0f;
     float acc_h = 0.0f;
     if (live_col) {
       for (int b = k0; b < k1; b += 32 * kUnroll) {
         SegmentRound sr;
         load_round(sr, rows, vals, b, k1, a.z, a.y, a.s);
-        int owner[kUnroll];
 #pragma unroll
         for (int e = 0; e < kUnroll; ++e) {
           const int eid = j * K + b + e * 32 + lane;
-          owner[e] = (sr.row[e] >= 0)
-                         ? atomicCAS(&ws.map[sr.row[e]], -1, eid) : 0;
-        }
-        accumulate_round(sr, a.c, a.kind, acc_g, acc_h);
-#pragma unroll
-        for (int e = 0; e < kUnroll; ++e) {
-          const int eid = j * K + b + e * 32 + lane;
-          // the row's first entry owns the slot
-          const bool owns = sr.row[e] >= 0 && owner[e] == -1;
-          if (owns) {
+          if (sr.row[e] >= 0) {
+            // the row's owner is its smallest entry id
+            atomicMin(&ws.map[sr.row[e]], eid);
             ws.slot_row[eid] = sr.row[e];
             ws.slot_z[eid] = sr.z[e];
             ws.slot_y[eid] = sr.y[e];
           }
-          const int slot = (sr.row[e] < 0) ? -1 : (owns ? eid : owner[e]);
           if (b == k0) {
-            first_slot[e] = slot;
             first_x[e] = sr.x[e];
-          } else if (slot >= 0) {
-            ws.epos[eid] = slot;
+            first_row[e] = sr.row[e];
           }
         }
+        accumulate_round(sr, a.c, a.kind, acc_g, acc_h);
       }
     }
     acc_g = warp_sum(acc_g);
@@ -243,24 +253,29 @@ bundle_step_kernel(const BundleArgs a, const int* __restrict__ idx, int t) {
       terms[4] += wj * wj;
     }
     __syncthreads();
-    // delta_R: each live entry adds x d into its row's slot (0 between
-    // bundles, so no slot waits for its owner)
-    if (live_col) {
+    // each live entry's term x d, onto its row's list unless it is 0
+    if (live_col && s_d[grp] != 0.0f) {
       const float dj = s_d[grp];
       for (int b = k0; b < k1; b += 32 * kUnroll) {
 #pragma unroll
         for (int e = 0; e < kUnroll; ++e) {
           const int k = b + e * 32 + lane;
+          if (k >= k1) continue;
+          int r;
+          float x;
           if (b == k0) {
-            if (first_slot[e] >= 0) {
-              atomicAdd(&ws.slot_d[first_slot[e]], first_x[e] * dj);
-            }
-          } else if (k < k1) {
-            const int r = rows[k];
-            if (r >= 0 && r < a.s) {
-              atomicAdd(&ws.slot_d[ws.epos[j * K + k]],
-                        to_float(vals[k]) * dj);
-            }
+            r = first_row[e];
+            x = first_x[e];
+          } else {
+            r = rows[k];
+            r = (r >= 0 && r < a.s) ? r : -1;
+            x = to_float(vals[k]);
+          }
+          const float t = x * dj;
+          if (r >= 0 && t != 0.0f) {
+            const int eid = j * K + k;
+            ws.term[eid] = t;
+            chain_push(ws.head, ws.next, r, eid);
           }
         }
       }
@@ -284,12 +299,15 @@ bundle_step_kernel(const BundleArgs a, const int* __restrict__ idx, int t) {
     cluster.map_shared_rank(&s_terms[0][0], r)[rank * kTerms + i] =
         s_cta_terms[i];
   }
-  __threadfence();  // the slots and delta_R, to every CTA
+  __threadfence();  // the slots, lists and terms, to every CTA
   cluster.sync();
 
-  // -- phase 3: the candidates, a chunk at a time --------------------------
-  // this CTA's share of the R slots (and of its features) in registers,
-  // all loads at once; a slot is live when its row is >= 0
+  // -- phase 3: delta_R in entry order, then the candidates ----------------
+  // this CTA's share of the R slots: a slot is live when its entry owns
+  // its row; its delta is the row's terms summed in entry order. The
+  // first kKeep a thread stay in registers, the rest go back to the
+  // workspace (a slot that is not live to slot_row -1); only this thread
+  // reads them again.
   const int R = P * K;
   const int stride = nc * kThreads;
   const int i0 = rank * kThreads + threadIdx.x;
@@ -298,14 +316,51 @@ bundle_step_kernel(const BundleArgs a, const int* __restrict__ idx, int t) {
   float k_y[kKeep];
   float k_d[kKeep];
   float k_p0[kKeep];
+  int k_next[kKeep];
+  float k_term[kKeep];
+  int k_head[kKeep];
+  int k_owner[kKeep];
 #pragma unroll
-  for (int e = 0; e < kKeep; ++e) {
+  for (int e = 0; e < kKeep; ++e) {  // by slot: all loads at once
     const int i = i0 + e * stride;
     const bool in = i < R;
     k_row[e] = in ? __ldcg(&ws.slot_row[i]) : -1;
     k_z[e] = in ? __ldcg(&ws.slot_z[i]) : 0.0f;
     k_y[e] = in ? __ldcg(&ws.slot_y[i]) : 1.0f;
-    k_d[e] = in ? __ldcg(&ws.slot_d[i]) : 0.0f;
+    k_next[e] = in ? __ldcg(&ws.next[i]) : 0;
+    k_term[e] = in ? __ldcg(&ws.term[i]) : 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < kKeep; ++e) {  // by row: all loads at once
+    const bool live = k_row[e] >= 0;
+    k_head[e] = live ? __ldcg(&ws.head[k_row[e]]) : 0;
+    k_owner[e] = live ? __ldcg(&ws.map[k_row[e]]) : -1;
+  }
+#pragma unroll
+  for (int e = 0; e < kKeep; ++e) {
+    const int i = i0 + e * stride;
+    k_d[e] = 0.0f;
+    if (k_row[e] < 0) continue;
+    if (k_owner[e] != i) {
+      ws.slot_row[i] = -1;  // another entry owns the row
+      k_row[e] = -1;
+    } else if (k_head[e] == i + 1 && k_next[e] == 0) {
+      k_d[e] = 0.0f + k_term[e];  // the owner alone on its list
+    } else {
+      k_d[e] = ordered_chain_sum(k_head[e], ws.next, ws.term, i,
+                                 k_next[e], k_term[e]);
+    }
+  }
+  for (int i = i0 + kKeep * stride; i < R; i += stride) {
+    const int row = __ldcg(&ws.slot_row[i]);
+    if (row < 0) continue;
+    if (__ldcg(&ws.map[row]) != i) {
+      ws.slot_row[i] = -1;
+    } else {
+      ws.slot_d[i] = ordered_chain_sum(__ldcg(&ws.head[row]), ws.next,
+                                       ws.term, i, __ldcg(&ws.next[i]),
+                                       __ldcg(&ws.term[i]));
+    }
   }
   const int n_own = rounds * gpc;  // this CTA's feature slots
   const int f_j = (threadIdx.x < n_own)
@@ -444,7 +499,8 @@ bundle_step_kernel(const BundleArgs a, const int* __restrict__ idx, int t) {
   // -- phase 4: apply ------------------------------------------------------
   // w at this CTA's features (w_B is w as phase 1 read it), z at its live
   // slots (each row owns one slot: no races), and the workspace back to
-  // how the bundle found it
+  // how the bundle found it (every CTA is past the pre-pass that reads the
+  // map and the heads: it precedes the first chunk's barrier)
   if (f_j < P && f_col >= 0 && f_col < a.n) {
     a.w[f_col] = __fadd_rn(f_w, __fmul_rn(alpha, f_d));
   }
@@ -461,18 +517,18 @@ bundle_step_kernel(const BundleArgs a, const int* __restrict__ idx, int t) {
     if (k_row[e] < 0) continue;
     const int i = i0 + e * stride;
     a.z[k_row[e]] = __fadd_rn(k_z[e], __fmul_rn(alpha, k_d[e]));
-    ws.map[k_row[e]] = -1;
+    ws.map[k_row[e]] = kNoOwner;
+    ws.head[k_row[e]] = 0;
     ws.slot_row[i] = -1;
-    ws.slot_d[i] = 0.0f;
   }
   for (int i = i0 + kKeep * stride; i < R; i += stride) {
     const int row = __ldcg(&ws.slot_row[i]);
     if (row < 0) continue;
     a.z[row] = __fadd_rn(__ldcg(&ws.slot_z[i]),
                          __fmul_rn(alpha, __ldcg(&ws.slot_d[i])));
-    ws.map[row] = -1;
+    ws.map[row] = kNoOwner;
+    ws.head[row] = 0;
     ws.slot_row[i] = -1;
-    ws.slot_d[i] = 0.0f;
   }
   if (rank == 0 && threadIdx.x == 0) {
     a.n_steps[t] = (first >= 0 ? first : 0) + 1;

@@ -48,7 +48,12 @@
 //   4. CTA rank r of each cluster bumps counter r behind a fence; the last
 //      to arrive sums the clusters' partials of slice r in cluster order
 //      into delta and sets its counter back to 0 for the next launch.
-// Every sum runs in a fixed order: the result is deterministic. The
+// Every sum runs in a fixed order: the result is deterministic.
+// The partials entry (`pcdn_direction_partials`, the sharded backend's
+// shard-local step) stops after step 2: rank 0 writes the raw g and h
+// floored at 1e-12 (no l2, no w, no d), what the reference's sharded
+// backend takes from its Pallas K3 called with l2 = 0 before the phase-1
+// sum over data shards; steps 3 and 4 and their buffers are skipped. The
 // counters are kCluster words the wrapper keeps for each device (zero
 // between launches); launches that share them run one after another on
 // one stream. Earlier designs: CTAs owning whole columns (a DSMEM sum of
@@ -130,6 +135,7 @@ struct DirectionArgs {
   int* counter;       // (kCluster,), 0 between launches
   float c, l2;
   int kind, n, s, P, cc, sl, tile, resident;
+  int partials;       // 1: g, h partials only (w, d, delta, part unused)
 };
 
 // shared-memory layout, in floats: u and v of a row tile, the partial
@@ -240,7 +246,7 @@ dense_direction_kernel(const DirectionArgs a) {
   // all before the columns' stream starts (behind it they wait for the
   // whole stream)
   const int j_mine = tid < ncl ? a.idx[p0 + tid] : a.n;
-  const float w_mine = tid < ncl ? a.w[p0 + tid] : 0.0f;
+  const float w_mine = tid < ncl && !a.partials ? a.w[p0 + tid] : 0.0f;
   // warp 0 also takes the ids of columns 32-63, for the live list
   const int j_hi = warp == 0 && tid + 32 < ncl ? a.idx[p0 + tid + 32] : a.n;
   float zp[kPre];
@@ -390,12 +396,16 @@ dense_direction_kernel(const DirectionArgs a) {
     const float dj = fold_direction(g_raw, h_raw, w_mine, a.l2, gj, hj);
     sdir[tid] = dj;
     if (rank == 0) {
-      a.d[p0 + tid] = dj;
+      if (!a.partials) a.d[p0 + tid] = dj;
       a.g[p0 + tid] = gj;
       a.h[p0 + tid] = hj;
     }
   }
   cluster_arrive_relaxed();  // done with the others' shared memory
+  if (a.partials) {
+    cluster_wait();
+    return;
+  }
   __syncthreads();
   nlive = sflag[1];
 
@@ -577,18 +587,28 @@ extern "C" int pcdn_direction_max_clusters() {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-#define DIRECTION_ENTRY(NAME, T, VW)                                         \
-  extern "C" int NAME(const void* XT, const int* idx, const float* z,        \
-                      const float* y, const float* w, float c, int kind,     \
-                      float l2, int n, int s, int P, int cc, int ctas,       \
-                      int sl, int tile, int resident, int vec, float* d,     \
-                      float* g, float* h, float* delta, float* part,         \
-                      int* counter, void* stream) {                          \
+#define DIRECTION_ENTRY(SUFFIX, T, VW)                                       \
+  extern "C" int pcdn_direction_##SUFFIX(                                  \
+      const void* XT, const int* idx, const float* z, const float* y,       \
+      const float* w, float c, int kind, float l2, int n, int s, int P,      \
+      int cc, int ctas, int sl, int tile, int resident, int vec, float* d,   \
+      float* g, float* h, float* delta, float* part, int* counter,           \
+      void* stream) {                                                        \
     const DirectionArgs a{XT, idx, z,     y,     w,    d,  g,  h,          \
                           delta, part, counter, c, l2, kind, n, s, P, cc,  \
-                          sl, tile, resident};                               \
+                          sl, tile, resident, 0};                            \
+    return launch<T, VW>(a, ctas, vec, static_cast<cudaStream_t>(stream));   \
+  }                                                                          \
+  extern "C" int pcdn_direction_partials_##SUFFIX(                          \
+      const void* XT, const int* idx, const float* z, const float* y,       \
+      float c, int kind, int n, int s, int P, int cc, int ctas, int sl,      \
+      int tile, int resident, int vec, float* g, float* h, void* stream) {   \
+    const DirectionArgs a{XT,      idx,     z,    y,    nullptr, nullptr, \
+                          g,       h,       nullptr, nullptr, nullptr, c,  \
+                          0.0f,    kind,    n,    s,    P,  cc, sl, tile,    \
+                          resident, 1};                                      \
     return launch<T, VW>(a, ctas, vec, static_cast<cudaStream_t>(stream));   \
   }
 
-DIRECTION_ENTRY(pcdn_direction_f32, float, 4)
-DIRECTION_ENTRY(pcdn_direction_bf16, __nv_bfloat16, 8)
+DIRECTION_ENTRY(f32, float, 4)
+DIRECTION_ENTRY(bf16, __nv_bfloat16, 8)

@@ -1,4 +1,6 @@
-"""Dispatchers for the port's kernels: the three solver kernels (K1-K3),
+"""Dispatchers for the port's kernels: the three solver kernels (K1-K3)
+with the sharded backend's entries of K2 and K3 (the shard-local g/h
+partials, and K2's scatter X_B d for a given d),
 the two serving-margin kernels (K4a, K4b), the batched line search (K5:
 its (P, s) rows entry, and its batch entry, a whole SCDN batch on the
 padded-CSC layout) and flash attention (K6), the LM's blockwise prefill
@@ -42,7 +44,8 @@ Tensor = torch.Tensor
 
 KERNELS = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
            "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch",
-           "scdn_batch", "flash_attention")
+           "scdn_batch", "flash_attention", "pcdn_direction_partials",
+           "pcdn_sparse_direction_partials", "pcdn_sparse_scatter")
 _LAUNCHES = {name: 0 for name in KERNELS}
 
 # loss kind codes, as kernels/csrc/common.cuh numbers them
@@ -290,11 +293,7 @@ def pcdn_direction(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
     _check("w_B", w_B, _F32, (P,))
     if n < 1:
         raise ValueError("pcdn_direction: a design with no features")
-    lib = _loaded("pcdn_direction", {
-        "pcdn_direction_threads": DIRECTION_THREADS,
-        "pcdn_direction_cluster": DIRECTION_CLUSTER,
-        "pcdn_direction_max_cluster_cols": DIRECTION_MAX_CLUSTER_COLS,
-        "pcdn_direction_tile_rows": DIRECTION_TILE_ROWS})
+    lib = _direction_lib()
     plan = direction_plan(s, P, XT.element_size(),
                           direction_max_clusters(XT.device))
     # one allocation: d, g, h, delta, then the clusters' partials of delta
@@ -314,6 +313,52 @@ def pcdn_direction(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
     return d, g, h, delta
 
 
+def _direction_lib():
+    return _loaded("pcdn_direction", {
+        "pcdn_direction_threads": DIRECTION_THREADS,
+        "pcdn_direction_cluster": DIRECTION_CLUSTER,
+        "pcdn_direction_max_cluster_cols": DIRECTION_MAX_CLUSTER_COLS,
+        "pcdn_direction_tile_rows": DIRECTION_TILE_ROWS})
+
+
+@_observed("pcdn_direction_partials")
+def pcdn_direction_partials(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
+                            c, kind: str = "logistic"):
+    """K3's partials entry, the sharded backend's shard-local step on the
+    dense layout: XT (n, s) the shard's feature-major block, idx (P,)
+    int32 (sentinel n), z/y (s,) float32 -> (g, h), each (P,) float32:
+    g = X_B^T u raw and h = max((X_B^2)^T v, 1e-12), u and v = c phi'(z),
+    c phi''(z) formed at the rows. No d and no X_B d: the direction needs
+    the g and h summed over the data shards. One launch of K3's plan,
+    stopping after the cluster's g/h sum; deterministic."""
+    if kind not in _KINDS:
+        raise KeyError(f"unknown loss {kind!r}")
+    if _on_cpu(XT, idx, z, y):
+        return ref.pcdn_direction_partials_ref(XT, idx, z, y, c, kind=kind)
+    n, s = XT.shape
+    P = idx.shape[0]
+    _check("XT", XT, tuple(_VALUE_TYPES), (n, s))
+    _check("idx", idx, _I32, (P,))
+    _check("z", z, _F32, (s,))
+    _check("y", y, _F32, (s,))
+    if n < 1:
+        raise ValueError("pcdn_direction_partials: a design with no "
+                         "features")
+    lib = _direction_lib()
+    plan = direction_plan(s, P, XT.element_size(),
+                          direction_max_clusters(XT.device))
+    buf = torch.empty((2 * P,), dtype=torch.float32, device=XT.device)
+    g, h = buf.view(2, P)
+    fn = getattr(lib, f"pcdn_direction_partials_{_VALUE_TYPES[XT.dtype]}")
+    err = fn(_ptr(XT), _ptr(idx), _ptr(z), _ptr(y), float(c), _KINDS[kind],
+             n, s, P, plan.cc, plan.ctas, plan.sl, plan.tile,
+             int(plan.resident), int(plan.vec), _ptr(g), _ptr(h),
+             _stream(XT))
+    _raise_if(err, "pcdn_direction_partials")
+    _LAUNCHES["pcdn_direction_partials"] += 1
+    return g, h
+
+
 def sparse_direction_warps(K: int) -> int:
     """Warps a feature's column is split over in the K2 launch: 1 up to 64
     entries, 2 up to 128, else 4 (a block holds 4 warps)."""
@@ -329,7 +374,9 @@ def pcdn_sparse_direction(rows: Tensor, vals: Tensor, z: Tensor, y: Tensor,
     (P, K) float32|bf16, z/y (m,) float32 margins and labels (the full
     scope: m = s; the support scope: positions into z_R, y_R), w_B (P,)
     float32, c a float -> (d, g, h), each (P,), and delta = X_B d (m,), all
-    float32."""
+    float32. Two launches (the direction, then the rows' sums) and a
+    memset; each row's delta sums its entries in ascending entry id, so
+    two calls on the same inputs are bit-equal."""
     if kind not in _KINDS:
         raise KeyError(f"unknown loss {kind!r}")
     if _on_cpu(rows, vals, z, y, w_B):
@@ -346,16 +393,98 @@ def pcdn_sparse_direction(rows: Tensor, vals: Tensor, z: Tensor, y: Tensor,
         raise ValueError(f"pcdn_sparse_direction: empty input P={P} K={K} "
                          f"len(z)={m}")
     lib = build.load("pcdn_sparse_direction")
-    buf = torch.empty((3 * P + m,), dtype=torch.float32, device=rows.device)
+    # d, g, h, delta, then the rows' list heads (zeroed with delta)
+    buf = torch.empty((3 * P + 2 * m,), dtype=torch.float32,
+                      device=rows.device)
     d, g, h = buf[:3 * P].view(3, P)
-    delta = buf[3 * P:]
+    delta = buf[3 * P:3 * P + m]
+    links = _entry_links(P, K, rows.device)
     fn = getattr(lib, f"pcdn_sparse_direction_{_VALUE_TYPES[vals.dtype]}")
     err = fn(_ptr(rows), _ptr(vals), _ptr(z), _ptr(y), _ptr(w_B), float(c),
              _KINDS[kind], float(l2), P, K, m, sparse_direction_warps(K),
-             _ptr(d), _ptr(g), _ptr(h), _ptr(delta), _stream(rows))
+             _ptr(d), _ptr(g), _ptr(h), _ptr(delta), _ptr(links),
+             _stream(rows))
     _raise_if(err, "pcdn_sparse_direction")
     _LAUNCHES["pcdn_sparse_direction"] += 1
     return d, g, h, delta
+
+
+def _entry_links(P: int, K: int, device) -> Tensor:
+    """K2's per-entry scratch: each entry's list link and term, (2 P K,)
+    words, written before they are read (no fill)."""
+    if P * K >= _INT32_MAX:
+        raise ValueError(f"pcdn_sparse_direction: P * K = {P * K} entries, "
+                         f"the kernel numbers them in int32")
+    return torch.empty((2 * P * K,), dtype=torch.int32, device=device)
+
+
+def _check_slab(rows: Tensor, vals: Tensor) -> tuple:
+    P, K = rows.shape
+    _check("rows", rows, _I32, (P, K))
+    _check("vals", vals, tuple(_VALUE_TYPES), (P, K))
+    if P < 1 or K < 1:
+        raise ValueError(f"empty slab P={P} K={K}")
+    return P, K
+
+
+@_observed("pcdn_sparse_direction_partials")
+def pcdn_sparse_direction_partials(rows: Tensor, vals: Tensor, z: Tensor,
+                                   y: Tensor, c, kind: str = "logistic"):
+    """K2's partials entry, the sharded backend's shard-local step on the
+    padded-CSC layout: rows (P, K) int32 with sentinel len(z) (the shard's
+    local rows, or positions into z_R/y_R on the support scope), vals
+    (P, K) float32|bf16, z/y (m,) float32 -> (g, h), each (P,) float32: g
+    raw, h floored at 1e-12, u and v formed at the rows. No d, no delta.
+    One launch; deterministic."""
+    if kind not in _KINDS:
+        raise KeyError(f"unknown loss {kind!r}")
+    if _on_cpu(rows, vals, z, y):
+        return ref.pcdn_sparse_direction_partials_ref(rows, vals, z, y, c,
+                                                      kind=kind)
+    P, K = _check_slab(rows, vals)
+    m = z.shape[0]
+    _check("z", z, _F32, (m,))
+    _check("y", y, _F32, (m,))
+    if m < 1:
+        raise ValueError("pcdn_sparse_direction_partials: empty z")
+    lib = build.load("pcdn_sparse_direction")
+    buf = torch.empty((2 * P,), dtype=torch.float32, device=rows.device)
+    g, h = buf.view(2, P)
+    fn = getattr(lib, "pcdn_sparse_direction_partials_"
+                      f"{_VALUE_TYPES[vals.dtype]}")
+    err = fn(_ptr(rows), _ptr(vals), _ptr(z), _ptr(y), float(c),
+             _KINDS[kind], P, K, m, sparse_direction_warps(K), _ptr(g),
+             _ptr(h), _stream(rows))
+    _raise_if(err, "pcdn_sparse_direction_partials")
+    _LAUNCHES["pcdn_sparse_direction_partials"] += 1
+    return g, h
+
+
+@_observed("pcdn_sparse_scatter")
+def pcdn_sparse_scatter(rows: Tensor, vals: Tensor, d: Tensor,
+                        n_rows: int) -> Tensor:
+    """K2's scatter half: delta = X_B d, (n_rows,) float32, over a padded-CSC
+    slab rows (P, K) int32 (rows outside [0, n_rows) add nothing), vals
+    (P, K) float32|bf16 and a given d (P,) float32 -- the sharded
+    backend's phase 2, after the global g and h made d. Two launches and a
+    memset; each row sums its entries in ascending entry id (the plain
+    version's index_add_ order), so two calls are bit-equal."""
+    if _on_cpu(rows, vals, d):
+        return ref.pcdn_sparse_scatter_ref(rows, vals, d, n_rows)
+    P, K = _check_slab(rows, vals)
+    _check("d", d, _F32, (P,))
+    m = int(n_rows)
+    if m < 1:
+        raise ValueError("pcdn_sparse_scatter: n_rows must be >= 1")
+    lib = build.load("pcdn_sparse_direction")
+    buf = torch.empty((2 * m,), dtype=torch.float32, device=rows.device)
+    links = _entry_links(P, K, rows.device)
+    fn = getattr(lib, f"pcdn_sparse_scatter_{_VALUE_TYPES[vals.dtype]}")
+    err = fn(_ptr(rows), _ptr(vals), _ptr(d), P, K, m, _ptr(buf),
+             _ptr(links), _stream(rows))
+    _raise_if(err, "pcdn_sparse_scatter")
+    _LAUNCHES["pcdn_sparse_scatter"] += 1
+    return buf[:m]
 
 
 # -- K1 ------------------------------------------------------------------------
@@ -384,9 +513,10 @@ class BundlePlan:
 
     @property
     def workspace_ints(self) -> int:
-        """int32 words: the (s,) slot map, then the R = P K slots' row,
-        delta, entry slot, z and y, then w_B and d (P each)."""
-        return self.s + 5 * self.P * self.K + 2 * self.P
+        """int32 words: the (s,) owner map and (s,) list heads, then the
+        R = P K slots' row, list link, term, delta, z and y, then w_B and d
+        (P each)."""
+        return 2 * self.s + 6 * self.P * self.K + 2 * self.P
 
     @property
     def workspace_bytes(self) -> int:
@@ -469,11 +599,12 @@ class BundleLaunch:
         self._fn = getattr(lib, f"pcdn_bundle_{_VALUE_TYPES[col_vals.dtype]}")
         self.workspace = torch.empty((self.plan.workspace_ints,),
                                      dtype=torch.int32, device=self.device)
-        # the slot map and the slots' rows start at -1, the slots' delta at
-        # 0 (float 0.0 is int 0); each launch leaves them so
+        # the owner map starts at INT32_MAX (no bid), the list heads at 0
+        # (empty), the slots' rows at -1; each launch leaves them so
         R = K * self.plan.P
-        self.workspace[:s + R].fill_(-1)
-        self.workspace[s + R:s + 2 * R].zero_()
+        self.workspace[:s].fill_(_INT32_MAX)
+        self.workspace[s:2 * s].zero_()
+        self.workspace[2 * s:2 * s + R].fill_(-1)
         p = self.plan
         self._args = _BundleArgs(
             _ptr(col_rows), _ptr(col_vals), None, _ptr(y), None,

@@ -9,6 +9,11 @@ what its CUDA kernel computes (kernels/csrc/*.cu):
   * `pcdn_sparse_direction_ref` -- K2, padded-CSC slab with the loss
                                    factors and the margin scatter
                                    -> (d, g, h, delta)
+  * `pcdn_direction_partials_ref`, `pcdn_sparse_direction_partials_ref`
+                                -- K3's and K2's partials entries: a
+                                   shard's raw g and floored h -> (g, h)
+  * `pcdn_sparse_scatter_ref`   -- K2's scatter entry: X_B d for a given
+                                   d -> delta
   * `pcdn_bundle_step_ref`      -- K1, the whole support-restricted bundle
                                    step: w, z updated in place
                                    -> (n_steps, alpha); built on
@@ -95,6 +100,62 @@ def pcdn_sparse_direction_ref(rows: Tensor, vals: Tensor, z: Tensor,
     delta.index_add_(0, torch.where(valid, rows, s).reshape(-1).long(),
                      (vals * d[:, None]).reshape(-1))
     return d, g, h, delta[:s]
+
+
+def pcdn_direction_partials_ref(XT: Tensor, idx: Tensor, z: Tensor,
+                                y: Tensor, c, kind: str = "logistic"):
+    """(g, h) of a dense bundle on one shard, as the reference's sharded
+    backend takes them from its Pallas K3 with l2 = 0: the slab gather
+    (sentinel idx >= n zeroed), u, v = c phi'(z), c phi''(z), g = X_B^T u
+    and h = max((X_B^2)^T v, 1e-12)."""
+    loss = get_loss(kind)
+    n = XT.shape[0]
+    valid = idx < n
+    XB = XT[idx.clamp(max=n - 1).long()].to(f32) * \
+        valid[:, None].to(f32)                                    # (P, s)
+    z = z.to(f32)
+    y = y.to(f32)
+    c = float(c)
+    u = c * loss.dz(z, y)
+    v = c * loss.d2z(z, y)
+    return XB @ u, torch.clamp_min(torch.square(XB) @ v, HESSIAN_FLOOR)
+
+
+def pcdn_sparse_direction_partials_ref(rows: Tensor, vals: Tensor,
+                                       z: Tensor, y: Tensor, c,
+                                       kind: str = "logistic"):
+    """(g, h) of a padded-CSC slab on one shard (rows == len(z), the
+    sentinel, add 0), as the reference's sharded backend takes them from
+    its Pallas K2 with l2 = 0: g raw, h floored at 1e-12."""
+    loss = get_loss(kind)
+    z = z.to(f32)
+    y = y.to(f32)
+    c = float(c)
+    u = c * loss.dz(z, y)
+    v = c * loss.d2z(z, y)
+    vals = vals.to(f32)
+    s = z.shape[0]
+    valid = (rows >= 0) & (rows < s)
+    safe = rows.clamp(0, s - 1).long()
+    zero = torch.zeros((), dtype=f32, device=z.device)
+    ug = torch.where(valid, u[safe], zero)
+    vg = torch.where(valid, v[safe], zero)
+    return (torch.sum(ug * vals, dim=1),
+            torch.clamp_min(torch.sum(vg * torch.square(vals), dim=1),
+                            HESSIAN_FLOOR))
+
+
+def pcdn_sparse_scatter_ref(rows: Tensor, vals: Tensor, d: Tensor,
+                            n_rows: int) -> Tensor:
+    """delta = X_B d of length n_rows over a padded-CSC slab: an index_add
+    of vals * d at the slab's rows (rows outside [0, n_rows) dropped), on
+    the CPU in entry order."""
+    m = int(n_rows)
+    valid = (rows >= 0) & (rows < m)
+    delta = torch.zeros((m + 1,), dtype=f32, device=d.device)
+    delta.index_add_(0, torch.where(valid, rows, m).reshape(-1).long(),
+                     (vals.to(f32) * d.to(f32)[:, None]).reshape(-1))
+    return delta[:m]
 
 
 def pcdn_bundle_ref(vals: Tensor, pos: Tensor, z_R: Tensor, y_R: Tensor,

@@ -1,14 +1,16 @@
 """Shared CLI plumbing of the port's solve, path and predict entry points.
 
-The flags mirror `repro.launch.common` for what the port carries:
-`--layout / --use-kernels / --dtype / --device`, the solver knobs,
-`--warm-start`, the telemetry flags `--metrics-out / --trace-out`, the
-diagnostics flags `--diag-out / --progress` and the fault-tolerance flags
-`--ckpt-dir / --ckpt-every / --resume / --retries`, with the reference's
-defaults and refusals. The port runs on the local backend only, so there
-is no `--backend` (and no sharded branch in the bf16 envelope);
-`--device` (default cuda) is the explicit device every entry point of the
-port takes.
+The flags mirror `repro.launch.common`: `--backend local|sharded` with
+the mesh shape `--data-parallel / --model-parallel`, `--layout /
+--use-kernels / --dtype / --device`, the solver knobs, `--warm-start`, the
+telemetry flags `--metrics-out / --trace-out`, the diagnostics flags
+`--diag-out / --progress` and the fault-tolerance flags `--ckpt-dir /
+--ckpt-every / --resume / --retries`, with the reference's defaults and
+refusals. `--device` (default cuda) is the explicit device every entry
+point of the port takes. On the sharded backend each rank is a process of
+a `torch.distributed` group (`torchrun --nproc-per-node D*M ...`; a world
+of 1 starts itself, see `launch.mesh`), and rank 0 alone writes the
+reports, checkpoints and telemetry files.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core import PCDNConfig
+from repro_torch.core import PCDNConfig, make_problem
 from repro_torch.data import load_libsvm, paper_like
 
 # --dtype values -> storage dtype of the design values / serve bank (the
@@ -38,10 +40,14 @@ BF16_MIN_TOL = 1e-3
 def check_dtype_envelope(args, ap: argparse.ArgumentParser,
                          loss: str | None = None):
     """Refuse bf16 outside the studied equivalence envelope (the
-    reference's rule for its local backend): a loss it did not study, or a
+    reference's rule): the sharded backend, a loss it did not study, or a
     stopping tolerance tighter than BF16_MIN_TOL."""
     if getattr(args, "dtype", "fp32") != "bf16":
         return
+    if getattr(args, "backend", "local") == "sharded":
+        ap.error("--dtype bf16 is unstudied on --backend sharded "
+                 "(the equivalence study covers the local backend only); "
+                 "use --dtype fp32 or --backend local")
     if loss is not None and loss not in BF16_LOSSES:
         ap.error(f"--dtype bf16 is unstudied for loss {loss!r} "
                  f"(studied envelope: {', '.join(BF16_LOSSES)})")
@@ -53,6 +59,15 @@ def check_dtype_envelope(args, ap: argparse.ArgumentParser,
 
 
 def add_backend_args(ap: argparse.ArgumentParser):
+    ap.add_argument("--backend", default="local",
+                    choices=["local", "sharded"],
+                    help="execution backend: local (one device), or the "
+                         "sharded (data x model) mesh over torch."
+                         "distributed ranks")
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="mesh data-axis size (--backend sharded)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="mesh model-axis size (--backend sharded)")
     ap.add_argument("--layout", default="auto",
                     choices=["auto", "dense", "padded_csc"],
                     help="design-matrix backend; padded_csc never "
@@ -230,7 +245,12 @@ def load_dataset(args, with_test: bool = False):
     None spec; profile names go through `paper_like` (at `--scale` where
     the CLI has it)."""
     if os.path.exists(args.dataset):
-        layout = "padded_csc" if args.layout == "padded_csc" else "dense"
+        if args.layout == "padded_csc":
+            # the sharded placer re-packs each shard from CSR
+            layout = ("csr" if getattr(args, "backend", "local") == "sharded"
+                      else "padded_csc")
+        else:
+            layout = "dense"
         X, y = load_libsvm(args.dataset, layout=layout)
         return X, y, None, None, None
     scale = getattr(args, "scale", None)
@@ -250,6 +270,62 @@ def build_pcdn_config(args, **overrides) -> PCDNConfig:
               record_kkt_vec=_record_kkt_vec(args))
     kw.update(overrides)
     return PCDNConfig(**kw)
+
+
+def build_sharded_config(args, c: float, loss: str):
+    """The CLI flags on the sharded backend's config, so --shrink /
+    --use-kernels / --tol mean the same on a mesh; P_local = P // model."""
+    from repro_torch.engine.sharded import ShardedPCDNConfig
+    return ShardedPCDNConfig(
+        P_local=max(args.P // max(args.model_parallel, 1), 1), c=c,
+        loss_name=loss, seed=args.seed, shrink=args.shrink,
+        use_kernels=args.use_kernels, tol_kkt=args.tol,
+        ls_scope=getattr(args, "ls_scope", "auto"),
+        record_aux=_record_aux(args),
+        record_kkt_vec=_record_kkt_vec(args))
+
+
+def make_mesh(args):
+    """The --data-parallel x --model-parallel mesh over the running ranks
+    (printed once, by rank 0)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(args.data_parallel, args.model_parallel,
+                          device=args.device)
+    if mesh.rank == 0:
+        print(f"[mesh] {mesh.describe()}", flush=True)
+    return mesh
+
+
+def make_backend(args, X, y, c: float, loss: str, outer=None, mesh=None):
+    """The execution backend the flags describe -> (backend, problem or
+    None): an `L1Problem` + `LocalBackend` on --device, or a
+    `ShardedBackend` on the flags' mesh (`mesh` reuses one)."""
+    if args.backend == "sharded":
+        from repro_torch.engine.sharded import ShardedBackend
+        mesh = mesh if mesh is not None else make_mesh(args)
+        cfg = build_sharded_config(args, c, loss)
+        return ShardedBackend(X, y, mesh, cfg, layout=args.layout), None
+    from repro_torch.engine import LocalBackend
+    prob = make_problem(X, y, c=c, loss=loss, layout=args.layout,
+                        dtype=DTYPES[getattr(args, "dtype", "fp32")],
+                        device=args.device)
+    return LocalBackend(prob, build_pcdn_config(args), outer=outer), prob
+
+
+def is_writer(backend) -> bool:
+    """Whether this process writes the run's files and final report: rank
+    0 of a sharded run, always on the local backend."""
+    return getattr(backend, "is_writer", True)
+
+
+def host_design(X, layout: str, device):
+    """The whole design on `device`, for the health report's certified-P
+    table of a sharded run (whose backend holds one block a rank)."""
+    from repro_torch.core.design_matrix import as_design
+    from repro_torch.data import csr_to_padded_csc
+    if all(hasattr(X, a) for a in ("data", "indices", "indptr")):
+        X = csr_to_padded_csc(X)
+    return as_design(X, layout=layout, device=device)
 
 
 def _record_aux(args) -> bool:

@@ -16,8 +16,10 @@ Sweep mode takes the reference's fault and diagnostics flags:
 --ckpt-dir checkpoints after every grid point, --resume continues from
 the newest committed point, the REPRO_FAULT_PLAN variable injects faults,
 and --diag-out writes the health report of the last grid point; batch
-mode refuses them, as the reference does. The port runs the local backend
-only (no --backend sharded).
+mode refuses them, as the reference does. ``--backend sharded`` runs the
+sweep on a mesh of `torch.distributed` ranks (`launch.solve` says how to
+start them), warm-started through the backend's margins; batch mode is
+local only, as in the reference. Rank 0 prints and writes the files.
 """
 from __future__ import annotations
 
@@ -95,6 +97,9 @@ def main(argv=None):
     if args.mode == "batch" and args.shrink:
         ap.error("--shrink requires --mode sweep (the batch engine has no "
                  "active-set masking)")
+    if args.mode == "batch" and args.backend == "sharded":
+        ap.error("--mode batch is local-only (the lockstep batch solver "
+                 "has no sharded execution backend)")
     if args.mode == "batch" and args.diag_out:
         ap.error("--diag-out requires --mode sweep (the lockstep batch "
                  "engine keeps no per-iteration history)")
@@ -104,12 +109,22 @@ def main(argv=None):
     X, y, Xval, yval = _load(args)
     common.setup_obs(args)
     solver = common.build_pcdn_config(args)
-    prob = make_problem(X, y, c=1.0, loss=args.loss, layout=args.layout,
-                        dtype=common.DTYPES[args.dtype], device=args.device)
-    print(f"[path] dataset={args.dataset} s={prob.n_samples} "
-          f"n={prob.n_features} c_max={prob.c_max():.5g} "
-          f"points={args.points} mode={args.mode} shrink={args.shrink} "
-          f"warm={not args.cold} device={args.device}")
+    sharded = args.backend == "sharded"
+    if sharded:
+        backend, prob = common.make_backend(args, X, y, 1.0, args.loss)
+    else:
+        backend = None
+        prob = make_problem(X, y, c=1.0, loss=args.loss, layout=args.layout,
+                            dtype=common.DTYPES[args.dtype],
+                            device=args.device)
+    view = backend if sharded else prob
+    writer = common.is_writer(backend)
+    if writer:
+        print(f"[path] dataset={args.dataset} s={view.n_samples} "
+              f"n={view.n_features} c_max={view.c_max():.5g} "
+              f"points={args.points} mode={args.mode} shrink={args.shrink} "
+              f"warm={not args.cold} device={args.device} "
+              f"backend={args.backend}")
 
     if args.mode == "batch":
         cs = problem_grid(prob, c_final=args.c_final,
@@ -145,18 +160,22 @@ def main(argv=None):
                          warm_start=not args.cold)
         from repro_torch import fault
         res = run_path(prob, cfg, val_design=Xval, val_y=yval,
-                       verbose=True,
-                       callback=common.make_progress_callback(args),
+                       verbose=writer, backend=backend,
+                       callback=(common.make_progress_callback(args)
+                                 if writer else None),
                        ckpt=common.make_checkpointer(args, ap),
                        resume=args.resume,
                        fault_plan=fault.plan_from_env())
         common.finish_progress(args)
-        payload = {"mode": "sweep", "backend": "local", **path_summary(res)}
+        payload = {"mode": "sweep", "backend": args.backend,
+                   **path_summary(res)}
         weights = res.weights
-        if res.best is not None:
+        if res.best is not None and writer:
             print(f"[path] best c={res.best.c:.5g} "
                   f"val_acc={res.best.val_accuracy:.4f} nnz={res.best.nnz}")
 
+    if not writer:
+        return payload
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(payload, fh, indent=1, default=float)
@@ -170,7 +189,7 @@ def main(argv=None):
         family = art.path_family(
             weights, res.cs, args.loss, metas=metas,
             provenance=art.solver_provenance(
-                solver="pcdn", dataset=args.dataset, backend="local",
+                solver="pcdn", dataset=args.dataset, backend=args.backend,
                 mode=args.mode, P=args.P, tol_kkt=args.tol, seed=args.seed,
                 shrink=bool(args.shrink), loss=args.loss,
                 dtype=args.dtype, best_index=res.best_index,
@@ -182,11 +201,11 @@ def main(argv=None):
         last = res.points[-1] if res.points else None
         diag_report = {
             "provenance": art.solver_provenance(
-                solver="pcdn", dataset=args.dataset, backend="local",
+                solver="pcdn", dataset=args.dataset, backend=args.backend,
                 mode=args.mode, P=args.P, tol_kkt=args.tol, seed=args.seed,
                 shrink=bool(args.shrink), loss=args.loss, dtype=args.dtype,
                 package="repro_torch", device=args.device),
-            "loss": args.loss, "n_features": int(prob.n_features),
+            "loss": args.loss, "n_features": int(view.n_features),
             "objective": last.objective if last else None,
             "converged": last.converged if last else None,
             "nnz": last.nnz if last else None,
@@ -196,11 +215,14 @@ def main(argv=None):
             "postmortem": res.last_postmortem}
         if res.best is not None:
             diag_report["best_c"] = res.best.c
-        common.write_diag(args, diag_report, design=prob.design,
-                          tol_kkt=args.tol)
+        common.write_diag(
+            args, diag_report,
+            design=(common.host_design(X, args.layout, args.device)
+                    if sharded else prob.design),
+            tol_kkt=args.tol)
     common.finish_obs(args, meta={
         "cli": "path", "dataset": args.dataset, "mode": args.mode,
-        "backend": "local", "device": args.device,
+        "backend": args.backend, "device": args.device,
         "points": len(res.points), "total_seconds": res.total_seconds})
     return payload
 

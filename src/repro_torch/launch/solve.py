@@ -5,7 +5,12 @@ Loads or generates an l1 classification problem, runs the selected solver
 (pcdn / cdn / scdn / tron) on the chosen device -- the card by default --
 with the design stored in fp32 or bf16 (`--dtype`, pcdn/cdn only), and
 prints the final objective and the held-out accuracy, as
-`repro.launch.solve` does on its local backend.
+`repro.launch.solve` does. ``--backend sharded`` (alias ``--sharded``;
+pcdn only, fp32 only) runs PCDN on a ``--data-parallel`` x
+``--model-parallel`` mesh of `torch.distributed` ranks, e.g.
+``torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.solve
+--backend sharded --data-parallel 2 ...``; a world of 1 needs no torchrun.
+Rank 0 prints the result and writes every file.
 
 ``--out`` writes a report that is at once a servable model artifact (the
 `repro.serve/model@1` schema both packages read), a ``--warm-start`` input
@@ -25,6 +30,7 @@ backtrack forensics, the certified-P table on the solve's own design).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -32,7 +38,7 @@ import numpy as np
 from repro_torch import fault
 from repro_torch.core import make_problem, scdn, tron, with_bundle_size
 from repro_torch.data.synthetic import train_accuracy
-from repro_torch.engine import LocalBackend
+from repro_torch.engine import LocalBackend, ShardedBackend
 from repro_torch.launch import common
 from repro_torch.serve import artifact as art
 
@@ -50,6 +56,8 @@ def main(argv=None):
     common.add_solver_args(ap)
     common.add_backend_args(ap)
     common.add_dtype_arg(ap)
+    ap.add_argument("--sharded", action="store_true",
+                    help="alias for --backend sharded")
     ap.add_argument("--out", default=None,
                     help="write the combined report (model artifact + "
                          "warm-start record + history) here")
@@ -59,6 +67,8 @@ def main(argv=None):
     common.add_diag_args(ap)
     common.add_fault_args(ap)
     args = ap.parse_args(argv)
+    if args.sharded:
+        args.backend = "sharded"
     if ((args.ckpt_dir or args.resume)
             and args.solver not in ("pcdn", "cdn")):
         ap.error("--ckpt-dir/--resume require --solver pcdn or cdn (the "
@@ -70,6 +80,8 @@ def main(argv=None):
         ap.error("--warm-start requires --solver pcdn or cdn")
     if args.shrink and args.solver not in ("pcdn", "cdn"):
         ap.error("--shrink requires --solver pcdn or cdn")
+    if args.backend == "sharded" and args.solver != "pcdn":
+        ap.error("--backend sharded supports --solver pcdn only")
     if args.dtype == "bf16" and args.solver not in ("pcdn", "cdn"):
         ap.error("--dtype bf16 is studied for --solver pcdn/cdn only")
     common.check_dtype_envelope(args, ap, loss=args.loss)
@@ -80,17 +92,45 @@ def main(argv=None):
                        else spec.c_svm)
     else:
         c = args.c or 1.0
-    print(f"[solve] dataset={args.dataset} s={X.shape[0]} n={X.shape[1]} "
-          f"c={c} loss={args.loss} solver={args.solver} P={args.P} "
-          f"device={args.device}")
-    prob = make_problem(X, y, c=c, loss=args.loss, layout=args.layout,
-                        dtype=common.DTYPES[args.dtype], device=args.device)
+    sharded = args.backend == "sharded"
+    mesh = common.make_mesh(args) if sharded else None
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        print(f"[solve] dataset={args.dataset} s={X.shape[0]} "
+              f"n={X.shape[1]} c={c} loss={args.loss} solver={args.solver} "
+              f"P={args.P} device={args.device} backend={args.backend}")
+    prob = None if sharded else make_problem(
+        X, y, c=c, loss=args.loss, layout=args.layout,
+        dtype=common.DTYPES[args.dtype], device=args.device)
     common.setup_obs(args)
-    progress = common.make_progress_callback(args)
+    progress = common.make_progress_callback(args) if writer else None
     ckpt = common.make_checkpointer(args, ap)
     plan = fault.plan_from_env()
     t0 = time.time()
-    if args.solver in ("pcdn", "cdn"):
+    if sharded:
+        # resilient_solve owns the backend: its factory rebuilds at a
+        # damped P_local after a rollback, on the same mesh
+        backend0, _ = common.make_backend(args, X, y, c, args.loss,
+                                          mesh=mesh)
+
+        def factory(P):
+            if int(P) == int(args.P):
+                return backend0
+            cfg = dataclasses.replace(
+                common.build_sharded_config(args, c, args.loss),
+                P_local=max(int(P) // max(args.model_parallel, 1), 1))
+            return ShardedBackend(X, y, mesh, cfg, layout=args.layout)
+
+        w0 = (common.load_warm_start(args.warm_start, backend0.n_features)
+              if args.warm_start else None)
+        res = fault.resilient_solve(
+            factory, c, P=args.P, w0=w0, max_outer=args.max_outer,
+            tol_kkt=args.tol, callback=progress, checkpointer=ckpt,
+            resume=args.resume, max_retries=args.retries, plan=plan)
+        w = res.w                      # resilient_solve returns host w
+        n_outer = res.n_outer
+        history = common.history_dict(res.history)
+    elif args.solver in ("pcdn", "cdn"):
         # CDN = PCDN with bundle size 1 and a backtracking search
         cfg = (common.build_pcdn_config(args) if args.solver == "pcdn"
                else common.build_pcdn_config(args, P=1,
@@ -124,6 +164,8 @@ def main(argv=None):
         w = res.w.detach().cpu().numpy()
     dt = time.time() - t0
     common.finish_progress(args)
+    if not writer:
+        return res.objective
     nnz = int(np.sum(w != 0))
     faults = getattr(res, "faults", None)
     postmortem = getattr(res, "postmortem", None)
@@ -138,7 +180,7 @@ def main(argv=None):
         acc = train_accuracy(Xte, yte, w)
         print(f"[solve] test accuracy: {acc:.4f}")
     prov = art.solver_provenance(
-        solver=args.solver, dataset=args.dataset, backend="local",
+        solver=args.solver, dataset=args.dataset, backend=args.backend,
         P=args.P, tol_kkt=args.tol, seed=args.seed,
         shrink=bool(args.shrink), loss=args.loss, dtype=args.dtype,
         package="repro_torch", device=args.device)
@@ -153,8 +195,11 @@ def main(argv=None):
             "objective": float(res.objective),
             "converged": bool(res.converged), "nnz": nnz, "seconds": dt,
             "history": history, "postmortem": postmortem}
-        common.write_diag(args, diag_report, design=prob.design,
-                          tol_kkt=args.tol)
+        common.write_diag(
+            args, diag_report,
+            design=(common.host_design(X, args.layout, args.device)
+                    if sharded else prob.design),
+            tol_kkt=args.tol)
         diag_block = diag_report["diag"]
     if args.out or args.save_model:
         meta = {"objective": float(res.objective),
@@ -185,7 +230,7 @@ def main(argv=None):
             art.save_model(args.out, family, extra=extra)
     common.finish_obs(args, meta={
         "cli": "solve", "dataset": args.dataset, "solver": args.solver,
-        "backend": "local", "device": args.device,
+        "backend": args.backend, "device": args.device,
         "objective": float(res.objective),
         "converged": bool(res.converged), "nnz": nnz, "seconds": dt})
     return res.objective

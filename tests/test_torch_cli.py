@@ -2,9 +2,21 @@
 a9a. The two draw different partitions, so they are compared at
 convergence (--tol 1e-3), not per iteration: converged F rel <= 1e-3."""
 import pytest
+import torch
 
 from repro.launch import solve as jsolve
 from repro_torch.launch import solve as tsolve
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a case: under pytest-xdist several workers share
+    the machine's cores, and torch's default of a thread a core in each of
+    them makes these small problems wait on one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

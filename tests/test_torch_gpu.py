@@ -7,9 +7,10 @@ collects the same tests). On a machine with a card:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerance: max |kernel - plain| <= 1e-4 * max |plain| for d/g/h and upd_*
-(float32 sums in another order; K1 scatters with atomicAdd, in a
-run-dependent order), bf16 storage against the plain version on the same
-bf16 values; alpha and n_steps exactly equal.
+(float32 sums in another order), bf16 storage against the plain version on
+the same bf16 values; alpha and n_steps exactly equal. Two calls of K1, K2
+(with its partials and scatter entries) or K3 on the same inputs are
+bit-equal: every sum runs in a fixed order.
 """
 import numpy as np
 import pytest
@@ -175,12 +176,17 @@ def _bundle_step_check(cuda, d, idx, c, kind="logistic", l2=0.0,
     out_z = torch.ones(s + 1, dtype=torch.bool, device=cuda)
     out_z[touched] = False
     assert torch.equal(z_k[out_z[:s]], d["z"][out_z[:s]])
-    # the slot map and the slots' rows are back to -1 for the next bundle,
-    # the slots' delta to 0
-    R = idx.shape[0] * K
-    assert bool(torch.all(launch.workspace[:s + R] == -1))
-    assert bool(torch.all(launch.workspace[s + R:s + 2 * R] == 0))
+    # the owner map, the list heads and the slots' rows are back to
+    # INT32_MAX, 0 and -1 for the next bundle
+    _workspace_reset(launch, s, idx.shape[0] * K)
     return int(q), float(a)
+
+
+def _workspace_reset(launch, s, R):
+    ws = launch.workspace
+    assert bool(torch.all(ws[:s] == 2 ** 31 - 1))
+    assert bool(torch.all(ws[s:2 * s] == 0))
+    assert bool(torch.all(ws[2 * s:2 * s + R] == -1))
 
 
 @pytest.mark.parametrize("kind,l2,gamma,P,K,s,n", [
@@ -254,9 +260,7 @@ def test_bundle_kernel_runs_bundles_back_to_back(cuda):
         # from the kernel's carry, so an Armijo flip cannot compound
         w_p.copy_(w_k)
         z_p.copy_(z_k)
-    R = 12 * 30
-    assert bool(torch.all(launch.workspace[:2000 + R] == -1))
-    assert bool(torch.all(launch.workspace[2000 + R:2000 + 2 * R] == 0))
+    _workspace_reset(launch, 2000, 12 * 30)
 
 
 def test_bundle_kernel_checks_a_view_at_the_bound_address(cuda):
@@ -1012,3 +1016,138 @@ def test_rollback_through_k2_then_k1(cuda):
     assert counts["pcdn_bundle"] == (n_iter - 2) * 128
     assert np.isfinite(res.objective) and np.all(np.isfinite(res.w))
     assert (np.diff(res.history.outer_iter) == 1).all()
+
+
+# -- the sharded backend's entries and the fixed-order margin sums ----------
+
+def _sparse_slab(cuda, P, K, s, dtype, seed=0, dup_rows=False):
+    rng = _rng(P, K, s, seed)
+    if dup_rows:      # each row in many columns: lists past the sort cap
+        rows = rng.integers(0, s, size=(P, K)).astype(np.int32)
+    else:
+        rows = rng.integers(0, s + 1, size=(P, K)).astype(np.int32)
+    vals = rng.standard_normal((P, K)).astype(np.float32)
+    vals[rows == s] = 0.0
+    return (torch.tensor(rows, device=cuda),
+            torch.tensor(vals, device=cuda).to(dtype),
+            torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                         device=cuda),
+            torch.tensor(np.where(rng.random(s) < 0.5, -1.0, 1.0),
+                         dtype=torch.float32, device=cuda),
+            torch.tensor(rng.standard_normal(P), dtype=torch.float32,
+                         device=cuda))
+
+
+@pytest.mark.parametrize("P,K,s", [(1, 1, 10), (37, 9, 300),
+                                   (512, 278, 57848)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["logistic", "squared_hinge", "squared"])
+def test_sparse_direction_partials_kernel(cuda, P, K, s, dtype, kind):
+    rows, vals, z, y, _ = _sparse_slab(cuda, P, K, s, dtype)
+    before = ops.launch_counts()["pcdn_sparse_direction_partials"]
+    got = ops.pcdn_sparse_direction_partials(rows, vals, z, y, 1.5,
+                                             kind=kind)
+    again = ops.pcdn_sparse_direction_partials(rows, vals, z, y, 1.5,
+                                               kind=kind)
+    want = ref.pcdn_sparse_direction_partials_ref(rows, vals, z, y, 1.5,
+                                                  kind=kind)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):   # g, h
+        _close(a, b)
+        assert torch.equal(a, c)
+    assert float(torch.min(got[1])) >= 1e-12
+    assert ops.launch_counts()["pcdn_sparse_direction_partials"] == \
+        before + 2
+
+
+@pytest.mark.parametrize("s,P,n,n_sentinel", [
+    (1, 1, 1, 0), (1000, 37, 100, 5), (6000, 512, 5000, 120),
+    (48000, 512, 600, 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["logistic", "squared"])
+def test_direction_partials_kernel(cuda, s, P, n, n_sentinel, dtype, kind):
+    rng = _rng(s, P, 7)
+    XT = torch.tensor(rng.standard_normal((n, s)), dtype=torch.float32,
+                      device=cuda).to(dtype)
+    idx = rng.choice(n, P, replace=False).astype(np.int32)
+    if n_sentinel:
+        idx[-n_sentinel:] = n
+    args = [XT, torch.tensor(idx, device=cuda),
+            torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                         device=cuda),
+            torch.tensor(np.where(rng.random(s) < 0.5, -1.0, 1.0),
+                         dtype=torch.float32, device=cuda), 1.5]
+    before = ops.launch_counts()["pcdn_direction_partials"]
+    got = ops.pcdn_direction_partials(*args, kind=kind)
+    again = ops.pcdn_direction_partials(*args, kind=kind)
+    want = ref.pcdn_direction_partials_ref(*args, kind=kind)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        _close(a, b)
+        assert torch.equal(a, c)
+    assert not torch.any(ops._direction_counter(XT.device))
+    assert ops.launch_counts()["pcdn_direction_partials"] == before + 2
+
+
+@pytest.mark.parametrize("P,K,s,dup", [(1, 1, 10, False),
+                                       (37, 9, 300, False),
+                                       (512, 278, 57848, False),
+                                       (100, 10, 10, True),    # lists > 64
+                                       (64, 40, 50, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_scatter_kernel_sums_in_entry_order(cuda, P, K, s, dup,
+                                                   dtype):
+    """delta = X_B d in ascending entry id: bit-equal from call to call and
+    to the plain version's index_add_ on the CPU (the same products, added
+    from 0 in the same order)."""
+    rows, vals, _, _, d = _sparse_slab(cuda, P, K, s, dtype, dup_rows=dup)
+    before = ops.launch_counts()["pcdn_sparse_scatter"]
+    got = ops.pcdn_sparse_scatter(rows, vals, d, s)
+    again = ops.pcdn_sparse_scatter(rows, vals, d, s)
+    cpu = ref.pcdn_sparse_scatter_ref(rows.cpu(), vals.cpu(), d.cpu(), s)
+    torch.cuda.synchronize()
+    assert got.shape == (s,)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), cpu)
+    assert ops.launch_counts()["pcdn_sparse_scatter"] == before + 2
+
+
+@pytest.mark.parametrize("P,K,s,dup", [(37, 9, 300, False),
+                                       (512, 278, 57848, False),
+                                       (100, 10, 10, True)])
+def test_sparse_direction_delta_is_bit_equal_across_calls(cuda, P, K, s,
+                                                          dup):
+    args = _sparse_slab(cuda, P, K, s, torch.float32, dup_rows=dup)
+    got = ops.pcdn_sparse_direction(*args, 1.5)
+    again = ops.pcdn_sparse_direction(*args, 1.5)
+    want = ref.pcdn_sparse_direction_ref(*args, 1.5)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, want):    # d, g, h, delta
+        assert torch.equal(a, b)
+        _close(a, c)
+    # delta from the kernel's own d, in the plain version's order
+    delta = ref.pcdn_sparse_scatter_ref(args[0].cpu(), args[1].cpu(),
+                                        got[0].cpu(), s)
+    assert torch.equal(got[3].cpu(), delta)
+
+
+@pytest.mark.parametrize("P,K,s,n", [(32, 278, 57848, 300),
+                                     (100, 10, 10, 100),   # lists > 64
+                                     (300, 40, 60000, 600)])
+def test_bundle_kernel_is_bit_equal_across_calls(cuda, P, K, s, n):
+    d = _bundle_design(cuda, P, s, n, K)
+    idx = torch.tensor(_rng(P, 2).permutation(n)[:P], dtype=torch.int32,
+                       device=cuda)
+    alphas = torch.tensor(0.5 ** np.arange(40), dtype=torch.float32,
+                          device=cuda)
+    outs = []
+    for _ in range(2):
+        launch = ops.BundleLaunch(d["col_rows"], d["col_vals"], d["y"],
+                                  alphas, 4.0, P, 1)
+        w, z = d["w"].clone(), d["z"].clone()
+        ops.pcdn_bundle(launch, w, z, idx, 0)
+        outs.append((w, z, launch.n_steps.clone(), launch.alpha.clone()))
+        _workspace_reset(launch, s, P * K)
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

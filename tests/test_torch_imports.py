@@ -106,3 +106,32 @@ def test_scan_covers_diag_and_fault():
         "diag/report", "fault/__init__", "fault/atomic",
         "fault/checkpoint", "fault/inject", "fault/resilient")}
     assert want <= paths, want - paths
+
+
+def test_scan_covers_the_sharded_backend():
+    paths = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    want = {f"src/repro_torch/{m}.py" for m in (
+        "engine/sharded", "core/sharded", "launch/mesh", "launch/common")}
+    assert want <= paths, want - paths
+
+
+def test_sharded_entries_take_plain_version_on_cpu_without_counting():
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    rows = torch.tensor([[0, 1, 3], [1, 1, 2]], dtype=torch.int32)
+    vals = torch.tensor([[1.0, 2.0, 0.0], [1.0, 3.0, 0.5]])
+    z = torch.zeros(3)
+    y = torch.tensor([1.0, -1.0, 1.0])
+    g, h = ops.pcdn_sparse_direction_partials(rows, vals, z, y, 0.5,
+                                              kind="squared")
+    assert g.tolist() == pytest.approx([0.5, 1.75])
+    assert h.tolist() == pytest.approx([2.5, 5.125])
+    delta = ops.pcdn_sparse_scatter(rows, vals, torch.tensor([1.0, 2.0]), 3)
+    assert delta.tolist() == pytest.approx([1.0, 10.0, 1.0])
+    XT = torch.tensor([[1.0, 0.0, 2.0], [0.0, 1.0, 1.0]])
+    g, h = ops.pcdn_direction_partials(XT, torch.tensor([1, 2],
+                                                        dtype=torch.int32),
+                                       z, y, 0.5, kind="squared")
+    assert g.tolist() == pytest.approx([0.0, 0.0])   # sentinel: 0 and floor
+    assert h.tolist() == pytest.approx([1.0, 1e-12])
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}

@@ -195,14 +195,15 @@ def test_bundle_plan_cluster_and_column_split(P, K, cluster, nseg):
 
 
 def test_bundle_plan_workspace_bytes():
-    """The (s,) slot map, five int32/float32 words a slot over R = P K
-    slots, and w_B and d: 409 KB at the support solve's shape."""
+    """The (s,) owner map and (s,) list heads, six int32/float32 words a
+    slot over R = P K slots, and w_B and d: 677 KB at the support solve's
+    shape."""
     plan = ops.bundle_plan(32, 278, s=57848, n=20958, Q=40)
     R = 32 * 278
-    assert plan.workspace_ints == 57848 + 5 * R + 2 * 32
-    assert plan.workspace_bytes == 4 * plan.workspace_ints == 409_568
+    assert plan.workspace_ints == 2 * 57848 + 6 * R + 2 * 32
+    assert plan.workspace_bytes == 4 * plan.workspace_ints == 676_544
     big = ops.bundle_plan(64, 16, s=8_407_752, n=100, Q=40)
-    assert big.workspace_bytes == 4 * (8_407_752 + 5 * 64 * 16 + 128)
+    assert big.workspace_bytes == 4 * (2 * 8_407_752 + 6 * 64 * 16 + 128)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -40,6 +40,17 @@ CPU = dict(device="cpu")
 
 
 @pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a case: under pytest-xdist several workers share
+    the machine's cores, and torch's default of a thread a core in each of
+    them makes these small problems wait on one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
 def _obs_off():
     for o in (obs, jobs):
         o.disable()

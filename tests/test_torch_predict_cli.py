@@ -27,6 +27,17 @@ jpredict = importlib.import_module("repro.serve.predict")
 MTOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a case: under pytest-xdist several workers share
+    the machine's cores, and torch's default of a thread a core in each of
+    them makes these small problems wait on one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def workdir(tmp_path_factory):
     return tmp_path_factory.mktemp("serve_cli")
