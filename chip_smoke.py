@@ -12,7 +12,7 @@
 
 Phases:
   0. device   -- the card's name, count, power limit (nvidia-smi).
-  1. build    -- nvcc builds the eight kernel sources from kernels/csrc
+  1. build    -- nvcc builds the nine kernel sources from kernels/csrc
                  (sm_90a); always runs.
   2. kernels  -- K1 pcdn_bundle (the whole support step of a real-sim
                  bundle, from one carry cloned twice, and the same bundle
@@ -30,10 +30,14 @@ Phases:
                  solved by one round, with a duplicate index and a column
                  holding a duplicate row (loss deltas, alpha, w and z, two
                  calls bit-equal, and the early-exit call SCDN makes
-                 bit-equal to them), and K5's rows entry pcdn_linesearch
-                 at gisette's shape (64 x 6,000, the dense SCDN path's:
-                 the kernels line's row) and on a real-sim batch's 8 rows
-                 of per-coordinate deltas; K4a
+                 bit-equal to them); K5's dense batch entry
+                 scdn_dense_batch the same way on gisette's batch (P_bar
+                 64, s 6,000) from a carry solved by one round, and on
+                 a9a's (P_bar 8, s 8,192: the CLI's dense SCDN); K5's
+                 rows entry pcdn_linesearch (off the main path since the
+                 dense batch entry) at gisette's shape (64 x 6,000: the
+                 kernels line's row) and on a real-sim batch's 8 rows of
+                 per-coordinate deltas; K4a
                  serve_margins_dense and K4b
                  serve_margins_csc at the serve phase's shapes, and K5's
                  single row there; K6
@@ -62,9 +66,14 @@ Phases:
                  plain version (F rel <= 1e-4); a slice of a round traced
                  in a child process (`--baseline-profile scdn`: at most 4
                  device ops a batch); then gisette dense at P_bar = 64 for
-                 up to 30 rounds through both routes (K5's rows entry once
-                 a batch, and its plain version), which must agree on
-                 whether and at which round the divergence guard trips.
+                 up to 30 rounds through both routes (K5's dense batch
+                 entry scdn_dense_batch once a batch and no other kernel,
+                 and its plain version), which must agree on whether and
+                 at which round the divergence guard trips; one gisette
+                 round from one carry and one set of indices through both
+                 (F rel <= 1e-4); a slice of gisette rounds traced in a
+                 child process (`--baseline-profile scdn-dense`: at most 3
+                 device ops a batch).
   7. tron     -- the TRON baseline (`core.tron.solve`) on real-sim in
                  padded-CSC for 5 outer iterations (no kernel: the
                  design's matvec / rmatvec); F finite, not rising; one
@@ -77,8 +86,9 @@ Phases:
                  lockstep gate.
   9. cli      -- `repro_torch.launch.solve.main` on a9a, padded-CSC,
                  --use-kernels, through the normal entry point; then
-                 `--solver scdn` (dense: K5's rows entry), `--solver scdn
-                 --layout padded_csc` (K5's batch entry), `--solver tron`
+                 `--solver scdn` (dense: K5's dense batch entry),
+                 `--solver scdn --layout padded_csc` (K5's batch entry),
+                 `--solver tron`
                  (no kernel) and `--dtype bf16 --use-kernels` (K2).
   10. serve   -- real-sim at its published width (72,310 x 20,958, the
                  first 57,848 rows train, the other 14,462 are requests):
@@ -240,6 +250,10 @@ SCDN_BOUND_BATCHES = 100
 # device ops a traced SCDN batch may show (one launch, and the round's
 # clones, objective and KKT spread over its batches)
 SCDN_MAX_OPS = 4
+# gisette's traced slice: batches of P_bar 64, each K5's dense batch
+# launch and its update launch, the round's other ops spread over them
+GISETTE_PROFILE_BATCHES = 200
+SCDN_DENSE_MAX_OPS = 3
 TRON_OUTER = 5
 
 SOURCES = {
@@ -260,6 +274,8 @@ SOURCES = {
                         "src/repro/kernels/pcdn_linesearch.py:62"),
     "scdn_batch": ("src/repro_torch/kernels/csrc/scdn_batch.cu",
                    "src/repro/kernels/pcdn_linesearch.py:62"),
+    "scdn_dense_batch": ("src/repro_torch/kernels/csrc/scdn_dense_batch.cu",
+                         "src/repro/kernels/pcdn_linesearch.py:62"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
     # the sharded backend's entries: K3's and K2's shard-local partials
@@ -798,6 +814,8 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
         torch, dense, wd, zd, gen, flush, P=GISETTE_P_BAR, label="gisette")
     out["pcdn_linesearch"]["real_sim"] = real_sim
     out["scdn_batch"] = scdn_batch_check(torch, sparse, gen, flush)
+    out["scdn_dense_batch"] = scdn_dense_batch_check(torch, dense, gen,
+                                                     flush)
     serve_out = serve_kernel_checks(torch, serve, flush)
     out["pcdn_linesearch"]["one_row"] = serve_out.pop("pcdn_linesearch row")
     out.update(serve_out)
@@ -1079,6 +1097,166 @@ def scdn_batch_check(torch, prob, gen, flush) -> dict:
                        nops / SCDN_BOUND_BATCHES)
     log(f"[kernels] scdn_batch over the round's first {SCDN_BOUND_BATCHES} "
         f"batches: bound {r['bound'][0] * 1e3:.4f} us ({r['bound'][1]})")
+    return r
+
+
+def dense_batch_agreement(torch, prob, P, gen, label: str) -> dict:
+    """K5's dense batch entry on one batch of P coordinates of `prob` (a
+    dense problem) from a carry solved by one SCDN round from 0 through
+    the kernel, the batch holding a duplicate index: the kernel with the
+    (P, Q) loss deltas twice (the same bits) and without them (the
+    early-exit search SCDN runs: the same bits as with them), against
+    `ref.scdn_dense_batch_ref` from clones of the carry: alpha equal, loss
+    deltas rel <= KERNEL_RTOL, w and z rel <= SCDN_WZ_RTOL. -> the round,
+    its launch, the carry and the largest error."""
+    from repro_torch.core import scdn
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device(DEVICE)
+    n, s = prob.n_features, prob.n_samples
+    round_ = scdn.make_round(prob, scdn.SCDNConfig(P_bar=P))
+    launch = round_.launch()
+    w, z, _, f, _ = round_(torch.zeros((n,), device=dev),
+                           torch.zeros((s,), device=dev), gen)
+    assert bool(torch.isfinite(f)) and bool(torch.all(torch.isfinite(z)))
+    idx = torch.randint(0, n, (P,), generator=gen, dtype=torch.int32)
+    idx[-1] = idx[1]                                  # a duplicate index
+    idx = idx.to(dev)
+    Q = launch.plan.Q
+    runs = []
+    for _ in range(2):
+        w_k, z_k = w.clone(), z.clone()
+        a_k = torch.empty((P,), device=dev)
+        lo_k = torch.empty((P, Q), device=dev)
+        ops.scdn_dense_batch(launch, w_k, z_k, idx, a_k, lo_k)
+        runs.append((w_k, z_k, a_k, lo_k))
+    w_e, z_e = w.clone(), z.clone()
+    a_e = torch.empty((P,), device=dev)
+    ops.scdn_dense_batch(launch, w_e, z_e, idx, a_e)
+    w_p, z_p = w.clone(), z.clone()
+    a_p, lo_p = ref.scdn_dense_batch_ref(
+        *launch.design_args, idx, w_p, z_p, launch.y, launch.alphas,
+        launch.c, kind=launch.kind, sigma=launch.sigma, gamma=launch.gamma,
+        l2=launch.l2)
+    torch.cuda.synchronize()
+    w_k, z_k, a_k, lo_k = runs[0]
+    e_lo = rel_err(torch, lo_k, lo_p)
+    e_w = rel_err(torch, w_k, w_p)
+    e_z = rel_err(torch, z_k, z_p)
+    e_we = rel_err(torch, w_e, w_p)
+    e_ze = rel_err(torch, z_e, z_p)
+    same = all(torch.equal(x, y) for x, y in zip(runs[0], runs[1]))
+    same_early = (torch.equal(w_e, w_k) and torch.equal(z_e, z_k)
+                  and torch.equal(a_e, a_k))
+    moved = int(torch.count_nonzero(lo_p.abs().sum(dim=1)))
+    plan = launch.plan
+    log(f"[kernels] scdn_dense_batch {label} P={P} s={s} n={n} Q={Q} "
+        f"(plan: {plan.clusters} clusters of {plan.cluster} x "
+        f"{ops.SCDN_DENSE_THREADS} threads, {plan.cpc} coordinate(s) a "
+        f"cluster, {plan.sl} rows a CTA, resident {plan.resident}, tile "
+        f"{plan.tile}, {plan.smem_bytes} B shared) on a carry after one "
+        f"round (F {float(f):.6f}), duplicate index {int(idx[1])}, {moved} "
+        f"coordinates with d != 0, alphas {sorted(set(a_p.tolist()))}: "
+        f"loss deltas err {e_lo[0]:.3e} (rel {e_lo[1]:.2e}), w err "
+        f"{e_w[0]:.3e} (rel {e_w[1]:.2e}), z err {e_z[0]:.3e} (rel "
+        f"{e_z[1]:.2e}), alpha equal {torch.equal(a_k, a_p)}; two calls "
+        f"bit-equal {same}; without loss deltas (early exit): w rel "
+        f"{e_we[1]:.2e}, z rel {e_ze[1]:.2e}, bit-equal to the full scan "
+        f"{same_early}; tolerance rel {KERNEL_RTOL} (loss deltas), "
+        f"{SCDN_WZ_RTOL} (w, z), alpha equal")
+    assert torch.equal(a_k, a_p), (a_k, a_p)
+    assert torch.equal(a_e, a_p), (a_e, a_p)
+    assert e_lo[1] <= KERNEL_RTOL, e_lo
+    assert e_w[1] <= SCDN_WZ_RTOL and e_z[1] <= SCDN_WZ_RTOL, (e_w, e_z)
+    assert e_we[1] <= SCDN_WZ_RTOL and e_ze[1] <= SCDN_WZ_RTOL, (e_we, e_ze)
+    assert same and same_early
+    return dict(round_=round_, launch=launch, w=w, z=z,
+                err=max(e_lo[0], e_w[0], e_z[0]))
+
+
+def scdn_dense_batch_check(torch, dense, gen, flush) -> dict:
+    """K5's dense batch entry at gisette's batch (`dense`, the dense cell's
+    problem; P_bar 64, Q 40) and at a9a's (its CPU-budget profile, 8,192 x
+    123, the CLI's dense SCDN; P_bar 8), each by `dense_batch_agreement`;
+    two stream ops a call (the batch and the update launch). Timed at
+    gisette's as the round calls it (each call the next batch of a round,
+    on a carry the calls evolve), with the bound counted from the plain
+    version's run over the same batches."""
+    from repro_torch.core.problem import make_problem
+    from repro_torch.data import paper_like
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device(DEVICE)
+    X9, y9, spec9 = paper_like("a9a", seed=DATA_SEED)
+    a9a = make_problem(X9, y9, c=spec9.c_logistic, layout="dense",
+                       device=dev)
+    err9 = dense_batch_agreement(torch, a9a, 8, gen, "a9a")["err"]
+    P = GISETTE_P_BAR
+    g = dense_batch_agreement(torch, dense, P, gen, "gisette")
+    launch, w, z = g["launch"], g["w"], g["z"]
+    n, s = dense.n_features, dense.n_samples
+    Q = launch.plan.Q
+    idx = torch.randint(0, n, (P,), generator=gen, dtype=torch.int32).to(dev)
+    wc, zc = w.clone(), z.clone()
+    top = device_ops(torch, lambda: ops.scdn_dense_batch(launch, wc, zc,
+                                                         idx))
+    log(f"[kernels] scdn_dense_batch, device ops of one call ("
+        f"{sum(c for _, c, _ in top)} stream ops):")
+    log_top("kernels", top, 1, "call")
+    assert sum(c for _, c, _ in top) == 2, top
+
+    batches = torch.randint(0, n, (g["round_"].n_batches, P), generator=gen,
+                            dtype=torch.int32).to(dev).unbind(0)
+    alpha_buf = torch.empty((P,), device=dev)
+
+    def stepper(fn):
+        wc, zc, it = w.clone(), z.clone(), [0]
+
+        def call():
+            t = it[0] % len(batches)
+            it[0] += 1
+            fn(wc, zc, batches[t])
+        return call
+
+    def plain(wc, zc, idx_t):
+        return ref.scdn_dense_batch_ref(
+            *launch.design_args, idx_t, wc, zc, launch.y, launch.alphas,
+            launch.c, kind=launch.kind, sigma=launch.sigma,
+            gamma=launch.gamma, l2=launch.l2)
+
+    k5 = stepper(lambda wc, zc, idx_t: ops.scdn_dense_batch(
+        launch, wc, zc, idx_t, alpha_buf))
+    r = dict(max_abs_err=max(g["err"], err9),
+             **timings(torch, k5, stepper(plain), flush),
+             enqueue_us=enqueue_us(torch, k5, 200), library_ms=None)
+    # the bound, over the round's first SCDN_BOUND_BATCHES batches from the
+    # carry (the plain version's run): bytes each distinct live column (s
+    # values), z and y read and z written, idx, w read and written and
+    # alpha (P each); operations ~20 a nonzero of a slot's column (the loss
+    # factors, g, h), ~10 a (nonzero, candidate) pair of the d != 0 slots
+    # for the candidates up to the accepted one, and 2 a nonzero of a
+    # moved slot (z's update)
+    XT = launch.XT
+    wc, zc = w.clone(), z.clone()
+    nbytes = nops = 0.0
+    counted = batches[:SCDN_BOUND_BATCHES]
+    for idx_t in counted:
+        a_t, lo_t = plain(wc, zc, idx_t)
+        live = idx_t < n
+        nnz = torch.zeros((P,), device=dev)
+        nnz[live] = (XT[idx_t[live].long()] != 0).sum(dim=1).float()
+        moved = lo_t.abs().sum(dim=1) != 0                # d != 0
+        steps = torch.where(a_t > 0, torch.round(-torch.log2(a_t)) + 1,
+                            float(Q))
+        n_cols = int(torch.unique(idx_t[live]).numel())
+        nbytes += n_cols * s * 4 + 12 * s + 16 * P
+        nops += float(20 * nnz.sum() + (10 * nnz * steps)[moved].sum() +
+                      (2 * nnz)[moved & (a_t > 0)].sum())
+    r["bound"] = bound(nbytes / len(counted), nops / len(counted))
+    log(f"[kernels] scdn_dense_batch over the gisette round's first "
+        f"{len(counted)} batches: bound {r['bound'][0] * 1e3:.4f} us "
+        f"({r['bound'][1]}; {nbytes / len(counted):.0f} B, "
+        f"{nops / len(counted):.0f} operations a batch)")
     return r
 
 
@@ -1899,11 +2077,31 @@ def chunk_profile(family_path: str, requests_path: str) -> dict:
             "top": [(k, c, t * 1e6) for k, c, t in rows[:6] if t > 0]}
 
 
+def device_busy_s(prof, rows) -> float:
+    """Seconds the card was busy in a trace: the union of its device
+    events' intervals. A kernel launched programmatically (K5's dense
+    update launch) starts while the one before it runs and waits for it,
+    so the sum of the ops' times would count the overlap twice; the sum
+    of `rows` when the trace holds no device intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return sum(r[2] for r in rows)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
 def device_profile(torch, fn, n_top: int = 8):
     """Run fn once under torch.profiler (CUDA activity only) -> (device-busy
-    seconds summed over what the card ran, the n_top ops by device time as
-    (name, calls, seconds), the wall seconds of the traced call); busy 0.0
-    and no ops when the profiler saw no device time."""
+    seconds (`device_busy_s`), the n_top ops by device time as (name,
+    calls, seconds), the wall seconds of the traced call); busy 0.0 and no
+    ops when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1914,7 +2112,7 @@ def device_profile(torch, fn, n_top: int = 8):
     rows = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0) / 1e6)
             for e in prof.key_averages()]
     rows.sort(key=lambda r: -r[2])
-    return sum(r[2] for r in rows), rows[:n_top], wall  # n_top None: all
+    return device_busy_s(prof, rows), rows[:n_top], wall  # n_top None: all
 
 
 def device_ops(torch, fn) -> list:
@@ -2157,7 +2355,9 @@ def run_child_profile(name: str) -> dict:
 
 def baseline_profile(name: str) -> dict:
     """`--baseline-profile scdn`: SCDN_PROFILE_BATCHES batches of an SCDN
-    round on real-sim from the zero carry; `tron`: one TRON outer iteration
+    round on real-sim from the zero carry; `scdn-dense`:
+    GISETTE_PROFILE_BATCHES batches at P_bar 64 on gisette (the dense
+    cell's problem) from the zero carry; `tron`: one TRON outer iteration
     (tron.solve at max_outer 1) on real-sim. Each run once untraced to warm
     up, timed untraced (wall_s, the mean of 3), then traced once -> {"busy_s",
     "wall_s", "rows", "units", "launches"}. Run in a child process by the
@@ -2165,23 +2365,30 @@ def baseline_profile(name: str) -> dict:
     import torch
     from repro_torch.core import scdn, tron
     from repro_torch.core.problem import make_problem
+    from repro_torch.data import paper_like
     from repro_torch.kernels import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    csc, y = make_realsim(DATA_SEED)
-    prob = make_problem(csc, y, c=SCDN_C, layout="padded_csc", device=DEVICE)
-    if name == "scdn":
-        round_ = scdn.make_round(prob, scdn.SCDNConfig(P_bar=SCDN_P_BAR))
+    if name == "scdn-dense":
+        Xg, y_g, _ = paper_like("gisette", scale=1.0, seed=DATA_SEED)
+        prob = make_problem(Xg, y_g, c=SOLVES["dense"][2], layout="dense",
+                            device=DEVICE)
+        P_bar, units = GISETTE_P_BAR, GISETTE_PROFILE_BATCHES
+    else:
+        csc, y = make_realsim(DATA_SEED)
+        prob = make_problem(csc, y, c=SCDN_C, layout="padded_csc",
+                            device=DEVICE)
+        P_bar, units = SCDN_P_BAR, SCDN_PROFILE_BATCHES
+    if name.startswith("scdn"):
+        round_ = scdn.make_round(prob, scdn.SCDNConfig(P_bar=P_bar))
         gen = torch.Generator().manual_seed(1)
-        idxs = torch.randint(0, prob.n_features,
-                             (SCDN_PROFILE_BATCHES, SCDN_P_BAR),
+        idxs = torch.randint(0, prob.n_features, (units, P_bar),
                              generator=gen, dtype=torch.int32)
         w = torch.zeros((prob.n_features,), device=DEVICE)
         zz = torch.zeros((prob.n_samples,), device=DEVICE)
 
         def run():
             round_(w, zz, gen, idxs=idxs)
-        units = SCDN_PROFILE_BATCHES
     else:
         def run():
             tron.solve(prob, tron.TRONConfig(max_outer=1, tol_kkt=0.0))
@@ -2197,8 +2404,9 @@ def baseline_profile(name: str) -> dict:
 def phase_scdn(torch, data, card: str) -> dict:
     """SCDN through `core.scdn.solve` on real-sim, one launch of K5's batch
     entry a batch; the lockstep round; the traced slice; gisette's
-    divergence guard (the dense layout: K5's rows entry) through both
-    routes. -> the launches of each kernel in its main-path run."""
+    divergence guard (the dense layout: one call of K5's dense batch entry
+    a batch) through both routes, its lockstep round and traced slice.
+    -> the launches of each kernel in its main-path run."""
     from repro_torch.core import scdn
     from repro_torch.core.problem import make_problem
     from repro_torch.kernels import ops, ref
@@ -2259,33 +2467,77 @@ def phase_scdn(torch, data, card: str) -> dict:
         prof["units"]
     assert prof["busy_s"] > 0 and ops_a_batch <= SCDN_MAX_OPS, ops_a_batch
 
-    # gisette dense at P_bar 64: where and whether the guard trips, the
-    # same through both routes (K5's rows entry once a batch)
+    # gisette dense at P_bar 64: one call of K5's dense batch entry a batch
+    # and no other kernel; where and whether the guard trips, the same
+    # through both routes; then a lockstep round and a traced slice
     gprob = make_problem(Xg, y_g, c=SOLVES["dense"][2], layout="dense",
                          device=DEVICE)
     gcfg = scdn.SCDNConfig(P_bar=GISETTE_P_BAR, max_rounds=GISETTE_ROUNDS)
+    g_batches = -(-gprob.n_features // GISETTE_P_BAR)
     trips = {}
-    for label, fn in (("K5", None), ("plain", ref.pcdn_linesearch_ref)):
+    line_searches = 0
+    for label, fn in (("K5", None), ("plain", ref.scdn_dense_batch_ref)):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        g = scdn.solve(gprob, gcfg, _loss_deltas=fn)
+        g = scdn.solve(gprob, gcfg, _batch=fn)
         torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
         counts = ops.launch_counts()
         trips[label] = (g.diverged, g.n_rounds)
         log(f"[scdn] gisette dense c={SOLVES['dense'][2]} P_bar="
             f"{GISETTE_P_BAR}, {label} route: diverged {g.diverged} after "
             f"{g.n_rounds} rounds (converged {g.converged}), F "
             + " ".join(f"{f:.4g}" for f in g.history["objective"])
-            + f"; {time.perf_counter() - t0:.2f}s; launches {counts}")
+            + f"; {dt:.3f}s ({dt / g.n_rounds * 1e3:.2f} ms a round, "
+            f"{dt / (g.n_rounds * g_batches) * 1e6:.2f} us a batch of "
+            f"{g_batches}) on {card}; launches {counts}")
         if fn is None:
-            batches = g.n_rounds * -(-gprob.n_features // GISETTE_P_BAR)
-            assert counts["pcdn_linesearch"] == batches, counts
+            batches = g.n_rounds * g_batches
+            assert counts["scdn_dense_batch"] == batches, counts
             assert sum(counts.values()) == batches, counts
-            launches["pcdn_linesearch"] = batches
+            launches["scdn_dense_batch"] = batches
+            line_searches = counts["pcdn_linesearch"]
+            g_kernel = g
         else:
             assert sum(counts.values()) == 0, counts
     assert trips["K5"] == trips["plain"], trips
+    # K5's rows entry left the dense path: 0 launches in the phase
+    launches["pcdn_linesearch"] = line_searches
+
+    # lockstep: one gisette round from the K5 solve's carry with one set of
+    # indices, through K5's dense batch entry and through its plain version
+    w = g_kernel.w
+    z = gprob.margins(w)
+    idxs = torch.randint(0, gprob.n_features, (g_batches, GISETTE_P_BAR),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32)
+    out = {}
+    for label, fn in (("K5", None), ("plain", ref.scdn_dense_batch_ref)):
+        round_ = scdn.make_round(gprob, gcfg, _batch=fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = round_(w, z, torch.Generator(), idxs=idxs)
+        f = float(r[3])
+        out[label] = (f, time.perf_counter() - t0)
+    rel = abs(out["K5"][0] - out["plain"][0]) / abs(out["plain"][0])
+    log(f"[scdn] gisette lockstep round from one carry and one set of "
+        f"indices: F K5 {out['K5'][0]:.6f} ({out['K5'][1]:.3f}s) vs plain "
+        f"{out['plain'][0]:.6f} ({out['plain'][1]:.3f}s): rel {rel:.2e} "
+        f"(tolerance {F_RTOL})")
+    assert rel <= F_RTOL, out
+    prof = run_child_profile("scdn-dense")
+    assert prof["launches"] == {"scdn_dense_batch":
+                                GISETTE_PROFILE_BATCHES}, prof["launches"]
+    log_profile("scdn", prof, "batch")
+    ops_a_batch = sum(row[1] for row in prof["rows"] if row[2] > 0) / \
+        prof["units"]
+    log(f"[scdn] gisette: {ops_a_batch:.2f} device ops with device time a "
+        f"batch (ceiling {SCDN_DENSE_MAX_OPS}); the update launch's time "
+        f"above includes its wait for the batch launch (a programmatic "
+        f"launch), busy is the union of the ops' intervals")
+    assert prof["busy_s"] > 0 and ops_a_batch <= SCDN_DENSE_MAX_OPS, \
+        ops_a_batch
     return launches
 
 
@@ -3328,7 +3580,7 @@ def phase_cli(torch) -> None:
     for flags, kernel in (
             (["--layout", "padded_csc", "--use-kernels", "--max-outer",
               "20"], "pcdn_sparse_direction"),
-            (["--solver", "scdn", "--max-outer", "20"], "pcdn_linesearch"),
+            (["--solver", "scdn", "--max-outer", "20"], "scdn_dense_batch"),
             (["--solver", "scdn", "--layout", "padded_csc", "--max-outer",
               "20"], "scdn_batch"),
             (["--solver", "tron", "--max-outer", "20"], None),
@@ -3366,8 +3618,10 @@ def main(argv=None) -> int:
                          "telemetry off and print its JSON line; no phase "
                          "runs it, it exists for parent / change A/Bs "
                          "(copied beside an older tree's src)")
-    ap.add_argument("--baseline-profile", choices=("scdn", "tron"),
-                    help="trace a slice of an SCDN round or one TRON "
+    ap.add_argument("--baseline-profile", choices=("scdn", "scdn-dense",
+                                                   "tron"),
+                    help="trace a slice of an SCDN round (real-sim, or "
+                         "gisette dense) or one TRON "
                          "iteration and print its JSON line (the scdn and "
                          "tron phases run this in a child process)")
     ap.add_argument("--sharded-ranks", nargs=2, metavar=("NPZ", "OUT"),
@@ -3493,6 +3747,9 @@ def main(argv=None) -> int:
                 row["fault_phase_launches"] = fault_launches[name]
             if "variant_ms" in r:
                 row["variant_ms"] = r["variant_ms"]
+            if name == "pcdn_linesearch" and "scdn" in phases:
+                row["note"] = ("off the main path: dense SCDN runs "
+                               "scdn_dense_batch")
             if "real_sim" in r:  # K5's rows entry: the row is at gisette's
                 row["real_sim_ms"] = r["real_sim"]["ms"]
                 row["real_sim_bound_ms"] = r["real_sim"]["bound"][0]

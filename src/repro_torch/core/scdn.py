@@ -12,16 +12,16 @@ The per-coordinate searches do not account for each other, so the combined
 step can increase F_c, and the method diverges when P_bar exceeds the
 spectral threshold (paper section 2.2).
 
-On the padded-CSC layout a whole batch is one call of `ops.scdn_batch`:
-one launch of K5's batch entry on the card (the gathers, the P_bar
-directions and racing line searches over each coordinate's own rows, and
-the w and z updates), `ref.scdn_batch_ref` on the CPU. On the dense
-layout the batch is composed of eager ops, its P_bar line searches one
-call of `armijo_batched` on the (P_bar, s) per-coordinate margin deltas
-(one launch of K5's rows entry). A round's (n_batches, P_bar) indices are
-drawn at once from the carry's CPU `torch.Generator` and copied to the
-device once; they differ from the reference's `jax.random` draws, so
-parity tests feed `one_batch` shared indices.
+A whole batch is one call: on the padded-CSC layout `ops.scdn_batch`, one
+launch of K5's batch entry on the card (the gathers, the P_bar directions
+and racing line searches over each coordinate's own rows, and the w and z
+updates), `ref.scdn_batch_ref` on the CPU; on the dense layout
+`ops.scdn_dense_batch`, K5's dense batch entry over the design's
+feature-major copy (the batch launch and the update launch),
+`ref.scdn_dense_batch_ref` on the CPU. A round's (n_batches, P_bar)
+indices are drawn at once from the carry's CPU `torch.Generator` and
+copied to the device once; they differ from the reference's `jax.random`
+draws, so parity tests feed `one_batch` shared indices.
 """
 from __future__ import annotations
 
@@ -31,10 +31,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import bundles as B
-from repro_torch.core.direction import newton_direction
-from repro_torch.core.linesearch import (ArmijoParams, armijo_batched,
-                                         candidate_alphas)
+from repro_torch.core.linesearch import ArmijoParams, candidate_alphas
 from repro_torch.core.problem import L1Problem
 from repro_torch.engine.loop import EngineState, run_outer_loop
 from repro_torch.kernels import ops
@@ -73,57 +70,45 @@ class Round:
     """
 
     def __init__(self, problem: L1Problem, cfg: SCDNConfig,
-                 batch: Optional[Callable] = None,
-                 loss_deltas: Optional[Callable] = None):
+                 batch: Optional[Callable] = None):
         self.problem = problem
         self.cfg = cfg
         self.n_batches = -(-problem.n_features // cfg.P_bar)
         self.sparse = problem.design.layout == "padded_csc"
         self._batch = batch
-        self._loss_deltas = loss_deltas
         self._launch = None
 
-    def launch(self) -> "ops.ScdnBatchLaunch":
-        """K5's batch launch for this round's problem (padded-CSC), built
-        at the first call."""
+    def launch(self):
+        """The round's batch launch, built at the first call: K5's batch
+        entry (`ops.ScdnBatchLaunch`) on padded-CSC, its dense batch entry
+        (`ops.ScdnDenseBatchLaunch`, on the design's feature-major copy)
+        on dense."""
         if self._launch is None:
             prob, arm = self.problem, self.cfg.armijo
             design = prob.design
-            self._launch = ops.ScdnBatchLaunch(
-                design.col_rows, design.col_vals, prob.y,
-                candidate_alphas(arm, prob.solve_dtype, prob.device),
-                prob.c, self.cfg.P_bar, kind=prob.loss.name,
-                l2=prob.elastic_net_l2, sigma=arm.sigma, gamma=arm.gamma)
+            alphas = candidate_alphas(arm, prob.solve_dtype, prob.device)
+            kw = dict(kind=prob.loss.name, l2=prob.elastic_net_l2,
+                      sigma=arm.sigma, gamma=arm.gamma)
+            if self.sparse:
+                self._launch = ops.ScdnBatchLaunch(
+                    design.col_rows, design.col_vals, prob.y, alphas,
+                    prob.c, self.cfg.P_bar, **kw)
+            else:
+                self._launch = ops.ScdnDenseBatchLaunch(
+                    design.feature_major(), prob.y, alphas, prob.c,
+                    self.cfg.P_bar, **kw)
         return self._launch
 
     def one_batch(self, w: Tensor, z: Tensor, idx: Tensor,
                   alpha: Optional[Tensor] = None) -> Tensor:
-        if self.sparse:
-            if self._batch is None:
-                return ops.scdn_batch(self.launch(), w, z, idx, alpha)
-            L = self.launch()
-            a, _ = self._batch(L.col_rows, L.col_vals, idx, w, z, L.y,
-                               L.alphas, L.c, kind=L.kind, sigma=L.sigma,
-                               gamma=L.gamma, l2=L.l2)
-            return a if alpha is None else alpha.copy_(a)
-        prob, cfg = self.problem, self.cfg
-        design = prob.design
-        slab = design.gather_slab(idx)
-        w_B, _ = B.gather_vec(w, idx)
-        g, h = prob.bundle_grad_hess(z, slab, w_B)
-        d = newton_direction(g, h, w_B)
-        # each coordinate's Armijo decrement (Eq. 7 on its own)
-        Delta = g * d + cfg.armijo.gamma * (h * torch.square(d)) + \
-            (torch.abs(w_B + d) - torch.abs(w_B))
-        deltas = design.slab_coordinate_deltas(slab, d)          # (P, s)
-        res = armijo_batched(prob.loss, prob.c, z, deltas, prob.y, w_B, d,
-                             Delta, cfg.armijo,
-                             loss_deltas=self._loss_deltas)
-        upd = res.alpha * d
-        # duplicate indices: index_add_ and the slab product add both
-        B.scatter_add(w, idx, upd)
-        z.add_(design.slab_matvec(slab, upd))
-        return res.alpha if alpha is None else alpha.copy_(res.alpha)
+        L = self.launch()
+        if self._batch is None:
+            entry = ops.scdn_batch if self.sparse else ops.scdn_dense_batch
+            return entry(L, w, z, idx, alpha)
+        a, _ = self._batch(*L.design_args, idx, w, z, L.y, L.alphas, L.c,
+                           kind=L.kind, sigma=L.sigma, gamma=L.gamma,
+                           l2=L.l2)
+        return a if alpha is None else alpha.copy_(a)
 
     def __call__(self, w: Tensor, z: Tensor, gen: torch.Generator,
                  idxs: Optional[Tensor] = None):
@@ -136,9 +121,8 @@ class Round:
         z = z.clone()
         # the batch kernel's accepted steps, a row a batch (one allocation
         # a round, none a batch)
-        outs = (torch.empty(idxs.shape, dtype=w.dtype, device=w.device)
-                .unbind(0) if self.sparse else [None] * len(idxs))
-        for idx, alpha in zip(idxs.unbind(0), outs):
+        outs = torch.empty(idxs.shape, dtype=w.dtype, device=w.device)
+        for idx, alpha in zip(idxs.unbind(0), outs.unbind(0)):
             self.one_batch(w, z, idx, alpha)
         f = self.problem.objective_from_margins(z, w)
         kkt = self.problem.kkt_violation(w, z)
@@ -146,26 +130,25 @@ class Round:
 
 
 def make_round(problem: L1Problem, cfg: SCDNConfig,
-               _batch: Optional[Callable] = None,
-               _loss_deltas: Optional[Callable] = None) -> Round:
+               _batch: Optional[Callable] = None) -> Round:
     """One epoch-equivalent: ceil(n/P_bar) batches of P_bar racing updates.
-    For a lockstep check against the plain versions: `_batch` replaces
-    the padded-CSC batch (`ops.scdn_batch`, K5's batch entry), e.g. by
-    `ref.scdn_batch_ref`; `_loss_deltas` the dense batch's loss-delta
-    function (K5's rows entry), e.g. by `ref.pcdn_linesearch_ref`."""
-    return Round(problem, cfg, _batch, _loss_deltas)
+    For a lockstep check against the plain versions, `_batch` replaces the
+    batch entry of either layout: `ref.scdn_batch_ref` on padded-CSC (for
+    `ops.scdn_batch`), `ref.scdn_dense_batch_ref` on dense (for
+    `ops.scdn_dense_batch`)."""
+    return Round(problem, cfg, _batch)
 
 
 def solve(problem: L1Problem, cfg: SCDNConfig,
           f_star: Optional[float] = None,
           divergence_factor: float = 1e3,
-          _loss_deltas: Optional[Callable] = None) -> SCDNResult:
+          _batch: Optional[Callable] = None) -> SCDNResult:
     """The engine's host loop over SCDN rounds, with SCDN's divergence
     guard: a round whose objective exceeds divergence_factor * F_c(0), or
     is non-finite, stops the run with `diverged` set. `f_star` is taken
-    and unused, as in the reference. `_loss_deltas` as for `make_round`."""
+    and unused, as in the reference. `_batch` as for `make_round`."""
     n = problem.n_features
-    round_fn = make_round(problem, cfg, _loss_deltas=_loss_deltas)
+    round_fn = make_round(problem, cfg, _batch=_batch)
 
     def outer(w, z, gen, active, recheck, c):
         """The round in the engine's outer contract: no shrinking, and c

@@ -30,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
            "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch",
-           "scdn_batch", "flash_attention")
+           "scdn_batch", "scdn_dense_batch", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -101,6 +101,13 @@ SIGNATURES = {
         "scdn_batch_f32": [_P, _P, _P, _P, _P],
         "scdn_batch_smem_bytes": [_I, _I, _I, _I],
     },
+    # a pointer to the launch's DenseArgs (ops._ScdnDenseArgs), idx, alpha,
+    # the (P, Q) loss deltas or null, stream; the shared-memory bytes of a
+    # tile
+    "scdn_dense_batch": {
+        "scdn_dense_batch_f32": [_P, _P, _P, _P, _P],
+        "scdn_dense_batch_smem_bytes": [_I],
+    },
     # q, k, v, o, B, H, G, Sq, Skv, D, causal, scale, 12 strides, stream;
     # the host ns the last wgmma launch spent encoding its tensor maps
     "flash_attention": {
@@ -129,7 +136,14 @@ CONSTANTS = {"pcdn_direction": ("pcdn_direction_threads",
              "scdn_batch": ("scdn_batch_threads", "scdn_batch_max_q",
                             "scdn_batch_chunk", "scdn_batch_max_cluster",
                             "scdn_batch_smem_budget",
-                            "scdn_batch_args_size")}
+                            "scdn_batch_args_size"),
+             "scdn_dense_batch": ("scdn_dense_batch_threads",
+                                  "scdn_dense_batch_max_q",
+                                  "scdn_dense_batch_chunk",
+                                  "scdn_dense_batch_max_cluster",
+                                  "scdn_dense_batch_tile_rows",
+                                  "scdn_dense_batch_smem_budget",
+                                  "scdn_dense_batch_args_size")}
 
 
 class KernelLibrary(ctypes.CDLL):

@@ -2,9 +2,9 @@
 with the sharded backend's entries of K2 and K3 (the shard-local g/h
 partials, and K2's scatter X_B d for a given d),
 the two serving-margin kernels (K4a, K4b), the batched line search (K5:
-its (P, s) rows entry, and its batch entry, a whole SCDN batch on the
-padded-CSC layout) and flash attention (K6), the LM's blockwise prefill
-attention.
+its (P, s) rows entry, and its two batch entries, a whole SCDN batch on
+the padded-CSC layout and on the dense layout) and flash attention (K6),
+the LM's blockwise prefill attention.
 
 Each wrapper looks at where its tensors live:
 
@@ -44,7 +44,8 @@ Tensor = torch.Tensor
 
 KERNELS = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
            "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch",
-           "scdn_batch", "flash_attention", "pcdn_direction_partials",
+           "scdn_batch", "scdn_dense_batch", "flash_attention",
+           "pcdn_direction_partials",
            "pcdn_sparse_direction_partials", "pcdn_sparse_scatter")
 _LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -968,12 +969,79 @@ class _ScdnArgs(ctypes.Structure):
             "kind", "n", "K", "s", "P", "Q", "cluster", "cpc", "slots")]
 
 
-class ScdnBatchLaunch:
+class _ScdnLaunch:
+    """What K5's two batch entries share: the packed arguments' w and z,
+    bound once for each tensor, and the dispatch (`_scdn_dispatch`).
+    Subclasses set `name` (the kernel's), `n`, `plan` (with P, Q, s),
+    `design_args` and, on the card, `_args`, `_ref`, `_fn`, `_index`."""
+
+    name = ""
+
+    def _bind(self, w: Tensor, z: Tensor, key: tuple) -> None:
+        """Point the packed arguments at w and z, checked here once for each
+        `key` (`_tensor_key` of w and of z)."""
+        _check("w", w, _F32, (self.n,))
+        _check("z", z, _F32, (self.plan.s,))
+        if w.device != self.device or z.device != self.device:
+            raise ValueError(f"{self.name}: w on {w.device}, z on "
+                             f"{z.device}, the launch on {self.device}")
+        self._args.w = w.data_ptr()
+        self._args.z = z.data_ptr()
+        self._bound = key
+
+
+def _scdn_dispatch(launch: _ScdnLaunch, plain, w: Tensor, z: Tensor,
+                   idx: Tensor, alpha: Tensor | None,
+                   loss_deltas: Tensor | None) -> Tensor:
+    """One batch through `launch`: on the CPU its plain version `plain`
+    (called as `plain(*launch.design_args, idx, w, z, y, alphas, c,
+    ...)`), into the caller's buffers; on the card the kernel, after the
+    checks, counted once."""
+    name, p = launch.name, launch.plan
+    if launch.on_cpu:
+        _on_cpu(w, z, idx, launch.y)
+        a, lo = plain(*launch.design_args, idx, w, z, launch.y,
+                      launch.alphas, launch.c, kind=launch.kind,
+                      sigma=launch.sigma, gamma=launch.gamma, l2=launch.l2)
+        if loss_deltas is not None:
+            loss_deltas.copy_(lo)
+        return a if alpha is None else alpha.copy_(a)
+    key = (*_tensor_key(w), *_tensor_key(z))
+    if key != launch._bound:
+        launch._bind(w, z, key)
+    if idx.dtype != torch.int32 or idx.shape != (p.P,) or \
+            idx.device != launch.device or not idx.is_contiguous():
+        raise ValueError(f"{name}: idx must be a contiguous ({p.P},) int32 "
+                         f"tensor on {launch.device}; got "
+                         f"{tuple(idx.shape)} {idx.dtype} on {idx.device}")
+    if alpha is None:
+        alpha = torch.empty((p.P,), dtype=torch.float32, device=launch.device)
+    elif alpha.dtype != torch.float32 or alpha.shape != (p.P,) or \
+            alpha.device != launch.device or not alpha.is_contiguous():
+        raise ValueError(f"{name}: alpha must be a contiguous ({p.P},) "
+                         f"float32 tensor on {launch.device}")
+    lo_ptr = None
+    if loss_deltas is not None:
+        if loss_deltas.device != launch.device:
+            raise ValueError(f"{name}: loss_deltas on {loss_deltas.device}, "
+                             f"the launch on {launch.device}")
+        _check("loss_deltas", loss_deltas, _F32, (p.P, p.Q))
+        lo_ptr = loss_deltas.data_ptr()
+    err = launch._fn(launch._ref, idx.data_ptr(), alpha.data_ptr(), lo_ptr,
+                     _raw_stream(launch._index))
+    _raise_if(err, name)
+    _LAUNCHES[name] += 1
+    return alpha
+
+
+class ScdnBatchLaunch(_ScdnLaunch):
     """K5's batch entry bound to an SCDN round: the padded-CSC design's
     columns (n, K) float32, the labels y (s,), the candidates alphas (Q,),
     the loss and its scalars, and P coordinates a batch. On the card it
     also holds the launch plan and the arguments, packed once here;
     `scdn_batch(launch, w, z, idx, alpha)` runs a batch."""
+
+    name = "scdn_batch"
 
     def __init__(self, col_rows: Tensor, col_vals: Tensor, y: Tensor,
                  alphas: Tensor, c, P: int, *, kind: str = "logistic",
@@ -1022,17 +1090,11 @@ class ScdnBatchLaunch:
         self._bound = None
         self._index = _device_index(self.device)
 
-    def _bind(self, w: Tensor, z: Tensor, key: tuple) -> None:
-        """Point the packed arguments at w and z, checked here once for each
-        `key` (`_tensor_key` of w and of z)."""
-        _check("w", w, _F32, (self.n,))
-        _check("z", z, _F32, (self.plan.s,))
-        if w.device != self.device or z.device != self.device:
-            raise ValueError(f"scdn_batch: w on {w.device}, z on {z.device}, "
-                             f"the launch on {self.device}")
-        self._args.w = w.data_ptr()
-        self._args.z = z.data_ptr()
-        self._bound = key
+    @property
+    def design_args(self) -> tuple:
+        """The design's arguments of the plain version,
+        `ref.scdn_batch_ref(*design_args, idx, w, z, y, alphas, c, ...)`."""
+        return self.col_rows, self.col_vals
 
 
 @_observed("scdn_batch", arg=1)
@@ -1047,43 +1109,184 @@ def scdn_batch(launch: ScdnBatchLaunch, w: Tensor, z: Tensor, idx: Tensor,
     delta sum_r phi(z_r + a_q delta_pr) - phi(z_r) (the search then
     evaluates every candidate). On the card: one kernel launch, no other
     device operation and no host sync; deterministic."""
-    p = launch.plan
-    if launch.on_cpu:
-        _on_cpu(w, z, idx, launch.y)
-        a, lo = ref.scdn_batch_ref(
-            launch.col_rows, launch.col_vals, idx, w, z, launch.y,
-            launch.alphas, launch.c, kind=launch.kind, sigma=launch.sigma,
-            gamma=launch.gamma, l2=launch.l2)
-        if loss_deltas is not None:
-            loss_deltas.copy_(lo)
-        return a if alpha is None else alpha.copy_(a)
-    key = (*_tensor_key(w), *_tensor_key(z))
-    if key != launch._bound:
-        launch._bind(w, z, key)
-    if idx.dtype != torch.int32 or idx.shape != (p.P,) or \
-            idx.device != launch.device or not idx.is_contiguous():
-        raise ValueError(f"scdn_batch: idx must be a contiguous ({p.P},) "
-                         f"int32 tensor on {launch.device}; got "
-                         f"{tuple(idx.shape)} {idx.dtype} on {idx.device}")
-    if alpha is None:
-        alpha = torch.empty((p.P,), dtype=torch.float32, device=launch.device)
-    elif alpha.dtype != torch.float32 or alpha.shape != (p.P,) or \
-            alpha.device != launch.device or not alpha.is_contiguous():
-        raise ValueError(f"scdn_batch: alpha must be a contiguous ({p.P},) "
-                         f"float32 tensor on {launch.device}")
-    lo_ptr = None
-    if loss_deltas is not None:
-        if loss_deltas.device != launch.device:
-            raise ValueError(f"scdn_batch: loss_deltas on "
-                             f"{loss_deltas.device}, the launch on "
-                             f"{launch.device}")
-        _check("loss_deltas", loss_deltas, _F32, (p.P, p.Q))
-        lo_ptr = loss_deltas.data_ptr()
-    err = launch._fn(launch._ref, idx.data_ptr(), alpha.data_ptr(), lo_ptr,
-                     _raw_stream(launch._index))
-    _raise_if(err, "scdn_batch")
-    _LAUNCHES["scdn_batch"] += 1
-    return alpha
+    return _scdn_dispatch(launch, ref.scdn_batch_ref, w, z, idx, alpha,
+                          loss_deltas)
+
+
+# -- K5, dense batch entry -----------------------------------------------------
+# launch constants of kernels/csrc/scdn_dense_batch.cu (checked against the
+# built library's when it is loaded)
+SCDN_DENSE_THREADS = 512
+SCDN_DENSE_MAX_Q = 40
+SCDN_DENSE_CHUNK = 8        # candidates a pass of the in-kernel search
+SCDN_DENSE_MAX_CLUSTER = 8
+SCDN_DENSE_TILE_ROWS = 8192  # a streamed tile's rows
+# dynamic shared memory a launch may take: a block's 232,448 bytes less
+# room for the kernel's static arrays
+SCDN_DENSE_SMEM_BUDGET = SMEM_BUDGET - 2048
+
+
+def scdn_dense_smem_bytes(tile: int) -> int:
+    """The dense batch kernel's dynamic shared memory in bytes: four staged
+    arrays (x, z, y, phi(z)) of a tile of rows each, rounded up to 4 words
+    and 4 words of head room (`smem_bytes` in scdn_dense_batch.cu)."""
+    return 16 * (-(-tile // 4) * 4 + 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScdnDensePlan:
+    """K5's dense batch launch for P coordinates over s samples, Q
+    candidates: `clusters` clusters of `cluster` CTAs, cluster c taking
+    coordinates c, c + clusters, ... (`cpc` at most); CTA rank r of a
+    cluster rows [r sl, (r + 1) sl), staged in shared memory once
+    (`resident`, tile = sl) or in tiles of `tile` rows."""
+    P: int
+    s: int
+    Q: int
+    cluster: int
+    clusters: int
+    cpc: int
+    sl: int
+    tile: int
+    resident: bool
+
+    @property
+    def ctas(self) -> int:
+        return self.cluster * self.clusters
+
+    @property
+    def smem_bytes(self) -> int:
+        return scdn_dense_smem_bytes(self.tile)
+
+
+@functools.lru_cache(maxsize=64)
+def scdn_dense_plan(P: int, s: int, Q: int, sms: int) -> ScdnDensePlan:
+    """K5's dense batch launch plan on a card of `sms` SMs, or a ValueError
+    naming the limit: a cluster of sms // P CTAs a coordinate (at least 1,
+    at most SCDN_DENSE_MAX_CLUSTER), so that P clusters fill about one
+    wave of the SMs; above `sms` // cluster coordinates a cluster takes
+    several in turn. The rows split evenly over a cluster's CTAs in slices
+    of a multiple of 4; a slice whose four staged arrays fit in
+    SCDN_DENSE_SMEM_BUDGET is resident, else it streams in tiles of
+    SCDN_DENSE_TILE_ROWS rows."""
+    if min(P, s) < 1:
+        raise ValueError(f"scdn_dense_batch: empty batch or design P={P} "
+                         f"s={s} (each must be >= 1)")
+    if not 1 <= Q <= SCDN_DENSE_MAX_Q:
+        raise ValueError(f"scdn_dense_batch: Q={Q} candidates, the kernel "
+                         f"takes 1 to {SCDN_DENSE_MAX_Q}")
+    if s >= _INT32_MAX or P >= _INT32_MAX:
+        raise ValueError(f"scdn_dense_batch: s = {s} samples, P = {P}: each "
+                         f"must be below 2**31 (int32 rows and slots)")
+    if sms < 1:
+        raise ValueError(f"scdn_dense_batch: a card of {sms} SMs")
+    cluster = max(1, min(SCDN_DENSE_MAX_CLUSTER, sms // P))
+    clusters = min(P, max(1, sms // cluster))
+    sl = 4 * -(-s // (4 * cluster))
+    resident = scdn_dense_smem_bytes(sl) <= SCDN_DENSE_SMEM_BUDGET
+    return ScdnDensePlan(P=P, s=s, Q=Q, cluster=cluster, clusters=clusters,
+                         cpc=-(-P // clusters), sl=sl,
+                         tile=sl if resident else min(sl,
+                                                      SCDN_DENSE_TILE_ROWS),
+                         resident=resident)
+
+
+class _ScdnDenseArgs(ctypes.Structure):
+    """kernels/csrc/scdn_dense_batch.cu's DenseArgs, field for field."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "XT", "w", "z", "y", "alphas", "step")] + \
+        [(name, ctypes.c_float) for name in ("c", "l2", "sigma", "gamma")] + \
+        [(name, ctypes.c_int) for name in (
+            "kind", "n", "s", "P", "Q", "cluster", "clusters", "cpc", "sl",
+            "tile", "resident")]
+
+
+class ScdnDenseBatchLaunch(_ScdnLaunch):
+    """K5's dense batch entry bound to an SCDN round: the dense design's
+    feature-major copy XT (n, s) float32 (`DenseDesign.feature_major()`),
+    the labels y (s,), the candidates alphas (Q,), the loss and its
+    scalars, and P coordinates a batch. On the card it also holds the
+    launch plan, the arguments (packed once here) and the (P,) steps the
+    batch launch hands the update launch; `scdn_dense_batch(launch, w, z,
+    idx, alpha)` runs a batch. On the CPU the plan is made for one SM:
+    its refusals hold, its layout is not used."""
+
+    name = "scdn_dense_batch"
+
+    def __init__(self, XT: Tensor, y: Tensor, alphas: Tensor, c, P: int, *,
+                 kind: str = "logistic", l2: float = 0.0,
+                 sigma: float = 0.01, gamma: float = 0.0):
+        if kind not in _KINDS:
+            raise KeyError(f"unknown loss {kind!r}")
+        if XT.dtype != torch.float32:
+            raise TypeError(f"scdn_dense_batch: design values {XT.dtype}; "
+                            f"the batch kernel takes float32 (SCDN refuses "
+                            f"bf16 storage, as the reference does)")
+        n, s = XT.shape
+        self.n = n
+        self.XT, self.y, self.alphas = XT, y, alphas
+        self.c, self.kind, self.l2 = float(c), kind, float(l2)
+        self.sigma, self.gamma = float(sigma), float(gamma)
+        self.device = XT.device
+        self.on_cpu = _on_cpu(XT, y, alphas)
+        sms = 1 if self.on_cpu else _sm_count(self.device)
+        self.plan = scdn_dense_plan(int(P), s, alphas.shape[0], sms)
+        if self.on_cpu:
+            return
+        p = self.plan
+        _check("XT", XT, _F32, (n, s))
+        _check("y", y, _F32, (s,))
+        _check("alphas", alphas, _F32, (p.Q,))
+        if n < 1:
+            raise ValueError("scdn_dense_batch: a design with no features")
+        lib = _loaded("scdn_dense_batch", {
+            "scdn_dense_batch_threads": SCDN_DENSE_THREADS,
+            "scdn_dense_batch_max_q": SCDN_DENSE_MAX_Q,
+            "scdn_dense_batch_chunk": SCDN_DENSE_CHUNK,
+            "scdn_dense_batch_max_cluster": SCDN_DENSE_MAX_CLUSTER,
+            "scdn_dense_batch_tile_rows": SCDN_DENSE_TILE_ROWS,
+            "scdn_dense_batch_smem_budget": SCDN_DENSE_SMEM_BUDGET,
+            "scdn_dense_batch_args_size": ctypes.sizeof(_ScdnDenseArgs)})
+        got = lib.scdn_dense_batch_smem_bytes(p.tile)
+        if got != p.smem_bytes:
+            raise RuntimeError(f"scdn_dense_batch: the kernel's shared memory "
+                               f"{got} B differs from the plan's "
+                               f"{p.smem_bytes} B")
+        self._fn = lib.scdn_dense_batch_f32
+        self.step = torch.empty((p.P,), dtype=torch.float32,
+                                device=self.device)
+        self._args = _ScdnDenseArgs(
+            _ptr(XT), None, None, _ptr(y), _ptr(alphas), _ptr(self.step),
+            self.c, self.l2, self.sigma, self.gamma, _KINDS[kind], n, s, p.P,
+            p.Q, p.cluster, p.clusters, p.cpc, p.sl, p.tile,
+            int(p.resident))
+        self._ref = ctypes.byref(self._args)
+        self._bound = None
+        self._index = _device_index(self.device)
+
+    @property
+    def design_args(self) -> tuple:
+        """The design's arguments of the plain version,
+        `ref.scdn_dense_batch_ref(*design_args, idx, w, z, y, alphas, c,
+        ...)`."""
+        return (self.XT,)
+
+
+@_observed("scdn_dense_batch", arg=1)
+def scdn_dense_batch(launch: ScdnDenseBatchLaunch, w: Tensor, z: Tensor,
+                     idx: Tensor, alpha: Tensor | None = None,
+                     loss_deltas: Tensor | None = None) -> Tensor:
+    """K5's dense batch entry: one SCDN batch of the (P,) coordinates idx
+    (int32, duplicates allowed, sentinel n) on the dense layout, w and z
+    updated IN PLACE (`ref.scdn_dense_batch_ref`'s function). Writes the
+    accepted steps into `alpha` (P,) float32 (allocated when None) and
+    returns it; with `loss_deltas`, a (P, Q) float32 buffer, also every
+    candidate's loss delta sum_i phi(z_i + a_q d_p x_ij) - phi(z_i) (the
+    search then evaluates every candidate; the accepted alpha is the same).
+    On the card: the batch launch and the update launch, no other device
+    operation and no host sync; deterministic."""
+    return _scdn_dispatch(launch, ref.scdn_dense_batch_ref, w, z, idx,
+                          alpha, loss_deltas)
 
 
 _FLASH_HEAD_DIMS = (64, 128, 256)

@@ -28,6 +28,8 @@ what its CUDA kernel computes (kernels/csrc/*.cu):
   * `scdn_batch_ref`            -- K5's batch entry, one whole SCDN batch
                                    on the padded-CSC layout: w, z updated
                                    in place -> (alpha, loss_deltas)
+  * `scdn_dense_batch_ref`      -- K5's dense batch entry, the same on the
+                                   dense layout's feature-major copy
   * `attention_ref`             -- K6, dense softmax attention (the flash
                                    kernel's function)
 
@@ -302,6 +304,60 @@ def scdn_batch_ref(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
     upd = alpha * d
     B.scatter_add(w, idx, upd)
     z.add_(design.slab_matvec(slab, upd))
+    return alpha, lo
+
+
+def scdn_dense_batch_ref(XT: Tensor, idx: Tensor, w: Tensor, z: Tensor,
+                         y: Tensor, alphas: Tensor, c,
+                         kind: str = "logistic", sigma: float = 0.01,
+                         gamma: float = 0.0, l2: float = 0.0):
+    """K5's dense batch entry: one SCDN batch of P racing one-coordinate
+    steps on the dense layout, read from its feature-major copy XT (n, s),
+    w and z updated IN PLACE -> (alpha (P,), loss_deltas (P, Q)).
+
+    As the reference's `one_batch` composes it: the slab gather (rows of XT
+    at idx, the sentinel n zeroed; duplicates allowed), u, v = c phi'(z),
+    c phi''(z), g_p = x_p . u and h_p = x_p^2 . v (the l2 fold, the
+    Hessian floor), d_p by Eq. 5, Delta_p = g d + gamma h d^2 + |w_j + d| -
+    |w_j|, then each slot's search on its own margin delta d_p x_p:
+
+        loss_deltas[p, q] = sum_i phi(z_i + alpha_q d_p x_pi) - phi(z_i)
+        L_pq = c loss_deltas[p, q] + |w_j + alpha_q d_p| - |w_j|
+
+    alpha_p is the first alpha_q with L_pq <= sigma alpha_q Delta_p, else
+    0. Only then, every slot having read the same w and z: w[j] += alpha_p
+    d_p (every duplicate adds) and z += sum_p alpha_p d_p x_p. `l2` folds
+    into g and h only, as in the reference's batch, whose searches have no
+    l2 term."""
+    loss = get_loss(kind)
+    n = XT.shape[0]
+    valid = idx < n
+    XB = XT[idx.clamp(max=n - 1).long()].to(f32) * \
+        valid[:, None].to(f32)                                    # (P, s)
+    w_B, _ = B.gather_vec(w, idx)
+    c = float(c)
+    u = c * loss.dz(z, y)
+    v = c * loss.d2z(z, y)
+    g = XB @ u
+    h = torch.square(XB) @ v
+    if l2:
+        g = g + l2 * w_B
+        h = h + l2
+    h = torch.clamp_min(h, HESSIAN_FLOOR)
+    d = newton_direction(g, h, w_B)
+    Delta = g * d + gamma * (h * torch.square(d)) + \
+        (torch.abs(w_B + d) - torch.abs(w_B))
+    alphas = alphas.to(f32)
+    lo = pcdn_linesearch_ref(z, XB * d[:, None], y, alphas, kind=kind)
+    wq = w_B[:, None] + alphas[None, :] * d[:, None]
+    out = c * lo + (torch.abs(wq) - torch.abs(w_B)[:, None])
+    ok = out <= sigma * alphas[None, :] * Delta[:, None]
+    first = torch.argmax(ok.to(torch.int32), dim=1)
+    zero = torch.zeros((), dtype=f32, device=z.device)
+    alpha = torch.where(torch.any(ok, dim=1), alphas[first], zero)
+    upd = alpha * d
+    B.scatter_add(w, idx, upd)
+    z.add_(upd @ XB)
     return alpha, lo
 
 

@@ -633,12 +633,100 @@ def test_scdn_batch_refuses_what_the_kernel_does_not_take(cuda):
         ops.scdn_batch(launch, w, z, idx, torch.empty(7, device=cuda))
 
 
+def _scdn_dense_inputs(cuda, P, s, n, seed, kind="logistic", l2=0.0):
+    """make_classification data (half the values zero) on the card as a
+    dense problem, its feature-major copy, a sparse carry w and its
+    margins, and a batch of P indices with a duplicate index."""
+    from repro_torch.core import make_problem
+    from repro_torch.data import make_classification
+    X, y, _ = make_classification(s, n, sparsity=0.5, seed=seed)
+    prob = make_problem(X, y, c=2.0, loss=kind, elastic_net_l2=l2,
+                        layout="dense", device=cuda)
+    rng = _rng(seed, P)
+    w = np.where(rng.random(n) < 0.3, 0.3 * rng.standard_normal(n), 0.0)
+    w = torch.tensor(w, dtype=torch.float32, device=cuda)
+    idx = rng.integers(0, n, P)
+    if P > 2:
+        idx[-1] = idx[1]
+    return prob, w, prob.margins(w), torch.tensor(idx, dtype=torch.int32,
+                                                  device=cuda)
+
+
+@pytest.mark.parametrize("P,s,n,kind,l2", [
+    (64, 6000, 5000, "logistic", 0.0),      # gisette's batch: 2 CTAs each
+    (8, 8192, 123, "squared_hinge", 0.0),   # a9a's: 8 CTAs each
+    (3, 501, 50, "squared", 0.2),           # s not a multiple of 4
+    (200, 3000, 400, "logistic", 0.1),      # 2 coordinates a cluster
+    (1, 10, 4, "logistic", 0.0),
+    (64, 57848, 300, "logistic", 0.0),      # streamed tiles
+])
+def test_scdn_dense_batch_kernel(cuda, P, s, n, kind, l2):
+    """K5's dense batch entry against `ref.scdn_dense_batch_ref` from one
+    carry, with a duplicate index: the loss deltas rel <= 1e-4, alpha
+    equal, w and z rel <= 1e-5; one call counted a batch; two calls give
+    the same bits; without the loss-delta buffer (the early-exit search)
+    the same alpha, w and z."""
+    prob, w, z, idx = _scdn_dense_inputs(cuda, P, s, n, P + s, kind, l2)
+    alphas = torch.tensor(0.5 ** np.arange(40), dtype=torch.float32,
+                          device=cuda)
+    XT = prob.design.feature_major()
+    launch = ops.ScdnDenseBatchLaunch(XT, prob.y, alphas, prob.c, P,
+                                      kind=kind, l2=l2)
+    runs = []
+    for loss_buf in (True, True, False):
+        w_k, z_k = w.clone(), z.clone()
+        a_k = torch.empty(P, device=cuda)
+        lo_k = torch.empty((P, 40), device=cuda) if loss_buf else None
+        before = ops.launch_counts()["scdn_dense_batch"]
+        ops.scdn_dense_batch(launch, w_k, z_k, idx, a_k, lo_k)
+        assert ops.launch_counts()["scdn_dense_batch"] == before + 1
+        runs.append((w_k, z_k, a_k, lo_k))
+    w_p, z_p = w.clone(), z.clone()
+    a_p, lo_p = ref.scdn_dense_batch_ref(XT, idx, w_p, z_p, prob.y, alphas,
+                                         prob.c, kind=kind, l2=l2)
+    torch.cuda.synchronize()
+    w_k, z_k, a_k, lo_k = runs[0]
+    assert torch.equal(a_k, a_p), (a_k, a_p)
+    _close(lo_k, lo_p)
+    _close_to(w_k, w_p, 1e-5)
+    _close_to(z_k, z_p, 1e-5)
+    assert torch.equal(w_k != w, w_p != w)        # the same coordinates moved
+    if P > 1:
+        assert torch.count_nonzero(w_p - w) > 0   # the batch moves w
+    for w2, z2, a2, lo2 in runs[1:]:              # deterministic
+        assert torch.equal(w2, w_k) and torch.equal(z2, z_k)
+        assert torch.equal(a2, a_k)
+        assert lo2 is None or torch.equal(lo2, lo_k)
+
+
+def test_scdn_dense_batch_refuses_what_the_kernel_does_not_take(cuda):
+    prob, w, z, idx = _scdn_dense_inputs(cuda, 8, 600, 120, 1)
+    alphas = torch.ones(40, device=cuda)
+    XT = prob.design.feature_major()
+    with pytest.raises(TypeError, match="float32"):
+        ops.ScdnDenseBatchLaunch(XT.to(torch.bfloat16), prob.y, alphas,
+                                 1.0, 8)
+    with pytest.raises(ValueError, match="Q=41"):
+        ops.ScdnDenseBatchLaunch(XT, prob.y, torch.ones(41, device=cuda),
+                                 1.0, 8)
+    launch = ops.ScdnDenseBatchLaunch(XT, prob.y, alphas, 1.0, 8)
+    with pytest.raises(ValueError, match="int32"):
+        ops.scdn_dense_batch(launch, w, z, idx.long())
+    with pytest.raises(ValueError, match="shape"):
+        ops.scdn_dense_batch(launch, w, z[:100], idx)
+    with pytest.raises(ValueError, match="alpha"):
+        ops.scdn_dense_batch(launch, w, z, idx, torch.empty(7, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        ops.scdn_dense_batch(launch, w, z, idx, None,
+                             torch.empty((8, 39), device=cuda))
+
+
 @pytest.mark.parametrize("layout", ["dense", "padded_csc"])
 def test_scdn_round_kernel_matches_plain(cuda, layout):
     """One SCDN round from one carry and one set of indices, through the
-    kernels and through their plain versions: one K5 batch launch a batch
-    on padded-CSC (no other kernel), one launch of K5's rows entry a batch
-    on dense; F rel <= 1e-4."""
+    kernels and through their plain versions: one call of K5's batch entry
+    a batch on padded-CSC, of its dense batch entry on dense (no other
+    kernel); F rel <= 1e-4."""
     from repro_torch.core import make_problem, scdn
     from repro_torch.data import make_classification
     X, y, _ = make_classification(3000, 400, sparsity=0.95, seed=3)
@@ -648,14 +736,14 @@ def test_scdn_round_kernel_matches_plain(cuda, layout):
     w0 = torch.zeros(400, device=cuda)
     z0 = torch.zeros(3000, device=cuda)
     gen = torch.Generator()
-    kernel = "scdn_batch" if layout == "padded_csc" else "pcdn_linesearch"
+    kernel = "scdn_batch" if layout == "padded_csc" else "scdn_dense_batch"
     ops.reset_launch_counts()
     out_k = scdn.make_round(prob, cfg)(w0, z0, gen, idxs=idxs)
     assert ops.launch_counts()[kernel] == 50
     assert sum(ops.launch_counts().values()) == 50
-    out_p = scdn.make_round(prob, cfg, _batch=ref.scdn_batch_ref,
-                            _loss_deltas=ref.pcdn_linesearch_ref)(
-        w0, z0, gen, idxs=idxs)
+    plain = (ref.scdn_batch_ref if layout == "padded_csc"
+             else ref.scdn_dense_batch_ref)
+    out_p = scdn.make_round(prob, cfg, _batch=plain)(w0, z0, gen, idxs=idxs)
     assert sum(ops.launch_counts().values()) == 50
     f_k, f_p = float(out_k[3]), float(out_p[3])
     assert abs(f_k - f_p) <= 1e-4 * abs(f_p)
