@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py                    # every phase, one card
     python3 chip_smoke.py --phases kernels   # build + kernel check only
+    python3 chip_smoke.py --phases tune      # build + the autotuner
     python3 chip_smoke.py --phases serve     # build + the serving path
     python3 chip_smoke.py --phases lm        # build + the LM serving path
     python3 chip_smoke.py --phases path      # build + the regularization path
     python3 chip_smoke.py --phases fault     # build + diagnostics, faults
     python3 chip_smoke.py --phases sharded   # build + the sharded backend
-    python3 chip_smoke.py --support-wall     # support wall, for A/Bs only
+    python3 chip_smoke.py --solve-wall support   # a solve's wall, for A/Bs
 
 Phases:
   0. device   -- the card's name, count, power limit (nvidia-smi).
@@ -49,16 +50,30 @@ Phases:
                  events), the bound, K6's TFLOP/s and share of it, its
                  mma variant's time at the prefill shape and the host time
                  of its tensor-map encodes.
-  3. support  -- real-sim at its published shape (57,848 x 20,958, ~139 nnz
+  3. tune     -- the autotuner (`kernels.autotune`) at benchmarks/port/
+                 bench_kernels.py's full cells (the shapes above; K1-K3
+                 also in bf16): every key tuned into a cache of the run's
+                 own (exhaustive up to 40 candidates, else the hillclimb),
+                 a line a cell (the default's and the winner's L2-cold us,
+                 the candidates measured and skipped as infeasible), each
+                 winner no slower than its default, each plan other than
+                 the rule's held against the plain version (the winners
+                 and the runner-ups); warm caches (the winners', the
+                 runner-ups') against cold from shared carries: 3 support
+                 iterations, a full-scope iteration, a gisette dense SCDN
+                 round (F rel 1e-4, both walls); K1 and K2 bit-equal twice
+                 under each warm cache. Every other phase reads a cold
+                 cache of the run's own (REPRO_AUTOTUNE_CACHE).
+  4. support  -- real-sim at its published shape (57,848 x 20,958, ~139 nnz
                  a column, k_max 278) in padded-CSC, P = 32: the support
                  scope, so every bundle is one K1 launch (the traced
                  iteration must show no other device op a bundle).
-  4. full     -- the same data at P = 512: the full scope, K2.
-  5. dense    -- gisette at its published shape (6,000 x 5,000, dense and
+  5. full     -- the same data at P = 512: the full scope, K2.
+  6. dense    -- gisette at its published shape (6,000 x 5,000, dense and
                  correlated), P = 512: K3 (the traced iteration must show
                  it once a bundle, and no slab gather or matrix-vector
                  product a bundle).
-  6. scdn     -- the Shotgun baseline (`core.scdn.solve`) on the same
+  7. scdn     -- the Shotgun baseline (`core.scdn.solve`) on the same
                  real-sim data in padded-CSC, c = 4, P_bar = 8: 2 rounds
                  of 2,620 batches, each batch one launch of K5's batch
                  entry (scdn_batch) and no other kernel; one round from one
@@ -74,31 +89,35 @@ Phases:
                  (F rel <= 1e-4); a slice of gisette rounds traced in a
                  child process (`--baseline-profile scdn-dense`: at most 3
                  device ops a batch).
-  7. tron     -- the TRON baseline (`core.tron.solve`) on real-sim in
+  8. tron     -- the TRON baseline (`core.tron.solve`) on real-sim in
                  padded-CSC for 5 outer iterations (no kernel: the
                  design's matvec / rmatvec); F finite, not rising; one
                  iteration traced in a child process.
-  8. bf16     -- the support (K1), full (K2) and dense (K3) solves with the
+  9. bf16     -- the support (K1), full (K2) and dense (K3) solves with the
                  design stored in bf16, 10 iterations each: the kernels'
                  launches; F against the same float32 solve, printed; F
                  against float32 from a shared iterate each iteration
                  (rel <= 1e-3, the reference's bf16 envelope) and the
                  lockstep gate.
-  9. cli      -- `repro_torch.launch.solve.main` on a9a, padded-CSC,
+  10. cli     -- `repro_torch.launch.solve.main` on a9a, padded-CSC,
                  --use-kernels, through the normal entry point; then
                  `--solver scdn` (dense: K5's dense batch entry),
                  `--solver scdn --layout padded_csc` (K5's batch entry),
                  `--solver tron`
                  (no kernel) and `--dtype bf16 --use-kernels` (K2).
-  10. serve   -- real-sim at its published width (72,310 x 20,958, the
+  11. serve   -- real-sim at its published width (72,310 x 20,958, the
                  first 57,848 rows train, the other 14,462 are requests):
                  an 8-point regularization path solved on the card and
                  saved with `save_model`, then `repro_torch.launch.
                  predict.main` through K4a (dense requests) and K4b
                  (padded-CSC requests), for the c* model and the path
                  family, `--serve` with a mid-stream hot-swap, and one
-                 dense chunk traced in a child process (`--chunk-profile`).
-  11. path    -- the serve phase's rows (training rows train, request
+                 dense chunk traced in a child process (`--chunk-profile`);
+                 `--serve --route auto` without kernels: each bucket's
+                 route equal to `pick_route` under the committed H100
+                 table (benchmarks/port/results/BENCH_serve_h100.json),
+                 beside both routes' device times.
+  12. path    -- the serve phase's rows (training rows train, request
                  rows validate): `path.run_path` at P = 32 (the support
                  scope: K1 every bundle), 8 points at span 100 to KKT 1e-3
                  or 20 iterations, with record_aux and the metrics and
@@ -114,7 +133,7 @@ Phases:
                  one iteration with record_aux traced in a child process
                  (`--solve-profile support --record-aux`: K1 alone once a
                  bundle).
-  12. fault   -- diagnostics and fault tolerance through the CLIs, on the
+  13. fault   -- diagnostics and fault tolerance through the CLIs, on the
                  support cell's real-sim as .libsvm (c 4), each CLI run a
                  child process: REPRO_FAULT_PLAN puts a NaN into the
                  margins at iteration 3 of a P 64 solve (full scope: K2),
@@ -137,7 +156,7 @@ Phases:
                  1e-3); the iteration wall with the --diag-out planes and
                  with a checkpoint every 3 iterations against neither,
                  interleaved, and one snapshot's write time.
-  13. sharded -- the sharded backend (`engine.sharded`) on the support
+  14. sharded -- the sharded backend (`engine.sharded`) on the support
                  and full cells' real-sim and the dense cell's gisette:
                  (a) a world of 1 on NCCL with the kernels (K2's partials
                  and scatter entries, K3's partials entry), real-sim full
@@ -155,7 +174,7 @@ Phases:
                  checkpoints crossing between the local and sharded
                  backends (the restored carry's F within 1e-6 of its
                  writer's) and both resumes run.
-  14. lm      -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
+  15. lm      -- `repro_torch.launch.serve.main` for qwen2-0.5b at full
                  width (24 layers, bf16, random weights from a seed): a
                  4096-token prefill of 4 prompts, which runs K6 once a
                  layer, then 32 greedy tokens; the same at 32 tokens (the
@@ -181,11 +200,14 @@ and power limit, and before that one JSON line of per-kernel numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -194,8 +216,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"
-PHASES = ("build", "kernels", "support", "full", "dense", "scdn", "tron",
-          "bf16", "cli", "serve", "path", "fault", "sharded",
+PHASES = ("build", "kernels", "tune", "support", "full", "dense", "scdn",
+          "tron", "bf16", "cli", "serve", "path", "fault", "sharded",
           "lm")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
@@ -315,6 +337,8 @@ SERVE_MAX_BATCH = 256
 SERVE_RATE = 2000.0
 SERVE_REQUESTS = 4000
 SERVE_SLO_MS = 50.0
+# --route auto through the serving loop without kernels (plain routes)
+SERVE_AUTO_REQUESTS = 1000
 
 # the path phase: `serve_data`'s training rows (the published real-sim
 # shape) and its request rows as the validation split. (a) run_path at P
@@ -389,6 +413,23 @@ FAULT_RESUME_RTOL = 1e-6
 FAULT_RHO_RTOL = 1e-3
 FAULT_POWER_STEPS = 3000
 FAULT_COST_ITERS = 10
+
+# the tune phase: benchmarks/port/bench_kernels.py's full cells (K1-K3
+# in float32 and bf16, K4a, K4b, K5's three entries) tuned into a cache
+# of the run's own (CACHES["tuned"]), each winner that is not the default
+# held against the plain version at the kernels phase's limits. Where
+# the rule's plan wins, the tuned cache sends the solver down the rule's
+# launches again, so CACHES["alt"] holds each float32 cell's runner-up
+# (the fastest other plan, also held against the plain version): warm
+# caches (tuned, alt) against cold from shared carries, TUNE_SUPPORT_ITERS
+# support iterations (K1), one full-scope iteration (K2), one gisette
+# dense SCDN round (K5's dense entry), F rel F_RTOL each; K1 and K2
+# bit-equal twice under each warm cache. Every other phase, and every
+# child process, reads CACHES["cold"], which nothing writes (main sets
+# all three)
+TUNE_REPEATS = 7
+TUNE_SUPPORT_ITERS = 3
+CACHES: dict = {}
 
 # the lm phase: qwen2-0.5b at its published width, 4 prompts of 4096
 # tokens (BLOCKWISE_MIN_KV = 2048 or more: K6 in every layer) and 32 new
@@ -487,10 +528,20 @@ def device_ms(torch, fn, n: int, flush=None) -> float:
     return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / n
 
 
+def _port_bench(name: str):
+    """A module of benchmarks/port (the kernels' work counts, the kernel
+    benchmark's cells), imported from this checkout."""
+    import importlib
+    bench = str(ROOT / "benchmarks" / "port")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    return importlib.import_module(name)
+
+
 def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(ms, "bytes" | "operations"), `benchmarks/port/work.py`'s bound:
+    the kernels line and bench_kernels' cells share it and its counts."""
+    return _port_bench("work").bound(nbytes, nops, ops_per_s)
 
 
 def rel_err(torch, got, want) -> tuple[float, float]:
@@ -681,20 +732,12 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
     # operations: ~20 a slab entry (the loss factors, g, h), 12 a live
     # row for each candidate up to the accepted one; the mean over the
     # timed bundles, at the step counts their last calls accepted
-    n_steps = launch.n_steps.tolist()
-    nbytes = nops = 0.0
-    timed = [(idx_t, q_t) for idx_t, q_t in zip(bundles, n_steps) if q_t]
-    n_steps = [q_t for _, q_t in timed]
-    for idx_t, q_t in timed:
-        live_t = idx_t[idx_t < n].long()
-        rows_t = design.col_rows[live_t]
-        rows_live = int(torch.unique(rows_t[rows_t < s]).numel())
-        nbytes += (P * 4 + int(live_t.numel()) * K *
-                   (4 + design.col_vals.element_size()) +
-                   8 * int(live_t.numel()) + 12 * rows_live + q_t * 4 + 8)
-        nops += P * K * 20 + rows_live * q_t * 12
-    r["bound"] = bound(nbytes / len(timed), nops / len(timed))
-    log(f"[kernels] pcdn_bundle over the {len(timed)} timed bundles: mean "
+    all_steps = launch.n_steps.tolist()
+    n_steps = [q_t for q_t in all_steps if q_t]
+    r["bound"] = bound(*_port_bench("work").bundle_work(
+        torch, design.col_rows, design.col_vals.element_size(), bundles,
+        all_steps, n, s))
+    log(f"[kernels] pcdn_bundle over the {len(n_steps)} timed bundles: mean "
         f"n_steps {sum(n_steps) / len(n_steps):.3f}, bound "
         f"{r['bound'][0] * 1e3:.4f} us ({r['bound'][1]})")
     out["pcdn_bundle"] = r
@@ -717,24 +760,18 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
         + f"; two calls bit-equal {same}; tolerance rel {KERNEL_RTOL}")
     assert all(e[1] <= KERNEL_RTOL for e in errs), errs
     assert same
-    valid = slab.rows < s
-    n_rows = int(torch.unique(slab.rows[valid]).numel())
     top = device_ops(torch, lambda: ops.pcdn_sparse_direction(*args))
     log(f"[kernels] pcdn_sparse_direction, device ops of one call ("
         f"{sum(c for _, c, _ in top)} stream ops):")
     log_top("kernels", top, 1, "call")
-    # bytes: the slab, z/y at its distinct rows, w_B, d/g/h and the (s,)
-    # delta written; operations: ~24 a live entry (the loss factors, g, h,
-    # the scatter)
-    nbytes = P * K * 8 + n_rows * 8 + P * 4 + 3 * P * 4 + s * 4
-    nops = 24 * int(valid.sum())
     out["pcdn_sparse_direction"] = dict(
         max_abs_err=max(e[0] for e in errs),
         **timings(torch, lambda: ops.pcdn_sparse_direction(*args),
                   lambda: ref.pcdn_sparse_direction_ref(*args), flush),
         enqueue_us=enqueue_us(torch, lambda: ops.pcdn_sparse_direction(
             *args), 200),
-        bound=bound(nbytes, nops), library_ms=None)
+        bound=bound(*_port_bench("work").sparse_direction_work(
+            torch, slab.rows, s)), library_ms=None)
     out.update(sharded_entry_checks(torch, slab, z, sparse.y, got[0], s,
                                     flush))
 
@@ -783,19 +820,16 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
         f"{sum(c for _, c, _ in top)} stream ops):")
     log_top("kernels", top, 1, "call")
     assert sum(c for _, c, _ in top) <= 1, top
-    # bytes: the bundle's live columns once, z and y, delta written, idx,
-    # w_B, d/g/h; operations: ~7 a value (g, h, delta)
     P = idx.shape[0]
     n_live = int((idx < nd).sum())
-    nbytes = n_live * s * XT.element_size() + 3 * s * 4 + 2 * P * 4 + \
-        3 * P * 4
     out["pcdn_direction"] = dict(
         max_abs_err=max(errs),
         **timings(torch, lambda: ops.pcdn_direction(*args),
                   lambda: ref.pcdn_direction_ref(*args), flush),
         enqueue_us=enqueue_us(torch, lambda: ops.pcdn_direction(*args),
                               200),
-        bound=bound(nbytes, 7 * s * n_live), library_ms=None)
+        bound=bound(*_port_bench("work").direction_work(
+            torch, idx, nd, s, XT.element_size())), library_ms=None)
     # K3's partials entry (the sharded dense step), the same bundle
     pargs = (XT, idx, zd, dense.y, 0.25)
     out["pcdn_direction_partials"] = entry_check(
@@ -951,11 +985,7 @@ def linesearch_check(torch, prob, w, z, gen, flush, P=SCDN_P_BAR,
                   lambda: ref.pcdn_linesearch_ref(*args), flush),
         enqueue_us=enqueue_us(torch, lambda: ops.pcdn_linesearch(*args),
                               200),
-        # every delta row once, z and y at the samples live in any row,
-        # alphas, the (P, Q) output; ~10 flops per live (row, sample,
-        # candidate) loss term
-        bound=bound(4 * P * s + 8 * rows_live + 4 * Q + 4 * P * Q,
-                    10 * n_live * Q),
+        bound=bound(*_port_bench("work").linesearch_work(torch, deltas, Q)),
         library_ms=None)
 
 
@@ -1069,32 +1099,9 @@ def scdn_batch_check(torch, prob, gen, flush) -> dict:
              **timings(torch, k5, stepper(plain), flush),
              enqueue_us=enqueue_us(torch, k5, 200), library_ms=None)
     # the bound, over the round's first SCDN_BOUND_BATCHES batches from the
-    # carry (the plain version's run): bytes the slab (P k_max (4 + 4)),
-    # idx, w read and written and alpha (P each), z and y read at each
-    # batch's distinct live rows and z written at those of its d != 0
-    # coordinates; operations ~20 a live entry (the loss factors, g, h)
-    # and ~10 a (distinct row, candidate) pair of the d != 0 coordinates,
-    # for the candidates up to the accepted one
-    wc, zc = w.clone(), z.clone()
-    nbytes = nops = 0.0
-    cr = design.col_rows
-    for idx_t in batches[:SCDN_BOUND_BATCHES]:
-        a_t, lo_t = ref.scdn_batch_ref(cr, design.col_vals, idx_t, wc, zc,
-                                       prob.y, launch.alphas, prob.c)
-        rows_t = cr[idx_t.long()]
-        live = rows_t < s
-        moved = lo_t.abs().sum(dim=1) != 0                # d != 0
-        rows_read = int(torch.unique(rows_t[live]).numel())
-        rows_written = int(torch.unique(rows_t[live & moved[:, None]])
-                           .numel())
-        steps = torch.where(a_t > 0, torch.round(-torch.log2(a_t)) + 1,
-                            float(Q))
-        pairs = sum(int(torch.unique(rows_t[p][live[p]]).numel()) *
-                    float(steps[p]) for p in range(P) if bool(moved[p]))
-        nbytes += P * K * 8 + P * 16 + rows_read * 8 + rows_written * 4
-        nops += 20 * int(live.sum()) + 10 * pairs
-    r["bound"] = bound(nbytes / SCDN_BOUND_BATCHES,
-                       nops / SCDN_BOUND_BATCHES)
+    # carry (the plain version's run)
+    r["bound"] = bound(*_port_bench("work").scdn_batch_work(
+        torch, launch, w, z, batches[:SCDN_BOUND_BATCHES]))
     log(f"[kernels] scdn_batch over the round's first {SCDN_BOUND_BATCHES} "
         f"batches: bound {r['bound'][0] * 1e3:.4f} us ({r['bound'][1]})")
     return r
@@ -1194,8 +1201,7 @@ def scdn_dense_batch_check(torch, dense, gen, flush) -> dict:
     P = GISETTE_P_BAR
     g = dense_batch_agreement(torch, dense, P, gen, "gisette")
     launch, w, z = g["launch"], g["w"], g["z"]
-    n, s = dense.n_features, dense.n_samples
-    Q = launch.plan.Q
+    n = dense.n_features
     idx = torch.randint(0, n, (P,), generator=gen, dtype=torch.int32).to(dev)
     wc, zc = w.clone(), z.clone()
     top = device_ops(torch, lambda: ops.scdn_dense_batch(launch, wc, zc,
@@ -1230,34 +1236,219 @@ def scdn_dense_batch_check(torch, dense, gen, flush) -> dict:
              **timings(torch, k5, stepper(plain), flush),
              enqueue_us=enqueue_us(torch, k5, 200), library_ms=None)
     # the bound, over the round's first SCDN_BOUND_BATCHES batches from the
-    # carry (the plain version's run): bytes each distinct live column (s
-    # values), z and y read and z written, idx, w read and written and
-    # alpha (P each); operations ~20 a nonzero of a slot's column (the loss
-    # factors, g, h), ~10 a (nonzero, candidate) pair of the d != 0 slots
-    # for the candidates up to the accepted one, and 2 a nonzero of a
-    # moved slot (z's update)
-    XT = launch.XT
-    wc, zc = w.clone(), z.clone()
-    nbytes = nops = 0.0
+    # carry (the plain version's run)
     counted = batches[:SCDN_BOUND_BATCHES]
-    for idx_t in counted:
-        a_t, lo_t = plain(wc, zc, idx_t)
-        live = idx_t < n
-        nnz = torch.zeros((P,), device=dev)
-        nnz[live] = (XT[idx_t[live].long()] != 0).sum(dim=1).float()
-        moved = lo_t.abs().sum(dim=1) != 0                # d != 0
-        steps = torch.where(a_t > 0, torch.round(-torch.log2(a_t)) + 1,
-                            float(Q))
-        n_cols = int(torch.unique(idx_t[live]).numel())
-        nbytes += n_cols * s * 4 + 12 * s + 16 * P
-        nops += float(20 * nnz.sum() + (10 * nnz * steps)[moved].sum() +
-                      (2 * nnz)[moved & (a_t > 0)].sum())
-    r["bound"] = bound(nbytes / len(counted), nops / len(counted))
+    nbytes, nops = _port_bench("work").scdn_dense_work(torch, launch, w, z,
+                                                       counted)
+    r["bound"] = bound(nbytes, nops)
     log(f"[kernels] scdn_dense_batch over the gisette round's first "
         f"{len(counted)} batches: bound {r['bound'][0] * 1e3:.4f} us "
-        f"({r['bound'][1]}; {nbytes / len(counted):.0f} B, "
-        f"{nops / len(counted):.0f} operations a batch)")
+        f"({r['bound'][1]}; {nbytes:.0f} B, {nops:.0f} operations a "
+        f"batch)")
     return r
+
+
+@contextlib.contextmanager
+def autotune_cache(name: str):
+    """The tuner reads (and `tune` writes) CACHES[name] in the block, the
+    cold cache after it; each switch drops the memoised plans."""
+    from repro_torch.kernels import autotune
+    os.environ["REPRO_AUTOTUNE_CACHE"] = CACHES[name]
+    autotune.invalidate_cache()
+    try:
+        yield
+    finally:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = CACHES["cold"]
+        autotune.invalidate_cache()
+
+
+def _memo_plans(kernel: str) -> list:
+    """The plans `ops` resolved for `kernel` since the last switch."""
+    from repro_torch.kernels import ops
+    return sorted({repr(v) for k, v in ops._PLANS.items() if k[0] == kernel})
+
+
+def phase_tune(torch, data, rows, card: str) -> dict:
+    """The tuner on the card: every key of `autotune.DEFAULTS` tuned at
+    bench_kernels' full cells into CACHES["tuned"] (exhaustive for a space
+    of at most 40 candidates, else the hillclimb; a line a cell: the
+    default's and the winner's L2-cold us, the candidates measured and
+    skipped as infeasible, the margin), each winner no slower than the
+    default and, where it is not the default, faster than it by more than
+    the tuner's noise margin and agreeing with the plain version; then
+    `tune_lockstep` and `tune_determinism`. -> the cells."""
+    from repro_torch.kernels import autotune
+
+    bk = _port_bench("bench_kernels")
+    csc, y_rs, Xg, y_g, _ = data
+    t0 = time.perf_counter()
+    out = {}
+    with autotune_cache("tuned"):
+        cells = bk.make_cells(torch, {"realsim": (csc, y_rs),
+                                      "gisette": (Xg, y_g),
+                                      "requests": rows["requests"]})
+        t_cells = time.perf_counter() - t0
+        for cell in cells:
+            r = bk.run_cell(torch, cell, "auto", TUNE_REPEATS, persist=True)
+            log(f"[tune] {bk.cell_line(r)} on {card}")
+            assert r["tuned"]["us"] <= r["default"]["us"], r
+            if r["tuned"]["config"] != r["default"]["config"]:
+                assert r["tuned"]["us"] < r["default"]["us"] * (
+                    1 - r["margin"]), r
+            assert r.get("agreement", {"ok": True})["ok"], r["agreement"]
+            out[f"{r['kernel']} {r['dtype']}"] = r
+        entries = json.loads(Path(CACHES["tuned"]).read_text())["entries"]
+    keys = {r["kernel"] for r in out.values()}
+    assert keys == set(autotune.DEFAULTS), keys
+    assert len(entries) == len(out), (len(entries), len(out))
+    log(f"[tune] {len(out)} cells of {len(keys)} keys tuned in "
+        f"{time.perf_counter() - t0:.1f}s ({t_cells:.1f}s building the "
+        f"cells), {len(entries)} entries in the run's tuned cache; "
+        f"backend {autotune.backend_tag()}")
+    with autotune_cache("alt"):
+        for cell in cells:
+            r = out[f"{cell.kernel} {cell.dtype}"]
+            ru = r["runner_up"]
+            if cell.dtype != "float32" or ru is None:
+                continue
+            agree = cell.agree(ru["config"])
+            log(f"[tune] {cell.kernel} runner-up {ru['config']} "
+                f"{ru['us']:.2f} us (the rule's {r['default']['us']:.2f}), "
+                f"{ru['plan']}: agreement "
+                f"{'ok' if agree['ok'] else 'FAILED'} (max rel "
+                f"{max(agree['err'].values()):.2e}, {agree['limit']})")
+            assert agree["ok"], agree
+            assert autotune.record(cell.kernel,
+                                   autotune.shape_bucket(**cell.shape),
+                                   torch.float32, ru["config"], us=ru["us"],
+                                   default_us=r["default"]["us"])
+    tune_lockstep(torch, data, card)
+    for label in ("tuned", "alt"):
+        tune_determinism(torch, data, label)
+    log(f"[tune] phase {time.perf_counter() - t0:.1f}s; child processes "
+        f"inherit REPRO_AUTOTUNE_CACHE, so a resume reads the cache of the "
+        f"run it resumes (the fault and sharded phases' resumes: the cold "
+        f"cache)")
+    return out
+
+
+def tune_lockstep(torch, data, card: str) -> None:
+    """Warm caches against cold from shared carries, in lockstep: each
+    step runs under the tuned cache and under the runner-ups' (alt), then
+    under the cold one from the same carry and generator state, and the
+    next step starts from the cold run's carry, so a last-bit Armijo flip
+    moves one step only. The plans each run resolved, F rel <= F_RTOL
+    against cold, and the walls."""
+    from repro_torch.core import PCDNConfig, scdn
+    from repro_torch.core.problem import make_problem
+    from repro_torch.engine import LocalBackend
+
+    for name, iters in (("support", TUNE_SUPPORT_ITERS), ("full", 1)):
+        i_x, i_y, c, layout, P, kernel, _ = SOLVES[name]
+        prob = make_problem(data[i_x], data[i_y], c=c, layout=layout,
+                            device=DEVICE)
+        backend = LocalBackend(prob, PCDNConfig(P=P, use_kernels=True,
+                                                tol_kkt=0.0, seed=0))
+        w, z, gen, active = backend.init_state()
+        for it in range(iters):
+            runs = {}
+            for label in ("tuned", "alt", "cold"):
+                g = gen if label == "cold" else \
+                    torch.Generator().set_state(gen.get_state())
+                with autotune_cache(label):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    o = backend.outer(w, z, g, active, True, c)
+                    f = float(o[3])
+                    runs[label] = (o, f, time.perf_counter() - t0,
+                                   _memo_plans(kernel))
+            f_c = runs["cold"][1]
+            for label in ("tuned", "alt"):
+                f_w = runs[label][1]
+                rel = abs(f_w - f_c) / abs(f_c)
+                log(f"[tune] {name} iteration {it} from a shared carry: F "
+                    f"{label} {f_w:.6f} ({runs[label][2] * 1e3:.2f} ms wall, "
+                    f"plans {runs[label][3]}) vs cold {f_c:.6f} "
+                    f"({runs['cold'][2] * 1e3:.2f} ms, plans "
+                    f"{runs['cold'][3]}): rel {rel:.2e} (tolerance "
+                    f"{F_RTOL}) on {card}")
+                assert rel <= F_RTOL, (name, it, label, f_w, f_c)
+            o = runs["cold"][0]
+            w, z, gen, active = o[0], o[1], o[2], o[7]
+
+    # one gisette dense SCDN round from a carry solved by one round
+    gprob = make_problem(data[2], data[3], c=SOLVES["dense"][2],
+                         layout="dense", device=DEVICE)
+    gcfg = scdn.SCDNConfig(P_bar=GISETTE_P_BAR)
+    n, s = gprob.n_features, gprob.n_samples
+    w, z, _, _, _ = scdn.make_round(gprob, gcfg)(
+        torch.zeros((n,), device=DEVICE), torch.zeros((s,), device=DEVICE),
+        torch.Generator().manual_seed(7))
+    round_ = scdn.make_round(gprob, gcfg)
+    idxs = torch.randint(0, n, (round_.n_batches, GISETTE_P_BAR),
+                         generator=torch.Generator().manual_seed(8),
+                         dtype=torch.int32)
+    runs = {}
+    for label in ("tuned", "alt", "cold"):
+        with autotune_cache(label):
+            round_ = scdn.make_round(gprob, gcfg)
+            plan = round_.launch().plan
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = float(round_(w, z, torch.Generator(), idxs=idxs)[3])
+            runs[label] = (f, time.perf_counter() - t0, plan)
+    for label in ("tuned", "alt"):
+        rel = abs(runs[label][0] - runs["cold"][0]) / abs(runs["cold"][0])
+        log(f"[tune] gisette dense SCDN round (P_bar {GISETTE_P_BAR}) from "
+            f"a shared carry and indices: F {label} {runs[label][0]:.6f} "
+            f"({runs[label][1] * 1e3:.2f} ms, {runs[label][2]}) vs cold "
+            f"{runs['cold'][0]:.6f} ({runs['cold'][1] * 1e3:.2f} ms, "
+            f"{runs['cold'][2]}): rel {rel:.2e} (tolerance {F_RTOL}) on "
+            f"{card}")
+        assert rel <= F_RTOL, runs
+
+
+def tune_determinism(torch, data, label: str) -> None:
+    """Under one fixed cache (CACHES[label]), two K1 launches and two K2
+    calls on the same inputs are bit-equal (fixed-order sums)."""
+    from repro_torch.core import bundles as B
+    from repro_torch.core.linesearch import ArmijoParams, candidate_alphas
+    from repro_torch.core.problem import make_problem
+    from repro_torch.kernels import ops
+
+    csc, y_rs = data[0], data[1]
+    prob = make_problem(csc, y_rs, c=4.0, layout="padded_csc", device=DEVICE)
+    design = prob.design
+    gen = torch.Generator().manual_seed(9)
+    n = prob.n_features
+    w = torch.zeros((n,), device=DEVICE)
+    on = torch.randperm(n, generator=gen)[: n // 10].to(DEVICE)
+    w[on] = 0.05 * torch.randn((on.numel(),), generator=gen).to(DEVICE)
+    z = prob.margins(w)
+    alphas = candidate_alphas(ArmijoParams(), torch.float32, w.device)
+    with autotune_cache(label):
+        idx = B.partition(gen, n, 32, device=w.device)[0]
+        runs = []
+        for _ in range(2):
+            launch = ops.BundleLaunch(design.col_rows, design.col_vals,
+                                      prob.y, alphas, 4.0, 32, 1)
+            wc, zc = w.clone(), z.clone()
+            ops.pcdn_bundle(launch, wc, zc, idx, 0)
+            runs.append((wc, zc, launch.n_steps, launch.alpha, launch.plan))
+        same_k1 = all(torch.equal(a, b) for a, b in
+                      zip(runs[0][:4], runs[1][:4]))
+        idx = B.partition(gen, n, 512, device=w.device)[0]
+        slab = design.gather_slab(idx)
+        w_B, _ = B.gather_vec(w, idx)
+        args = (slab.rows, slab.vals, z, prob.y, w_B, 4.0)
+        got = ops.pcdn_sparse_direction(*args)
+        again = ops.pcdn_sparse_direction(*args)
+        same_k2 = all(torch.equal(a, b) for a, b in zip(got, again))
+        plans = _memo_plans("pcdn_sparse_direction")
+    log(f"[tune] under the {label} cache: two K1 launches ({runs[0][4]}) "
+        f"bit-equal {same_k1}; two K2 calls (warps {plans}) bit-equal "
+        f"{same_k2}")
+    assert same_k1 and same_k2
 
 
 def serve_data() -> dict:
@@ -1395,9 +1586,8 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
         max_abs_err=e[0],
         **timings(torch, lambda: ops.serve_margins_dense(*args),
                   lambda: ref.serve_margins_dense_ref(*args), flush),
-        # the union's columns of X once, idx/val, the output
-        bound=bound(B * U * 4 + K * A * 8 + B * K * 4,
-                    2 * B * int(live.sum())),
+        bound=bound(*_port_bench("work").dense_margins_work(
+            torch, bank.idx, n, B)),
         library_ms=device_ms(torch, lambda: torch.matmul(X, W.T), 100,
                              flush))
 
@@ -1419,12 +1609,11 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
     torch.cuda.synchronize()
     e = rel_err(torch, got, want)
     e_lib = rel_err(torch, lib, want)
-    # the bytes the function needs: of each of the union's request columns
-    # its row ids up to the first sentinel (packed last) and its live
-    # values, each column once over all models; idx/val; the output
-    col_nnz = torch.sum(rows < B, dim=1)
-    nnz_u = col_nnz[torch.unique(live_idx)]
-    need = int((4 * torch.clamp(nnz_u + 1, max=k_max) + 4 * nnz_u).sum())
+    # the bytes the function needs (benchmarks/port/work.py)
+    csc_work = _port_bench("work").csc_margins_work(torch, rows, bank.idx,
+                                                    n, B)
+    need = csc_work[0] - K * A * 8 - B * K * 4
+    nnz_u = torch.sum(rows < B, dim=1)[torch.unique(live_idx)]
     plan = ops.csc_plan(B, K, A, k_max)
     log(f"[kernels] serve_margins_csc B={B} n={n} k_max={k_max} (the "
         f"stream's {req.max_col_nnz()}) K={K} A={A} (plan: {plan.ctas} "
@@ -1445,8 +1634,7 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
                   lambda: ref.serve_margins_csc_ref(*args), flush),
         enqueue_us=enqueue_us(torch, lambda: ops.serve_margins_csc(*args),
                               200),
-        bound=bound(need + K * A * 8 + B * K * 4,
-                    2 * int(col_nnz[live_idx].sum())),
+        bound=bound(*csc_work),
         library_ms=device_ms(torch, lambda: torch.sparse.mm(A_csr, Wt), 100,
                              flush))
     # the request stream's fixed column width (the JAX policy's) against
@@ -2018,6 +2206,7 @@ def phase_serve(torch, serve, card: str) -> dict:
         serve["requests"].rows(0, SERVE_MAX_BATCH).to_dense(), device=DEVICE)
     star = ModelBank.from_family(load_model(str(paths["star"])),
                                  device=DEVICE)
+    route_us = {}
     for label, rbank in (("c*", star), ("path", fam_bank)):
         rbank.dense_matrix()
         cells = []
@@ -2028,12 +2217,111 @@ def phase_serve(torch, serve, card: str) -> dict:
                 rbank, Xb, route="sparse"), 30)
             t_d = device_ms(torch, lambda: margins_dense(
                 rbank, Xb, route="dense"), 30)
+            route_us[label, b] = (t_s * 1e3, t_d * 1e3)
             cells.append(f"B={b}: {t_s * 1e3:.1f}/{t_d * 1e3:.1f}")
             b *= 2
         log(f"[serve] route crossover, {label} bank (K={rbank.n_models},"
             f" sparsity {rbank.sparsity():.5f}), union-gather/densified "
             f"us a call: " + ", ".join(cells))
+    serve_route_auto(torch, serve, fam_bank, route_us, card)
     return total
+
+
+def serve_route_auto(torch, serve, fam_bank, route_us, card: str) -> None:
+    """`--route auto` through `launch.predict --serve` (the plain scorers,
+    no kernel): the route the serving loop took for each bucket, against
+    `pick_route` under the committed H100 table
+    (benchmarks/port/results/BENCH_serve_h100.json, the table
+    `route_crossover()` loads), and both routes' device times there. Two
+    banks: the path family (below the table's sparsities: dense at every
+    bucket), and that family cut past the table's sparsest crossover and
+    served up to twice it, where both routes must be taken."""
+    import dataclasses
+    import importlib
+    from repro_torch.launch import predict as predict_cli
+    from repro_torch.serve import artifact as art
+    from repro_torch.serve.predict import ModelBank, margins_dense
+    # the module (the package exports a function of the same name)
+    sp = importlib.import_module("repro_torch.serve.predict")
+
+    sp.set_route_crossover(None)                  # the committed table
+    committed = json.loads(sp.bench_serve_path().read_text())
+    assert committed["smoke"] is False, committed.get("meta")
+    table = list(sp.route_crossover())
+    assert table == committed["route_crossover"], (table, committed)
+    payload = predict_cli.main([
+        "--model", str(serve["paths"]["family"]), "--dataset",
+        str(serve["requests_path"]), "--serve", "--route", "auto",
+        "--max-batch", str(SERVE_MAX_BATCH), "--rate", str(SERVE_RATE),
+        "--serve-requests", str(SERVE_AUTO_REQUESTS), "--device", DEVICE])
+    routes = payload["stats"]["models"]["default"]["routes"]
+    sparsity = fam_bank.sparsity()
+    assert routes, payload["stats"]
+    for bucket, took in sorted(routes.items(), key=lambda kv: int(kv[0])):
+        want = sp.pick_route(sparsity, int(bucket))
+        t = route_us.get(("path", int(bucket)))
+        log(f"[serve] --route auto, path family (sparsity {sparsity:.5f}) "
+            f"bucket {bucket}: took {took}, pick_route under the committed "
+            f"H100 table {want}; "
+            + ("union-gather / densified device us a call not measured"
+               if t is None else
+               f"union-gather {t[0]:.1f} us, densified {t[1]:.1f} us a "
+               f"call") + f" on {card}")
+        assert took == want, (bucket, took, want)
+    log(f"[serve] --route auto: {payload['responses']} responses, p50 "
+        f"{payload['p50_s'] * 1e3:.3f} ms, p99 {payload['p99_s'] * 1e3:.3f} "
+        f"ms; the table {table} (committed, {committed['meta']['card']})")
+
+    # each path model cut to its largest |w| (what a stronger l1 penalty
+    # leaves) past the table's sparsest crossover, served up to twice that
+    # crossover: the buckets below it go dense, those at or above it
+    # union-gather, so a wrong table or a broken auto route shows
+    top = max((e for e in table if e["min_batch_sparse"] is not None),
+              key=lambda e: e["sparsity"])
+    fam = serve["family"]
+    n = fam.models[0].n_features
+    keep = int(n * (1.0 - top["sparsity"]))
+    models = []
+    for m in fam.models:
+        sel = np.sort(np.argsort(-np.abs(m.w_values), kind="stable")[:keep])
+        models.append(dataclasses.replace(m, w_indices=m.w_indices[sel],
+                                          w_values=m.w_values[sel]))
+    cut = dataclasses.replace(fam, models=tuple(models))
+    cut_path = serve["paths"]["family"].with_name("family_cut.json")
+    art.save_model(str(cut_path), cut)
+    max_batch = 2 * top["min_batch_sparse"]
+    cut_bank = ModelBank.from_family(cut, device=DEVICE)
+    sparsity = cut_bank.sparsity()
+    assert sparsity >= top["sparsity"], (sparsity, top)
+    payload = predict_cli.main([
+        "--model", str(cut_path), "--dataset",
+        str(serve["requests_path"]), "--serve", "--route", "auto",
+        "--max-batch", str(max_batch), "--rate", str(SERVE_RATE),
+        "--serve-requests", str(SERVE_AUTO_REQUESTS), "--device", DEVICE])
+    routes = payload["stats"]["models"]["default"]["routes"]
+    X = torch.as_tensor(serve["requests"].rows(0, max_batch).to_dense(),
+                        device=DEVICE)
+    cut_bank.dense_matrix()
+    for bucket, took in sorted(routes.items(), key=lambda kv: int(kv[0])):
+        b = int(bucket)
+        want = sp.pick_route(sparsity, b)
+        Xb = X[:b]
+        t_s = device_ms(torch, lambda: margins_dense(
+            cut_bank, Xb, route="sparse"), 30)
+        t_d = device_ms(torch, lambda: margins_dense(
+            cut_bank, Xb, route="dense"), 30)
+        log(f"[serve] --route auto, path family cut to {keep} weights a "
+            f"model (sparsity {sparsity:.5f}) bucket {bucket}: took {took}, "
+            f"pick_route under the committed H100 table {want}; "
+            f"union-gather {t_s * 1e3:.1f} us, densified {t_d * 1e3:.1f} us "
+            f"a call on {card}")
+        assert took == want, (bucket, took, want)
+    assert sorted(set(routes.values())) == ["dense", "sparse"], routes
+    log(f"[serve] --route auto, cut bank up to {max_batch}: "
+        f"{payload['responses']} responses, p50 "
+        f"{payload['p50_s'] * 1e3:.3f} ms, p99 {payload['p99_s'] * 1e3:.3f} "
+        f"ms; both routes taken (union-gather from bucket "
+        f"{top['min_batch_sparse']})")
 
 
 def chunk_profile(family_path: str, requests_path: str) -> dict:
@@ -2115,10 +2403,18 @@ def device_profile(torch, fn, n_top: int = 8):
     return device_busy_s(prof, rows), rows[:n_top], wall  # n_top None: all
 
 
-def device_ops(torch, fn) -> list:
+def device_ops(torch, fn, tries: int = 3) -> list:
     """The ops that ran on the card in one traced call of fn, as
-    device_profile's (name, calls, seconds), those with device time only."""
-    return [r for r in device_profile(torch, fn, n_top=None)[1] if r[2] > 0]
+    device_profile's (name, calls, seconds), those with device time only.
+    A trace in which the profiler recorded no device op at all (it loses
+    a process's records now and then: PERF.md) is taken again, up to
+    `tries` traces; then [] comes back."""
+    for _ in range(tries):
+        ops = [r for r in device_profile(torch, fn, n_top=None)[1]
+               if r[2] > 0]
+        if ops:
+            return ops
+    return []
 
 
 def log_top(name: str, top, per: int, unit: str) -> None:
@@ -2164,14 +2460,15 @@ def solve_profile(name: str, record_aux: bool = False) -> dict:
             "launches": ops.launch_counts()[kernel]}
 
 
-def support_wall(readings: int = 4) -> dict:
-    """The support phase's steady outer-iteration wall with telemetry
-    off, in a process of its own (`--support-wall`): its real-sim, c, P
-    and kernel; 3 warm-up iterations, then `readings` solves of
-    PATH_TIMING_ITERS iterations each, wall over the iterations. Uses only
-    the engine and the kernels, so the same script times an older tree's
-    `src` (copied beside it) for a parent / change / change / parent A/B.
-    -> {"ms": [per reading], "launches": K1's count in the readings}."""
+def solve_wall(name: str, readings: int = 4) -> dict:
+    """A solve phase's steady outer-iteration wall with telemetry off, in
+    a process of its own (`--solve-wall NAME`): its
+    data, c, P and kernel (SOLVES); 3 warm-up iterations, then `readings`
+    solves of PATH_TIMING_ITERS iterations each, wall over the
+    iterations. Uses only the engine and the kernels, so the same script
+    times an older tree's `src` (copied beside it) for a parent / change /
+    change / parent A/B. -> {"ms": [per reading], "launches": the phase
+    kernel's count in the readings}."""
     import torch
     from repro_torch.core import PCDNConfig
     from repro_torch.core.problem import make_problem
@@ -2180,7 +2477,7 @@ def support_wall(readings: int = 4) -> dict:
     from repro_torch.kernels import ops
 
     data = make_data(DATA_SEED)
-    i_x, i_y, c, layout, P, kernel, _ = SOLVES["support"]
+    i_x, i_y, c, layout, P, kernel, _ = SOLVES[name]
     prob = make_problem(data[i_x], data[i_y], c=c, layout=layout,
                         device=DEVICE)
     backend = LocalBackend(prob, PCDNConfig(P=P, use_kernels=True,
@@ -2894,7 +3191,6 @@ def phase_path(torch, rows, data, card: str) -> dict:
 def _child(args, env=None, timeout=300):
     """Start `python -m <args>` on the checkout's src, the fault plan (if
     any) in REPRO_FAULT_PLAN. -> the Popen (stdout and stderr piped)."""
-    import os
     e = dict(os.environ)
     e["PYTHONPATH"] = str(SRC)
     e.pop("REPRO_FAULT_PLAN", None)
@@ -3390,7 +3686,6 @@ def phase_sharded(torch, data, card: str) -> dict:
     np.savez(npz, data=csr.data, indices=csr.indices, indptr=csr.indptr,
              shape=np.asarray(csr.shape), y=data[1], c=4.0, P=512,
              steps=SHARDED_RANK_OUTER, **ranks_rec)
-    import os
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -3613,8 +3908,8 @@ def main(argv=None) -> int:
                     help="with --solve-profile: trace the iteration with "
                          "the per-bundle (q, alpha) plane on (the path "
                          "phase runs this in a child process)")
-    ap.add_argument("--support-wall", action="store_true",
-                    help="time the support phase's steady iteration with "
+    ap.add_argument("--solve-wall", choices=tuple(SOLVES),
+                    help="time a solve phase's steady iteration with "
                          "telemetry off and print its JSON line; no phase "
                          "runs it, it exists for parent / change A/Bs "
                          "(copied beside an older tree's src)")
@@ -3662,14 +3957,26 @@ def main(argv=None) -> int:
                                        record_aux=args.record_aux)),
               flush=True)
         return 0
-    if args.support_wall:
-        print(json.dumps(support_wall()), flush=True)
+    if args.solve_wall:
+        print(json.dumps(solve_wall(args.solve_wall)), flush=True)
         return 0
     if args.baseline_profile:
         print(json.dumps(baseline_profile(args.baseline_profile)),
               flush=True)
         return 0
 
+    # the tuner reads a cache of the run's own: no cache on the machine
+    # steers a phase; only the tune phase writes (its own file)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_") as tmp:
+        CACHES.update(cold=os.path.join(tmp, "cold.json"),
+                      tuned=os.path.join(tmp, "tuned.json"),
+                      alt=os.path.join(tmp, "alt.json"))
+        os.environ["REPRO_AUTOTUNE"] = "on"
+        os.environ["REPRO_AUTOTUNE_CACHE"] = CACHES["cold"]
+        return run_phases(torch, phases)
+
+
+def run_phases(torch, phases) -> int:
     # full-precision float32 products on the plain paths (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3682,18 +3989,20 @@ def main(argv=None) -> int:
 
     phase_build()  # every later phase needs the kernels
     data = None
-    if set(phases) & {"kernels", "support", "full", "dense", "scdn", "tron",
-                      "bf16", "path", "fault", "sharded"}:
+    if set(phases) & {"kernels", "tune", "support", "full", "dense", "scdn",
+                      "tron", "bf16", "path", "fault", "sharded"}:
         data = make_data(DATA_SEED)
     serve = None
     rows = None
-    if set(phases) & {"kernels", "serve", "path", "fault"}:
+    if set(phases) & {"kernels", "tune", "serve", "path", "fault"}:
         rows = serve_data()
     if set(phases) & {"kernels", "serve"}:
         serve = prepare_serve(torch, rows)
     kernels = {}
     if "kernels" in phases:
         kernels = phase_kernels(torch, data, serve, f"{card} ({smi})")
+    if "tune" in phases:
+        phase_tune(torch, data, rows, f"{card} ({smi})")
     launches = {}
     for name in SOLVES:
         if name in phases:

@@ -19,6 +19,19 @@ Each wrapper looks at where its tensors live:
 run can show that its main path went through the kernels;
 `flash_variant_counts()` splits K6's count by the variant that ran.
 
+Launch plans (`kernels.autotune`): every plan function below (K1-K5; K6's
+variant stays a fixed rule) takes an optional `config` of the tuner's
+knobs; None knobs leave the rule's value, and a value the kernel cannot
+take at the exact shape raises ValueError. Each dispatcher (and each
+launch object) takes `config=` too: an explicit config is planned
+strictly (the tuner's candidates), None resolves the plan through the
+tuner once a shape (`tuned_plan`, memoised until
+`autotune.invalidate_cache()`): the cached winner where it is feasible at
+the exact shape, else the rule, counted as `autotune.infeasible`. A cold
+cache or REPRO_AUTOTUNE=off gives the rules' launches exactly. A plan
+changes how the kernel launches, never whether it does: no config reaches
+a plain version on a CUDA tensor.
+
 Telemetry (`repro_torch.obs`): while the metrics registry or the trace
 writer is on, every dispatch, to the kernel or to the plain version, adds
 one to the registry's `kernels.<name>.launches` and records a span
@@ -37,7 +50,7 @@ import functools
 import torch
 
 from repro_torch import obs
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import autotune, build, ref
 from repro_torch.obs import gate as _obs_gate
 
 Tensor = torch.Tensor
@@ -158,6 +171,65 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# -- launch plans through the tuner -------------------------------------------
+# plans resolved through the tuner, by (kernel, plan args, bucket dims,
+# dtype, device); cleared with the tuner's memo
+_PLANS: dict = {}
+autotune.on_invalidate(_PLANS.clear)
+
+
+def _knobs(kernel: str, config) -> dict:
+    """The non-None knobs of `config`, each a knob of `kernel`'s search
+    space, else a ValueError."""
+    if not config:
+        return {}
+    space = autotune.DEFAULTS[kernel]
+    bad = set(config) - set(space)
+    if bad:
+        raise ValueError(f"{kernel}: unknown plan knobs {sorted(bad)}, the "
+                         f"plan takes {sorted(space)}")
+    return {k: v for k, v in config.items() if v is not None}
+
+
+def _int_knob(kernel: str, knobs: dict, name: str, rule: int, lo: int,
+              hi: int) -> int:
+    """knobs[name] (an int in [lo, hi]) or the rule's value."""
+    v = knobs.get(name)
+    if v is None:
+        return rule
+    if type(v) is not int or not lo <= v <= hi:
+        raise ValueError(f"{kernel}: {name}={v!r}, the kernel takes an "
+                         f"integer {lo} to {hi}")
+    return v
+
+
+def tuned_plan(kernel: str, fn, args: tuple, dims: tuple, dtype, device,
+               config: dict | None = None):
+    """fn(*args) (a plan function of this module) planned through the
+    tuner: with `config`, strictly that config; else the tuner's resolved
+    config for the (dims, dtype, device) bucket, memoised by the call's
+    key. A resolved config the kernel cannot take at these exact args
+    gives the rule's plan and counts `autotune.infeasible`."""
+    if config is not None:
+        return fn(*args, config=config)
+    key = (kernel, args, dims, dtype, device)
+    plan = _PLANS.get(key)
+    if plan is None:
+        bucket = autotune.shape_bucket(
+            **dict(zip(autotune.BUCKET_AXES[kernel], dims)))
+        cfg = autotune.resolve(kernel, bucket, dtype,
+                               backend=autotune.backend_tag(device))
+        if any(v is not None for v in cfg.values()):
+            try:
+                plan = fn(*args, config=cfg)
+            except ValueError:
+                obs.inc("autotune.infeasible")
+        if plan is None:
+            plan = fn(*args)
+        _PLANS[key] = plan
+    return plan
+
+
 # -- K3 ------------------------------------------------------------------------
 # launch constants of kernels/csrc/pcdn_direction.cu (checked against the
 # built library's when it is first loaded)
@@ -207,9 +279,8 @@ class DirectionPlan:
                                     self.itemsize)
 
 
-@functools.lru_cache(maxsize=64)
-def direction_plan(s: int, P: int, itemsize: int,
-                   max_clusters: int) -> DirectionPlan:
+def direction_plan(s: int, P: int, itemsize: int, max_clusters: int,
+                   config: dict | None = None) -> DirectionPlan:
     """K3's launch plan for a card that holds `max_clusters` of its
     clusters at once: one wave of clusters where the columns allow
     (ceil(P / max_clusters) columns a cluster, at most
@@ -217,7 +288,13 @@ def direction_plan(s: int, P: int, itemsize: int,
     DIRECTION_CLUSTER slices of a multiple of 8 rows; the slices' column
     segments resident in shared memory when they fit and s is a multiple
     of 16 bytes of values (then the loads are 16 bytes too), else read
-    twice in tiles of DIRECTION_TILE_ROWS."""
+    twice in tiles of DIRECTION_TILE_ROWS.
+
+    `config` (the tuner's `pcdn_direction` knobs): `cc` columns a cluster
+    (1 to DIRECTION_MAX_CLUSTER_COLS; the clusters follow), `resident`
+    False to stream a plan the rule makes resident (True is the rule's
+    alone), `tile` the streamed tile's rows (a multiple of 8, at most the
+    slice; refused for a resident plan, whose tile is the slice)."""
     if s < 1 or P < 1:
         raise ValueError(f"pcdn_direction: empty slab s={s} P={P}")
     if itemsize not in (2, 4):
@@ -226,15 +303,39 @@ def direction_plan(s: int, P: int, itemsize: int,
     if max_clusters < 1:
         raise ValueError(f"pcdn_direction: the card holds {max_clusters} "
                          f"clusters of the kernel at once")
-    cc = min(DIRECTION_MAX_CLUSTER_COLS, -(-P // min(max_clusters, P)))
+    knobs = _knobs("pcdn_direction", config)
+    cc = _int_knob("pcdn_direction", knobs, "cc",
+                   min(DIRECTION_MAX_CLUSTER_COLS,
+                       -(-P // min(max_clusters, P))),
+                   1, DIRECTION_MAX_CLUSTER_COLS)
     ctas = DIRECTION_CLUSTER * -(-P // cc)
     sl = -(-s // (8 * DIRECTION_CLUSTER)) * 8
     vec = s % (16 // itemsize) == 0
     resident = vec and \
         direction_smem_bytes(sl, cc, True, itemsize) <= SMEM_BUDGET
+    if "resident" in knobs:
+        if knobs["resident"] is not False:
+            raise ValueError(f"pcdn_direction: resident="
+                             f"{knobs['resident']!r}; only False overrides "
+                             f"the rule")
+        resident = False
     tile = sl if resident else min(sl, DIRECTION_TILE_ROWS)
-    return DirectionPlan(s=s, P=P, itemsize=itemsize, cc=cc, ctas=ctas,
+    if "tile" in knobs:
+        t = knobs["tile"]
+        if resident:
+            raise ValueError(f"pcdn_direction: tile={t!r} for a resident "
+                             f"plan (s={s}: the tile is the {sl}-row slice)")
+        if type(t) is not int or t < 8 or t % 8:
+            raise ValueError(f"pcdn_direction: tile={t!r}, the kernel takes "
+                             f"a multiple of 8 rows")
+        tile = min(sl, t)
+    plan = DirectionPlan(s=s, P=P, itemsize=itemsize, cc=cc, ctas=ctas,
                          sl=sl, tile=tile, resident=resident, vec=vec)
+    if plan.smem_bytes > SMEM_BUDGET:
+        raise ValueError(f"pcdn_direction: {plan.smem_bytes} bytes of shared "
+                         f"memory a CTA at cc={cc}, tile={tile}, more than "
+                         f"the {SMEM_BUDGET} a block may use")
+    return plan
 
 
 _COUNTERS: dict = {}
@@ -270,7 +371,8 @@ def _direction_counter(device: torch.device) -> Tensor:
 
 @_observed("pcdn_direction")
 def pcdn_direction(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
-                   w_B: Tensor, c, kind: str = "logistic", l2: float = 0.0):
+                   w_B: Tensor, c, kind: str = "logistic", l2: float = 0.0,
+                   *, config: dict | None = None):
     """K3: bundle direction over the dense layout, the slab gather, the
     loss factors and the margin delta inside. XT (n, s) float32|bf16, the
     dense design's feature-major copy (`DenseDesign.feature_major`), idx
@@ -279,7 +381,8 @@ def pcdn_direction(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
     (P,), and delta = X_B d (s,), all float32. One launch, no other device
     op; deterministic (every sum in a fixed order). Launches on one device
     share its arrival counters (`_direction_counter`), so they run one
-    after another on one stream."""
+    after another on one stream. `config`: the launch plan's knobs
+    (`direction_plan`), else the tuner's."""
     if kind not in _KINDS:
         raise KeyError(f"unknown loss {kind!r}")
     if _on_cpu(XT, idx, z, y, w_B):
@@ -295,8 +398,7 @@ def pcdn_direction(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
     if n < 1:
         raise ValueError("pcdn_direction: a design with no features")
     lib = _direction_lib()
-    plan = direction_plan(s, P, XT.element_size(),
-                          direction_max_clusters(XT.device))
+    plan = _direction_plan(XT, P, config)
     # one allocation: d, g, h, delta, then the clusters' partials of delta
     buf = torch.empty((3 * P + s * (1 + plan.clusters),),
                       dtype=torch.float32, device=XT.device)
@@ -312,6 +414,14 @@ def pcdn_direction(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
     _raise_if(err, "pcdn_direction")
     _LAUNCHES["pcdn_direction"] += 1
     return d, g, h, delta
+
+
+def _direction_plan(XT: Tensor, P: int, config) -> DirectionPlan:
+    s = XT.shape[1]
+    return tuned_plan("pcdn_direction", direction_plan,
+                      (s, P, XT.element_size(),
+                       direction_max_clusters(XT.device)), (s, P), XT.dtype,
+                      XT.device, config)
 
 
 def _direction_lib():
@@ -330,8 +440,9 @@ def pcdn_direction_partials(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
     int32 (sentinel n), z/y (s,) float32 -> (g, h), each (P,) float32:
     g = X_B^T u raw and h = max((X_B^2)^T v, 1e-12), u and v = c phi'(z),
     c phi''(z) formed at the rows. No d and no X_B d: the direction needs
-    the g and h summed over the data shards. One launch of K3's plan,
-    stopping after the cluster's g/h sum; deterministic."""
+    the g and h summed over the data shards. One launch of K3's plan
+    (the tuner's, as K3's), stopping after the cluster's g/h sum;
+    deterministic."""
     if kind not in _KINDS:
         raise KeyError(f"unknown loss {kind!r}")
     if _on_cpu(XT, idx, z, y):
@@ -346,8 +457,7 @@ def pcdn_direction_partials(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
         raise ValueError("pcdn_direction_partials: a design with no "
                          "features")
     lib = _direction_lib()
-    plan = direction_plan(s, P, XT.element_size(),
-                          direction_max_clusters(XT.device))
+    plan = _direction_plan(XT, P, None)
     buf = torch.empty((2 * P,), dtype=torch.float32, device=XT.device)
     g, h = buf.view(2, P)
     fn = getattr(lib, f"pcdn_direction_partials_{_VALUE_TYPES[XT.dtype]}")
@@ -360,16 +470,28 @@ def pcdn_direction_partials(XT: Tensor, idx: Tensor, z: Tensor, y: Tensor,
     return g, h
 
 
-def sparse_direction_warps(K: int) -> int:
+def sparse_direction_warps(K: int, config: dict | None = None) -> int:
     """Warps a feature's column is split over in the K2 launch: 1 up to 64
-    entries, 2 up to 128, else 4 (a block holds 4 warps)."""
-    return 1 if K <= 64 else (2 if K <= 128 else 4)
+    entries, 2 up to 128, else 4 (a block holds 4 warps). `config` (the
+    tuner's `pcdn_sparse_direction` knobs): `warps` 1, 2 or 4."""
+    knobs = _knobs("pcdn_sparse_direction", config)
+    warps = knobs.get("warps", 1 if K <= 64 else (2 if K <= 128 else 4))
+    if not any(warps is w for w in (1, 2, 4)):
+        raise ValueError(f"pcdn_sparse_direction: warps={warps!r}, the "
+                         f"kernel takes 1, 2 or 4")
+    return warps
+
+
+def _sparse_warps(vals: Tensor, m: int, config) -> int:
+    P, K = vals.shape
+    return tuned_plan("pcdn_sparse_direction", sparse_direction_warps, (K,),
+                      (P, K, m), vals.dtype, vals.device, config)
 
 
 @_observed("pcdn_sparse_direction")
 def pcdn_sparse_direction(rows: Tensor, vals: Tensor, z: Tensor, y: Tensor,
                           w_B: Tensor, c, kind: str = "logistic",
-                          l2: float = 0.0):
+                          l2: float = 0.0, *, config: dict | None = None):
     """K2: bundle direction over a padded-CSC slab, the loss factors and the
     margin scatter inside. rows (P, K) int32 with sentinel len(z), vals
     (P, K) float32|bf16, z/y (m,) float32 margins and labels (the full
@@ -377,7 +499,8 @@ def pcdn_sparse_direction(rows: Tensor, vals: Tensor, z: Tensor, y: Tensor,
     float32, c a float -> (d, g, h), each (P,), and delta = X_B d (m,), all
     float32. Two launches (the direction, then the rows' sums) and a
     memset; each row's delta sums its entries in ascending entry id, so
-    two calls on the same inputs are bit-equal."""
+    two calls on the same inputs are bit-equal. `config`: the plan's knobs
+    (`sparse_direction_warps`), else the tuner's."""
     if kind not in _KINDS:
         raise KeyError(f"unknown loss {kind!r}")
     if _on_cpu(rows, vals, z, y, w_B):
@@ -402,7 +525,7 @@ def pcdn_sparse_direction(rows: Tensor, vals: Tensor, z: Tensor, y: Tensor,
     links = _entry_links(P, K, rows.device)
     fn = getattr(lib, f"pcdn_sparse_direction_{_VALUE_TYPES[vals.dtype]}")
     err = fn(_ptr(rows), _ptr(vals), _ptr(z), _ptr(y), _ptr(w_B), float(c),
-             _KINDS[kind], float(l2), P, K, m, sparse_direction_warps(K),
+             _KINDS[kind], float(l2), P, K, m, _sparse_warps(vals, m, config),
              _ptr(d), _ptr(g), _ptr(h), _ptr(delta), _ptr(links),
              _stream(rows))
     _raise_if(err, "pcdn_sparse_direction")
@@ -436,7 +559,7 @@ def pcdn_sparse_direction_partials(rows: Tensor, vals: Tensor, z: Tensor,
     local rows, or positions into z_R/y_R on the support scope), vals
     (P, K) float32|bf16, z/y (m,) float32 -> (g, h), each (P,) float32: g
     raw, h floored at 1e-12, u and v formed at the rows. No d, no delta.
-    One launch; deterministic."""
+    One launch of K2's plan (the tuner's, as K2's); deterministic."""
     if kind not in _KINDS:
         raise KeyError(f"unknown loss {kind!r}")
     if _on_cpu(rows, vals, z, y):
@@ -454,7 +577,7 @@ def pcdn_sparse_direction_partials(rows: Tensor, vals: Tensor, z: Tensor,
     fn = getattr(lib, "pcdn_sparse_direction_partials_"
                       f"{_VALUE_TYPES[vals.dtype]}")
     err = fn(_ptr(rows), _ptr(vals), _ptr(z), _ptr(y), float(c),
-             _KINDS[kind], P, K, m, sparse_direction_warps(K), _ptr(g),
+             _KINDS[kind], P, K, m, _sparse_warps(vals, m, None), _ptr(g),
              _ptr(h), _stream(rows))
     _raise_if(err, "pcdn_sparse_direction_partials")
     _LAUNCHES["pcdn_sparse_direction_partials"] += 1
@@ -524,11 +647,15 @@ class BundlePlan:
         return 4 * self.workspace_ints
 
 
-def bundle_plan(P: int, K: int, s: int, n: int, Q: int) -> BundlePlan:
+def bundle_plan(P: int, K: int, s: int, n: int, Q: int,
+                config: dict | None = None) -> BundlePlan:
     """K1's launch plan, or a ValueError naming the limit the kernel has:
     a cluster of ceil(P K / 1024) CTAs, at most 8 (the portable cluster
     size); each feature's column over the largest power of two of warps
-    that the cluster's warps a feature and ceil(K / 32) allow, at most 16."""
+    that the cluster's warps a feature and ceil(K / 32) allow, at most 16.
+    `config` (the tuner's `pcdn_bundle` knobs): `cluster` 1 to 8, `nseg`
+    a power of two up to 16 (the kernel takes any such split: features
+    beyond the cluster's groups go in rounds, empty segments add 0)."""
     if min(P, K, s, n) < 1:
         raise ValueError(f"pcdn_bundle: empty design or bundle P={P} "
                          f"k_max={K} s={s} n={n} (each must be >= 1)")
@@ -539,13 +666,20 @@ def bundle_plan(P: int, K: int, s: int, n: int, Q: int) -> BundlePlan:
         raise ValueError(f"pcdn_bundle: P * k_max = {P * K}, s = {s}, "
                          f"n = {n}: each must be below 2**31 (int32 entry "
                          f"ids and rows)")
-    cluster = max(1, min(BUNDLE_MAX_CLUSTER,
-                         -(-P * K // BUNDLE_ENTRIES_PER_CTA)))
+    knobs = _knobs("pcdn_bundle", config)
     warps = BUNDLE_THREADS // 32
+    cluster = _int_knob("pcdn_bundle", knobs, "cluster",
+                        max(1, min(BUNDLE_MAX_CLUSTER,
+                                   -(-P * K // BUNDLE_ENTRIES_PER_CTA))),
+                        1, BUNDLE_MAX_CLUSTER)
     cap = min(warps, max(1, cluster * warps // P), -(-K // 32))
     nseg = 1
     while nseg * 2 <= cap:
         nseg *= 2
+    nseg = _int_knob("pcdn_bundle", knobs, "nseg", nseg, 1, warps)
+    if nseg & (nseg - 1):
+        raise ValueError(f"pcdn_bundle: nseg={nseg}, the kernel takes a "
+                         f"power of two (a split of its {warps} warps)")
     return BundlePlan(P=P, K=K, s=s, n=n, Q=Q, cluster=cluster, nseg=nseg)
 
 
@@ -564,17 +698,23 @@ class BundleLaunch:
     and its scalars, and the (n_bundles,) outputs `n_steps` (int32) and
     `alpha` (float32) that bundle t writes at t. On the card it also holds
     the launch plan, the arguments (packed once) and the workspace, filled
-    once here; `pcdn_bundle(launch, w, z, idx, t)` runs a bundle."""
+    once here; `pcdn_bundle(launch, w, z, idx, t)` runs a bundle. The plan
+    is `config`'s (`bundle_plan`), else the tuner's, resolved once a shape
+    (a launch is built every outer iteration: later ones read the memo)."""
 
     def __init__(self, col_rows: Tensor, col_vals: Tensor, y: Tensor,
                  alphas: Tensor, c, P: int, n_bundles: int, *,
                  kind: str = "logistic", l2: float = 0.0,
-                 sigma: float = 0.01, gamma: float = 0.0):
+                 sigma: float = 0.01, gamma: float = 0.0,
+                 config: dict | None = None):
         if kind not in _KINDS:
             raise KeyError(f"unknown loss {kind!r}")
         n, K = col_rows.shape
         s = y.shape[0]
-        self.plan = bundle_plan(int(P), K, s, n, alphas.shape[0])
+        Q = alphas.shape[0]
+        self.plan = tuned_plan("pcdn_bundle", bundle_plan,
+                               (int(P), K, s, n, Q), (int(P), K, s, Q),
+                               col_vals.dtype, col_rows.device, config)
         self.col_rows, self.col_vals, self.y, self.alphas = (
             col_rows, col_vals, y, alphas)
         self.c, self.kind, self.l2 = float(c), kind, float(l2)
@@ -673,22 +813,37 @@ def pcdn_bundle(launch: BundleLaunch, w: Tensor, z: Tensor, idx: Tensor,
     _LAUNCHES["pcdn_bundle"] += 1
 
 
-def dense_tile_width(B: int, n: int, K: int, sms: int) -> int:
+DENSE_MAX_WIDTH = 1536
+
+
+def dense_tile_width(B: int, n: int, K: int, sms: int,
+                     config: dict | None = None) -> int:
     """Column tile of the K4a launch, a multiple of 32: about four blocks
     per SM over the (32-row, width-column) tiles of X, at most 1536
     columns (the staged tile, 32 x (width + 1) floats, within the 227 KB
     a block may hold), and the (tiles, K, B) partials at most 16M floats
-    where the width allows."""
+    where the width allows. `config` (the tuner's `serve_margins_dense`
+    knobs): `width`, a multiple of 32 up to DENSE_MAX_WIDTH."""
+    knobs = _knobs("serve_margins_dense", config)
+    if "width" in knobs:
+        width = knobs["width"]
+        if type(width) is not int or width < 32 or width % 32 or \
+                width > DENSE_MAX_WIDTH:
+            raise ValueError(f"serve_margins_dense: width={width!r}, the "
+                             f"kernel takes a multiple of 32 up to "
+                             f"{DENSE_MAX_WIDTH}")
+        return width
     row_tiles = -(-B // 32)
     want = max(1, -(-4 * sms // row_tiles))
     width = 32 * -(-n // (32 * want))
-    while width < 1536 and -(-n // width) * K * B > (1 << 24):
+    while width < DENSE_MAX_WIDTH and -(-n // width) * K * B > (1 << 24):
         width *= 2
-    return int(min(max(width, 32), 1536))
+    return int(min(max(width, 32), DENSE_MAX_WIDTH))
 
 
 @_observed("serve_margins_dense")
-def serve_margins_dense(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:
+def serve_margins_dense(X: Tensor, idx: Tensor, val: Tensor, *,
+                        config: dict | None = None) -> Tensor:
     """K4a: serving margins over a dense request slab. X (B, n) float32|
     bf16, idx (K, A) int32 with sentinel n at padding, val (K, A) float32|
     bf16 -> (B, K) float32 (bias not added).
@@ -699,7 +854,8 @@ def serve_margins_dense(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:
     model's ids in a tile by a search that assumes that order; ids out of
     order drop terms.
     Each column tile's partial margins are summed in tile order by a
-    second launch: deterministic, no atomics."""
+    second launch: deterministic, no atomics. `config`: the plan's knobs
+    (`dense_tile_width`), else the tuner's."""
     if _on_cpu(X, idx, val):
         return ref.serve_margins_dense_ref(X, idx, val)
     B, n = X.shape
@@ -711,7 +867,9 @@ def serve_margins_dense(X: Tensor, idx: Tensor, val: Tensor) -> Tensor:
         raise ValueError(f"serve_margins_dense: empty input B={B} n={n} "
                          f"K={K} A={A}")
     lib = build.load("serve_margins_dense")
-    width = dense_tile_width(B, n, K, _sm_count(X.device))
+    width = tuned_plan("serve_margins_dense", dense_tile_width,
+                       (B, n, K, _sm_count(X.device)), (B, n, K, A), X.dtype,
+                       X.device, config)
     n_tiles = -(-n // width)
     # one allocation: the (B, K) output, then the (tiles, K, B) partials
     buf = torch.empty(((n_tiles + 1) * K * B,), dtype=torch.float32,
@@ -757,12 +915,14 @@ class CscPlan:
         return 4 * self.range_rows
 
 
-def csc_plan(B: int, K: int, A: int, k_max: int) -> CscPlan:
+def csc_plan(B: int, K: int, A: int, k_max: int,
+             config: dict | None = None) -> CscPlan:
     """K4b's launch plan, or a ValueError naming the limit: a cluster of
     ceil(A k_max / (CSC_THREADS CSC_ROUND)) CTAs a model (one round of
     pairs a thread where 8 CTAs suffice), at most CSC_MAX_CLUSTER; the
     request rows in as few ranges of at most CSC_MAX_RANGE_ROWS as cover
-    them, balanced."""
+    them, balanced. `config` (the tuner's `serve_margins_csc` knobs):
+    `cluster` 1 to CSC_MAX_CLUSTER (a CTA's slice may be empty)."""
     if min(B, K, A, k_max) < 1:
         raise ValueError(f"serve_margins_csc: empty input B={B} K={K} "
                          f"A={A} k_max={k_max}")
@@ -772,8 +932,12 @@ def csc_plan(B: int, K: int, A: int, k_max: int) -> CscPlan:
     if K > 65535:
         raise ValueError(f"serve_margins_csc: {K} models, the grid takes "
                          f"65535")
-    cluster = max(1, min(CSC_MAX_CLUSTER,
-                         -(-A * k_max // (CSC_THREADS * CSC_ROUND))))
+    cluster = _int_knob("serve_margins_csc", _knobs("serve_margins_csc",
+                                                     config), "cluster",
+                        max(1, min(CSC_MAX_CLUSTER,
+                                   -(-A * k_max // (CSC_THREADS *
+                                                    CSC_ROUND)))),
+                        1, CSC_MAX_CLUSTER)
     ranges = -(-B // CSC_MAX_RANGE_ROWS)
     if ranges > 65535:
         raise ValueError(f"serve_margins_csc: {ranges} row ranges, the "
@@ -784,13 +948,15 @@ def csc_plan(B: int, K: int, A: int, k_max: int) -> CscPlan:
 
 @_observed("serve_margins_csc")
 def serve_margins_csc(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
-                      val: Tensor, n_requests: int) -> Tensor:
+                      val: Tensor, n_requests: int, *,
+                      config: dict | None = None) -> Tensor:
     """K4b: serving margins over a padded-CSC request batch. col_rows
     (n, k_max) int32 with sentinel n_requests at padding, col_vals
     (n, k_max) float32|bf16, idx/val (K, A) as for K4a -> (n_requests, K)
     float32 (bias not added). One launch: a cluster a model sums its
     CTAs' margin columns in rank order, each column summed with
-    shared-memory atomics."""
+    shared-memory atomics. `config`: the plan's knobs (`csc_plan`), else
+    the tuner's."""
     if _on_cpu(col_rows, col_vals, idx, val):
         return ref.serve_margins_csc_ref(col_rows, col_vals, idx, val,
                                          n_requests)
@@ -804,7 +970,9 @@ def serve_margins_csc(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
     if n < 1 or n * k_max > _INT32_MAX:
         raise ValueError(f"serve_margins_csc: n={n}, k_max={k_max}: n * "
                          f"k_max must be 1 to 2**31 - 1")
-    plan = csc_plan(B, K, A, k_max)
+    plan = tuned_plan("serve_margins_csc", csc_plan, (B, K, A, k_max),
+                      (n, k_max, K, A, B), col_vals.dtype, col_rows.device,
+                      config)
     lib = _loaded("serve_margins_csc", {
         "serve_margins_csc_threads": CSC_THREADS,
         "serve_margins_csc_max_cluster": CSC_MAX_CLUSTER,
@@ -829,13 +997,15 @@ LINESEARCH_THREADS = 256
 
 @_observed("pcdn_linesearch")
 def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
-                    kind: str = "logistic") -> Tensor:
+                    kind: str = "logistic", *,
+                    config: dict | None = None) -> Tensor:
     """K5: batched candidate loss deltas. z, y (s,) float32, delta (s,) or
     (P, s) float32 (rows may be a strided view: unit stride along s), alphas
     (Q,) float32 -> (Q,) or (P, Q) float32 with out[p, q] = sum_i phi(z_i +
     alphas[q] * delta[p, i], y_i) - phi(z_i, y_i); the caller scales by c
     and adds the l1 part. One launch for all P rows (a grid row each).
-    Deterministic: block partials are summed in block order."""
+    Deterministic: block partials are summed in block order. `config`:
+    the plan's knobs (`linesearch_blocks`), else the tuner's."""
     if kind not in _KINDS:
         raise KeyError(f"unknown loss {kind!r}")
     if _on_cpu(z, delta, y, alphas):
@@ -863,7 +1033,9 @@ def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
     if s < 1 or not 1 <= Q <= max_q or not 1 <= P <= max_rows:
         raise ValueError(f"pcdn_linesearch: unsupported sizes s={s} Q={Q} "
                          f"P={P} (Q <= {max_q}, P <= {max_rows})")
-    n_blocks = linesearch_blocks(s, P, _sm_count(z.device))
+    n_blocks = tuned_plan("pcdn_linesearch", linesearch_blocks,
+                          (s, P, _sm_count(z.device)), (s, P, Q), z.dtype,
+                          z.device, config)
     buf = torch.empty((P * n_blocks * Q + P * Q,), dtype=torch.float32,
                       device=z.device)
     partials, out = buf[:P * n_blocks * Q], buf[P * n_blocks * Q:]
@@ -876,10 +1048,16 @@ def pcdn_linesearch(z: Tensor, delta: Tensor, y: Tensor, alphas: Tensor,
     return out.view(P, Q) if delta.ndim == 2 else out
 
 
-def linesearch_blocks(s: int, P: int, sms: int) -> int:
+def linesearch_blocks(s: int, P: int, sms: int,
+                      config: dict | None = None) -> int:
     """K5's blocks a row: one a LINESEARCH_THREADS samples, at most 4
-    blocks an SM over all P rows together (and at least one a row)."""
-    return int(max(1, min(-(-s // LINESEARCH_THREADS), 4 * sms // P)))
+    blocks an SM over all P rows together (and at least one a row).
+    `config` (the tuner's `pcdn_linesearch` knobs): `blocks` 1 to one a
+    LINESEARCH_THREADS samples."""
+    rule = int(max(1, min(-(-s // LINESEARCH_THREADS), 4 * sms // P)))
+    return _int_knob("pcdn_linesearch", _knobs("pcdn_linesearch", config),
+                     "blocks", rule, 1,
+                     max(1, -(-s // LINESEARCH_THREADS)))
 
 
 # -- K5, batch entry -----------------------------------------------------------
@@ -926,12 +1104,14 @@ class ScdnBatchPlan:
         return scdn_batch_smem_bytes(self.K, self.slots, self.cpc, self.P)
 
 
-@functools.lru_cache(maxsize=64)
-def scdn_batch_plan(P: int, k_max: int, Q: int, s: int) -> ScdnBatchPlan:
+def scdn_batch_plan(P: int, k_max: int, Q: int, s: int,
+                    config: dict | None = None) -> ScdnBatchPlan:
     """K5's batch launch plan, or a ValueError naming the limit: a CTA a
     coordinate up to SCDN_MAX_CLUSTER (the portable cluster size), then
     ceil(P / 8) coordinates a CTA; every array of the batch in shared
-    memory, so k_max and P are bounded by SCDN_SMEM_BUDGET."""
+    memory, so k_max and P are bounded by SCDN_SMEM_BUDGET. `config` (the
+    tuner's `scdn_batch` knobs): `cluster` 1 to min(P, SCDN_MAX_CLUSTER),
+    ceil(P / cluster) coordinates a CTA."""
     if min(P, k_max, s) < 1:
         raise ValueError(f"scdn_batch: empty batch or design P={P} "
                          f"k_max={k_max} s={s} (each must be >= 1)")
@@ -941,7 +1121,9 @@ def scdn_batch_plan(P: int, k_max: int, Q: int, s: int) -> ScdnBatchPlan:
     if s >= _INT32_MAX:
         raise ValueError(f"scdn_batch: s = {s} samples, must be below 2**31 "
                          f"(int32 rows)")
-    cluster = min(P, SCDN_MAX_CLUSTER)
+    cluster = _int_knob("scdn_batch", _knobs("scdn_batch", config),
+                        "cluster", min(P, SCDN_MAX_CLUSTER), 1,
+                        min(P, SCDN_MAX_CLUSTER))
     cpc = -(-P // cluster)
     slots = 2 << (k_max - 1).bit_length()
     one = scdn_batch_smem_bytes(k_max, slots, 1, min(P, SCDN_MAX_CLUSTER))
@@ -1039,13 +1221,15 @@ class ScdnBatchLaunch(_ScdnLaunch):
     columns (n, K) float32, the labels y (s,), the candidates alphas (Q,),
     the loss and its scalars, and P coordinates a batch. On the card it
     also holds the launch plan and the arguments, packed once here;
-    `scdn_batch(launch, w, z, idx, alpha)` runs a batch."""
+    `scdn_batch(launch, w, z, idx, alpha)` runs a batch. The plan is
+    `config`'s (`scdn_batch_plan`), else the tuner's."""
 
     name = "scdn_batch"
 
     def __init__(self, col_rows: Tensor, col_vals: Tensor, y: Tensor,
                  alphas: Tensor, c, P: int, *, kind: str = "logistic",
-                 l2: float = 0.0, sigma: float = 0.01, gamma: float = 0.0):
+                 l2: float = 0.0, sigma: float = 0.01, gamma: float = 0.0,
+                 config: dict | None = None):
         if kind not in _KINDS:
             raise KeyError(f"unknown loss {kind!r}")
         if col_vals.dtype != torch.float32:
@@ -1054,7 +1238,10 @@ class ScdnBatchLaunch(_ScdnLaunch):
                             f"bf16 storage, as the reference does)")
         n, K = col_rows.shape
         s = y.shape[0]
-        self.plan = scdn_batch_plan(int(P), K, alphas.shape[0], s)
+        Q = alphas.shape[0]
+        self.plan = tuned_plan("scdn_batch", scdn_batch_plan,
+                               (int(P), K, Q, s), (int(P), K, Q, s),
+                               col_vals.dtype, col_rows.device, config)
         self.n = n
         self.col_rows, self.col_vals, self.y, self.alphas = (
             col_rows, col_vals, y, alphas)
@@ -1159,8 +1346,8 @@ class ScdnDensePlan:
         return scdn_dense_smem_bytes(self.tile)
 
 
-@functools.lru_cache(maxsize=64)
-def scdn_dense_plan(P: int, s: int, Q: int, sms: int) -> ScdnDensePlan:
+def scdn_dense_plan(P: int, s: int, Q: int, sms: int,
+                    config: dict | None = None) -> ScdnDensePlan:
     """K5's dense batch launch plan on a card of `sms` SMs, or a ValueError
     naming the limit: a cluster of sms // P CTAs a coordinate (at least 1,
     at most SCDN_DENSE_MAX_CLUSTER), so that P clusters fill about one
@@ -1168,7 +1355,10 @@ def scdn_dense_plan(P: int, s: int, Q: int, sms: int) -> ScdnDensePlan:
     several in turn. The rows split evenly over a cluster's CTAs in slices
     of a multiple of 4; a slice whose four staged arrays fit in
     SCDN_DENSE_SMEM_BUDGET is resident, else it streams in tiles of
-    SCDN_DENSE_TILE_ROWS rows."""
+    SCDN_DENSE_TILE_ROWS rows. `config` (the tuner's `scdn_dense_batch`
+    knobs): `cluster` 1 to SCDN_DENSE_MAX_CLUSTER CTAs a coordinate and
+    `clusters` 1 to P (coordinates a cluster follow; clusters need not be
+    co-resident: the update is a launch of its own)."""
     if min(P, s) < 1:
         raise ValueError(f"scdn_dense_batch: empty batch or design P={P} "
                          f"s={s} (each must be >= 1)")
@@ -1180,8 +1370,12 @@ def scdn_dense_plan(P: int, s: int, Q: int, sms: int) -> ScdnDensePlan:
                          f"must be below 2**31 (int32 rows and slots)")
     if sms < 1:
         raise ValueError(f"scdn_dense_batch: a card of {sms} SMs")
-    cluster = max(1, min(SCDN_DENSE_MAX_CLUSTER, sms // P))
-    clusters = min(P, max(1, sms // cluster))
+    knobs = _knobs("scdn_dense_batch", config)
+    cluster = _int_knob("scdn_dense_batch", knobs, "cluster",
+                        max(1, min(SCDN_DENSE_MAX_CLUSTER, sms // P)), 1,
+                        SCDN_DENSE_MAX_CLUSTER)
+    clusters = _int_knob("scdn_dense_batch", knobs, "clusters",
+                         min(P, max(1, sms // cluster)), 1, P)
     sl = 4 * -(-s // (4 * cluster))
     resident = scdn_dense_smem_bytes(sl) <= SCDN_DENSE_SMEM_BUDGET
     return ScdnDensePlan(P=P, s=s, Q=Q, cluster=cluster, clusters=clusters,
@@ -1209,13 +1403,15 @@ class ScdnDenseBatchLaunch(_ScdnLaunch):
     launch plan, the arguments (packed once here) and the (P,) steps the
     batch launch hands the update launch; `scdn_dense_batch(launch, w, z,
     idx, alpha)` runs a batch. On the CPU the plan is made for one SM:
-    its refusals hold, its layout is not used."""
+    its refusals hold, its layout is not used. The plan is `config`'s
+    (`scdn_dense_plan`), else the tuner's."""
 
     name = "scdn_dense_batch"
 
     def __init__(self, XT: Tensor, y: Tensor, alphas: Tensor, c, P: int, *,
                  kind: str = "logistic", l2: float = 0.0,
-                 sigma: float = 0.01, gamma: float = 0.0):
+                 sigma: float = 0.01, gamma: float = 0.0,
+                 config: dict | None = None):
         if kind not in _KINDS:
             raise KeyError(f"unknown loss {kind!r}")
         if XT.dtype != torch.float32:
@@ -1230,7 +1426,10 @@ class ScdnDenseBatchLaunch(_ScdnLaunch):
         self.device = XT.device
         self.on_cpu = _on_cpu(XT, y, alphas)
         sms = 1 if self.on_cpu else _sm_count(self.device)
-        self.plan = scdn_dense_plan(int(P), s, alphas.shape[0], sms)
+        Q = alphas.shape[0]
+        self.plan = tuned_plan("scdn_dense_batch", scdn_dense_plan,
+                               (int(P), s, Q, sms), (int(P), s, Q),
+                               XT.dtype, XT.device, config)
         if self.on_cpu:
             return
         p = self.plan

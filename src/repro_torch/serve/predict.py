@@ -33,11 +33,12 @@ Dense-layout ROUTING: the union-gather scorer loses to a plain densified
 matmul at low weight sparsity / small batch. `margins_dense(...,
 route=...)` offers "sparse" (union-gather), "dense" (densified (K, n)
 matmul, built lazily and cached on the bank) and "auto", which picks per
-call from a crossover table (sparsity x batch). The table is
-`DEFAULT_ROUTE_CROSSOVER`, copied from the JAX package, whose numbers were
-measured on a CPU; the card's own table is still to be measured, and
-`set_route_crossover` pins another one. The JAX package reads its table
-from BENCH_serve.json; the port does not.
+call from a crossover table (sparsity x batch): the `route_crossover` of
+the committed H100 run of `benchmarks/port/bench_serve.py`
+(benchmarks/port/results/BENCH_serve_h100.json, read once; smoke runs are
+skipped), `DEFAULT_ROUTE_CROSSOVER` (the same table) where the file is
+missing or unreadable; `set_route_crossover` pins another one. The JAX
+package reads its CPU table from BENCH_serve.json the same way.
 
 Capacity-padded banks: `a_cap`/`u_cap` pad both layouts to fixed widths
 beyond the current models' needs, so the serving loop's hot-swap can copy
@@ -54,7 +55,9 @@ and `serve.loop` checks that instead.
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -246,32 +249,62 @@ def _csc_union(col_rows: Tensor, col_vals: Tensor, union_idx: Tensor,
 
 # -- dense-layout route selection ---------------------------------------------
 
-# The JAX package's measured crossover (a CPU, K=16, n=32768): union-gather
-# wins from B>=256 at 0.99 sparsity and from B>=64 at 0.999; never below
-# 0.99. min_batch_sparse=None means dense always. Not yet measured on the
-# card.
+# Fallback when the committed BENCH_serve_h100.json is missing or
+# unreadable: its measured full-run crossover (benchmarks/port/
+# bench_serve.py on one NVIDIA H100 80GB HBM3 at 700 W; K=16, n=32768,
+# the union gather against the densified torch.matmul, host wall a call
+# of calls queued back to back). min_batch_sparse=None means dense
+# always.
 DEFAULT_ROUTE_CROSSOVER = (
     {"sparsity": 0.9, "min_batch_sparse": None},
-    {"sparsity": 0.99, "min_batch_sparse": 256},
-    {"sparsity": 0.999, "min_batch_sparse": 64},
+    {"sparsity": 0.99, "min_batch_sparse": 1024},
+    {"sparsity": 0.999, "min_batch_sparse": 512},
 )
 
 _route_lock = threading.Lock()
 _route_crossover: Optional[tuple] = None
 
 
+def bench_serve_path() -> Path:
+    """The committed H100 serving benchmark whose `route_crossover`
+    `--route auto` reads."""
+    return Path(__file__).resolve().parents[3] / "benchmarks" / "port" / \
+        "results" / "BENCH_serve_h100.json"
+
+
+def _load_crossover(path: Path) -> Optional[tuple]:
+    """The `route_crossover` of a full (not smoke) run's file, or None
+    when the file is missing, unreadable, a smoke run's or malformed."""
+    try:
+        payload = json.loads(path.read_text())
+        if payload.get("smoke") is not False:
+            return None
+        return tuple(
+            {"sparsity": float(e["sparsity"]),
+             "min_batch_sparse": (None if e.get("min_batch_sparse") is None
+                                  else int(e["min_batch_sparse"]))}
+            for e in payload["route_crossover"]) or None
+    except (OSError, ValueError, KeyError, TypeError, AttributeError):
+        return None
+
+
 def route_crossover() -> tuple:
-    """The dense-vs-union-gather crossover table in force:
-    DEFAULT_ROUTE_CROSSOVER unless `set_route_crossover` pinned another."""
+    """The dense-vs-union-gather crossover table in force: the one
+    `set_route_crossover` pinned, else the committed H100 table, loaded
+    once from `bench_serve_path()` with DEFAULT_ROUTE_CROSSOVER as the
+    fallback."""
+    global _route_crossover
     with _route_lock:
         if _route_crossover is None:
-            return DEFAULT_ROUTE_CROSSOVER
+            _route_crossover = _load_crossover(bench_serve_path()) or \
+                DEFAULT_ROUTE_CROSSOVER
         return _route_crossover
 
 
 def set_route_crossover(entries) -> None:
-    """Pin the crossover table (None restores the default) -- tests and
-    benchmarks pin it to make routing deterministic."""
+    """Pin the crossover table (None: the committed table again, reloaded
+    at the next use) -- tests and benchmarks pin it to make routing
+    deterministic."""
     global _route_crossover
     with _route_lock:
         _route_crossover = None if entries is None else tuple(entries)

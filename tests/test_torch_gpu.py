@@ -1239,3 +1239,55 @@ def test_bundle_kernel_is_bit_equal_across_calls(cuda, P, K, s, n):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# -- tuned launch plans (kernels.autotune) ------------------------------------
+# non-default configs within each kernel's limits at bench_kernels' smoke
+# cells, each against the plain version at the kernels phase's limits
+
+TUNED_CONFIGS = [
+    ("pcdn_bundle", {"cluster": 1, "nseg": 1}),
+    ("pcdn_bundle", {"cluster": 3, "nseg": 16}),
+    ("pcdn_bundle", {"cluster": 8, "nseg": 2}),
+    ("pcdn_sparse_direction", {"warps": 1}),
+    ("pcdn_sparse_direction", {"warps": 2}),
+    ("pcdn_direction", {"cc": 8}),
+    ("pcdn_direction", {"cc": 64, "resident": False, "tile": 512}),
+    ("pcdn_direction", {"resident": False}),
+    ("serve_margins_dense", {"width": 64}),
+    ("serve_margins_dense", {"width": 1536}),
+    ("serve_margins_csc", {"cluster": 1}),
+    ("serve_margins_csc", {"cluster": 5}),
+    ("pcdn_linesearch", {"blocks": 1}),
+    ("pcdn_linesearch", {"blocks": 4}),
+    ("scdn_batch", {"cluster": 1}),
+    ("scdn_batch", {"cluster": 3}),
+    ("scdn_dense_batch", {"cluster": 1, "clusters": 8}),
+    ("scdn_dense_batch", {"cluster": 8, "clusters": 16}),
+]
+
+
+@pytest.fixture(scope="module")
+def tuned_cells():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only on "
+                    "the card)")
+    import sys
+    from pathlib import Path
+    bench = str(Path(__file__).resolve().parents[1] / "benchmarks" / "port")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import bench_kernels as bk
+    cells = bk.make_cells(torch, bk.build_data(smoke=True), smoke=True,
+                          dtypes=("float32",))
+    return {c.kernel: c for c in cells}
+
+
+@pytest.mark.parametrize("kernel,config", TUNED_CONFIGS,
+                         ids=[f"{k}-{c}" for k, c in TUNED_CONFIGS])
+def test_tuned_plan_agrees_with_plain_version(tuned_cells, kernel, config):
+    cell = tuned_cells[kernel]
+    cell.runner(config)()            # the plan is legal at this shape
+    torch.cuda.synchronize()
+    res = cell.agree(config)
+    assert res["ok"], res

@@ -8,7 +8,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "benchmarks" / "port").glob("*.py"))
 
 
 def _imported_modules(path: Path):
@@ -106,6 +107,15 @@ def test_scan_covers_diag_and_fault():
         "diag/report", "fault/__init__", "fault/atomic",
         "fault/checkpoint", "fault/inject", "fault/resilient")}
     assert want <= paths, want - paths
+
+
+def test_scan_covers_the_port_benchmarks():
+    paths = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    want = {f"benchmarks/port/{m}.py" for m in (
+        "bench_kernels", "bench_serve", "hillclimb", "work",
+        "fixed_order_ab", "scdn_dense_ab", "safep_convergence")}
+    assert want <= paths, want - paths
+    assert "src/repro_torch/kernels/autotune.py" in paths
 
 
 def test_scan_covers_the_sharded_backend():

@@ -255,7 +255,10 @@ def test_pick_route_agrees_with_reference_when_pinned(table):
     finally:
         jpredict.set_route_crossover(None)
         tpredict.set_route_crossover(None)
-    assert tpredict.route_crossover() == tpredict.DEFAULT_ROUTE_CROSSOVER
+    # unpinned: the committed H100 run's table
+    committed = json.loads(tpredict.bench_serve_path().read_text())
+    assert committed["smoke"] is False
+    assert list(tpredict.route_crossover()) == committed["route_crossover"]
 
 
 def test_route_auto_matches_a_fixed_route():
