@@ -170,3 +170,25 @@ def csc_margins_work(torch, rows, idx, n: int, B: int) -> tuple:
     nnz_u = col_nnz[torch.unique(live_idx)]
     need = int((4 * torch.clamp(nnz_u + 1, max=k_max) + 4 * nnz_u).sum())
     return need + K * A * 8 + B * K * 4, 2 * int(col_nnz[live_idx].sum())
+
+
+def attention_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """(query, key) pairs the mask lets through, per head."""
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)          # rows i < Skv see i + 1 keys, later rows Skv
+    return n * (n + 1) // 2 + max(Sq - Skv, 0) * Skv
+
+
+def flash_bwd_work(q, k, causal: bool) -> tuple:
+    """K6b (`ops.flash_attention_bwd`) in the model's layout, q (B, Sq, H,
+    D) with k/v (B, Skv, Kv, D): bytes q, k, v, out, do and the (B, H, Sq)
+    float32 lse read once, dq, dk, dv written once; operations the five
+    products of the flash backward (S = Q K^T, dP = dO V^T, dV = P^T dO,
+    dQ = dS K, dK = dS^T Q), 2 D flops each for every (query, key) pair
+    the mask lets through, on every query head."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
+        4 * B * H * Sq
+    return nbytes, 5 * 2 * D * attention_pairs(Sq, Skv, causal) * B * H

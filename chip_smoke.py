@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases tune      # build + the autotuner
     python3 chip_smoke.py --phases serve     # build + the serving path
     python3 chip_smoke.py --phases lm        # build + the LM serving path
+    python3 chip_smoke.py --phases train     # build + LM training
     python3 chip_smoke.py --phases path      # build + the regularization path
     python3 chip_smoke.py --phases fault     # build + diagnostics, faults
     python3 chip_smoke.py --phases sharded   # build + the sharded backend
@@ -13,7 +14,7 @@
 
 Phases:
   0. device   -- the card's name, count, power limit (nvidia-smi).
-  1. build    -- nvcc builds the nine kernel sources from kernels/csrc
+  1. build    -- nvcc builds the ten kernel sources from kernels/csrc
                  (sm_90a); always runs.
   2. kernels  -- K1 pcdn_bundle (the whole support step of a real-sim
                  bundle, from one carry cloned twice, and the same bundle
@@ -49,7 +50,12 @@ Phases:
                  f32); errors, kernel, plain and library times (CUDA
                  events), the bound, K6's TFLOP/s and share of it, its
                  mma variant's time at the prefill shape and the host time
-                 of its tensor-map encodes.
+                 of its tensor-map encodes; K6b flash_attention_bwd
+                 (from K6's out and lse, each variant's lse held to the
+                 plain version's) at the train phase's shape in bf16 and
+                 float32, ragged, at D 128 and 256, per row, two calls
+                 bit-equal, planted faults as controls, timed with its
+                 bound, the plain version and the library's backward.
   3. tune     -- the autotuner (`kernels.autotune`) at benchmarks/port/
                  bench_kernels.py's full cells (the shapes above; K1-K3
                  also in bf16): every key tuned into a cache of the run's
@@ -184,6 +190,17 @@ Phases:
                  with the readings of faults planted in the plain version
                  beside them, and one prefill and one decode step traced
                  in a child process (`--lm-profile`).
+  16. train   -- LM training, qwen2-0.5b at full width, batch 4 x 4096
+                 tokens: `python -m repro_torch.launch.train --full --lr
+                 3e-4` for 20 steps in a child process (finite, falling
+                 loss; K6 2 x 24 launches a step with remat, K6b 24; step
+                 wall, tokens/s, peak memory); the same run with a crash
+                 injected at step 7 and checkpoints every 5: restored at
+                 5, its replayed losses bit-equal to the uninterrupted
+                 run's; one train step through K6/K6b against the plain
+                 route from shared carries, float32 and bf16 (two seeds),
+                 with a fault planted in the plain backward as a control;
+                 one step traced in a child process (`--train-profile`).
 
 Each solve phase sets the launch counts to 0, solves with the kernels,
 reads the counts, then solves again with the plain versions from the same
@@ -218,7 +235,7 @@ SRC = ROOT / "src"
 DEVICE = "cuda"
 PHASES = ("build", "kernels", "tune", "support", "full", "dense", "scdn",
           "tron", "bf16", "cli", "serve", "path", "fault", "sharded",
-          "lm")  # in order
+          "lm", "train")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -298,6 +315,10 @@ SOURCES = {
                    "src/repro/kernels/pcdn_linesearch.py:62"),
     "scdn_dense_batch": ("src/repro_torch/kernels/csrc/scdn_dense_batch.cu",
                          "src/repro/kernels/pcdn_linesearch.py:62"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:258 (no Pallas kernel: the "
+        "reference's flash backward _flash_mha_bwd)"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
     # the sharded backend's entries: K3's and K2's shard-local partials
@@ -461,6 +482,55 @@ LM_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # softmax's normaliser (one lane of the quad that shares a row in K6's
 # bf16 kernel), p rounded to fp8 e4m3 before p v (a precision control)
 FLASH_FAULTS = ("tile", "quad", "fp8 p")
+# K6b against its plain version on the same (q, k, v, out, lse, do): dq,
+# dk, dv per row (`bwd_row_rel_err`: the row's max abs error over the
+# larger of its own and the median row's max |plain|). Both compute in
+# float32 from the same inputs: f32 sums in another order; bf16 adds the
+# output's rounding, one ulp (2^-7 of the value at most) where the two
+# roundings fall apart: the limits are K6's
+BWD_RTOL = FLASH_RTOL
+# K6's lse (m + log l, natural units) against the plain version's
+# logsumexp: the bf16 variants keep m in base 2 and sum 2^x on the
+# special-function unit (relative error ~2^-22 a term): 1e-4 absolute on
+# values of ~10
+LSE_ATOL = 1e-4
+# planted in the plain backward, held by BWD_RTOL: one key tile (keys
+# 64-127) dropped from dk, the delta term left out of ds
+BWD_FAULTS = ("key tile", "delta")
+
+# the train phase: qwen2-0.5b at its published width, batch 4 x 4096
+# tokens (the lm phase's prefill shape: K6 and K6b in every layer),
+# TRAIN_STEPS steps of `launch.train`, a crash at TRAIN_CRASH_AT with a
+# checkpoint every TRAIN_CKPT_EVERY steps
+TRAIN_BATCH = 4
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 20
+TRAIN_CRASH_AT = 7
+TRAIN_CKPT_EVERY = 5
+# the rate of the CLI runs and of the lockstep. launch.train's default,
+# 3e-3 (the reference's, set for the reduced configs), makes the
+# published width's loss climb for its first 10 steps (12.108 -> 12.58 at
+# step 10, 12.24 at 19); at 3e-4 the last 5 steps' mean sits below the
+# first step's loss (PERF.md, PR 24)
+TRAIN_LR = 3e-4
+TRAIN_SEED = 0
+TRAIN_GATE_SEEDS = (0, 1)  # bf16 weights and batches the lockstep reads
+# one train step through the kernels against the plain route from a
+# shared carry (`train_readings`): loss and grad_norm relative, "update"
+# ||new_kernel - new_plain|| / ||new_plain - carry|| over all parameters.
+# float32: f32 sums in another order through 24 layers and Adam's
+# division by sqrt(v); bf16: K6 rounds p to bf16 before p v and both
+# routes round every layer's output to bf16, so the gradients part by
+# ~1e-3 and Adam's normalised step by more where a gradient is small
+# against that. On an H100 at lr 3e-4 (PR 24) the kernel route read loss
+# 0, grad_norm 9.5e-8, update 1.6e-5 in float32 and at most 6.3e-6,
+# 5.0e-4, 8.9e-2 in bf16 over TRAIN_GATE_SEEDS; the delta fault in the
+# plain backward grad_norm 0.55 and update 0.50 / 0.54 (the loss, a
+# forward reading, does not see it): the limits sit between
+TRAIN_RTOL = {"float32": {"loss": 1e-6, "grad_norm": 1e-5, "update": 1e-3},
+              "bfloat16": {"loss": 1e-4, "grad_norm": 2e-2,
+                           "update": 0.25}}
+TRAIN_FAULTS = ("delta",)
 
 
 def log(msg: str) -> None:
@@ -854,6 +924,7 @@ def phase_kernels(torch, data, serve, card: str) -> dict:
     out["pcdn_linesearch"]["one_row"] = serve_out.pop("pcdn_linesearch row")
     out.update(serve_out)
     out.update(flash_kernel_checks(torch, flush))
+    out.update(flash_bwd_checks(torch, flush))
     for name, r in out.items():
         enq = (f", the wrapper's enqueue {r['enqueue_us']:.2f} us"
                if "enqueue_us" in r else "")
@@ -1680,15 +1751,6 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
     return out
 
 
-def flash_pairs(Sq: int, Skv: int, causal: bool) -> int:
-    """(query, key) pairs the mask lets through, per head: what the
-    attention's work depends on."""
-    if not causal:
-        return Sq * Skv
-    n = min(Sq, Skv)          # rows i < Skv see i + 1 keys, later rows Skv
-    return n * (n + 1) // 2 + max(Sq - Skv, 0) * Skv
-
-
 def flash_fault(torch, q, k, v, causal=True, sm_scale=None, *, fault):
     """The plain version (model layout) with one of FLASH_FAULTS planted:
     what the gates read for a wrong kernel."""
@@ -1720,7 +1782,8 @@ def flash_work(q, k, causal: bool) -> tuple[float, float]:
     Sq, Skv = q.shape[1], k.shape[1]
     heads = q.numel() // (Sq * D)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return nbytes, 4 * D * flash_pairs(Sq, Skv, causal) * heads
+    return nbytes, 4 * D * _port_bench("work").attention_pairs(
+        Sq, Skv, causal) * heads
 
 
 def flash_rate(torch, q, k, causal: bool, ms: float) -> str:
@@ -1848,6 +1911,175 @@ def flash_kernel_checks(torch, flush) -> dict:
     check("float32 gemma-7b heads, Sq != Skv", *inputs(
         (1, 1000, 16, 256), (1, 1500, 16, 256), torch.float32), False)
     return out
+
+
+def bwd_row_rel_err(torch, got, want) -> tuple[float, float]:
+    """(max abs error, the largest over rows (all dims but the last) of
+    the row's max abs error over the larger of its own max |want| and the
+    median row's). A gradient row can cancel to near zero (dq of query 0
+    is ds_00 k_0 with ds_00 = p_00 (dp_00 - delta_0) ~ 0: its terms are
+    a typical row's size, its value their rounding): the median row's
+    size is then the scale its error is read against."""
+    err = torch.abs(got.float() - want.float()).amax(dim=-1)
+    row = torch.abs(want.float()).amax(dim=-1)
+    scale = torch.maximum(row, row.median()).clamp_min(1e-30)
+    return float(err.max()), float((err / scale).max())
+
+
+def flash_bwd_fault(torch, q, k, v, out, lse, do, causal=True,
+                    sm_scale=None, *, fault):
+    """The plain backward (model layout) with one of BWD_FAULTS planted:
+    what the K6b gate reads for a wrong kernel."""
+    from repro_torch.kernels import ref
+    if fault == "key tile":
+        dq, dk, dv = ref.attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                           sm_scale)
+        dk[:, 64:128] = 0
+        return dq, dk, dv
+    # "delta": ds = p dp, the delta_i term left out
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    scale = D ** -0.5 if sm_scale is None else sm_scale
+    qf = q.float().reshape(B, Sq, Kv, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
+    p = torch.exp(s - lse.float().reshape(B, Kv, G, Sq)[..., None])
+    if causal:
+        ok = torch.arange(Sq, device=q.device)[:, None] >= \
+            torch.arange(Skv, device=q.device)[None, :]
+        p = torch.where(ok, p, 0.0)
+    del s
+    dof = do.float().reshape(B, Sq, Kv, G, D)
+    ds = p * torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_bwd_checks(torch, flush) -> dict:
+    """K6b against its plain version (`ref.attention_bwd_ref`) on the same
+    (q, k, v, out, lse, do), out and lse from K6's forward (whose lse is
+    held first to the plain version's, LSE_ATOL): at the train phase's
+    shape (qwen2-0.5b, B 4 x S 4096, 14 heads over 2, D 64) in bf16 and
+    float32, ragged (S 4000), at D 128 (yi-6b's heads) and D 256
+    (gemma-7b's; float32 with Sq != Skv, non-causal). dq, dk, dv per row
+    (`bwd_row_rel_err`, BWD_RTOL); two calls bit-equal; the planted
+    BWD_FAULTS read at the train shape. Timed at the train shape in bf16
+    (L2-cold and warm), with its bound (`work.flash_bwd_work`), the plain
+    version and the library's backward (scaled_dot_product_attention,
+    timed only)."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(q_shape, kv_shape, dtype):
+        return [torch.randn(s, generator=gen, device=dev).to(dtype)
+                for s in (q_shape, kv_shape, kv_shape, q_shape)]
+
+    def case(label, q, k, v, do, causal, faults=()):
+        dtype = str(q.dtype).removeprefix("torch.")
+        tol = BWD_RTOL[dtype]
+        before = ops.flash_variant_counts()
+        with torch.no_grad():
+            out, lse = ops._flash_forward(q, k, v, causal, None, None, True)
+        ran = [n for n, c in ops.flash_variant_counts().items()
+               if c != before[n]]
+        _, lse_ref = ref.attention_ref(q, k, v, causal=causal,
+                                       return_lse=True)
+        e_lse = float(torch.max(torch.abs(lse - lse_ref)))
+        del lse_ref
+        n0 = ops.launch_counts()["flash_attention_bwd"]
+        got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        again = ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                        causal=causal)
+        want = ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        errs = [bwd_row_rel_err(torch, a, b) for a, b in zip(got, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        n = ops.launch_counts()["flash_attention_bwd"] - n0
+        del again
+        log(f"[kernels] flash_attention_bwd {label} q {tuple(q.shape)} k/v "
+            f"{tuple(k.shape)} {dtype} "
+            f"{'causal' if causal else 'non-causal'} (out, lse from K6 "
+            f"{'/'.join(ran)}: lse err {e_lse:.2e}, limit {LSE_ATOL}): "
+            + ", ".join(f"{nm} err {e[0]:.3e} (row rel {e[1]:.2e})"
+                        for nm, e in zip(("dq", "dk", "dv"), errs))
+            + f"; tolerance row rel {tol}; two calls bit-equal {same}; "
+            f"launches {n}")
+        assert e_lse <= LSE_ATOL, (label, e_lse)
+        assert all(e[1] <= tol for e in errs), (label, errs)
+        assert same and n == 2, (label, same, n)
+        for fault in faults:
+            bad = flash_bwd_fault(torch, q, k, v, out, lse, do, causal,
+                                  fault=fault)
+            r = max(bwd_row_rel_err(torch, a, b)[1]
+                    for a, b in zip(bad, want))
+            del bad
+            log(f"[kernels] flash_attention_bwd control, plain version "
+                f"with {fault!r} planted: row rel {r:.2e} (limit {tol})")
+            assert r > tol, (fault, r)
+        return max(e[0] for e in errs), out, lse
+
+    H, Kv, D = 14, 2, 64          # qwen2-0.5b
+    shape_q = (TRAIN_BATCH, TRAIN_SEQ, H, D)
+    shape_kv = (TRAIN_BATCH, TRAIN_SEQ, Kv, D)
+    q, k, v, do = inputs(shape_q, shape_kv, torch.bfloat16)
+    err, out, lse = case(f"{LM_ARCH} train", q, k, v, do, True, BWD_FAULTS)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def kernel():
+        return ops.flash_attention_bwd(q, k, v, out, lse, do)
+
+    def plain():
+        return ref.attention_bwd_ref(q, k, v, out, lse, do)
+
+    # the library's backward: heads first, contiguous, GQA inside
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    r = dict(max_abs_err=err, ms=device_ms(torch, kernel, 10, flush),
+             warm_ms=device_ms(torch, kernel, 10),
+             host_ms=host_ms(torch, kernel, 10),
+             plain_ms=device_ms(torch, plain, 3, flush),
+             plain_host_ms=host_ms(torch, plain, 3),
+             bound=bound(*_port_bench("work").flash_bwd_work(q, k, True),
+                         BF16_TENSOR_OPS_PER_S),
+             library_ms=device_ms(torch, library, 10, flush))
+    nbytes, nops = _port_bench("work").flash_bwd_work(q, k, True)
+    log(f"[kernels] flash_attention_bwd {LM_ARCH} train, L2-cold: "
+        f"{r['ms'] * 1e3:.2f} us ({nops / (r['ms'] * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s of the five products, {r['bound'][0] / r['ms']:.4f} of "
+        f"its bound {r['bound'][0] * 1e3:.1f} us); library (SDPA backward) "
+        f"{r['library_ms'] * 1e3:.2f} us; plain {r['plain_ms'] * 1e3:.2f} "
+        f"us; {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP")
+    del q, k, v, do, out, lse, qt, kt, vt, ot, dot
+    gc.collect()
+    torch.cuda.empty_cache()
+    case(f"{LM_ARCH} train float32", *inputs(shape_q, shape_kv,
+                                              torch.float32), True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    case("ragged", *inputs((1, 4000, H, D), (1, 4000, Kv, D),
+                           torch.bfloat16), True)
+    case("yi-6b heads (D 128)", *inputs((1, 2048, 32, 128), (1, 2048, 4, 128),
+                                        torch.bfloat16), True)
+    case("gemma-7b heads (D 256)", *inputs(
+        (1, 2048, 16, 256), (1, 2048, 16, 256), torch.bfloat16), True)
+    case("float32 D 256, Sq != Skv", *inputs(
+        (1, 1000, 16, 256), (1, 1500, 16, 256), torch.float32), False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": r}
 
 
 def lm_model(torch, dtype: str, seed: int = LM_SEED):
@@ -2034,6 +2266,281 @@ def lm_profile() -> dict:
                      "busy_ms": busy * 1e3,
                      "top": [(k, c, t * 1e6) for k, c, t in top if t > 0]}
     return out
+
+
+def _train_parts(torch, dtype: str, seed: int):
+    """The train phase's model (qwen2-0.5b at full width in `dtype`,
+    random weights from `seed`, on the card), its train step (AdamW as
+    `launch.train` configures it, at the constant rate TRAIN_LR: under
+    warmup the first step's rate is 0) and its batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.decls import init_params
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config(LM_ARCH).replace(dtype=dtype)
+    model = Model(cfg, DEVICE)
+    init_params(model, torch.Generator(device=DEVICE).manual_seed(seed))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.01)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device=DEVICE)
+                for k, v in pipe.batch_at(i).items()}
+
+    return model, make_train_step(model, opt_cfg), opt_cfg, batch
+
+
+def train_readings(torch, base, a, b) -> dict:
+    """Route a against route b from the shared params `base`: {"loss",
+    "grad_norm"} relative differences; "update", ||new_a - new_b|| /
+    ||new_b - base|| over all parameters together (2-norms in float32);
+    and, not gated, the largest such ratio of a single parameter
+    ("param_update", "param"). A parameter whose true gradient is zero
+    makes that one noise: a bias of k (q . (k_j + b) shifts every score of
+    a row alike, and the softmax does not see it) gets Adam's normalised
+    step of its rounding noise, which differs between any two routes."""
+    (pa, ma), (pb, mb) = a, b
+    out = {k: abs(float(ma[k]) - float(mb[k])) / abs(float(mb[k]))
+           for k in ("loss", "grad_norm")}
+    diff = step = 0.0
+    worst, name = 0.0, None
+    for k, p0 in base.items():
+        d = float(torch.linalg.vector_norm(pa[k].float() - pb[k].float()))
+        s = float(torch.linalg.vector_norm(pb[k].float() - p0.float()))
+        diff += d * d
+        step += s * s
+        if s > 0 and d / s > worst:
+            worst, name = d / s, k
+    out["update"] = (diff / step) ** 0.5
+    out["param_update"], out["param"] = worst, name
+    return out
+
+
+def train_lockstep(torch, dtype: str, seed: int, faults=()) -> list:
+    """One train step through the kernel route (K6 forward, K6b backward)
+    and one through the plain route (`use_kernels=False`: the plain
+    attention under torch's autograd), from one shared (params, AdamW
+    state, batch): the carry is the params and moments after one
+    kernel-route step from the seeded init, the batch the pipeline's
+    second. Then the plain route with each of `faults` planted in its
+    attention's backward (a Function: the plain forward, `flash_bwd_fault`
+    backward). -> [the kernel route's readings, then one a fault], each
+    against the plain route (`train_readings`)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim.adamw import adamw_init
+    model, step, opt_cfg, batch = _train_parts(torch, dtype, seed)
+    L = model.cfg.n_layers
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    params, opt, _ = step(params, adamw_init(params, opt_cfg), batch(0))
+    b1 = batch(1)
+    res = {}
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        ops.reset_launch_counts()
+        new, _, met = step(params, opt, b1)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        assert (n["flash_attention"], n["flash_attention_bwd"]) == \
+            ((2 * L, L) if use_kernels else (0, 0)), (use_kernels, n)
+        res[use_kernels] = (new, met)
+    readings = [train_readings(torch, params, res[True], res[False])]
+    plain_ref = ref.attention_ref
+    model.use_kernels = False
+    for fault in faults:
+        class Planted(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, causal, sm_scale):
+                out, lse = plain_ref(q, k, v, causal, sm_scale,
+                                     return_lse=True)
+                ctx.save_for_backward(q, k, v, out, lse)
+                ctx.args = (causal, sm_scale)
+                return out
+
+            @staticmethod
+            def backward(ctx, do, _fault=fault):
+                return (*flash_bwd_fault(torch, *ctx.saved_tensors, do,
+                                         *ctx.args, fault=_fault),
+                        None, None)
+
+        ref.attention_ref = lambda q, k, v, causal=True, sm_scale=None: \
+            Planted.apply(q, k, v, causal, sm_scale)
+        try:
+            new, _, met = step(params, opt, b1)
+        finally:
+            ref.attention_ref = plain_ref
+        readings.append(train_readings(torch, params, (new, met),
+                                       res[False]))
+        del new
+    r = readings[0]
+    log(f"[train] lockstep {dtype} seed {seed}: loss "
+        f"{float(res[True][1]['loss']):.6f} (kernel route) vs "
+        f"{float(res[False][1]['loss']):.6f} (plain route): rel "
+        f"{r['loss']:.2e}; grad_norm rel {r['grad_norm']:.2e}; update rel "
+        f"{r['update']:.2e} (one parameter's at most {r['param_update']:.2e}"
+        f", {r['param']})"
+        + "".join(f"; control {f!r} in the plain backward: loss "
+                  f"{x['loss']:.2e}, grad_norm {x['grad_norm']:.2e}, update "
+                  f"{x['update']:.2e} ({x['param_update']:.2e}, "
+                  f"{x['param']})"
+                  for f, x in zip(faults, readings[1:])))
+    del model, params, opt, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def _train_cli(args, env=None, timeout=900) -> dict:
+    """`python -m repro_torch.launch.train` in a child process -> its
+    `[train] result` dict."""
+    proc = _child(["repro_torch.launch.train", *args], env=env,
+                  timeout=timeout)
+    out = _finish("train CLI", proc)
+    for line in out.splitlines():
+        if line.startswith("step ") or line.startswith("[train] ") and \
+                not line.startswith("[train] result "):
+            log(f"[train]   {line}")
+    line = [x for x in out.splitlines()
+            if x.startswith("[train] result ")][-1]
+    return json.loads(line[len("[train] result "):])
+
+
+def phase_train(torch, card: str) -> dict:
+    """LM training on the card: (b) `launch.train --full` for TRAIN_STEPS
+    steps in a child process (loss finite and falling; K6 2 x 24 launches
+    a step, remat recomputing the forward; K6b 24), its step wall,
+    tokens/s and peak memory; (c) the same run with a crash injected at
+    TRAIN_CRASH_AT and checkpoints every TRAIN_CKPT_EVERY: it restores,
+    replays, and its losses from the restored step on equal (b)'s bit
+    for bit; (a) one train step through the kernels against the plain
+    route from shared carries, float32 and bf16, with a planted backward
+    fault as a control. One step is traced in a fresh process
+    (`--train-profile`) after (c). The children run first, while this
+    process holds little of the card's memory. -> the kernels' launches
+    in (b)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    L = cfg.n_layers
+    # the children need the card's memory: this process gives back its
+    # cached blocks first
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[train] this process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f}"
+        f" GiB of the card's; {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} "
+        f"GiB free")
+    args = ["--arch", LM_ARCH, "--full", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+            "--lr", str(TRAIN_LR), "--seed", str(TRAIN_SEED), "--device",
+            DEVICE]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                     dir=str(ROOT / "build")) as tmp:
+        t0 = time.perf_counter()
+        clean = _train_cli(args + ["--ckpt-dir", os.path.join(tmp, "a")])
+        wall = time.perf_counter() - t0
+        losses = clean["losses"]
+        n = clean["launches"]
+        first, last5 = losses[0], float(np.mean(losses[-5:]))
+        log(f"[train] launch.train {LM_ARCH} --full batch {TRAIN_BATCH} seq "
+            f"{TRAIN_SEQ} steps {TRAIN_STEPS} on {card}: loss {first:.4f} -> "
+            f"{losses[-1]:.4f} (mean of the last 5 {last5:.4f}); step wall "
+            f"{clean['step_wall_s'] * 1e3:.1f} ms (median after the first; "
+            f"first {clean['step_walls_s'][0]:.2f} s), "
+            f"{clean['tokens_per_s']:.0f} tokens/s; peak device memory "
+            f"{(clean['peak_bytes'] or 0) / 2 ** 30:.2f} GiB; flash_attention "
+            f"launches {n['flash_attention']} (expected {2 * L * TRAIN_STEPS}),"
+            f" flash_attention_bwd {n['flash_attention_bwd']} (expected "
+            f"{L * TRAIN_STEPS}); {wall:.1f} s with the process start")
+        assert np.all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS
+        assert last5 < first, (first, last5)
+        assert n["flash_attention"] == 2 * L * TRAIN_STEPS, n
+        assert n["flash_attention_bwd"] == L * TRAIN_STEPS, n
+        assert sum(n.values()) == 3 * L * TRAIN_STEPS, n
+
+        t0 = time.perf_counter()
+        crashed = _train_cli(
+            args + ["--ckpt-dir", os.path.join(tmp, "b"), "--ckpt-every",
+                    str(TRAIN_CKPT_EVERY)],
+            env={"REPRO_FAULT_PLAN": json.dumps(
+                {"crash_at_iter": TRAIN_CRASH_AT})})
+        wall = time.perf_counter() - t0
+    back = (TRAIN_CRASH_AT // TRAIN_CKPT_EVERY) * TRAIN_CKPT_EVERY
+    want_steps = list(range(TRAIN_CRASH_AT)) + list(range(back, TRAIN_STEPS))
+    replay = crashed["losses"][TRAIN_CRASH_AT:]
+    diff = [i + back for i, (a, b) in enumerate(zip(replay, losses[back:]))
+            if a != b]
+    log(f"[train] crash at step {TRAIN_CRASH_AT}, checkpoints every "
+        f"{TRAIN_CKPT_EVERY}: events {crashed['events']}, restored at "
+        f"{back}, steps run {crashed['loss_steps']}; the replayed losses "
+        f"(steps {back}-{TRAIN_STEPS - 1}) against the uninterrupted run's: "
+        f"{'bit-equal' if not diff else f'differ at steps {diff}'}; "
+        f"{wall:.1f} s with the process start")
+    assert crashed["events"] == ["crash", "restore"], crashed["events"]
+    assert crashed["loss_steps"] == want_steps, crashed["loss_steps"]
+    assert not diff, (diff, replay, losses[back:])
+
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-profile"],
+        capture_output=True, text=True, timeout=600)
+    assert child.returncode == 0, (child.returncode, child.stdout[-2000:],
+                                   child.stderr[-4000:])
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    if prof["busy_ms"] > 0:
+        log(f"[train] one step traced by torch.profiler in a fresh process: "
+            f"{prof['traced_ms']:.1f} ms wall traced ({prof['wall_ms']:.1f} "
+            f"untraced), device busy {prof['busy_ms']:.1f} ms (idle share "
+            f"{1 - prof['busy_ms'] / prof['traced_ms']:.4f}); top device "
+            f"ops:")
+        for key, calls, us in prof["top"]:
+            log(f"[train]   {us:12.1f} us  {calls:5d} calls  {key[:90]}")
+    else:
+        log(f"[train] one step: {prof['wall_ms']:.1f} ms wall; idle share "
+            f"not measured (the profiler saw no device time)")
+    for dtype, seeds in (("float32", (TRAIN_SEED,)),
+                         ("bfloat16", TRAIN_GATE_SEEDS)):
+        tol = TRAIN_RTOL[dtype]
+        kernel = []
+        for seed in seeds:
+            readings = train_lockstep(
+                torch, dtype, seed,
+                TRAIN_FAULTS if seed == seeds[0] else ())
+            kernel.append(readings[0])
+            for fault, x in zip(TRAIN_FAULTS, readings[1:]):
+                assert x["update"] > tol["update"], (dtype, fault, x)
+        worst = {k: max(r[k] for r in kernel) for k in tol}
+        log(f"[train] lockstep {dtype}: one parameter's update rel at most "
+            f"{max(r['param_update'] for r in kernel):.2e} (not gated)")
+        log(f"[train] lockstep {dtype}: the kernel route's largest rel over "
+            f"{len(seeds)} seed(s) {worst}, limits {tol}")
+        assert all(worst[k] <= tol[k] for k in tol), (dtype, worst, tol)
+
+    return {"flash_attention": n["flash_attention"],
+            "flash_attention_bwd": n["flash_attention_bwd"]}
+
+
+def train_profile() -> dict:
+    """One bf16 train step of the train phase (after two warm-up steps):
+    the untraced wall, then one traced step -> {"wall_ms", "traced_ms",
+    "busy_ms", "top"}. Run by the train phase in a child process
+    (`--train-profile`)."""
+    import torch
+    from repro_torch.optim.adamw import adamw_init
+    model, step, opt_cfg, batch = _train_parts(torch, "bfloat16", TRAIN_SEED)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    opt = adamw_init(params, opt_cfg)
+    b0 = batch(0)
+    for _ in range(2):
+        params, opt, _ = step(params, opt, b0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, opt, b0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, top, traced = device_profile(torch, lambda: step(params, opt, b0))
+    return {"wall_ms": wall * 1e3, "traced_ms": traced * 1e3,
+            "busy_ms": busy * 1e3,
+            "top": [(k, c, t * 1e6) for k, c, t in top if t > 0]}
 
 
 def phase_serve(torch, serve, card: str) -> dict:
@@ -3900,6 +4407,9 @@ def main(argv=None) -> int:
                     help="trace one LM prefill and decode step and print "
                          "their JSON line (the lm phase runs this in a "
                          "child process)")
+    ap.add_argument("--train-profile", action="store_true",
+                    help="trace one LM train step and print its JSON line "
+                         "(the train phase runs this in a child process)")
     ap.add_argument("--solve-profile", choices=tuple(SOLVES),
                     help="trace one outer iteration of a solve phase and "
                          "print its JSON line (the solve phases run this in "
@@ -3952,6 +4462,9 @@ def main(argv=None) -> int:
     if args.lm_profile:
         print(json.dumps(lm_profile()), flush=True)
         return 0
+    if args.train_profile:
+        print(json.dumps(train_profile()), flush=True)
+        return 0
     if args.solve_profile:
         print(json.dumps(solve_profile(args.solve_profile,
                                        record_aux=args.record_aux)),
@@ -3987,7 +4500,14 @@ def run_phases(torch, phases) -> int:
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
 
+    laps = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        laps.append(time.perf_counter())
+        log(f"[time] {name}: {laps[-1] - laps[-2]:.1f} s")
+
     phase_build()  # every later phase needs the kernels
+    lap("build")
     data = None
     if set(phases) & {"kernels", "tune", "support", "full", "dense", "scdn",
                       "tron", "bf16", "path", "fault", "sharded"}:
@@ -3998,29 +4518,38 @@ def run_phases(torch, phases) -> int:
         rows = serve_data()
     if set(phases) & {"kernels", "serve"}:
         serve = prepare_serve(torch, rows)
+    lap("data")
     kernels = {}
     if "kernels" in phases:
         kernels = phase_kernels(torch, data, serve, f"{card} ({smi})")
+        lap("kernels")
     if "tune" in phases:
         phase_tune(torch, data, rows, f"{card} ({smi})")
+        lap("tune")
     launches = {}
+    by_phase = {}      # kernel -> {phase: launches}, where several add up
     for name in SOLVES:
         if name in phases:
             kernel = SOLVES[name][5]
             launches[kernel] = run_solve(torch, name, data, N_OUTER,
                                          fused=name == "support")[kernel]
+            lap(name)
     if "scdn" in phases:
         launches.update(phase_scdn(torch, data, f"{card} ({smi})"))
+        lap("scdn")
     if "tron" in phases:
         phase_tron(torch, data, f"{card} ({smi})")
+        lap("tron")
     if "bf16" in phases:
         phase_bf16(torch, data, N_OUTER)
+        lap("bf16")
     if "cli" in phases:
         phase_cli(torch)
+        lap("cli")
     if "serve" in phases:
         launches.update(phase_serve(torch, serve, f"{card} ({smi})"))
+        lap("serve")
     if "path" in phases:
-        by_phase = {}
         for kernel, n in phase_path(torch, rows, data,
                                     f"{card} ({smi})").items():
             if n:
@@ -4028,13 +4557,24 @@ def run_phases(torch, phases) -> int:
                 if kernel in launches:
                     by_phase[kernel]["earlier phases"] = launches[kernel]
                 launches[kernel] = launches.get(kernel, 0) + n
+        lap("path")
     fault_launches = {}
     if "fault" in phases:
         fault_launches = phase_fault(torch, rows, data, f"{card} ({smi})")
+        lap("fault")
     if "sharded" in phases:
         launches.update(phase_sharded(torch, data, f"{card} ({smi})"))
+        lap("sharded")
     if "lm" in phases:
         launches.update(phase_lm(torch, f"{card} ({smi})"))
+        by_phase.setdefault("flash_attention", {})["lm"] = \
+            launches["flash_attention"]
+        lap("lm")
+    if "train" in phases:
+        for kernel, n in phase_train(torch, f"{card} ({smi})").items():
+            by_phase.setdefault(kernel, {})["train"] = n
+            launches[kernel] = launches.get(kernel, 0) + n
+        lap("train")
 
     if kernels:
         rows = []
@@ -4048,7 +4588,7 @@ def run_phases(torch, phases) -> int:
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
             if f"{name} variants" in launches:
                 row["launches_by_variant"] = launches[f"{name} variants"]
-            if "path" in phases and name in by_phase:
+            if name in by_phase:
                 row["launches_by_phase"] = by_phase[name]
             if name in fault_launches:
                 # a side field: the fault phase's launches are not part

@@ -4,9 +4,10 @@ Crash-safe checkpoint/resume for solves and path sweeps (the on-disk
 format is the reference's, so checkpoints cross between the packages),
 non-finite rollback with automatic P-backoff toward the certified safe
 bundle size, the deterministic fault-injection harness driven by the
-same `REPRO_FAULT_PLAN` variable, and the atomic writes the serve
-artifacts use. The reference's step-loop runner (`fault/runner.py`)
-drives the LM training step and is not ported with this package.
+same `REPRO_FAULT_PLAN` variable, the atomic writes the serve
+artifacts use, and the step-loop runner (`fault.runner`: checkpoints,
+crash recovery, straggler re-issue, elastic re-mesh) that drives LM
+training.
 """
 from repro_torch.fault.atomic import (atomic_write_bytes, atomic_write_json,
                                       atomic_write_text, fsync_dir)
@@ -17,6 +18,9 @@ from repro_torch.fault.inject import (CRASH_KINDS, ENV_VAR, NAN_TARGETS,
                                       corrupt_checkpoint, plan_from_env,
                                       wrap_outer)
 from repro_torch.fault.resilient import next_bundle_size, resilient_solve
+from repro_torch.fault.runner import (ElasticMeshProvider,
+                                      FaultTolerantRunner, RunnerConfig,
+                                      StepFailure)
 
 __all__ = [
     "atomic_write_bytes", "atomic_write_json", "atomic_write_text",
@@ -25,4 +29,6 @@ __all__ = [
     "CRASH_KINDS", "ENV_VAR", "NAN_TARGETS", "FaultPlan", "InjectedCrash",
     "corrupt_checkpoint", "plan_from_env", "wrap_outer",
     "next_bundle_size", "resilient_solve",
+    "ElasticMeshProvider", "FaultTolerantRunner", "RunnerConfig",
+    "StepFailure",
 ]

@@ -12,11 +12,18 @@ mesh, and its rank 0 writes them). Every file is fsynced, the step directory
 lands by an atomic rename, stale `.tmp_ckpt_` directories of crashed
 writers are removed, and the `keep` newest steps are kept.
 
-Trees are flat dicts of host arrays (the reference flattens pytrees with
-`jax.tree_util`; for a flat dict that is the sorted key order used here),
-so a checkpoint written by either package restores in the other:
+Trees are nested dicts (sorted keys), tuples, lists and NamedTuples, with
+None an empty subtree, flattened in `jax.tree_util`'s leaf order under
+the reference's `_flatten_with_names` names (a dict key, a sequence
+index, ".field" for a NamedTuple field, joined by "§"); a flat dict is
+its sorted keys. Leaves are tensors (bfloat16 kept as its 16 bits, the
+"|V2" entries the reference's bfloat16 leaves become in an .npz), numpy
+arrays or numbers. So a checkpoint written by either package restores in
+the other:
 
-* `CheckpointManager` -- the generic store.
+* `CheckpointManager` -- the generic store; `restore(like)` casts each
+  leaf to `like`'s dtype (and device, for tensors), as the reference's
+  does.
 * `SolveCheckpointer` -- the solver / sweep layer the engine and
   `path.driver.run_path` use. A snapshot holds exactly the reference's
   leaves: `w`, `z`, `active` (unpadded host arrays) and `key`, a (2,)
@@ -35,7 +42,7 @@ import json
 import os
 import shutil
 import tempfile
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,10 +59,109 @@ def _fsync_file(path: str) -> None:
         os.fsync(fh.fileno())
 
 
-def _treedef(names) -> str:
-    """The tree description the reference's manifest carries for a flat
-    dict (informational: restores never read it)."""
-    return "PyTreeDef({" + ", ".join(f"'{k}': *" for k in names) + "})"
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def _children(node):
+    """[(name part, child)] of an inner node, in `jax.tree_util`'s order;
+    None for a leaf."""
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
+    if isinstance(node, (tuple, list)):
+        return [(str(i), c) for i, c in enumerate(node)]
+    return None
+
+
+def flatten_with_names(tree) -> list:
+    """[(name, leaf)] in the reference's leaf order and names (its
+    `_flatten_with_names`); None holds no leaf."""
+    out = []
+
+    def walk(path, node):
+        if node is None:
+            return
+        kids = _children(node)
+        if kids is None:
+            out.append((_SEP.join(path) or "leaf", node))
+            return
+        for part, child in kids:
+            walk(path + (part,), child)
+
+    walk((), tree)
+    return out
+
+
+def unflatten_like(like, leaves: list):
+    """A tree of `like`'s structure holding `leaves` in leaf order."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        kids = _children(node)
+        if kids is None:
+            return next(it)
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        built = [build(c) for _, c in kids]
+        if _is_namedtuple(node):
+            return type(node)(*built)
+        return type(node)(built)
+
+    return build(like)
+
+
+def _treedef(tree) -> str:
+    """The tree description the reference's manifest carries
+    (`str(treedef)`; informational: restores never read it)."""
+    def desc(node):
+        if node is None:
+            return "None"
+        kids = _children(node)
+        if kids is None:
+            return "*"
+        if isinstance(node, dict):
+            return "{" + ", ".join(f"'{k}': {desc(c)}"
+                                   for k, c in kids) + "}"
+        inner = ", ".join(desc(c) for _, c in kids)
+        if _is_namedtuple(node):
+            return (f"CustomNode(namedtuple[{type(node).__name__}], "
+                    f"[{inner}])")
+        if isinstance(node, list):
+            return f"[{inner}]"
+        return f"({inner}{',' if len(kids) == 1 else ''})"
+    return f"PyTreeDef({desc(tree)})"
+
+
+def _to_host(leaf) -> np.ndarray:
+    """A leaf as the host array the .npz holds: bfloat16 tensors as their
+    16 bits ("|V2", as numpy saves the reference's bfloat16 leaves)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2"))
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def _from_host(arr: np.ndarray, like):
+    """A loaded array cast to `like`'s dtype (and device for a tensor);
+    "|V2" entries are bfloat16 bits."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = None
+    if isinstance(like, torch.Tensor):
+        if t is None:
+            t = torch.from_numpy(np.array(arr))
+        return t.to(device=like.device, dtype=like.dtype)
+    if t is not None:
+        arr = t.to(torch.float32).numpy()
+    dtype = getattr(like, "dtype", None)
+    return np.asarray(arr, dtype=dtype) if dtype is not None else arr
 
 
 class CheckpointManager:
@@ -65,18 +171,18 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree: dict, extra: Optional[dict] = None):
-        """Write `tree` (a flat {name: array} dict) as step `step`."""
-        names = sorted(tree)
-        arrays = {f"{i:05d}{_SEP}{name}": np.asarray(tree[name])
-                  for i, name in enumerate(names)}
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None):
+        """Write `tree` (see the module docstring) as step `step`."""
+        named = flatten_with_names(tree)
+        arrays = {f"{i:05d}{_SEP}{name}": _to_host(leaf)
+                  for i, (name, leaf) in enumerate(named)}
         tmp = tempfile.mkdtemp(dir=self.directory, prefix=".tmp_ckpt_")
         try:
             np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
             manifest = {
                 "step": int(step),
-                "treedef": _treedef(names),
-                "n_leaves": len(names),
+                "treedef": _treedef(tree),
+                "n_leaves": len(named),
                 "extra": extra or {},
             }
             with open(os.path.join(tmp, "manifest.json"), "w") as fh:
@@ -119,6 +225,25 @@ class CheckpointManager:
         with open(os.path.join(self._step_dir(step),
                                "manifest.json")) as fh:
             return json.load(fh)
+
+    def restore(self, like: Any,
+                step: Optional[int] = None) -> Tuple[int, Any]:
+        """-> (step, tree): the step's leaves (the latest committed step
+        by default) in `like`'s structure, each cast to its `like` leaf's
+        dtype, and placed on its device where that leaf is a tensor."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in "
+                                    f"{self.directory}")
+        likes = [leaf for _, leaf in flatten_with_names(like)]
+        with np.load(os.path.join(self._step_dir(step), "arrays.npz")) as d:
+            keys = sorted(d.files, key=lambda k: int(k.split(_SEP)[0]))
+            if len(keys) != len(likes):
+                raise ValueError(f"leaf count mismatch: {len(keys)} in "
+                                 f"step {step} vs {len(likes)} in `like`")
+            leaves = [_from_host(d[k], ref) for k, ref in zip(keys, likes)]
+        return step, unflatten_like(like, leaves)
 
     def load_raw(self, step: int) -> dict:
         """The step's leaves as a {name: host array} dict."""

@@ -89,6 +89,15 @@ class FaultPlan:
                 and self._once(("point", point_index))):
             self._crash(f"injected crash after path point {point_index}")
 
+    def fire_step(self, step: int, attempt: int = 0) -> None:
+        """Train-loop hook (`fault.runner.FaultTolerantRunner`'s
+        `inject_fault`): `delay_at_iter` and `crash_at_iter` count
+        training steps there."""
+        if self.delay_at_iter == step and self._once(("delay", step)):
+            time.sleep(self.delay_s)
+        if self.crash_at_iter == step and self._once(("crash", step)):
+            self._crash(f"injected crash at train step {step}")
+
     # -- outer-iteration wrapper ---------------------------------------------
     def poison(self, out: tuple) -> tuple:
         """Poison one engine 9(+)-tuple according to `nan_target`: NaNs

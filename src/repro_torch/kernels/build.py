@@ -30,7 +30,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
            "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch",
-           "scdn_batch", "scdn_dense_batch", "flash_attention")
+           "scdn_batch", "scdn_dense_batch", "flash_attention",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -108,13 +109,19 @@ SIGNATURES = {
         "scdn_dense_batch_f32": [_P, _P, _P, _P, _P],
         "scdn_dense_batch_smem_bytes": [_I],
     },
-    # q, k, v, o, B, H, G, Sq, Skv, D, causal, scale, 12 strides, stream;
-    # the host ns the last wgmma launch spent encoding its tensor maps
+    # q, k, v, o, lse (or null), B, H, G, Sq, Skv, D, causal, scale, 12
+    # strides, stream; the host ns the last wgmma launch spent encoding
+    # its tensor maps
     "flash_attention": {
-        **{f"flash_attention_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _I, _F, _L, _P]
+        **{f"flash_attention_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _F, _L, _P]
            for t in ("wgmma_bf16", "mma_bf16", "f32")},
         "flash_attention_encode_ns": []},
+    # q, k, v, o, dO, lse, delta scratch, dq, dk, dv, B, H, G, Sq, Skv, D,
+    # causal, scale, 24 strides, stream
+    "flash_attention_bwd": {
+        f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 7 + [_F, _L, _P]
+        for t in ("f32", "bf16")},
 }
 
 # zero-argument C functions returning a launch constant of the library:

@@ -34,6 +34,13 @@
 // exactly 0. The bf16 variants mask only the tiles that cross the
 // diagonal or the end of the keys.
 //
+// For the backward (K6b, flash_attention_bwd.cu) every variant writes,
+// when given a non-null `lse` (B, H, Sq) float32, each query row's
+// log-sum-exp of its scaled scores, m + log(max(l, 1e-30)) in natural
+// units, as `_flash_fwd_scan` returns it: the base-2 variants convert
+// their running max (m ln 2). A null `lse` writes nothing: inference pays
+// one predicated branch a row.
+//
 // Three variants, chosen by the dispatcher (kernels/ops.py) from the
 // dtype and D alone, each counted on its own:
 //   * wgmma (bf16, D 64 and 128): persistent, one block of 512 (D 64) or
@@ -87,12 +94,14 @@ constexpr int kBlockQ = 64;         // the mma and f32 variants' tiles
 constexpr int kBlockK = 64;
 constexpr float kNegInf = -1e30f;   // the running max's start, as in Pallas
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;                       // (B, H, Sq) or null
   int H, G, Sq, Skv, causal;
   float scale;
   long long q_sb, q_sh, q_ss;
@@ -700,8 +709,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row0 = sm.row0;
     const int row1 = row0 + 8;
     const int cq = sm.cq;
-    const float inv0 = 1.0f / fmaxf(quad_sum(sm.l0), 1e-30f);
-    const float inv1 = 1.0f / fmaxf(quad_sum(sm.l1), 1e-30f);
+    const float l0 = fmaxf(quad_sum(sm.l0), 1e-30f);
+    const float l1 = fmaxf(quad_sum(sm.l1), 1e-30f);
+    const float inv0 = 1.0f / l0;
+    const float inv1 = 1.0f / l1;
+    if (a.lse != nullptr && cq == 0) {
+      float* lrow = a.lse + (static_cast<long long>(w.b) * a.H + w.h) * a.Sq;
+      if (row0 < a.Sq) lrow[row0] = sm.m0 * kLn2 + logf(l0);
+      if (row1 < a.Sq) lrow[row1] = sm.m1 * kLn2 + logf(l1);
+    }
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + w.b * a.o_sb +
                         w.h * a.o_sh;
     if (row0 < a.Sq) {
@@ -948,10 +964,15 @@ flash_mma_kernel(const Args a) {
     __syncthreads();              // this stage is free for the next load
   }
 
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
+  l0 = fmaxf(quad_sum(l0), 1e-30f);
+  l1 = fmaxf(quad_sum(l1), 1e-30f);
+  const float inv0 = 1.0f / l0;
+  const float inv1 = 1.0f / l1;
+  if (a.lse != nullptr && t == 0) {
+    float* lrow = a.lse + static_cast<long long>(blockIdx.x) * a.Sq;
+    if (row0 < a.Sq) lrow[row0] = m0 * kLn2 + logf(l0);
+    if (row1 < a.Sq) lrow[row1] = m1 * kLn2 + logf(l1);
+  }
   if (row0 < a.Sq) {
     __nv_bfloat16* orow = og + row0 * a.o_ss + 2 * t;
 #pragma unroll
@@ -1125,7 +1146,12 @@ flash_f32_kernel(const Args a) {
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
     if (q0 + r < a.Sq) {
-      const float inv = 1.0f / fmaxf(l_s[r], 1e-30f);
+      const float l = fmaxf(l_s[r], 1e-30f);
+      const float inv = 1.0f / l;
+      if (a.lse != nullptr && tx == 0) {
+        a.lse[static_cast<long long>(blockIdx.x) * a.Sq + q0 + r] =
+            m_s[r] + logf(l);
+      }
       float* orow = og + (q0 + r) * a.o_ss + tx;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) orow[16 * c] = o[i][c] * inv;
@@ -1247,14 +1273,15 @@ size_t f32_smem() {
 enum Variant { kWgmma, kMma, kF32 };
 
 int launch(Variant variant, const void* q, const void* k, const void* v,
-           void* o, int B, int H, int G, int Sq, int Skv, int D, int causal,
-           float scale, const long long* st, cudaStream_t stream) {
+           void* o, float* lse, int B, int H, int G, int Sq, int Skv, int D,
+           int causal, float scale, const long long* st,
+           cudaStream_t stream) {
   if (B < 1 || H < 1 || G < 1 || H % G != 0 || Sq < 1 || Skv < 1 ||
       (Sq + kBlockQ - 1) / kBlockQ > 65535 ||
       static_cast<long long>(B) * H > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, o, H, G, Sq, Skv, causal, scale,
+  const Args a{q, k, v, o, lse, H, G, Sq, Skv, causal, scale,
                st[0], st[1], st[2], st[3], st[4], st[5],
                st[6], st[7], st[8], st[9], st[10], st[11]};
   const int Kv = H / G;
@@ -1282,15 +1309,17 @@ int launch(Variant variant, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, o; B batches of H query heads, G query heads per kv head;
-// strides: (batch, head, row) of q, k, v and o in elements, 12 in all
+// q, k, v, o, lse ((B, H, Sq) float32, or null); B batches of H query
+// heads, G query heads per kv head; strides: (batch, head, row) of q, k,
+// v and o in elements, 12 in all
 #define FLASH_ENTRY(NAME, VARIANT)                                          \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
-                      int B, int H, int G, int Sq, int Skv, int D,          \
-                      int causal, float scale, const long long* strides,    \
-                      void* stream) {                                       \
-    return launch(VARIANT, q, k, v, o, B, H, G, Sq, Skv, D, causal, scale,  \
-                  strides, static_cast<cudaStream_t>(stream));              \
+                      void* lse, int B, int H, int G, int Sq, int Skv,      \
+                      int D, int causal, float scale,                       \
+                      const long long* strides, void* stream) {             \
+    return launch(VARIANT, q, k, v, o, static_cast<float*>(lse), B, H, G,   \
+                  Sq, Skv, D, causal, scale, strides,                       \
+                  static_cast<cudaStream_t>(stream));                       \
   }
 
 FLASH_ENTRY(flash_attention_wgmma_bf16, kWgmma)   // D 64, 128

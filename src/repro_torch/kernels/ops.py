@@ -3,8 +3,11 @@ with the sharded backend's entries of K2 and K3 (the shard-local g/h
 partials, and K2's scatter X_B d for a given d),
 the two serving-margin kernels (K4a, K4b), the batched line search (K5:
 its (P, s) rows entry, and its two batch entries, a whole SCDN batch on
-the padded-CSC layout and on the dense layout) and flash attention (K6),
-the LM's blockwise prefill attention.
+the padded-CSC layout and on the dense layout), flash attention (K6),
+the LM's blockwise attention, and its backward (K6b): `flash_attention`
+is differentiable, a `torch.autograd.Function` whose forward runs K6
+(writing each row's log-sum-exp when a gradient is wanted) and whose
+backward runs K6b (`flash_attention_bwd`).
 
 Each wrapper looks at where its tensors live:
 
@@ -58,7 +61,7 @@ Tensor = torch.Tensor
 KERNELS = ("pcdn_direction", "pcdn_sparse_direction", "pcdn_bundle",
            "serve_margins_dense", "serve_margins_csc", "pcdn_linesearch",
            "scdn_batch", "scdn_dense_batch", "flash_attention",
-           "pcdn_direction_partials",
+           "flash_attention_bwd", "pcdn_direction_partials",
            "pcdn_sparse_direction_partials", "pcdn_sparse_scatter")
 _LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -1535,22 +1538,92 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     contiguous last dim; the other strides are passed to the kernel.
     `flash_variant` picks the kernel; `variant` names another one of
     FLASH_VARIANTS that takes the dtype and D (to time them side by
-    side)."""
-    if _on_cpu(q, k, v):
-        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    side).
+
+    Differentiable: when grad mode is on and q, k or v requires grad, the
+    call goes through `FlashAttention`, whose forward also writes the
+    rows' log-sum-exp and keeps (q, k, v, out, lse) for its backward, K6b.
+    On CPU tensors both directions run their plain versions."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, sm_scale, variant)
+    return _flash_forward(q, k, v, causal, sm_scale, variant, False)[0]
+
+
+class FlashAttention(torch.autograd.Function):
+    """K6 forward with lse, K6b backward (the reference's `_flash_mha`
+    custom_vjp: `_flash_mha_fwd` keeps (q, k, v, out, lse), `_flash_mha_bwd`
+    recomputes p from lse). Under `torch.utils.checkpoint` the forward runs
+    again in the backward pass and that run's lse is the one K6b reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, variant):
+        out, lse = _flash_forward(q, k, v, causal, sm_scale, variant, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def _flash_layout(name: str, q: Tensor, k: Tensor, v: Tensor):
+    """Shape, head-dim and dtype checks of K6 and K6b; the heads-first
+    layout as views of the model's. -> (q, k, v) as (B, S, H|Kv, D)
+    views, B, Sq, H, Skv, Kv, G, D."""
     if q.ndim not in (3, 4) or k.ndim != q.ndim or k.shape != v.shape:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     D = q.shape[-1]
     if D not in _FLASH_HEAD_DIMS or k.shape[-1] != D:
-        raise ValueError(f"flash_attention: head dim {D} (q) / "
-                         f"{k.shape[-1]} (k), the kernel takes "
-                         f"{_FLASH_HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {D} (q) / {k.shape[-1]} (k), "
+                         f"the kernel takes {_FLASH_HEAD_DIMS}")
     if q.dtype not in _VALUE_TYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
-                        f"{v.dtype}, expected one of {tuple(_VALUE_TYPES)} "
-                        f"for all three")
+        raise TypeError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}, "
+                        f"expected one of {tuple(_VALUE_TYPES)} for all "
+                        f"three")
+    if q.ndim == 3:
+        # a view of the model's layout: query head bh = kv head * G + member
+        if q.shape[0] % k.shape[0]:
+            raise ValueError(f"{name}: {q.shape[0]} query heads over "
+                             f"{k.shape[0]} kv heads")
+        q = _model_view(q, k.shape[0])
+        k, v = k.unsqueeze(2), v.unsqueeze(2)
+    B, Sq, H, _ = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or H % Kv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} against k/v "
+                         f"{tuple(k.shape)}")
+    if Sq < 1 or Skv < 1:
+        raise ValueError(f"{name}: empty sequence Sq={Sq} Skv={Skv}")
+    return q, k, v, B, Sq, H, Skv, Kv, H // Kv, D
+
+
+def _model_view(t: Tensor, B: int) -> Tensor:
+    """(B * H, S, D) heads first -> its (B, S, H, D) view."""
+    return t.unflatten(0, (B, -1)).transpose(1, 2)
+
+
+def _flash_forward(q: Tensor, k: Tensor, v: Tensor, causal, sm_scale,
+                   variant, want_lse: bool):
+    """-> (out, lse or None): K6 on CUDA tensors, `ref.attention_ref` on
+    the CPU. lse is (B, H, Sq) float32 in the model's layout, (BH, Sq)
+    heads first."""
+    if _on_cpu(q, k, v):
+        if want_lse:
+            return ref.attention_ref(q, k, v, causal=causal,
+                                     sm_scale=sm_scale, return_lse=True)
+        return ref.attention_ref(q, k, v, causal=causal,
+                                 sm_scale=sm_scale), None
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    q4, k4, v4, B, Sq, H, Skv, Kv, G, D = _flash_layout(
+        "flash_attention", q, k, v)
+    o = _model_view(out, B) if q.ndim == 3 else out
     if variant is None:
         variant = flash_variant(q.dtype, D)
     if variant not in FLASH_VARIANTS or \
@@ -1558,38 +1631,76 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
             (variant == "f32") != (q.dtype == torch.float32):
         raise ValueError(f"flash_attention: variant {variant!r} does not "
                          f"take {q.dtype} at head dim {D}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    o = out
-    if q.ndim == 3:
-        # a view of the model's layout: query head bh = kv head * G + member
-        B = k.shape[0]
-        if q.shape[0] % B:
-            raise ValueError(f"flash_attention: {q.shape[0]} query heads "
-                             f"over {B} kv heads")
-        q, o = (t.unflatten(0, (B, -1)).transpose(1, 2) for t in (q, o))
-        k, v = k.unsqueeze(2), v.unsqueeze(2)
-    B, Sq, H, _ = q.shape
-    Skv, Kv = k.shape[1], k.shape[2]
-    if k.shape[0] != B or H % Kv:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} against "
-                         f"k/v {tuple(k.shape)}")
-    G = H // Kv
-    strides = flash_strides(q, k, v, o)
-    if Sq < 1 or Skv < 1:
-        raise ValueError(f"flash_attention: empty sequence Sq={Sq} "
-                         f"Skv={Skv}")
+    strides = flash_strides(q4, k4, v4, o)
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     lib = build.load("flash_attention")
     flat = (ctypes.c_longlong * 12)(*strides)
     fn = getattr(lib, "flash_attention_f32" if variant == "f32"
                  else f"flash_attention_{variant}_bf16")
-    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(o), B, H, G, Sq, Skv, D,
+    err = fn(_ptr(q4), _ptr(k4), _ptr(v4), _ptr(o),
+             None if lse is None else _ptr(lse), B, H, G, Sq, Skv, D,
              int(bool(causal)), float(sm_scale), flat, _stream(q))
     _raise_if(err, f"flash_attention ({variant})")
     _LAUNCHES["flash_attention"] += 1
     _FLASH_VARIANT_LAUNCHES[variant] += 1
-    return out
+    if lse is not None and q.ndim == 3:
+        lse = lse.flatten(0, 1)
+    return out, lse
+
+
+@_observed("flash_attention_bwd")
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                        lse: Tensor, do: Tensor, causal: bool = True,
+                        sm_scale: float | None = None):
+    """K6b: the gradient of `flash_attention` -> (dq, dk, dv) in the
+    inputs' dtype and layout, from the forward's output `out` and row
+    log-sum-exp `lse` ((B, H, Sq) float32, (BH, Sq) heads first) and the
+    output's gradient `do`: the reference's flash backward
+    (`_flash_mha_bwd`), f32 throughout, dk and dv summed over the G query
+    heads of a kv head (`ref.attention_bwd_ref` is its plain version).
+
+    On the card: D 64, 128 or 256, float32 or bfloat16 (q, k, v, out and
+    do alike), the strides contract of K6 (`flash_strides`; do is made
+    contiguous first); two launches (dQ with delta, then dK/dV) counted
+    once; deterministic, no atomics. Anything else raises."""
+    if _on_cpu(q, k, v, out, lse, do):
+        return ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                     sm_scale=sm_scale)
+    q4, k4, v4, B, Sq, H, Skv, Kv, G, D = _flash_layout(
+        "flash_attention_bwd", q, k, v)
+    if out.shape != q.shape or do.shape != q.shape or \
+            out.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} "
+                         f"{out.dtype} and do {tuple(do.shape)} {do.dtype} "
+                         f"against q {tuple(q.shape)} {q.dtype}")
+    _check("flash_attention_bwd: lse", lse, _F32,
+           (B, H, Sq) if q.ndim == 4 else (B * H, Sq))
+    do = do.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    views = [out, do, dq]
+    if q.ndim == 3:
+        views = [_model_view(t, B) for t in views]
+    dk4, dv4 = (dk.unsqueeze(2), dv.unsqueeze(2)) if q.ndim == 3 else \
+        (dk, dv)
+    strides = flash_strides(q4, k4, v4, views[0]) + \
+        flash_strides(views[1], views[2], dk4, dv4)
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_attention_bwd")
+    fn = getattr(lib, f"flash_attention_bwd_{_VALUE_TYPES[q.dtype]}")
+    err = fn(_ptr(q4), _ptr(k4), _ptr(v4), _ptr(views[0]), _ptr(views[1]),
+             _ptr(lse), _ptr(delta), _ptr(views[2]), _ptr(dk4), _ptr(dv4),
+             B, H, G, Sq, Skv, D, int(bool(causal)), float(sm_scale),
+             (ctypes.c_longlong * 24)(*strides), _stream(q))
+    _raise_if(err, "flash_attention_bwd")
+    _LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 def flash_strides(q: Tensor, k: Tensor, v: Tensor, o: Tensor) -> list:

@@ -31,7 +31,12 @@ what its CUDA kernel computes (kernels/csrc/*.cu):
   * `scdn_dense_batch_ref`      -- K5's dense batch entry, the same on the
                                    dense layout's feature-major copy
   * `attention_ref`             -- K6, dense softmax attention (the flash
-                                   kernel's function)
+                                   kernel's function), with the rows'
+                                   log-sum-exp on request
+  * `attention_bwd_ref`         -- K6b, its gradient from (q, k, v, out,
+                                   lse, do): the reference's flash
+                                   backward `_flash_mha_bwd` on dense
+                                   scores
 
 `kernels.ops` takes them for tensors on the CPU; the tests hold them
 against the reference, and `chip_smoke.py` holds the kernels against them
@@ -393,8 +398,40 @@ def serve_margins_csc_ref(col_rows: Tensor, col_vals: Tensor, idx: Tensor,
     return z.view(K, B + 1)[:, :B].T
 
 
+def _model_layout(q: Tensor, k: Tensor, v: Tensor):
+    """q (BH, Sq, D) with k/v (BH / G, Skv, D) as views of the model's
+    layout (B = BH / G, Kv = 1); the model's layout as it is."""
+    if q.ndim == 3:
+        q = q.unflatten(0, (k.shape[0], -1)).transpose(1, 2)
+        k, v = k.unsqueeze(2), v.unsqueeze(2)
+    return q, k, v
+
+
+def _heads_first(t: Tensor) -> Tensor:
+    """(B, S, H, D) -> (B * H, S, D), the heads-first layout's view."""
+    return t.transpose(1, 2).flatten(0, 1)
+
+
+def _scores(q: Tensor, k: Tensor, causal: bool, sm_scale):
+    """-> (scores (B, Kv, G, Sq, Skv) float32 with the causal mask's
+    entries -inf-like (-1e30), the mask (Sq, Skv) or None, scale)."""
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Sq, Kv, H // Kv, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(f32), k.to(f32)) * sm_scale
+    ok = None
+    if causal:
+        ok = torch.arange(Sq, device=q.device)[:, None] >= \
+            torch.arange(Skv, device=q.device)[None, :]
+        s = torch.where(ok, s, -1e30)
+    return s, ok, sm_scale
+
+
 def attention_ref(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
-                  sm_scale: float | None = None) -> Tensor:
+                  sm_scale: float | None = None, *,
+                  return_lse: bool = False):
     """Dense softmax attention in float32, output in q's dtype.
 
     The model's layout, q (B, Sq, H, D) with k/v (B, Skv, Kv, D), query
@@ -402,22 +439,60 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     (BH / G, Skv, D), query head bh reading kv head bh // G (G = 1 is
     `repro.kernels.ref.attention_ref`'s contract), taken as a view of the
     first with B = BH / G and Kv = 1. Causal masks `qi >= kj` with both
-    positions from 0 (aligned top-left) by -1e30 before the softmax."""
+    positions from 0 (aligned top-left) by -1e30 before the softmax.
+    `return_lse`: also each query row's float32 log-sum-exp of its scaled
+    scores, (B, H, Sq) ((BH, Sq) heads first), what K6 writes for its
+    backward (`_flash_fwd_scan`'s second output)."""
     heads_first = q.ndim == 3
-    if heads_first:
-        q = q.unflatten(0, (k.shape[0], -1)).transpose(1, 2)
-        k, v = k.unsqueeze(2), v.unsqueeze(2)
+    q, k, v = _model_layout(q, k, v)
     B, Sq, H, D = q.shape
-    Skv, Kv = k.shape[1], k.shape[2]
-    if sm_scale is None:
-        sm_scale = 1.0 / (D ** 0.5)
-    qg = q.reshape(B, Sq, Kv, H // Kv, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(f32), k.to(f32)) * sm_scale
-    if causal:
-        qi = torch.arange(Sq, device=q.device)[:, None]
-        kj = torch.arange(Skv, device=q.device)[None, :]
-        s = torch.where(qi >= kj, s, -1e30)
+    s, _, _ = _scores(q, k, causal, sm_scale)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(f32))
     o = o.reshape(B, Sq, H, D).to(q.dtype)
-    return o.transpose(1, 2).flatten(0, 1) if heads_first else o
+    if heads_first:
+        o = _heads_first(o)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o, lse.flatten(0, 1) if heads_first else lse
+
+
+def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                      lse: Tensor, do: Tensor, causal: bool = True,
+                      sm_scale: float | None = None):
+    """K6b's function: the gradient of `attention_ref` from the forward's
+    output `out` and row log-sum-exp `lse` ((B, H, Sq) float32, or (BH,
+    Sq) heads first) and the output's gradient `do`, as the reference's
+    flash backward (`repro.models.attention._flash_mha_bwd`) computes it,
+    on dense float32 scores: p = exp(s - lse), delta = sum_d do * out,
+    ds = p * (dp - delta) with dp = do v^T, dq = ds k * scale, dk = ds^T q
+    * scale, dv = p^T do, dk and dv summed over the G query heads of a kv
+    head. -> (dq, dk, dv) in the inputs' dtype and layout."""
+    heads_first = q.ndim == 3
+    q, k, v = _model_layout(q, k, v)
+    if heads_first:
+        out, do = (t.unflatten(0, (k.shape[0], -1)).transpose(1, 2)
+                   for t in (out, do))
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    s, ok, scale = _scores(q, k, causal, sm_scale)
+    lse = lse.reshape(B, Kv, G, Sq).to(f32)
+    p = torch.exp(s - lse[..., None])
+    if ok is not None:
+        p = torch.where(ok, p, 0.0)
+    dof = do.to(f32).reshape(B, Sq, Kv, G, D)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof,
+                         out.to(f32).reshape(B, Sq, Kv, G, D))
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.to(f32))
+    ds = p * (dp - delta[..., None])
+    qf = q.to(f32).reshape(B, Sq, Kv, G, D)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(f32)) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dq = dq.reshape(B, Sq, H, D).to(q.dtype)
+    dk, dv = dk.to(k.dtype), dv.to(v.dtype)
+    if heads_first:
+        return _heads_first(dq), dk[:, :, 0], dv[:, :, 0]
+    return dq, dk, dv

@@ -7,7 +7,8 @@ axis, so GQA repeats nothing. Prefill attention (`attend_full`) takes the
 dense route below BLOCKWISE_MIN_KV keys and the blockwise route from
 there, as the reference does; the blockwise route is K6
 (`kernels.ops.flash_attention`, the reference's `_flash_fwd_scan` twin),
-which reads kv head h // G in place. Cross-attention (encdec) is not
+which reads kv head h // G in place and is differentiable (its backward
+is K6b). Cross-attention (encdec) is not
 ported, and the blockwise route has no window (only the hybrid family
 needs one: it raises NotImplementedError).
 """
@@ -143,7 +144,7 @@ def attend_full(cfg: ModelConfig, p: Attention, x: Tensor,
             raise NotImplementedError(
                 "windowed blockwise attention belongs to the hybrid "
                 "family, which the port does not have yet (ROADMAP Queue 1 "
-                "item 12)")
+                "item 6)")
         attn = ops.flash_attention if use_kernels else ref.attention_ref
         o = attn(q, k, v, causal=causal, sm_scale=scale)
     else:

@@ -1,11 +1,21 @@
-"""Carry the JAX package's weights into the port's Model.
+"""Carry parameters and training state between the JAX package and the
+port.
 
 `repro.models.transformer.Model.init_params` returns a nested dict whose
 per-layer leaves are stacked along a leading (L, ...) axis (the reference
 scans over layers). Given that tree as numpy arrays, `params_from_jax`
 returns the port's state dict: `layers.<i>.<path>` for layer i of each
 stacked leaf, the other leaves under their dotted path, every tensor in
-the config's dtype. With it both packages compute from the same weights.
+the config's dtype. `params_to_jax` is its inverse: the port's dict back
+to the nested, layer-stacked tree, as float32 numpy arrays (exact for
+bfloat16, which numpy holds only as an extension type; the reference
+casts a loaded leaf to its own dtype). With them both packages compute
+from the same weights, and a checkpoint of either restores in the other.
+
+The AdamW state crosses the same way: `opt_state_from_jax` takes the
+reference's `AdamWState(step, mu, nu, master)` (or a tuple in that field
+order) to the port's, float32 moments and master copy; `opt_state_to_jax`
+returns the four fields for the reference's `AdamWState(*fields)`.
 """
 from __future__ import annotations
 
@@ -13,10 +23,67 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import AdamWState
 
 
-def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
-    """Reference parameter tree (numpy leaves) -> the port's state dict."""
+def params_from_jax(cfg: ModelConfig, tree: dict, dtype=None) -> dict:
+    """Reference parameter tree (numpy leaves) -> the port's state dict,
+    in `dtype` (the config's by default)."""
+    dtype = cfg.torch_dtype if dtype is None else dtype
+
+    def tensors(node):
+        if isinstance(node, dict):
+            return {k: tensors(c) for k, c in node.items()}
+        # a float32 copy: exact for bfloat16 leaves, which numpy holds
+        # only as an extension type, and writable as torch wants it
+        return torch.from_numpy(np.array(node, np.float32)).to(dtype)
+
+    return unstack_layers(cfg, tensors(tree))
+
+
+def params_to_jax(cfg: ModelConfig, state: dict) -> dict:
+    """The port's state dict (or any dict under its names, such as AdamW's
+    moments) -> the reference's nested tree, the layers stacked on a
+    leading axis, leaves float32 numpy arrays."""
+    def arrays(node):
+        if isinstance(node, dict):
+            return {k: arrays(c) for k, c in node.items()}
+        return node.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+    return arrays(stack_layers(cfg, state))
+
+
+def stack_layers(cfg: ModelConfig, state: dict) -> dict:
+    """The port's flat dict of tensors -> the reference's nested layout
+    (`layers.<i>.<path>` stacked into one (L, ...) tensor at
+    layers/<path>), tensors kept in their dtype and on their device."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            stacked.setdefault(tuple(parts[2:]), {})[int(parts[1])] = t
+            continue
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = t
+    for path, by_layer in stacked.items():
+        if sorted(by_layer) != list(range(cfg.n_layers)):
+            raise ValueError(f"layers.*.{'.'.join(path)}: layers "
+                             f"{sorted(by_layer)}, config has "
+                             f"{cfg.n_layers}")
+        node = tree.setdefault("layers", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack([by_layer[i].detach()
+                                      for i in range(cfg.n_layers)])
+    return tree
+
+
+def unstack_layers(cfg: ModelConfig, tree: dict) -> dict:
+    """`stack_layers`'s inverse: a nested tree of tensors -> the port's
+    flat dict (layer i of a stacked leaf is a view of it)."""
     out = {}
 
     def walk(path, node):
@@ -24,18 +91,15 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
             for key, child in node.items():
                 walk(path + (key,), child)
             return
-        # a float32 copy: exact for bfloat16 leaves, which numpy holds
-        # only as an extension type, and writable as torch wants it
-        arr = torch.from_numpy(np.array(node, np.float32)).to(
-            cfg.torch_dtype)
         if path[0] == "layers":
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{'.'.join(path)}: {arr.shape[0]} stacked "
-                                 f"layers, config has {cfg.n_layers}")
+            if node.shape[0] != cfg.n_layers:
+                raise ValueError(f"{'.'.join(path)}: {node.shape[0]} "
+                                 f"stacked layers, config has "
+                                 f"{cfg.n_layers}")
             for i in range(cfg.n_layers):
-                out[".".join(("layers", str(i)) + path[1:])] = arr[i]
+                out[".".join(("layers", str(i)) + path[1:])] = node[i]
         else:
-            out[".".join(path)] = arr
+            out[".".join(path)] = node
 
     walk((), tree)
     return out
@@ -45,3 +109,28 @@ def load_jax_params(model, tree: dict) -> None:
     """Load a reference parameter tree into `model` (every parameter,
     strictly: a missing or extra name raises)."""
     model.load_state_dict(params_from_jax(model.cfg, tree), strict=True)
+
+
+def opt_state_from_jax(cfg: ModelConfig, state, device="cpu") -> AdamWState:
+    """The reference's AdamWState (numpy leaves, or a tuple (step, mu, nu,
+    master)) -> the port's, on `device`."""
+    step, mu, nu, master = tuple(state)
+
+    def moments(tree):
+        if tree is None:
+            return None
+        return {k: t.to(device) for k, t in
+                params_from_jax(cfg, tree, torch.float32).items()}
+
+    return AdamWState(
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        moments(mu), moments(nu), moments(master))
+
+
+def opt_state_to_jax(cfg: ModelConfig, state: AdamWState) -> tuple:
+    """The port's AdamWState -> (step int32 array, mu, nu, master or None)
+    as the reference's trees: `repro.optim.adamw.AdamWState(*fields)`."""
+    return (np.asarray(int(state.step), np.int32),
+            params_to_jax(cfg, state.mu), params_to_jax(cfg, state.nu),
+            None if state.master is None
+            else params_to_jax(cfg, state.master))

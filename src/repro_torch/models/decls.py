@@ -52,7 +52,9 @@ def padded(init: Init, dim: int, real: int) -> Init:
 class Declared(nn.Module):
     """A module whose parameters carry their init rule. Parameters are
     allocated uninitialised (`torch.empty`, also on the meta device) and
-    take no gradients: this slice serves only."""
+    take no gradients themselves: the train step (`train.steps`) passes
+    its own tensors through `torch.func.functional_call` and
+    differentiates those."""
 
     def __init__(self, dtype: torch.dtype, device):
         super().__init__()

@@ -4,7 +4,7 @@ Port of `repro.models.layers` as modules: each declares its parameters
 (`models.decls`) under the reference's names and layouts, so a reference
 parameter tree loads as it is (`models.convert`). Compute runs in the
 parameter dtype with float32 where the reference has it (norm statistics,
-rope). `softmax_xent` comes with the training slice.
+rope), and the training loss `softmax_xent`.
 """
 from __future__ import annotations
 
@@ -147,3 +147,23 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x1, x2 = x[..., :half].to(f32), x[..., half:].to(f32)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --- losses ------------------------------------------------------------------
+
+def softmax_xent(logits: Tensor, labels: Tensor,
+                 mask: Tensor | None = None) -> Tensor:
+    """Mean next-token cross-entropy in float32. logits (..., V), labels
+    (...) integer, mask (...) optional weights: sum(nll * m) / max(sum(m),
+    1). The gold logit is a gather (the reference writes it as a masked
+    reduction over the vocab so that a vocab sharded over a mesh needs no
+    all-gather; nothing in the port shards the vocab). Pad-vocab logits
+    carry -1e9 from `Embed.apply_unembed`, so they add nothing."""
+    lf = logits.to(f32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.to(f32)
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

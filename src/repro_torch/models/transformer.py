@@ -5,17 +5,24 @@
         `final_norm`), one module per layer where the reference scans over
         layer-stacked parameters
     init_params(model, generator)          -- `models.decls`
-    model.backbone(x, positions) / model.logits(tokens)
+    model.backbone(x, positions, train) / model.logits(tokens, train)
+    model.loss_fn(batch) / model(batch)    -- the training loss; with
+        `torch.func.functional_call(model, params, (batch,))` at `params`
 
 The dense family (yi, qwen, gemma) is ported; building a Model for any
 other family (moe, ssm, hybrid, encdec, vlm) raises NotImplementedError.
 There is no `_constrain`: it is a mesh-sharding hint, and the port runs on
-one card.
+one card. With `train=True` and `cfg.remat` each layer is recomputed in
+the backward pass (`torch.utils.checkpoint`, non-reentrant), as the
+reference wraps its scanned layer body in `jax.checkpoint`: a layer keeps
+only its input, and K6 runs twice a layer a step.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -65,7 +72,7 @@ class Model(nn.Module):
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet; "
-                f"the port has {PORTED_FAMILIES} (ROADMAP Queue 1 item 12)")
+                f"the port has {PORTED_FAMILIES} (ROADMAP Queue 1 item 6)")
         device = torch.device(device)
         if device.type != "meta":
             device = resolve_device(device)
@@ -77,14 +84,51 @@ class Model(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.final_norm = L.make_norm(cfg, device)
 
-    def backbone(self, x: Tensor, positions: Tensor) -> Tensor:
-        """x (B, S, d) embedded inputs -> final hidden states."""
+    def backbone(self, x: Tensor, positions: Tensor,
+                 train: bool = False) -> Tensor:
+        """x (B, S, d) embedded inputs -> final hidden states; with `train`
+        and cfg.remat each layer is checkpointed (`_remat`)."""
+        remat = train and self.cfg.remat
         for layer in self.layers:
-            x, _, _ = layer(x, positions, self.use_kernels)
+            if remat:
+                x = _remat(layer, x, positions, self.use_kernels)
+            else:
+                x, _, _ = layer(x, positions, self.use_kernels)
         return self.final_norm(x)
 
-    def logits(self, tokens: Tensor) -> Tensor:
+    def logits(self, tokens: Tensor, train: bool = False) -> Tensor:
         """tokens (B, S) -> logits (B, S, padded vocab)."""
         x = self.embed.apply_embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        return self.embed.apply_unembed(self.backbone(x, positions))
+        return self.embed.apply_unembed(self.backbone(x, positions, train))
+
+    def loss_fn(self, batch: dict) -> Tensor:
+        """Mean next-token cross-entropy of batch["tokens"] against
+        batch["labels"], weighted by the optional batch["loss_mask"]."""
+        logits = self.logits(batch["tokens"], train=True)
+        return L.softmax_xent(logits, batch["labels"],
+                              batch.get("loss_mask"))
+
+    def forward(self, batch: dict) -> Tensor:
+        """The training loss (`loss_fn`): what `torch.func.functional_call(
+        model, params, (batch,))` evaluates at `params`."""
+        return self.loss_fn(batch)
+
+
+def _remat(layer: DenseLayer, x: Tensor, positions: Tensor,
+           use_kernels: bool) -> Tensor:
+    """One layer under `torch.utils.checkpoint` (non-reentrant): only x is
+    kept, and the layer runs again in the backward pass. Its parameters
+    go in as explicit inputs and the body binds them with
+    `functional_call`, so the recomputation uses the tensors of this
+    forward: under an outer `functional_call` the module's own attributes
+    are restored before the backward runs. The layer's k and v are not
+    returned: training keeps no cache."""
+    names = [n for n, _ in layer.named_parameters()]
+    tensors = [t for _, t in layer.named_parameters()]
+
+    def body(h, *params):
+        return functional_call(layer, dict(zip(names, params)),
+                               (h, positions, use_kernels))[0]
+
+    return checkpoint(body, x, *tensors, use_reentrant=False)

@@ -1291,3 +1291,124 @@ def test_tuned_plan_agrees_with_plain_version(tuned_cells, kernel, config):
     torch.cuda.synchronize()
     res = cell.agree(config)
     assert res["ok"], res
+
+
+# -- K6b: the flash backward, and the train step through K6/K6b -------------
+
+def _bwd_rows_close_to(got, want, rtol):
+    """Per row, the row's max abs error over the larger of its own max
+    |plain| and the median row's: a gradient row can cancel to ~0 (dq of
+    query 0), and its error is then read against a typical row."""
+    err = torch.abs(got.float() - want.float()).amax(dim=-1)
+    row = torch.abs(want.float()).amax(dim=-1)
+    scale = torch.maximum(row, row.median()).clamp_min(1e-30)
+    worst = float((err / scale).max())
+    assert worst <= rtol, worst
+
+
+@pytest.mark.parametrize("q_shape,kv_shape", [
+    ((2, 1000, 14, 64), (2, 1000, 2, 64)),      # qwen2-0.5b heads, ragged
+    ((1, 777, 32, 128), (1, 777, 4, 128)),      # yi-6b heads
+    ((1, 300, 16, 256), (1, 300, 16, 256)),     # gemma-7b heads
+    ((1, 200, 4, 64), (1, 330, 2, 64)),         # Sq != Skv
+    ((6, 129, 64), (2, 129, 64)),               # grouped (BH, S, D)
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernel(cuda, q_shape, kv_shape, dtype, causal):
+    """K6b from K6's (out, lse) against `ref.attention_bwd_ref` on the
+    same inputs, per row; K6's lse against the plain version's; two
+    calls bit-equal (no atomics); one count a call."""
+    g = torch.Generator(device=cuda).manual_seed(sum(q_shape) + causal)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in (q_shape, kv_shape, kv_shape))
+    do = torch.randn(q_shape, generator=g, device=cuda).to(dtype)
+    out, lse = ops._flash_forward(q, k, v, causal, None, None, True)
+    _, want_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+    assert lse.shape == want_lse.shape and lse.dtype == torch.float32
+    assert float(torch.max(torch.abs(lse - want_lse))) <= 1e-4
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 2
+    for a, b, c in zip(got, want, again):
+        assert a.shape == b.shape and a.dtype == dtype
+        _bwd_rows_close_to(a, b, FLASH_RTOL[dtype])
+        assert torch.equal(a, c)
+
+
+def test_flash_attention_grads_run_k6_and_k6b(cuda):
+    """`ops.flash_attention` on CUDA tensors that require grad: one K6
+    launch (with lse) and one K6b launch; the grads against torch's
+    autograd through the plain forward, per row."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).requires_grad_(True)
+               for s in ((2, 700, 8, 64), (2, 700, 2, 64), (2, 700, 2, 64)))
+    w = torch.randn((2, 700, 8, 64), generator=g, device=cuda)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad((ops.flash_attention(q, k, v) * w).sum(),
+                              (q, k, v))
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == \
+        (1, 1)
+    want = torch.autograd.grad((ref.attention_ref(q, k, v) * w).sum(),
+                               (q, k, v))
+    for a, b in zip(got, want):
+        _bwd_rows_close_to(a, b, FLASH_RTOL[torch.float32])
+
+
+def test_flash_attention_bwd_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 64, 2, 64), device=cuda)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_bwd(q, q, q, q, lse[:, :1], q)
+    with pytest.raises(TypeError, match="lse"):
+        ops.flash_attention_bwd(q, q, q, q, lse.double(), q)
+    with pytest.raises(ValueError, match="out"):
+        ops.flash_attention_bwd(q, q, q, q[:, :32], lse, q)
+    q96 = torch.zeros((1, 64, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_bwd(q96, q96, q96, q96, lse, q96)
+
+
+def test_train_step_through_kernels_agrees_with_plain_route(cuda):
+    """Reduced qwen2-0.5b at head_dim 64 with remat, float32, 2100
+    tokens (the blockwise route): one train step through K6/K6b (2 x
+    n_layers K6 launches, n_layers K6b) against the plain route from the
+    same params, AdamW state and batch: loss rel 1e-5, grad_norm rel
+    1e-4, the update over all parameters rel 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decls import init_params
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config("qwen2-0.5b", reduced=True).replace(head_dim=64,
+                                                         remat=True)
+    model = Model(cfg, cuda)
+    init_params(model, torch.Generator(device=cuda).manual_seed(0))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(model, opt_cfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = [torch.randint(0, cfg.vocab_size, (2, 2101), device=cuda,
+                          generator=gen) for _ in range(2)]
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    params, opt, _ = step(params, adamw_init(params, opt_cfg), batches[0])
+    out = {}
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        ops.reset_launch_counts()
+        out[use_kernels] = step(params, opt, batches[1])
+        counts = ops.launch_counts()
+        L = cfg.n_layers
+        assert (counts["flash_attention"], counts["flash_attention_bwd"]) \
+            == ((2 * L, L) if use_kernels else (0, 0))
+    (pk, _, mk), (pp, _, mp) = out[True], out[False]
+    for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        assert abs(float(mk[key]) - float(mp[key])) <= \
+            tol * abs(float(mp[key])), key
+    diff = sum(float(torch.sum((pk[k] - pp[k]) ** 2)) for k in params)
+    step2 = sum(float(torch.sum((pp[k] - params[k]) ** 2)) for k in params)
+    assert (diff / step2) ** 0.5 <= 1e-3
