@@ -1965,11 +1965,14 @@ def flash_bwd_checks(torch, flush) -> dict:
     shape (qwen2-0.5b, B 4 x S 4096, 14 heads over 2, D 64) in bf16 and
     float32, ragged (S 4000), at D 128 (yi-6b's heads) and D 256
     (gemma-7b's; float32 with Sq != Skv, non-causal). dq, dk, dv per row
-    (`bwd_row_rel_err`, BWD_RTOL); two calls bit-equal; the planted
+    (`bwd_row_rel_err`, BWD_RTOL); two calls bit-equal, counted under
+    the variant the rule picks (`ops.flash_bwd_variant`: wgmma for bf16 at
+    D 64 and 128, simt for float32 and D 256), which each case logs; at
+    the train shape in bf16 the simt variant is held too; the planted
     BWD_FAULTS read at the train shape. Timed at the train shape in bf16
-    (L2-cold and warm), with its bound (`work.flash_bwd_work`), the plain
-    version and the library's backward (scaled_dot_product_attention,
-    timed only)."""
+    (L2-cold and warm; simt L2-cold beside it, `variant_ms`), with its
+    bound (`work.flash_bwd_work`), the plain version and the library's
+    backward (scaled_dot_product_attention, timed only)."""
     from repro_torch.kernels import ops, ref
 
     dev = torch.device(DEVICE)
@@ -1979,7 +1982,10 @@ def flash_bwd_checks(torch, flush) -> dict:
         return [torch.randn(s, generator=gen, device=dev).to(dtype)
                 for s in (q_shape, kv_shape, kv_shape, q_shape)]
 
-    def case(label, q, k, v, do, causal, faults=()):
+    def case(label, q, k, v, do, causal, faults=(), variants=(None,)):
+        """K6b on the rule's variant (None) and any named in `variants`,
+        each held to the plain version; -> (the largest max abs error, out,
+        lse)."""
         dtype = str(q.dtype).removeprefix("torch.")
         tol = BWD_RTOL[dtype]
         before = ops.flash_variant_counts()
@@ -1991,27 +1997,40 @@ def flash_bwd_checks(torch, flush) -> dict:
                                        return_lse=True)
         e_lse = float(torch.max(torch.abs(lse - lse_ref)))
         del lse_ref
-        n0 = ops.launch_counts()["flash_attention_bwd"]
-        got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
-        again = ops.flash_attention_bwd(q, k, v, out, lse, do,
-                                        causal=causal)
-        want = ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
-        torch.cuda.synchronize()
-        errs = [bwd_row_rel_err(torch, a, b) for a, b in zip(got, want)]
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        n = ops.launch_counts()["flash_attention_bwd"] - n0
-        del again
-        log(f"[kernels] flash_attention_bwd {label} q {tuple(q.shape)} k/v "
-            f"{tuple(k.shape)} {dtype} "
-            f"{'causal' if causal else 'non-causal'} (out, lse from K6 "
-            f"{'/'.join(ran)}: lse err {e_lse:.2e}, limit {LSE_ATOL}): "
-            + ", ".join(f"{nm} err {e[0]:.3e} (row rel {e[1]:.2e})"
-                        for nm, e in zip(("dq", "dk", "dv"), errs))
-            + f"; tolerance row rel {tol}; two calls bit-equal {same}; "
-            f"launches {n}")
         assert e_lse <= LSE_ATOL, (label, e_lse)
-        assert all(e[1] <= tol for e in errs), (label, errs)
-        assert same and n == 2, (label, same, n)
+        want = ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+        rule = ops.flash_bwd_variant(q.dtype, q.shape[-1])
+        worst = 0.0
+        for variant in variants:
+            n0 = ops.launch_counts()["flash_attention_bwd"]
+            v0 = ops.flash_bwd_variant_counts()
+            got = ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                          causal=causal, variant=variant)
+            again = ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                            causal=causal, variant=variant)
+            torch.cuda.synchronize()
+            errs = [bwd_row_rel_err(torch, a, b) for a, b in zip(got, want)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            n = ops.launch_counts()["flash_attention_bwd"] - n0
+            by = {nm: c - v0[nm]
+                  for nm, c in ops.flash_bwd_variant_counts().items()
+                  if c != v0[nm]}
+            del got, again
+            name = variant or rule
+            log(f"[kernels] flash_attention_bwd {label} q {tuple(q.shape)} "
+                f"k/v {tuple(k.shape)} {dtype} "
+                f"{'causal' if causal else 'non-causal'}, K6b variant "
+                f"{name}{' (the rule)' if name == rule else ' (named)'} "
+                f"(out, lse from K6 {'/'.join(ran)}: lse err {e_lse:.2e}, "
+                f"limit {LSE_ATOL}): "
+                + ", ".join(f"{nm} err {e[0]:.3e} (row rel {e[1]:.2e})"
+                            for nm, e in zip(("dq", "dk", "dv"), errs))
+                + f"; tolerance row rel {tol}; two calls bit-equal {same}; "
+                f"launches {n} {by}")
+            assert all(e[1] <= tol for e in errs), (label, name, errs)
+            assert same and n == 2 and by == {name: 2}, \
+                (label, name, same, n, by)
+            worst = max([worst] + [e[0] for e in errs])
         for fault in faults:
             bad = flash_bwd_fault(torch, q, k, v, out, lse, do, causal,
                                   fault=fault)
@@ -2021,18 +2040,20 @@ def flash_bwd_checks(torch, flush) -> dict:
             log(f"[kernels] flash_attention_bwd control, plain version "
                 f"with {fault!r} planted: row rel {r:.2e} (limit {tol})")
             assert r > tol, (fault, r)
-        return max(e[0] for e in errs), out, lse
+        return worst, out, lse
 
     H, Kv, D = 14, 2, 64          # qwen2-0.5b
     shape_q = (TRAIN_BATCH, TRAIN_SEQ, H, D)
     shape_kv = (TRAIN_BATCH, TRAIN_SEQ, Kv, D)
     q, k, v, do = inputs(shape_q, shape_kv, torch.bfloat16)
-    err, out, lse = case(f"{LM_ARCH} train", q, k, v, do, True, BWD_FAULTS)
+    err, out, lse = case(f"{LM_ARCH} train", q, k, v, do, True, BWD_FAULTS,
+                         variants=(None, "simt"))
     gc.collect()
     torch.cuda.empty_cache()
 
-    def kernel():
-        return ops.flash_attention_bwd(q, k, v, out, lse, do)
+    def kernel(variant=None):
+        return ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                       variant=variant)
 
     def plain():
         return ref.attention_bwd_ref(q, k, v, out, lse, do)
@@ -2055,13 +2076,18 @@ def flash_bwd_checks(torch, flush) -> dict:
              bound=bound(*_port_bench("work").flash_bwd_work(q, k, True),
                          BF16_TENSOR_OPS_PER_S),
              library_ms=device_ms(torch, library, 10, flush))
+    simt_ms = device_ms(torch, lambda: kernel("simt"), 3, flush)
+    r["variant_ms"] = {"wgmma": r["ms"], "simt": simt_ms}
     nbytes, nops = _port_bench("work").flash_bwd_work(q, k, True)
-    log(f"[kernels] flash_attention_bwd {LM_ARCH} train, L2-cold: "
+    log(f"[kernels] flash_attention_bwd {LM_ARCH} train, L2-cold: wgmma "
         f"{r['ms'] * 1e3:.2f} us ({nops / (r['ms'] * 1e-3) / 1e12:.2f} "
         f"TFLOP/s of the five products, {r['bound'][0] / r['ms']:.4f} of "
-        f"its bound {r['bound'][0] * 1e3:.1f} us); library (SDPA backward) "
-        f"{r['library_ms'] * 1e3:.2f} us; plain {r['plain_ms'] * 1e3:.2f} "
-        f"us; {nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP")
+        f"its bound {r['bound'][0] * 1e3:.1f} us), warm "
+        f"{r['warm_ms'] * 1e3:.2f} us; the simt variant {simt_ms * 1e3:.2f}"
+        f" us ({nops / (simt_ms * 1e-3) / 1e12:.2f} TFLOP/s); library (SDPA"
+        f" backward) {r['library_ms'] * 1e3:.2f} us; plain "
+        f"{r['plain_ms'] * 1e3:.2f} us; {nbytes / 1e6:.1f} MB, "
+        f"{nops / 1e9:.2f} GFLOP")
     del q, k, v, do, out, lse, qt, kt, vt, ot, dot
     gc.collect()
     torch.cuda.empty_cache()
@@ -2441,6 +2467,7 @@ def phase_train(torch, card: str) -> dict:
         wall = time.perf_counter() - t0
         losses = clean["losses"]
         n = clean["launches"]
+        by_variant = clean["launches_by_variant"]
         first, last5 = losses[0], float(np.mean(losses[-5:]))
         log(f"[train] launch.train {LM_ARCH} --full batch {TRAIN_BATCH} seq "
             f"{TRAIN_SEQ} steps {TRAIN_STEPS} on {card}: loss {first:.4f} -> "
@@ -2451,12 +2478,17 @@ def phase_train(torch, card: str) -> dict:
             f"{(clean['peak_bytes'] or 0) / 2 ** 30:.2f} GiB; flash_attention "
             f"launches {n['flash_attention']} (expected {2 * L * TRAIN_STEPS}),"
             f" flash_attention_bwd {n['flash_attention_bwd']} (expected "
-            f"{L * TRAIN_STEPS}); {wall:.1f} s with the process start")
+            f"{L * TRAIN_STEPS}, all on wgmma); by variant {by_variant}; "
+            f"{wall:.1f} s with the process start")
         assert np.all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS
         assert last5 < first, (first, last5)
         assert n["flash_attention"] == 2 * L * TRAIN_STEPS, n
         assert n["flash_attention_bwd"] == L * TRAIN_STEPS, n
         assert sum(n.values()) == 3 * L * TRAIN_STEPS, n
+        assert by_variant["flash_attention_bwd"]["wgmma"] == \
+            L * TRAIN_STEPS, by_variant
+        assert by_variant["flash_attention"]["wgmma"] == \
+            2 * L * TRAIN_STEPS, by_variant
 
         t0 = time.perf_counter()
         crashed = _train_cli(
@@ -2494,6 +2526,9 @@ def phase_train(torch, card: str) -> dict:
             f"ops:")
         for key, calls, us in prof["top"]:
             log(f"[train]   {us:12.1f} us  {calls:5d} calls  {key[:90]}")
+        for key, calls, us in prof["flash"]:
+            log(f"[train]   K6/K6b: {us:12.1f} us  {calls:5d} calls "
+                f"({us / 1e3 / prof['busy_ms']:.4f} of busy)  {key[:70]}")
     else:
         log(f"[train] one step: {prof['wall_ms']:.1f} ms wall; idle share "
             f"not measured (the profiler saw no device time)")
@@ -2516,7 +2551,9 @@ def phase_train(torch, card: str) -> dict:
         assert all(worst[k] <= tol[k] for k in tol), (dtype, worst, tol)
 
     return {"flash_attention": n["flash_attention"],
-            "flash_attention_bwd": n["flash_attention_bwd"]}
+            "flash_attention_bwd": n["flash_attention_bwd"],
+            "flash_attention variants": by_variant["flash_attention"],
+            "flash_attention_bwd variants": by_variant["flash_attention_bwd"]}
 
 
 def train_profile() -> dict:
@@ -2537,10 +2574,13 @@ def train_profile() -> dict:
     step(params, opt, b0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    busy, top, traced = device_profile(torch, lambda: step(params, opt, b0))
+    busy, rows, traced = device_profile(torch, lambda: step(params, opt, b0),
+                                        n_top=None)
+    rows = [(k, c, t * 1e6) for k, c, t in rows if t > 0]
     return {"wall_ms": wall * 1e3, "traced_ms": traced * 1e3,
-            "busy_ms": busy * 1e3,
-            "top": [(k, c, t * 1e6) for k, c, t in top if t > 0]}
+            "busy_ms": busy * 1e3, "top": rows[:8],
+            # K6 and K6b's kernels, by name, wherever they rank
+            "flash": [r for r in rows if "wgmma_kernel" in r[0]]}
 
 
 def phase_serve(torch, serve, card: str) -> dict:
@@ -4572,6 +4612,11 @@ def run_phases(torch, phases) -> int:
         lap("lm")
     if "train" in phases:
         for kernel, n in phase_train(torch, f"{card} ({smi})").items():
+            if kernel.endswith(" variants"):
+                prev = launches.get(kernel, {})
+                launches[kernel] = {v: prev.get(v, 0) + n.get(v, 0)
+                                    for v in {*prev, *n}}
+                continue
             by_phase.setdefault(kernel, {})["train"] = n
             launches[kernel] = launches.get(kernel, 0) + n
         lap("train")

@@ -193,7 +193,8 @@ def backend_tag(device=None) -> str:
 @functools.lru_cache(maxsize=None)
 def source_digest(kernel: str) -> str:
     """The build digest of the kernel's source (`build._digest`): it
-    changes with the source, common.cuh or the nvcc flags."""
+    changes with the source, the shared headers (`csrc/*.cuh`) or the
+    nvcc flags."""
     from repro_torch.kernels import build
     return build._digest(kernel)
 

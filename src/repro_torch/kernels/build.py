@@ -9,7 +9,7 @@ plain C interface:
 No `--use_fast_math`: the logistic terms use full-precision expf/log1pf,
 as the plain PyTorch versions do. The libraries go into
 `build/repro_torch_kernels/` at the repository root (override with
-REPRO_TORCH_BUILD_DIR), named by a hash of the source, the shared header
+REPRO_TORCH_BUILD_DIR), named by a hash of the source, the shared headers
 and the flags, so an edited source is rebuilt and an unchanged one is not.
 The first `load` compiles every missing library, one nvcc process per
 source, all started together. A machine without nvcc raises: there is no
@@ -117,11 +117,11 @@ SIGNATURES = {
                                     _I, _I, _F, _L, _P]
            for t in ("wgmma_bf16", "mma_bf16", "f32")},
         "flash_attention_encode_ns": []},
-    # q, k, v, o, dO, lse, delta scratch, dq, dk, dv, B, H, G, Sq, Skv, D,
+    # q, k, v, o, dO, lse, the scratch, dq, dk, dv, B, H, G, Sq, Skv, D,
     # causal, scale, 24 strides, stream
     "flash_attention_bwd": {
         f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 7 + [_F, _L, _P]
-        for t in ("f32", "bf16")},
+        for t in ("wgmma_bf16", "simt_bf16", "simt_f32")},
 }
 
 # zero-argument C functions returning a launch constant of the library:
@@ -192,7 +192,7 @@ def find_nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]

@@ -14,43 +14,117 @@
 //   dk_j    = scale * sum_{g, i} ds_ij q_i,   dv_j = sum_{g, i} p_ij dO_i
 //
 // with dk and dv summed over the G query heads that share kv head h / G,
-// f32 throughout (the reference's backward widens every operand), and
-// dq, dk, dv written in the inputs' type. Masks as K6's: causal `i >= j`
-// aligned top-left, keys j >= Skv and rows i >= Sq, so any Sq and Skv;
-// tiles wholly above the diagonal are skipped.
+// f32 sums (the reference's backward widens every operand), and dq, dk,
+// dv written in the inputs' type. Masks as K6's: causal `i >= j` aligned
+// top-left, keys j >= Skv and rows i >= Sq, so any Sq and Skv; tiles
+// wholly above the diagonal are skipped.
 //
-// Deterministic, with no floating-point atomics: two launches.
-//   * dQ pass: a block per (batch * head, BM query rows). It forms delta
-//     for its rows (a warp a row, a fixed butterfly), writes it to the
-//     (B, H, Sq) scratch, then walks the KV tiles up to the diagonal:
-//     S = Q K^T and dP = dO V^T, P and dS in shared memory, dQ += dS K.
-//   * dK/dV pass: a block per (batch * kv head, BN keys), walking the G
-//     query heads of its kv head and, for each, the query tiles from the
-//     diagonal on: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in shared
-//     memory, dV += P^T dO, dK += dS^T Q. Every sum has one order, so
-//     two calls are bit-equal.
-// S and dP are formed in both passes: 7 products of 2 S^2 D a head where
-// 5 would do.
+// Deterministic, with no floating-point atomics, in both variants: two
+// launches, a dQ pass (which forms delta first) and then a dK/dV pass,
+// every sum in one fixed order, so two calls are bit-equal. S and dP are
+// formed in both passes: 7 products of 2 S^2 D a head where 5 would do
+// (a 5-product design must sum dQ across KV tiles in a fixed order).
 //
 // Bound on the H100: operations. 5 products of 2 D flops for each
 // (query, key) pair the mask lets through: at the qwen2-0.5b train shape
 // (B 4, S 4096, 14 heads over 2, D 64, bf16, causal) 3.0e11 flops, 0.30
 // ms at the 989 TFLOP/s bf16 tensor-core peak, against 135 MB moved
-// (0.04 ms at 3.35 TB/s). This first design runs every product on the
-// CUDA cores in f32 from shared memory (each thread a 4 x 4 piece of a
-// 64 x 64 tile, BM = BN = 64 at D 64 and 128, 32 at D 256 so the four
-// f32 tiles fit), so it is far from that bound; a tensor-core (mma.sync
-// or wgmma) design is later work.
+// (0.04 ms at 3.35 TB/s). The exponentials add 4.7e8 ex2 a pass on the
+// special-function units (16 a clock an SM: ~0.12 ms a pass).
+//
+// Two variants, chosen by the dispatcher (kernels/ops.py) from the dtype
+// and D alone, each counted on its own:
+//   * wgmma (bf16, D 64 and 128): both passes persistent and
+//     warp-specialised like K6's wgmma kernel: one block an SM walking
+//     work tiles heaviest-first in rounds of alternating direction
+//     (`tile_of`); a producer warpgroup, registers lowered by setmaxnreg,
+//     whose one thread keeps TMA loads in flight through a ring of four
+//     shared-memory stages (full and empty mbarriers, running on across
+//     the block's work tiles); consumer warpgroups, registers raised,
+//     that run wgmma with f32 accumulators. The tensor maps are 4-D, (D,
+//     heads, rows, batch), built on the host from the tensors' strides:
+//     GQA reads kv head h / G in place, TMA's zero fill covers ragged
+//     rows. Every product takes K6's operand forms: both operands in
+//     shared memory, K-major (S = Q K^T, dP = dO V^T and their
+//     transposes), or A from registers and B MN-major (the products with
+//     P or dS: P and dS are f32 accumulators cast to bf16 in registers,
+//     as K6 feeds P), so no operand is transposed in memory; one form is
+//     added, A from registers and B K-major (S^T and dP^T at D 64).
+//       - dQ pass: work tiles (batch * head, 64 C query rows), C = 3
+//         consumer warpgroups at D 64 and 2 at D 128, each owning 64 rows,
+//         with Q and dO resident. Each warpgroup first forms delta for its
+//         rows (a pair of threads a row, from o and dO in global memory,
+//         a fixed order) and writes lse log2(e) and delta of its rows to
+//         the (2, B, H, Sq rounded up to 64) scratch the dK/dV pass reads
+//         (rows >= Sq: lse = +inf, delta = 0, so their p is 0). The ring
+//         streams K and V tiles of 64 keys: S = Q K^T and dP = dO V^T
+//         (ss, issued together), then p = 2^(s scale log2(e) - lse
+//         log2(e)) (one FFMA, one ex2), ds = p (dp - delta) in f32
+//         registers, and dQ += dS K (rs, K MN-major). Tile j's S and dP
+//         are issued with tile j - 1's dQ product, and tile j's ds is
+//         formed while that product runs (K6's overlap of Q K^T, P V and
+//         the softmax). The KV tile is 64 keys, not K6's 128: at 128, S,
+//         dP and the dQ accumulator do not fit in the 160 registers a
+//         thread of three consumer warpgroups may hold.
+//       - dK/dV pass: work tiles (batch * kv head, 128 keys), two consumer
+//         warpgroups of 64 keys each, with K and V resident. The ring
+//         streams (Q, dO) tiles of 64 query rows, with their lse log2(e)
+//         and delta (bulk copies of the scratch), over the G query heads
+//         and the query tiles from the diagonal on: S^T = K Q^T and dP^T
+//         = V dO^T (ss, issued together); p^T and ds^T in f32 registers;
+//         dV += P^T dO and dK += dS^T Q (rs, dO and Q MN-major, issued
+//         together). dK and dV stay in f32 registers across all G query
+//         heads and tiles, summed in one order. At D 64 a tile's S^T and
+//         dP^T are issued with the previous tile's dV and dK products, as
+//         in the dQ pass, and each warpgroup holds its 64 rows of K and V
+//         in registers (ldmatrix from the swizzled tile, once a work
+//         tile) as the A operand of S^T and dP^T, so those products read
+//         only Q and dO from shared memory (A from registers, B K-major)
+//         and K and V's buffer is released for the next work tile at
+//         once. At D 128 the two 64 x 128 accumulators, S^T and
+//         dP^T (192 registers) fit the 232 a consumer thread holds, but
+//         not a second tile's bf16 operands beside them: each tile's
+//         products run one after the other, p^T and ds^T are cast to
+//         their bf16 operands in registers (dS^T is not staged through
+//         shared memory), and the query tile stays 64 rows.
+//     No product is in flight across a branch (ptxas serializes wgmma
+//     there), so each pipeline's first tile and last product are peeled
+//     off its loop, and p and ds are cast to bf16 operands only after the
+//     product that reads the previous ones has retired.
+//     At the train shape the dK/dV pass has 256 work tiles of G (64 - 2 j)
+//     query-tile steps; the alternating rounds give the busiest of the
+//     132 blocks 448 steps against a mean of 448 (one direction: 672).
+//   * simt (float32 at every D, bf16 at D 256): every product on the CUDA
+//     cores in f32 from shared memory (each thread a 4 x 4 piece of a
+//     64 x 64 tile, BM = BN = 64 at D 64 and 128, 32 at D 256 so the four
+//     f32 tiles fit), no asynchronous copies. float32 stays here: a
+//     tensor-core product would round its operands to tf32 (~1e-3
+//     against the 1e-4 limit).
+//       - dQ pass: a block per (batch * head, BM query rows). It forms
+//         delta for its rows (a warp a row, a fixed butterfly), writes it
+//         to the (B, H, Sq) scratch, then walks the KV tiles up to the
+//         diagonal: S = Q K^T and dP = dO V^T, P and dS in shared memory,
+//         dQ += dS K.
+//       - dK/dV pass: a block per (batch * kv head, BN keys), walking the
+//         G query heads of its kv head and, for each, the query tiles
+//         from the diagonal on: S^T = K Q^T and dP^T = V dO^T, P^T and
+//         dS^T in shared memory, dV += P^T dO, dK += dS^T Q.
+//
+// The wgmma variant rounds p and ds to bf16 for the products with dO, Q
+// and K (K6 rounds p the same way); the f32 sums and the output's bf16
+// rounding are the rest of its difference from the plain version.
+#include <cuda.h>
+
 #include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace pcdn;
+using namespace pcdn::sm90;
 
 namespace {
-
-constexpr int kThreads = 256;       // a 16 x 16 grid of threads
 
 struct Args {
   const void* q;
@@ -59,15 +133,26 @@ struct Args {
   const void* o;
   const void* dout;
   const float* lse;                 // (B, H, Sq)
-  float* delta;                     // (B, H, Sq) scratch
+  // scratch: simt (B, H, Sq) delta; wgmma (2, B, H, sq_pad), lse log2(e)
+  // then delta
+  float* delta;
   void* dq;
   void* dk;
   void* dv;
   int H, G, Sq, Skv, causal;
+  int sq_pad;                       // Sq rounded up to 64 (wgmma)
+  long long n_bhp;                  // B H sq_pad: delta in the scratch
   float scale;
   // (batch, head, row) strides in elements of q, k, v, o, dO, dq, dk, dv
   long long st[24];
 };
+
+// ----------------------------------------- simt: the CUDA cores, f32 ---
+
+namespace simt {
+
+constexpr int kThreads = 256;       // a 16 x 16 grid of threads
+
 
 template <int D>
 struct Tile {
@@ -421,46 +506,863 @@ int launch_d(const Args& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace simt
+
+// ------------------------------------ wgmma: bf16, tensor cores and TMA ---
+
+namespace wgb {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 4;
+
+// the dQ pass's block: kConsumers warpgroups of 64 query rows (three at
+// D 64, two at D 128, as K6) and one producer warpgroup; the register
+// split moves all a block may hold to the consumers (32 * 128 + 160 * 384
+// = 40 * 128 + 232 * 256 = 65536). Shared memory: Q, dO (resident), the
+// K stages, the V stages, lse log2(e) and delta of the block's rows, then
+// the mbarriers. A tile of R rows is D / 64 swizzle atoms of R rows x 128
+// bytes, one after the other, each 1024-byte aligned.
+template <int D>
+struct DqLayout {
+  static constexpr int kConsumers = D == 64 ? 3 : 2;
+  static constexpr int kM = 64 * kConsumers;   // query rows a work tile
+  static constexpr int kN = 64;                // keys a ring tile
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr int kProducerRegs = kConsumers == 3 ? 32 : 40;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 232;
+  static constexpr int kAtoms = D / 64;
+  static constexpr int kQBytes = kM * D * 2;
+  static constexpr int kTileBytes = kN * D * 2;
+  static constexpr int kDO = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kRows = kV + kStages * kTileBytes;
+  static constexpr int kBars = kRows + 2 * kM * 4;
+  // q_full, q_empty, full[stages], empty[stages]
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
+};
+
+// the dK/dV pass's block: two consumer warpgroups of 64 keys and one
+// producer warpgroup. Shared memory: K, V (resident, 128 keys), the Q
+// stages, the dO stages, the stages' lse log2(e) and delta (64 + 64
+// floats a stage), then the mbarriers.
+template <int D>
+struct KvLayout {
+  static constexpr int kConsumers = 2;
+  static constexpr int kN = 128;               // keys a work tile
+  static constexpr int kM = 64;                // query rows a ring tile
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+  static constexpr int kAtoms = D / 64;
+  static constexpr int kKVBytes = kN * D * 2;
+  static constexpr int kTileBytes = kM * D * 2;
+  static constexpr int kV = kKVBytes;
+  static constexpr int kQ = 2 * kKVBytes;
+  static constexpr int kDO = kQ + kStages * kTileBytes;
+  static constexpr int kRows = kDO + kStages * kTileBytes;
+  static constexpr int kBars = kRows + kStages * 2 * kM * 4;
+  // kv_full, kv_empty, full[stages], empty[stages]
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
+};
+
+// A (64 x D) * B^T as D / 16 steps of 16 over two K-major tiles: a step
+// moves 32 bytes along a 128-byte swizzled row, or on to the next atom
+// (R rows x 128 bytes: ra rows for A's tile, rb for B's). da, db:
+// descriptors of the tiles' starts; offsets add to the address field in
+// 16-byte units
+template <int D, int RA, int RB>
+__device__ __forceinline__ void mma_kmajor(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk % 4) * 32;
+    wgmma_ss_n64(d, da + ((kk / 4) * RA * 128 + off) / 16,
+                 db + ((kk / 4) * RB * 128 + off) / 16, kk > 0);
+  }
+}
+
+// d (64 x D) += A (64 x 64, bf16 registers) * B (64 x D, MN-major): four
+// steps of 16 rows (2 KB of swizzled rows) each; the second 64 columns
+// of D one atom further (the descriptor's leading byte offset)
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&d)[D / 2],
+                                         const uint32_t (&a)[4][4],
+                                         uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 64) {
+      wgmma_rs_n64(d, a[kk], db + kk * 16 * 128 / 16);
+    } else {
+      wgmma_rs_n128(d, a[kk], db + kk * 16 * 128 / 16);
+    }
+  }
+}
+
+// a 64 x 64 accumulator's k-step kk (columns 16 kk .. 16 kk + 15) as
+// wgmma's register A operand: the accumulator's chunks 2 kk and 2 kk + 1
+__device__ __forceinline__ void pack_step(uint32_t (&f)[4], const float* x) {
+  f[0] = pack_bf16(x[0], x[1]);
+  f[1] = pack_bf16(x[2], x[3]);
+  f[2] = pack_bf16(x[4], x[5]);
+  f[3] = pack_bf16(x[6], x[7]);
+}
+
+// a 64 x N accumulator (element 4 n + 2 i + c at row r0 + 8 i, column
+// c0 + 8 n + cq + c) stored in bf16 times mul to rows < n_rows of out
+template <int N>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long ss,
+                                           const float (&acc)[N / 2], int r0,
+                                           int cq, int n_rows, float mul) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r < n_rows) {
+      __nv_bfloat16* row = out + r * ss + cq;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(row + 8 * n) = pack_bf16(
+            acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
+      }
+    }
+  }
+}
+
+// a 64 x 64 accumulator as wgmma's register A operand, four k-steps
+__device__ __forceinline__ void pack_all(uint32_t (&f)[4][4],
+                                         const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) pack_step(f[kk], x + 8 * kk);
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, bf16 registers) * B (16 x 64, shared
+// memory, K-major); accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n64_kmajor(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// the warpgroup's 64 rows [r0, r0 + 64) of a K-major tile (R rows an
+// atom, 128-byte swizzled by TMA: the 16-byte chunk c of row r lies at
+// chunk c ^ (r % 8)) as wgmma's register A operand, D / 16 k-steps, by
+// ldmatrix: lanes 0-15 address rows 0-15 of the warp's 16 at the step's
+// first chunk, lanes 16-31 at its second
+template <int D, int R>
+__device__ __forceinline__ void load_afrags(uint32_t (&f)[D / 16][4],
+                                            uint32_t tile, int r0) {
+  const int lane = threadIdx.x % 32;
+  const int row = r0 + (threadIdx.x % 128) / 32 * 16 + lane % 16;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int chunk = 2 * (kk % 4) + lane / 16;
+    const uint32_t addr = tile + (kk / 4) * R * 128 + row * 128 +
+                          ((chunk ^ (row % 8)) * 16);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(f[kk][0]), "=r"(f[kk][1]), "=r"(f[kk][2]), "=r"(f[kk][3])
+        : "r"(addr));
+  }
+}
+
+// A (64 x D, registers) * B^T over a K-major tile of RB rows an atom
+template <int D, int RB>
+__device__ __forceinline__ void mma_kmajor_rs(float (&d)[32],
+                                              const uint32_t (&a)[D / 16][4],
+                                              uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_rs_n64_kmajor(d, a[kk], db + ((kk / 4) * RB * 128 +
+                                        (kk % 4) * 32) / 16, kk > 0);
+  }
+}
+
+struct DqTile {
+  int b, h, q0, n_kv;
+};
+
+// the dQ pass's work tile t: (batch * head, kM query rows), numbered so
+// that the heaviest causal tiles come first (K6's order)
+template <int D>
+__device__ __forceinline__ DqTile dq_tile(const Args& a, int t, int n_bh) {
+  using L = DqLayout<D>;
+  const int n_q = (a.Sq + L::kM - 1) / L::kM;
+  const int bh = t % n_bh;
+  DqTile w;
+  w.b = bh / a.H;
+  w.h = bh % a.H;
+  w.q0 = (n_q - 1 - t / n_bh) * L::kM;
+  const int all = (a.Skv + L::kN - 1) / L::kN;
+  w.n_kv = a.causal ? min(all, (w.q0 + L::kM - 1) / L::kN + 1) : all;
+  return w;
+}
+
+struct KvTile {
+  int b, hk, k0, first, n_q;
+};
+
+// the dK/dV pass's work tile t: (batch * kv head, 128 keys), the lowest
+// keys (under the causal mask the most query tiles) first; it visits
+// query tiles [first, n_q) of 64 rows for each of its G query heads
+__device__ __forceinline__ KvTile kv_tile(const Args& a, int t, int n_bkv) {
+  const int kv = a.H / a.G;
+  const int bkv = t % n_bkv;
+  KvTile w;
+  w.b = bkv / kv;
+  w.hk = bkv % kv;
+  w.k0 = (t / n_bkv) * KvLayout<64>::kN;
+  w.n_q = (a.Sq + 63) / 64;
+  w.first = a.causal ? min(w.k0 / 64, w.n_q) : 0;
+  return w;
+}
+
+// ------------------------------------------------------------- dQ pass ---
+
+template <int D>
+__global__ void __launch_bounds__(DqLayout<D>::kThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Args a,
+                    int n_bh, int n_tiles) {
+  using L = DqLayout<D>;
+  constexpr int S = kStages;
+  constexpr int C = L::kConsumers;
+  constexpr int kM = L::kM;
+  constexpr int kN = L::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sdO = base + L::kDO;
+  const uint32_t sK = base + L::kK;
+  const uint32_t sV = base + L::kV;
+  float* rows_s = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                           L::kRows);
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t full = q_empty + 8;             // + 8 s
+  const uint32_t empty = full + 8 * S;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, C * 4);                   // one arrive a warp
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, C * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == C) {
+    // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(L::kProducerRegs));
+    if (threadIdx.x == C * 128) {
+      int g = 0;                                 // KV tiles loaded so far
+      for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
+        const DqTile w = dq_tile<D>(a, tile_of(ti), n_bh);
+        const int hk = w.h / a.G;
+        if (ti > 0) mbar_wait(q_empty, (ti - 1) & 1);
+        mbar_expect_tx(q_full, 2 * L::kQBytes);
+#pragma unroll
+        for (int at = 0; at < L::kAtoms; ++at) {
+          tma_load(sQ + at * kM * 128, &tq, q_full, at * 64, w.h, w.q0, w.b);
+          tma_load(sdO + at * kM * 128, &tdo, q_full, at * 64, w.h, w.q0,
+                   w.b);
+        }
+        for (int j = 0; j < w.n_kv; ++j, ++g) {
+          const int s = g % S;
+          if (g >= S) mbar_wait(empty + 8 * s, (g / S - 1) & 1);
+          mbar_expect_tx(full + 8 * s, 2 * L::kTileBytes);
+#pragma unroll
+          for (int at = 0; at < L::kAtoms; ++at) {
+            tma_load(sK + s * L::kTileBytes + at * kN * 128, &tk,
+                     full + 8 * s, at * 64, hk, j * kN, w.b);
+            tma_load(sV + s * L::kTileBytes + at * kN * 128, &tv,
+                     full + 8 * s, at * 64, hk, j * kN, w.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns query rows [qw, qw + 64) of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(L::kConsumerRegs));
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int cq = 2 * (lane % 4);                 // the thread's column pair
+  const float sl2 = a.scale * kLog2e;
+  const long long* st = a.st;
+  float* lse2_s = rows_s + wgi * 128;            // the warpgroup's 64 rows
+  float* delta_s = lse2_s + 64;
+  // Q and dO: A operands (K-major); K and V: B operands, K-major for S
+  // and dP, K MN-major for dQ += dS K
+  const uint64_t dq_a = desc(sQ + wgi * 64 * 128, 16, 1024);
+  const uint64_t ddo_a = desc(sdO + wgi * 64 * 128, 16, 1024);
+  const uint64_t dk_b = desc(sK, 16, 1024);
+  const uint64_t dv_b = desc(sV, 16, 1024);
+  const uint64_t dk_mn = desc(sK, kN * 128, 1024);
+  constexpr int kStage = L::kTileBytes / 16;     // a stage (descriptor units)
+  int g = 0;                                     // KV tiles consumed so far
+  for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
+    const DqTile w = dq_tile<D>(a, tile_of(ti), n_bh);
+    const int qw = w.q0 + wgi * 64;
+    const int row0 = qw + warp * 16 + lane / 4;  // the thread's two rows
+    const long long bh = static_cast<long long>(w.b) * a.H + w.h;
+
+    // delta of the warpgroup's rows, a pair of threads a row (half the
+    // columns each, then one shuffle), and lse log2(e); both into shared
+    // memory and the scratch the dK/dV pass reads
+    wg_sync(1 + wgi);                            // the last tile's reads
+    {
+      const int r = tid / 2;
+      const int i = qw + r;
+      float acc = 0.0f;
+      if (i < a.Sq) {
+        const __nv_bfloat16* orow = static_cast<const __nv_bfloat16*>(a.o) +
+                                    w.b * st[9] + w.h * st[10] + i * st[11] +
+                                    (tid % 2) * (D / 2);
+        const __nv_bfloat16* grow =
+            static_cast<const __nv_bfloat16*>(a.dout) + w.b * st[12] +
+            w.h * st[13] + i * st[14] + (tid % 2) * (D / 2);
+#pragma unroll
+        for (int c = 0; c < D / 2; c += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
+          const __nv_bfloat162* o2 =
+              reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* g2 =
+              reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 gf = __bfloat1622float2(g2[e]);
+            acc = fmaf(gf.x, of.x, acc);
+            acc = fmaf(gf.y, of.y, acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (tid % 2 == 0) {
+        const float l2 = i < a.Sq ? a.lse[bh * a.Sq + i] * kLog2e : INFINITY;
+        lse2_s[r] = l2;
+        delta_s[r] = acc;
+        if (i < a.sq_pad) {
+          a.delta[bh * a.sq_pad + i] = l2;
+          a.delta[a.n_bhp + bh * a.sq_pad + i] = acc;
+        }
+      }
+    }
+    wg_sync(1 + wgi);
+    const float lse0 = lse2_s[row0 - qw];
+    const float lse1 = lse2_s[row0 + 8 - qw];
+    const float del0 = delta_s[row0 - qw];
+    const float del1 = delta_s[row0 + 8 - qw];
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+    // KV tiles this warpgroup's rows see (the block's last warpgroup sees
+    // all w.n_kv)
+    const int n_mine =
+        a.causal ? min(w.n_kv, qw / kN + 1) : w.n_kv;
+    mbar_wait(q_full, ti & 1);
+    // The warpgroup's KV tiles 0 .. n_mine - 1: tile j's S and dP go to the
+    // tensor cores together with tile j - 1's dQ += dS K (its stage sp),
+    // and tile j's p and ds are formed while that product runs. No
+    // product is in flight across a branch (ptxas would serialize them):
+    // tile 0 and the last product are peeled off the loop.
+    auto form = [&](float (&sc)[32], const float (&dp)[32], int j) {
+      // S -> dS in place: p = 2^(s scale log2(e) - lse log2(e)), masked
+      // only where the tile crosses the diagonal or the end of the keys
+      const int k0 = j * kN;
+      const bool edge = k0 + kN > a.Skv || (a.causal && k0 + kN - 1 > qw);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {             // element 4 n + 2 i + c
+        const int i = (e >> 1) & 1;
+        const int col = k0 + 8 * (e / 4) + cq + (e & 1);
+        float p = ex2(fmaf(sc[e], sl2, i ? -lse1 : -lse0));
+        if (edge && (col >= a.Skv || (a.causal && col > row0 + 8 * i))) {
+          p = 0.0f;
+        }
+        sc[e] = p * (dp[e] - (i ? del1 : del0));
+      }
+    };
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+    };
+    uint32_t df[4][4];
+    int sp = g % S;
+    {
+      mbar_wait(full + 8 * sp, (g / S) & 1);
+      float sc[32], dp[32];
+      wgmma_fence();
+      mma_kmajor<D, kM, kN>(sc, dq_a, dk_b + sp * kStage);
+      mma_kmajor<D, kM, kN>(dp, ddo_a, dv_b + sp * kStage);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(sc);
+      pin(dp);
+      form(sc, dp, 0);
+      pack_all(df, sc);
+    }
+    for (int j = 1; j < n_mine; ++j) {
+      const int s = (g + j) % S;
+      mbar_wait(full + 8 * s, ((g + j) / S) & 1);
+      float sc[32], dp[32];
+      wgmma_fence();
+      mma_kmajor<D, kM, kN>(sc, dq_a, dk_b + s * kStage);
+      mma_kmajor<D, kM, kN>(dp, ddo_a, dv_b + s * kStage);
+      wgmma_commit();
+      mma_rows<D>(dq, df, dk_mn + sp * kStage);
+      wgmma_commit();
+      wgmma_wait<1>();                           // S and dP are in
+      pin(sc);
+      pin(dp);
+      form(sc, dp, j);
+      wgmma_wait<0>();
+      pin(dq);
+      release(sp);
+      pack_all(df, sc);                          // after the product read df
+      sp = s;
+    }
+    wgmma_fence();
+    mma_rows<D>(dq, df, dk_mn + sp * kStage);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dq);
+    release(sp);
+    // tiles above this warpgroup's diagonal: read by the others only
+    for (int j = n_mine; j < w.n_kv; ++j) {
+      const int s = (g + j) % S;
+      mbar_wait(full + 8 * s, ((g + j) / S) & 1);
+      release(s);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty);         // Q and dO are read
+    g += w.n_kv;
+
+    __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(a.dq) + w.b * st[15] +
+                         w.h * st[16];
+    store_rows<D>(dqg, st[17], dq, row0, cq, a.Sq, a.scale);
+  }
+}
+
+// ---------------------------------------------------------- dK/dV pass ---
+
+template <int D>
+__global__ void __launch_bounds__(KvLayout<D>::kThreads, 1)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const Args a,
+                      int n_bkv, int n_tiles) {
+  using L = KvLayout<D>;
+  constexpr int S = kStages;
+  constexpr int C = L::kConsumers;
+  constexpr int kM = L::kM;
+  constexpr int kN = L::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base;
+  const uint32_t sV = base + L::kV;
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t sdO = base + L::kDO;
+  const uint32_t sRows = base + L::kRows;
+  const float* rows_s = reinterpret_cast<const float*>(
+      smem_raw + (base - raw) + L::kRows);
+  const uint32_t kv_full = base + L::kBars;
+  const uint32_t kv_empty = kv_full + 8;
+  const uint32_t full = kv_empty + 8;            // + 8 s
+  const uint32_t empty = full + 8 * S;
+  const float* lse2_g = a.delta;                 // (B, H, sq_pad) each
+  const float* delta_g = a.delta + a.n_bhp;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, C * 4);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, C * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == C) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(L::kProducerRegs));
+    if (threadIdx.x == C * 128) {
+      int g = 0;                                 // ring tiles loaded so far
+      for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
+        const KvTile w = kv_tile(a, tile_of(ti), n_bkv);
+        if (ti > 0) mbar_wait(kv_empty, (ti - 1) & 1);
+        mbar_expect_tx(kv_full, 2 * L::kKVBytes);
+#pragma unroll
+        for (int at = 0; at < L::kAtoms; ++at) {
+          tma_load(sK + at * kN * 128, &tk, kv_full, at * 64, w.hk, w.k0,
+                   w.b);
+          tma_load(sV + at * kN * 128, &tv, kv_full, at * 64, w.hk, w.k0,
+                   w.b);
+        }
+        for (int gq = 0; gq < a.G; ++gq) {
+          const int h = w.hk * a.G + gq;
+          const long long row_base =
+              (static_cast<long long>(w.b) * a.H + h) * a.sq_pad;
+          for (int t = w.first; t < w.n_q; ++t, ++g) {
+            const int s = g % S;
+            if (g >= S) mbar_wait(empty + 8 * s, (g / S - 1) & 1);
+            mbar_expect_tx(full + 8 * s, 2 * L::kTileBytes + 2 * kM * 4);
+#pragma unroll
+            for (int at = 0; at < L::kAtoms; ++at) {
+              tma_load(sQ + s * L::kTileBytes + at * kM * 128, &tq,
+                       full + 8 * s, at * 64, h, t * kM, w.b);
+              tma_load(sdO + s * L::kTileBytes + at * kM * 128, &tdo,
+                       full + 8 * s, at * 64, h, t * kM, w.b);
+            }
+            bulk_load(sRows + s * 2 * kM * 4, lse2_g + row_base + t * kM,
+                      kM * 4, full + 8 * s);
+            bulk_load(sRows + s * 2 * kM * 4 + kM * 4,
+                      delta_g + row_base + t * kM, kM * 4, full + 8 * s);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns keys [kw, kw + 64) of each work tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(L::kConsumerRegs));
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int cq = 2 * (lane % 4);
+  const float sl2 = a.scale * kLog2e;
+  const long long* st = a.st;
+  // K and V: A operands (K-major); Q and dO: B operands, K-major for S^T
+  // and dP^T, MN-major for dK += dS^T Q and dV += P^T dO
+  const uint64_t dk_a = desc(sK + wgi * 64 * 128, 16, 1024);
+  const uint64_t dv_a = desc(sV + wgi * 64 * 128, 16, 1024);
+  const uint64_t dq_b = desc(sQ, 16, 1024);
+  const uint64_t ddo_b = desc(sdO, 16, 1024);
+  const uint64_t dq_mn = desc(sQ, kM * 128, 1024);
+  const uint64_t ddo_mn = desc(sdO, kM * 128, 1024);
+  constexpr int kStage = L::kTileBytes / 16;
+  int g = 0;                                     // ring tiles consumed so far
+  for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
+    const KvTile w = kv_tile(a, tile_of(ti), n_bkv);
+    const int kw = w.k0 + wgi * 64;
+    const int key0 = kw + warp * 16 + lane / 4;  // the thread's two keys
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+    mbar_wait(kv_full, ti & 1);
+    // For each query head, the warpgroup's query tiles t0 .. n_q - 1 (under
+    // the causal mask the second warpgroup's keys lie above tile `first`).
+    // At D 64 a tile's S^T and dP^T go to the tensor cores together with
+    // the previous tile's dV and dK products (their stage sp), and its
+    // p^T and ds^T are formed while those run; at D 128 the second pair
+    // of bf16 operands does not fit beside the two accumulators, and each
+    // tile's products run one after the other. No product is in flight
+    // across a branch: a head's first tile and last products are peeled.
+    constexpr bool kPipe = D == 64;
+    // at D 64 the warpgroup's K and V rows go to registers once a work
+    // tile (wgmma's A operand), so S^T and dP^T read only Q and dO from
+    // shared memory, and K and V's buffer is free for the next work tile
+    constexpr bool kAfrag = D == 64;
+    uint32_t kf[D / 16][4], vf[D / 16][4];
+    if constexpr (kAfrag) {
+      load_afrags<D, kN>(kf, sK, wgi * 64);
+      load_afrags<D, kN>(vf, sV, wgi * 64);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty);      // K and V are read
+    }
+    auto form = [&](float (&sc)[32], float (&dp)[32], int s, int q0) {
+      // S^T -> P^T and dP^T -> dS^T in place
+      const float* lse2 = rows_s + s * 2 * kM;
+      const float* delta = lse2 + kM;
+      const bool edge = kw + 64 > a.Skv || (a.causal && kw + 63 > q0);
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        // elements e, e + 1: key key0 + 8 i, queries c, c + 1
+        const int i = (e >> 1) & 1;
+        const int c = 8 * (e / 4) + cq;          // query column in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta + c);
+        float p0 = ex2(fmaf(sc[e], sl2, -l2.x));
+        float p1 = ex2(fmaf(sc[e + 1], sl2, -l2.y));
+        if (edge) {
+          const int key = key0 + 8 * i;
+          const int qr = q0 + c;
+          if (key >= a.Skv || (a.causal && key > qr)) p0 = 0.0f;
+          if (key >= a.Skv || (a.causal && key > qr + 1)) p1 = 0.0f;
+        }
+        sc[e] = p0;
+        sc[e + 1] = p1;
+        dp[e] = p0 * (dp[e] - d2.x);
+        dp[e + 1] = p1 * (dp[e + 1] - d2.y);
+      }
+    };
+    auto scores = [&](float (&sc)[32], float (&dp)[32], int s) {
+      if constexpr (kAfrag) {
+        mma_kmajor_rs<D, kM>(sc, kf, dq_b + s * kStage);
+        mma_kmajor_rs<D, kM>(dp, vf, ddo_b + s * kStage);
+      } else {
+        mma_kmajor<D, kN, kM>(sc, dk_a, dq_b + s * kStage);
+        mma_kmajor<D, kN, kM>(dp, dv_a, ddo_b + s * kStage);
+      }
+      wgmma_commit();
+    };
+    auto grads = [&](const uint32_t (&pf)[4][4], const uint32_t (&df)[4][4],
+                     int s) {                    // dV += P^T dO, dK += dS^T Q
+      mma_rows<D>(dv, pf, ddo_mn + s * kStage);
+      mma_rows<D>(dk, df, dq_mn + s * kStage);
+      wgmma_commit();
+    };
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+    };
+    const int skip = a.causal ? min(wgi, w.n_q - w.first) : 0;
+    const int t0 = w.first + skip;
+    for (int gq = 0; gq < a.G; ++gq) {
+      for (int t = w.first; t < t0; ++t, ++g) {  // above the diagonal
+        mbar_wait(full + 8 * (g % S), (g / S) & 1);
+        release(g % S);
+      }
+      if (!kPipe) {
+        for (int t = t0; t < w.n_q; ++t, ++g) {
+          const int s = g % S;
+          mbar_wait(full + 8 * s, (g / S) & 1);
+          float sc[32], dp[32];
+          uint32_t pf[4][4], df[4][4];
+          wgmma_fence();
+          scores(sc, dp, s);
+          wgmma_wait<0>();
+          pin(sc);
+          pin(dp);
+          form(sc, dp, s, t * kM);
+          pack_all(pf, sc);
+          pack_all(df, dp);
+          wgmma_fence();
+          grads(pf, df, s);
+          wgmma_wait<0>();
+          pin(dv);
+          pin(dk);
+          release(s);
+        }
+      } else if (t0 < w.n_q) {
+        uint32_t pf[4][4], df[4][4];
+        int sp = g % S;
+        {
+          mbar_wait(full + 8 * sp, (g / S) & 1);
+          float sc[32], dp[32];
+          wgmma_fence();
+          scores(sc, dp, sp);
+          wgmma_wait<0>();
+          pin(sc);
+          pin(dp);
+          form(sc, dp, sp, t0 * kM);
+          pack_all(pf, sc);
+          pack_all(df, dp);
+        }
+        ++g;
+        for (int t = t0 + 1; t < w.n_q; ++t, ++g) {
+          const int s = g % S;
+          mbar_wait(full + 8 * s, (g / S) & 1);
+          float sc[32], dp[32];
+          wgmma_fence();
+          scores(sc, dp, s);
+          grads(pf, df, sp);
+          wgmma_wait<1>();                       // S^T and dP^T are in
+          pin(sc);
+          pin(dp);
+          form(sc, dp, s, t * kM);
+          wgmma_wait<0>();
+          pin(dv);
+          pin(dk);
+          release(sp);
+          pack_all(pf, sc);                      // after the products read them
+          pack_all(df, dp);
+          sp = s;
+        }
+        wgmma_fence();
+        grads(pf, df, sp);
+        wgmma_wait<0>();
+        pin(dv);
+        pin(dk);
+        release(sp);
+      }
+    }
+    if constexpr (!kAfrag) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty);      // K and V are read
+    }
+
+    __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk) + w.b * st[18] +
+                         w.hk * st[19];
+    __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv) + w.b * st[21] +
+                         w.hk * st[22];
+    store_rows<D>(dkg, st[20], dk, key0, cq, a.Skv, a.scale);
+    store_rows<D>(dvg, st[23], dv, key0, cq, a.Skv, 1.0f);
+  }
+}
+
+}  // namespace wgb
+
+// --------------------------------------------------------------- launch ---
+
+template <int D>
+int launch_wgmma(const Args& a, int B, cudaStream_t stream) {
+  using LQ = wgb::DqLayout<D>;
+  using LK = wgb::KvLayout<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const long long* st = a.st;
+  const int Kv = a.H / a.G;
+  // Q and dO as the dQ pass's resident tiles (kM rows) and as the dK/dV
+  // pass's ring tiles (64 rows); K and V as the dQ pass's ring tiles (64
+  // keys) and the dK/dV pass's resident tiles (128 keys)
+  CUtensorMap q_res, do_res, k_ring, v_ring, q_ring, do_ring, k_res, v_res;
+  const bool ok =
+      encode(fn, &q_res, a.q, D, a.H, a.Sq, B, st[1], st[2], st[0],
+             LQ::kM) &&
+      encode(fn, &do_res, a.dout, D, a.H, a.Sq, B, st[13], st[14], st[12],
+             LQ::kM) &&
+      encode(fn, &k_ring, a.k, D, Kv, a.Skv, B, st[4], st[5], st[3],
+             LQ::kN) &&
+      encode(fn, &v_ring, a.v, D, Kv, a.Skv, B, st[7], st[8], st[6],
+             LQ::kN) &&
+      encode(fn, &q_ring, a.q, D, a.H, a.Sq, B, st[1], st[2], st[0],
+             LK::kM) &&
+      encode(fn, &do_ring, a.dout, D, a.H, a.Sq, B, st[13], st[14], st[12],
+             LK::kM) &&
+      encode(fn, &k_res, a.k, D, Kv, a.Skv, B, st[4], st[5], st[3],
+             LK::kN) &&
+      encode(fn, &v_res, a.v, D, Kv, a.Skv, B, st[7], st[8], st[6], LK::kN);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      wgb::bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(wgb::bwd_dkdv_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             LK::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_bh = B * a.H;
+  const long long q_tiles =
+      static_cast<long long>(n_bh) * ((a.Sq + LQ::kM - 1) / LQ::kM);
+  const int n_bkv = B * Kv;
+  const long long kv_tiles =
+      static_cast<long long>(n_bkv) * ((a.Skv + LK::kN - 1) / LK::kN);
+  if (q_tiles > 0x7fffffff || kv_tiles > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int grid_q = static_cast<int>(q_tiles < sms ? q_tiles : sms);
+  wgb::bwd_dq_wgmma_kernel<D><<<grid_q, LQ::kThreads, LQ::kBytes, stream>>>(
+      q_res, do_res, k_ring, v_ring, a, n_bh, static_cast<int>(q_tiles));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid_kv = static_cast<int>(kv_tiles < sms ? kv_tiles : sms);
+  wgb::bwd_dkdv_wgmma_kernel<D>
+      <<<grid_kv, LK::kThreads, LK::kBytes, stream>>>(
+          q_ring, do_ring, k_res, v_res, a, n_bkv,
+          static_cast<int>(kv_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum Variant { kWgmma, kSimt };
+
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int B, int H, int G, int Sq, int Skv, int D,
-           int causal, float scale, const long long* st,
+int launch(Variant variant, const void* q, const void* k, const void* v,
+           const void* o, const void* dout, const float* lse, float* delta,
+           void* dq, void* dk, void* dv, int B, int H, int G, int Sq,
+           int Skv, int D, int causal, float scale, const long long* st,
            cudaStream_t stream) {
   if (B < 1 || H < 1 || G < 1 || H % G != 0 || Sq < 1 || Skv < 1 ||
       (Sq + 31) / 32 > 65535 || (Skv + 31) / 32 > 65535 ||
       static_cast<long long>(B) * H > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int sq_pad = (Sq + 63) / 64 * 64;
   Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, H, G, Sq, Skv, causal,
-         scale, {}};
+         sq_pad, static_cast<long long>(B) * H * sq_pad, scale, {}};
   for (int i = 0; i < 24; ++i) a.st[i] = st[i];
+  if (variant == kWgmma) {
+    if constexpr (sizeof(T) == 2) {
+      switch (D) {
+        case 64: return launch_wgmma<64>(a, B, stream);
+        case 128: return launch_wgmma<128>(a, B, stream);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (D) {
-    case 64: return launch_d<T, 64>(a, B, stream);
-    case 128: return launch_d<T, 128>(a, B, stream);
-    case 256: return launch_d<T, 256>(a, B, stream);
+    case 64: return simt::launch_d<T, 64>(a, B, stream);
+    case 128: return simt::launch_d<T, 128>(a, B, stream);
+    case 256: return simt::launch_d<T, 256>(a, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q, k, v, o, dO, lse (B, H, Sq) float32, delta (B, H, Sq) float32
-// scratch, dq, dk, dv; B batches of H query heads, G query heads per kv
-// head; strides: (batch, head, row) of q, k, v, o, dO, dq, dk, dv in
-// elements, 24 in all
-#define FLASH_BWD_ENTRY(NAME, T)                                            \
+// q, k, v, o, dO, lse (B, H, Sq) float32, the float32 scratch (simt: B H
+// Sq floats; wgmma: 2 B H Sq_pad, Sq rounded up to 64), dq, dk, dv; B
+// batches of H query heads, G query heads per kv head; strides: (batch,
+// head, row) of q, k, v, o, dO, dq, dk, dv in elements, 24 in all
+#define FLASH_BWD_ENTRY(NAME, T, VARIANT)                                   \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* o, const void* dout, const void* lse,     \
                       void* delta, void* dq, void* dk, void* dv, int B,     \
                       int H, int G, int Sq, int Skv, int D, int causal,     \
                       float scale, const long long* strides,                \
                       void* stream) {                                       \
-    return launch<T>(q, k, v, o, dout, static_cast<const float*>(lse),      \
+    return launch<T>(VARIANT, q, k, v, o, dout,                             \
+                     static_cast<const float*>(lse),                        \
                      static_cast<float*>(delta), dq, dk, dv, B, H, G, Sq,   \
                      Skv, D, causal, scale, strides,                        \
                      static_cast<cudaStream_t>(stream));                    \
   }
 
-FLASH_BWD_ENTRY(flash_attention_bwd_f32, float)
-FLASH_BWD_ENTRY(flash_attention_bwd_bf16, __nv_bfloat16)
+FLASH_BWD_ENTRY(flash_attention_bwd_wgmma_bf16, __nv_bfloat16, kWgmma)
+FLASH_BWD_ENTRY(flash_attention_bwd_simt_bf16, __nv_bfloat16, kSimt)
+FLASH_BWD_ENTRY(flash_attention_bwd_simt_f32, float, kSimt)

@@ -20,13 +20,14 @@ Each wrapper looks at where its tensors live:
 
 `launch_counts()` / `reset_launch_counts()` read and clear the counts, so a
 run can show that its main path went through the kernels;
-`flash_variant_counts()` splits K6's count by the variant that ran.
+`flash_variant_counts()` and `flash_bwd_variant_counts()` split K6's and
+K6b's counts by the variant that ran.
 
-Launch plans (`kernels.autotune`): every plan function below (K1-K5; K6's
-variant stays a fixed rule) takes an optional `config` of the tuner's
-knobs; None knobs leave the rule's value, and a value the kernel cannot
-take at the exact shape raises ValueError. Each dispatcher (and each
-launch object) takes `config=` too: an explicit config is planned
+Launch plans (`kernels.autotune`): every plan function below (K1-K5;
+K6's and K6b's variants stay fixed rules) takes an optional `config` of
+the tuner's knobs; None knobs leave the rule's value, and a value the
+kernel cannot take at the exact shape raises ValueError. Each dispatcher
+(and each launch object) takes `config=` too: an explicit config is planned
 strictly (the tuner's candidates), None resolves the plan through the
 tuner once a shape (`tuned_plan`, memoised until
 `autotune.invalidate_cache()`): the cached winner where it is feasible at
@@ -79,6 +80,8 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
     for name in _FLASH_VARIANT_LAUNCHES:
         _FLASH_VARIANT_LAUNCHES[name] = 0
+    for name in _FLASH_BWD_VARIANT_LAUNCHES:
+        _FLASH_BWD_VARIANT_LAUNCHES[name] = 0
 
 
 def _observed(name: str, arg: int = 0):
@@ -1515,6 +1518,43 @@ def flash_variant_counts() -> dict:
     return dict(_FLASH_VARIANT_LAUNCHES)
 
 
+# K6b's variants (kernels/csrc/flash_attention_bwd.cu) and the head dims
+# each takes
+FLASH_BWD_VARIANTS = {"wgmma": (64, 128), "simt": (64, 128, 256)}
+_FLASH_BWD_VARIANT_LAUNCHES = {name: 0 for name in FLASH_BWD_VARIANTS}
+
+
+def flash_bwd_variant(dtype: torch.dtype, D: int) -> str:
+    """The K6b variant the dispatcher launches, fixed by dtype and head dim
+    alone: bf16 at D 64 and 128 the wgmma/TMA kernels, everything else
+    (float32 at every D, where a tensor-core product would round to tf32;
+    bf16 at D 256) the CUDA-core kernels."""
+    if dtype == torch.bfloat16 and D in FLASH_BWD_VARIANTS["wgmma"]:
+        return "wgmma"
+    return "simt"
+
+
+def flash_bwd_checked_variant(dtype: torch.dtype, D: int,
+                              variant: str | None = None) -> str:
+    """`variant`, or the rule's (`flash_bwd_variant`) when None; raises
+    ValueError for a name that is not one of FLASH_BWD_VARIANTS or does
+    not take `dtype` at head dim D (wgmma: bf16 at D 64 and 128)."""
+    if variant is None:
+        return flash_bwd_variant(dtype, D)
+    if variant not in FLASH_BWD_VARIANTS or \
+            D not in FLASH_BWD_VARIANTS[variant] or \
+            (variant == "wgmma" and dtype != torch.bfloat16):
+        raise ValueError(f"flash_attention_bwd: variant {variant!r} does "
+                         f"not take {dtype} at head dim {D}")
+    return variant
+
+
+def flash_bwd_variant_counts() -> dict:
+    """K6b launches by variant since the last `reset_launch_counts()`;
+    they sum to `launch_counts()["flash_attention_bwd"]`."""
+    return dict(_FLASH_BWD_VARIANT_LAUNCHES)
+
+
 def flash_encode_us() -> float:
     """Host microseconds the last wgmma launch spent encoding its three
     tensor maps."""
@@ -1654,7 +1694,8 @@ def _flash_forward(q: Tensor, k: Tensor, v: Tensor, causal, sm_scale,
 @_observed("flash_attention_bwd")
 def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                         lse: Tensor, do: Tensor, causal: bool = True,
-                        sm_scale: float | None = None):
+                        sm_scale: float | None = None, *,
+                        variant: str | None = None):
     """K6b: the gradient of `flash_attention` -> (dq, dk, dv) in the
     inputs' dtype and layout, from the forward's output `out` and row
     log-sum-exp `lse` ((B, H, Sq) float32, (BH, Sq) heads first) and the
@@ -1665,7 +1706,10 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     On the card: D 64, 128 or 256, float32 or bfloat16 (q, k, v, out and
     do alike), the strides contract of K6 (`flash_strides`; do is made
     contiguous first); two launches (dQ with delta, then dK/dV) counted
-    once; deterministic, no atomics. Anything else raises."""
+    once, and once under their variant; deterministic, no atomics.
+    `flash_bwd_variant` picks the kernels; `variant` names another one of
+    FLASH_BWD_VARIANTS that takes the dtype and D (to time them side by
+    side). Anything else raises."""
     if _on_cpu(q, k, v, out, lse, do):
         return ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                      sm_scale=sm_scale)
@@ -1678,6 +1722,7 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                          f"against q {tuple(q.shape)} {q.dtype}")
     _check("flash_attention_bwd: lse", lse, _F32,
            (B, H, Sq) if q.ndim == 4 else (B * H, Sq))
+    variant = flash_bwd_checked_variant(q.dtype, D, variant)
     do = do.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -1691,15 +1736,21 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
         flash_strides(views[1], views[2], dk4, dv4)
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # the passes' scratch: simt's delta (B, H, Sq); wgmma's lse log2(e)
+    # and delta, each (B, H, Sq rounded up to 64)
+    delta = torch.empty((B, H, Sq) if variant == "simt" else
+                        (2, B, H, -(-Sq // 64) * 64), dtype=torch.float32,
+                        device=q.device)
     lib = build.load("flash_attention_bwd")
-    fn = getattr(lib, f"flash_attention_bwd_{_VALUE_TYPES[q.dtype]}")
+    fn = getattr(lib, f"flash_attention_bwd_{variant}_"
+                      f"{_VALUE_TYPES[q.dtype]}")
     err = fn(_ptr(q4), _ptr(k4), _ptr(v4), _ptr(views[0]), _ptr(views[1]),
              _ptr(lse), _ptr(delta), _ptr(views[2]), _ptr(dk4), _ptr(dv4),
              B, H, G, Sq, Skv, D, int(bool(causal)), float(sm_scale),
              (ctypes.c_longlong * 24)(*strides), _stream(q))
-    _raise_if(err, "flash_attention_bwd")
+    _raise_if(err, f"flash_attention_bwd ({variant})")
     _LAUNCHES["flash_attention_bwd"] += 1
+    _FLASH_BWD_VARIANT_LAUNCHES[variant] += 1
     return dq, dk, dv
 
 

@@ -180,6 +180,9 @@ def main(argv=None) -> dict:
         "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                        if dev.type == "cuda" else None),
         "launches": ops.launch_counts(),
+        "launches_by_variant": {
+            "flash_attention": ops.flash_variant_counts(),
+            "flash_attention_bwd": ops.flash_bwd_variant_counts()},
         "events": [e["kind"] for e in runner.events]}
     print("[train] result " + json.dumps(result), flush=True)
     return result

@@ -1306,19 +1306,34 @@ def _bwd_rows_close_to(got, want, rtol):
     assert worst <= rtol, worst
 
 
-@pytest.mark.parametrize("q_shape,kv_shape", [
+_BWD_SHAPES = [
     ((2, 1000, 14, 64), (2, 1000, 2, 64)),      # qwen2-0.5b heads, ragged
     ((1, 777, 32, 128), (1, 777, 4, 128)),      # yi-6b heads
     ((1, 300, 16, 256), (1, 300, 16, 256)),     # gemma-7b heads
     ((1, 200, 4, 64), (1, 330, 2, 64)),         # Sq != Skv
+    ((1, 330, 4, 128), (1, 200, 2, 128)),       # Sq > Skv, D 128
     ((6, 129, 64), (2, 129, 64)),               # grouped (BH, S, D)
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+]
+
+
+def _bwd_takes(variant, dtype, D) -> bool:
+    """Whether K6b's `variant` takes dtype at head dim D (the names the
+    dispatcher refuses are tested on the CPU)."""
+    return D in ops.FLASH_BWD_VARIANTS[variant] and \
+        (variant == "simt" or dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,dtype,variant", [
+    (qs, ks, dtype, variant) for qs, ks in _BWD_SHAPES
+    for dtype in (torch.float32, torch.bfloat16)
+    for variant in ("wgmma", "simt") if _bwd_takes(variant, dtype, qs[-1])])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_bwd_kernel(cuda, q_shape, kv_shape, dtype, causal):
+def test_flash_attention_bwd_kernel(cuda, q_shape, kv_shape, dtype, variant,
+                                    causal):
     """K6b from K6's (out, lse) against `ref.attention_bwd_ref` on the
-    same inputs, per row; K6's lse against the plain version's; two
-    calls bit-equal (no atomics); one count a call."""
+    same inputs, per row, for each variant that takes the case; K6's lse
+    against the plain version's; two calls bit-equal (no atomics); one
+    count a call, and one under the variant."""
     g = torch.Generator(device=cuda).manual_seed(sum(q_shape) + causal)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
                for s in (q_shape, kv_shape, kv_shape))
@@ -1327,16 +1342,54 @@ def test_flash_attention_bwd_kernel(cuda, q_shape, kv_shape, dtype, causal):
     _, want_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
     assert lse.shape == want_lse.shape and lse.dtype == torch.float32
     assert float(torch.max(torch.abs(lse - want_lse))) <= 1e-4
-    before = ops.launch_counts()["flash_attention_bwd"]
-    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
-    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                  variant=variant)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                    variant=variant)
     want = ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention_bwd"] == before + 2
+    assert ops.launch_counts()["flash_attention_bwd"] == 2
+    assert ops.flash_bwd_variant_counts()[variant] == 2
     for a, b, c in zip(got, want, again):
         assert a.shape == b.shape and a.dtype == dtype
         _bwd_rows_close_to(a, b, FLASH_RTOL[dtype])
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_runs_the_rules_variant(cuda, D, dtype):
+    """With no variant named, K6b launches the rule's (`flash_bwd_variant`:
+    wgmma for bf16 at D 64 and 128, simt otherwise) and counts it there;
+    the result is held to the plain version per row."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, do = (torch.randn((2, 300, 4, D), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((2, 300, 2, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    out, lse = ops._flash_forward(q, k, v, True, None, None, True)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    variant = ops.flash_bwd_variant(dtype, D)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and D < 256
+                       else "simt")
+    assert ops.flash_bwd_variant_counts() == {
+        name: int(name == variant) for name in ops.FLASH_BWD_VARIANTS}
+    for a, b in zip(got, want):
+        _bwd_rows_close_to(a, b, FLASH_RTOL[dtype])
+
+
+def test_flash_attention_bwd_variant_names_are_checked(cuda):
+    q = torch.zeros((1, 64, 2, 64), device=cuda)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="variant"):
+        ops.flash_attention_bwd(q, q, q, q, lse, q, variant="wgmma")
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="variant"):
+        ops.flash_attention_bwd(qb, qb, qb, qb, lse, qb, variant="mma")
 
 
 def test_flash_attention_grads_run_k6_and_k6b(cuda):
@@ -1412,3 +1465,50 @@ def test_train_step_through_kernels_agrees_with_plain_route(cuda):
     diff = sum(float(torch.sum((pk[k] - pp[k]) ** 2)) for k in params)
     step2 = sum(float(torch.sum((pp[k] - params[k]) ** 2)) for k in params)
     assert (diff / step2) ** 0.5 <= 1e-3
+
+
+# chip_smoke.TRAIN_RTOL["bfloat16"]: loss, grad_norm and the update over
+# all parameters of one train step through K6/K6b against the plain route
+TRAIN_BF16_RTOL = {"loss": 1e-4, "grad_norm": 2e-2, "update": 0.25}
+
+
+def test_bf16_train_step_through_kernels_agrees_with_plain_route(cuda):
+    """Reduced qwen2-0.5b at head_dim 64 with remat, bf16, 2100 tokens:
+    one train step through K6/K6b (K6b on its wgmma variant, n_layers
+    launches) against the plain route from the same params, AdamW state
+    and batch, within the train phase's bf16 limits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decls import init_params
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config("qwen2-0.5b", reduced=True).replace(
+        head_dim=64, remat=True, dtype="bfloat16")
+    model = Model(cfg, cuda)
+    init_params(model, torch.Generator(device=cuda).manual_seed(0))
+    opt_cfg = AdamWConfig(lr=3e-4)
+    step = make_train_step(model, opt_cfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = [torch.randint(0, cfg.vocab_size, (2, 2101), device=cuda,
+                          generator=gen) for _ in range(2)]
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    params, opt, _ = step(params, adamw_init(params, opt_cfg), batches[0])
+    out = {}
+    L = cfg.n_layers
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        ops.reset_launch_counts()
+        out[use_kernels] = step(params, opt, batches[1])
+        want = L if use_kernels else 0
+        assert ops.launch_counts()["flash_attention_bwd"] == want
+        assert ops.flash_bwd_variant_counts()["wgmma"] == want
+    (pk, _, mk), (pp, _, mp) = out[True], out[False]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mk[key]) - float(mp[key])) <= \
+            TRAIN_BF16_RTOL[key] * abs(float(mp[key])), key
+    diff = sum(float(torch.sum((pk[k].float() - pp[k].float()) ** 2))
+               for k in params)
+    step2 = sum(float(torch.sum((pp[k].float() - params[k].float()) ** 2))
+                for k in params)
+    assert (diff / step2) ** 0.5 <= TRAIN_BF16_RTOL["update"]

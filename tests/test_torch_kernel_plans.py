@@ -177,6 +177,143 @@ def test_wgmma_tile_order_covers_every_tile_once():
         assert sorted(seen) == list(range(tiles))
 
 
+# -- K6b: the flash backward's variants and its two passes' work plans --------
+
+@pytest.mark.parametrize("dtype,D,variant", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt")])
+def test_flash_bwd_variant_is_fixed_by_dtype_and_head_dim(dtype, D, variant):
+    assert ops.flash_bwd_variant(dtype, D) == variant
+    assert D in ops.FLASH_BWD_VARIANTS[variant]
+    assert ops.flash_bwd_checked_variant(dtype, D) == variant
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_bwd_every_head_dim_has_one_variant_for_each_dtype(dtype, D):
+    chosen = ops.flash_bwd_variant(dtype, D)
+    assert D in ops.FLASH_BWD_VARIANTS[chosen]
+    # float32 never reaches the tensor cores (tf32 rounding)
+    assert chosen == "simt" or dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,D,variant", [
+    (torch.bfloat16, 256, "wgmma"),      # D 256: the ring does not fit
+    (torch.float32, 64, "wgmma"),        # float32 stays on the CUDA cores
+    (torch.float32, 128, "wgmma"),
+    (torch.bfloat16, 64, "mma"),         # K6's name, not K6b's
+    (torch.bfloat16, 64, "f32"),
+    (torch.float32, 64, "tma"),
+    (torch.bfloat16, 96, "simt")])       # no kernel at D 96
+def test_flash_bwd_refuses_a_variant_that_does_not_take_the_call(dtype, D,
+                                                                 variant):
+    with pytest.raises(ValueError, match="variant"):
+        ops.flash_bwd_checked_variant(dtype, D, variant)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 256)])
+def test_flash_bwd_takes_a_variant_that_fits(dtype, D):
+    for variant in ops.FLASH_BWD_VARIANTS:
+        fits = D in ops.FLASH_BWD_VARIANTS[variant] and \
+            (variant == "simt" or dtype == torch.bfloat16)
+        if fits:
+            assert ops.flash_bwd_checked_variant(dtype, D, variant) == variant
+
+
+@pytest.mark.parametrize("variant", [None, "wgmma", "simt"])
+def test_flash_attention_bwd_on_cpu_takes_the_plain_version(variant):
+    rng = np.random.default_rng(1)
+    q, do = (torch.from_numpy(rng.standard_normal((1, 33, 4, 64))
+                              .astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 33, 2, 64))
+                             .astype(np.float32)) for _ in range(2))
+    out, lse = ref.attention_ref(q, k, v, return_lse=True)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, variant=variant)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+    assert sum(ops.flash_bwd_variant_counts().values()) == 0
+
+
+def _bwd_schedule(pass_, B, Sq, Skv, H, Kv, D, causal=True, zigzag=True,
+                  sms=H100_SMS):
+    """K6b wgmma's work plans, as flash_attention_bwd.cu lays them out ->
+    (tiles each block takes, in order; the ring steps a block).
+    dQ pass (`dq_tile`): work tiles of 64 C query rows (C = 3 at D 64, 2
+    at D 128) x (batch * head), heaviest-first, each costing its KV tiles
+    of 64 keys up to the diagonal. dK/dV pass (`kv_tile`): work tiles of
+    128 keys x (batch * kv head), lowest keys first, each costing G x its
+    query tiles of 64 rows from the diagonal on. Both taken by
+    min(tiles, SMs) persistent blocks in rounds (`tile_of`)."""
+    G = H // Kv
+    if pass_ == "dq":
+        kM = 64 * (3 if D == 64 else 2)
+        n_q, n_bh, n_k = -(-Sq // kM), B * H, -(-Skv // 64)
+        tiles = n_q * n_bh
+
+        def cost(t):
+            q0 = (n_q - 1 - t // n_bh) * kM
+            return min(n_k, (q0 + kM - 1) // 64 + 1) if causal else n_k
+    else:
+        n_bkv, n_q = B * Kv, -(-Sq // 64)
+        tiles = -(-Skv // 128) * n_bkv
+
+        def cost(t):
+            first = min((t // n_bkv) * 128 // 64, n_q) if causal else 0
+            return G * (n_q - first)
+    grid = min(tiles, sms)
+    taken, load = [[] for _ in range(grid)], [0] * grid
+    for block in range(grid):
+        i = 0
+        while True:
+            c = grid - 1 - block if (zigzag and i % 2) else block
+            t = i * grid + c
+            if t >= tiles:
+                break
+            taken[block].append(t)
+            load[block] += cost(t)
+            i += 1
+    return taken, load
+
+
+@pytest.mark.parametrize("pass_,tiles", [("dq", 1232), ("dkdv", 256)])
+def test_flash_bwd_schedules_balance_the_blocks_at_the_train_shape(pass_,
+                                                                   tiles):
+    """qwen2-0.5b's train shape (B 4, S 4096, 14 heads over 2, D 64):
+    rounds in alternating directions leave the busiest block at most 1.02
+    times the mean (dK/dV: 448 steps against 448); round-robin in one
+    direction is worse (dK/dV: 672)."""
+    shape = (4, 4096, 4096, 14, 2, 64)
+    taken, load = _bwd_schedule(pass_, *shape)
+    assert sum(len(x) for x in taken) == tiles
+    assert max(load) <= 1.02 * sum(load) / len(load)
+    _, plain = _bwd_schedule(pass_, *shape, zigzag=False)
+    assert max(plain) > max(load) and sum(plain) == sum(load)
+    if pass_ == "dkdv":
+        assert (max(load), sum(load) / len(load), max(plain)) == \
+            (448, 448, 672)
+
+
+@pytest.mark.parametrize("pass_", ["dq", "dkdv"])
+@pytest.mark.parametrize("shape", [
+    (4, 4096, 4096, 14, 2, 64),      # the train shape
+    (1, 4000, 4000, 14, 2, 64),      # ragged
+    (1, 2048, 2048, 32, 4, 128),     # yi-6b heads
+    (8, 200, 328, 2, 1, 64),         # Sq != Skv
+    (1, 33, 33, 4, 2, 128)])         # one tile
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_schedules_cover_every_tile_once(pass_, shape, causal):
+    taken, load = _bwd_schedule(pass_, *shape, causal=causal)
+    seen = sorted(t for x in taken for t in x)
+    assert seen == list(range(len(seen))) and len(seen) >= len(taken)
+    assert min(load) >= 0
+
+
 # -- K1: one cluster a bundle; K2: warps a column ------------------------------
 
 @pytest.mark.parametrize("P,K,cluster,nseg", [
