@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phases serve     # build + the serving path
     python3 chip_smoke.py --phases lm        # build + the LM serving path
     python3 chip_smoke.py --phases train     # build + LM training
+    python3 chip_smoke.py --phases moe       # build + serving the moe family
+    python3 chip_smoke.py --phases ssm       # build + serving the ssm family
     python3 chip_smoke.py --phases path      # build + the regularization path
     python3 chip_smoke.py --phases fault     # build + diagnostics, faults
     python3 chip_smoke.py --phases sharded   # build + the sharded backend
@@ -201,6 +203,31 @@ Phases:
                  route from shared carries, float32 and bf16 (two seeds),
                  with a fault planted in the plain backward as a control;
                  one step traced in a child process (`--train-profile`).
+  17. moe     -- `repro_torch.launch.serve.main` for deepseek-moe-16b at
+                 full width (28 layers: a dense first layer, then 27 with
+                 64 routed experts top-6 and 2 shared; bf16, random weights
+                 from a seed), 4 prompts of 4096 tokens and 32 new, twice
+                 (cold, warm): K6 once an attention layer of the prefill
+                 (28, all wgmma), the capacity dispatch in every MoE layer
+                 of it, every expert in decode. Then two bf16 prefills
+                 bit-equal; the prefill's logits and four decode steps
+                 through K6 against the plain route from the same weights,
+                 in bf16 at full width and in float32 at 4 layers, with
+                 the routing pinned to the kernel route's (gated) and free
+                 (printed, with its flips); grok-1-314b's reduced config
+                 served (a 1024-token prompt: the dense route); K6 timed at
+                 the prefill's shape (B 4 x 16 heads x 4096, D 128) with
+                 its bound, plain version and SDPA; one prefill and one
+                 decode step traced in a child process
+                 (`--family-profile`).
+  18. ssm     -- `launch.serve.main` for falcon-mamba-7b at full width (64
+                 Mamba layers, d_inner 8192, d_state 16; bf16), 4 prompts
+                 of 4096 tokens and 32 new: no kernel launch, finite
+                 logits; in float32 at full width and 4 layers, a prefill
+                 of 1024 tokens and one decode step against a prefill of
+                 1025 (the gate: there is no kernel); the decode state's
+                 bytes after prompts of 512 and 4096, equal; one prefill
+                 traced in a child process (`--family-profile`).
 
 Each solve phase sets the launch counts to 0, solves with the kernels,
 reads the counts, then solves again with the plain versions from the same
@@ -218,6 +245,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -235,7 +263,7 @@ SRC = ROOT / "src"
 DEVICE = "cuda"
 PHASES = ("build", "kernels", "tune", "support", "full", "dense", "scdn",
           "tron", "bf16", "cli", "serve", "path", "fault", "sharded",
-          "lm", "train")  # in order
+          "lm", "train", "moe", "ssm")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -531,6 +559,52 @@ TRAIN_RTOL = {"float32": {"loss": 1e-6, "grad_norm": 1e-5, "update": 1e-3},
               "bfloat16": {"loss": 1e-4, "grad_norm": 2e-2,
                            "update": 0.25}}
 TRAIN_FAULTS = ("delta",)
+
+# the moe phase: deepseek-moe-16b at its published width (28 layers, 64
+# routed experts top-6 and 2 shared, a dense first layer; bf16, 32.8 GB),
+# the lm phase's prompt shape: 4 prompts of 4096 tokens (K6 in each of its
+# 28 attention layers, D 128) and 32 new tokens; grok-1-314b (633 GB in
+# bf16) at its reduced config, with a prompt under BLOCKWISE_MIN_KV (its
+# head dim, 16, is no K6 variant's)
+MOE_ARCH = "deepseek-moe-16b"
+MOE_BATCH = 4
+MOE_PROMPT = 4096
+MOE_NEW = 32
+MOE_DECODE_CHECK = 4      # decode steps held kernel route vs plain route
+MOE_SEED = 0
+MOE_F32_LAYERS = 4        # float32 at 28 layers (65.5 GB) does not fit
+MOE_REDUCED_ARCH = "grok-1-314b"
+MOE_REDUCED_PROMPT = 1024
+# the moe model's prefill logits and decode steps through K6 against the
+# plain route with the kernel route's routing replayed (`moe_agreement`,
+# "pinned"). float32 at MOE_F32_LAYERS: LM_RTOL's. bf16 at 28 layers: the
+# reference's expert init (w_gate and w_up at fan-in E = 64, std 1/8, not
+# 1/45.3 at fan-in d) lets each MoE layer amplify its input's rounding, so
+# LM_RTOL's 3e-2 holds a layer at a time (`moe_lockstep`), not end to
+# end: on an H100 (PERF.md §6) the kernel route read 0.140 at the
+# prefill's logits and 0.061-0.086 at the decode steps, 2.29e-2 with the
+# expert weights at fan-in d (`--moe-fan-in-d`), a dropped KV tile 1.13
+# and a quad lane 1.17 (MOE_E2E_FAULTS in the plain route): the limit
+# sits between
+MOE_E2E_RTOL = {"float32": LM_RTOL["float32"], "bfloat16": 0.2}
+MOE_E2E_FAULTS = ("tile", "quad")
+# the ssm phase: falcon-mamba-7b at its published width (64 Mamba layers,
+# d 4096, d_inner 8192, d_state 16; bf16, 14.5 GB), 4 prompts of 4096
+# tokens and 32 new tokens; no kernel on its path. The gate: float32 at
+# full width and SSM_F32_LAYERS layers, one prompt of SSM_GATE_PROMPT
+# tokens then one decode step against a prefill of one token more
+SSM_ARCH = "falcon-mamba-7b"
+SSM_BATCH = 4
+SSM_PROMPT = 4096
+SSM_NEW = 32
+SSM_SEED = 0
+SSM_F32_LAYERS = 4
+SSM_GATE_PROMPT = 1024
+SSM_STATE_PROMPTS = (512, 4096)
+# the gate's limit: the two ways run the same float32 arithmetic but for
+# the chunking (_chunk_size(1024) = 256, _chunk_size(1025) = 205) and
+# the scan's tree, float32 sums in another order: the LM's float32 limit
+SSM_RTOL = LM_RTOL["float32"]
 
 
 def log(msg: str) -> None:
@@ -1774,6 +1848,19 @@ def flash_fault(torch, q, k, v, causal=True, sm_scale=None, *, fault):
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
+@contextlib.contextmanager
+def planted(torch, fault: str):
+    """Inside the block K6's plain version (`ref.attention_ref`) has
+    `fault` planted (`flash_fault`): the plain route is a wrong kernel."""
+    from repro_torch.kernels import ref
+    plain_ref = ref.attention_ref
+    ref.attention_ref = functools.partial(flash_fault, torch, fault=fault)
+    try:
+        yield
+    finally:
+        ref.attention_ref = plain_ref
+
+
 def flash_work(q, k, causal: bool) -> tuple[float, float]:
     """(bytes, flops) one K6 call needs: each input read once, the output
     written once; 4 D flops for each (query, key) pair the mask lets
@@ -2581,6 +2668,538 @@ def train_profile() -> dict:
             "busy_ms": busy * 1e3, "top": rows[:8],
             # K6 and K6b's kernels, by name, wherever they rank
             "flash": [r for r in rows if "wgmma_kernel" in r[0]]}
+
+
+def family_model(torch, arch: str, dtype: str, seed: int, batch: int,
+                 prompt: int, n_layers: int = 0):
+    """A family phase's model at its published width (cut to `n_layers`
+    layers when given), random weights from `seed` on the card, and its
+    prompts, made as `launch.serve` makes them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decls import init_params
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch).replace(dtype=dtype)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = Model(cfg, DEVICE)
+    init_params(model, torch.Generator(device=DEVICE).manual_seed(seed))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt))
+    return model, torch.as_tensor(prompts, device=DEVICE)
+
+
+def free_card(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_family(torch, args: list, label: str, card: str) -> dict:
+    """`launch.serve.main(args)` with the launch counts set to 0 before
+    and the peak device memory it added read after -> its result, with
+    "counts", "variants", "peak_gib" and "wall_s"."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    free_card(torch)
+    ops.reset_launch_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve_cli.main(args + ["--device", DEVICE])
+    out["wall_s"] = time.perf_counter() - t0
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    out["counts"] = ops.launch_counts()
+    out["variants"] = ops.flash_variant_counts()
+    log(f"[{label}] launch.serve {' '.join(args)} on {card}: prefill "
+        f"{out['prefill_ms']:.2f} ms, first decode step "
+        f"{out['first_step_ms']:.3f} ms, then "
+        f"{out['decode_ms_per_token']:.3f} ms a token "
+        f"({out['tok_per_s']:.1f} tok/s); peak device memory "
+        f"{out['peak_gib']:.2f} GiB; flash_attention launches "
+        f"{out['counts']['flash_attention']} (by variant "
+        f"{out['variants']}), all launches {sum(out['counts'].values())}; "
+        f"logits finite {out['logits_finite']}; {out['wall_s']:.1f} s wall "
+        f"with the model's init")
+    free_card(torch)
+    return out
+
+
+@contextlib.contextmanager
+def moe_routing(torch, mode: str, decisions: list):
+    """Inside the block the moe layers' routing decisions (the capacity
+    dispatch's top-k experts, the decode route's expert mask) are recorded
+    into `decisions` in call order (mode "record"), or replayed from it
+    ("replay": each route keeps its own gate values at the recorded
+    experts). A top-k is a step function of its input: two routes a few
+    ulps apart pick different experts wherever two gates tie to within
+    those ulps (a flip), and a flipped expert moves a token's output by a
+    whole expert's share. Replaying one route's picks in the other holds
+    the rest of their arithmetic to each other."""
+    from repro_torch.models import moe
+    real_route, real_dense = moe.route, moe.dense_weights
+    replay = iter(decisions) if mode == "replay" else None
+
+    def route(cfg, router, xt):
+        gates, ids = real_route(cfg, router, xt)
+        if replay is None:
+            decisions.append(ids)
+            return gates, ids
+        ids = next(replay)
+        probs = moe.router_probs(router, xt)
+        return moe.renormalise(probs.gather(-1, ids)), ids
+
+    def dense_weights(cfg, router, x):
+        if replay is None:
+            w = real_dense(cfg, router, x)
+            decisions.append(w > 0)
+            return w
+        return moe.renormalise(torch.where(
+            next(replay), moe.router_probs(router, x), 0.0))
+
+    moe.route, moe.dense_weights = route, dense_weights
+    try:
+        yield
+    finally:
+        moe.route, moe.dense_weights = real_route, real_dense
+
+
+def routing_flips(torch, a: list, b: list) -> tuple:
+    """(tokens routed to other experts, tokens routed) over two records
+    of the same calls."""
+    flips = total = 0
+    for x, y in zip(a, b):
+        if x.dtype != torch.bool:
+            x, y = x.sort(dim=-1).values, y.sort(dim=-1).values
+        diff = (x != y).any(dim=-1)
+        flips += int(diff.sum())
+        total += diff.numel()
+    return flips, total
+
+
+def moe_lockstep(torch, model, tokens, faults=()) -> dict:
+    """The moe model's prefill layer by layer from shared carries: each
+    layer takes the kernel route's hidden state and runs (a) its
+    attention (`attend_full`, after the output projection) through K6 and
+    through the plain version, (b) the whole layer through K6 and through
+    the plain route with the kernel route's routing replayed (pinned), (c)
+    the plain route with its own routing (its flips). Beside them the
+    plain route carries its own hidden state from the embedding, free:
+    its distance from the kernel route's after each layer is how far the
+    two routes diverge. With `faults`, the first MoE layer's (a) and (b)
+    again with each one planted in the plain version (`planted`). ->
+    {"attn", "layer", "diverge": [rel a layer], "flips": [(n, of) a
+    layer], "faults", "layer_faults": [rel a fault]}."""
+    from repro_torch.models import attention as attn
+    cfg = model.cfg
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    out = {k: [] for k in ("attn", "layer", "flips", "diverge", "faults",
+                           "layer_faults")}
+    with torch.no_grad():
+        x = xp = model.embed.apply_embed(tokens)
+        for i, layer in enumerate(model.stack()):
+            hn = layer.norm1(x)
+            hk = attn.attend_full(cfg, layer.attn, hn, positions)[0]
+            hp = attn.attend_full(cfg, layer.attn, hn, positions,
+                                  use_kernels=False)[0]
+            out["attn"].append(rel_err(torch, hk, hp)[1])
+            del hp
+            kernel, free = [], []
+            with moe_routing(torch, "record", kernel):
+                yk = layer(x, positions, True)[0]
+            with moe_routing(torch, "replay", kernel):
+                yp = layer(x, positions, False)[0]
+            with moe_routing(torch, "record", free):
+                layer(x, positions, False)
+            out["layer"].append(rel_err(torch, yk, yp)[1])
+            out["flips"].append(routing_flips(torch, kernel, free))
+            del yp
+            for fault in faults if i == 1 else ():
+                with planted(torch, fault):
+                    hf = attn.attend_full(cfg, layer.attn, hn, positions,
+                                          use_kernels=False)[0]
+                    with moe_routing(torch, "replay", kernel):
+                        yf = layer(x, positions, False)[0]
+                out["faults"].append(rel_err(torch, hk, hf)[1])
+                out["layer_faults"].append(rel_err(torch, yk, yf)[1])
+                del hf, yf
+            del hn, hk
+            xp = layer(xp, positions, False)[0]
+            x = yk
+            out["diverge"].append(rel_err(torch, x, xp)[1])
+    return out
+
+
+def moe_agreement(torch, model, tokens, bit_equal: bool = False,
+                  faults=()) -> dict:
+    """The moe model end to end: a prefill through K6, then
+    MOE_DECODE_CHECK decode steps on its greedy tokens; the same through
+    the plain route, with its own routing ("free") and with the kernel
+    route's routing replayed ("pinned", `moe_routing`), and pinned again
+    with each of `faults` planted in the plain version. With `bit_equal`,
+    two kernel-route prefills first, their logits and caches equal bit for
+    bit. -> {"free", "pinned": [rel of the prefill's logits, then each
+    step's], "faults": [the largest such rel a fault], "flips": (tokens
+    routed apart, tokens routed) free vs kernel, "first_equal": the pinned
+    route's greedy first tokens equal the kernel route's}."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as dec
+    n_attn = model.cfg.n_layers
+    max_len = MOE_PROMPT + MOE_DECODE_CHECK
+    label = f"[moe] {model.cfg.dtype} at {n_attn} layers"
+    if bit_equal:
+        a, ca = dec.prefill(model, tokens, max_len)
+        b, cb = dec.prefill(model, tokens, max_len)
+        same = torch.equal(a, b) and all(
+            torch.equal(ca[key][kv], cb[key][kv])
+            for key in ("kv", "kv0") for kv in ("k", "v"))
+        log(f"{label}: two prefills through K6 bit-equal (last-position "
+            f"logits and every layer's k/v cache): {same}")
+        assert same
+        del a, b, ca, cb
+    records = {"kernel": [], "free": []}
+    steps, feed = {}, []
+    runs = [("kernel", True, "record", records["kernel"], None),
+            ("free", False, "record", records["free"], None),
+            ("pinned", False, "replay", records["kernel"], None)]
+    runs += [(f, False, "replay", records["kernel"], f) for f in faults]
+    for name, use_kernels, mode, rec, fault in runs:
+        model.use_kernels = use_kernels
+        with moe_routing(torch, mode, rec), (
+                planted(torch, fault) if fault else contextlib.nullcontext()):
+            ops.reset_launch_counts()
+            logits, cache = dec.prefill(model, tokens, max_len)
+            torch.cuda.synchronize()
+            n = ops.launch_counts()["flash_attention"]
+            assert n == (n_attn if use_kernels else 0), (name, n)
+            if not feed:
+                feed.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
+            steps[name] = [logits]
+            for i in range(MOE_DECODE_CHECK):
+                logits, cache = dec.decode_step(model, cache, feed[i])
+                steps[name].append(logits)
+                if len(feed) < MOE_DECODE_CHECK:
+                    feed.append(torch.argmax(logits[:, -1],
+                                             dim=-1)[:, None])
+            del cache
+    out = {name: [rel_err(torch, a, b)[1]
+                  for a, b in zip(steps["kernel"], steps[name])]
+           for name in ("free", "pinned")}
+    out["faults"] = [max(rel_err(torch, a, b)[1]
+                         for a, b in zip(steps["kernel"], steps[f]))
+                     for f in faults]
+    out["flips"] = routing_flips(torch, records["kernel"], records["free"])
+    firsts = [torch.argmax(steps[k][0][:, -1], dim=-1)
+              for k in ("kernel", "pinned")]
+    out["first_equal"] = torch.equal(*firsts)
+    finite = all(bool(torch.isfinite(t).all())
+                 for v in steps.values() for t in v)
+    log(f"{label}: prefill logits (K6 in {n_attn} layers) and "
+        f"{MOE_DECODE_CHECK} decode steps against the plain route, rel: "
+        f"routing pinned " + " ".join(f"{r:.2e}" for r in out["pinned"])
+        + "; routing free " + " ".join(f"{r:.2e}" for r in out["free"])
+        + f" ({out['flips'][0]} of {out['flips'][1]} token routings "
+        f"flipped); greedy first tokens (pinned) "
+        f"{'equal' if out['first_equal'] else 'differ'}; finite {finite}")
+    for fault, r in zip(faults, out["faults"]):
+        log(f"{label}: control, the plain route (routing pinned) with "
+            f"{fault!r} planted in every layer: the largest rel {r:.2e}")
+    assert finite, "non-finite logits"
+    del steps, records
+    free_card(torch)
+    return out
+
+
+def moe_flash_timing(torch) -> dict:
+    """K6 at the moe prefill's shape (B 4 x 4096 tokens, 16 heads over 16
+    kv heads, D 128, bf16, causal) against its plain version per row, then
+    its L2-cold and warm times, the plain version's, SDPA's (timed only)
+    and the bound (`flash_work`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    cfg = get_config(MOE_ARCH)
+    H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=gen, device=DEVICE).to(
+        torch.bfloat16) for s in ((MOE_BATCH, MOE_PROMPT, H, D),
+                                  (MOE_BATCH, MOE_PROMPT, Kv, D),
+                                  (MOE_BATCH, MOE_PROMPT, Kv, D)))
+    flush_buf = torch.empty((128 * 1024 * 1024 // 4,), device=DEVICE)
+
+    def flush():
+        flush_buf.zero_()
+
+    before = ops.flash_variant_counts()
+    got = ops.flash_attention(q, k, v)
+    want = ref.attention_ref(q, k, v)
+    ran = [n for n, c in ops.flash_variant_counts().items()
+           if c != before[n]]
+    e = row_rel_err(torch, got, want)
+    assert e[1] <= FLASH_RTOL["bfloat16"], e
+    assert ran == ["wgmma"], ran
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes, nops = flash_work(q, k, True)
+    r = dict(max_abs_err=e[0], row_rel=e[1],
+             **timings(torch, lambda: ops.flash_attention(q, k, v),
+                       lambda: ref.attention_ref(q, k, v), flush),
+             bound=bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+             library_ms=device_ms(torch, lambda: sdpa(
+                 qt, kt, vt, is_causal=True), 20, flush))
+    r["shape"] = (f"B {MOE_BATCH} x H {H} (kv {Kv}), S {MOE_PROMPT}, D {D}, "
+                  f"bf16, causal")
+    log(f"[moe] flash_attention at the prefill's shape ({r['shape']}), "
+        f"variant wgmma: err {e[0]:.3e} (row rel {e[1]:.2e}); L2-cold "
+        f"{r['ms'] * 1e3:.2f} us ({flash_rate(torch, q, k, True, r['ms'])}"
+        f"), warm {r['warm_ms'] * 1e3:.2f} us; bound "
+        f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}); plain "
+        f"{r['plain_ms'] * 1e3:.2f} us; library scaled_dot_product_attention "
+        f"{r['library_ms'] * 1e3:.2f} us")
+    del q, k, v, qt, kt, vt, flush_buf
+    free_card(torch)
+    return r
+
+
+def run_family_profile(arch: str, label: str, untraced_ms=None) -> None:
+    """`family_profile(arch)` in a fresh process (the profiler loses
+    records late in a long one: PERF.md), its readings logged; a call the
+    child did not time untraced is set beside `untraced_ms`."""
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--family-profile",
+         arch], capture_output=True, text=True, timeout=900)
+    assert child.returncode == 0, (child.returncode, child.stdout[-2000:],
+                                   child.stderr[-4000:])
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    for name, r in prof.items():
+        whose = ""
+        if r["wall_ms"] is None:
+            r["wall_ms"], whose = untraced_ms, ", the serve run's"
+        if r["busy_ms"] > 0:
+            log(f"[{label}] one {name} of {arch} traced by torch.profiler in "
+                f"a fresh process: {r['traced_ms']:.3f} ms wall traced "
+                f"({r['wall_ms']:.3f} untraced{whose}), device busy "
+                f"{r['busy_ms']:.3f} ms (idle share "
+                f"{1 - r['busy_ms'] / r['traced_ms']:.4f}), {r['ops']} "
+                f"device ops; top device ops:")
+            for key, calls, us in r["top"]:
+                log(f"[{label}]   {us:12.1f} us  {calls:6d} calls  "
+                    f"{key[:90]}")
+        else:
+            log(f"[{label}] one {name}: {r['wall_ms']:.3f} ms wall; idle "
+                f"share not measured (the profiler saw no device time)")
+
+
+def family_profile(arch: str) -> dict:
+    """One bf16 prefill of the moe or ssm phase's model (and, for moe, one
+    decode step): for moe after a warm-up, the untraced wall (the mean of
+    3 calls), then one traced call; ssm's prefill (~20 s a call, nearly
+    all of it on the card) is traced at once, its untraced wall None (the
+    phase's serve run has it) -> {"prefill"|"decode": {"wall_ms",
+    "traced_ms", "busy_ms", "ops", "top"}}. Run by the moe and ssm phases
+    in a child process (`--family-profile ARCH`)."""
+    import torch
+    from repro_torch.models import decode as dec
+    moe = arch == MOE_ARCH
+    batch, prompt, seed = ((MOE_BATCH, MOE_PROMPT, MOE_SEED) if moe else
+                           (SSM_BATCH, SSM_PROMPT, SSM_SEED))
+    model, tokens = family_model(torch, arch, "bfloat16", seed, batch,
+                                 prompt)
+    max_len = prompt + 16
+
+    def prefill():
+        return dec.prefill(model, tokens, max_len)
+
+    calls = [("prefill", prefill, 3 if moe else 0)]
+    if moe:
+        logits, cache = prefill()
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        for _ in range(2):
+            dec.decode_step(model, cache, tok)
+        calls.append(("decode", lambda: dec.decode_step(model, cache, tok),
+                      3))
+    out = {}
+    for name, fn, n in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n if n else None
+        busy, rows, traced = device_profile(torch, fn, n_top=None)
+        rows = [(k, c, t * 1e6) for k, c, t in rows if t > 0]
+        out[name] = {"wall_ms": wall, "traced_ms": traced * 1e3,
+                     "busy_ms": busy * 1e3,
+                     "ops": sum(c for _, c, _ in rows), "top": rows[:10]}
+    return out
+
+
+def moe_fan_in_d() -> dict:
+    """The moe phase's bf16 model end to end (`moe_agreement`) with the
+    expert weights w_gate and w_up at fan-in d (std 1/45.3) where the
+    reference's init gives them fan-in E (std 1/8): what the bf16
+    end-to-end readings come to without the init's amplification. No
+    phase runs it (`--moe-fan-in-d`; MOE_E2E_RTOL cites it)."""
+    import torch
+    model, tokens = family_model(torch, MOE_ARCH, "bfloat16", MOE_SEED,
+                                 MOE_BATCH, MOE_PROMPT)
+    scale = (model.cfg.moe.n_experts / model.cfg.d_model) ** 0.5
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.moe.w_gate.mul_(scale)
+            layer.moe.w_up.mul_(scale)
+    e2e = moe_agreement(torch, model, tokens)
+    return {"pinned": e2e["pinned"], "free": e2e["free"],
+            "flips": e2e["flips"], "card": torch.cuda.get_device_name(0)}
+
+
+def phase_moe(torch, card: str) -> dict:
+    """The moe family on the card: `launch.serve` for deepseek-moe-16b at
+    full width, twice (cold, then warm: K6 in each of the 28 attention
+    layers of the prefill, all wgmma; tokens in range; logits finite);
+    the prefill and MOE_DECODE_CHECK decode steps through K6 against the
+    plain route from the same weights, in bf16 at full width (two
+    prefills bit-equal first) and in float32 at MOE_F32_LAYERS layers,
+    each layer from shared carries (`moe_lockstep`, LM_RTOL) and end to
+    end (MOE_E2E_RTOL) with the routing pinned (`moe_routing`), planted
+    faults read past both limits, the free routing's readings beside
+    them; grok-1-314b's reduced config served; K6 timed at
+    the prefill's shape; one prefill and one decode step traced in a
+    child process. -> K6's launches in the first serve run, and its
+    timing at the moe shape."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    base = ["--arch", MOE_ARCH, "--full", "--batch", str(MOE_BATCH),
+            "--prompt-len", str(MOE_PROMPT), "--new-tokens", str(MOE_NEW),
+            "--seed", str(MOE_SEED)]
+    first = None
+    for run in ("cold", "warm"):
+        out = serve_family(torch, base, f"moe, {run}", card)
+        counts, variants, toks = out["counts"], out["variants"], out["tokens"]
+        assert counts["flash_attention"] == cfg.n_layers == \
+            sum(counts.values()), counts
+        assert variants["wgmma"] == cfg.n_layers == \
+            sum(variants.values()), variants
+        assert toks.shape == (MOE_BATCH, MOE_NEW), toks.shape
+        assert np.all((toks >= 0) & (toks < cfg.vocab_size)), toks
+        assert out["logits_finite"]
+        first = first or out
+    for dtype, n_layers in (("bfloat16", 0), ("float32", MOE_F32_LAYERS)):
+        tol = LM_RTOL[dtype]
+        model, tokens = family_model(torch, MOE_ARCH, dtype, MOE_SEED,
+                                     MOE_BATCH, MOE_PROMPT, n_layers)
+        label = f"[moe] {dtype} at {model.cfg.n_layers} layers"
+        lock = moe_lockstep(torch, model, tokens,
+                            FLASH_FAULTS if dtype == "bfloat16" else ())
+        for i, (a, b, f, d) in enumerate(zip(lock["attn"], lock["layer"],
+                                             lock["flips"],
+                                             lock["diverge"])):
+            log(f"{label}, layer {i} from the kernel route's carry: "
+                f"attention K6 vs plain rel {a:.2e}; the layer, routing "
+                f"pinned, rel {b:.2e}; the plain route's own routing "
+                f"flips {f[0]} of {f[1]}; the free plain route's carry "
+                f"from the embedding vs the kernel route's rel {d:.2e}")
+        for fault, a, b in zip(FLASH_FAULTS, lock["faults"],
+                               lock["layer_faults"]):
+            log(f"{label}: control, layer 1 with {fault!r} planted in its "
+                f"plain attention: the attention rel {a:.2e}, the layer "
+                f"(routing pinned) rel {b:.2e} (limit {tol})")
+            if fault != "fp8 p":
+                assert a > tol and b > tol, (fault, a, b)
+        e2e = moe_agreement(torch, model, tokens,
+                            bit_equal=dtype == "bfloat16",
+                            faults=MOE_E2E_FAULTS if dtype == "bfloat16"
+                            else ())
+        limit = MOE_E2E_RTOL[dtype]
+        log(f"{label}: from shared carries the largest rel, attention "
+            f"{max(lock['attn']):.2e}, a layer (routing pinned) "
+            f"{max(lock['layer']):.2e} (tolerance rel {tol}); end to end, "
+            f"routing pinned {max(e2e['pinned']):.2e} (tolerance rel "
+            f"{limit}), free {max(e2e['free']):.2e} ({e2e['flips'][0]} "
+            f"flips, not gated)")
+        assert max(lock["attn"]) <= tol and max(lock["layer"]) <= tol, lock
+        assert max(e2e["pinned"]) <= limit, e2e
+        assert all(r > limit for r in e2e["faults"]), e2e
+        if dtype == "float32":
+            assert e2e["first_equal"], e2e
+        del model, tokens
+        free_card(torch)
+    small = serve_family(torch, [
+        "--arch", MOE_REDUCED_ARCH, "--batch", str(MOE_BATCH),
+        "--prompt-len", str(MOE_REDUCED_PROMPT), "--new-tokens", "16",
+        "--seed", str(MOE_SEED)], "moe, reduced", card)
+    assert sum(small["counts"].values()) == 0, small["counts"]
+    assert small["logits_finite"] and small["tokens"].shape == \
+        (MOE_BATCH, 16)
+    timing = moe_flash_timing(torch)
+    run_family_profile(MOE_ARCH, "moe")
+    return {"flash_attention": first["counts"]["flash_attention"],
+            "flash_attention variants": first["variants"],
+            "flash_attention moe_prefill": timing}
+
+
+def phase_ssm(torch, card: str) -> None:
+    """The ssm family on the card: `launch.serve` for falcon-mamba-7b at
+    full width (no kernel launch; tokens in range; logits finite); in
+    float32 at full width and SSM_F32_LAYERS layers, a prefill of
+    SSM_GATE_PROMPT tokens and one decode step against a prefill of one
+    token more (last-position logits within SSM_RTOL: the gate, there
+    being no kernel); the device memory a prefill leaves allocated after
+    prompts of SSM_STATE_PROMPTS tokens, equal; one prefill traced in a
+    child process."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode as dec
+    from repro_torch.models.transformer import Model
+    cfg = get_config(SSM_ARCH)
+    out = serve_family(torch, [
+        "--arch", SSM_ARCH, "--full", "--batch", str(SSM_BATCH),
+        "--prompt-len", str(SSM_PROMPT), "--new-tokens", str(SSM_NEW),
+        "--seed", str(SSM_SEED)], "ssm", card)
+    toks = out["tokens"]
+    assert sum(out["counts"].values()) == 0, out["counts"]
+    assert out["logits_finite"]
+    assert toks.shape == (SSM_BATCH, SSM_NEW), toks.shape
+    assert np.all((toks >= 0) & (toks < cfg.vocab_size)), toks
+
+    S = SSM_GATE_PROMPT
+    model, tokens = family_model(torch, SSM_ARCH, "float32", SSM_SEED, 1,
+                                 S + 1, SSM_F32_LAYERS)
+    want, _ = dec.prefill(model, tokens, S + 1)
+    _, cache = dec.prefill(model, tokens[:, :S], S + 1)
+    got, cache = dec.decode_step(model, cache, tokens[:, S:])
+    e = rel_err(torch, got, want)
+    log(f"[ssm] float32 at {SSM_F32_LAYERS} layers: a prefill of {S} tokens "
+        f"and one decode step against a prefill of {S + 1}, last-position "
+        f"logits: err {e[0]:.3e}, rel {e[1]:.2e} (tolerance rel {SSM_RTOL})")
+    assert e[1] <= SSM_RTOL, e
+
+    def state_bytes(c):
+        return sum(c[k].numel() * c[k].element_size() for k in ("h", "conv"))
+
+    del want, got, cache
+    free_card(torch)
+    rng = np.random.default_rng(SSM_SEED)
+    held, sizes = [], []
+    for n in SSM_STATE_PROMPTS:
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                               (SSM_BATCH, n)), device=DEVICE)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        logits, cache = dec.prefill(model, prompts, n + SSM_NEW)
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated() - base)
+        sizes.append(state_bytes(cache))
+        del logits, cache, prompts
+    del model, tokens
+    full = state_bytes(dec.init_cache(Model(cfg, "meta"), SSM_BATCH,
+                                      SSM_PROMPT + SSM_NEW))
+    log(f"[ssm] device memory a prefill leaves allocated (its logits and "
+        f"decode state), {SSM_F32_LAYERS} float32 layers, batch "
+        f"{SSM_BATCH}, after prompts of {SSM_STATE_PROMPTS} tokens: {held} "
+        f"bytes (the state's tensors {sizes}); computed from the cache's "
+        f"shapes at full depth in bf16: {full} bytes "
+        f"({full / 2 ** 20:.1f} MiB) for any prompt length")
+    assert len(set(held)) == 1, held
+    free_card(torch)
+    run_family_profile(SSM_ARCH, "ssm", out["prefill_ms"])
 
 
 def phase_serve(torch, serve, card: str) -> dict:
@@ -4450,6 +5069,15 @@ def main(argv=None) -> int:
     ap.add_argument("--train-profile", action="store_true",
                     help="trace one LM train step and print its JSON line "
                          "(the train phase runs this in a child process)")
+    ap.add_argument("--family-profile", choices=(MOE_ARCH, SSM_ARCH),
+                    help="trace one LM prefill (and for moe one decode "
+                         "step) of the moe or ssm phase's model and print "
+                         "their JSON line (those phases run this in a child "
+                         "process)")
+    ap.add_argument("--moe-fan-in-d", action="store_true",
+                    help="the moe phase's bf16 end-to-end agreement with "
+                         "the expert weights at fan-in d, and print its "
+                         "JSON line; no phase runs it")
     ap.add_argument("--solve-profile", choices=tuple(SOLVES),
                     help="trace one outer iteration of a solve phase and "
                          "print its JSON line (the solve phases run this in "
@@ -4504,6 +5132,12 @@ def main(argv=None) -> int:
         return 0
     if args.train_profile:
         print(json.dumps(train_profile()), flush=True)
+        return 0
+    if args.family_profile:
+        print(json.dumps(family_profile(args.family_profile)), flush=True)
+        return 0
+    if args.moe_fan_in_d:
+        print(json.dumps(moe_fan_in_d()), flush=True)
         return 0
     if args.solve_profile:
         print(json.dumps(solve_profile(args.solve_profile,
@@ -4620,6 +5254,22 @@ def run_phases(torch, phases) -> int:
             by_phase.setdefault(kernel, {})["train"] = n
             launches[kernel] = launches.get(kernel, 0) + n
         lap("train")
+    extra = {}         # kernel -> side fields of its row
+    if "moe" in phases:
+        r = phase_moe(torch, f"{card} ({smi})")
+        n = r["flash_attention"]
+        by_phase.setdefault("flash_attention", {})["moe"] = n
+        launches["flash_attention"] = launches.get("flash_attention", 0) + n
+        prev = launches.get("flash_attention variants", {})
+        launches["flash_attention variants"] = {
+            v: prev.get(v, 0) + r["flash_attention variants"].get(v, 0)
+            for v in {*prev, *r["flash_attention variants"]}}
+        extra["flash_attention"] = {
+            "moe_prefill": r["flash_attention moe_prefill"]}
+        lap("moe")
+    if "ssm" in phases:
+        phase_ssm(torch, f"{card} ({smi})")
+        lap("ssm")
 
     if kernels:
         rows = []
@@ -4641,6 +5291,7 @@ def run_phases(torch, phases) -> int:
                 row["fault_phase_launches"] = fault_launches[name]
             if "variant_ms" in r:
                 row["variant_ms"] = r["variant_ms"]
+            row.update(extra.get(name, {}))
             if name == "pcdn_linesearch" and "scdn" in phases:
                 row["note"] = ("off the main path: dense SCDN runs "
                                "scdn_dense_batch")

@@ -1,15 +1,22 @@
 """Batched LM serving: prefill a batch of prompts, then decode greedily.
-Port of `repro.launch.serve` for the dense family.
+Port of `repro.launch.serve` for the dense, moe and ssm families.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --full \\
         --batch 4 --prompt-len 4096 --new-tokens 32
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b --full ...
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --full ...
 
 Weights are random, drawn from a `torch.Generator` seeded with --seed on
-the device; prompts come from `numpy.random.default_rng(seed)`. A prompt
-of BLOCKWISE_MIN_KV (2048) tokens or more runs K6 (flash attention) in
-every layer of the prefill; a shorter one the dense route. Prints the
+the device; prompts come from `numpy.random.default_rng(seed)`. In the
+dense and moe families a prompt of BLOCKWISE_MIN_KV (2048) tokens or more
+runs K6 (flash attention) in every attention layer of the prefill (moe:
+deepseek's dense first layer too), a shorter one the dense route; decode
+attends with the dense route. The ssm family (falcon-mamba) has no
+attention and runs no kernel. grok-1-314b does not fit one card at full
+width: serve its reduced config. Prints the
 prefill time, the decode time a token and tokens/s over the decode steps
-after the first, and the start of the continuations; returns them.
+after the first, and the start of the continuations; returns them, and
+whether the prefill's and the last step's logits were finite.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ def main(argv=None) -> dict:
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     sync(tok)
     prefill_s = time.perf_counter() - t0
+    first_logits = logits
 
     serve_step = make_serve_step(model)
     generated = [tok]
@@ -81,7 +89,10 @@ def main(argv=None) -> dict:
           + (f"{decode_ms:.3f} ms a token, {tok_s:.1f} tok/s (steps after "
              f"the first)" if steady else "n/a (fewer than 3 new tokens)"))
     print("[serve] sample continuations:", out[:2, :8].tolist())
-    return {"arch": args.arch, "tokens": out, "prefill_ms": prefill_s * 1e3,
+    finite = all(bool(torch.isfinite(x).all()) for x in (first_logits,
+                                                         logits))
+    return {"arch": args.arch, "tokens": out, "logits_finite": finite,
+            "prefill_ms": prefill_s * 1e3,
             "first_step_ms": step_s[0] * 1e3 if step_s else None,
             "decode_ms_per_token": decode_ms, "tok_per_s": tok_s}
 

@@ -9,6 +9,8 @@ runs the kernels' plain versions).
 
 One card: --data and --model-parallel above 1 raise, because the port has
 no LM sharding yet (ROADMAP Queue 1 item 6, LM data-parallel training).
+The moe and ssm families serve (`launch.serve`) but do not train yet: an
+--arch of theirs is refused (ROADMAP Queue 1 item 6 (g)).
 
 Checkpoints hold the reference's tree, (params, AdamWState(step, mu, nu,
 master)) with the layers stacked on a leading axis, under its leaf names:
@@ -51,6 +53,10 @@ from repro_torch.train.steps import make_train_step
 NO_SHARDING = ("the port's LM trains on one card: LM data-parallel and "
                "model-parallel training is ROADMAP Queue 1 item 6 (not "
                "ported)")
+TRAINED_FAMILIES = ("dense",)
+NOT_TRAINED = ("the port trains the dense family only; training the moe "
+               "and ssm families (moe's backward through K6b) is ROADMAP "
+               "Queue 1 item 6 (g) (not ported)")
 
 
 class TrainCheckpoints(CheckpointManager):
@@ -111,8 +117,10 @@ def main(argv=None) -> dict:
         ap.error(f"--data {args.data} --model-parallel "
                  f"{args.model_parallel}: {NO_SHARDING}")
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=not args.full)
+    if cfg.family not in TRAINED_FAMILIES:
+        ap.error(f"--arch {args.arch} ({cfg.family} family): {NOT_TRAINED}")
+    dev = resolve_device(args.device)
     model = Model(cfg, dev)
 
     opt_cfg = AdamWConfig(lr=args.lr, weight_decay=0.01)

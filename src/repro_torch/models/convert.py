@@ -2,15 +2,18 @@
 port.
 
 `repro.models.transformer.Model.init_params` returns a nested dict whose
-per-layer leaves are stacked along a leading (L, ...) axis (the reference
-scans over layers). Given that tree as numpy arrays, `params_from_jax`
-returns the port's state dict: `layers.<i>.<path>` for layer i of each
-stacked leaf, the other leaves under their dotted path, every tensor in
-the config's dtype. `params_to_jax` is its inverse: the port's dict back
-to the nested, layer-stacked tree, as float32 numpy arrays (exact for
-bfloat16, which numpy holds only as an extension type; the reference
-casts a loaded leaf to its own dtype). With them both packages compute
-from the same weights, and a checkpoint of either restores in the other.
+per-layer leaves are stacked along a leading axis (the reference scans
+over layers): (L, ...), or (L - 1, ...) for moe with a dense first layer,
+whose `layer0` is not stacked. Given that tree as numpy arrays,
+`params_from_jax` returns the port's state dict: `layers.<i>.<path>` for
+layer i of each stacked leaf, the other leaves under their dotted path,
+every tensor in its declared dtype (the config's, float32 for the MoE
+router and the SSM's `A_log` and `D`). `params_to_jax` is its inverse:
+the port's dict back to the nested, layer-stacked tree, as float32 numpy
+arrays (exact for bfloat16, which numpy holds only as an extension type;
+the reference casts a loaded leaf to its own dtype). With them both
+packages compute from the same weights, and a checkpoint of either
+restores in the other.
 
 The AdamW state crosses the same way: `opt_state_from_jax` takes the
 reference's `AdamWState(step, mu, nu, master)` (or a tuple in that field
@@ -23,22 +26,29 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Model, n_stacked
 from repro_torch.optim.adamw import AdamWState
 
 
 def params_from_jax(cfg: ModelConfig, tree: dict, dtype=None) -> dict:
     """Reference parameter tree (numpy leaves) -> the port's state dict,
-    in `dtype` (the config's by default)."""
-    dtype = cfg.torch_dtype if dtype is None else dtype
-
+    every tensor in `dtype`, or by default in its declared dtype."""
     def tensors(node):
         if isinstance(node, dict):
             return {k: tensors(c) for k, c in node.items()}
         # a float32 copy: exact for bfloat16 leaves, which numpy holds
         # only as an extension type, and writable as torch wants it
-        return torch.from_numpy(np.array(node, np.float32)).to(dtype)
+        return torch.from_numpy(np.array(node, np.float32))
 
-    return unstack_layers(cfg, tensors(tree))
+    flat = unstack_layers(cfg, tensors(tree))
+    if dtype is not None:
+        return {k: t.to(dtype) for k, t in flat.items()}
+    # the declared dtypes, from a model on the meta device (nothing
+    # allocated)
+    declared = {k: p.dtype for k, p in
+                Model(cfg, "meta").named_parameters()}
+    return {k: t.to(declared.get(k, cfg.torch_dtype))
+            for k, t in flat.items()}
 
 
 def params_to_jax(cfg: ModelConfig, state: dict) -> dict:
@@ -68,16 +78,16 @@ def stack_layers(cfg: ModelConfig, state: dict) -> dict:
         for key in parts[:-1]:
             node = node.setdefault(key, {})
         node[parts[-1]] = t
+    n = n_stacked(cfg)
     for path, by_layer in stacked.items():
-        if sorted(by_layer) != list(range(cfg.n_layers)):
+        if sorted(by_layer) != list(range(n)):
             raise ValueError(f"layers.*.{'.'.join(path)}: layers "
-                             f"{sorted(by_layer)}, config has "
-                             f"{cfg.n_layers}")
+                             f"{sorted(by_layer)}, config stacks {n}")
         node = tree.setdefault("layers", {})
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = torch.stack([by_layer[i].detach()
-                                      for i in range(cfg.n_layers)])
+                                      for i in range(n)])
     return tree
 
 
@@ -85,6 +95,7 @@ def unstack_layers(cfg: ModelConfig, tree: dict) -> dict:
     """`stack_layers`'s inverse: a nested tree of tensors -> the port's
     flat dict (layer i of a stacked leaf is a view of it)."""
     out = {}
+    n = n_stacked(cfg)
 
     def walk(path, node):
         if isinstance(node, dict):
@@ -92,11 +103,10 @@ def unstack_layers(cfg: ModelConfig, tree: dict) -> dict:
                 walk(path + (key,), child)
             return
         if path[0] == "layers":
-            if node.shape[0] != cfg.n_layers:
+            if node.shape[0] != n:
                 raise ValueError(f"{'.'.join(path)}: {node.shape[0]} "
-                                 f"stacked layers, config has "
-                                 f"{cfg.n_layers}")
-            for i in range(cfg.n_layers):
+                                 f"stacked layers, config stacks {n}")
+            for i in range(n):
                 out[".".join(("layers", str(i)) + path[1:])] = node[i]
         else:
             out[".".join(path)] = node

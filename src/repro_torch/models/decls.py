@@ -2,9 +2,11 @@
 `repro.models.sharding`.
 
 Every parameter is declared once, by the module that owns it, with a shape,
-the config's dtype and an init rule: normal with stddev 1/sqrt(fan_in)
-(`dense`), normal with stddev 0.02 (`embedding`), zeros or ones, optionally
-with the slices of padded heads zeroed (`padded`). `init_params` draws
+the module's dtype (or its own: the reference declares the MoE router and
+the SSM's `A_log` and `D` in float32 inside a bf16 model) and an init rule:
+normal with stddev 1/sqrt(fan_in) (`dense`), normal with stddev 0.02
+(`embedding`), zeros, ones or a constant (`const`), optionally with the
+slices of padded heads zeroed (`padded`). `init_params` draws
 every declared parameter of a model, in declaration order, from one
 explicit `torch.Generator`; normals are drawn in float32 and cast, as the
 reference's `_normal_init` does. The two packages draw different numbers
@@ -29,8 +31,9 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class Init:
-    kind: str                     # normal | zeros | ones
+    kind: str                     # normal | zeros | ones | const
     stddev: float = 0.0
+    value: float = 0.0            # const
     # (dim, real): zero the slices >= real along dim (padded heads), so
     # head padding is output-exact at init
     pad: Optional[Tuple[int, int]] = None
@@ -39,6 +42,10 @@ class Init:
 ZEROS = Init("zeros")
 ONES = Init("ones")
 EMBEDDING = Init("normal", 0.02)
+
+
+def const(value: float) -> Init:
+    return Init("const", value=value)
 
 
 def dense(fan_in: int) -> Init:
@@ -62,9 +69,13 @@ class Declared(nn.Module):
         self.device = torch.device(device)
         self.inits: dict[str, Init] = {}
 
-    def declare(self, name: str, shape, init: Init) -> None:
+    def declare(self, name: str, shape, init: Init,
+                dtype: Optional[torch.dtype] = None) -> None:
+        """Declare parameter `name`, in `dtype` (the module's by
+        default)."""
         self.register_parameter(name, nn.Parameter(
-            torch.empty(tuple(shape), dtype=self.dtype, device=self.device),
+            torch.empty(tuple(shape), dtype=dtype or self.dtype,
+                        device=self.device),
             requires_grad=False))
         self.inits[name] = init
 
@@ -86,6 +97,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 p.zero_()
             elif init.kind == "ones":
                 p.fill_(1.0)
+            elif init.kind == "const":
+                p.fill_(init.value)
             else:
                 raise ValueError(f"unknown init {init.kind!r}")
             if init.pad is not None:

@@ -1,21 +1,24 @@
-"""Model assembly for the dense family: port of `repro.models.transformer`.
+"""Model assembly: port of `repro.models.transformer` for the dense
+(yi, qwen, gemma), moe (deepseek, grok) and ssm (falcon-mamba) families.
 
     Model(cfg, device, use_kernels=True)   -- an nn.Module holding the
         parameters under the reference's names (`embed`, `layers.<i>.*`,
-        `final_norm`), one module per layer where the reference scans over
-        layer-stacked parameters
+        moe's dense `layer0`, `final_norm`), one module per layer where
+        the reference scans over layer-stacked parameters
     init_params(model, generator)          -- `models.decls`
     model.backbone(x, positions, train) / model.logits(tokens, train)
     model.loss_fn(batch) / model(batch)    -- the training loss; with
         `torch.func.functional_call(model, params, (batch,))` at `params`
 
-The dense family (yi, qwen, gemma) is ported; building a Model for any
-other family (moe, ssm, hybrid, encdec, vlm) raises NotImplementedError.
-There is no `_constrain`: it is a mesh-sharding hint, and the port runs on
-one card. With `train=True` and `cfg.remat` each layer is recomputed in
-the backward pass (`torch.utils.checkpoint`, non-reentrant), as the
+A layer is a module whose forward(x, positions, use_kernels) returns the
+new x first: a DenseLayer or MoELayer its rotated k and v after it (the
+prefill's cache), an SSMLayer its recurrent state. Building a Model for
+the hybrid, encdec or vlm family raises NotImplementedError. There is no
+`_constrain`: it is a mesh-sharding hint, and the port runs on one card.
+With `train=True` and `cfg.remat` each layer is recomputed in the
+backward pass (`torch.utils.checkpoint`, non-reentrant), as the
 reference wraps its scanned layer body in `jax.checkpoint`: a layer keeps
-only its input, and K6 runs twice a layer a step.
+only its input, and K6 runs twice an attention layer a step.
 """
 from __future__ import annotations
 
@@ -27,21 +30,26 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 class DenseLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    """Attention then an MLP of `d_ff` (the config's by default): the
+    dense family's layer, and deepseek's dense first layer."""
+
+    def __init__(self, cfg: ModelConfig, device, d_ff: int = 0):
         super().__init__()
         self.cfg = cfg
         self.norm1 = L.make_norm(cfg, device)
         self.attn = attn.Attention(cfg, device)
         self.norm2 = L.make_norm(cfg, device)
-        self.mlp = L.MLP(cfg, device)
+        self.mlp = L.MLP(cfg, device, d_ff=d_ff)
 
     def forward(self, x: Tensor, positions: Tensor, use_kernels: bool):
         """-> (x after the layer, the layer's rotated k and its v)."""
@@ -59,9 +67,57 @@ class DenseLayer(nn.Module):
         return x + self.mlp(self.norm2(x)), cache
 
 
+class MoELayer(nn.Module):
+    """Causal attention, then the routed and shared experts: the capacity
+    dispatch over a sequence, every expert on a decode step's tokens."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.norm1 = L.make_norm(cfg, device)
+        self.attn = attn.Attention(cfg, device)
+        self.norm2 = L.make_norm(cfg, device)
+        self.moe = moe_mod.MoE(cfg, device)
+
+    def forward(self, x: Tensor, positions: Tensor, use_kernels: bool):
+        """-> (x after the layer, the layer's rotated k and its v)."""
+        h, k, v = attn.attend_full(self.cfg, self.attn, self.norm1(x),
+                                   positions, causal=True,
+                                   use_kernels=use_kernels)
+        x = x + h
+        return x + moe_mod.apply_moe(self.cfg, self.moe, self.norm2(x)), k, v
+
+    def decode(self, x: Tensor, cache: attn.KVCache):
+        h, cache = attn.decode_step(self.cfg, self.attn, self.norm1(x), cache)
+        x = x + h
+        return x + moe_mod.apply_moe_dense(self.cfg, self.moe,
+                                           self.norm2(x)), cache
+
+
+class SSMLayer(nn.Module):
+    """A norm, then the Mamba block, with a residual."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = L.make_norm(cfg, device)
+        self.ssm = ssm_mod.SSM(cfg, device)
+
+    def forward(self, x: Tensor, positions: Tensor, use_kernels: bool):
+        """-> (x after the layer, the block's state after the sequence).
+        positions and use_kernels are unused (no attention)."""
+        h, state = ssm_mod.apply_ssm_block(self.cfg, self.ssm, self.norm(x))
+        return x + h, state
+
+    def decode(self, x: Tensor, state: ssm_mod.SSMState):
+        h, state = ssm_mod.ssm_decode_step(self.cfg, self.ssm, self.norm(x),
+                                           state)
+        return x + h, state
+
+
 class Model(nn.Module):
-    """A dense-family LM on `device` (cuda by default; "cpu" runs every
-    kernel's plain version; "meta" allocates nothing, for counting).
+    """An LM of a ported family on `device` (cuda by default; "cpu" runs
+    every kernel's plain version; "meta" allocates nothing, for counting).
     Parameters are uninitialised until `init_params` or a load.
     `use_kernels=False` sends the blockwise attention route to K6's plain
     version even on the card (the smoke run's agreement check)."""
@@ -80,20 +136,30 @@ class Model(nn.Module):
         self.device = device
         self.use_kernels = use_kernels
         self.embed = L.Embed(cfg, device)
-        self.layers = nn.ModuleList(DenseLayer(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "moe" and cfg.moe.first_layer_dense:
+            self.layer0 = DenseLayer(cfg, device, d_ff=cfg.moe.d_ff_dense)
+        layer = {"dense": DenseLayer, "moe": MoELayer,
+                 "ssm": SSMLayer}[cfg.family]
+        self.layers = nn.ModuleList(layer(cfg, device)
+                                    for _ in range(n_stacked(cfg)))
         self.final_norm = L.make_norm(cfg, device)
+
+    def stack(self) -> list:
+        """Every layer in the order the forward runs them: moe's dense
+        `layer0` first, then `layers`."""
+        first = [self.layer0] if hasattr(self, "layer0") else []
+        return first + list(self.layers)
 
     def backbone(self, x: Tensor, positions: Tensor,
                  train: bool = False) -> Tensor:
         """x (B, S, d) embedded inputs -> final hidden states; with `train`
         and cfg.remat each layer is checkpointed (`_remat`)."""
         remat = train and self.cfg.remat
-        for layer in self.layers:
+        for layer in self.stack():
             if remat:
                 x = _remat(layer, x, positions, self.use_kernels)
             else:
-                x, _, _ = layer(x, positions, self.use_kernels)
+                x = layer(x, positions, self.use_kernels)[0]
         return self.final_norm(x)
 
     def logits(self, tokens: Tensor, train: bool = False) -> Tensor:
@@ -115,15 +181,23 @@ class Model(nn.Module):
         return self.loss_fn(batch)
 
 
-def _remat(layer: DenseLayer, x: Tensor, positions: Tensor,
+def n_stacked(cfg: ModelConfig) -> int:
+    """Layers under `layers` (the reference's stacked axis): all of them
+    but moe's dense first layer."""
+    if cfg.family == "moe" and cfg.moe.first_layer_dense:
+        return cfg.n_layers - 1
+    return cfg.n_layers
+
+
+def _remat(layer: nn.Module, x: Tensor, positions: Tensor,
            use_kernels: bool) -> Tensor:
     """One layer under `torch.utils.checkpoint` (non-reentrant): only x is
     kept, and the layer runs again in the backward pass. Its parameters
     go in as explicit inputs and the body binds them with
     `functional_call`, so the recomputation uses the tensors of this
     forward: under an outer `functional_call` the module's own attributes
-    are restored before the backward runs. The layer's k and v are not
-    returned: training keeps no cache."""
+    are restored before the backward runs. Only x is returned: training
+    keeps no cache and no recurrent state."""
     names = [n for n, _ in layer.named_parameters()]
     tensors = [t for _, t in layer.named_parameters()]
 

@@ -1512,3 +1512,80 @@ def test_bf16_train_step_through_kernels_agrees_with_plain_route(cuda):
     step2 = sum(float(torch.sum((pp[k].float() - params[k].float()) ** 2))
                 for k in params)
     assert (diff / step2) ** 0.5 <= TRAIN_BF16_RTOL["update"]
+
+
+# -- the moe and ssm families on the card --------------------------------------
+
+def test_moe_capacity_dispatch_is_bit_equal_over_two_calls(cuda):
+    """Reduced deepseek-moe-16b in bf16, 2 x 1024 tokens at capacity
+    factor 0.5 (tokens drop): the dispatch and the fixed-order combine
+    give the same bits twice."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.decls import init_params
+    cfg = get_config("deepseek-moe-16b", reduced=True)
+    cfg = cfg.replace(dtype="bfloat16", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    layer = moe.MoE(cfg, cuda)
+    init_params(layer, torch.Generator(device=cuda).manual_seed(0))
+    x = torch.randn((2, 1024, cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1)
+                    ).to(torch.bfloat16)
+    _, ids = moe.route(cfg, layer.router, x.reshape(-1, cfg.d_model))
+    assert not bool(moe.dispatch(cfg, ids).keep.all())
+    a = moe.apply_moe(cfg, layer, x)
+    b = moe.apply_moe(cfg, layer, x)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b",
+                                  "falcon-mamba-7b"])
+def test_family_forward_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced configs, float32, the same weights on both devices: the
+    logits over 2 x 64 tokens and a prefill + one decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode as dec
+    from repro_torch.models.decls import init_params
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch, reduced=True)
+    cpu = Model(cfg, "cpu")
+    init_params(cpu, torch.Generator().manual_seed(0))
+    card = Model(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(_rng(2).integers(0, cfg.vocab_size, (2, 64)))
+    out = {}
+    for m in (cpu, card):
+        t = toks.to(m.device)
+        logits, cache = dec.prefill(m, t[:, :63], 64)
+        step, _ = dec.decode_step(m, cache, t[:, 63:])
+        out[m.device.type] = [m.logits(t), logits, step]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        _close_to(got.cpu(), want, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b"])
+def test_moe_dense_bf16_keeps_float32_accumulators_on_the_card(cuda, arch):
+    """The decode route's expert products in bf16 (cuBLAS writing their
+    float32 accumulators) against the CPU's (the inputs widened): within
+    one bf16 ulp, and nearly every element bit-equal. Rounding each
+    product to bf16 first moves over half the elements."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.decls import init_params
+    cfg = get_config(arch, reduced=True)
+    cfg = cfg.replace(dtype="bfloat16", moe=dataclasses.replace(
+        cfg.moe, n_shared=0))
+    cpu = moe.MoE(cfg, "cpu")
+    init_params(cpu, torch.Generator().manual_seed(0))
+    card = moe.MoE(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(_rng(3).standard_normal((4, 1, cfg.d_model))
+                         ).to(torch.bfloat16)
+    want = moe.apply_moe_dense(cfg, cpu, x).float()
+    got = moe.apply_moe_dense(cfg, card, x.to(cuda)).cpu()
+    assert got.dtype == torch.bfloat16
+    got = got.float()
+    torch.testing.assert_close(got, want, rtol=2 ** -8, atol=0)
+    assert float((got != want).float().mean()) <= 0.05

@@ -45,8 +45,8 @@ def test_scan_covers_the_package():
     lm = {f"src/repro_torch/{m}.py" for m in (
         "models/config", "models/decls", "models/layers", "models/attention",
         "models/transformer", "models/decode", "models/convert",
-        "configs/__init__", "configs/qwen2_0_5b", "train/steps",
-        "utils/params", "launch/serve")}
+        "models/moe", "models/ssm", "configs/__init__", "configs/qwen2_0_5b",
+        "train/steps", "utils/params", "launch/serve", "launch/specs")}
     assert lm <= paths, lm - paths
     sweep = {f"src/repro_torch/{m}.py" for m in (
         "obs/registry", "obs/trace", "obs/validate", "obs/gate",

@@ -68,8 +68,26 @@ def test_serve_cli_one_new_token_has_no_decode_rate():
 
 
 def test_serve_cli_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="moe"):
-        serve.main(["--arch", "deepseek-moe-16b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        serve.main(["--arch", "recurrentgemma-2b", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch,calls", [("deepseek-moe-16b", 3),
+                                        ("grok-1-314b", 2),
+                                        ("falcon-mamba-7b", 0)])
+def test_serve_cli_runs_the_moe_and_ssm_families(monkeypatch, arch, calls):
+    """Reduced configs at a 2048-token prompt: K6 (its plain version
+    here) once an attention layer, deepseek's dense first layer included;
+    none in the ssm family."""
+    seen = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda *a, **k: seen.append(1) or real(*a, **k))
+    out = serve.main(["--arch", arch, "--batch", "1", "--prompt-len",
+                      "2048", "--new-tokens", "3", "--device", "cpu"])
+    assert len(seen) == calls
+    assert out["tokens"].shape == (1, 3)
+    assert np.all((out["tokens"] >= 0) & (out["tokens"] < 256))
 
 
 def test_serve_cli_defaults_to_cuda_and_raises_without_it():

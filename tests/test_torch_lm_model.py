@@ -34,7 +34,7 @@ from repro_torch.models import layers as tL
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import load_jax_params, params_from_jax
 from repro_torch.models.decls import init_params
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import PORTED_FAMILIES, Model
 from repro_torch.train.steps import make_prefill_step, make_serve_step
 from repro_torch.utils.params import param_count
 
@@ -329,6 +329,23 @@ def test_init_distributions_and_seed():
     assert torch.all(sd["final_norm.scale"] == 1)
 
 
+@pytest.mark.parametrize("arch,first,last", [
+    ("qwen2-0.5b", [-0.022516796365380287, -0.023047203198075294],
+     0.1287376880645752),
+    ("gemma-7b", [-0.022516796365380287, -0.023047203198075294],
+     -0.05587165430188179)])
+def test_dense_init_draws_are_unchanged(arch, first, last):
+    """The dense family's draws from seed 0, as the port made them before
+    the moe and ssm families (a per-parameter dtype, the const init):
+    the embedding's first values, and the last value of the last layer's
+    w_down, which every earlier draw's size moves."""
+    m = Model(get_config(arch, reduced=True), "cpu")
+    init_params(m, torch.Generator().manual_seed(0))
+    sd = m.state_dict()
+    assert sd["embed.embedding"].flatten()[:2].tolist() == first
+    assert float(sd["layers.1.mlp.w_down"].flatten()[-1]) == last
+
+
 def test_init_zeroes_padded_heads_and_biases():
     cfg = get_config("qwen2-0.5b", reduced=True).replace(pad_heads=6,
                                                           pad_kv_heads=3)
@@ -359,7 +376,8 @@ def test_registry_is_the_reference_data(arch, reduced):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).family != "dense"])
+                                  if get_config(a).family not in
+                                  PORTED_FAMILIES])
 def test_other_families_are_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch, reduced=True), "cpu")

@@ -94,6 +94,16 @@ def test_cli_refuses_lm_sharding(flag, capsys):
     assert "ROADMAP Queue 1 item 6" in err and "one card" in err
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b",
+                                  "falcon-mamba-7b"])
+def test_cli_refuses_the_families_it_does_not_train(arch, capsys):
+    with pytest.raises(SystemExit) as exc:
+        ttrain.main(["--device", "cpu", "--arch", arch])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "ROADMAP Queue 1 item 6 (g)" in err and arch in err
+
+
 @pytest.fixture
 def jax_auto_mesh(monkeypatch):
     mesh = jax.make_mesh((1, 1), ("data", "model"),
