@@ -172,12 +172,18 @@ def csc_margins_work(torch, rows, idx, n: int, B: int) -> tuple:
     return need + K * A * 8 + B * K * 4, 2 * int(col_nnz[live_idx].sum())
 
 
-def attention_pairs(Sq: int, Skv: int, causal: bool) -> int:
-    """(query, key) pairs the mask lets through, per head."""
-    if not causal:
-        return Sq * Skv
-    n = min(Sq, Skv)          # rows i < Skv see i + 1 keys, later rows Skv
-    return n * (n + 1) // 2 + max(Sq - Skv, 0) * Skv
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs the mask lets through, per head: keys j < Skv of
+    rows i < Sq, j <= i when causal, and i - j < window when window > 0
+    (K6's sliding window)."""
+    if window <= 0:
+        if not causal:
+            return Sq * Skv
+        n = min(Sq, Skv)      # rows i < Skv see i + 1 keys, later rows Skv
+        return n * (n + 1) // 2 + max(Sq - Skv, 0) * Skv
+    # row i keeps keys max(0, i - window + 1) .. (i if causal else Skv - 1)
+    return sum(max(min(i if causal else Skv - 1, Skv - 1) -
+                   max(i - window + 1, 0) + 1, 0) for i in range(Sq))
 
 
 def flash_bwd_work(q, k, causal: bool) -> tuple:

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases train     # build + LM training
     python3 chip_smoke.py --phases moe       # build + serving the moe family
     python3 chip_smoke.py --phases ssm       # build + serving the ssm family
+    python3 chip_smoke.py --phases hybrid,vlm,encdec  # the other three
     python3 chip_smoke.py --phases path      # build + the regularization path
     python3 chip_smoke.py --phases fault     # build + diagnostics, faults
     python3 chip_smoke.py --phases sharded   # build + the sharded backend
@@ -52,7 +53,14 @@ Phases:
                  f32); errors, kernel, plain and library times (CUDA
                  events), the bound, K6's TFLOP/s and share of it, its
                  mma variant's time at the prefill shape and the host time
-                 of its tensor-map encodes; K6b flash_attention_bwd
+                 of its tensor-map encodes; K6's sliding window at the
+                 hybrid phase's prefill shape (recurrentgemma-2b: B 4 x
+                 10 heads over 1, S 4096, D 256, window 2048, `mma`) per
+                 row against the plain version, the band planted one key
+                 wide as a control, the causal launch's bits unchanged,
+                 timed with the band's bound, the causal launch and SDPA
+                 with the band as a mask; then float32 and `wgmma` (D 128
+                 and 64) with a window; K6b flash_attention_bwd
                  (from K6's out and lse, each variant's lse held to the
                  plain version's) at the train phase's shape in bf16 and
                  float32, ragged, at D 128 and 256, per row, two calls
@@ -169,7 +177,7 @@ Phases:
                  (a) a world of 1 on NCCL with the kernels (K2's partials
                  and scatter entries, K3's partials entry), real-sim full
                  P 512 and support P 32, gisette dense P 512, 10
-                 iterations each from shared carries and partitions
+                 iterations each (support 3) from shared carries and partitions
                  against the local backend with the kernels (F rel
                  1e-4), the walls, the reductions a bundle, the entries'
                  launches; (b) two ranks sharing the card over gloo in a
@@ -194,11 +202,11 @@ Phases:
                  in a child process (`--lm-profile`).
   16. train   -- LM training, qwen2-0.5b at full width, batch 4 x 4096
                  tokens: `python -m repro_torch.launch.train --full --lr
-                 3e-4` for 20 steps in a child process (finite, falling
+                 3e-4` for 12 steps in a child process (finite, falling
                  loss; K6 2 x 24 launches a step with remat, K6b 24; step
                  wall, tokens/s, peak memory); the same run with a crash
-                 injected at step 7 and checkpoints every 5: restored at
-                 5, its replayed losses bit-equal to the uninterrupted
+                 injected at step 7 and checkpoints every 6: restored at
+                 6, its replayed losses bit-equal to the uninterrupted
                  run's; one train step through K6/K6b against the plain
                  route from shared carries, float32 and bf16 (two seeds),
                  with a fault planted in the plain backward as a control;
@@ -222,12 +230,42 @@ Phases:
                  (`--family-profile`).
   18. ssm     -- `launch.serve.main` for falcon-mamba-7b at full width (64
                  Mamba layers, d_inner 8192, d_state 16; bf16), 4 prompts
-                 of 4096 tokens and 32 new: no kernel launch, finite
+                 of 2048 tokens and 32 new: no kernel launch, finite
                  logits; in float32 at full width and 4 layers, a prefill
                  of 1024 tokens and one decode step against a prefill of
                  1025 (the gate: there is no kernel); the decode state's
-                 bytes after prompts of 512 and 4096, equal; one prefill
+                 bytes after prompts of 512 and 2048, equal; one prefill
                  traced in a child process (`--family-profile`).
+  19. hybrid  -- `launch.serve.main` for recurrentgemma-2b at full width
+                 (26 layers: 8 (rec, rec, attn) triples and 2 tail rec
+                 layers; bf16), 4 prompts of 4096 tokens and 32 new: K6
+                 (`mma`) with its window of 2048 in each of the 8
+                 attention layers of the prefill, a ring of 2048 slots in
+                 decode. The bf16 gate at full depth, K6's route against
+                 the plain route from shared carries and end to end, with
+                 faults planted in the plain version; in float32 at 5
+                 layers a prefill of 4100 tokens and 3 decode steps on the
+                 ring, each against a prefill one token longer (the ring
+                 filled unrolled as a control); the decode state's bytes
+                 after prompts of 2048 and 4096, equal; one prefill and
+                 one decode step traced in a child process.
+  20. vlm     -- `launch.serve.main` for pixtral-12b at full width (40
+                 layers, bf16), 256 patch embeddings ahead of 4 prompts of
+                 4096 tokens, 32 new: K6 (`wgmma`, D 128, 32 heads over 8,
+                 4352 positions) in each of the 40 layers. The bf16 gate
+                 as the hybrid's; in float32 at 4 layers one decode step
+                 against a prefill one token longer (a cache length short
+                 of the patches as a control); K6 timed at the prefill's
+                 shape; one prefill and one decode step traced.
+  21. encdec  -- `launch.serve.main` for whisper-small at full width (12
+                 + 12 layers), 1500 frames, 4 prompts of 384 tokens and 32
+                 new: no kernel launch (no attention reaches 2048 keys, as
+                 in the reference); the CLI's refusal past 448 target
+                 positions; float32 and bf16 at full depth, a prefill and
+                 one decode step against a prefill one token longer, with
+                 a position one late and the cross-attention left out
+                 planted as controls; both routes bit-equal; one prefill
+                 and one decode step traced.
 
 Each solve phase sets the launch counts to 0, solves with the kernels,
 reads the counts, then solves again with the plain versions from the same
@@ -263,7 +301,7 @@ SRC = ROOT / "src"
 DEVICE = "cuda"
 PHASES = ("build", "kernels", "tune", "support", "full", "dense", "scdn",
           "tron", "bf16", "cli", "serve", "path", "fault", "sharded",
-          "lm", "train", "moe", "ssm")  # in order
+          "lm", "train", "moe", "ssm", "hybrid", "vlm", "encdec")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -426,6 +464,10 @@ SHARDED_CASES = (("real-sim full", 0, 1, 4.0, "padded_csc", 512, "full"),
                   "support"),
                  ("gisette dense", 2, 3, 0.25, "dense", 512, "full"))
 SHARDED_OUTER = 10
+# the support scope's cell, unfused on the sharded backend (~2.4 s an
+# iteration; 10 before the hybrid, vlm and encdec phases): fewer
+# lockstep iterations
+SHARDED_SUPPORT_OUTER = 3
 SHARDED_RANK_OUTER = 5
 SHARDED_CLI_OUTER = 8
 SHARDED_CRASH_AT = 5
@@ -529,12 +571,15 @@ BWD_FAULTS = ("key tile", "delta")
 # the train phase: qwen2-0.5b at its published width, batch 4 x 4096
 # tokens (the lm phase's prefill shape: K6 and K6b in every layer),
 # TRAIN_STEPS steps of `launch.train`, a crash at TRAIN_CRASH_AT with a
-# checkpoint every TRAIN_CKPT_EVERY steps
+# checkpoint every TRAIN_CKPT_EVERY steps (20 steps with a checkpoint
+# every 5 before the hybrid, vlm and encdec phases: the crashed run
+# wrote 5 checkpoints of ~6 GB and took 87 s of the phase's 182-209;
+# now 2)
 TRAIN_BATCH = 4
 TRAIN_SEQ = 4096
-TRAIN_STEPS = 20
+TRAIN_STEPS = 12
 TRAIN_CRASH_AT = 7
-TRAIN_CKPT_EVERY = 5
+TRAIN_CKPT_EVERY = 6
 # the rate of the CLI runs and of the lockstep. launch.train's default,
 # 3e-3 (the reference's, set for the reduced configs), makes the
 # published width's loss climb for its first 10 steps (12.108 -> 12.58 at
@@ -589,22 +634,89 @@ MOE_REDUCED_PROMPT = 1024
 MOE_E2E_RTOL = {"float32": LM_RTOL["float32"], "bfloat16": 0.2}
 MOE_E2E_FAULTS = ("tile", "quad")
 # the ssm phase: falcon-mamba-7b at its published width (64 Mamba layers,
-# d 4096, d_inner 8192, d_state 16; bf16, 14.5 GB), 4 prompts of 4096
-# tokens and 32 new tokens; no kernel on its path. The gate: float32 at
-# full width and SSM_F32_LAYERS layers, one prompt of SSM_GATE_PROMPT
-# tokens then one decode step against a prefill of one token more
+# d 4096, d_inner 8192, d_state 16; bf16, 14.5 GB), 4 prompts of 2048
+# tokens (4096 before the hybrid, vlm and encdec phases: the prefill,
+# ~17 s at 4096 and run twice, halves; the scan is linear in S) and 32
+# new tokens; no kernel on its
+# path. The gate: float32 at full width and SSM_F32_LAYERS layers, one
+# prompt of SSM_GATE_PROMPT tokens then one decode step against a prefill
+# of one token more
 SSM_ARCH = "falcon-mamba-7b"
 SSM_BATCH = 4
-SSM_PROMPT = 4096
+SSM_PROMPT = 2048
 SSM_NEW = 32
 SSM_SEED = 0
 SSM_F32_LAYERS = 4
 SSM_GATE_PROMPT = 1024
-SSM_STATE_PROMPTS = (512, 4096)
+SSM_STATE_PROMPTS = (512, 2048)
 # the gate's limit: the two ways run the same float32 arithmetic but for
 # the chunking (_chunk_size(1024) = 256, _chunk_size(1025) = 205) and
 # the scan's tree, float32 sums in another order: the LM's float32 limit
 SSM_RTOL = LM_RTOL["float32"]
+# the hybrid phase: recurrentgemma-2b at its published width (26 layers:
+# 8 (rec, rec, attn) triples and 2 tail rec layers; d 2560, 10 heads over
+# 1, head_dim 256, window 2048; bf16, 7.1 GB), 4 prompts of 4096 tokens
+# and 32 new: K6 (`mma`, D 256) with its window in each of the 8
+# attention layers of the prefill, a ring of 2048 slots in decode. The
+# float32 gate at HYBRID_F32_LAYERS layers (one triple and the two tail
+# rec layers): a prefill of HYBRID_GATE_PROMPT tokens, past twice the
+# window, then HYBRID_GATE_STEPS decode steps on the ring, each against
+# a prefill one token longer (the LM's float32 limit: the ring's dense
+# scores against K6's f32 band, float32 sums in another order)
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_BATCH = 4
+HYBRID_PROMPT = 4096
+HYBRID_NEW = 32
+HYBRID_SEED = 0
+HYBRID_F32_LAYERS = 5
+HYBRID_GATE_PROMPT = 4100
+HYBRID_GATE_STEPS = 3
+HYBRID_STATE_PROMPTS = (2048, 4096)
+# the hybrid's bf16 gate: each attention layer from shared carries within
+# LM_RTOL's 3e-2; end to end the 26 bf16 layers (18 of them recurrent,
+# identical in both routes) carry the 8 attention layers' one-ulp
+# differences to the logits: on an H100 (PERF.md §6) the layers read
+# 3.3e-3 to 4.0e-3, the free plain route's carry drifted from the kernel
+# route's by 8e-3 after the first triple to 4.1e-2 after the last layer
+# (a sum, not a blow-up), the logits 3.69e-2 to 4.21e-2; the planted
+# "near tile" 0.197 and "quad" 1.15 end to end: the limit sits between
+HYBRID_E2E_RTOL = 0.1
+# the vlm phase: pixtral-12b at its published width (40 layers, d 5120,
+# 32 heads over 8, D 128; bf16, 24.5 GB), 256 patch embeddings ahead of 4
+# prompts of 4096 tokens (4352 positions: K6 `wgmma` at D 128, G 4 in
+# each of the 40 layers) and 32 new; the float32 gate at VLM_F32_LAYERS
+# layers, one decode step against a prefill one token longer
+VLM_ARCH = "pixtral-12b"
+VLM_BATCH = 4
+VLM_PROMPT = 4096
+VLM_NEW = 32
+VLM_SEED = 0
+VLM_F32_LAYERS = 4
+# the encdec phase: whisper-small at its published width (12 encoder and
+# 12 decoder layers, d 768; bf16), 1500 frames and 4 prompts of 384
+# tokens with 32 new (416 of its 448 target positions): no attention
+# reaches BLOCKWISE_MIN_KV keys, so no kernel launches, as in the
+# reference. Its gates: a prefill of ENCDEC_GATE_PROMPT tokens and one
+# decode step against a prefill one token longer, float32 and bf16 at
+# full depth (bf16: the LM's limit, both ways rounding every layer)
+ENCDEC_ARCH = "whisper-small"
+ENCDEC_BATCH = 4
+ENCDEC_PROMPT = 384
+ENCDEC_NEW = 32
+ENCDEC_SEED = 0
+ENCDEC_GATE_PROMPT = 383
+# planted in the encdec decode step, held by its gates: the sinusoid of
+# the next position (one late), the cross-attention's branch left out
+ENCDEC_FAULTS = ("position", "cross")
+# the band planted in K6's plain version: a key j counts when i - j <=
+# window (one key too many a row past the window)
+WINDOW_FAULT = "band"
+# planted in K6's plain version for the hybrid and vlm gates: the keys 64
+# to 127 places below each row's own dropped (a kernel skipping the KV
+# tile next to the diagonal: with a window, FLASH_FAULTS' "tile", keys 64
+# to 127 absolute, leaves the last positions untouched), and "quad"
+FAMILY_FAULTS = ("near tile", "quad")
+NEAR_TILE_FAULT = FAMILY_FAULTS[0]
 
 
 def log(msg: str) -> None:
@@ -693,6 +805,14 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     err = float(torch.max(torch.abs(got.float() - want.float())))
     scale = float(torch.max(torch.abs(want.float())))
     return err, err / max(scale, 1e-30)
+
+
+def logits_rel(torch, cfg, got, want) -> float:
+    """rel_err's relative reading over the vocabulary's logits: the pad
+    columns past vocab_size (whisper's 51,865 padded to 51,968) hold
+    -1e9 in both and would set the scale."""
+    V = cfg.vocab_size
+    return rel_err(torch, got[..., :V], want[..., :V])[1]
 
 
 def row_rel_err(torch, got, want) -> tuple[float, float]:
@@ -1825,20 +1945,27 @@ def serve_kernel_checks(torch, serve, flush) -> dict:
     return out
 
 
-def flash_fault(torch, q, k, v, causal=True, sm_scale=None, *, fault):
-    """The plain version (model layout) with one of FLASH_FAULTS planted:
-    what the gates read for a wrong kernel."""
+def flash_fault(torch, q, k, v, causal=True, sm_scale=None, *, fault,
+                window=0):
+    """The plain version (model layout) with one of FLASH_FAULTS (or
+    WINDOW_FAULT) planted: what the gates read for a wrong kernel."""
     B, Sq, H, D = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     scale = D ** -0.5 if sm_scale is None else sm_scale
     qg = q.reshape(B, Sq, Kv, H // Kv, D).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
     kj = torch.arange(Skv, device=q.device)
+    qi = torch.arange(Sq, device=q.device)[:, None]
     ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
-        ok &= torch.arange(Sq, device=q.device)[:, None] >= kj
+        ok &= qi >= kj
+    if 0 < window < Sq:
+        ok &= (qi - kj <= window) if fault == WINDOW_FAULT else \
+            (qi - kj < window)
     if fault == "tile":
         ok &= (kj < 64) | (kj >= 128)
+    if fault == NEAR_TILE_FAULT:
+        ok &= (qi - kj < 64) | (qi - kj >= 128)
     s = torch.where(ok, s, -torch.inf)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = (e * (kj % 8 < 6) if fault == "quad" else e).sum(-1, keepdim=True)
@@ -1861,22 +1988,22 @@ def planted(torch, fault: str):
         ref.attention_ref = plain_ref
 
 
-def flash_work(q, k, causal: bool) -> tuple[float, float]:
+def flash_work(q, k, causal: bool, window: int = 0) -> tuple[float, float]:
     """(bytes, flops) one K6 call needs: each input read once, the output
-    written once; 4 D flops for each (query, key) pair the mask lets
-    through. Either layout ((B, S, H, D) or (BH, S, D))."""
+    written once; 4 D flops for each (query, key) pair the mask (with its
+    window) lets through. Either layout ((B, S, H, D) or (BH, S, D))."""
     D = q.shape[-1]
     Sq, Skv = q.shape[1], k.shape[1]
     heads = q.numel() // (Sq * D)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     return nbytes, 4 * D * _port_bench("work").attention_pairs(
-        Sq, Skv, causal) * heads
+        Sq, Skv, causal, window) * heads
 
 
-def flash_rate(torch, q, k, causal: bool, ms: float) -> str:
+def flash_rate(torch, q, k, causal: bool, ms: float, window: int = 0) -> str:
     """A K6 time's TFLOP/s and its share of the bound (bf16 tensor-core
     peak, or fp32 on the CUDA cores)."""
-    nbytes, nops = flash_work(q, k, causal)
+    nbytes, nops = flash_work(q, k, causal, window)
     peak = FP32_OPS_PER_S if q.dtype == torch.float32 else \
         BF16_TENSOR_OPS_PER_S
     b = bound(nbytes, nops, peak)[0]
@@ -1892,8 +2019,9 @@ def flash_kernel_checks(torch, flush) -> dict:
     the same shape (the wgmma kernel's first step) and the host time of a
     call's tensor-map encodes, and the planted faults' readings there;
     then yi-6b's and gemma-7b's head widths, tails, Sq != Skv,
-    non-causal and float32. Every time with its TFLOP/s and share of the
-    bound; every check names the variant that ran."""
+    non-causal and float32; then the sliding window (`flash_window_checks`).
+    Every time with its TFLOP/s and share of the bound; every check names
+    the variant that ran."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
 
@@ -1905,23 +2033,24 @@ def flash_kernel_checks(torch, flush) -> dict:
         return [torch.randn(s, generator=gen, device=dev).to(dtype)
                 for s in (q_shape, kv_shape, kv_shape)]
 
-    def check(label, q, k, v, causal):
+    def check(label, q, k, v, causal, window=0):
         before = ops.flash_variant_counts()
-        got = ops.flash_attention(q, k, v, causal=causal)
-        want = ref.attention_ref(q, k, v, causal=causal)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ran = [n for n, c in ops.flash_variant_counts().items()
                if c != before[n]]
         e = row_rel_err(torch, got, want)
         tol = FLASH_RTOL[str(q.dtype).removeprefix("torch.")]
         ms = device_ms(torch, lambda: ops.flash_attention(
-            q, k, v, causal=causal), 20)
+            q, k, v, causal=causal, window=window), 20)
         log(f"[kernels] flash_attention {label} q {tuple(q.shape)} k/v "
             f"{tuple(k.shape)} {str(q.dtype).removeprefix('torch.')} "
-            f"{'causal' if causal else 'non-causal'}, variant "
+            f"{'causal' if causal else 'non-causal'}"
+            f"{f', window {window}' if window else ''}, variant "
             f"{'/'.join(ran)}: err {e[0]:.3e} (row rel {e[1]:.2e}), "
             f"tolerance row rel {tol}; {ms * 1e3:.2f} us L2-warm, "
-            f"{flash_rate(torch, q, k, causal, ms)}")
+            f"{flash_rate(torch, q, k, causal, ms, window)}")
         assert e[1] <= tol, (label, e)
         assert ran == [ops.flash_variant(q.dtype, q.shape[-1])], ran
         return e, want
@@ -1997,7 +2126,89 @@ def flash_kernel_checks(torch, flush) -> dict:
                              torch.float32), True)
     check("float32 gemma-7b heads, Sq != Skv", *inputs(
         (1, 1000, 16, 256), (1, 1500, 16, 256), torch.float32), False)
+    out["flash_attention"]["window"] = flash_window_checks(
+        torch, flush, check, inputs)
     return out
+
+
+def flash_window_checks(torch, flush, check, inputs) -> dict:
+    """K6's sliding window, held per row to `ref.attention_ref(window=)`:
+    at the hybrid phase's prefill shape (recurrentgemma-2b: B 4 x 10 heads
+    over 1, S 4096, D 256, window 2048, bf16: `mma`), with the band
+    planted one key too wide (WINDOW_FAULT) in the plain version as a
+    control; the causal launch's bits unchanged (a window of S, and the
+    rows a window of S - 1 leaves whole); timed L2-cold and warm beside
+    its bound (the band's pairs), the plain version, the causal launch
+    at the same shape and the library call (scaled_dot_product_attention
+    with the band as a boolean mask, timed only); then float32 (`f32`)
+    at a shorter S still past the window, and `wgmma` at D 128 and 64.
+    -> the windowed shape's row of readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    cfg = get_config(HYBRID_ARCH)
+    H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    W, S = cfg.hybrid.window, HYBRID_PROMPT
+    q, k, v = inputs((HYBRID_BATCH, S, H, D), (HYBRID_BATCH, S, Kv, D),
+                     torch.bfloat16)
+    e, want = check(f"{HYBRID_ARCH} prefill", q, k, v, True, window=W)
+    tol = FLASH_RTOL["bfloat16"]
+    r_fault = row_rel_err(torch, flash_fault(
+        torch, q, k, v, fault=WINDOW_FAULT, window=W), want)[1]
+    log(f"[kernels] flash_attention window control, plain version with "
+        f"the band planted one key wide (i - j <= {W}): row rel "
+        f"{r_fault:.2e} (limit {tol})")
+    assert r_fault > tol, r_fault
+    causal = ops.flash_attention(q, k, v)
+    whole = torch.equal(ops.flash_attention(q, k, v, window=S), causal)
+    edge = ops.flash_attention(q, k, v, window=S - 1)
+    rows = torch.equal(edge[:, :-1], causal[:, :-1])
+    last = torch.equal(edge[:, -1], causal[:, -1])
+    log(f"[kernels] flash_attention window of S ({S}) bit-equal to the "
+        f"causal launch: {whole}; window S - 1: rows 0..{S - 2} bit-equal "
+        f"{rows}, the last row (which loses key 0) equal {last}")
+    assert whole and rows and not last
+    del edge, causal
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qi = torch.arange(S, device=q.device)
+    band = (qi[:, None] >= qi[None, :]) & (qi[:, None] - qi[None, :] < W)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+    e_lib = row_rel_err(torch, library().transpose(1, 2), want)
+    del want
+    nbytes, nops = flash_work(q, k, True, W)
+    r = dict(max_abs_err=e[0], row_rel=e[1], fault_row_rel=r_fault,
+             **timings(torch, lambda: ops.flash_attention(q, k, v, window=W),
+                       lambda: ref.attention_ref(q, k, v, window=W), flush),
+             bound=bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+             library_ms=device_ms(torch, library, 20, flush),
+             causal_ms=device_ms(torch, lambda: ops.flash_attention(
+                 q, k, v), 20, flush),
+             launches_per_prefill=cfg.n_layers // 3,
+             shape=f"B {HYBRID_BATCH} x H {H} (kv {Kv}), S {S}, D {D}, "
+                   f"window {W}, bf16, causal",
+             pairs=_port_bench("work").attention_pairs(S, S, True, W),
+             causal_pairs=_port_bench("work").attention_pairs(S, S, True))
+    log(f"[kernels] flash_attention window at {r['shape']} (variant mma): "
+        f"L2-cold {r['ms'] * 1e3:.2f} us "
+        f"({flash_rate(torch, q, k, True, r['ms'], W)}), warm "
+        f"{r['warm_ms'] * 1e3:.2f} us; the causal launch at this shape "
+        f"{r['causal_ms'] * 1e3:.2f} us; bound {r['bound'][0] * 1e3:.3f} "
+        f"us ({r['bound'][1]}; {r['pairs']} pairs a head against causal's "
+        f"{r['causal_pairs']}); plain {r['plain_ms'] * 1e3:.2f} us; library "
+        f"scaled_dot_product_attention with the band as a mask "
+        f"{r['library_ms'] * 1e3:.2f} us (row rel {e_lib[1]:.2e} against "
+        f"the plain version, timed only)")
+    del q, k, v, qt, kt, vt, band
+    check("float32, window", *inputs((1, 3072, H, D), (1, 3072, Kv, D),
+                                     torch.float32), True, window=W)
+    check("wgmma D 128, window", *inputs((2, 4096, 8, 128), (2, 4096, 2, 128),
+                                         torch.bfloat16), True, window=1000)
+    check("wgmma D 64, window", *inputs((1, 2500, 14, 64), (1, 2500, 2, 64),
+                                        torch.bfloat16), True, window=333)
+    return r
 
 
 def bwd_row_rel_err(torch, got, want) -> tuple[float, float]:
@@ -2210,68 +2421,20 @@ def lm_model(torch, dtype: str, seed: int = LM_SEED):
 
 
 def lm_agreement(torch, dtype: str, seed: int, faults=()) -> list:
-    """Prefill through K6 and through its plain version, from the same
-    weights and prompts (from `seed`), then LM_DECODE_CHECK decode steps
-    from each cache on the kernel route's greedy tokens; then a prefill
-    through the plain version with each of `faults` planted. -> the
-    readings: [prefill, each decode step] rel of the kernel route, then
-    one prefill rel a fault, against the plain route. In float32 the
-    greedy first tokens are equal."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.models import decode as dec
+    """The lm phase's model (from `seed`) end to end through K6 and
+    through its plain version (`family_agreement`), with each of `faults`
+    planted in the plain version. -> the readings: [prefill, each decode
+    step] rel of the kernel route, then the largest rel a fault, against
+    the plain route. In float32 the greedy first tokens are equal."""
     model, tokens = lm_model(torch, dtype, seed)
-    n_layers = model.cfg.n_layers
-    steps, firsts, feed = {}, {}, []
-    for use_kernels in (True, False):
-        model.use_kernels = use_kernels
-        ops.reset_launch_counts()
-        logits, cache = dec.prefill(model, tokens,
-                                    LM_PROMPT + LM_DECODE_CHECK)
-        torch.cuda.synchronize()
-        n = ops.launch_counts()["flash_attention"]
-        assert n == (n_layers if use_kernels else 0), (use_kernels, n)
-        firsts[use_kernels] = torch.argmax(logits[:, -1], dim=-1)
-        if not feed:
-            feed.append(firsts[True][:, None])
-        steps[use_kernels] = [logits]
-        for i in range(LM_DECODE_CHECK):
-            logits, cache = dec.decode_step(model, cache, feed[i])
-            steps[use_kernels].append(logits)
-            if len(feed) < LM_DECODE_CHECK:
-                feed.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
-        del cache
-    rels = [rel_err(torch, a, b)[1]
-            for a, b in zip(steps[True], steps[False])]
-    finite = all(bool(torch.isfinite(t).all())
-                 for t in steps[True] + steps[False])
-    same_first = torch.equal(firsts[True], firsts[False])
-    log(f"[lm] {dtype} seed {seed}: prefill logits through K6 ({n_layers} "
-        f"launches) vs its plain version rel {rels[0]:.2e}; "
-        f"{LM_DECODE_CHECK} decode steps rel "
-        + " ".join(f"{r:.2e}" for r in rels[1:])
-        + f"; greedy first tokens {'equal' if same_first else 'differ'} "
-        f"({firsts[True].tolist()} vs {firsts[False].tolist()})")
-    assert finite, "non-finite logits"
+    out = family_agreement(torch, f"[lm] {dtype} seed {seed}", model, tokens,
+                           {}, LM_PROMPT + LM_DECODE_CHECK,
+                           model.cfg.n_layers, faults)
     if dtype == "float32":
-        assert same_first, (firsts[True], firsts[False])
-    plain_ref = ref.attention_ref
-    model.use_kernels = False
-    for fault in faults:
-        def planted(q, k, v, causal=True, sm_scale=None, _fault=fault):
-            return flash_fault(torch, q, k, v, causal, sm_scale,
-                               fault=_fault)
-        ref.attention_ref = planted
-        try:
-            logits, _ = dec.prefill(model, tokens, LM_PROMPT)
-        finally:
-            ref.attention_ref = plain_ref
-        rels.append(rel_err(torch, logits, steps[False][0])[1])
-        log(f"[lm] {dtype} seed {seed}: control, plain route with "
-            f"{fault!r} planted: prefill logits rel {rels[-1]:.2e}")
-    del model, steps
-    gc.collect()
-    torch.cuda.empty_cache()
-    return rels
+        assert out["first_equal"], out
+    del model, tokens
+    free_card(torch)
+    return out["kernel"] + out["faults"]
 
 
 def phase_lm(torch, card: str) -> dict:
@@ -2477,8 +2640,9 @@ def train_lockstep(torch, dtype: str, seed: int, faults=()) -> list:
                                          *ctx.args, fault=_fault),
                         None, None)
 
-        ref.attention_ref = lambda q, k, v, causal=True, sm_scale=None: \
-            Planted.apply(q, k, v, causal, sm_scale)
+        # the dense LM has no window (attend_full passes window=0)
+        ref.attention_ref = lambda q, k, v, causal=True, sm_scale=None, \
+            window=0: Planted.apply(q, k, v, causal, sm_scale)
         try:
             new, _, met = step(params, opt, b1)
         finally:
@@ -2686,6 +2850,18 @@ def family_model(torch, arch: str, dtype: str, seed: int, batch: int,
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, prompt))
     return model, torch.as_tensor(prompts, device=DEVICE)
+
+
+def family_prefix(cfg, batch: int, seed: int) -> dict:
+    """vlm's patch embeddings or encdec's frame embeddings on the card, as
+    `launch.serve` draws them (`launch.specs.prefix_specs`), or {}."""
+    from repro_torch.launch.specs import prefix_specs
+    return prefix_specs(cfg, batch, seed, DEVICE)
+
+
+def family_prefix_len(cfg) -> int:
+    """Positions ahead of the prompt: vlm's patches."""
+    return cfg.vlm.n_patches if cfg.family == "vlm" else 0
 
 
 def free_card(torch) -> None:
@@ -2908,20 +3084,20 @@ def moe_agreement(torch, model, tokens, bit_equal: bool = False,
     return out
 
 
-def moe_flash_timing(torch) -> dict:
-    """K6 at the moe prefill's shape (B 4 x 4096 tokens, 16 heads over 16
-    kv heads, D 128, bf16, causal) against its plain version per row, then
+def flash_timing(torch, arch: str, label: str, batch: int, S: int) -> dict:
+    """K6 at a family prefill's shape (B batch x S positions, the arch's
+    heads, bf16, causal: moe's B 4 x 4096, 16 heads over 16, D 128; vlm's
+    B 4 x 4352, 32 over 8, D 128) against its plain version per row, then
     its L2-cold and warm times, the plain version's, SDPA's (timed only)
     and the bound (`flash_work`)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(arch)
     H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     q, k, v = (torch.randn(s, generator=gen, device=DEVICE).to(
-        torch.bfloat16) for s in ((MOE_BATCH, MOE_PROMPT, H, D),
-                                  (MOE_BATCH, MOE_PROMPT, Kv, D),
-                                  (MOE_BATCH, MOE_PROMPT, Kv, D)))
+        torch.bfloat16) for s in ((batch, S, H, D), (batch, S, Kv, D),
+                                  (batch, S, Kv, D)))
     flush_buf = torch.empty((128 * 1024 * 1024 // 4,), device=DEVICE)
 
     def flush():
@@ -2944,10 +3120,10 @@ def moe_flash_timing(torch) -> dict:
                        lambda: ref.attention_ref(q, k, v), flush),
              bound=bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
              library_ms=device_ms(torch, lambda: sdpa(
-                 qt, kt, vt, is_causal=True), 20, flush))
-    r["shape"] = (f"B {MOE_BATCH} x H {H} (kv {Kv}), S {MOE_PROMPT}, D {D}, "
+                 qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush))
+    r["shape"] = (f"B {batch} x H {H} (kv {Kv}), S {S}, D {D}, "
                   f"bf16, causal")
-    log(f"[moe] flash_attention at the prefill's shape ({r['shape']}), "
+    log(f"[{label}] flash_attention at the prefill's shape ({r['shape']}), "
         f"variant wgmma: err {e[0]:.3e} (row rel {e[1]:.2e}); L2-cold "
         f"{r['ms'] * 1e3:.2f} us ({flash_rate(torch, q, k, True, r['ms'])}"
         f"), warm {r['warm_ms'] * 1e3:.2f} us; bound "
@@ -2988,28 +3164,36 @@ def run_family_profile(arch: str, label: str, untraced_ms=None) -> None:
                 f"share not measured (the profiler saw no device time)")
 
 
+# the family phases' serving shapes: (batch, prompt, seed)
+FAMILY_SHAPES = {MOE_ARCH: (MOE_BATCH, MOE_PROMPT, MOE_SEED),
+                 SSM_ARCH: (SSM_BATCH, SSM_PROMPT, SSM_SEED),
+                 HYBRID_ARCH: (HYBRID_BATCH, HYBRID_PROMPT, HYBRID_SEED),
+                 VLM_ARCH: (VLM_BATCH, VLM_PROMPT, VLM_SEED),
+                 ENCDEC_ARCH: (ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_SEED)}
+
+
 def family_profile(arch: str) -> dict:
-    """One bf16 prefill of the moe or ssm phase's model (and, for moe, one
-    decode step): for moe after a warm-up, the untraced wall (the mean of
-    3 calls), then one traced call; ssm's prefill (~20 s a call, nearly
-    all of it on the card) is traced at once, its untraced wall None (the
+    """One bf16 prefill of a family phase's model (and, but for ssm, one
+    decode step): after a warm-up, the untraced wall (the mean of 3
+    calls), then one traced call; ssm's prefill (~10 s a call, nearly all
+    of it on the card) is traced at once, its untraced wall None (the
     phase's serve run has it) -> {"prefill"|"decode": {"wall_ms",
-    "traced_ms", "busy_ms", "ops", "top"}}. Run by the moe and ssm phases
-    in a child process (`--family-profile ARCH`)."""
+    "traced_ms", "busy_ms", "ops", "top"}}. Run by the family phases in a
+    child process (`--family-profile ARCH`)."""
     import torch
     from repro_torch.models import decode as dec
-    moe = arch == MOE_ARCH
-    batch, prompt, seed = ((MOE_BATCH, MOE_PROMPT, MOE_SEED) if moe else
-                           (SSM_BATCH, SSM_PROMPT, SSM_SEED))
+    ssm = arch == SSM_ARCH
+    batch, prompt, seed = FAMILY_SHAPES[arch]
     model, tokens = family_model(torch, arch, "bfloat16", seed, batch,
                                  prompt)
-    max_len = prompt + 16
+    prefix = family_prefix(model.cfg, batch, seed)
+    max_len = prompt + 16 + family_prefix_len(model.cfg)
 
     def prefill():
-        return dec.prefill(model, tokens, max_len)
+        return dec.prefill(model, tokens, max_len, **prefix)
 
-    calls = [("prefill", prefill, 3 if moe else 0)]
-    if moe:
+    calls = [("prefill", prefill, 0 if ssm else 3)]
+    if not ssm:
         logits, cache = prefill()
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         for _ in range(2):
@@ -3129,7 +3313,7 @@ def phase_moe(torch, card: str) -> dict:
     assert sum(small["counts"].values()) == 0, small["counts"]
     assert small["logits_finite"] and small["tokens"].shape == \
         (MOE_BATCH, 16)
-    timing = moe_flash_timing(torch)
+    timing = flash_timing(torch, MOE_ARCH, "moe", MOE_BATCH, MOE_PROMPT)
     run_family_profile(MOE_ARCH, "moe")
     return {"flash_attention": first["counts"]["flash_attention"],
             "flash_attention variants": first["variants"],
@@ -3146,60 +3330,401 @@ def phase_ssm(torch, card: str) -> None:
     prompts of SSM_STATE_PROMPTS tokens, equal; one prefill traced in a
     child process."""
     from repro_torch.configs import get_config
-    from repro_torch.models import decode as dec
-    from repro_torch.models.transformer import Model
     cfg = get_config(SSM_ARCH)
     out = serve_family(torch, [
         "--arch", SSM_ARCH, "--full", "--batch", str(SSM_BATCH),
         "--prompt-len", str(SSM_PROMPT), "--new-tokens", str(SSM_NEW),
         "--seed", str(SSM_SEED)], "ssm", card)
-    toks = out["tokens"]
-    assert sum(out["counts"].values()) == 0, out["counts"]
-    assert out["logits_finite"]
-    assert toks.shape == (SSM_BATCH, SSM_NEW), toks.shape
-    assert np.all((toks >= 0) & (toks < cfg.vocab_size)), toks
+    check_served(out, cfg, SSM_BATCH, SSM_NEW, 0, None)
+    decode_gate(torch, SSM_ARCH, "ssm", "float32", SSM_F32_LAYERS,
+                SSM_GATE_PROMPT, 1, SSM_RTOL)
+    state_readings(torch, SSM_ARCH, "ssm", SSM_F32_LAYERS, SSM_BATCH,
+                   SSM_STATE_PROMPTS, SSM_NEW)
+    run_family_profile(SSM_ARCH, "ssm", out["prefill_ms"])
 
-    S = SSM_GATE_PROMPT
-    model, tokens = family_model(torch, SSM_ARCH, "float32", SSM_SEED, 1,
-                                 S + 1, SSM_F32_LAYERS)
-    want, _ = dec.prefill(model, tokens, S + 1)
-    _, cache = dec.prefill(model, tokens[:, :S], S + 1)
-    got, cache = dec.decode_step(model, cache, tokens[:, S:])
-    e = rel_err(torch, got, want)
-    log(f"[ssm] float32 at {SSM_F32_LAYERS} layers: a prefill of {S} tokens "
-        f"and one decode step against a prefill of {S + 1}, last-position "
-        f"logits: err {e[0]:.3e}, rel {e[1]:.2e} (tolerance rel {SSM_RTOL})")
-    assert e[1] <= SSM_RTOL, e
+
+def family_agreement(torch, label: str, model, tokens, prefix: dict,
+                     max_len: int, n_attn: int, faults=()) -> dict:
+    """A family's model end to end: a prefill through K6, then
+    LM_DECODE_CHECK decode steps on its greedy tokens; the same through
+    the plain route, and through the plain route with each of `faults`
+    planted in K6's plain version (`planted`). -> {"kernel": [rel of the
+    prefill's logits, then each step's, against the plain route],
+    "faults": [the largest such rel a fault], "first_equal": both routes'
+    greedy first tokens equal}."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as dec
+    steps, feed = {}, []
+    runs = [("kernel", True, None), ("plain", False, None)]
+    runs += [(f, False, f) for f in faults]
+    for name, use_kernels, fault in runs:
+        model.use_kernels = use_kernels
+        with (planted(torch, fault) if fault else contextlib.nullcontext()):
+            ops.reset_launch_counts()
+            logits, cache = dec.prefill(model, tokens, max_len, **prefix)
+            torch.cuda.synchronize()
+            n = ops.launch_counts()["flash_attention"]
+            assert n == (n_attn if use_kernels else 0), (name, n)
+            if not feed:
+                feed.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
+            steps[name] = [logits]
+            for i in range(LM_DECODE_CHECK):
+                logits, cache = dec.decode_step(model, cache, feed[i])
+                steps[name].append(logits)
+                if len(feed) < LM_DECODE_CHECK:
+                    feed.append(torch.argmax(logits[:, -1],
+                                             dim=-1)[:, None])
+            del cache
+    model.use_kernels = True
+    cfg = model.cfg
+    out = {"kernel": [logits_rel(torch, cfg, a, b)
+                      for a, b in zip(steps["kernel"], steps["plain"])]}
+    out["faults"] = [max(logits_rel(torch, cfg, a, b)
+                         for a, b in zip(steps["kernel"], steps[f]))
+                     for f in faults]
+    out["first_equal"] = torch.equal(
+        *[torch.argmax(steps[k][0][:, -1], dim=-1)
+          for k in ("kernel", "plain")])
+    finite = all(bool(torch.isfinite(t).all())
+                 for v in steps.values() for t in v)
+    log(f"{label}: prefill logits (K6 in {n_attn} layers) and "
+        f"{LM_DECODE_CHECK} decode steps against the plain route, rel "
+        + " ".join(f"{r:.2e}" for r in out["kernel"])
+        + f"; greedy first tokens "
+        f"{'equal' if out['first_equal'] else 'differ'}; finite {finite}")
+    for fault, r in zip(faults, out["faults"]):
+        log(f"{label}: control, the plain route with {fault!r} planted in "
+            f"every attention layer: the largest rel {r:.2e}")
+    assert finite, "non-finite logits"
+    del steps
+    free_card(torch)
+    return out
+
+
+def family_lockstep(torch, label: str, model, tokens, prefix: dict,
+                    faults=()) -> dict:
+    """A family's prefill layer by layer from shared carries: each
+    attention layer's attention (`attend_full`, after the output
+    projection) through K6 and through its plain version on the kernel
+    route's carry; beside them the plain route's own carry from the
+    embedding, free (its distance from the kernel route's after each
+    layer: how far the routes drift apart). With `faults`, the first
+    attention layer's attention again with each planted in the plain
+    version. -> {"attn": [rel an attention layer], "diverge": [rel a
+    layer], "faults": [rel a fault]}."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import DenseLayer
+    out = {"attn": [], "diverge": [], "faults": []}
+    with torch.no_grad():
+        x, positions, _ = model.embed_inputs(tokens, **prefix)
+        xp = x
+        for layer in model.stack():
+            if isinstance(layer, DenseLayer):
+                hn = layer.norm1(x)
+                args = (model.cfg, layer.attn, hn, positions)
+                kw = dict(causal=layer.causal, window=layer.window)
+                hk = attn.attend_full(*args, **kw)[0]
+                hp = attn.attend_full(*args, use_kernels=False, **kw)[0]
+                out["attn"].append(rel_err(torch, hk, hp)[1])
+                for fault in faults if len(out["attn"]) == 1 else ():
+                    with planted(torch, fault):
+                        hf = attn.attend_full(*args, use_kernels=False,
+                                              **kw)[0]
+                    out["faults"].append(rel_err(torch, hk, hf)[1])
+                    del hf
+                del hn, hk, hp
+            x = layer(x, positions, True)[0]
+            xp = layer(xp, positions, False)[0]
+            out["diverge"].append(rel_err(torch, x, xp)[1])
+    log(f"{label}: each attention layer from the kernel route's carry, K6 "
+        f"vs plain rel " + " ".join(f"{r:.2e}" for r in out["attn"])
+        + "; the free plain route's carry vs the kernel route's after "
+        f"each layer rel " + " ".join(f"{r:.1e}" for r in out["diverge"]))
+    for fault, r in zip(faults, out["faults"]):
+        log(f"{label}: control, the first attention layer with {fault!r} "
+            f"planted in its plain version: rel {r:.2e}")
+    free_card(torch)
+    return out
+
+
+def family_bf16_gate(torch, arch: str, tag: str, n_attn: int,
+                     e2e_tol: float = LM_RTOL["bfloat16"]) -> None:
+    """The bf16 gate at full depth: K6's route against the plain route,
+    a layer at a time from shared carries (`family_lockstep`, within
+    LM_RTOL's bf16 limit) and end to end (`family_agreement`, within
+    `e2e_tol`), with FAMILY_FAULTS planted past both."""
+    batch, prompt, seed = FAMILY_SHAPES[arch]
+    model, tokens = family_model(torch, arch, "bfloat16", seed, batch,
+                                 prompt)
+    prefix = family_prefix(model.cfg, batch, seed)
+    label = f"[{tag}] bfloat16 at {model.cfg.n_layers} layers"
+    faults = FAMILY_FAULTS
+    tol = LM_RTOL["bfloat16"]
+    lock = family_lockstep(torch, label, model, tokens, prefix, faults)
+    e2e = family_agreement(
+        torch, label, model, tokens, prefix,
+        prompt + LM_DECODE_CHECK + family_prefix_len(model.cfg), n_attn,
+        faults)
+    log(f"{label}: the largest rel, an attention layer from shared "
+        f"carries {max(lock['attn']):.2e} (tolerance rel {tol}), end to "
+        f"end {max(e2e['kernel']):.2e} (tolerance rel {e2e_tol}); controls "
+        + ", ".join(f"{f!r} {a:.2e} / {b:.2e}" for f, a, b in
+                    zip(faults, lock["faults"], e2e["faults"])))
+    del model, tokens, prefix
+    free_card(torch)
+    assert max(lock["attn"]) <= tol, lock
+    assert max(e2e["kernel"]) <= e2e_tol, e2e
+    assert all(r > tol for r in lock["faults"]), lock
+    assert all(r > e2e_tol for r in e2e["faults"]), e2e
+
+
+@contextlib.contextmanager
+def decode_fault(torch, fault: str):
+    """Inside the block the decode path has `fault` planted: "position"
+    (encdec's step adds the sinusoid of the next position), "cross" (its
+    cross-attention's branch adds nothing), "ring" (a windowed cache is
+    filled with the prompt's last keys unrolled), "length" (vlm's cache
+    length leaves out the patches)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import decode as dec
+    from repro_torch.models import layers as L
+    saved = [(L, "sinusoid_at"), (attn, "cross_decode"),
+             (attn, "fill_cache"), (dec, "prefill")]
+    saved = [(m, n, getattr(m, n)) for m, n in saved]
+    real = {n: f for _, n, f in saved}
+    if fault == "position":
+        L.sinusoid_at = lambda pos, d, device: \
+            real["sinusoid_at"](pos + 1, d, device)
+    elif fault == "cross":
+        attn.cross_decode = lambda p, x, k, v: torch.zeros_like(x)
+    elif fault == "ring":
+        def unrolled(k_cache, k):
+            S, S_max = k.shape[1], k_cache.shape[1]
+            k_cache.copy_(k[:, -S_max:]) if S > S_max else \
+                real["fill_cache"](k_cache, k)
+        attn.fill_cache = unrolled
+    elif fault == "length":
+        def short(model, tokens, max_len, **kw):
+            logits, cache = real["prefill"](model, tokens, max_len, **kw)
+            cache["length"] -= family_prefix_len(model.cfg)
+            return logits, cache
+        dec.prefill = short
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def decode_gate(torch, arch: str, tag: str, dtype: str, n_layers: int,
+                S: int, n_steps: int, tol: float, faults=()) -> list:
+    """A prefill of S tokens (after vlm's patches, beside encdec's
+    frames), then n_steps decode steps, each step's logits against the
+    last position of a prefill one token longer; again with each of
+    `faults` planted in the decode path (`decode_fault`), read past `tol`.
+    -> the readings."""
+    from repro_torch.models import decode as dec
+    seed = FAMILY_SHAPES[arch][2]
+    model, tokens = family_model(torch, arch, dtype, seed, 1, S + n_steps,
+                                 n_layers)
+    prefix = family_prefix(model.cfg, 1, seed)
+    P = family_prefix_len(model.cfg)
+    label = f"[{tag}] {dtype} at {model.cfg.n_layers} layers"
+
+    def run():
+        _, cache = dec.prefill(model, tokens[:, :S], P + S + n_steps,
+                               **prefix)
+        rels = []
+        for i in range(n_steps):
+            got, cache = dec.decode_step(model, cache,
+                                         tokens[:, S + i:S + i + 1])
+            want, _ = dec.prefill(model, tokens[:, :S + i + 1],
+                                  P + S + i + 1, **prefix)
+            rels.append(logits_rel(torch, model.cfg, got, want))
+        return rels
+
+    rels = run()
+    log(f"{label}: a prefill of {S} tokens{f' after {P} patches' if P else ''}"
+        f" and {n_steps} decode step(s), each against a prefill one token "
+        f"longer, last-position logits rel "
+        + " ".join(f"{r:.2e}" for r in rels) + f" (tolerance rel {tol})")
+    controls = []
+    for fault in faults:
+        with decode_fault(torch, fault):
+            controls.append(max(run()))
+        log(f"{label}: control, {fault!r} planted in the decode path: the "
+            f"largest rel {controls[-1]:.2e}")
+    del model, tokens, prefix
+    free_card(torch)
+    assert max(rels) <= tol, rels
+    assert all(r > tol for r in controls), controls
+    return rels
+
+
+def state_readings(torch, arch: str, tag: str, n_layers: int, batch: int,
+                   prompts: tuple, new: int) -> list:
+    """The device memory a prefill leaves allocated (its logits and decode
+    state) after prompts of each length in `prompts`, float32 at
+    `n_layers` layers, equal, and the state's own bytes, equal; beside
+    them the state's bytes at full depth in bf16, from the cache's shapes.
+    -> the ring's slots after each prompt (None without attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode as dec
+    from repro_torch.models.transformer import Model
 
     def state_bytes(c):
-        return sum(c[k].numel() * c[k].element_size() for k in ("h", "conv"))
+        return sum(t.numel() * t.element_size() for key, v in c.items()
+                   if key != "length"
+                   for t in (v.values() if isinstance(v, dict) else (v,)))
 
-    del want, got, cache
-    free_card(torch)
-    rng = np.random.default_rng(SSM_SEED)
-    held, sizes = [], []
-    for n in SSM_STATE_PROMPTS:
-        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                               (SSM_BATCH, n)), device=DEVICE)
+    cfg = get_config(arch)
+    model, _ = family_model(torch, arch, "float32", 0, 1, 1, n_layers)
+    rng = np.random.default_rng(0)
+    held, sizes, slots = [], [], []
+    for n in prompts:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, n)),
+                               device=DEVICE)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        logits, cache = dec.prefill(model, prompts, n + SSM_NEW)
+        logits, cache = dec.prefill(model, toks, n + new)
         torch.cuda.synchronize()
         held.append(torch.cuda.memory_allocated() - base)
         sizes.append(state_bytes(cache))
-        del logits, cache, prompts
-    del model, tokens
-    full = state_bytes(dec.init_cache(Model(cfg, "meta"), SSM_BATCH,
-                                      SSM_PROMPT + SSM_NEW))
-    log(f"[ssm] device memory a prefill leaves allocated (its logits and "
-        f"decode state), {SSM_F32_LAYERS} float32 layers, batch "
-        f"{SSM_BATCH}, after prompts of {SSM_STATE_PROMPTS} tokens: {held} "
-        f"bytes (the state's tensors {sizes}); computed from the cache's "
-        f"shapes at full depth in bf16: {full} bytes "
-        f"({full / 2 ** 20:.1f} MiB) for any prompt length")
-    assert len(set(held)) == 1, held
+        slots.append(cache["kv"]["k"].shape[2] if "kv" in cache else None)
+        del logits, cache, toks
+    del model
+    full = state_bytes(dec.init_cache(Model(cfg, "meta"), batch,
+                                      max(prompts) + new))
+    log(f"[{tag}] device memory a prefill leaves allocated (its logits and "
+        f"decode state), {n_layers} float32 layers, batch {batch}, after "
+        f"prompts of {prompts} tokens: {held} bytes (the state's tensors "
+        f"{sizes}{f'; ring slots {slots}' if slots[0] else ''}); computed "
+        f"from the cache's shapes at full depth in bf16: {full} bytes "
+        f"({full / 2 ** 20:.1f} MiB)")
+    assert len(set(held)) == 1 and len(set(sizes)) == 1, (held, sizes)
     free_card(torch)
-    run_family_profile(SSM_ARCH, "ssm", out["prefill_ms"])
+    return slots
+
+
+def check_served(out: dict, cfg, batch: int, new: int, n_attn: int,
+                 variant: str | None) -> None:
+    """A family's serve run: K6 launched n_attn times, all under
+    `variant`, and nothing else; tokens in range; logits finite."""
+    counts, variants, toks = out["counts"], out["variants"], out["tokens"]
+    assert counts["flash_attention"] == n_attn == sum(counts.values()), \
+        counts
+    if variant:
+        assert variants[variant] == n_attn == sum(variants.values()), \
+            variants
+    assert toks.shape == (batch, new), toks.shape
+    assert np.all((toks >= 0) & (toks < cfg.vocab_size)), toks
+    assert out["logits_finite"]
+
+
+def phase_hybrid(torch, card: str) -> dict:
+    """The hybrid family on the card: `launch.serve` for recurrentgemma-2b
+    at full width (K6 `mma` with its window in each of the 8 attention
+    layers of the prefill; tokens in range; logits finite); the bf16 gate
+    at full depth (`family_bf16_gate`); the float32 gate at
+    HYBRID_F32_LAYERS layers past the ring's wrap (`decode_gate`, with the
+    ring filled unrolled as a control); the decode state's bytes after
+    prompts of HYBRID_STATE_PROMPTS tokens, equal (the ring holds the
+    window's 2048 slots either way); one prefill and one decode step
+    traced in a child process. -> K6's launches in the serve run."""
+    from repro_torch.configs import get_config
+    cfg = get_config(HYBRID_ARCH)
+    n_attn = cfg.n_layers // 3
+    out = serve_family(torch, [
+        "--arch", HYBRID_ARCH, "--full", "--batch", str(HYBRID_BATCH),
+        "--prompt-len", str(HYBRID_PROMPT), "--new-tokens", str(HYBRID_NEW),
+        "--seed", str(HYBRID_SEED)], "hybrid", card)
+    check_served(out, cfg, HYBRID_BATCH, HYBRID_NEW, n_attn, "mma")
+    family_bf16_gate(torch, HYBRID_ARCH, "hybrid", n_attn, HYBRID_E2E_RTOL)
+    decode_gate(torch, HYBRID_ARCH, "hybrid", "float32", HYBRID_F32_LAYERS,
+                HYBRID_GATE_PROMPT, HYBRID_GATE_STEPS, LM_RTOL["float32"],
+                ("ring",))
+    slots = state_readings(torch, HYBRID_ARCH, "hybrid", HYBRID_F32_LAYERS,
+                           HYBRID_BATCH, HYBRID_STATE_PROMPTS, HYBRID_NEW)
+    assert slots == [cfg.hybrid.window] * len(slots), slots
+    run_family_profile(HYBRID_ARCH, "hybrid")
+    return {"flash_attention": out["counts"]["flash_attention"],
+            "flash_attention variants": out["variants"]}
+
+
+def phase_vlm(torch, card: str) -> dict:
+    """The vlm family on the card: `launch.serve` for pixtral-12b at full
+    width (256 patch embeddings ahead of each 4096-token prompt: K6
+    `wgmma` at D 128, G 4 over 4352 positions in each of the 40 layers;
+    tokens in range; logits finite); the bf16 gate at full depth
+    (`family_bf16_gate`); the float32 gate at VLM_F32_LAYERS layers
+    (`decode_gate`, with the cache's length short of the patches as a
+    control); K6 timed at the prefill's shape; one prefill and one decode
+    step traced in a child process. -> K6's launches in the serve run and
+    its timing."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    out = serve_family(torch, [
+        "--arch", VLM_ARCH, "--full", "--batch", str(VLM_BATCH),
+        "--prompt-len", str(VLM_PROMPT), "--new-tokens", str(VLM_NEW),
+        "--seed", str(VLM_SEED)], "vlm", card)
+    check_served(out, cfg, VLM_BATCH, VLM_NEW, cfg.n_layers, "wgmma")
+    family_bf16_gate(torch, VLM_ARCH, "vlm", cfg.n_layers)
+    decode_gate(torch, VLM_ARCH, "vlm", "float32", VLM_F32_LAYERS,
+                VLM_PROMPT, 1, LM_RTOL["float32"], ("length",))
+    timing = flash_timing(torch, VLM_ARCH, "vlm", VLM_BATCH,
+                          VLM_PROMPT + cfg.vlm.n_patches)
+    run_family_profile(VLM_ARCH, "vlm")
+    return {"flash_attention": out["counts"]["flash_attention"],
+            "flash_attention variants": out["variants"],
+            "flash_attention vlm_prefill": timing}
+
+
+def phase_encdec(torch, card: str) -> None:
+    """The encdec family on the card: `launch.serve` for whisper-small at
+    full width (1500 frames, 4 prompts of 384 tokens, 32 new: no kernel
+    launch, as in the reference; tokens in range; logits finite); the
+    CLI's refusal past 448 target positions; its gates at full depth
+    (`decode_gate`, float32 and bf16, with ENCDEC_FAULTS planted as
+    controls), and the kernel and plain routes bit-equal end to end (no
+    kernel on the path); one prefill and one decode step traced in a
+    child process."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import decode as dec
+    cfg = get_config(ENCDEC_ARCH)
+    out = serve_family(torch, [
+        "--arch", ENCDEC_ARCH, "--full", "--batch", str(ENCDEC_BATCH),
+        "--prompt-len", str(ENCDEC_PROMPT), "--new-tokens", str(ENCDEC_NEW),
+        "--seed", str(ENCDEC_SEED)], "encdec", card)
+    check_served(out, cfg, ENCDEC_BATCH, ENCDEC_NEW, 0, None)
+    try:
+        serve_cli.main(["--arch", ENCDEC_ARCH, "--full", "--prompt-len",
+                        "440", "--new-tokens", "9", "--device", DEVICE])
+        refused = None
+    except SystemExit as exc:
+        refused = exc.code
+    log(f"[encdec] launch.serve past {cfg.encdec.max_target_positions} "
+        f"target positions (440 + 9): exit {refused}")
+    assert refused == 2, refused
+    for dtype in ("float32", "bfloat16"):
+        decode_gate(torch, ENCDEC_ARCH, "encdec", dtype, 0,
+                    ENCDEC_GATE_PROMPT, 1, LM_RTOL[dtype], ENCDEC_FAULTS)
+    model, tokens = family_model(torch, ENCDEC_ARCH, "bfloat16", ENCDEC_SEED,
+                                 ENCDEC_BATCH, ENCDEC_PROMPT)
+    prefix = family_prefix(model.cfg, ENCDEC_BATCH, ENCDEC_SEED)
+    routes = []
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        routes.append(dec.prefill(model, tokens, ENCDEC_PROMPT + 1,
+                                  **prefix)[0])
+    same = torch.equal(*routes)
+    log(f"[encdec] bfloat16 at full depth: the prefill's logits through the "
+        f"kernel route and the plain route bit-equal (no kernel on the "
+        f"path): {same}")
+    assert same
+    del model, tokens, prefix, routes
+    free_card(torch)
+    run_family_profile(ENCDEC_ARCH, "encdec")
 
 
 def phase_serve(torch, serve, card: str) -> dict:
@@ -4798,7 +5323,9 @@ def phase_sharded(torch, data, card: str) -> dict:
         mine = {k: 0 for k in SHARDED_ENTRIES}
         asked = issued = n_bundles = 0
         keep = label == "real-sim full"
-        for k in range(SHARDED_OUTER):
+        n_outer = SHARDED_SUPPORT_OUTER if scope == "support" else \
+            SHARDED_OUTER
+        for k in range(n_outer):
             idxs = B.partition(gen, n, P, device=dev)
             if keep and k < SHARDED_RANK_OUTER:
                 ranks_rec.update({f"w{k}": w.cpu().numpy(),
@@ -4831,9 +5358,9 @@ def phase_sharded(torch, data, card: str) -> dict:
         want = (("pcdn_direction_partials",) if layout == "dense" else
                 ("pcdn_sparse_direction_partials", "pcdn_sparse_scatter"))
         log(f"[sharded] (a) {label}: P {P}, {scope} scope, "
-            f"{n_bundles // SHARDED_OUTER} bundles an iteration; F "
+            f"{n_bundles // n_outer} bundles an iteration; F "
             f"{f_s:.9g}; F rel against the local backend, worst of "
-            f"{SHARDED_OUTER} lockstep iterations {max(rels):.3e} (limit "
+            f"{n_outer} lockstep iterations {max(rels):.3e} (limit "
             f"{F_RTOL}); wall an iteration sharded "
             f"{1e3 * np.mean(walls_s[1:]):.2f} ms, local "
             f"{1e3 * np.mean(walls_l[1:]):.2f} ms (first "
@@ -5069,10 +5596,10 @@ def main(argv=None) -> int:
     ap.add_argument("--train-profile", action="store_true",
                     help="trace one LM train step and print its JSON line "
                          "(the train phase runs this in a child process)")
-    ap.add_argument("--family-profile", choices=(MOE_ARCH, SSM_ARCH),
-                    help="trace one LM prefill (and for moe one decode "
-                         "step) of the moe or ssm phase's model and print "
-                         "their JSON line (those phases run this in a child "
+    ap.add_argument("--family-profile", choices=tuple(FAMILY_SHAPES),
+                    help="trace one LM prefill (and but for ssm one decode "
+                         "step) of a family phase's model and print their "
+                         "JSON line (those phases run this in a child "
                          "process)")
     ap.add_argument("--moe-fan-in-d", action="store_true",
                     help="the moe phase's bf16 end-to-end agreement with "
@@ -5255,21 +5782,37 @@ def run_phases(torch, phases) -> int:
             launches[kernel] = launches.get(kernel, 0) + n
         lap("train")
     extra = {}         # kernel -> side fields of its row
-    if "moe" in phases:
-        r = phase_moe(torch, f"{card} ({smi})")
+
+    def add_flash(r: dict, phase: str) -> None:
+        """A family phase's K6 launches into the run's counts."""
         n = r["flash_attention"]
-        by_phase.setdefault("flash_attention", {})["moe"] = n
+        by_phase.setdefault("flash_attention", {})[phase] = n
         launches["flash_attention"] = launches.get("flash_attention", 0) + n
         prev = launches.get("flash_attention variants", {})
         launches["flash_attention variants"] = {
             v: prev.get(v, 0) + r["flash_attention variants"].get(v, 0)
             for v in {*prev, *r["flash_attention variants"]}}
-        extra["flash_attention"] = {
-            "moe_prefill": r["flash_attention moe_prefill"]}
+        key = f"flash_attention {phase}_prefill"
+        if key in r:
+            extra.setdefault("flash_attention", {})[f"{phase}_prefill"] = \
+                r[key]
+
+    if "moe" in phases:
+        add_flash(phase_moe(torch, f"{card} ({smi})"), "moe")
         lap("moe")
     if "ssm" in phases:
         phase_ssm(torch, f"{card} ({smi})")
         lap("ssm")
+    if "hybrid" in phases:
+        add_flash(phase_hybrid(torch, f"{card} ({smi})"), "hybrid")
+        lap("hybrid")
+    if "vlm" in phases:
+        add_flash(phase_vlm(torch, f"{card} ({smi})"), "vlm")
+        lap("vlm")
+    if "encdec" in phases:
+        phase_encdec(torch, f"{card} ({smi})")
+        by_phase.setdefault("flash_attention", {})["encdec"] = 0
+        lap("encdec")
 
     if kernels:
         rows = []
@@ -5291,6 +5834,15 @@ def run_phases(torch, phases) -> int:
                 row["fault_phase_launches"] = fault_launches[name]
             if "variant_ms" in r:
                 row["variant_ms"] = r["variant_ms"]
+            if "window" in r:  # K6's band at the hybrid prefill's shape
+                w = r["window"]
+                row["window_prefill"] = {
+                    "shape": w["shape"], "ms": w["ms"],
+                    "warm_ms": w["warm_ms"], "plain_ms": w["plain_ms"],
+                    "bound_ms": w["bound"][0], "bound_by": w["bound"][1],
+                    "library_ms": w["library_ms"],
+                    "causal_ms": w["causal_ms"],
+                    "max_abs_err": w["max_abs_err"]}
             row.update(extra.get(name, {}))
             if name == "pcdn_linesearch" and "scdn" in phases:
                 row["note"] = ("off the main path: dense SCDN runs "

@@ -109,12 +109,12 @@ SIGNATURES = {
         "scdn_dense_batch_f32": [_P, _P, _P, _P, _P],
         "scdn_dense_batch_smem_bytes": [_I],
     },
-    # q, k, v, o, lse (or null), B, H, G, Sq, Skv, D, causal, scale, 12
-    # strides, stream; the host ns the last wgmma launch spent encoding
-    # its tensor maps
+    # q, k, v, o, lse (or null), B, H, G, Sq, Skv, D, causal, window,
+    # scale, 12 strides, stream; the host ns the last wgmma launch spent
+    # encoding its tensor maps
     "flash_attention": {
         **{f"flash_attention_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _I, _F, _L, _P]
+                                    _I, _I, _I, _F, _L, _P]
            for t in ("wgmma_bf16", "mma_bf16", "f32")},
         "flash_attention_encode_ns": []},
     # q, k, v, o, dO, lse, the scratch, dq, dk, dv, B, H, G, Sq, Skv, D,

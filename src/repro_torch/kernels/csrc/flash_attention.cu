@@ -11,7 +11,11 @@
 // `ref.attention_ref` have it), keys j >= Skv, and nothing is written for
 // rows i >= Sq, so any Sq and Skv work: the Pallas wrapper needed both to
 // be multiples of its tile and fell back to the dense reference otherwise.
-// KV tiles strictly above the diagonal are skipped. Grouped-query
+// With `window` > 0 a key also needs i - j < window (a sliding window,
+// the reference model's `_block_mask`; recurrentgemma's local attention).
+// KV tiles strictly above the diagonal, and with a window those wholly
+// below the band, are skipped: a query tile visits the KV tiles from
+// max(0, q0 - window + 1) / bk on. Grouped-query
 // attention reads kv head h / G in place. Every tensor is addressed
 // through (batch, head, row) strides with a contiguous last dim, so the
 // model's (B, S, H, D) projections go in without a transpose.
@@ -32,7 +36,7 @@
 // log2(e) - m) (in the wgmma variant one FFMA and one ex2 an element);
 // the f32 variant keeps expf. Masked scores are -inf, so their p is
 // exactly 0. The bf16 variants mask only the tiles that cross the
-// diagonal or the end of the keys.
+// diagonal, the end of the keys or the window's lower edge.
 //
 // For the backward (K6b, flash_attention_bwd.cu) every variant writes,
 // when given a non-null `lse` (B, H, Sq) float32, each query row's
@@ -105,6 +109,7 @@ struct Args {
   void* o;
   float* lse;                       // (B, H, Sq) or null
   int H, G, Sq, Skv, causal;
+  int window;                       // 0: no band
   float scale;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
@@ -113,18 +118,46 @@ struct Args {
 };
 
 // grid (batch * head, query tiles): the last query tiles, which visit the
-// most KV tiles under the causal mask, go first
+// most KV tiles under the causal mask, go first. Under a window the work
+// a tile grows with q0 up to the window's width and then stays level
+// (the band slides with the tile), so the order is still heaviest first.
 __device__ __forceinline__ int q_tile_index() {
   return gridDim.y - 1 - blockIdx.y;
 }
 
-// KV tiles of length bk that a query tile [q0, q0 + bq) visits: all, or
-// those not strictly above the diagonal
-__device__ __forceinline__ int kv_tiles(const Args& a, int q0, int bq,
-                                        int bk) {
+// KV tiles [first, end) of length bk that a query tile [q0, q0 + bq)
+// visits: all, or those not strictly above the diagonal, and with a
+// window from the tile holding key q0 - window + 1 (the lowest key the
+// tile's first row keeps) on. Never empty: a tile whose rows keep no key
+// at all (rows past Skv + window - 1) visits the last tile, all masked,
+// and writes zeros.
+struct KvRange {
+  int first, end;
+};
+
+__device__ __forceinline__ KvRange kv_range(const Args& a, int q0, int bq,
+                                            int bk, int window) {
   const int all = (a.Skv + bk - 1) / bk;
-  if (!a.causal) return all;
-  return min(all, (q0 + bq - 1) / bk + 1);
+  KvRange r{0, a.causal ? min(all, (q0 + bq - 1) / bk + 1) : all};
+  if (window > 0) r.first = min(max(0, q0 - window + 1) / bk, r.end - 1);
+  return r;
+}
+
+// whether a (row, key) pair is masked out
+__device__ __forceinline__ bool masked(int row, int col, int skv, int causal,
+                                       int window) {
+  return col >= skv || (causal && col > row) ||
+         (window > 0 && row - col >= window);
+}
+
+// whether a tile of rows [r0, r0 + nr) and keys [k0, k0 + nk) needs the
+// element masks: it crosses the diagonal, the end of the keys or the
+// band's lower edge
+__device__ __forceinline__ bool tile_masked(int r0, int nr, int k0, int nk,
+                                            int skv, int causal,
+                                            int window) {
+  return k0 + nk > skv || (causal && k0 + nk - 1 > r0) ||
+         (window > 0 && r0 + nr - 1 - k0 >= window);
 }
 
 template <typename T>
@@ -231,29 +264,35 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[kN / 16][4],
 // a thread's online softmax over its two rows, row0 and row0 + 8, of a
 // warpgroup's 64 (element 4 n + 2 i + c of an S tile is row row0 + 8 i,
 // key k0 + 8 n + cq + c); l0/l1 are the thread's partial normalisers
+// kWindow: the band's masks are compiled in (a launch with a window);
+// without it the causal launch's code is what it was before the window
+template <bool kWindow>
 struct Softmax {
-  int qw, row0, cq, skv, causal;
+  int qw, row0, cq, skv, causal, window;
   float sl2;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
   float corr0 = 1.0f, corr1 = 1.0f;
 
   // S -> p in place, in base 2, masked only where the tile crosses the
-  // diagonal or the end of the keys. kFused (sl2 > 0, the scale every
-  // caller passes): the max is taken on the raw scores, which a positive
-  // scale keeps in order, and p = 2^(s * sl2 - m) is one FFMA and one ex2
-  // an element; otherwise the scores are scaled first.
+  // diagonal, the end of the keys or the window's lower edge. kFused
+  // (sl2 > 0, the scale every caller passes): the max is taken on the
+  // raw scores, which a positive scale keeps in order, and p = 2^(s * sl2
+  // - m) is one FFMA and one ex2 an element; otherwise the scores are
+  // scaled first.
   template <bool kFused>
   __device__ __forceinline__ void step_as(float (&sc)[kN / 2], int k0) {
     if (!kFused) {
 #pragma unroll
       for (int e = 0; e < kN / 2; ++e) sc[e] *= sl2;
     }
-    if (k0 + kN > skv || (causal && k0 + kN - 1 > qw)) {
+    if (tile_masked(qw, 64, k0, kN, skv, causal, kWindow ? window : 0)) {
 #pragma unroll
       for (int e = 0; e < kN / 2; ++e) {
         const int col = k0 + 8 * (e / 4) + cq + (e & 1);
         const int row = row0 + 4 * (e & 2);
-        if (col >= skv || (causal && col > row)) sc[e] = -INFINITY;
+        if (masked(row, col, skv, causal, kWindow ? window : 0)) {
+          sc[e] = -INFINITY;
+        }
       }
     }
     // row max and (below) row sum over four interleaved partials each,
@@ -315,12 +354,13 @@ struct Softmax {
 };
 
 // the work of one block, (batch * head, kM query rows), numbered so that
-// the heaviest causal tiles come first
+// the heaviest causal tiles come first; it visits KV tiles kv0 ..
+// kv0 + n_kv - 1
 struct Tile {
-  int b, h, q0, n_kv;
+  int b, h, q0, kv0, n_kv;
 };
 
-template <int D>
+template <int D, bool kWindow>
 __device__ __forceinline__ Tile tile_at(const Args& a, int t, int n_bh) {
   constexpr int kM = Layout<D>::kM;
   const int n_q = (a.Sq + kM - 1) / kM;
@@ -329,13 +369,15 @@ __device__ __forceinline__ Tile tile_at(const Args& a, int t, int n_bh) {
   w.b = bh / a.H;
   w.h = bh % a.H;
   w.q0 = (n_q - 1 - t / n_bh) * kM;
-  w.n_kv = kv_tiles(a, w.q0, kM, kN);
+  const KvRange r = kv_range(a, w.q0, kM, kN, kWindow ? a.window : 0);
+  w.kv0 = r.first;
+  w.n_kv = r.end - r.first;
   return w;
 }
 
 // persistent: grid = min(tiles, SMs); the KV ring's stages and phases run
 // on across a block's tiles
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -376,7 +418,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == C * 128) {
       int g = 0;                                 // KV tiles loaded so far
       for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
-        const Tile w = tile_at<D>(a, tile_of(ti), n_bh);
+        const Tile w = tile_at<D, kWindow>(a, tile_of(ti), n_bh);
         const int hk = w.h / a.G;
         if (ti > 0) mbar_wait(q_empty, (ti - 1) & 1);
         mbar_expect_tx(q_full, L::kQBytes);
@@ -393,13 +435,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int at = 0; at < L::kAtoms; ++at) {
             tma_load(kb + at * kN * 128, &tk, k_full + 8 * s, at * 64, hk,
-                     j * kN, w.b);
+                     (w.kv0 + j) * kN, w.b);
           }
           mbar_expect_tx(v_full + 8 * s, L::kTileBytes);
 #pragma unroll
           for (int at = 0; at < L::kAtoms; ++at) {
             tma_load(vb + at * kN * 128, &tv, v_full + 8 * s, at * 64, hk,
-                     j * kN, w.b);
+                     (w.kv0 + j) * kN, w.b);
           }
         }
       }
@@ -427,15 +469,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kStage = L::kTileBytes / 16;    // a stage, in descriptor units
   int g = 0;                                     // KV tiles consumed so far
   for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
-    const Tile w = tile_at<D>(a, tile_of(ti), n_bh);
+    const Tile w = tile_at<D, kWindow>(a, tile_of(ti), n_bh);
     const int n_kv = w.n_kv;
-    Softmax sm;
+    Softmax<kWindow> sm;
     sm.qw = w.q0 + wgi * 64;
     sm.row0 = sm.qw + warp * 16 + lane / 4;    // the thread's two rows
     sm.cq = 2 * (lane % 4);                     // its column in a chunk
     sm.sl2 = a.scale * kLog2e;
     sm.skv = a.Skv;
     sm.causal = a.causal;
+    sm.window = a.window;
 
     float o[D / 2];
 #pragma unroll
@@ -455,7 +498,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     pin(sc);
     if (n_kv == 1 && lane == 0) mbar_arrive(q_empty);   // Q is read
-    sm.step(sc, 0);
+    sm.step(sc, w.kv0 * kN);
     pack_p(pa, sc);
 
     for (int j = 1; j < n_kv; ++j) {
@@ -474,7 +517,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<1>();                           // S is in, P V runs on
       pin(sc);
       if (j == n_kv - 1 && lane == 0) mbar_arrive(q_empty);
-      sm.step(sc, j * kN);
+      sm.step(sc, (w.kv0 + j) * kN);
       wgmma_wait<0>();
       pin(o);
       __syncwarp();
@@ -629,11 +672,13 @@ flash_mma_kernel(const Args a) {
   const int row0 = q0 + wr + g;   // this thread's two query positions
   const int row1 = row0 + 8;
   const float sl2 = a.scale * kLog2e;
-  const int n_kv = kv_tiles(a, q0, kBlockQ, kBlockK);
+  const KvRange range = kv_range(a, q0, kBlockQ, kBlockK, a.window);
+  const int kv0 = range.first * kBlockK;       // the first visited key
+  const int n_kv = range.end - range.first;
 
   load_tile<D, LD>(Qs, qg + q0 * a.q_ss, a.q_ss, a.Sq - q0);
-  load_tile<D, LD>(Ks, kg, a.k_ss, a.Skv);
-  load_tile<D, LD>(Vs, vg, a.v_ss, a.Skv);
+  load_tile<D, LD>(Ks, kg + kv0 * a.k_ss, a.k_ss, a.Skv - kv0);
+  load_tile<D, LD>(Vs, vg + kv0 * a.v_ss, a.v_ss, a.Skv - kv0);
   cp_async_commit();
 
   float o[D / 8][4];
@@ -645,7 +690,7 @@ flash_mma_kernel(const Args a) {
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
 
   for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kBlockK;
+    const int k0 = kv0 + j * kBlockK;
     // the next tile's loads fly while this one is computed
     if (j + 1 < n_kv) {
       const int k1 = k0 + kBlockK;
@@ -684,21 +729,24 @@ flash_mma_kernel(const Args a) {
       }
     }
 
-    // scale into base 2, mask only where the tile crosses the diagonal or
-    // the end of the keys, the tile's row max over the quad
+    // scale into base 2, mask only where the tile crosses the diagonal,
+    // the end of the keys or the window's edge; the tile's row max over
+    // the quad
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[n][c] *= sl2;
     }
-    if (k0 + kBlockK > a.Skv || (a.causal && k0 + kBlockK - 1 > q0)) {
+    if (tile_masked(q0, kBlockQ, k0, kBlockK, a.Skv, a.causal, a.window)) {
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = k0 + n * 8 + 2 * t + (c & 1);
           const int row = c < 2 ? row0 : row1;
-          if (col >= a.Skv || (a.causal && col > row)) s[n][c] = -INFINITY;
+          if (masked(row, col, a.Skv, a.causal, a.window)) {
+            s[n][c] = -INFINITY;
+          }
         }
       }
     }
@@ -845,8 +893,8 @@ flash_f32_kernel(const Args a) {
     for (int c = 0; c < kCols; ++c) o[i][c] = 0.0f;
   }
 
-  const int n_kv = kv_tiles(a, q0, kBlockQ, kBlockK);
-  for (int j = 0; j < n_kv; ++j) {
+  const KvRange range = kv_range(a, q0, kBlockQ, kBlockK, a.window);
+  for (int j = range.first; j < range.end; ++j) {
     const int k0 = j * kBlockK;
     __syncthreads();
     load_tile_f32<D, LD>(Ks, kg + k0 * a.k_ss, a.k_ss, a.Skv - k0);
@@ -878,7 +926,7 @@ flash_f32_kernel(const Args a) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = k0 + tx + 16 * c;
-        const bool ok = col < a.Skv && (!a.causal || row >= col);
+        const bool ok = !masked(row, col, a.Skv, a.causal, a.window);
         Ss[(4 * ty + i) * kSLD + tx + 16 * c] =
             ok ? s[i][c] * a.scale : -INFINITY;
       }
@@ -971,9 +1019,11 @@ int launch_wgmma(const Args& a, int B, int Kv, cudaStream_t stream) {
                     std::chrono::steady_clock::now() - t0).count();
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int bytes = wg::Layout<D>::kBytes;
+  // two instantiations: the window's masks only where a launch has one
+  const auto kernel = a.window > 0 ? wg::flash_wgmma_kernel<D, true>
+                                   : wg::flash_wgmma_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      wg::flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
@@ -988,8 +1038,7 @@ int launch_wgmma(const Args& a, int B, int Kv, cudaStream_t stream) {
       ((a.Sq + wg::Layout<D>::kM - 1) / wg::Layout<D>::kM);
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  wg::flash_wgmma_kernel<D><<<grid, wg::Layout<D>::kThreads, bytes,
-                              stream>>>(
+  kernel<<<grid, wg::Layout<D>::kThreads, bytes, stream>>>(
       tq, tk, tv, a, n_bh, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
@@ -1016,14 +1065,17 @@ enum Variant { kWgmma, kMma, kF32 };
 
 int launch(Variant variant, const void* q, const void* k, const void* v,
            void* o, float* lse, int B, int H, int G, int Sq, int Skv, int D,
-           int causal, float scale, const long long* st,
+           int causal, int window, float scale, const long long* st,
            cudaStream_t stream) {
   if (B < 1 || H < 1 || G < 1 || H % G != 0 || Sq < 1 || Skv < 1 ||
+      window < 0 ||
       (Sq + kBlockQ - 1) / kBlockQ > 65535 ||
       static_cast<long long>(B) * H > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, o, lse, H, G, Sq, Skv, causal, scale,
+  // a window of Sq or more masks nothing: the causal launch, bit for bit
+  const Args a{q, k, v, o, lse, H, G, Sq, Skv, causal,
+               window >= Sq ? 0 : window, scale,
                st[0], st[1], st[2], st[3], st[4], st[5],
                st[6], st[7], st[8], st[9], st[10], st[11]};
   const int Kv = H / G;
@@ -1052,15 +1104,15 @@ int launch(Variant variant, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, o, lse ((B, H, Sq) float32, or null); B batches of H query
-// heads, G query heads per kv head; strides: (batch, head, row) of q, k,
-// v and o in elements, 12 in all
+// heads, G query heads per kv head; window 0 or the band's width;
+// strides: (batch, head, row) of q, k, v and o in elements, 12 in all
 #define FLASH_ENTRY(NAME, VARIANT)                                          \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
                       void* lse, int B, int H, int G, int Sq, int Skv,      \
-                      int D, int causal, float scale,                       \
+                      int D, int causal, int window, float scale,           \
                       const long long* strides, void* stream) {             \
     return launch(VARIANT, q, k, v, o, static_cast<float*>(lse), B, H, G,   \
-                  Sq, Skv, D, causal, scale, strides,                       \
+                  Sq, Skv, D, causal, window, scale, strides,               \
                   static_cast<cudaStream_t>(stream));                       \
   }
 

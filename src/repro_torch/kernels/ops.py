@@ -1564,14 +1564,17 @@ def flash_encode_us() -> float:
 @_observed("flash_attention")
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                     sm_scale: float | None = None, *,
-                    variant: str | None = None) -> Tensor:
+                    variant: str | None = None, window: int = 0) -> Tensor:
     """K6: softmax(q k^T * sm_scale, masked) v, f32 accumulation, output in
     q's dtype; sm_scale defaults to D ** -0.5.
 
     Takes `repro.kernels.ops.flash_attention`'s layout, q (BH, Sq, D) with
     k/v (BH / G, Skv, D) (query head bh reads kv head bh // G), or the
     model's, q (B, Sq, H, D) with k/v (B, Skv, Kv, D), and returns q's
-    shape. Causal masks `qi >= kj` with both positions from 0. Any Sq and
+    shape. Causal masks `qi >= kj` with both positions from 0; `window` >
+    0 also masks `qi - kj >= window` (the reference's `_block_mask`: a
+    sliding window; KV tiles wholly below the band are skipped, and a
+    window of Sq or more is the plain causal launch, bit for bit). Any Sq and
     Skv: the kernel masks the tails itself (the JAX wrapper falls back to
     the dense reference when they are not multiples of its tile). On the
     card D is 64, 128 or 256, q/k/v float32 or bfloat16 alike, each with a
@@ -1582,33 +1585,44 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
 
     Differentiable: when grad mode is on and q, k or v requires grad, the
     call goes through `FlashAttention`, whose forward also writes the
-    rows' log-sum-exp and keeps (q, k, v, out, lse) for its backward, K6b.
+    rows' log-sum-exp and keeps (q, k, v, out, lse) for its backward, K6b
+    (which has no window yet: its backward raises for window > 0).
     On CPU tensors both directions run their plain versions."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, sm_scale, variant)
-    return _flash_forward(q, k, v, causal, sm_scale, variant, False)[0]
+        return FlashAttention.apply(q, k, v, causal, sm_scale, variant,
+                                    window)
+    return _flash_forward(q, k, v, causal, sm_scale, variant, False,
+                          window)[0]
 
 
 class FlashAttention(torch.autograd.Function):
     """K6 forward with lse, K6b backward (the reference's `_flash_mha`
     custom_vjp: `_flash_mha_fwd` keeps (q, k, v, out, lse), `_flash_mha_bwd`
     recomputes p from lse). Under `torch.utils.checkpoint` the forward runs
-    again in the backward pass and that run's lse is the one K6b reads."""
+    again in the backward pass and that run's lse is the one K6b reads.
+    K6b has no window: with window > 0 the backward raises
+    NotImplementedError rather than return a gradient that ignores it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, variant):
-        out, lse = _flash_forward(q, k, v, causal, sm_scale, variant, True)
+    def forward(ctx, q, k, v, causal, sm_scale, variant, window=0):
+        out, lse = _flash_forward(q, k, v, causal, sm_scale, variant, True,
+                                  window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.window = causal, sm_scale, window
         return out
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.window > 0:
+            raise NotImplementedError(
+                f"flash_attention: the backward of a sliding window "
+                f"({ctx.window}) belongs to training the hybrid family, "
+                f"ROADMAP Queue 1 item 6 (g) (not ported)")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=ctx.causal,
                                          sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def _flash_layout(name: str, q: Tensor, k: Tensor, v: Tensor):
@@ -1650,19 +1664,24 @@ def _model_view(t: Tensor, B: int) -> Tensor:
 
 
 def _flash_forward(q: Tensor, k: Tensor, v: Tensor, causal, sm_scale,
-                   variant, want_lse: bool):
+                   variant, want_lse: bool, window: int = 0):
     """-> (out, lse or None): K6 on CUDA tensors, `ref.attention_ref` on
     the CPU. lse is (B, H, Sq) float32 in the model's layout, (BH, Sq)
     heads first."""
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window}")
     if _on_cpu(q, k, v):
         if want_lse:
             return ref.attention_ref(q, k, v, causal=causal,
-                                     sm_scale=sm_scale, return_lse=True)
-        return ref.attention_ref(q, k, v, causal=causal,
-                                 sm_scale=sm_scale), None
+                                     sm_scale=sm_scale, return_lse=True,
+                                     window=window)
+        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                                 window=window), None
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     q4, k4, v4, B, Sq, H, Skv, Kv, G, D = _flash_layout(
         "flash_attention", q, k, v)
+    if window >= Sq:               # the band masks nothing
+        window = 0
     o = _model_view(out, B) if q.ndim == 3 else out
     if variant is None:
         variant = flash_variant(q.dtype, D)
@@ -1682,7 +1701,8 @@ def _flash_forward(q: Tensor, k: Tensor, v: Tensor, causal, sm_scale,
                  else f"flash_attention_{variant}_bf16")
     err = fn(_ptr(q4), _ptr(k4), _ptr(v4), _ptr(o),
              None if lse is None else _ptr(lse), B, H, G, Sq, Skv, D,
-             int(bool(causal)), float(sm_scale), flat, _stream(q))
+             int(bool(causal)), int(window), float(sm_scale), flat,
+             _stream(q))
     _raise_if(err, f"flash_attention ({variant})")
     _LAUNCHES["flash_attention"] += 1
     _FLASH_VARIANT_LAUNCHES[variant] += 1

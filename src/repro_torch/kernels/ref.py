@@ -412,9 +412,11 @@ def _heads_first(t: Tensor) -> Tensor:
     return t.transpose(1, 2).flatten(0, 1)
 
 
-def _scores(q: Tensor, k: Tensor, causal: bool, sm_scale):
-    """-> (scores (B, Kv, G, Sq, Skv) float32 with the causal mask's
-    entries -inf-like (-1e30), the mask (Sq, Skv) or None, scale)."""
+def _scores(q: Tensor, k: Tensor, causal: bool, sm_scale, window: int = 0):
+    """-> (scores (B, Kv, G, Sq, Skv) float32 with the masked entries
+    -inf-like (-1e30), the mask (Sq, Skv) or None, scale). The mask is the
+    reference's `_block_mask`: causal `i >= j`, and with window > 0 also
+    `i - j < window`, both positions counting from 0."""
     B, Sq, H, D = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     if sm_scale is None:
@@ -422,16 +424,21 @@ def _scores(q: Tensor, k: Tensor, causal: bool, sm_scale):
     qg = q.reshape(B, Sq, Kv, H // Kv, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(f32), k.to(f32)) * sm_scale
     ok = None
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    kj = torch.arange(Skv, device=q.device)[None, :]
     if causal:
-        ok = torch.arange(Sq, device=q.device)[:, None] >= \
-            torch.arange(Skv, device=q.device)[None, :]
+        ok = qi >= kj
+    if 0 < window < Sq:          # a window of Sq or more masks nothing
+        band = qi - kj < window
+        ok = band if ok is None else ok & band
+    if ok is not None:
         s = torch.where(ok, s, -1e30)
     return s, ok, sm_scale
 
 
 def attention_ref(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                   sm_scale: float | None = None, *,
-                  return_lse: bool = False):
+                  return_lse: bool = False, window: int = 0):
     """Dense softmax attention in float32, output in q's dtype.
 
     The model's layout, q (B, Sq, H, D) with k/v (B, Skv, Kv, D), query
@@ -439,14 +446,16 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     (BH / G, Skv, D), query head bh reading kv head bh // G (G = 1 is
     `repro.kernels.ref.attention_ref`'s contract), taken as a view of the
     first with B = BH / G and Kv = 1. Causal masks `qi >= kj` with both
-    positions from 0 (aligned top-left) by -1e30 before the softmax.
+    positions from 0 (aligned top-left) by -1e30 before the softmax;
+    `window` > 0 also masks `qi - kj >= window` (a sliding window, the
+    reference's `_block_mask`; a window of Sq or more changes nothing).
     `return_lse`: also each query row's float32 log-sum-exp of its scaled
     scores, (B, H, Sq) ((BH, Sq) heads first), what K6 writes for its
     backward (`_flash_fwd_scan`'s second output)."""
     heads_first = q.ndim == 3
     q, k, v = _model_layout(q, k, v)
     B, Sq, H, D = q.shape
-    s, _, _ = _scores(q, k, causal, sm_scale)
+    s, _, _ = _scores(q, k, causal, sm_scale, window)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(f32))
     o = o.reshape(B, Sq, H, D).to(q.dtype)

@@ -1,19 +1,28 @@
 """Batched LM serving: prefill a batch of prompts, then decode greedily.
-Port of `repro.launch.serve` for the dense, moe and ssm families.
+Port of `repro.launch.serve`, every family.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --full \\
         --batch 4 --prompt-len 4096 --new-tokens 32
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --full ...
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --full ...
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --full ...
+    python -m repro_torch.launch.serve --arch pixtral-12b --full ...
+    python -m repro_torch.launch.serve --arch whisper-small --full \\
+        --prompt-len 384 --new-tokens 32
 
 Weights are random, drawn from a `torch.Generator` seeded with --seed on
-the device; prompts come from `numpy.random.default_rng(seed)`. In the
-dense and moe families a prompt of BLOCKWISE_MIN_KV (2048) tokens or more
-runs K6 (flash attention) in every attention layer of the prefill (moe:
-deepseek's dense first layer too), a shorter one the dense route; decode
-attends with the dense route. The ssm family (falcon-mamba) has no
-attention and runs no kernel. grok-1-314b does not fit one card at full
-width: serve its reduced config. Prints the
+the device; prompts come from `numpy.random.default_rng(seed)`, vlm's
+patch embeddings and encdec's frame embeddings from `launch.specs.
+prefix_specs` (a generator seeded with seed + 1). An attention layer over
+BLOCKWISE_MIN_KV (2048) keys or more runs K6 (flash attention) in the
+prefill (moe: deepseek's dense first layer too; the hybrid's attention
+layers with their sliding window; vlm counts its patches), a shorter one
+the dense route; decode attends with the dense route. The ssm family
+(falcon-mamba) has no attention and runs no kernel; whisper's 1500
+frames and at most 448 target positions stay on the dense route, and a
+prompt plus new tokens past max_target_positions is refused.
+grok-1-314b does not fit one card at full width: serve its reduced
+config. Prints the
 prefill time, the decode time a token and tokens/s over the decode steps
 after the first, and the start of the continuations; returns them, and
 whether the prefill's and the last step's logits were finite.
@@ -28,6 +37,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device, sync
+from repro_torch.launch.specs import prefix_specs
 from repro_torch.models import decode as dec
 from repro_torch.models.decls import init_params
 from repro_torch.models.transformer import Model
@@ -49,18 +59,25 @@ def main(argv=None) -> dict:
     if args.new_tokens < 1:
         ap.error("--new-tokens must be at least 1")
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=not args.full)
+    total = args.prompt_len + args.new_tokens
+    if cfg.family == "encdec" and total > cfg.encdec.max_target_positions:
+        ap.error(f"--prompt-len {args.prompt_len} + --new-tokens "
+                 f"{args.new_tokens}: {args.arch} decodes at most "
+                 f"{cfg.encdec.max_target_positions} target positions")
+    dev = resolve_device(args.device)
     model = Model(cfg, dev)
     init_params(model, torch.Generator(device=dev).manual_seed(args.seed))
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))
     tokens = torch.as_tensor(prompts, device=dev)
-    max_len = args.prompt_len + args.new_tokens
+    prefix = prefix_specs(cfg, args.batch, args.seed, dev)
+    max_len = args.prompt_len + args.new_tokens + \
+        (cfg.vlm.n_patches if cfg.family == "vlm" else 0)
 
     sync(tokens)
     t0 = time.perf_counter()
-    logits, cache = dec.prefill(model, tokens, max_len=max_len)
+    logits, cache = dec.prefill(model, tokens, max_len=max_len, **prefix)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     sync(tok)
     prefill_s = time.perf_counter() - t0

@@ -4,6 +4,8 @@
     train_batch_specs(cfg, batch, seq, seed, device) -> {"tokens", "labels"
         [, "patches", "loss_mask"] [, "frames"]}
     decode_batch_specs(cfg, batch, seed, device)     -> {"tokens" (B, 1)}
+    prefix_specs(cfg, batch, seed, device)           -> {"patches"} (vlm),
+        {"frames"} (encdec) or {}: what the serving CLI feeds prefill
     cell_input_specs(cfg, cell, seed, device)        -- by the cell's kind
 
 Every value is drawn from one `torch.Generator` seeded with `seed`, on
@@ -64,6 +66,26 @@ def train_batch_specs(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
             gen, (batch, cfg.encdec.encoder_frames, cfg.d_model),
             cfg.torch_dtype, dev)
     return out
+
+
+def prefix_specs(cfg: ModelConfig, batch: int, seed: int = 0,
+                 device="cuda") -> dict:
+    """The serving CLI's stand-ins for the frontends: vlm's patch
+    embeddings (batch, n_patches, d_model) or encdec's frame embeddings
+    (batch, encoder_frames, d_model), normal * 0.02 in the model dtype;
+    {} for the other families. The reference's `launch/serve.py` draws
+    them from PRNGKey(seed + 1); here a generator seeded with seed + 1."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    if cfg.family == "vlm":
+        return {"patches": _embeddings(
+            gen, (batch, cfg.vlm.n_patches, cfg.d_model), cfg.torch_dtype,
+            dev)}
+    if cfg.family == "encdec":
+        return {"frames": _embeddings(
+            gen, (batch, cfg.encdec.encoder_frames, cfg.d_model),
+            cfg.torch_dtype, dev)}
+    return {}
 
 
 def decode_batch_specs(cfg: ModelConfig, batch: int, seed: int = 0,

@@ -9,8 +9,9 @@ runs the kernels' plain versions).
 
 One card: --data and --model-parallel above 1 raise, because the port has
 no LM sharding yet (ROADMAP Queue 1 item 6, LM data-parallel training).
-The moe and ssm families serve (`launch.serve`) but do not train yet: an
---arch of theirs is refused (ROADMAP Queue 1 item 6 (g)).
+The moe, ssm, hybrid, vlm and encdec families serve (`launch.serve`) but
+do not train yet: an --arch of theirs is refused (ROADMAP Queue 1 item 6
+(g), which brings K6b's sliding window for the hybrid).
 
 Checkpoints hold the reference's tree, (params, AdamWState(step, mu, nu,
 master)) with the layers stacked on a leading axis, under its leaf names:
@@ -54,9 +55,10 @@ NO_SHARDING = ("the port's LM trains on one card: LM data-parallel and "
                "model-parallel training is ROADMAP Queue 1 item 6 (not "
                "ported)")
 TRAINED_FAMILIES = ("dense",)
-NOT_TRAINED = ("the port trains the dense family only; training the moe "
-               "and ssm families (moe's backward through K6b) is ROADMAP "
-               "Queue 1 item 6 (g) (not ported)")
+NOT_TRAINED = ("the port trains the dense family only; training the moe, "
+               "ssm, hybrid, vlm and encdec families (which they serve; "
+               "the hybrid's with K6b's sliding window) is ROADMAP Queue 1 "
+               "item 6 (g) (not ported)")
 
 
 class TrainCheckpoints(CheckpointManager):

@@ -1,16 +1,17 @@
-"""GQA/MQA attention with RoPE, causal / sliding-window masks and a KV
-cache for decode: port of `repro.models.attention`.
+"""GQA/MQA attention with RoPE, causal / sliding-window / bidirectional
+masks, cross-attention and a KV cache for decode: port of
+`repro.models.attention`.
 
 Head layout as in the reference: q (B, S, H, Dh) with H = Kv * G
 (grouped-query), k/v (B, S, Kv, Dh); the dense scores keep the kv-head
 axis, so GQA repeats nothing. Prefill attention (`attend_full`) takes the
 dense route below BLOCKWISE_MIN_KV keys and the blockwise route from
 there, as the reference does; the blockwise route is K6
-(`kernels.ops.flash_attention`, the reference's `_flash_fwd_scan` twin),
-which reads kv head h // G in place and is differentiable (its backward
-is K6b). Cross-attention (encdec) is not
-ported, and the blockwise route has no window (only the hybrid family
-needs one: it raises NotImplementedError).
+(`kernels.ops.flash_attention`, the reference's `_flash_fwd_scan` twin,
+with its sliding window), which reads kv head h // G in place and is
+differentiable without a window (its backward is K6b). A windowed layer's
+decode cache is a ring of min(max_len, window) slots, as the reference's
+hybrid cache is (`init_cache`, `fill_cache`, `decode_step`).
 """
 from __future__ import annotations
 
@@ -83,6 +84,19 @@ class Attention(decls.Declared):
                 self._project(x, self.wk, getattr(self, "bk", None)),
                 self._project(x, self.wv, getattr(self, "bv", None)))
 
+    def project_q(self, x: Tensor) -> Tensor:
+        """Cross-attention's queries, (B, S, H, Dh)."""
+        if self.cfg.fused_qkv:
+            return self.project_qkv(x)[0]
+        return self._project(x, self.wq, getattr(self, "bq", None))
+
+    def project_kv(self, x: Tensor):
+        """Cross-attention's keys and values, (B, S, Kv, Dh) each."""
+        if self.cfg.fused_qkv:
+            return self.project_qkv(x)[1:]
+        return (self._project(x, self.wk, getattr(self, "bk", None)),
+                self._project(x, self.wv, getattr(self, "bv", None)))
+
     def project_out(self, o: Tensor) -> Tensor:
         """o (B, S, H, Dh) -> (B, S, d)."""
         H, Dh, d = self.wo.shape
@@ -127,28 +141,36 @@ def sdpa(q: Tensor, k: Tensor, v: Tensor, bias: Tensor) -> Tensor:
 
 def attend_full(cfg: ModelConfig, p: Attention, x: Tensor,
                 positions: Tensor, causal: bool = True, window: int = 0,
-                use_kernels: bool = True):
-    """Prefill self-attention over x (B, S, d) at positions (S,) counting
-    from 0 -> (out (B, S, d), rotated k, v): the cache's keys and values.
+                use_kernels: bool = True, kv_x: Tensor | None = None,
+                kv_positions: Tensor | None = None):
+    """Prefill attention of x (B, S, d) at positions (S,) counting from 0
+    -> (out (B, S, d), k, v): the cache's keys (rotated) and values.
+    Self-attention, or with `kv_x` (B, Skv, d) cross-attention onto it
+    (keys at `kv_positions`, arange(Skv) by default; rope on
+    self-attention only, as in the reference).
 
-    Blockwise (K6) from BLOCKWISE_MIN_KV keys, dense (S, S) scores below,
-    as the reference dispatches. `use_kernels=False` sends the blockwise
-    route to K6's plain version (`ref.attention_ref`) on any device."""
-    q, k, v = p.project_qkv(x)
-    if cfg.rope_theta > 0:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    scale = cfg.resolved_head_dim ** -0.5
-    if x.shape[1] >= BLOCKWISE_MIN_KV:
-        if window > 0:
-            raise NotImplementedError(
-                "windowed blockwise attention belongs to the hybrid "
-                "family, which the port does not have yet (ROADMAP Queue 1 "
-                "item 6)")
-        attn = ops.flash_attention if use_kernels else ref.attention_ref
-        o = attn(q, k, v, causal=causal, sm_scale=scale)
+    Blockwise (K6, with `window`) from BLOCKWISE_MIN_KV keys, dense (Sq,
+    Skv) scores below, as the reference dispatches. `use_kernels=False`
+    sends the blockwise route to K6's plain version (`ref.attention_ref`)
+    on any device."""
+    if kv_x is None:
+        q, k, v = p.project_qkv(x)
+        if cfg.rope_theta > 0:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        kv_positions = positions
     else:
-        o = sdpa(q, k, v, mask_bias(positions, positions, causal, window))
+        q = p.project_q(x)
+        k, v = p.project_kv(kv_x)
+        if kv_positions is None:
+            kv_positions = torch.arange(kv_x.shape[1], device=x.device)
+    scale = cfg.resolved_head_dim ** -0.5
+    if k.shape[1] >= BLOCKWISE_MIN_KV:
+        attn = ops.flash_attention if use_kernels else ref.attention_ref
+        o = attn(q, k, v, causal=causal, sm_scale=scale, window=window)
+    else:
+        o = sdpa(q, k, v, mask_bias(positions, kv_positions, causal,
+                                    window))
     return p.project_out(o), k, v
 
 
@@ -159,10 +181,13 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
-               n_layers: int = 0) -> KVCache:
-    """Zero cache of max_len slots, stacked over layers when n_layers > 0;
-    `decode_step` masks a sliding window by position."""
+               n_layers: int = 0, window: int = 0) -> KVCache:
+    """Zero cache, stacked over layers when n_layers > 0: max_len slots,
+    or with `window` > 0 a ring of min(max_len, window) slots (the
+    reference's hybrid cache)."""
     Kv, Dh = cfg.eff_kv_heads, cfg.resolved_head_dim
+    if window > 0:
+        max_len = min(max_len, window)
     shape = (batch, max_len, Kv, Dh)
     if n_layers:
         shape = (n_layers,) + shape
@@ -171,14 +196,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                    0)
 
 
+def fill_cache(k_cache: Tensor, k: Tensor) -> None:
+    """Write a prefill's keys (or values) k (B, S, Kv, Dh) into a cache of
+    (B, S_max, Kv, Dh) in place, as the reference's `_fit`: the first S
+    slots when they fit; otherwise (a ring shorter than the prompt) the
+    last S_max keys rolled by S % S_max, so that slot j holds the key of
+    the position p with p % S_max == j."""
+    S, S_max = k.shape[1], k_cache.shape[1]
+    if S <= S_max:
+        k_cache[:, :S] = k
+    else:
+        k_cache.copy_(torch.roll(k[:, -S_max:], S % S_max, dims=1))
+
+
 def decode_step(cfg: ModelConfig, p: Attention, x: Tensor, cache: KVCache,
                 window: int = 0) -> tuple[Tensor, KVCache]:
     """One-token decode: x (B, 1, d) at position cache.length. Writes the
-    new key and value into slot cache.length of cache.k/cache.v (B, S_max,
-    Kv, Dh) in place (the reference returns new arrays) and attends over
-    the filled slots, the last `window` of them when window > 0, with
-    dense `sdpa` (the reference has no kernel here either). -> ((B, 1, d),
-    the cache one position on)."""
+    new key and value into cache.k/cache.v (B, S_max, Kv, Dh) in place
+    (the reference returns new arrays): at slot cache.length, or with
+    window > 0 at ring slot cache.length % S_max, where slot i holds
+    position pos - ((slot - i) mod S_max). Attends over the filled slots,
+    the last `window` positions of them when window > 0, with dense
+    `sdpa` (the reference has no kernel here either). -> ((B, 1, d), the
+    cache one position on)."""
     B = x.shape[0]
     S_max = cache.k.shape[1]
     pos = cache.length
@@ -187,11 +227,25 @@ def decode_step(cfg: ModelConfig, p: Attention, x: Tensor, cache: KVCache,
         posv = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
         q = rope(q, posv, cfg.rope_theta)
         k_new = rope(k_new, posv, cfg.rope_theta)
-    slot = min(pos, S_max - 1)
+    slot = pos % S_max if window > 0 else min(pos, S_max - 1)
     cache.k[:, slot] = k_new[:, 0]
     cache.v[:, slot] = v_new[:, 0]
-    k_pos = torch.arange(S_max, device=x.device)
+    idx = torch.arange(S_max, device=x.device)
     q_pos = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    bias = mask_bias(q_pos, k_pos, causal=True, window=window)
+    if window > 0:
+        k_pos = pos - torch.remainder(slot - idx, S_max)
+        valid = (k_pos >= 0) & (k_pos >= pos - window + 1) & (k_pos <= pos)
+        bias = torch.where(valid, 0.0, NEG_INF).to(f32)[None, None, :]
+        bias = bias.expand(B, 1, S_max)
+    else:
+        bias = mask_bias(q_pos, idx, causal=True, window=0)
     out = p.project_out(sdpa(q, cache.k, cache.v, bias))
     return out, KVCache(cache.k, cache.v, pos + 1)
+
+
+def cross_decode(p: Attention, x: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """One decode step's cross-attention: x (B, 1, d) onto the keys and
+    values k/v (B, F, Kv, Dh) projected from the encoder's output once at
+    prefill, unmasked -> (B, 1, d)."""
+    bias = torch.zeros((1, 1, k.shape[1]), dtype=f32, device=x.device)
+    return p.project_out(sdpa(p.project_q(x), k, v, bias))

@@ -3,12 +3,16 @@ port.
 
 `repro.models.transformer.Model.init_params` returns a nested dict whose
 per-layer leaves are stacked along a leading axis (the reference scans
-over layers): (L, ...), or (L - 1, ...) for moe with a dense first layer,
-whose `layer0` is not stacked. Given that tree as numpy arrays,
-`params_from_jax` returns the port's state dict: `layers.<i>.<path>` for
-layer i of each stacked leaf, the other leaves under their dotted path,
+over layers): `layers` (L, ...), or (L - 1, ...) for moe with a dense
+first layer, whose `layer0` is not stacked; hybrid's `triples` (L // 3,
+...) beside its unstacked `tail_rec<j>`; encdec's `enc_layers` and
+`dec_layers` (`transformer.stacked_layers`). Given that tree as numpy
+arrays, `params_from_jax` returns the port's state dict:
+`<stack>.<i>.<path>` for layer i of each stacked leaf, the other leaves
+under their dotted path,
 every tensor in its declared dtype (the config's, float32 for the MoE
-router and the SSM's `A_log` and `D`). `params_to_jax` is its inverse:
+router, the SSM's `A_log` and `D`, the RG-LRU's `b_a`, `b_i` and
+`Lambda`). `params_to_jax` is its inverse:
 the port's dict back to the nested, layer-stacked tree, as float32 numpy
 arrays (exact for bfloat16, which numpy holds only as an extension type;
 the reference casts a loaded leaf to its own dtype). With them both
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Model, n_stacked
+from repro_torch.models.transformer import Model, stacked_layers
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -65,25 +69,28 @@ def params_to_jax(cfg: ModelConfig, state: dict) -> dict:
 
 def stack_layers(cfg: ModelConfig, state: dict) -> dict:
     """The port's flat dict of tensors -> the reference's nested layout
-    (`layers.<i>.<path>` stacked into one (L, ...) tensor at
-    layers/<path>), tensors kept in their dtype and on their device."""
+    (`<stack>.<i>.<path>` stacked into one (n, ...) tensor at
+    <stack>/<path> for each of `stacked_layers(cfg)`), tensors kept in
+    their dtype and on their device."""
     tree: dict = {}
+    stacks = stacked_layers(cfg)
     stacked: dict = {}
     for name, t in state.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            stacked.setdefault(tuple(parts[2:]), {})[int(parts[1])] = t
+        if parts[0] in stacks:
+            stacked.setdefault((parts[0],) + tuple(parts[2:]),
+                               {})[int(parts[1])] = t
             continue
         node = tree
         for key in parts[:-1]:
             node = node.setdefault(key, {})
         node[parts[-1]] = t
-    n = n_stacked(cfg)
     for path, by_layer in stacked.items():
+        n = stacks[path[0]]
         if sorted(by_layer) != list(range(n)):
-            raise ValueError(f"layers.*.{'.'.join(path)}: layers "
+            raise ValueError(f"{path[0]}.*.{'.'.join(path[1:])}: layers "
                              f"{sorted(by_layer)}, config stacks {n}")
-        node = tree.setdefault("layers", {})
+        node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = torch.stack([by_layer[i].detach()
@@ -95,19 +102,20 @@ def unstack_layers(cfg: ModelConfig, tree: dict) -> dict:
     """`stack_layers`'s inverse: a nested tree of tensors -> the port's
     flat dict (layer i of a stacked leaf is a view of it)."""
     out = {}
-    n = n_stacked(cfg)
+    stacks = stacked_layers(cfg)
 
     def walk(path, node):
         if isinstance(node, dict):
             for key, child in node.items():
                 walk(path + (key,), child)
             return
-        if path[0] == "layers":
+        if path[0] in stacks:
+            n = stacks[path[0]]
             if node.shape[0] != n:
                 raise ValueError(f"{'.'.join(path)}: {node.shape[0]} "
                                  f"stacked layers, config stacks {n}")
             for i in range(n):
-                out[".".join(("layers", str(i)) + path[1:])] = node[i]
+                out[".".join((path[0], str(i)) + path[1:])] = node[i]
         else:
             out[".".join(path)] = node
 

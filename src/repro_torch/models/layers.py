@@ -8,6 +8,7 @@ rope), and the training loss `softmax_xent`.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -147,6 +148,28 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x1, x2 = x[..., :half].to(f32), x[..., half:].to(f32)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, d: int) -> Tensor:
+    """Whisper's fixed sinusoids, (n_pos, d) float32 on the CPU: the
+    reference's table (`repro.models.layers.sinusoidal_positions`), built
+    in numpy float64 and cast, sin in the first half, cos in the second."""
+    half = d // 2
+    freqs = np.exp(-np.arange(half) * (np.log(10000.0) / (half - 1)))
+    ang = np.arange(n_pos)[:, None] * freqs[None, :]
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32))
+
+
+def sinusoid_at(pos: int, d: int, device) -> Tensor:
+    """The sinusoid of one position, (d,) float32 on `device`, computed in
+    float32 (on the CPU) as the reference's decode step computes it, not
+    read from the float64 table: the two differ in the last bits."""
+    half = d // 2
+    step = torch.log(torch.tensor(10000.0)) / (half - 1)
+    freqs = torch.exp(-torch.arange(half, dtype=f32) * step)
+    ang = torch.tensor(float(pos)) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)]).to(device)
 
 
 # --- losses ------------------------------------------------------------------

@@ -63,7 +63,9 @@ def make_serve_step(model: Model):
 
 
 def make_prefill_step(model: Model):
-    """-> prefill_step(batch) -> logits (B, S, V) over the whole prompt."""
+    """-> prefill_step(batch) -> logits (B, S, V) over the whole prompt
+    (with vlm's batch["patches"], encdec's batch["frames"])."""
     def prefill_step(batch):
-        return model.logits(batch["tokens"])
+        return model.logits(batch["tokens"], patches=batch.get("patches"),
+                            frames=batch.get("frames"))
     return prefill_step

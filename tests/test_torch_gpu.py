@@ -922,6 +922,107 @@ def test_flash_attention_strided_views_of_a_fused_projection(cuda, D):
     _rows_close_to(got, want, FLASH_RTOL[torch.bfloat16])
 
 
+# -- K6's sliding window (the hybrid family's local attention) ------------
+
+@pytest.mark.parametrize("D,dtype", [(256, torch.bfloat16),   # mma
+                                     (256, torch.float32),    # f32
+                                     (64, torch.bfloat16),    # wgmma
+                                     (128, torch.bfloat16),   # wgmma
+                                     (64, torch.float32)])
+@pytest.mark.parametrize("S,window", [(4096, 2048), (1000, 100),
+                                      (333, 64), (700, 1)])
+def test_flash_attention_window(cuda, D, dtype, S, window):
+    """A band of `window` keys (not a multiple of any tile in three of
+    the cases) under MQA's 10 heads over 1, held per row to
+    `ref.attention_ref(window=)`; the row log-sum-exp too. Counted once,
+    under the rule's variant."""
+    q, k, v = _flash_inputs(cuda, D + S + window, (1, S, 10, D),
+                            (1, S, 1, D), dtype)
+    ops.reset_launch_counts()
+    out, lse = ops._flash_forward(q, k, v, True, None, None, True, window)
+    want, want_lse = ref.attention_ref(q, k, v, window=window,
+                                       return_lse=True)
+    torch.cuda.synchronize()
+    _rows_close_to(out, want, FLASH_RTOL[dtype])
+    assert float(torch.max(torch.abs(lse - want_lse))) <= 1e-4
+    variant = ops.flash_variant(dtype, D)
+    assert ops.flash_variant_counts()[variant] == 1
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("D,dtype", [(256, torch.bfloat16),
+                                     (256, torch.float32),
+                                     (128, torch.bfloat16)])
+def test_flash_attention_window_of_s_is_the_causal_launch(cuda, D, dtype):
+    """A window of S or more masks nothing: the same bits as window 0; a
+    window one shorter masks key 0 of the last row."""
+    q, k, v = _flash_inputs(cuda, D, (2, 777, 4, D), (2, 777, 2, D), dtype)
+    causal = ops.flash_attention(q, k, v)
+    for window in (777, 5000):
+        assert torch.equal(ops.flash_attention(q, k, v, window=window),
+                           causal)
+    shorter = ops.flash_attention(q, k, v, window=776)
+    assert torch.equal(shorter[:, :776], causal[:, :776])
+    assert not torch.equal(shorter[:, 776], causal[:, 776])
+
+
+def test_flash_attention_window_non_causal_and_strided(cuda):
+    """The band without the causal mask (keys j > i all kept, the
+    reference's `_block_mask`), on views of a fused projection."""
+    B, S, H, Kv, D = 1, 1500, 6, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(9)
+    out = torch.randn((B, S, H + 2 * Kv, D), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = out[..., :H, :], out[..., H:H + Kv, :], out[..., H + Kv:, :]
+    got = ops.flash_attention(q, k, v, causal=False, window=300)
+    want = ref.attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=False, window=300)
+    torch.cuda.synchronize()
+    _rows_close_to(got, want, FLASH_RTOL[torch.bfloat16])
+
+
+def test_flash_attention_window_backward_raises(cuda):
+    q, k, v = _flash_inputs(cuda, 1, (1, 256, 4, 64), (1, 256, 1, 64))
+    q.requires_grad_(True)
+    out = ops.flash_attention(q, k, v, window=64)
+    with pytest.raises(NotImplementedError, match=r"item 6 \(g\)"):
+        out.float().sum().backward()
+
+
+def test_hybrid_prefill_agrees_with_plain_route_f32(cuda):
+    """Reduced recurrentgemma-2b at head_dim 64 and a window of 300,
+    float32, a 2100-token prompt: the prefill through K6 with its band
+    (one windowed layer) against its plain version, then two decode
+    steps on the ring."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode as dec
+    from repro_torch.models.config import HybridConfig
+    from repro_torch.models.decls import init_params
+    from repro_torch.models.transformer import Model
+    base = get_config("recurrentgemma-2b", reduced=True)
+    cfg = base.replace(head_dim=64, hybrid=HybridConfig(
+        lru_width=64, conv_width=4, window=300))
+    model = Model(cfg, cuda)
+    init_params(model, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 2100), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    out, tok = {}, None
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        ops.reset_launch_counts()
+        logits, cache = dec.prefill(model, toks, 2102)
+        assert ops.launch_counts()["flash_attention"] == int(use_kernels)
+        assert cache["kv"]["k"].shape[2] == 300
+        if tok is None:
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+        out[use_kernels] = [logits]
+        for _ in range(2):
+            logits, cache = dec.decode_step(model, cache, tok)
+            out[use_kernels].append(logits)
+    for got, want in zip(out[True], out[False]):
+        _close_to(got, want, 1e-4)
+
+
 def test_flash_attention_variant_names_are_checked(cuda):
     q, k, v = _flash_inputs(cuda, 0, (1, 256, 4, 256), (1, 256, 4, 256))
     with pytest.raises(ValueError, match="variant"):

@@ -113,7 +113,8 @@ def test_scan_covers_the_port_benchmarks():
     paths = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     want = {f"benchmarks/port/{m}.py" for m in (
         "bench_kernels", "bench_serve", "hillclimb", "work",
-        "fixed_order_ab", "scdn_dense_ab", "safep_convergence")}
+        "fixed_order_ab", "scdn_dense_ab", "safep_convergence",
+        "flash_window_ab")}
     assert want <= paths, want - paths
     assert "src/repro_torch/kernels/autotune.py" in paths
 

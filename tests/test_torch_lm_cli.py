@@ -67,8 +67,13 @@ def test_serve_cli_one_new_token_has_no_decode_rate():
     assert out["decode_ms_per_token"] is None and out["tok_per_s"] is None
 
 
-def test_serve_cli_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="hybrid"):
+def test_serve_cli_refuses_unported_families(monkeypatch):
+    """Every registered family is ported; a config of a family the port
+    does not have is refused by name."""
+    cfg = get_config("recurrentgemma-2b", reduced=True).replace(
+        family="retnet")
+    monkeypatch.setattr(serve, "get_config", lambda *a, **k: cfg)
+    with pytest.raises(NotImplementedError, match="retnet"):
         serve.main(["--arch", "recurrentgemma-2b", "--device", "cpu"])
 
 

@@ -211,13 +211,22 @@ def test_attend_full_routes_by_length(monkeypatch):
 
 
 def test_blockwise_refuses_a_window():
+    """The blockwise route takes a window forward (K6's band; its plain
+    version here, checked against the reference in
+    tests/test_torch_hybrid.py) but refuses to differentiate it: K6b has
+    no window yet (ROADMAP Queue 1 item 6 (g))."""
     _, _, tm = setup("qwen2-0.5b")
     cfg = tm.cfg
     S = tattn.BLOCKWISE_MIN_KV
-    x = torch.zeros((1, S, cfg.d_model))
+    x = _t(_x((1, S, cfg.d_model))).requires_grad_(True)
+    out, _, _ = tattn.attend_full(cfg, tm.layers[0].attn, x,
+                                  torch.arange(S), window=128)
+    with torch.no_grad():
+        full, _, _ = tattn.attend_full(cfg, tm.layers[0].attn, x,
+                                       torch.arange(S))
+    assert not torch.allclose(out, full)
     with pytest.raises(NotImplementedError, match="hybrid"):
-        tattn.attend_full(cfg, tm.layers[0].attn, x, torch.arange(S),
-                          window=128)
+        out.sum().backward()
 
 
 # -- the slice: prefill + greedy decode ---------------------------------------
@@ -375,9 +384,22 @@ def test_registry_is_the_reference_data(arch, reduced):
         dataclasses.asdict(jax_config(arch, reduced))
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).family not in
-                                  PORTED_FAMILIES])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "pixtral-12b",
+                                  "whisper-small"])
 def test_other_families_are_not_ported(arch):
+    """The last three families the port took (hybrid, vlm, encdec) build;
+    a family outside PORTED_FAMILIES is refused."""
+    cfg = get_config(arch, reduced=True)
+    assert cfg.family in PORTED_FAMILIES
+    Model(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config(arch, reduced=True), "cpu")
+        Model(cfg.replace(family=cfg.family + "-x"), "cpu")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_architecture_builds(arch):
+    """All ten architectures, reduced on the CPU and at full width on the
+    meta device; every family is ported."""
+    assert get_config(arch).family in PORTED_FAMILIES
+    Model(get_config(arch, reduced=True), "cpu")
+    Model(get_config(arch), "meta")

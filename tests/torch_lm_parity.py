@@ -1,7 +1,8 @@
 """Shared set-up of the LM family parity tests (tests/test_torch_moe.py,
-tests/test_torch_ssm.py): one reduced config in both packages, the
-reference's weights carried into the port, and a prefill plus greedy
-decode through both.
+tests/test_torch_ssm.py, tests/test_torch_hybrid.py,
+tests/test_torch_vlm.py, tests/test_torch_encdec.py): one reduced config
+in both packages, the reference's weights carried into the port, and a
+prefill plus greedy decode through both.
 
 The reference model is built on a (1, 1) mesh with Auto axes: jax 0.9's
 `make_mesh` default (Explicit axes) makes `Model._constrain` raise.
@@ -72,15 +73,38 @@ def close(got, want, tol=TOL):
                                **tol)
 
 
+def prefix_inputs(cfg, B, seed):
+    """vlm's patch embeddings or encdec's frame embeddings (numpy, normal
+    * 0.02, float32) for a batch of B, or {}."""
+    if cfg.family == "vlm":
+        return {"patches": x((B, cfg.vlm.n_patches, cfg.d_model), seed + 100,
+                             0.02)}
+    if cfg.family == "encdec":
+        return {"frames": x((B, cfg.encdec.encoder_frames, cfg.d_model),
+                            seed + 100, 0.02)}
+    return {}
+
+
+def prefix_len(cfg):
+    """Positions ahead of the text: vlm's patches."""
+    return cfg.vlm.n_patches if cfg.family == "vlm" else 0
+
+
 def serve_both(jm, tree, tm, S, cache_keys, n_new=3, B=2, seed=3):
-    """Prefill S prompt tokens, then n_new greedy decode steps, in both
-    packages: the logits, the greedy tokens and the caches' leaves at
-    `cache_keys` (paths into the cache dict) agree."""
+    """Prefill S prompt tokens (after vlm's patches, beside encdec's
+    frames), then n_new greedy decode steps, in both packages: the
+    logits, the greedy tokens and the caches' leaves at `cache_keys`
+    (paths into the cache dict) agree."""
     cfg = jm.cfg
     toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+    pre = prefix_inputs(cfg, B, seed)
+    S += prefix_len(cfg)
     max_len = S + n_new
-    jl, jc = jdec.prefill(jm, tree, {"tokens": jnp.asarray(toks)}, max_len)
-    tl, tc = tdec.prefill(tm, t(toks), max_len)
+    jl, jc = jdec.prefill(jm, tree, {"tokens": jnp.asarray(toks),
+                                     **{k: jnp.asarray(a)
+                                        for k, a in pre.items()}}, max_len)
+    tl, tc = tdec.prefill(tm, t(toks), max_len,
+                          **{k: t(a) for k, a in pre.items()})
     close(tl, jl)
 
     def leaves(cache_t, cache_j, tol):
@@ -108,13 +132,18 @@ def serve_both(jm, tree, tm, S, cache_keys, n_new=3, B=2, seed=3):
     leaves(tc, jc, DECODE_TOL)
 
 
-def decode_continues_prefill(tm, S, B=2, seed=5):
-    """The port against itself: decoding token S after prefilling S gives
-    the last-position logits of prefilling S + 1."""
-    toks = t(np.random.default_rng(seed).integers(0, tm.cfg.vocab_size,
-                                                  (B, S + 1)))
-    want, _ = tdec.prefill(tm, toks, max_len=S + 1)
-    _, cache = tdec.prefill(tm, toks[:, :S], max_len=S + 1)
-    got, cache = tdec.decode_step(tm, cache, toks[:, S:])
-    close(got, want.numpy(), DECODE_TOL)
-    assert cache["length"] == S + 1
+def decode_continues_prefill(tm, S, B=2, seed=5, n_steps=1):
+    """The port against itself: decoding tokens S .. S + n_steps - 1
+    after prefilling S gives, at each step, the last-position logits of
+    prefilling that many tokens more."""
+    cfg = tm.cfg
+    toks = t(np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  (B, S + n_steps)))
+    pre = {k: t(a) for k, a in prefix_inputs(cfg, B, seed).items()}
+    P = prefix_len(cfg)
+    _, cache = tdec.prefill(tm, toks[:, :S], P + S + n_steps, **pre)
+    for i in range(n_steps):
+        want, _ = tdec.prefill(tm, toks[:, :S + i + 1], P + S + i + 1, **pre)
+        got, cache = tdec.decode_step(tm, cache, toks[:, S + i:S + i + 1])
+        close(got, want.numpy(), DECODE_TOL)
+    assert cache["length"] == P + S + n_steps
