@@ -186,15 +186,17 @@ def attention_pairs(Sq: int, Skv: int, causal: bool, window: int = 0) -> int:
                    max(i - window + 1, 0) + 1, 0) for i in range(Sq))
 
 
-def flash_bwd_work(q, k, causal: bool) -> tuple:
+def flash_bwd_work(q, k, causal: bool, window: int = 0) -> tuple:
     """K6b (`ops.flash_attention_bwd`) in the model's layout, q (B, Sq, H,
     D) with k/v (B, Skv, Kv, D): bytes q, k, v, out, do and the (B, H, Sq)
     float32 lse read once, dq, dk, dv written once; operations the five
     products of the flash backward (S = Q K^T, dP = dO V^T, dV = P^T dO,
     dQ = dS K, dK = dS^T Q), 2 D flops each for every (query, key) pair
-    the mask lets through, on every query head."""
+    the mask lets through (with `window` > 0 the band's), on every query
+    head."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
         4 * B * H * Sq
-    return nbytes, 5 * 2 * D * attention_pairs(Sq, Skv, causal) * B * H
+    return nbytes, 5 * 2 * D * attention_pairs(Sq, Skv, causal,
+                                               window) * B * H

@@ -10,6 +10,8 @@
     python3 chip_smoke.py --phases moe       # build + serving the moe family
     python3 chip_smoke.py --phases ssm       # build + serving the ssm family
     python3 chip_smoke.py --phases hybrid,vlm,encdec  # the other three
+    python3 chip_smoke.py --phases ftrain    # build + training the five
+    python3 chip_smoke.py --lm-profiles      # + the LM phases' traces
     python3 chip_smoke.py --phases path      # build + the regularization path
     python3 chip_smoke.py --phases fault     # build + diagnostics, faults
     python3 chip_smoke.py --phases sharded   # build + the sharded backend
@@ -65,7 +67,16 @@ Phases:
                  plain version's) at the train phase's shape in bf16 and
                  float32, ragged, at D 128 and 256, per row, two calls
                  bit-equal, planted faults as controls, timed with its
-                 bound, the plain version and the library's backward.
+                 bound, the plain version and the library's backward;
+                 K6b's sliding window at the hybrid train run's shape
+                 (B 1 x 10 heads over 1, S 4096, D 256, window 2048,
+                 `simt`) per row, the band planted one key wide as a
+                 control, a window of S bit-equal to the causal launch,
+                 timed with the band's bound, the plain version and
+                 SDPA's backward with the band as a mask; then float32
+                 and `wgmma` (D 128 and 64) with a window; K6b at the moe
+                 and vlm train runs' shapes (G 1 at D 128; 32 heads over
+                 8 at 4352), timed beside SDPA's backward.
   3. tune     -- the autotuner (`kernels.autotune`) at benchmarks/port/
                  bench_kernels.py's full cells (the shapes above; K1-K3
                  also in bf16): every key tuned into a cache of the run's
@@ -199,23 +210,24 @@ Phases:
                  the same weights, in bf16 (three seeds) and in float32,
                  with the readings of faults planted in the plain version
                  beside them, and one prefill and one decode step traced
-                 in a child process (`--lm-profile`).
+                 in a child process (`--lm-profile`, with --lm-profiles).
   16. train   -- LM training, qwen2-0.5b at full width, batch 4 x 4096
                  tokens: `python -m repro_torch.launch.train --full --lr
                  3e-4` for 12 steps in a child process (finite, falling
                  loss; K6 2 x 24 launches a step with remat, K6b 24; step
-                 wall, tokens/s, peak memory); the same run with a crash
-                 injected at step 7 and checkpoints every 6: restored at
-                 6, its replayed losses bit-equal to the uninterrupted
-                 run's; one train step through K6/K6b against the plain
+                 wall, tokens/s, peak memory), with a crash injected at
+                 step 11 and checkpoints every 6: restored at 6, steps 6
+                 to 10 run again bit-equal to the same steps before the
+                 crash; one train step through K6/K6b against the plain
                  route from shared carries, float32 and bf16 (two seeds),
                  with a fault planted in the plain backward as a control;
-                 one step traced in a child process (`--train-profile`).
+                 one step traced in a child process (`--train-profile`,
+                 with --lm-profiles).
   17. moe     -- `repro_torch.launch.serve.main` for deepseek-moe-16b at
                  full width (28 layers: a dense first layer, then 27 with
                  64 routed experts top-6 and 2 shared; bf16, random weights
-                 from a seed), 4 prompts of 4096 tokens and 32 new, twice
-                 (cold, warm): K6 once an attention layer of the prefill
+                 from a seed), 4 prompts of 4096 tokens and 32 new: K6
+                 once an attention layer of the prefill
                  (28, all wgmma), the capacity dispatch in every MoE layer
                  of it, every expert in decode. Then two bf16 prefills
                  bit-equal; the prefill's logits and four decode steps
@@ -227,7 +239,7 @@ Phases:
                  the prefill's shape (B 4 x 16 heads x 4096, D 128) with
                  its bound, plain version and SDPA; one prefill and one
                  decode step traced in a child process
-                 (`--family-profile`).
+                 (`--family-profile`, with --lm-profiles).
   18. ssm     -- `launch.serve.main` for falcon-mamba-7b at full width (64
                  Mamba layers, d_inner 8192, d_state 16; bf16), 4 prompts
                  of 2048 tokens and 32 new: no kernel launch, finite
@@ -235,7 +247,7 @@ Phases:
                  of 1024 tokens and one decode step against a prefill of
                  1025 (the gate: there is no kernel); the decode state's
                  bytes after prompts of 512 and 2048, equal; one prefill
-                 traced in a child process (`--family-profile`).
+                 traced in a child process (with --lm-profiles).
   19. hybrid  -- `launch.serve.main` for recurrentgemma-2b at full width
                  (26 layers: 8 (rec, rec, attn) triples and 2 tail rec
                  layers; bf16), 4 prompts of 4096 tokens and 32 new: K6
@@ -248,7 +260,8 @@ Phases:
                  ring, each against a prefill one token longer (the ring
                  filled unrolled as a control); the decode state's bytes
                  after prompts of 2048 and 4096, equal; one prefill and
-                 one decode step traced in a child process.
+                 one decode step traced in a child process (with
+                 --lm-profiles).
   20. vlm     -- `launch.serve.main` for pixtral-12b at full width (40
                  layers, bf16), 256 patch embeddings ahead of 4 prompts of
                  4096 tokens, 32 new: K6 (`wgmma`, D 128, 32 heads over 8,
@@ -256,7 +269,8 @@ Phases:
                  as the hybrid's; in float32 at 4 layers one decode step
                  against a prefill one token longer (a cache length short
                  of the patches as a control); K6 timed at the prefill's
-                 shape; one prefill and one decode step traced.
+                 shape; one prefill and one decode step traced (with
+                 --lm-profiles).
   21. encdec  -- `launch.serve.main` for whisper-small at full width (12
                  + 12 layers), 1500 frames, 4 prompts of 384 tokens and 32
                  new: no kernel launch (no attention reaches 2048 keys, as
@@ -265,7 +279,27 @@ Phases:
                  one decode step against a prefill one token longer, with
                  a position one late and the cross-attention left out
                  planted as controls; both routes bit-equal; one prefill
-                 and one decode step traced.
+                 and one decode step traced (with --lm-profiles).
+  22. ftrain  -- training the moe, ssm, hybrid, vlm and encdec families:
+                 `launch.train --full` a family (the five one after the
+                 other in one child process), bf16,
+                 remat, 8 steps at lr 3e-4 (falcon-mamba 16), at full
+                 width with the depth cut by the child's `--family-train`
+                 wrapper (recurrentgemma-2b 5 of 26 layers: a triple and
+                 2 tail rec layers, 1 x 4096: K6 `mma` and K6b `simt`
+                 with the window 2048; deepseek-moe-16b 2 of 28, 1 x
+                 4096; pixtral-12b 2 of 40, 1 x 4096 text after 256
+                 patches; falcon-mamba-7b 4 of 64, 1 x 2048; whisper-small
+                 whole, 4 x 384): finite losses, the mean of the last 3
+                 below the first, K6/K6b launches by variant, step wall,
+                 tokens/s, peak under 75 GiB; the hybrid's run crashed at
+                 step 6 with checkpoints every 4, its replayed steps 4-5
+                 bit-equal to the same steps before the crash; each run's
+                 checkpoints removed after it; one step from shared
+                 carries through K6/K6b against the plain route for the
+                 hybrid (one triple), moe (2 layers) and vlm (1 layer),
+                 TRAIN_RTOL's bf16 limits (the hybrid's grad_norm 5e-5),
+                 a fault planted in the plain backward as a control.
 
 Each solve phase sets the launch counts to 0, solves with the kernels,
 reads the counts, then solves again with the plain versions from the same
@@ -288,6 +322,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -301,7 +336,8 @@ SRC = ROOT / "src"
 DEVICE = "cuda"
 PHASES = ("build", "kernels", "tune", "support", "full", "dense", "scdn",
           "tron", "bf16", "cli", "serve", "path", "fault", "sharded",
-          "lm", "train", "moe", "ssm", "hybrid", "vlm", "encdec")  # in order
+          "lm", "train", "moe", "ssm", "hybrid", "vlm", "encdec",
+          "ftrain")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -319,7 +355,7 @@ KERNEL_RTOL = 1e-4
 K4A_RTOL = 1e-5
 # outer iterations of each solve phase (and of its lockstep check), and
 # the seed of every dataset
-N_OUTER = 10
+N_OUTER = 5     # 10 before the ftrain phase
 DATA_SEED = 0
 # the solve phases: (design, labels) at these places of make_data's tuple,
 # c, layout, P, the kernel they launch, the line-search scope
@@ -565,8 +601,10 @@ BWD_RTOL = FLASH_RTOL
 # values of ~10
 LSE_ATOL = 1e-4
 # planted in the plain backward, held by BWD_RTOL: one key tile (keys
-# 64-127) dropped from dk, the delta term left out of ds
+# 64-127) dropped from dk, the delta term left out of ds; with a window,
+# the band one key too wide (a key j counts when i - j <= window)
 BWD_FAULTS = ("key tile", "delta")
+BWD_WINDOW_FAULT = "band"
 
 # the train phase: qwen2-0.5b at its published width, batch 4 x 4096
 # tokens (the lm phase's prefill shape: K6 and K6b in every layer),
@@ -574,11 +612,14 @@ BWD_FAULTS = ("key tile", "delta")
 # checkpoint every TRAIN_CKPT_EVERY steps (20 steps with a checkpoint
 # every 5 before the hybrid, vlm and encdec phases: the crashed run
 # wrote 5 checkpoints of ~6 GB and took 87 s of the phase's 182-209;
-# now 2)
+# now 2). One run since the ftrain phase: its steps up to the crash are
+# the uninterrupted run's, the steps TRAIN_CKPT_EVERY .. TRAIN_CRASH_AT -
+# 1 run again from the checkpoint (a separate uninterrupted run took
+# 38.5 s of the phase's 150.3)
 TRAIN_BATCH = 4
 TRAIN_SEQ = 4096
 TRAIN_STEPS = 12
-TRAIN_CRASH_AT = 7
+TRAIN_CRASH_AT = 11
 TRAIN_CKPT_EVERY = 6
 # the rate of the CLI runs and of the lockstep. launch.train's default,
 # 3e-3 (the reference's, set for the reduced configs), makes the
@@ -708,6 +749,65 @@ ENCDEC_GATE_PROMPT = 383
 # planted in the encdec decode step, held by its gates: the sinusoid of
 # the next position (one late), the cross-attention's branch left out
 ENCDEC_FAULTS = ("position", "cross")
+# the ftrain phase: one `launch.train --full` run a family at its
+# published width, bf16, remat on, at TRAIN_LR, the depth cut by the
+# smoke's child wrapper (`--family-train`) to what one card holds beside
+# AdamW's float32 moments (~20 bytes a parameter at the step's peak):
+# arch -> (layers, or 0 for the published depth, batch, seq, steps). The
+# hybrid's 5 of 26 layers are a (rec, rec, attn) triple and 2 tail rec
+# layers; moe's 2 of 28 the dense first layer and a MoE layer (4 took
+# ~25 s more: their checkpoint 22.7 GB, not 10.9; vlm's 4 24.3, not
+# 18.9, ~11 s); vlm's seq
+# is its text, after 256 patches (4352 positions); whisper-small trains
+# whole. A checkpoint is 10 bytes a parameter (bf16 params, float32
+# moments; the embeddings most of it), written at ~0.5 GB/s, and a call
+# may write 45 GiB to the machine's disk: at 8 layers (2.01 B
+# parameters) the hybrid's crashed run held two 20 GB checkpoints, at 5
+# (1.75 B) two of 17.5 GB. falcon-mamba trains 16 steps: over 8 its losses moved
+# less than one batch's noise (H100: at 1 x 2048 11.5792 first, 11.5798
+# the last 3's mean; at 2 x 2048 11.5596, 11.5842), over 16 the last
+# 3's mean is 11.5525
+FTRAIN = {HYBRID_ARCH: (5, 1, 4096, 8),
+          MOE_ARCH: (2, 1, 4096, 8),
+          VLM_ARCH: (2, 1, 4096, 8),
+          SSM_ARCH: (4, 1, 2048, 16),
+          ENCDEC_ARCH: (0, 4, 384, 8)}
+FTRAIN_LABEL = {HYBRID_ARCH: "hybrid", MOE_ARCH: "moe", VLM_ARCH: "vlm",
+                SSM_ARCH: "ssm", ENCDEC_ARCH: "encdec"}
+# the hybrid's run crashes at FTRAIN_CRASH_AT with a checkpoint every
+# FTRAIN_CKPT_EVERY steps: its steps up to the crash are an uninterrupted
+# run's, and the replayed steps must equal them bit for bit (a run
+# without the crash took 57.2 s more, 20 GB of its ~26 s the final
+# checkpoint's write)
+FTRAIN_CKPT_EVERY = 4
+FTRAIN_CRASH_AT = 6
+FTRAIN_PEAK_GIB = 75.0
+# the caching allocator's setting for the ftrain runs: with fixed
+# segments the hybrid's run failed at step 6 on a 3.91 GiB block (its
+# float32 logits over the 256,000-token vocabulary) with 38.65 GiB
+# allocated and 37.26 GiB reserved but free between blocks
+FTRAIN_ALLOC = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+# the lockstep a family (hybrid, moe, vlm): one train step through K6/K6b
+# against the plain route from a shared carry, at the smallest depth
+# that holds an attention layer (the hybrid's one triple, moe's dense
+# first layer and one MoE layer, one vlm layer), bf16, the train run's
+# batch and seq; the control planted in the plain route's backward: the
+# hybrid's band one key too wide, moe's and vlm's delta term left out
+FLOCK_LAYERS = {HYBRID_ARCH: 3, MOE_ARCH: 2, VLM_ARCH: 1}
+FLOCK_FAULT = {HYBRID_ARCH: "band", MOE_ARCH: "delta", VLM_ARCH: "delta"}
+# the lockstep's limits: TRAIN_RTOL's bf16 ones, with a grad_norm limit
+# between the kernel route's reading and the control's. On an H100 (700
+# W), grad_norm and update rel: the hybrid's kernel route 1.03e-5 and
+# 4.20e-2, the band one key wide 2.36e-4 and 3.63e-2 (one pair more a
+# row past the window moves the gradient's norm, not Adam's normalised
+# step past its bf16 noise); moe's kernel route 1.53e-4 and 8.04e-2 with
+# the plain routes replaying its experts (`moe_routing`; its routing
+# free, 1.69e-4 and 0.188 with the loss 1.05e-4 apart: top-k flips), the
+# delta term dropped 1.18e-2 and 0.106; vlm's kernel route 1.10e-5 and
+# 2.72e-2, the delta term dropped 3.31e-3 and 5.44e-2
+FLOCK_RTOL = {HYBRID_ARCH: {**TRAIN_RTOL["bfloat16"], "grad_norm": 5e-5},
+              MOE_ARCH: {**TRAIN_RTOL["bfloat16"], "grad_norm": 2e-3},
+              VLM_ARCH: {**TRAIN_RTOL["bfloat16"], "grad_norm": 5e-4}}
 # the band planted in K6's plain version: a key j counts when i - j <=
 # window (one key too many a row past the window)
 WINDOW_FAULT = "band"
@@ -2225,10 +2325,14 @@ def bwd_row_rel_err(torch, got, want) -> tuple[float, float]:
 
 
 def flash_bwd_fault(torch, q, k, v, out, lse, do, causal=True,
-                    sm_scale=None, *, fault):
-    """The plain backward (model layout) with one of BWD_FAULTS planted:
-    what the K6b gate reads for a wrong kernel."""
+                    sm_scale=None, *, fault, window=0):
+    """The plain backward (model layout) with one of BWD_FAULTS, or
+    BWD_WINDOW_FAULT, planted: what the K6b gate reads for a wrong
+    kernel."""
     from repro_torch.kernels import ref
+    if fault == BWD_WINDOW_FAULT:
+        return ref.attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                     sm_scale, window=window + 1)
     if fault == "key tile":
         dq, dk, dv = ref.attention_bwd_ref(q, k, v, out, lse, do, causal,
                                            sm_scale)
@@ -2256,6 +2360,88 @@ def flash_bwd_fault(torch, q, k, v, out, lse, do, causal=True,
             dv.to(v.dtype))
 
 
+def bwd_cases(torch):
+    """-> (inputs, case): K6b's seeded inputs on the card, and one check
+    of K6b against its plain version (`flash_bwd_checks` and the window
+    and family checks after it share them)."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(q_shape, kv_shape, dtype):
+        return [torch.randn(s, generator=gen, device=dev).to(dtype)
+                for s in (q_shape, kv_shape, kv_shape, q_shape)]
+
+    def case(label, q, k, v, do, causal, faults=(), variants=(None,),
+             window=0):
+        """K6b on the rule's variant (None) and any named in `variants`,
+        each held to the plain version, with `window`; -> (the largest max
+        abs error, out, lse)."""
+        dtype = str(q.dtype).removeprefix("torch.")
+        tol = BWD_RTOL[dtype]
+        before = ops.flash_variant_counts()
+        with torch.no_grad():
+            out, lse = ops._flash_forward(q, k, v, causal, None, None, True,
+                                          window)
+        ran = [n for n, c in ops.flash_variant_counts().items()
+               if c != before[n]]
+        _, lse_ref = ref.attention_ref(q, k, v, causal=causal,
+                                       return_lse=True, window=window)
+        e_lse = float(torch.max(torch.abs(lse - lse_ref)))
+        del lse_ref
+        assert e_lse <= LSE_ATOL, (label, e_lse)
+        want = ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                     window=window)
+        rule = ops.flash_bwd_variant(q.dtype, q.shape[-1])
+        worst = 0.0
+        for variant in variants:
+            n0 = ops.launch_counts()["flash_attention_bwd"]
+            v0 = ops.flash_bwd_variant_counts()
+            got = ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                          causal=causal, variant=variant,
+                                          window=window)
+            again = ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                            causal=causal, variant=variant,
+                                            window=window)
+            torch.cuda.synchronize()
+            errs = [bwd_row_rel_err(torch, a, b) for a, b in zip(got, want)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            n = ops.launch_counts()["flash_attention_bwd"] - n0
+            by = {nm: c - v0[nm]
+                  for nm, c in ops.flash_bwd_variant_counts().items()
+                  if c != v0[nm]}
+            del got, again
+            name = variant or rule
+            log(f"[kernels] flash_attention_bwd {label} q {tuple(q.shape)} "
+                f"k/v {tuple(k.shape)} {dtype} "
+                f"{'causal' if causal else 'non-causal'}"
+                f"{f', window {window}' if window else ''}, K6b variant "
+                f"{name}{' (the rule)' if name == rule else ' (named)'} "
+                f"(out, lse from K6 {'/'.join(ran)}: lse err {e_lse:.2e}, "
+                f"limit {LSE_ATOL}): "
+                + ", ".join(f"{nm} err {e[0]:.3e} (row rel {e[1]:.2e})"
+                            for nm, e in zip(("dq", "dk", "dv"), errs))
+                + f"; tolerance row rel {tol}; two calls bit-equal {same}; "
+                f"launches {n} {by}")
+            assert all(e[1] <= tol for e in errs), (label, name, errs)
+            assert same and n == 2 and by == {name: 2}, \
+                (label, name, same, n, by)
+            worst = max([worst] + [e[0] for e in errs])
+        for fault in faults:
+            bad = flash_bwd_fault(torch, q, k, v, out, lse, do, causal,
+                                  fault=fault, window=window)
+            r = max(bwd_row_rel_err(torch, a, b)[1]
+                    for a, b in zip(bad, want))
+            del bad
+            log(f"[kernels] flash_attention_bwd control, plain version "
+                f"with {fault!r} planted: row rel {r:.2e} (limit {tol})")
+            assert r > tol, (fault, r)
+        return worst, out, lse
+
+    return inputs, case
+
+
 def flash_bwd_checks(torch, flush) -> dict:
     """K6b against its plain version (`ref.attention_bwd_ref`) on the same
     (q, k, v, out, lse, do), out and lse from K6's forward (whose lse is
@@ -2273,72 +2459,7 @@ def flash_bwd_checks(torch, flush) -> dict:
     backward (scaled_dot_product_attention, timed only)."""
     from repro_torch.kernels import ops, ref
 
-    dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(3)
-
-    def inputs(q_shape, kv_shape, dtype):
-        return [torch.randn(s, generator=gen, device=dev).to(dtype)
-                for s in (q_shape, kv_shape, kv_shape, q_shape)]
-
-    def case(label, q, k, v, do, causal, faults=(), variants=(None,)):
-        """K6b on the rule's variant (None) and any named in `variants`,
-        each held to the plain version; -> (the largest max abs error, out,
-        lse)."""
-        dtype = str(q.dtype).removeprefix("torch.")
-        tol = BWD_RTOL[dtype]
-        before = ops.flash_variant_counts()
-        with torch.no_grad():
-            out, lse = ops._flash_forward(q, k, v, causal, None, None, True)
-        ran = [n for n, c in ops.flash_variant_counts().items()
-               if c != before[n]]
-        _, lse_ref = ref.attention_ref(q, k, v, causal=causal,
-                                       return_lse=True)
-        e_lse = float(torch.max(torch.abs(lse - lse_ref)))
-        del lse_ref
-        assert e_lse <= LSE_ATOL, (label, e_lse)
-        want = ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
-        rule = ops.flash_bwd_variant(q.dtype, q.shape[-1])
-        worst = 0.0
-        for variant in variants:
-            n0 = ops.launch_counts()["flash_attention_bwd"]
-            v0 = ops.flash_bwd_variant_counts()
-            got = ops.flash_attention_bwd(q, k, v, out, lse, do,
-                                          causal=causal, variant=variant)
-            again = ops.flash_attention_bwd(q, k, v, out, lse, do,
-                                            causal=causal, variant=variant)
-            torch.cuda.synchronize()
-            errs = [bwd_row_rel_err(torch, a, b) for a, b in zip(got, want)]
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            n = ops.launch_counts()["flash_attention_bwd"] - n0
-            by = {nm: c - v0[nm]
-                  for nm, c in ops.flash_bwd_variant_counts().items()
-                  if c != v0[nm]}
-            del got, again
-            name = variant or rule
-            log(f"[kernels] flash_attention_bwd {label} q {tuple(q.shape)} "
-                f"k/v {tuple(k.shape)} {dtype} "
-                f"{'causal' if causal else 'non-causal'}, K6b variant "
-                f"{name}{' (the rule)' if name == rule else ' (named)'} "
-                f"(out, lse from K6 {'/'.join(ran)}: lse err {e_lse:.2e}, "
-                f"limit {LSE_ATOL}): "
-                + ", ".join(f"{nm} err {e[0]:.3e} (row rel {e[1]:.2e})"
-                            for nm, e in zip(("dq", "dk", "dv"), errs))
-                + f"; tolerance row rel {tol}; two calls bit-equal {same}; "
-                f"launches {n} {by}")
-            assert all(e[1] <= tol for e in errs), (label, name, errs)
-            assert same and n == 2 and by == {name: 2}, \
-                (label, name, same, n, by)
-            worst = max([worst] + [e[0] for e in errs])
-        for fault in faults:
-            bad = flash_bwd_fault(torch, q, k, v, out, lse, do, causal,
-                                  fault=fault)
-            r = max(bwd_row_rel_err(torch, a, b)[1]
-                    for a, b in zip(bad, want))
-            del bad
-            log(f"[kernels] flash_attention_bwd control, plain version "
-                f"with {fault!r} planted: row rel {r:.2e} (limit {tol})")
-            assert r > tol, (fault, r)
-        return worst, out, lse
+    inputs, case = bwd_cases(torch)
 
     H, Kv, D = 14, 2, 64          # qwen2-0.5b
     shape_q = (TRAIN_BATCH, TRAIN_SEQ, H, D)
@@ -2403,7 +2524,135 @@ def flash_bwd_checks(torch, flush) -> dict:
         (1, 1000, 16, 256), (1, 1500, 16, 256), torch.float32), False)
     gc.collect()
     torch.cuda.empty_cache()
+    r["window"] = flash_bwd_window_checks(torch, flush, case, inputs)
+    for arch in (MOE_ARCH, VLM_ARCH):
+        r[FTRAIN_LABEL[arch]] = flash_bwd_family_timing(torch, flush, case,
+                                                        inputs, arch)
     return {"flash_attention_bwd": r}
+
+
+def flash_bwd_timings(torch, flush, q, k, v, out, lse, do, window=0):
+    """K6b's L2-cold and warm device times at one shape, the plain
+    version's, the library's backward (scaled_dot_product_attention's,
+    heads first and contiguous; with a window the band as a boolean
+    mask; timed only) and the bound (`work.flash_bwd_work`, the band's
+    pairs)."""
+    from repro_torch.kernels import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    if window:
+        qi = torch.arange(q.shape[1], device=q.device)
+        band = (qi[:, None] >= qi[None, :]) & \
+            (qi[:, None] - qi[None, :] < window)
+        ot = sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
+    else:
+        ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+
+    def kernel():
+        return ops.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+
+    def library():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    nbytes, nops = _port_bench("work").flash_bwd_work(q, k, True, window)
+    r = dict(ms=device_ms(torch, kernel, 10, flush),
+             warm_ms=device_ms(torch, kernel, 10),
+             plain_ms=device_ms(torch, lambda: ref.attention_bwd_ref(
+                 q, k, v, out, lse, do, window=window), 3, flush),
+             library_ms=device_ms(torch, library, 10, flush),
+             bound=bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+             gflop=nops / 1e9, variant=ops.flash_bwd_variant(q.dtype,
+                                                             q.shape[-1]))
+    B, S, H, D = q.shape
+    r["shape"] = (f"B {B} x H {H} (kv {k.shape[2]}), S {S}, D {D}, bf16, "
+                  f"causal" + (f", window {window}" if window else ""))
+    del qt, kt, vt, ot, dot
+    free_card(torch)
+    return r
+
+
+def flash_bwd_window_checks(torch, flush, case, inputs) -> dict:
+    """K6b's sliding window (the flash backward of recurrentgemma-2b's
+    local attention), per row against `ref.attention_bwd_ref(window=)`:
+    at the hybrid train run's shape (B 1 x 10 heads over 1, S 4096, D 256,
+    window 2048, bf16: `simt`), the band planted one key too wide in the
+    plain version as a control (BWD_WINDOW_FAULT), two calls bit-equal, a
+    window of S bit-equal to the causal launch; timed L2-cold and warm
+    with the band's bound, the plain version and SDPA's backward with the
+    band as a boolean mask; then float32 (`simt`, a shorter S still past
+    the window) and `wgmma` at D 64 and 128 with a window. -> the hybrid
+    shape's readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    cfg = get_config(HYBRID_ARCH)
+    H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    W = cfg.hybrid.window
+    _, B, S, _ = FTRAIN[HYBRID_ARCH]
+    q, k, v, do = inputs((B, S, H, D), (B, S, Kv, D), torch.bfloat16)
+    err, out, lse = case(f"{HYBRID_ARCH} train", q, k, v, do, True,
+                         (BWD_WINDOW_FAULT,), window=W)
+    causal_out, causal_lse = ops._flash_forward(q, k, v, True, None, None,
+                                                True)
+    whole = all(torch.equal(a, b) for a, b in zip(
+        ops.flash_attention_bwd(q, k, v, causal_out, causal_lse, do,
+                                window=S),
+        ops.flash_attention_bwd(q, k, v, causal_out, causal_lse, do)))
+    log(f"[kernels] flash_attention_bwd window of S ({S}) bit-equal to the "
+        f"causal launch: {whole}")
+    assert whole
+    del causal_out, causal_lse
+    r = flash_bwd_timings(torch, flush, q, k, v, out, lse, do, W)
+    r["max_abs_err"] = err
+    work = _port_bench("work")
+    r["pairs"] = work.attention_pairs(S, S, True, W)
+    r["causal_pairs"] = work.attention_pairs(S, S, True)
+    log(f"[kernels] flash_attention_bwd window at {r['shape']} (variant "
+        f"{r['variant']}): L2-cold {r['ms'] * 1e3:.2f} us "
+        f"({r['gflop'] / r['ms']:.2f} TFLOP/s of the five products, "
+        f"{r['bound'][0] / r['ms']:.4f} of its bound "
+        f"{r['bound'][0] * 1e3:.1f} us, {r['bound'][1]}; {r['pairs']} "
+        f"pairs a head against causal's {r['causal_pairs']}), warm "
+        f"{r['warm_ms'] * 1e3:.2f} us; plain {r['plain_ms'] * 1e3:.2f} us; "
+        f"library (SDPA backward with the band as a mask) "
+        f"{r['library_ms'] * 1e3:.2f} us")
+    del q, k, v, do, out, lse
+    free_card(torch)
+    case("float32, window", *inputs((1, 3072, H, D), (1, 3072, Kv, D),
+                                    torch.float32), True, window=W)
+    case("wgmma D 128, window", *inputs((2, 4096, 8, 128), (2, 4096, 2, 128),
+                                        torch.bfloat16), True, window=1000)
+    case("wgmma D 64, window", *inputs((1, 2500, 14, 64), (1, 2500, 2, 64),
+                                       torch.bfloat16), True, window=333)
+    free_card(torch)
+    return r
+
+
+def flash_bwd_family_timing(torch, flush, case, inputs, arch) -> dict:
+    """K6b without a window at a family train run's shape (moe: B 1 x 16
+    heads over 16, S 4096, D 128, G 1; vlm: B 1 x 32 over 8, S 4352, D
+    128), per row against the plain version, then timed beside SDPA's
+    backward and the bound."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    _, B, S, _ = FTRAIN[arch]
+    S += family_prefix_len(cfg)
+    q, k, v, do = inputs((B, S, H, D), (B, S, Kv, D), torch.bfloat16)
+    err, out, lse = case(f"{arch} train", q, k, v, do, True)
+    r = flash_bwd_timings(torch, flush, q, k, v, out, lse, do)
+    r["max_abs_err"] = err
+    log(f"[kernels] flash_attention_bwd at the {arch} train run's shape "
+        f"({r['shape']}, variant {r['variant']}): L2-cold "
+        f"{r['ms'] * 1e3:.2f} us ({r['gflop'] / r['ms']:.2f} TFLOP/s, "
+        f"{r['bound'][0] / r['ms']:.4f} of its bound "
+        f"{r['bound'][0] * 1e3:.1f} us), warm {r['warm_ms'] * 1e3:.2f} us; "
+        f"plain {r['plain_ms'] * 1e3:.2f} us; library (SDPA backward) "
+        f"{r['library_ms'] * 1e3:.2f} us")
+    del q, k, v, do, out, lse
+    free_card(torch)
+    return r
 
 
 def lm_model(torch, dtype: str, seed: int = LM_SEED):
@@ -2498,6 +2747,10 @@ def phase_lm(torch, card: str) -> dict:
 
     # traced in a fresh process: the profiler loses records late in a
     # long one (PERF.md)
+    if not LM_PROFILES:
+        log("[lm] the traced prefill and decode: not run (--lm-profiles)")
+        return {"flash_attention": launches,
+                "flash_attention variants": by_variant}
     child = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--lm-profile"],
         capture_output=True, text=True, check=True, timeout=600)
@@ -2622,31 +2875,10 @@ def train_lockstep(torch, dtype: str, seed: int, faults=()) -> list:
             ((2 * L, L) if use_kernels else (0, 0)), (use_kernels, n)
         res[use_kernels] = (new, met)
     readings = [train_readings(torch, params, res[True], res[False])]
-    plain_ref = ref.attention_ref
     model.use_kernels = False
     for fault in faults:
-        class Planted(torch.autograd.Function):
-            @staticmethod
-            def forward(ctx, q, k, v, causal, sm_scale):
-                out, lse = plain_ref(q, k, v, causal, sm_scale,
-                                     return_lse=True)
-                ctx.save_for_backward(q, k, v, out, lse)
-                ctx.args = (causal, sm_scale)
-                return out
-
-            @staticmethod
-            def backward(ctx, do, _fault=fault):
-                return (*flash_bwd_fault(torch, *ctx.saved_tensors, do,
-                                         *ctx.args, fault=_fault),
-                        None, None)
-
-        # the dense LM has no window (attend_full passes window=0)
-        ref.attention_ref = lambda q, k, v, causal=True, sm_scale=None, \
-            window=0: Planted.apply(q, k, v, causal, sm_scale)
-        try:
+        with planted_backward(torch, fault):
             new, _, met = step(params, opt, b1)
-        finally:
-            ref.attention_ref = plain_ref
         readings.append(train_readings(torch, params, (new, met),
                                        res[False]))
         del new
@@ -2668,29 +2900,102 @@ def train_lockstep(torch, dtype: str, seed: int, faults=()) -> list:
     return readings
 
 
-def _train_cli(args, env=None, timeout=900) -> dict:
-    """`python -m repro_torch.launch.train` in a child process -> its
-    `[train] result` dict."""
-    proc = _child(["repro_torch.launch.train", *args], env=env,
-                  timeout=timeout)
-    out = _finish("train CLI", proc)
+@contextlib.contextmanager
+def planted_backward(torch, fault: str):
+    """Inside the block the plain route's attention (`ref.attention_ref`,
+    which `attend_full` calls with `use_kernels=False`) is a Function: the
+    plain forward, and the plain backward with `fault` (BWD_FAULTS or
+    BWD_WINDOW_FAULT) planted, the window passed through."""
+    from repro_torch.kernels import ref
+    plain_ref = ref.attention_ref
+
+    class Planted(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, sm_scale, window):
+            out, lse = plain_ref(q, k, v, causal, sm_scale, return_lse=True,
+                                 window=window)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.args = (causal, sm_scale)
+            ctx.window = window
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            return (*flash_bwd_fault(torch, *ctx.saved_tensors, do,
+                                     *ctx.args, fault=fault,
+                                     window=ctx.window),
+                    None, None, None)
+
+    ref.attention_ref = lambda q, k, v, causal=True, sm_scale=None, *, \
+        window=0: Planted.apply(q, k, v, causal, sm_scale, window)
+    try:
+        yield
+    finally:
+        ref.attention_ref = plain_ref
+
+
+def _train_cli(args, env=None, timeout=900, runs=None, label="train"):
+    """`python -m repro_torch.launch.train args` in a child process -> its
+    `[train] result` dict; or with `runs` [(arch, layers, args, fault
+    plan or None), ...] the same `main` once a run, one after the other
+    in one child process, through this script's `--family-train` wrapper
+    -> their results."""
+    if runs is None:
+        cmd = ["repro_torch.launch.train", *args]
+    else:
+        cmd = ["chip_smoke", "--family-train"]
+        for i, (arch, layers, run_args, plan) in enumerate(runs):
+            cmd += (["--and"] if i else []) + [f"{arch}:{layers}"]
+            if plan is not None:
+                cmd += ["--fault-plan", json.dumps(plan)]
+            cmd += run_args
+    proc = _child(cmd, env=env, timeout=timeout)
+    out = _finish(f"{label} CLI", proc)
     for line in out.splitlines():
         if line.startswith("step ") or line.startswith("[train] ") and \
                 not line.startswith("[train] result "):
-            log(f"[train]   {line}")
-    line = [x for x in out.splitlines()
-            if x.startswith("[train] result ")][-1]
-    return json.loads(line[len("[train] result "):])
+            log(f"[{label}]   {line}")
+    results = [json.loads(x[len("[train] result "):])
+               for x in out.splitlines() if x.startswith("[train] result ")]
+    return results[-1] if runs is None else results
+
+
+def train_trace() -> None:
+    """One train step traced in a fresh process (`--train-profile`), its
+    readings logged."""
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-profile"],
+        capture_output=True, text=True, timeout=600)
+    log(f"[train] the traced child: {time.perf_counter() - t0:.1f} s with "
+        f"the process start")
+    assert child.returncode == 0, (child.returncode, child.stdout[-2000:],
+                                   child.stderr[-4000:])
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    if prof["busy_ms"] > 0:
+        log(f"[train] one step traced by torch.profiler in a fresh process: "
+            f"{prof['traced_ms']:.1f} ms wall traced ({prof['wall_ms']:.1f} "
+            f"untraced), device busy {prof['busy_ms']:.1f} ms (idle share "
+            f"{1 - prof['busy_ms'] / prof['traced_ms']:.4f}); top device "
+            f"ops:")
+        for key, calls, us in prof["top"]:
+            log(f"[train]   {us:12.1f} us  {calls:5d} calls  {key[:90]}")
+        for key, calls, us in prof["flash"]:
+            log(f"[train]   K6/K6b: {us:12.1f} us  {calls:5d} calls "
+                f"({us / 1e3 / prof['busy_ms']:.4f} of busy)  {key[:70]}")
+    else:
+        log(f"[train] one step: {prof['wall_ms']:.1f} ms wall; idle share "
+            f"not measured (the profiler saw no device time)")
 
 
 def phase_train(torch, card: str) -> dict:
     """LM training on the card: (b) `launch.train --full` for TRAIN_STEPS
     steps in a child process (loss finite and falling; K6 2 x 24 launches
     a step, remat recomputing the forward; K6b 24), its step wall,
-    tokens/s and peak memory; (c) the same run with a crash injected at
-    TRAIN_CRASH_AT and checkpoints every TRAIN_CKPT_EVERY: it restores,
-    replays, and its losses from the restored step on equal (b)'s bit
-    for bit; (a) one train step through the kernels against the plain
+    tokens/s and peak memory, with (c) a crash injected at TRAIN_CRASH_AT
+    and checkpoints every TRAIN_CKPT_EVERY: it restores, and the steps it
+    runs again from the checkpoint equal the same steps before the crash
+    bit for bit; (a) one train step through the kernels against the plain
     route from shared carries, float32 and bf16, with a planted backward
     fault as a control. One step is traced in a fresh process
     (`--train-profile`) after (c). The children run first, while this
@@ -2710,79 +3015,61 @@ def phase_train(torch, card: str) -> dict:
     args = ["--arch", LM_ARCH, "--full", "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
             "--lr", str(TRAIN_LR), "--seed", str(TRAIN_SEED), "--device",
-            DEVICE]
+            DEVICE, "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    back = (TRAIN_CRASH_AT // TRAIN_CKPT_EVERY) * TRAIN_CKPT_EVERY
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
                                      dir=str(ROOT / "build")) as tmp:
         t0 = time.perf_counter()
-        clean = _train_cli(args + ["--ckpt-dir", os.path.join(tmp, "a")])
-        wall = time.perf_counter() - t0
-        losses = clean["losses"]
-        n = clean["launches"]
-        by_variant = clean["launches_by_variant"]
-        first, last5 = losses[0], float(np.mean(losses[-5:]))
-        log(f"[train] launch.train {LM_ARCH} --full batch {TRAIN_BATCH} seq "
-            f"{TRAIN_SEQ} steps {TRAIN_STEPS} on {card}: loss {first:.4f} -> "
-            f"{losses[-1]:.4f} (mean of the last 5 {last5:.4f}); step wall "
-            f"{clean['step_wall_s'] * 1e3:.1f} ms (median after the first; "
-            f"first {clean['step_walls_s'][0]:.2f} s), "
-            f"{clean['tokens_per_s']:.0f} tokens/s; peak device memory "
-            f"{(clean['peak_bytes'] or 0) / 2 ** 30:.2f} GiB; flash_attention "
-            f"launches {n['flash_attention']} (expected {2 * L * TRAIN_STEPS}),"
-            f" flash_attention_bwd {n['flash_attention_bwd']} (expected "
-            f"{L * TRAIN_STEPS}, all on wgmma); by variant {by_variant}; "
-            f"{wall:.1f} s with the process start")
-        assert np.all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS
-        assert last5 < first, (first, last5)
-        assert n["flash_attention"] == 2 * L * TRAIN_STEPS, n
-        assert n["flash_attention_bwd"] == L * TRAIN_STEPS, n
-        assert sum(n.values()) == 3 * L * TRAIN_STEPS, n
-        assert by_variant["flash_attention_bwd"]["wgmma"] == \
-            L * TRAIN_STEPS, by_variant
-        assert by_variant["flash_attention"]["wgmma"] == \
-            2 * L * TRAIN_STEPS, by_variant
-
-        t0 = time.perf_counter()
-        crashed = _train_cli(
-            args + ["--ckpt-dir", os.path.join(tmp, "b"), "--ckpt-every",
-                    str(TRAIN_CKPT_EVERY)],
+        run = _train_cli(
+            args + ["--ckpt-dir", os.path.join(tmp, "a")],
             env={"REPRO_FAULT_PLAN": json.dumps(
                 {"crash_at_iter": TRAIN_CRASH_AT})})
         wall = time.perf_counter() - t0
-    back = (TRAIN_CRASH_AT // TRAIN_CKPT_EVERY) * TRAIN_CKPT_EVERY
-    want_steps = list(range(TRAIN_CRASH_AT)) + list(range(back, TRAIN_STEPS))
-    replay = crashed["losses"][TRAIN_CRASH_AT:]
-    diff = [i + back for i, (a, b) in enumerate(zip(replay, losses[back:]))
-            if a != b]
-    log(f"[train] crash at step {TRAIN_CRASH_AT}, checkpoints every "
-        f"{TRAIN_CKPT_EVERY}: events {crashed['events']}, restored at "
-        f"{back}, steps run {crashed['loss_steps']}; the replayed losses "
-        f"(steps {back}-{TRAIN_STEPS - 1}) against the uninterrupted run's: "
-        f"{'bit-equal' if not diff else f'differ at steps {diff}'}; "
+    losses = run["losses"]
+    n = run["launches"]
+    by_variant = run["launches_by_variant"]
+    steps = len(losses)           # TRAIN_STEPS and the replayed ones
+    first, last5 = losses[0], float(np.mean(losses[-5:]))
+    log(f"[train] launch.train {LM_ARCH} --full batch {TRAIN_BATCH} seq "
+        f"{TRAIN_SEQ} steps {TRAIN_STEPS} (a crash at {TRAIN_CRASH_AT}, "
+        f"checkpoints every {TRAIN_CKPT_EVERY}: {steps} steps run) on "
+        f"{card}: loss {first:.4f} -> {losses[-1]:.4f} (mean of the last 5 "
+        f"{last5:.4f}); step wall {run['step_wall_s'] * 1e3:.1f} ms (median "
+        f"after the first; first {run['step_walls_s'][0]:.2f} s), "
+        f"{run['tokens_per_s']:.0f} tokens/s; peak device memory "
+        f"{(run['peak_bytes'] or 0) / 2 ** 30:.2f} GiB; flash_attention "
+        f"launches {n['flash_attention']} (expected {2 * L * steps}),"
+        f" flash_attention_bwd {n['flash_attention_bwd']} (expected "
+        f"{L * steps}, all on wgmma); by variant {by_variant}; "
         f"{wall:.1f} s with the process start")
-    assert crashed["events"] == ["crash", "restore"], crashed["events"]
-    assert crashed["loss_steps"] == want_steps, crashed["loss_steps"]
-    assert not diff, (diff, replay, losses[back:])
+    assert np.all(np.isfinite(losses)) and \
+        steps == TRAIN_STEPS + TRAIN_CRASH_AT - back, steps
+    assert last5 < first, (first, last5)
+    assert n["flash_attention"] == 2 * L * steps, n
+    assert n["flash_attention_bwd"] == L * steps, n
+    assert sum(n.values()) == 3 * L * steps, n
+    assert by_variant["flash_attention_bwd"]["wgmma"] == L * steps, \
+        by_variant
+    assert by_variant["flash_attention"]["wgmma"] == 2 * L * steps, \
+        by_variant
+    once = losses[back:TRAIN_CRASH_AT]
+    again = losses[TRAIN_CRASH_AT:2 * TRAIN_CRASH_AT - back]
+    diff = [back + i for i, (a, b) in enumerate(zip(once, again)) if a != b]
+    log(f"[train] crash at step {TRAIN_CRASH_AT}, checkpoints every "
+        f"{TRAIN_CKPT_EVERY}: events {run['events']}, restored at {back}, "
+        f"steps run {run['loss_steps']}; steps {back}-{TRAIN_CRASH_AT - 1} "
+        f"run again from the checkpoint against the same steps before the "
+        f"crash: {'bit-equal' if not diff else f'differ at steps {diff}'}")
+    assert run["events"] == ["crash", "restore"], run["events"]
+    assert run["loss_steps"] == list(range(TRAIN_CRASH_AT)) + \
+        list(range(back, TRAIN_STEPS)), run["loss_steps"]
+    assert len(once) == TRAIN_CRASH_AT - back and not diff, \
+        (diff, once, again)
 
-    child = subprocess.run(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-profile"],
-        capture_output=True, text=True, timeout=600)
-    assert child.returncode == 0, (child.returncode, child.stdout[-2000:],
-                                   child.stderr[-4000:])
-    prof = json.loads(child.stdout.strip().splitlines()[-1])
-    if prof["busy_ms"] > 0:
-        log(f"[train] one step traced by torch.profiler in a fresh process: "
-            f"{prof['traced_ms']:.1f} ms wall traced ({prof['wall_ms']:.1f} "
-            f"untraced), device busy {prof['busy_ms']:.1f} ms (idle share "
-            f"{1 - prof['busy_ms'] / prof['traced_ms']:.4f}); top device "
-            f"ops:")
-        for key, calls, us in prof["top"]:
-            log(f"[train]   {us:12.1f} us  {calls:5d} calls  {key[:90]}")
-        for key, calls, us in prof["flash"]:
-            log(f"[train]   K6/K6b: {us:12.1f} us  {calls:5d} calls "
-                f"({us / 1e3 / prof['busy_ms']:.4f} of busy)  {key[:70]}")
+    if LM_PROFILES:
+        train_trace()
     else:
-        log(f"[train] one step: {prof['wall_ms']:.1f} ms wall; idle share "
-            f"not measured (the profiler saw no device time)")
+        log("[train] the traced step: not run (--lm-profiles)")
     for dtype, seeds in (("float32", (TRAIN_SEED,)),
                          ("bfloat16", TRAIN_GATE_SEEDS)):
         tol = TRAIN_RTOL[dtype]
@@ -3138,12 +3425,20 @@ def flash_timing(torch, arch: str, label: str, batch: int, S: int) -> dict:
 def run_family_profile(arch: str, label: str, untraced_ms=None) -> None:
     """`family_profile(arch)` in a fresh process (the profiler loses
     records late in a long one: PERF.md), its readings logged; a call the
-    child did not time untraced is set beside `untraced_ms`."""
+    child did not time untraced is set beside `untraced_ms`. Only with
+    --lm-profiles (LM_PROFILES)."""
+    if not LM_PROFILES:
+        log(f"[{label}] the traced prefill and decode of {arch}: not run "
+            f"(--lm-profiles)")
+        return
+    t0 = time.perf_counter()
     child = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--family-profile",
          arch], capture_output=True, text=True, timeout=900)
     assert child.returncode == 0, (child.returncode, child.stdout[-2000:],
                                    child.stderr[-4000:])
+    log(f"[{label}] the traced child of {arch}: "
+        f"{time.perf_counter() - t0:.1f} s with the process start")
     prof = json.loads(child.stdout.strip().splitlines()[-1])
     for name, r in prof.items():
         whose = ""
@@ -3164,6 +3459,11 @@ def run_family_profile(arch: str, label: str, untraced_ms=None) -> None:
                 f"share not measured (the profiler saw no device time)")
 
 
+# whether the LM phases (lm, train and the five family phases) trace a
+# prefill and a decode step, or a train step, in a child process each
+# (--lm-profiles): seven children that gate nothing took ~175 s of a
+# whole run on an H100, which the ftrain phase needs
+LM_PROFILES = False
 # the family phases' serving shapes: (batch, prompt, seed)
 FAMILY_SHAPES = {MOE_ARCH: (MOE_BATCH, MOE_PROMPT, MOE_SEED),
                  SSM_ARCH: (SSM_BATCH, SSM_PROMPT, SSM_SEED),
@@ -3255,7 +3555,7 @@ def phase_moe(torch, card: str) -> dict:
             "--prompt-len", str(MOE_PROMPT), "--new-tokens", str(MOE_NEW),
             "--seed", str(MOE_SEED)]
     first = None
-    for run in ("cold", "warm"):
+    for run in ("cold",):   # and a warm repeat until the ftrain phase
         out = serve_family(torch, base, f"moe, {run}", card)
         counts, variants, toks = out["counts"], out["variants"], out["tokens"]
         assert counts["flash_attention"] == cfg.n_layers == \
@@ -3725,6 +4025,267 @@ def phase_encdec(torch, card: str) -> None:
     del model, tokens, prefix, routes
     free_card(torch)
     run_family_profile(ENCDEC_ARCH, "encdec")
+
+
+def family_train(argv: list) -> None:
+    """The ftrain phase's child: `ARCH:LAYERS [--fault-plan JSON]
+    TRAIN_ARGS [--and ...]`, each group one `repro_torch.launch.train.
+    main(TRAIN_ARGS)` with ARCH's published config cut to LAYERS layers
+    (0: its published depth) and the plan in REPRO_FAULT_PLAN for that
+    run, one after the other in this process, the card's cached blocks
+    returned between them. The cut is made here, on the smoke's side:
+    `launch.train` takes no depth flag, as the reference's has none. A
+    run's --ckpt-dir is removed after it."""
+    import torch
+    from repro_torch.launch import train
+    published = train.get_config
+    groups, group = [], []
+    for token in argv:
+        if token == "--and":
+            groups.append(group)
+            group = []
+        else:
+            group.append(token)
+    groups.append(group)
+    for head, *args in groups:
+        arch, layers = head.split(":")
+        os.environ.pop("REPRO_FAULT_PLAN", None)
+        if args[:1] == ["--fault-plan"]:
+            os.environ["REPRO_FAULT_PLAN"] = args[1]
+            args = args[2:]
+
+        def cut(name, reduced=True, arch=arch, layers=int(layers)):
+            cfg = published(name, reduced=reduced)
+            if name == arch and not reduced and layers:
+                cfg = cfg.replace(n_layers=layers)
+            return cfg
+
+        train.get_config = cut
+        train.main(args)
+        # the machine's disk counts every block written: the next run's
+        # checkpoint reuses this one's
+        if "--ckpt-dir" in args:
+            shutil.rmtree(args[args.index("--ckpt-dir") + 1],
+                          ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def ftrain_expected(cfg) -> dict:
+    """K6 and K6b launches of one remat train step, by variant: K6 twice
+    an attention layer that reaches BLOCKWISE_MIN_KV keys (the forward,
+    then its recomputation in the backward), K6b once."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import BLOCKWISE_MIN_KV
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // 3
+    elif cfg.family in ("ssm", "encdec"):
+        n_attn = 0      # no attention; encdec's stay under 2048 keys
+        assert cfg.family == "ssm" or max(
+            cfg.encdec.encoder_frames, FTRAIN[ENCDEC_ARCH][2]) < \
+            BLOCKWISE_MIN_KV
+    else:
+        n_attn = cfg.n_layers
+    D = cfg.resolved_head_dim
+    fwd = ops.flash_variant(cfg.torch_dtype, D)
+    bwd = ops.flash_bwd_variant(cfg.torch_dtype, D)
+    return {"flash_attention": {fwd: 2 * n_attn} if n_attn else {},
+            "flash_attention_bwd": {bwd: n_attn} if n_attn else {}}
+
+
+def ftrain_args(arch: str, ckpt_dir: str, extra=(), plan=None) -> tuple:
+    """-> (arch, layers, the `launch.train` arguments, the fault plan or
+    None) of one ftrain run: FTRAIN[arch]'s depth, batch, seq and steps
+    at TRAIN_LR,
+    its published dtype (bf16) and remat."""
+    layers, batch, seq, steps = FTRAIN[arch]
+    return arch, layers, [
+        "--arch", arch, "--full", "--batch", str(batch), "--seq", str(seq),
+        "--steps", str(steps), "--lr", str(TRAIN_LR), "--seed",
+        str(TRAIN_SEED), "--device", DEVICE, "--ckpt-dir", ckpt_dir,
+        *extra], plan
+
+
+def ftrain_check(arch: str, res: dict, card: str) -> None:
+    """One ftrain run's result: finite losses, the mean of the last 3
+    below the first, K6 and K6b launches by variant as `ftrain_expected`,
+    the peak under FTRAIN_PEAK_GIB."""
+    from repro_torch.configs import get_config
+    layers, batch, seq, n_steps = FTRAIN[arch]
+    label = f"ftrain {FTRAIN_LABEL[arch]}"
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    losses = res["losses"]
+    want = ftrain_expected(cfg)
+    steps = len(losses)
+    got = {k: {v: c for v, c in res["launches_by_variant"][k].items() if c}
+           for k in want}
+    want = {k: {v: c * steps for v, c in by.items()}
+            for k, by in want.items()}
+    peak = (res["peak_bytes"] or 0) / 2 ** 30
+    n_pos = seq + (cfg.vlm.n_patches if cfg.family == "vlm" else 0)
+    log(f"[{label}] launch.train {arch} --full at {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers, batch {batch} x seq {seq} "
+        f"({n_pos} positions), {n_steps} steps, events "
+        f"{res['events']}, on {card}: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (mean of the last 3 {np.mean(losses[-3:]):.4f});"
+        f" step wall {res['step_wall_s'] * 1e3:.1f} ms (median after the "
+        f"first; first {res['step_walls_s'][0]:.2f} s), "
+        f"{res['tokens_per_s']:.0f} tokens/s; peak device memory "
+        f"{peak:.2f} GiB (limit {FTRAIN_PEAK_GIB}); K6/K6b launches by "
+        f"variant {got} (expected {want})")
+    assert np.all(np.isfinite(losses)), losses
+    assert float(np.mean(losses[-3:])) < losses[0], losses
+    assert got == want, (got, want)
+    assert peak < FTRAIN_PEAK_GIB, peak
+
+
+def family_train_lockstep(torch, arch: str) -> list:
+    """One bf16 train step of `arch` at FLOCK_LAYERS[arch] layers (full
+    width, the train run's batch and seq) through K6/K6b and through the
+    plain route (`use_kernels=False`), from one shared carry (the params
+    and moments after one kernel-route step from the seeded init; the
+    pipeline's second batch), then the plain route with FLOCK_FAULT[arch]
+    planted in its backward; moe's plain routes replay the kernel route's
+    experts (`moe_routing`: a top-k flip between two routes a few ulps
+    apart moves a token by a whole expert). -> [the kernel route's
+    readings, the control's], each against the plain route
+    (`train_readings`)."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+    _, B, S, _ = FTRAIN[arch]
+    model, _ = family_model(torch, arch, "bfloat16", TRAIN_SEED, 1, 1,
+                            FLOCK_LAYERS[arch])
+    cfg = model.cfg
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.01)
+    step = make_train_step(model, opt_cfg)
+    pipe = TokenPipeline(cfg, B, S, seed=TRAIN_SEED)
+
+    def batch(i):   # as launch.train feeds it
+        return {k: torch.as_tensor(v, device=DEVICE, dtype=(
+                    cfg.torch_dtype if k in ("patches", "frames") else None))
+                for k, v in pipe.batch_at(i).items()}
+
+    want = {k: sum(by.values()) for k, by in ftrain_expected(cfg).items()}
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    params, opt, _ = step(params, adamw_init(params, opt_cfg), batch(0))
+    b1 = batch(1)
+    experts = []
+
+    def routing(mode):
+        if cfg.family != "moe":
+            return contextlib.nullcontext()
+        return moe_routing(torch, mode, experts)
+
+    res = {}
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        ops.reset_launch_counts()
+        with routing("record" if use_kernels else "replay"):
+            new, _, met = step(params, opt, b1)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        got = {k: n[k] for k in want}
+        assert got == (want if use_kernels else {k: 0 for k in want}), \
+            (arch, use_kernels, got, want)
+        res[use_kernels] = (new, met)
+    readings = [train_readings(torch, params, res[True], res[False])]
+    model.use_kernels = False
+    fault = FLOCK_FAULT[arch]
+    with planted_backward(torch, fault), routing("replay"):
+        new, _, met = step(params, opt, b1)
+    readings.append(train_readings(torch, params, (new, met), res[False]))
+    r, x = readings
+    log(f"[ftrain] lockstep {arch} at {cfg.n_layers} layer(s), B {B} x S "
+        f"{S}, bf16, K6/K6b launches {want}: loss "
+        f"{float(res[True][1]['loss']):.6f} (kernel route) vs "
+        f"{float(res[False][1]['loss']):.6f} (plain route): rel "
+        f"{r['loss']:.2e}; grad_norm rel {r['grad_norm']:.2e}; update rel "
+        f"{r['update']:.2e} (one parameter's at most {r['param_update']:.2e}"
+        f", {r['param']}); control {fault!r} in the plain backward: loss "
+        f"{x['loss']:.2e}, grad_norm {x['grad_norm']:.2e}, update "
+        f"{x['update']:.2e} ({x['param_update']:.2e}, {x['param']})")
+    del model, params, opt, res, new
+    free_card(torch)
+    return readings
+
+
+def phase_ftrain(torch, card: str) -> dict:
+    """Training of the moe, ssm, hybrid, vlm and encdec families on the
+    card: (b) one `launch.train --full` run a family (`ftrain_args`,
+    `ftrain_check`; the depth cut as FTRAIN says; the five one after the
+    other in one child process), the hybrid's with
+    a crash at FTRAIN_CRASH_AT and checkpoints every FTRAIN_CKPT_EVERY: it
+    restores its `triples` / `tail_rec<j>` tree, and the steps it runs
+    again from it equal the same steps before the crash bit for bit
+    (moe's run is not replayed: its gathers' backward adds with
+    atomics); (c) one train step a family from shared carries, kernel
+    route against plain route, for the hybrid, moe and vlm, FLOCK_RTOL's
+    limits, with a control planted in the plain backward. The
+    children run first, while this process holds little of the card. ->
+    the K6 and K6b launches of the (b) runs, with their variants."""
+    free_card(torch)
+    totals = {"flash_attention": 0, "flash_attention_bwd": 0,
+              "flash_attention variants": {},
+              "flash_attention_bwd variants": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ftrain_",
+                                     dir=str(ROOT / "build")) as tmp:
+        # the five runs one after the other in one child (one process
+        # start and one CUDA context; a child a run took ~18 s more a
+        # run), the hybrid's with its crash
+        archs = (HYBRID_ARCH, MOE_ARCH, VLM_ARCH, SSM_ARCH, ENCDEC_ARCH)
+        runs = [ftrain_args(a, os.path.join(tmp, FTRAIN_LABEL[a]))
+                for a in archs[1:]]
+        runs.insert(0, ftrain_args(
+            HYBRID_ARCH, os.path.join(tmp, "hybrid"),
+            ("--ckpt-every", str(FTRAIN_CKPT_EVERY)),
+            plan={"crash_at_iter": FTRAIN_CRASH_AT}))
+        t0 = time.perf_counter()
+        results = dict(zip(archs, _train_cli(None, env=FTRAIN_ALLOC,
+                                             label="ftrain", runs=runs)))
+        log(f"[ftrain] the five runs' child: {time.perf_counter() - t0:.1f}"
+            f" s with the process start")
+        for arch, res in results.items():
+            ftrain_check(arch, res, card)
+            for kernel in ("flash_attention", "flash_attention_bwd"):
+                by = res["launches_by_variant"][kernel]
+                totals[kernel] += sum(by.values())
+                prev = totals[f"{kernel} variants"]
+                totals[f"{kernel} variants"] = {
+                    v: prev.get(v, 0) + by.get(v, 0) for v in {*prev, *by}}
+            if arch != HYBRID_ARCH:
+                continue
+            # restored at `back`, the steps back .. FTRAIN_CRASH_AT - 1 run
+            # again: the first time from the uninterrupted state, the
+            # second from the checkpoint's
+            back = (FTRAIN_CRASH_AT // FTRAIN_CKPT_EVERY) * FTRAIN_CKPT_EVERY
+            first = res["losses"][back:FTRAIN_CRASH_AT]
+            again = res["losses"][FTRAIN_CRASH_AT:2 * FTRAIN_CRASH_AT - back]
+            log(f"[ftrain] hybrid crash at step {FTRAIN_CRASH_AT}, "
+                f"checkpoints every {FTRAIN_CKPT_EVERY}: events "
+                f"{res['events']}, restored at {back}, steps run "
+                f"{res['loss_steps']}; steps {back}-{FTRAIN_CRASH_AT - 1} "
+                f"from the restored triples / tail_rec tree against the "
+                f"same steps before the crash: "
+                f"{'bit-equal' if first == again else 'differ'} "
+                f"({first} / {again})")
+            assert res["events"] == ["crash", "restore"], res["events"]
+            assert res["loss_steps"] == list(range(FTRAIN_CRASH_AT)) + \
+                list(range(back, FTRAIN[HYBRID_ARCH][3])), \
+                res["loss_steps"]
+            assert len(first) == FTRAIN_CRASH_AT - back and first == again, \
+                (first, again)
+    for arch, tol in FLOCK_RTOL.items():
+        t0 = time.perf_counter()
+        r, x = family_train_lockstep(torch, arch)
+        log(f"[ftrain] lockstep {arch}: {time.perf_counter() - t0:.1f} s; "
+            f"limits {tol}")
+        assert all(r[k] <= tol[k] for k in tol), (arch, r, tol)
+        assert any(x[k] > tol[k] for k in tol), (arch, x, tol)
+    return totals
 
 
 def phase_serve(torch, serve, card: str) -> dict:
@@ -5601,6 +6162,18 @@ def main(argv=None) -> int:
                          "step) of a family phase's model and print their "
                          "JSON line (those phases run this in a child "
                          "process)")
+    ap.add_argument("--family-train", nargs=argparse.REMAINDER,
+                    metavar="ARCH:LAYERS TRAIN_ARGS [--and ...]",
+                    help="`launch.train.main(TRAIN_ARGS)` with ARCH's "
+                         "published config cut to LAYERS layers (0: its "
+                         "published depth), a group a run, the groups "
+                         "joined by --and run one after the other (the "
+                         "ftrain phase runs this in a child process)")
+    ap.add_argument("--lm-profiles", action="store_true",
+                    help="the lm phase and the moe, ssm, hybrid, vlm and "
+                         "encdec phases also trace a prefill and a decode "
+                         "step, the train phase a train step, in a child "
+                         "process each (off by default: ~175 s)")
     ap.add_argument("--moe-fan-in-d", action="store_true",
                     help="the moe phase's bf16 end-to-end agreement with "
                          "the expert weights at fan-in d, and print its "
@@ -5634,6 +6207,8 @@ def main(argv=None) -> int:
                          "process)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    global LM_PROFILES
+    LM_PROFILES = args.lm_profiles
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
@@ -5665,6 +6240,9 @@ def main(argv=None) -> int:
         return 0
     if args.moe_fan_in_d:
         print(json.dumps(moe_fan_in_d()), flush=True)
+        return 0
+    if args.family_train:
+        family_train(args.family_train)
         return 0
     if args.solve_profile:
         print(json.dumps(solve_profile(args.solve_profile,
@@ -5813,6 +6391,16 @@ def run_phases(torch, phases) -> int:
         phase_encdec(torch, f"{card} ({smi})")
         by_phase.setdefault("flash_attention", {})["encdec"] = 0
         lap("encdec")
+    if "ftrain" in phases:
+        for kernel, n in phase_ftrain(torch, f"{card} ({smi})").items():
+            if kernel.endswith(" variants"):
+                prev = launches.get(kernel, {})
+                launches[kernel] = {v: prev.get(v, 0) + n.get(v, 0)
+                                    for v in {*prev, *n}}
+                continue
+            by_phase.setdefault(kernel, {})["ftrain"] = n
+            launches[kernel] = launches.get(kernel, 0) + n
+        lap("ftrain")
 
     if kernels:
         rows = []
@@ -5834,15 +6422,25 @@ def run_phases(torch, phases) -> int:
                 row["fault_phase_launches"] = fault_launches[name]
             if "variant_ms" in r:
                 row["variant_ms"] = r["variant_ms"]
-            if "window" in r:  # K6's band at the hybrid prefill's shape
+            if "window" in r:  # the band at the hybrid's shape
                 w = r["window"]
-                row["window_prefill"] = {
+                row["window_train" if name == "flash_attention_bwd"
+                    else "window_prefill"] = {
                     "shape": w["shape"], "ms": w["ms"],
                     "warm_ms": w["warm_ms"], "plain_ms": w["plain_ms"],
                     "bound_ms": w["bound"][0], "bound_by": w["bound"][1],
                     "library_ms": w["library_ms"],
-                    "causal_ms": w["causal_ms"],
+                    "causal_ms": w.get("causal_ms"),
                     "max_abs_err": w["max_abs_err"]}
+            for arch in (MOE_ARCH, VLM_ARCH):   # K6b at a train run's shape
+                t = r.get(FTRAIN_LABEL[arch])
+                if t is not None:
+                    row[f"{FTRAIN_LABEL[arch]}_train"] = {
+                        "shape": t["shape"], "ms": t["ms"],
+                        "warm_ms": t["warm_ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                        "library_ms": t["library_ms"],
+                        "max_abs_err": t["max_abs_err"]}
             row.update(extra.get(name, {}))
             if name == "pcdn_linesearch" and "scdn" in phases:
                 row["note"] = ("off the main path: dense SCDN runs "

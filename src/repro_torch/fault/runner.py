@@ -110,8 +110,10 @@ class FaultTolerantRunner:
             last_error = None
             for attempt in range(self.cfg.max_retries_per_step):
                 try:
-                    state, metrics, dt = self._attempt(step, attempt)
-                    self.state = state
+                    # straight into self.state: a local name would keep
+                    # this state alive through a later crash's restore,
+                    # beside the restored one
+                    self.state, metrics, dt = self._attempt(step, attempt)
                     self.step_times.append(dt)
                     if len(self.step_times) > 64:
                         self.step_times.pop(0)

@@ -118,9 +118,9 @@ SIGNATURES = {
            for t in ("wgmma_bf16", "mma_bf16", "f32")},
         "flash_attention_encode_ns": []},
     # q, k, v, o, dO, lse, the scratch, dq, dk, dv, B, H, G, Sq, Skv, D,
-    # causal, scale, 24 strides, stream
+    # causal, window, scale, 24 strides, stream
     "flash_attention_bwd": {
-        f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 7 + [_F, _L, _P]
+        f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 8 + [_F, _L, _P]
         for t in ("wgmma_bf16", "simt_bf16", "simt_f32")},
 }
 

@@ -16,8 +16,14 @@
 // with dk and dv summed over the G query heads that share kv head h / G,
 // f32 sums (the reference's backward widens every operand), and dq, dk,
 // dv written in the inputs' type. Masks as K6's: causal `i >= j` aligned
-// top-left, keys j >= Skv and rows i >= Sq, so any Sq and Skv; tiles
-// wholly above the diagonal are skipped.
+// top-left, keys j >= Skv and rows i >= Sq, so any Sq and Skv, and with
+// `window` > 0 also i - j < window (the sliding window of the reference's
+// `_block_mask`, recurrentgemma's local attention). Tiles wholly above
+// the diagonal, and with a window those wholly below the band, are
+// skipped: the dQ pass's query tile [q0, q0 + bq) visits the KV tiles
+// from the one holding key q0 - window + 1 on, the dK/dV pass's key tile
+// [k0, k0 + bk) the query tiles up to the one holding row k0 + bk - 2 +
+// window.
 //
 // Deterministic, with no floating-point atomics, in both variants: two
 // launches, a dQ pass (which forms delta first) and then a dK/dV pass,
@@ -145,6 +151,9 @@ struct Args {
   float scale;
   // (batch, head, row) strides in elements of q, k, v, o, dO, dq, dk, dv
   long long st[24];
+  // 0: no band. Last, so that the fields before it keep the offsets they
+  // had without it: the causal kernels load their parameters as before
+  int window;
 };
 
 // ----------------------------------------- simt: the CUDA cores, f32 ---
@@ -183,11 +192,25 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
   }
 }
 
-// KV tiles of kB keys that query rows [q0, q0 + kB) visit
-__device__ __forceinline__ int kv_tiles(const Args& a, int q0, int b) {
+// whether the pair (query row, key) is masked out: past the keys, above
+// the diagonal or below the band
+__device__ __forceinline__ bool masked(const Args& a, int row, int col) {
+  return col >= a.Skv || (a.causal && col > row) ||
+         (a.window > 0 && row - col >= a.window);
+}
+
+// KV tiles [first, end) of b keys that query rows [q0, q0 + b) visit: up
+// to the diagonal, and with a window from the tile holding key q0 -
+// window + 1 on (an empty range writes dq = 0)
+struct Range {
+  int first, end;
+};
+
+__device__ __forceinline__ Range kv_tiles(const Args& a, int q0, int b) {
   const int all = (a.Skv + b - 1) / b;
-  if (!a.causal) return all;
-  return min(all, (q0 + b - 1) / b + 1);
+  Range r{0, a.causal ? min(all, (q0 + b - 1) / b + 1) : all};
+  if (a.window > 0) r.first = min(max(0, q0 - a.window + 1) / b, r.end);
+  return r;
 }
 
 // ------------------------------------------------------------- dQ pass ---
@@ -254,8 +277,8 @@ bwd_dq_kernel(const Args a) {
     for (int c = 0; c < L::kC; ++c) acc[i][c] = 0.0f;
   }
 
-  const int n_kv = kv_tiles(a, q0, B);
-  for (int j = 0; j < n_kv; ++j) {
+  const Range kv = kv_tiles(a, q0, B);
+  for (int j = kv.first; j < kv.end; ++j) {
     const int k0 = j * B;
     __syncthreads();
     load_rows<T, D>(Ks, k, st[5], k0, a.Skv);
@@ -295,8 +318,8 @@ bwd_dq_kernel(const Args a) {
 #pragma unroll
       for (int c = 0; c < L::kR; ++c) {
         const int col = k0 + tx + 16 * c;
-        const bool ok = col < a.Skv && (!a.causal || row >= col);
-        const float p = ok ? expf(s[i][c] * a.scale - lse_s[r]) : 0.0f;
+        const float p =
+            masked(a, row, col) ? 0.0f : expf(s[i][c] * a.scale - lse_s[r]);
         dSs[r * L::kPLD + tx + 16 * c] = p * (dp[i][c] - delta_s[r]);
       }
     }
@@ -372,12 +395,15 @@ bwd_dkdv_kernel(const Args a) {
 
   const int n_q = (a.Sq + B - 1) / B;
   const int first = a.causal ? k0 / B : 0;   // rows >= k0 see these keys
+  // with a window, rows past k0 + B - 2 + window see none of them
+  const int end =
+      a.window > 0 ? min(n_q, (k0 + B - 2 + a.window) / B + 1) : n_q;
   for (int g = 0; g < a.G; ++g) {
     const long long h = hk * a.G + g;
     const T* q = static_cast<const T*>(a.q) + b * st[0] + h * st[1];
     const T* dO = static_cast<const T*>(a.dout) + b * st[12] + h * st[13];
     const long long row_base = (b * a.H + h) * a.Sq;
-    for (int t = first; t < n_q; ++t) {
+    for (int t = first; t < end; ++t) {
       const int q0 = t * B;
       __syncthreads();
       load_rows<T, D>(Qs, q, st[2], q0, a.Sq);
@@ -423,8 +449,9 @@ bwd_dkdv_kernel(const Args a) {
         for (int c = 0; c < L::kR; ++c) {
           const int qr = tx + 16 * c;
           const int row = q0 + qr;            // the query
-          const bool ok = col < a.Skv && (!a.causal || row >= col);
-          const float p = ok ? expf(s[i][c] * a.scale - lse_s[qr]) : 0.0f;
+          const float p = masked(a, row, col)
+                              ? 0.0f
+                              : expf(s[i][c] * a.scale - lse_s[qr]);
           Pt[r * L::kPLD + qr] = p;
           dSt[r * L::kPLD + qr] = p * (dp[i][c] - delta_s[qr]);
         }
@@ -698,12 +725,14 @@ __device__ __forceinline__ void mma_kmajor_rs(float (&d)[32],
 }
 
 struct DqTile {
-  int b, h, q0, n_kv;
+  int b, h, q0, kv0, n_kv;
 };
 
 // the dQ pass's work tile t: (batch * head, kM query rows), numbered so
-// that the heaviest causal tiles come first (K6's order)
-template <int D>
+// that the heaviest causal tiles come first (K6's order); it visits the
+// n_kv KV tiles from kv0 on: up to the diagonal, and (kWindow) from the
+// tile holding key q0 - window + 1, never none
+template <int D, bool kWindow>
 __device__ __forceinline__ DqTile dq_tile(const Args& a, int t, int n_bh) {
   using L = DqLayout<D>;
   const int n_q = (a.Sq + L::kM - 1) / L::kM;
@@ -713,17 +742,22 @@ __device__ __forceinline__ DqTile dq_tile(const Args& a, int t, int n_bh) {
   w.h = bh % a.H;
   w.q0 = (n_q - 1 - t / n_bh) * L::kM;
   const int all = (a.Skv + L::kN - 1) / L::kN;
-  w.n_kv = a.causal ? min(all, (w.q0 + L::kM - 1) / L::kN + 1) : all;
+  const int end = a.causal ? min(all, (w.q0 + L::kM - 1) / L::kN + 1) : all;
+  w.kv0 = kWindow ? min(max(0, w.q0 - a.window + 1) / L::kN, end - 1) : 0;
+  w.n_kv = end - w.kv0;
   return w;
 }
 
 struct KvTile {
-  int b, hk, k0, first, n_q;
+  int b, hk, k0, first, end;
 };
 
 // the dK/dV pass's work tile t: (batch * kv head, 128 keys), the lowest
 // keys (under the causal mask the most query tiles) first; it visits
-// query tiles [first, n_q) of 64 rows for each of its G query heads
+// query tiles [first, end) of 64 rows for each of its G query heads: from
+// the diagonal, and (kWindow) up to the tile holding row k0 + 126 +
+// window, the last that sees one of its keys
+template <bool kWindow>
 __device__ __forceinline__ KvTile kv_tile(const Args& a, int t, int n_bkv) {
   const int kv = a.H / a.G;
   const int bkv = t % n_bkv;
@@ -731,14 +765,17 @@ __device__ __forceinline__ KvTile kv_tile(const Args& a, int t, int n_bkv) {
   w.b = bkv / kv;
   w.hk = bkv % kv;
   w.k0 = (t / n_bkv) * KvLayout<64>::kN;
-  w.n_q = (a.Sq + 63) / 64;
-  w.first = a.causal ? min(w.k0 / 64, w.n_q) : 0;
+  const int n_q = (a.Sq + 63) / 64;
+  w.first = a.causal ? min(w.k0 / 64, n_q) : 0;
+  w.end = kWindow ? max(w.first, min(n_q, (w.k0 + KvLayout<64>::kN - 2 +
+                                           a.window) / 64 + 1))
+                  : n_q;
   return w;
 }
 
 // ------------------------------------------------------------- dQ pass ---
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(DqLayout<D>::kThreads, 1)
 bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
@@ -783,7 +820,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == C * 128) {
       int g = 0;                                 // KV tiles loaded so far
       for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
-        const DqTile w = dq_tile<D>(a, tile_of(ti), n_bh);
+        const DqTile w = dq_tile<D, kWindow>(a, tile_of(ti), n_bh);
         const int hk = w.h / a.G;
         if (ti > 0) mbar_wait(q_empty, (ti - 1) & 1);
         mbar_expect_tx(q_full, 2 * L::kQBytes);
@@ -800,9 +837,9 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int at = 0; at < L::kAtoms; ++at) {
             tma_load(sK + s * L::kTileBytes + at * kN * 128, &tk,
-                     full + 8 * s, at * 64, hk, j * kN, w.b);
+                     full + 8 * s, at * 64, hk, (w.kv0 + j) * kN, w.b);
             tma_load(sV + s * L::kTileBytes + at * kN * 128, &tv,
-                     full + 8 * s, at * 64, hk, j * kN, w.b);
+                     full + 8 * s, at * 64, hk, (w.kv0 + j) * kN, w.b);
           }
         }
       }
@@ -831,7 +868,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kStage = L::kTileBytes / 16;     // a stage (descriptor units)
   int g = 0;                                     // KV tiles consumed so far
   for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
-    const DqTile w = dq_tile<D>(a, tile_of(ti), n_bh);
+    const DqTile w = dq_tile<D, kWindow>(a, tile_of(ti), n_bh);
     const int qw = w.q0 + wgi * 64;
     const int row0 = qw + warp * 16 + lane / 4;  // the thread's two rows
     const long long bh = static_cast<long long>(w.b) * a.H + w.h;
@@ -888,27 +925,34 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float dq[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
-    // KV tiles this warpgroup's rows see (the block's last warpgroup sees
-    // all w.n_kv)
-    const int n_mine =
-        a.causal ? min(w.n_kv, qw / kN + 1) : w.n_kv;
+    // the work tile's KV tiles (numbered from w.kv0) this warpgroup's rows
+    // see, [m0, m1): up to its diagonal (the block's last warpgroup sees
+    // up to n_kv), and with a window from the tile holding key qw - window
+    // + 1 (the block's first warpgroup from 0); never none
+    const int m1 = a.causal ? min(w.n_kv, qw / kN + 1 - w.kv0) : w.n_kv;
+    const int m0 =
+        kWindow ? min(max(0, qw - a.window + 1) / kN - w.kv0, m1 - 1) : 0;
     mbar_wait(q_full, ti & 1);
-    // The warpgroup's KV tiles 0 .. n_mine - 1: tile j's S and dP go to the
+    // The warpgroup's KV tiles m0 .. m1 - 1: tile j's S and dP go to the
     // tensor cores together with tile j - 1's dQ += dS K (its stage sp),
     // and tile j's p and ds are formed while that product runs. No
     // product is in flight across a branch (ptxas would serialize them):
-    // tile 0 and the last product are peeled off the loop.
+    // tile m0 and the last product are peeled off the loop.
     auto form = [&](float (&sc)[32], const float (&dp)[32], int j) {
       // S -> dS in place: p = 2^(s scale log2(e) - lse log2(e)), masked
-      // only where the tile crosses the diagonal or the end of the keys
-      const int k0 = j * kN;
-      const bool edge = k0 + kN > a.Skv || (a.causal && k0 + kN - 1 > qw);
+      // only where the tile crosses the diagonal, the end of the keys or
+      // the band's lower edge
+      const int k0 = (w.kv0 + j) * kN;
+      const bool edge = k0 + kN > a.Skv || (a.causal && k0 + kN - 1 > qw) ||
+                        (kWindow && qw + 63 - k0 >= a.window);
 #pragma unroll
       for (int e = 0; e < 32; ++e) {             // element 4 n + 2 i + c
         const int i = (e >> 1) & 1;
         const int col = k0 + 8 * (e / 4) + cq + (e & 1);
+        const int row = row0 + 8 * i;
         float p = ex2(fmaf(sc[e], sl2, i ? -lse1 : -lse0));
-        if (edge && (col >= a.Skv || (a.causal && col > row0 + 8 * i))) {
+        if (edge && (col >= a.Skv || (a.causal && col > row) ||
+                     (kWindow && row - col >= a.window))) {
           p = 0.0f;
         }
         sc[e] = p * (dp[e] - (i ? del1 : del0));
@@ -918,10 +962,16 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * stage);
     };
+    // tiles below this warpgroup's band: read by the others only
+    for (int j = 0; j < m0; ++j) {
+      const int s = (g + j) % S;
+      mbar_wait(full + 8 * s, ((g + j) / S) & 1);
+      release(s);
+    }
     uint32_t df[4][4];
-    int sp = g % S;
+    int sp = (g + m0) % S;
     {
-      mbar_wait(full + 8 * sp, (g / S) & 1);
+      mbar_wait(full + 8 * sp, ((g + m0) / S) & 1);
       float sc[32], dp[32];
       wgmma_fence();
       mma_kmajor<D, kM, kN>(sc, dq_a, dk_b + sp * kStage);
@@ -930,10 +980,10 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       pin(sc);
       pin(dp);
-      form(sc, dp, 0);
+      form(sc, dp, m0);
       pack_all(df, sc);
     }
-    for (int j = 1; j < n_mine; ++j) {
+    for (int j = m0 + 1; j < m1; ++j) {
       const int s = (g + j) % S;
       mbar_wait(full + 8 * s, ((g + j) / S) & 1);
       float sc[32], dp[32];
@@ -960,7 +1010,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     pin(dq);
     release(sp);
     // tiles above this warpgroup's diagonal: read by the others only
-    for (int j = n_mine; j < w.n_kv; ++j) {
+    for (int j = m1; j < w.n_kv; ++j) {
       const int s = (g + j) % S;
       mbar_wait(full + 8 * s, ((g + j) / S) & 1);
       release(s);
@@ -977,7 +1027,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------- dK/dV pass ---
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(KvLayout<D>::kThreads, 1)
 bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
@@ -1024,7 +1074,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == C * 128) {
       int g = 0;                                 // ring tiles loaded so far
       for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
-        const KvTile w = kv_tile(a, tile_of(ti), n_bkv);
+        const KvTile w = kv_tile<kWindow>(a, tile_of(ti), n_bkv);
         if (ti > 0) mbar_wait(kv_empty, (ti - 1) & 1);
         mbar_expect_tx(kv_full, 2 * L::kKVBytes);
 #pragma unroll
@@ -1038,7 +1088,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const int h = w.hk * a.G + gq;
           const long long row_base =
               (static_cast<long long>(w.b) * a.H + h) * a.sq_pad;
-          for (int t = w.first; t < w.n_q; ++t, ++g) {
+          for (int t = w.first; t < w.end; ++t, ++g) {
             const int s = g % S;
             if (g >= S) mbar_wait(empty + 8 * s, (g / S - 1) & 1);
             mbar_expect_tx(full + 8 * s, 2 * L::kTileBytes + 2 * kM * 4);
@@ -1080,15 +1130,17 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kStage = L::kTileBytes / 16;
   int g = 0;                                     // ring tiles consumed so far
   for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
-    const KvTile w = kv_tile(a, tile_of(ti), n_bkv);
+    const KvTile w = kv_tile<kWindow>(a, tile_of(ti), n_bkv);
     const int kw = w.k0 + wgi * 64;
     const int key0 = kw + warp * 16 + lane / 4;  // the thread's two keys
     float dk[D / 2], dv[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
     mbar_wait(kv_full, ti & 1);
-    // For each query head, the warpgroup's query tiles t0 .. n_q - 1 (under
-    // the causal mask the second warpgroup's keys lie above tile `first`).
+    // For each query head, the warpgroup's query tiles t0 .. t1 - 1 (under
+    // the causal mask the second warpgroup's keys lie above tile `first`;
+    // under a window the first warpgroup's keys lie below the band of
+    // the work tile's last query tile).
     // At D 64 a tile's S^T and dP^T go to the tensor cores together with
     // the previous tile's dV and dK products (their stage sp), and its
     // p^T and ds^T are formed while those run; at D 128 the second pair
@@ -1111,7 +1163,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // S^T -> P^T and dP^T -> dS^T in place
       const float* lse2 = rows_s + s * 2 * kM;
       const float* delta = lse2 + kM;
-      const bool edge = kw + 64 > a.Skv || (a.causal && kw + 63 > q0);
+      const bool edge = kw + 64 > a.Skv || (a.causal && kw + 63 > q0) ||
+                        (kWindow && q0 + 63 - kw >= a.window);
 #pragma unroll
       for (int e = 0; e < 32; e += 2) {
         // elements e, e + 1: key key0 + 8 i, queries c, c + 1
@@ -1124,8 +1177,14 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         if (edge) {
           const int key = key0 + 8 * i;
           const int qr = q0 + c;
-          if (key >= a.Skv || (a.causal && key > qr)) p0 = 0.0f;
-          if (key >= a.Skv || (a.causal && key > qr + 1)) p1 = 0.0f;
+          if (key >= a.Skv || (a.causal && key > qr) ||
+              (kWindow && qr - key >= a.window)) {
+            p0 = 0.0f;
+          }
+          if (key >= a.Skv || (a.causal && key > qr + 1) ||
+              (kWindow && qr + 1 - key >= a.window)) {
+            p1 = 0.0f;
+          }
         }
         sc[e] = p0;
         sc[e + 1] = p1;
@@ -1153,15 +1212,19 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * stage);
     };
-    const int skip = a.causal ? min(wgi, w.n_q - w.first) : 0;
+    const int skip = a.causal ? min(wgi, w.end - w.first) : 0;
     const int t0 = w.first + skip;
+    // with a window, query rows past kw + 62 + window see none of the
+    // warpgroup's keys
+    const int t1 =
+        kWindow ? max(t0, min(w.end, (kw + 62 + a.window) / 64 + 1)) : w.end;
     for (int gq = 0; gq < a.G; ++gq) {
       for (int t = w.first; t < t0; ++t, ++g) {  // above the diagonal
         mbar_wait(full + 8 * (g % S), (g / S) & 1);
         release(g % S);
       }
       if (!kPipe) {
-        for (int t = t0; t < w.n_q; ++t, ++g) {
+        for (int t = t0; t < t1; ++t, ++g) {
           const int s = g % S;
           mbar_wait(full + 8 * s, (g / S) & 1);
           float sc[32], dp[32];
@@ -1181,7 +1244,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           pin(dk);
           release(s);
         }
-      } else if (t0 < w.n_q) {
+      } else if (t0 < t1) {
         uint32_t pf[4][4], df[4][4];
         int sp = g % S;
         {
@@ -1197,7 +1260,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           pack_all(df, dp);
         }
         ++g;
-        for (int t = t0 + 1; t < w.n_q; ++t, ++g) {
+        for (int t = t0 + 1; t < t1; ++t, ++g) {
           const int s = g % S;
           mbar_wait(full + 8 * s, (g / S) & 1);
           float sc[32], dp[32];
@@ -1222,6 +1285,10 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         pin(dv);
         pin(dk);
         release(sp);
+      }
+      for (int t = t1; t < w.end; ++t, ++g) {    // below the band
+        mbar_wait(full + 8 * (g % S), (g / S) & 1);
+        release(g % S);
       }
     }
     if constexpr (!kAfrag) {
@@ -1271,11 +1338,17 @@ int launch_wgmma(const Args& a, int B, cudaStream_t stream) {
              LK::kN) &&
       encode(fn, &v_res, a.v, D, Kv, a.Skv, B, st[7], st[8], st[6], LK::kN);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  // two instantiations: the band's masks only where a launch has one, so
+  // a causal launch runs the code it ran before the window
+  const auto dq_kernel = a.window > 0 ? wgb::bwd_dq_wgmma_kernel<D, true>
+                                      : wgb::bwd_dq_wgmma_kernel<D, false>;
+  const auto kv_kernel = a.window > 0
+                             ? wgb::bwd_dkdv_wgmma_kernel<D, true>
+                             : wgb::bwd_dkdv_wgmma_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      wgb::bwd_dq_wgmma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::kBytes);
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(wgb::bwd_dkdv_wgmma_kernel<D>,
+  err = cudaFuncSetAttribute(kv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              LK::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1296,15 +1369,13 @@ int launch_wgmma(const Args& a, int B, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int grid_q = static_cast<int>(q_tiles < sms ? q_tiles : sms);
-  wgb::bwd_dq_wgmma_kernel<D><<<grid_q, LQ::kThreads, LQ::kBytes, stream>>>(
+  dq_kernel<<<grid_q, LQ::kThreads, LQ::kBytes, stream>>>(
       q_res, do_res, k_ring, v_ring, a, n_bh, static_cast<int>(q_tiles));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid_kv = static_cast<int>(kv_tiles < sms ? kv_tiles : sms);
-  wgb::bwd_dkdv_wgmma_kernel<D>
-      <<<grid_kv, LK::kThreads, LK::kBytes, stream>>>(
-          q_ring, do_ring, k_res, v_res, a, n_bkv,
-          static_cast<int>(kv_tiles));
+  kv_kernel<<<grid_kv, LK::kThreads, LK::kBytes, stream>>>(
+      q_ring, do_ring, k_res, v_res, a, n_bkv, static_cast<int>(kv_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1314,16 +1385,19 @@ template <typename T>
 int launch(Variant variant, const void* q, const void* k, const void* v,
            const void* o, const void* dout, const float* lse, float* delta,
            void* dq, void* dk, void* dv, int B, int H, int G, int Sq,
-           int Skv, int D, int causal, float scale, const long long* st,
-           cudaStream_t stream) {
+           int Skv, int D, int causal, int window, float scale,
+           const long long* st, cudaStream_t stream) {
   if (B < 1 || H < 1 || G < 1 || H % G != 0 || Sq < 1 || Skv < 1 ||
+      window < 0 ||
       (Sq + 31) / 32 > 65535 || (Skv + 31) / 32 > 65535 ||
       static_cast<long long>(B) * H > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int sq_pad = (Sq + 63) / 64 * 64;
+  // a window of Sq or more masks nothing: the causal launch, bit for bit
   Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, H, G, Sq, Skv, causal,
-         sq_pad, static_cast<long long>(B) * H * sq_pad, scale, {}};
+         sq_pad, static_cast<long long>(B) * H * sq_pad, scale, {},
+         window >= Sq ? 0 : window};
   for (int i = 0; i < 24; ++i) a.st[i] = st[i];
   if (variant == kWgmma) {
     if constexpr (sizeof(T) == 2) {
@@ -1347,19 +1421,20 @@ int launch(Variant variant, const void* q, const void* k, const void* v,
 
 // q, k, v, o, dO, lse (B, H, Sq) float32, the float32 scratch (simt: B H
 // Sq floats; wgmma: 2 B H Sq_pad, Sq rounded up to 64), dq, dk, dv; B
-// batches of H query heads, G query heads per kv head; strides: (batch,
-// head, row) of q, k, v, o, dO, dq, dk, dv in elements, 24 in all
+// batches of H query heads, G query heads per kv head; window 0 or the
+// band's width; strides: (batch, head, row) of q, k, v, o, dO, dq, dk, dv
+// in elements, 24 in all
 #define FLASH_BWD_ENTRY(NAME, T, VARIANT)                                   \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* o, const void* dout, const void* lse,     \
                       void* delta, void* dq, void* dk, void* dv, int B,     \
                       int H, int G, int Sq, int Skv, int D, int causal,     \
-                      float scale, const long long* strides,                \
+                      int window, float scale, const long long* strides,    \
                       void* stream) {                                       \
     return launch<T>(VARIANT, q, k, v, o, dout,                             \
                      static_cast<const float*>(lse),                        \
                      static_cast<float*>(delta), dq, dk, dv, B, H, G, Sq,   \
-                     Skv, D, causal, scale, strides,                        \
+                     Skv, D, causal, window, scale, strides,                \
                      static_cast<cudaStream_t>(stream));                    \
   }
 

@@ -1586,8 +1586,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     Differentiable: when grad mode is on and q, k or v requires grad, the
     call goes through `FlashAttention`, whose forward also writes the
     rows' log-sum-exp and keeps (q, k, v, out, lse) for its backward, K6b
-    (which has no window yet: its backward raises for window > 0).
-    On CPU tensors both directions run their plain versions."""
+    (with the same window). On CPU tensors both directions run their
+    plain versions."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, sm_scale, variant,
                                     window)
@@ -1599,9 +1599,8 @@ class FlashAttention(torch.autograd.Function):
     """K6 forward with lse, K6b backward (the reference's `_flash_mha`
     custom_vjp: `_flash_mha_fwd` keeps (q, k, v, out, lse), `_flash_mha_bwd`
     recomputes p from lse). Under `torch.utils.checkpoint` the forward runs
-    again in the backward pass and that run's lse is the one K6b reads.
-    K6b has no window: with window > 0 the backward raises
-    NotImplementedError rather than return a gradient that ignores it."""
+    again in the backward pass and that run's lse is the one K6b reads,
+    with the forward's window."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, variant, window=0):
@@ -1613,15 +1612,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        if ctx.window > 0:
-            raise NotImplementedError(
-                f"flash_attention: the backward of a sliding window "
-                f"({ctx.window}) belongs to training the hybrid family, "
-                f"ROADMAP Queue 1 item 6 (g) (not ported)")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=ctx.causal,
-                                         sm_scale=ctx.sm_scale)
+                                         sm_scale=ctx.sm_scale,
+                                         window=ctx.window)
         return dq, dk, dv, None, None, None, None
 
 
@@ -1715,13 +1710,15 @@ def _flash_forward(q: Tensor, k: Tensor, v: Tensor, causal, sm_scale,
 def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                         lse: Tensor, do: Tensor, causal: bool = True,
                         sm_scale: float | None = None, *,
-                        variant: str | None = None):
+                        variant: str | None = None, window: int = 0):
     """K6b: the gradient of `flash_attention` -> (dq, dk, dv) in the
     inputs' dtype and layout, from the forward's output `out` and row
     log-sum-exp `lse` ((B, H, Sq) float32, (BH, Sq) heads first) and the
     output's gradient `do`: the reference's flash backward
     (`_flash_mha_bwd`), f32 throughout, dk and dv summed over the G query
     heads of a kv head (`ref.attention_bwd_ref` is its plain version).
+    `window` > 0 masks `qi - kj >= window` as K6 does (tiles wholly below
+    the band are skipped; a window of Sq or more is the causal launch).
 
     On the card: D 64, 128 or 256, float32 or bfloat16 (q, k, v, out and
     do alike), the strides contract of K6 (`flash_strides`; do is made
@@ -1730,9 +1727,11 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     `flash_bwd_variant` picks the kernels; `variant` names another one of
     FLASH_BWD_VARIANTS that takes the dtype and D (to time them side by
     side). Anything else raises."""
+    if window < 0:
+        raise ValueError(f"flash_attention_bwd: window {window}")
     if _on_cpu(q, k, v, out, lse, do):
         return ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
-                                     sm_scale=sm_scale)
+                                     sm_scale=sm_scale, window=window)
     q4, k4, v4, B, Sq, H, Skv, Kv, G, D = _flash_layout(
         "flash_attention_bwd", q, k, v)
     if out.shape != q.shape or do.shape != q.shape or \
@@ -1742,6 +1741,8 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                          f"against q {tuple(q.shape)} {q.dtype}")
     _check("flash_attention_bwd: lse", lse, _F32,
            (B, H, Sq) if q.ndim == 4 else (B * H, Sq))
+    if window >= Sq:               # the band masks nothing
+        window = 0
     variant = flash_bwd_checked_variant(q.dtype, D, variant)
     do = do.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -1766,8 +1767,9 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                       f"{_VALUE_TYPES[q.dtype]}")
     err = fn(_ptr(q4), _ptr(k4), _ptr(v4), _ptr(views[0]), _ptr(views[1]),
              _ptr(lse), _ptr(delta), _ptr(views[2]), _ptr(dk4), _ptr(dv4),
-             B, H, G, Sq, Skv, D, int(bool(causal)), float(sm_scale),
-             (ctypes.c_longlong * 24)(*strides), _stream(q))
+             B, H, G, Sq, Skv, D, int(bool(causal)), int(window),
+             float(sm_scale), (ctypes.c_longlong * 24)(*strides),
+             _stream(q))
     _raise_if(err, f"flash_attention_bwd ({variant})")
     _LAUNCHES["flash_attention_bwd"] += 1
     _FLASH_BWD_VARIANT_LAUNCHES[variant] += 1

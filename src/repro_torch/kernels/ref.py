@@ -469,7 +469,7 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
 
 def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                       lse: Tensor, do: Tensor, causal: bool = True,
-                      sm_scale: float | None = None):
+                      sm_scale: float | None = None, *, window: int = 0):
     """K6b's function: the gradient of `attention_ref` from the forward's
     output `out` and row log-sum-exp `lse` ((B, H, Sq) float32, or (BH,
     Sq) heads first) and the output's gradient `do`, as the reference's
@@ -477,7 +477,9 @@ def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     on dense float32 scores: p = exp(s - lse), delta = sum_d do * out,
     ds = p * (dp - delta) with dp = do v^T, dq = ds k * scale, dk = ds^T q
     * scale, dv = p^T do, dk and dv summed over the G query heads of a kv
-    head. -> (dq, dk, dv) in the inputs' dtype and layout."""
+    head; `window` > 0 masks `qi - kj >= window` as `attention_ref` does
+    (a window of Sq or more changes nothing). -> (dq, dk, dv) in the
+    inputs' dtype and layout."""
     heads_first = q.ndim == 3
     q, k, v = _model_layout(q, k, v)
     if heads_first:
@@ -486,7 +488,7 @@ def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     B, Sq, H, D = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     G = H // Kv
-    s, ok, scale = _scores(q, k, causal, sm_scale)
+    s, ok, scale = _scores(q, k, causal, sm_scale, window)
     lse = lse.reshape(B, Kv, G, Sq).to(f32)
     p = torch.exp(s - lse[..., None])
     if ok is not None:

@@ -1,22 +1,27 @@
 """LM training driver: ``python -m repro_torch.launch.train --arch <id> ...``
 
-Port of `repro.launch.train` for the dense family: config -> model ->
-AdamW (weight decay 0.01) + linear warmup (max(steps // 20, 2) steps) and
-cosine -> token pipeline -> fault-tolerant step loop with checkpoints.
-The reduced config by default; --full is the published config, on the
-card. Every flag of the reference, plus --device (cuda by default; cpu
-runs the kernels' plain versions).
+Port of `repro.launch.train`, every family (dense, moe, ssm, hybrid, vlm,
+encdec): config -> model -> AdamW (weight decay 0.01) + linear warmup
+(max(steps // 20, 2) steps) and cosine -> token pipeline -> fault-tolerant
+step loop with checkpoints. The reduced config by default; --full is the
+published config, on the card. Every flag of the reference, plus --device
+(cuda by default; cpu runs the kernels' plain versions). The pipeline's
+batches carry vlm's patches and loss_mask and encdec's frames; the patch
+and frame embeddings go to the model in its dtype (float32 numpy in the
+pipeline; `launch.specs.train_batch_specs` makes them so too), the loss
+mask in float32.
 
 One card: --data and --model-parallel above 1 raise, because the port has
 no LM sharding yet (ROADMAP Queue 1 item 6, LM data-parallel training).
-The moe, ssm, hybrid, vlm and encdec families serve (`launch.serve`) but
-do not train yet: an --arch of theirs is refused (ROADMAP Queue 1 item 6
-(g), which brings K6b's sliding window for the hybrid).
 
 Checkpoints hold the reference's tree, (params, AdamWState(step, mu, nu,
-master)) with the layers stacked on a leading axis, under its leaf names:
-a checkpoint directory written by `python -m repro.launch.train` resumes
-here and the other way (`models.convert`). A directory that already
+master)) with the layers stacked on a leading axis (`layers`, moe's
+unstacked `layer0`, the hybrid's `triples` beside its `tail_rec<j>`,
+encdec's `enc_layers` and `dec_layers`), under its leaf names, the
+float32 leaves (the MoE router, the SSM's `A_log` and `D`, the RG-LRU's
+`b_a`, `b_i` and `Lambda`) in float32: a checkpoint directory written by
+`python -m repro.launch.train` resumes here and the other way
+(`models.convert`). A directory that already
 holds a checkpoint resumes from it, as the reference's runner does.
 `REPRO_FAULT_PLAN` (`fault.inject`) drives the loop's fault hook:
 `crash_at_iter` / `delay_at_iter` count training steps.
@@ -54,11 +59,8 @@ from repro_torch.train.steps import make_train_step
 NO_SHARDING = ("the port's LM trains on one card: LM data-parallel and "
                "model-parallel training is ROADMAP Queue 1 item 6 (not "
                "ported)")
-TRAINED_FAMILIES = ("dense",)
-NOT_TRAINED = ("the port trains the dense family only; training the moe, "
-               "ssm, hybrid, vlm and encdec families (which they serve; "
-               "the hybrid's with K6b's sliding window) is ROADMAP Queue 1 "
-               "item 6 (g) (not ported)")
+# the pipeline's float32 embeddings, which go to the model in its dtype
+EMBEDDINGS = ("patches", "frames")
 
 
 class TrainCheckpoints(CheckpointManager):
@@ -82,9 +84,20 @@ class TrainCheckpoints(CheckpointManager):
     def restore(self, like, step=None):
         """The state in `like`'s key order: the global norm sums its
         leaves in dict order, so a resumed step is bit-equal only if the
-        order is the live state's."""
-        step, (params, opt) = super().restore(self._nested(like), step)
+        order is the live state's. The nested template the store reads
+        dtypes and devices from is stacked from empty tensors of the live
+        leaves' dtype and device, not from the leaves (a second copy of
+        the state on the card while the restored one is built)."""
         like_params, like_opt = like
+
+        def empty(tree):
+            return None if tree is None else \
+                {k: t.new_empty(0) for k, t in tree.items()}
+
+        template = (empty(like_params), AdamWState(
+            like_opt.step, empty(like_opt.mu), empty(like_opt.nu),
+            empty(like_opt.master)))
+        step, (params, opt) = super().restore(self._nested(template), step)
 
         def flat(tree, order):
             if tree is None:
@@ -120,8 +133,6 @@ def main(argv=None) -> dict:
                  f"{args.model_parallel}: {NO_SHARDING}")
 
     cfg = get_config(args.arch, reduced=not args.full)
-    if cfg.family not in TRAINED_FAMILIES:
-        ap.error(f"--arch {args.arch} ({cfg.family} family): {NOT_TRAINED}")
     dev = resolve_device(args.device)
     model = Model(cfg, dev)
 
@@ -140,8 +151,10 @@ def main(argv=None) -> dict:
 
     def loop_step(state, idx):
         params, opt = state
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in pipe.batch_at(idx).items()}
+        batch = {}
+        for k, v in pipe.batch_at(idx).items():
+            dtype = cfg.torch_dtype if k in EMBEDDINGS else None
+            batch[k] = torch.as_tensor(v, device=dev, dtype=dtype)
         params, opt, metrics = step_fn(params, opt, batch)
         return (params, opt), metrics
 

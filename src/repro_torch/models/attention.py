@@ -9,7 +9,7 @@ dense route below BLOCKWISE_MIN_KV keys and the blockwise route from
 there, as the reference does; the blockwise route is K6
 (`kernels.ops.flash_attention`, the reference's `_flash_fwd_scan` twin,
 with its sliding window), which reads kv head h // G in place and is
-differentiable without a window (its backward is K6b). A windowed layer's
+differentiable, window and all (its backward is K6b). A windowed layer's
 decode cache is a ring of min(max_len, window) slots, as the reference's
 hybrid cache is (`init_cache`, `fill_cache`, `decode_step`).
 """

@@ -981,12 +981,55 @@ def test_flash_attention_window_non_causal_and_strided(cuda):
     _rows_close_to(got, want, FLASH_RTOL[torch.bfloat16])
 
 
-def test_flash_attention_window_backward_raises(cuda):
-    q, k, v = _flash_inputs(cuda, 1, (1, 256, 4, 64), (1, 256, 1, 64))
-    q.requires_grad_(True)
-    out = ops.flash_attention(q, k, v, window=64)
-    with pytest.raises(NotImplementedError, match=r"item 6 \(g\)"):
-        out.float().sum().backward()
+@pytest.mark.parametrize("q_shape,kv_shape,dtype,window", [
+    ((1, 1000, 10, 256), (1, 1000, 1, 256), torch.bfloat16, 300),  # simt
+    ((1, 1000, 4, 256), (1, 1000, 1, 256), torch.float32, 77),     # simt
+    ((2, 777, 8, 64), (2, 777, 2, 64), torch.float32, 129),        # simt
+    ((2, 1000, 14, 64), (2, 1000, 2, 64), torch.bfloat16, 100),    # wgmma
+    ((1, 1500, 8, 128), (1, 1500, 8, 128), torch.bfloat16, 300),   # wgmma
+    ((1, 777, 4, 128), (1, 777, 2, 128), torch.bfloat16, 64),      # wgmma
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_window_kernel(cuda, q_shape, kv_shape, dtype,
+                                           window, causal):
+    """K6b with a sliding window, for the variant the rule picks, from
+    K6's (out, lse) with the same window, against `ref.attention_bwd_ref`
+    with it, per row; two calls bit-equal; a window of Sq is the causal
+    launch, bit for bit; and through autograd one K6 and one K6b launch."""
+    g = torch.Generator(device=cuda).manual_seed(window + causal)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in (q_shape, kv_shape, kv_shape))
+    do = torch.randn(q_shape, generator=g, device=cuda).to(dtype)
+    out, lse = ops._flash_forward(q, k, v, causal, None, None, True, window)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                  window=window)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                    window=window)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    variant = ops.flash_bwd_variant(dtype, q_shape[-1])
+    assert ops.flash_bwd_variant_counts()[variant] == 2
+    for a, b, c in zip(got, want, again):
+        _bwd_rows_close_to(a, b, FLASH_RTOL[dtype])
+        assert torch.equal(a, c)
+    out0, lse0 = ops._flash_forward(q, k, v, causal, None, None, True)
+    plain = ops.flash_attention_bwd(q, k, v, out0, lse0, do, causal=causal)
+    wide = ops.flash_attention_bwd(q, k, v, out0, lse0, do, causal=causal,
+                                   window=q_shape[1])
+    for a, b in zip(plain, wide):
+        assert torch.equal(a, b)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ops.reset_launch_counts()
+    grads = torch.autograd.grad(
+        (ops.flash_attention(qg, kg, vg, causal=causal, window=window)
+         .float() * do.float()).sum(), (qg, kg, vg))
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == \
+        (1, 1)
+    for a, b in zip(grads, want):
+        _bwd_rows_close_to(a, b, FLASH_RTOL[dtype])
 
 
 def test_hybrid_prefill_agrees_with_plain_route_f32(cuda):

@@ -356,15 +356,28 @@ def test_attend_full_blockwise_route_with_a_window():
     assert k.shape == (1, S, 1, 16)
 
 
-def test_flash_backward_refuses_a_window():
-    """K6b has no window: the backward raises rather than return a
-    gradient that ignores the band; without a window it runs."""
-    q, k, v = (t(a).requires_grad_(True) for a in _qkv(1, 32, 2, 1, 64, 5))
-    out = ops.flash_attention(q, k, v, window=8)
-    with pytest.raises(NotImplementedError, match=r"item 6 \(g\)"):
-        out.sum().backward()
-    ops.flash_attention(q, k, v).sum().backward()
-    assert q.grad is not None and torch.isfinite(q.grad).all()
+def test_flash_backward_refuses_a_window(monkeypatch):
+    """Named for the refusal it replaced: K6b now takes the window. The
+    gradient of sum(out * w) through `ops.flash_attention(..., window=8)`
+    (the autograd Function, K6b's plain version here) against jax.grad
+    through the reference's blockwise attention with the band; it
+    differs from the gradient without a window."""
+    q, k, v = _qkv(1, 32, 2, 1, 64, 5)
+    w = x((1, 32, 2, 64), 8)
+
+    def jloss(a, b, c):
+        return jnp.sum(_blockwise(a, b, c, 8, 16, monkeypatch) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                                for a in (q, k, v)))
+    tq, tk, tv = (t(a).requires_grad_(True) for a in (q, k, v))
+    got = torch.autograd.grad((ops.flash_attention(tq, tk, tv, window=8)
+                               * t(w)).sum(), (tq, tk, tv))
+    for g, wnt in zip(got, want):
+        close(g, wnt)
+    causal = torch.autograd.grad((ops.flash_attention(tq, tk, tv)
+                                  * t(w)).sum(), (tq, tk, tv))
+    assert not torch.allclose(causal[1], got[1])
 
 
 def test_flash_attention_refuses_a_negative_window():

@@ -211,22 +211,28 @@ def test_attend_full_routes_by_length(monkeypatch):
 
 
 def test_blockwise_refuses_a_window():
-    """The blockwise route takes a window forward (K6's band; its plain
-    version here, checked against the reference in
-    tests/test_torch_hybrid.py) but refuses to differentiate it: K6b has
-    no window yet (ROADMAP Queue 1 item 6 (g))."""
+    """Named for the refusal it replaced: the blockwise route with a
+    window (K6 and K6b with the band; their plain versions here) is
+    differentiable. The gradient with respect to the layer's input
+    against torch's autograd through K6's plain version with the same
+    window (`use_kernels=False`)."""
     _, _, tm = setup("qwen2-0.5b")
     cfg = tm.cfg
     S = tattn.BLOCKWISE_MIN_KV
     x = _t(_x((1, S, cfg.d_model))).requires_grad_(True)
+    w = _t(_x((1, S, cfg.d_model), seed=4))
     out, _, _ = tattn.attend_full(cfg, tm.layers[0].attn, x,
                                   torch.arange(S), window=128)
     with torch.no_grad():
         full, _, _ = tattn.attend_full(cfg, tm.layers[0].attn, x,
                                        torch.arange(S))
     assert not torch.allclose(out, full)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        out.sum().backward()
+    got, = torch.autograd.grad((out * w).sum(), x)
+    dense, _, _ = tattn.attend_full(cfg, tm.layers[0].attn, x,
+                                    torch.arange(S), window=128,
+                                    use_kernels=False)
+    want, = torch.autograd.grad((dense * w).sum(), x)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
 # -- the slice: prefill + greedy decode ---------------------------------------

@@ -5,7 +5,8 @@ uninterrupted run's losses bit for bit; a second run on the same
 directory resumes; --data / --model-parallel above 1 are refused; and
 train checkpoints cross between the packages both ways (the reference's
 `repro.launch.train.main` on a (1, 1) Auto-axes mesh, since jax 0.9's
-default Explicit axes make its model raise).
+default Explicit axes make its model raise). The other families' runs
+are in tests/test_torch_train_families_cli.py.
 
 The CLI runs are child processes with one torch thread (this file of its
 own, so that pytest's --dist loadfile puts it on another worker than the
@@ -92,16 +93,6 @@ def test_cli_refuses_lm_sharding(flag, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP Queue 1 item 6" in err and "one card" in err
-
-
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b",
-                                  "falcon-mamba-7b"])
-def test_cli_refuses_the_families_it_does_not_train(arch, capsys):
-    with pytest.raises(SystemExit) as exc:
-        ttrain.main(["--device", "cpu", "--arch", arch])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP Queue 1 item 6 (g)" in err and arch in err
 
 
 @pytest.fixture
