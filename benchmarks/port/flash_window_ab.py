@@ -2,7 +2,8 @@
 """K6 (`kernels/csrc/flash_attention.cu`) and K6b
 (`kernels/csrc/flash_attention_bwd.cu`) of this tree against a parent's
 built from its source, on one card: the A/B of a change to the flash
-forward or backward that must leave the causal launch as it was.
+forward or backward that must leave the launches it does not touch as
+they were.
 
     # the parent's source unpacked in a directory .gitignore lists:
     #   git archive <parent> src | tar -x -C build/ab/parent
@@ -10,27 +11,32 @@ forward or backward that must leave the causal launch as it was.
         [--kernels fwd,bwd]
 
 The parent's source is compiled with this tree's nvcc flags into
-`build/ab/` and bound through its entries' interface before the sliding
-window: K6's (q, k, v, o, lse, B, H, G, Sq, Skv, D, causal, scale, 12
-strides, stream), K6b's (q, k, v, o, dO, lse, the scratch, dq, dk, dv,
-B, H, G, Sq, Skv, D, causal, scale, 24 strides, stream); this tree's
-kernels run through `ops.flash_attention` and `ops.flash_attention_bwd`.
-On the same inputs (seeded, model layout), for each case and each of
-causal and non-causal, window 0: the two outputs (K6b: dq, dk and dv,
-from this tree's K6 out and lse) bit-equal. At the long bf16 cases (K6:
-qwen2-0.5b's, deepseek-moe-16b's, pixtral-12b's and recurrentgemma-2b's
-prefill shapes; K6b: the train steps' shapes, qwen2-0.5b's and the
-ftrain runs' moe, vlm and hybrid ones) the causal launch's device us by
-CUDA events with L2 flushed before each call (a 128 MB write),
-interleaved parent, change, change, parent; at recurrentgemma's shape
-also the change with its window of 2048. With `--sass`, each parent
-kernel's machine code (`cuobjdump -sass` of the two libraries) against
-the change's instantiation without the window (`<D, false>`), the
-constant-bank operands (the kernel parameters' offsets) and the
-instructions' addresses left out: equal streams mean a causal launch
-runs the parent's instructions. Prints a line a case, then one JSON
-line with every reading and the card's name and power limit. Imports
-neither jax nor the JAX package.
+`build/ab/` and bound through its entries' interface since the sliding
+window: K6's (q, k, v, o, lse, B, H, G, Sq, Skv, D, causal, window,
+scale, 12 strides, stream), K6b's (q, k, v, o, dO, lse, the scratch, dq,
+dk, dv, B, H, G, Sq, Skv, D, causal, window, scale, 24 strides, stream);
+this tree's kernels run through `ops.flash_attention` and
+`ops.flash_attention_bwd`, each case on the variant it names (K6b's
+recurrentgemma-2b case on `simt`, which takes bf16 at D 256 by name
+since `wgmma` took it over by the rule). On the same inputs (seeded,
+model layout), for each case and each of causal and non-causal, window
+0 and, for K6b, recurrentgemma-2b's window of 2048: the two outputs
+(K6b: dq, dk and dv, from this tree's K6 out and lse) bit-equal. At the
+long bf16 cases (K6: qwen2-0.5b's, deepseek-moe-16b's,
+pixtral-12b's and recurrentgemma-2b's prefill shapes; K6b: the train
+steps' shapes, qwen2-0.5b's and the ftrain runs' moe, vlm and hybrid
+ones) the causal launch's device us by CUDA events with L2 flushed
+before each call (a 128 MB write), interleaved parent, change, change,
+parent; at recurrentgemma's shape also the change with its window of
+2048 (K6b: with this tree's rule's variant, and the parent's `simt` with
+the window, interleaved). With `--sass`, each parent kernel's machine
+code (`cuobjdump -sass` of the two libraries) against the change's
+kernel of the same name, or its instantiation without the window (`<D,
+false>`), the constant-bank operands (the kernel parameters' offsets)
+and the instructions' addresses left out: equal streams mean a launch
+runs the parent's instructions. Prints a line a case, then one JSON line
+with every reading and the card's name and power limit. Imports neither
+jax nor the JAX package.
 """
 from __future__ import annotations
 
@@ -115,13 +121,13 @@ def main(argv=None) -> dict:
     if "fwd" in kernels:
         lib = libs["flash_attention"] = parent_lib("flash_attention", (
             "flash_attention_wgmma_bf16", "flash_attention_mma_bf16",
-            "flash_attention_f32"), 5, 7)
+            "flash_attention_f32"), 5, 8)
         out["cases"] = forward_ab(torch, ops, lib, flush_buf)
     if "bwd" in kernels:
         lib = libs["flash_attention_bwd"] = parent_lib(
             "flash_attention_bwd", (
             "flash_attention_bwd_wgmma_bf16", "flash_attention_bwd_simt_bf16",
-            "flash_attention_bwd_simt_f32"), 10, 7)
+            "flash_attention_bwd_simt_f32"), 10, 8)
         out["bwd_cases"] = backward_ab(torch, ops, lib, flush_buf)
     out["all_bits_equal"] = all(
         v for r in out.get("cases", []) + out.get("bwd_cases", [])
@@ -211,7 +217,7 @@ def forward_ab(torch, ops, lib, flush_buf) -> list:
         fn = getattr(lib, "flash_attention_f32" if variant == "f32" else
                      f"flash_attention_{variant}_bf16")
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None, B, H, H // Kv, Sq, Skv, D, int(causal),
+                 None, B, H, H // Kv, Sq, Skv, D, int(causal), 0,
                  float(D ** -0.5), (ctypes.c_longlong * 12)(*st),
                  torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
@@ -258,7 +264,7 @@ def backward_ab(torch, ops, lib, flush_buf) -> list:
     this tree's K6 out and lse."""
     dev = flush_buf.device
 
-    def parent(q, k, v, out, lse, do, causal, variant):
+    def parent(q, k, v, out, lse, do, causal, variant, window=0):
         B, Sq, H, D = q.shape
         Skv, Kv = k.shape[1], k.shape[2]
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -272,7 +278,8 @@ def backward_ab(torch, ops, lib, flush_buf) -> list:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, H // Kv,
-                 Sq, Skv, D, int(causal), float(D ** -0.5),
+                 Sq, Skv, D, int(causal), window if window < Sq else 0,
+                 float(D ** -0.5),
                  (ctypes.c_longlong * 24)(*st),
                  torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
@@ -296,6 +303,16 @@ def backward_ab(torch, ops, lib, flush_buf) -> list:
             row[f"bits_equal_{'causal' if causal else 'non_causal'}"] = \
                 all(torch.equal(x, y) for x, y in zip(a, b))
             del a, b
+            wout, wlse = ops._flash_forward(q, k, v, causal, None, None,
+                                            True, WINDOW)
+            a = parent(q, k, v, wout, wlse, do, causal, variant, WINDOW)
+            b = ops.flash_attention_bwd(q, k, v, wout, wlse, do,
+                                        causal=causal, variant=variant,
+                                        window=WINDOW)
+            torch.cuda.synchronize()
+            row[f"bits_equal_{'causal' if causal else 'non_causal'}"
+                f"_window"] = all(torch.equal(x, y) for x, y in zip(a, b))
+            del a, b, wout, wlse
         if timed:
             out, lse = ops._flash_forward(q, k, v, True, None, None, True)
 
@@ -312,12 +329,20 @@ def backward_ab(torch, ops, lib, flush_buf) -> list:
                     torch, theirs if side == "parent" else mine, flush_buf,
                     BWD_TIMED_CALLS))
             if variant == "simt" and dtype == "bfloat16":
+                # the train step's launch: the rule's variant with the
+                # window, against the parent's (simt) with it
                 wout, wlse = ops._flash_forward(q, k, v, True, None, None,
                                                 True, WINDOW)
-                row["window_us"] = [cold_us(
-                    torch, lambda: ops.flash_attention_bwd(
-                        q, k, v, wout, wlse, do, window=WINDOW), flush_buf,
-                    BWD_TIMED_CALLS) for _ in range(2)]
+                row["window_variant"] = ops.flash_bwd_variant(dt, q.shape[-1])
+                row["window_us"] = {"parent": [], "change": []}
+                for side in ("parent", "change", "change", "parent"):
+                    row["window_us"][side].append(cold_us(
+                        torch, (lambda: parent(q, k, v, wout, wlse, do, True,
+                                               "simt", WINDOW))
+                        if side == "parent" else
+                        (lambda: ops.flash_attention_bwd(
+                            q, k, v, wout, wlse, do, window=WINDOW)),
+                        flush_buf, BWD_TIMED_CALLS))
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows

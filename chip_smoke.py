@@ -70,13 +70,17 @@ Phases:
                  bound, the plain version and the library's backward;
                  K6b's sliding window at the hybrid train run's shape
                  (B 1 x 10 heads over 1, S 4096, D 256, window 2048,
-                 `simt`) per row, the band planted one key wide as a
-                 control, a window of S bit-equal to the causal launch,
-                 timed with the band's bound, the plain version and
-                 SDPA's backward with the band as a mask; then float32
-                 and `wgmma` (D 128 and 64) with a window; K6b at the moe
-                 and vlm train runs' shapes (G 1 at D 128; 32 heads over
-                 8 at 4352), timed beside SDPA's backward.
+                 `wgmma`, `simt` held beside it) per row, the band
+                 planted one key wide as a control, a window of S
+                 bit-equal to the causal launch, timed with the band's
+                 bound, the plain version, `simt` and SDPA's backward
+                 with the band as a mask; then bf16 D 256 ragged with a
+                 window of 777, float32 and `wgmma` (D 128 and 64) with
+                 a window; K6b at gemma-7b's train shape (B 1 x 16 heads
+                 over 16, S 4096, D 256, causal) beside `simt` and SDPA's
+                 backward; K6b at the moe and vlm train runs' shapes (G
+                 1 at D 128; 32 heads over 8 at 4352), timed beside
+                 SDPA's backward.
   3. tune     -- the autotuner (`kernels.autotune`) at benchmarks/port/
                  bench_kernels.py's full cells (the shapes above; K1-K3
                  also in bf16): every key tuned into a cache of the run's
@@ -286,7 +290,7 @@ Phases:
                  remat, 8 steps at lr 3e-4 (falcon-mamba 16), at full
                  width with the depth cut by the child's `--family-train`
                  wrapper (recurrentgemma-2b 5 of 26 layers: a triple and
-                 2 tail rec layers, 1 x 4096: K6 `mma` and K6b `simt`
+                 2 tail rec layers, 1 x 4096: K6 `mma` and K6b `wgmma`
                  with the window 2048; deepseek-moe-16b 2 of 28, 1 x
                  4096; pixtral-12b 2 of 40, 1 x 4096 text after 256
                  patches; falcon-mamba-7b 4 of 64, 1 x 2048; whisper-small
@@ -605,6 +609,9 @@ LSE_ATOL = 1e-4
 # the band one key too wide (a key j counts when i - j <= window)
 BWD_FAULTS = ("key tile", "delta")
 BWD_WINDOW_FAULT = "band"
+# K6b at D 256 without a window, G 1: the kernels phase times it at this
+# config's train shape (B 1 x 4096)
+GEMMA_ARCH = "gemma-7b"
 
 # the train phase: qwen2-0.5b at its published width, batch 4 x 4096
 # tokens (the lm phase's prefill shape: K6 and K6b in every layer),
@@ -2448,15 +2455,18 @@ def flash_bwd_checks(torch, flush) -> dict:
     held first to the plain version's, LSE_ATOL): at the train phase's
     shape (qwen2-0.5b, B 4 x S 4096, 14 heads over 2, D 64) in bf16 and
     float32, ragged (S 4000), at D 128 (yi-6b's heads) and D 256
-    (gemma-7b's; float32 with Sq != Skv, non-causal). dq, dk, dv per row
-    (`bwd_row_rel_err`, BWD_RTOL); two calls bit-equal, counted under
-    the variant the rule picks (`ops.flash_bwd_variant`: wgmma for bf16 at
-    D 64 and 128, simt for float32 and D 256), which each case logs; at
-    the train shape in bf16 the simt variant is held too; the planted
-    BWD_FAULTS read at the train shape. Timed at the train shape in bf16
+    (gemma-7b's heads in bf16; bf16 and float32 with Sq != Skv,
+    non-causal). dq, dk, dv per row (`bwd_row_rel_err`, BWD_RTOL); two
+    calls bit-equal, counted under the variant the rule picks
+    (`ops.flash_bwd_variant`: wgmma for bf16, simt for float32), which
+    each case logs; at the train shape and in each bf16 D 256 case the
+    simt variant is held too; the planted BWD_FAULTS read at the train
+    shape and in each bf16 D 256 case. Timed at the train shape in bf16
     (L2-cold and warm; simt L2-cold beside it, `variant_ms`), with its
     bound (`work.flash_bwd_work`), the plain version and the library's
-    backward (scaled_dot_product_attention, timed only)."""
+    backward (scaled_dot_product_attention, timed only); then the window
+    (`flash_bwd_window_checks`), gemma-7b's train shape
+    (`flash_bwd_gemma_timing`) and the moe and vlm train runs' shapes."""
     from repro_torch.kernels import ops, ref
 
     inputs, case = bwd_cases(torch)
@@ -2519,12 +2529,17 @@ def flash_bwd_checks(torch, flush) -> dict:
     case("yi-6b heads (D 128)", *inputs((1, 2048, 32, 128), (1, 2048, 4, 128),
                                         torch.bfloat16), True)
     case("gemma-7b heads (D 256)", *inputs(
-        (1, 2048, 16, 256), (1, 2048, 16, 256), torch.bfloat16), True)
+        (1, 2048, 16, 256), (1, 2048, 16, 256), torch.bfloat16), True,
+        BWD_FAULTS, variants=(None, "simt"))
+    case("bf16 D 256, Sq != Skv", *inputs(
+        (1, 1000, 16, 256), (1, 1500, 16, 256), torch.bfloat16), False,
+        BWD_FAULTS, variants=(None, "simt"))
     case("float32 D 256, Sq != Skv", *inputs(
         (1, 1000, 16, 256), (1, 1500, 16, 256), torch.float32), False)
     gc.collect()
     torch.cuda.empty_cache()
     r["window"] = flash_bwd_window_checks(torch, flush, case, inputs)
+    r["gemma"] = flash_bwd_gemma_timing(torch, flush, case, inputs)
     for arch in (MOE_ARCH, VLM_ARCH):
         r[FTRAIN_LABEL[arch]] = flash_bwd_family_timing(torch, flush, case,
                                                         inputs, arch)
@@ -2577,12 +2592,14 @@ def flash_bwd_window_checks(torch, flush, case, inputs) -> dict:
     """K6b's sliding window (the flash backward of recurrentgemma-2b's
     local attention), per row against `ref.attention_bwd_ref(window=)`:
     at the hybrid train run's shape (B 1 x 10 heads over 1, S 4096, D 256,
-    window 2048, bf16: `simt`), the band planted one key too wide in the
-    plain version as a control (BWD_WINDOW_FAULT), two calls bit-equal, a
-    window of S bit-equal to the causal launch; timed L2-cold and warm
-    with the band's bound, the plain version and SDPA's backward with the
-    band as a boolean mask; then float32 (`simt`, a shorter S still past
-    the window) and `wgmma` at D 64 and 128 with a window. -> the hybrid
+    window 2048, bf16: `wgmma`, and `simt` held beside it), the band
+    planted one key too wide in the plain version as a control
+    (BWD_WINDOW_FAULT), two calls bit-equal, a window of S bit-equal to
+    the causal launch; timed L2-cold and warm with the band's bound, the
+    plain version, `simt` (`variant_ms`) and SDPA's backward with the
+    band as a boolean mask; then bf16 at D 256 with a ragged S and a
+    window off the tiles, float32 (`simt`, a shorter S still past the
+    window) and `wgmma` at D 64 and 128 with a window. -> the hybrid
     shape's readings."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2592,7 +2609,8 @@ def flash_bwd_window_checks(torch, flush, case, inputs) -> dict:
     _, B, S, _ = FTRAIN[HYBRID_ARCH]
     q, k, v, do = inputs((B, S, H, D), (B, S, Kv, D), torch.bfloat16)
     err, out, lse = case(f"{HYBRID_ARCH} train", q, k, v, do, True,
-                         (BWD_WINDOW_FAULT,), window=W)
+                         (BWD_WINDOW_FAULT,), variants=(None, "simt"),
+                         window=W)
     causal_out, causal_lse = ops._flash_forward(q, k, v, True, None, None,
                                                 True)
     whole = all(torch.equal(a, b) for a, b in zip(
@@ -2605,6 +2623,10 @@ def flash_bwd_window_checks(torch, flush, case, inputs) -> dict:
     del causal_out, causal_lse
     r = flash_bwd_timings(torch, flush, q, k, v, out, lse, do, W)
     r["max_abs_err"] = err
+    r["variant_ms"] = {r["variant"]: r["ms"], "simt": device_ms(
+        torch, lambda: ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                               variant="simt", window=W),
+        3, flush)}
     work = _port_bench("work")
     r["pairs"] = work.attention_pairs(S, S, True, W)
     r["causal_pairs"] = work.attention_pairs(S, S, True)
@@ -2614,17 +2636,54 @@ def flash_bwd_window_checks(torch, flush, case, inputs) -> dict:
         f"{r['bound'][0] / r['ms']:.4f} of its bound "
         f"{r['bound'][0] * 1e3:.1f} us, {r['bound'][1]}; {r['pairs']} "
         f"pairs a head against causal's {r['causal_pairs']}), warm "
-        f"{r['warm_ms'] * 1e3:.2f} us; plain {r['plain_ms'] * 1e3:.2f} us; "
-        f"library (SDPA backward with the band as a mask) "
-        f"{r['library_ms'] * 1e3:.2f} us")
+        f"{r['warm_ms'] * 1e3:.2f} us; simt "
+        f"{r['variant_ms']['simt'] * 1e3:.2f} us; plain "
+        f"{r['plain_ms'] * 1e3:.2f} us; library (SDPA backward with the "
+        f"band as a mask) {r['library_ms'] * 1e3:.2f} us")
     del q, k, v, do, out, lse
     free_card(torch)
+    case("bf16 D 256, ragged, window 777", *inputs(
+        (2, 3000, H, D), (2, 3000, Kv, D), torch.bfloat16), True,
+        (BWD_WINDOW_FAULT,), variants=(None, "simt"), window=777)
     case("float32, window", *inputs((1, 3072, H, D), (1, 3072, Kv, D),
                                     torch.float32), True, window=W)
     case("wgmma D 128, window", *inputs((2, 4096, 8, 128), (2, 4096, 2, 128),
                                         torch.bfloat16), True, window=1000)
     case("wgmma D 64, window", *inputs((1, 2500, 14, 64), (1, 2500, 2, 64),
                                        torch.bfloat16), True, window=333)
+    free_card(torch)
+    return r
+
+
+def flash_bwd_gemma_timing(torch, flush, case, inputs) -> dict:
+    """K6b at gemma-7b's train shape (B 1 x 16 heads over 16, S 4096, D
+    256, causal, bf16: `wgmma`), per row against the plain version with
+    `simt` held beside it and BWD_FAULTS read past the limit, then timed
+    with `simt` (`variant_ms`), SDPA's causal backward, the plain version
+    and the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    cfg = get_config(GEMMA_ARCH)
+    H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v, do = inputs((1, TRAIN_SEQ, H, D), (1, TRAIN_SEQ, Kv, D),
+                         torch.bfloat16)
+    err, out, lse = case(f"{GEMMA_ARCH} train", q, k, v, do, True,
+                         BWD_FAULTS, variants=(None, "simt"))
+    r = flash_bwd_timings(torch, flush, q, k, v, out, lse, do)
+    r["max_abs_err"] = err
+    r["variant_ms"] = {r["variant"]: r["ms"], "simt": device_ms(
+        torch, lambda: ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                               variant="simt"), 3, flush)}
+    log(f"[kernels] flash_attention_bwd at {GEMMA_ARCH}'s train shape "
+        f"({r['shape']}, variant {r['variant']}): L2-cold "
+        f"{r['ms'] * 1e3:.2f} us ({r['gflop'] / r['ms']:.2f} TFLOP/s, "
+        f"{r['bound'][0] / r['ms']:.4f} of its bound "
+        f"{r['bound'][0] * 1e3:.1f} us, {r['gflop']:.1f} GFLOP), warm "
+        f"{r['warm_ms'] * 1e3:.2f} us; simt "
+        f"{r['variant_ms']['simt'] * 1e3:.2f} us; plain "
+        f"{r['plain_ms'] * 1e3:.2f} us; library (SDPA's causal backward) "
+        f"{r['library_ms'] * 1e3:.2f} us")
+    del q, k, v, do, out, lse
     free_card(torch)
     return r
 
@@ -6431,15 +6490,19 @@ def run_phases(torch, phases) -> int:
                     "bound_ms": w["bound"][0], "bound_by": w["bound"][1],
                     "library_ms": w["library_ms"],
                     "causal_ms": w.get("causal_ms"),
+                    "variant_ms": w.get("variant_ms"),
                     "max_abs_err": w["max_abs_err"]}
-            for arch in (MOE_ARCH, VLM_ARCH):   # K6b at a train run's shape
-                t = r.get(FTRAIN_LABEL[arch])
+            # K6b at a train run's shape, and at gemma-7b's
+            for label in (FTRAIN_LABEL[MOE_ARCH], FTRAIN_LABEL[VLM_ARCH],
+                          "gemma"):
+                t = r.get(label)
                 if t is not None:
-                    row[f"{FTRAIN_LABEL[arch]}_train"] = {
+                    row[f"{label}_train"] = {
                         "shape": t["shape"], "ms": t["ms"],
                         "warm_ms": t["warm_ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                         "library_ms": t["library_ms"],
+                        "variant_ms": t.get("variant_ms"),
                         "max_abs_err": t["max_abs_err"]}
             row.update(extra.get(name, {}))
             if name == "pcdn_linesearch" and "scdn" in phases:

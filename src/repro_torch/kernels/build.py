@@ -118,9 +118,10 @@ SIGNATURES = {
            for t in ("wgmma_bf16", "mma_bf16", "f32")},
         "flash_attention_encode_ns": []},
     # q, k, v, o, dO, lse, the scratch, dq, dk, dv, B, H, G, Sq, Skv, D,
-    # causal, window, scale, 24 strides, stream
+    # causal, window, splits, scale, 24 strides, stream; wgmma: bf16 at D
+    # 64, 128 and 256 (ops.FLASH_BWD_VARIANTS)
     "flash_attention_bwd": {
-        f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 8 + [_F, _L, _P]
+        f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 9 + [_F, _L, _P]
         for t in ("wgmma_bf16", "simt_bf16", "simt_f32")},
 }
 

@@ -26,8 +26,10 @@
 // window.
 //
 // Deterministic, with no floating-point atomics, in both variants: two
-// launches, a dQ pass (which forms delta first) and then a dK/dV pass,
-// every sum in one fixed order, so two calls are bit-equal. S and dP are
+// launches, a dQ pass (which forms delta first) and then a dK/dV pass
+// (at D 256 in bf16 a third, short one that adds the dK/dV pass's splits
+// in split order), every sum in one fixed order, so two calls are
+// bit-equal. S and dP are
 // formed in both passes: 7 products of 2 S^2 D a head where 5 would do
 // (a 5-product design must sum dQ across KV tiles in a fixed order).
 //
@@ -40,7 +42,7 @@
 //
 // Two variants, chosen by the dispatcher (kernels/ops.py) from the dtype
 // and D alone, each counted on its own:
-//   * wgmma (bf16, D 64 and 128): both passes persistent and
+//   * wgmma (bf16, D 64 and 128; D 256 below): both passes persistent and
 //     warp-specialised like K6's wgmma kernel: one block an SM walking
 //     work tiles heaviest-first in rounds of alternating direction
 //     (`tile_of`); a producer warpgroup, registers lowered by setmaxnreg,
@@ -100,12 +102,57 @@
 //     At the train shape the dK/dV pass has 256 work tiles of G (64 - 2 j)
 //     query-tile steps; the alternating rounds give the busiest of the
 //     132 blocks 448 steps against a mean of 448 (one direction: 672).
-//   * simt (float32 at every D, bf16 at D 256): every product on the CUDA
-//     cores in f32 from shared memory (each thread a 4 x 4 piece of a
-//     64 x 64 tile, BM = BN = 64 at D 64 and 128, 32 at D 256 so the four
-//     f32 tiles fit), no asynchronous copies. float32 stays here: a
-//     tensor-core product would round its operands to tf32 (~1e-3
-//     against the 1e-4 limit).
+//   * wgmma at D 256 (gemma-7b's and recurrentgemma-2b's heads): the same
+//     producer, rings and persistent rounds, with its own blocks
+//     (`DqLayout<256>`, `KvLayout<256>`) because a 64-row tile of D 256
+//     is 32 KB in shared memory and a 64 x 256 f32 accumulator 128
+//     registers a thread of a warpgroup:
+//       - Registers. The dK/dV pass cannot hold dK and dV (256 registers)
+//         for 64 keys in one warpgroup, nor the dQ pass dQ (128) beside S,
+//         dP (32 each) and a pipelined tile. So both passes give a work
+//         tile of 64 rows to two consumer warpgroups that split D: each
+//         sums its 128 columns (dQ: 64 registers; dK and dV: 128), beside
+//         one 32-register score tile: warpgroup 0 forms S (S^T) = Q K^T,
+//         warpgroup 1 dP (dP^T) = dO V^T, once; 1 puts dP in f32 into
+//         shared memory in its register order (16 KB); 0 forms p and ds =
+//         p (dP - delta) and writes dS (and P^T) in bf16 as 128-byte
+//         swizzled K-major tiles (8 KB each) that both read as the A
+//         operand of dQ += dS K (dV += P^T dO, dK += dS^T Q) over their
+//         columns (ss, B MN-major, n 128). Named barriers hand dP, dS
+//         and the tiles' release between the two. 168 registers, no
+//         spills (ptxas).
+//       - Shared memory. Two resident 64-row tiles (64 KB) and two ring
+//         stages of two 64-row tiles (128 KB), plus dS (P^T), dP and the
+//         rows: 222,768 bytes (dQ) and 231,472 (dK/dV) of 232,448. Four
+//         stages do not fit; resident Q and dO for 128 rows (as at D 128)
+//         leave room for one 64-key stage, or for 32-key ring tiles whose
+//         n 32 products, both operands in shared memory, ask more bytes a
+//         clock than the SM's shared memory gives (a dQ pass built so ran
+//         slower on the card than this one). The dQ pass keeps Q and dO
+//         in registers as the A operands of S and dP (64 a thread), so
+//         those products read only K and V from shared memory.
+//       - Parallelism. The dK/dV pass's work tiles are (batch * kv head,
+//         64 keys): 64 at the hybrid's train shape (1 kv head, S 4096) for
+//         132 SMs. When they are fewer than the SMs, `splits` CTAs share
+//         each (ops.flash_bwd_splits picks the count, at most kMaxSplits,
+//         whose busiest block has the least work: 6 there), each taking a
+//         contiguous share of the tile's G query heads x query tiles, and
+//         write f32 sums to the scratch; `dkdv_sum_kernel` adds them in
+//         split order (no atomics). The dQ pass has (batch * head, 64
+//         rows) tiles: 640 at the hybrid's shape.
+//       - The band. Each pass's KV range (dQ: from the tile of key q0 -
+//         window + 1) and query range (dK/dV: up to the tile of row k0 +
+//         62 + window) is bounded by it, per work tile (both warpgroups
+//         hold all of the tile's rows).
+//     Both passes issue the next tile's S (S^T) with this tile's gradient
+//     products in warpgroup 0 and the next dP (dP^T) before them in 1, so
+//     the tensor cores have work while 0 forms p and ds.
+//   * simt (float32 at every D; bf16 through `variant="simt"`): every
+//     product on the CUDA cores in f32 from shared memory (each thread a
+//     4 x 4 piece of a 64 x 64 tile, BM = BN = 64 at D 64 and 128, 32 at
+//     D 256 so the four f32 tiles fit), no asynchronous copies. float32
+//     stays here: a tensor-core product would round its operands to tf32
+//     (~1e-3 against the 1e-4 limit).
 //       - dQ pass: a block per (batch * head, BM query rows). It forms
 //         delta for its rows (a warp a row, a fixed butterfly), writes it
 //         to the (B, H, Sq) scratch, then walks the KV tiles up to the
@@ -592,6 +639,116 @@ struct KvLayout {
   // kv_full, kv_empty, full[stages], empty[stages]
   static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
 };
+
+// the dQ pass's block at D 256 (`bwd_dq_d256_kernel`): 64 query rows a
+// work tile, held by two consumer warpgroups that split D (warpgroup w
+// sums dQ for columns [128 w, 128 w + 128)), and one producer warpgroup.
+// Shared memory: Q, dO (resident, 32 KB each), two stages of K and V (64
+// KB a stage), dS in bf16 (8 KB, 128-byte swizzled: both warpgroups' A
+// operand of dQ += dS K), dP in f32 (16 KB, in the accumulator's register
+// order), lse log2(e) and delta of the rows, then the mbarriers: 222,768
+// bytes. (Resident Q and dO for 128 rows, as at D 128, leave room for
+// one 64-key stage only, or for 32-key ring tiles, whose S and dP
+// products (n 32, both operands in shared memory) ask more bytes of
+// shared memory a clock than the SM delivers.)
+template <>
+struct DqLayout<256> {
+  static constexpr int kConsumers = 2;
+  static constexpr int kM = 64;                // query rows a work tile
+  static constexpr int kN = 64;                // keys a ring tile
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+  static constexpr int kAtoms = 4;
+  static constexpr int kQBytes = kM * 256 * 2;
+  static constexpr int kTileBytes = kN * 256 * 2;
+  static constexpr int kDO = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kDS = kV + kStages * kTileBytes;
+  static constexpr int kX = kDS + kM * kN * 2;
+  static constexpr int kRows = kX + kM * kN * 4;
+  static constexpr int kBars = kRows + 2 * kM * 4;
+  // q_full, q_empty, full[stages], empty[stages]
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "K6b's D 256 dQ block");
+};
+
+// the dK/dV pass's block at D 256 (`bwd_dkdv_d256_kernel`): 64 keys a
+// work tile, held by two consumer warpgroups that split D, warpgroup w
+// summing dK and dV for columns [128 w, 128 w + 128); one producer
+// warpgroup. Shared memory: K, V (resident, 32 KB each), two stages of
+// Q and dO (64 KB a stage), P^T and dS^T in bf16 (8 KB each, 128-byte
+// swizzled, the A operands of both warpgroups' dV and dK products), dP^T
+// in f32 (16 KB, in the accumulator's register order), the stages' lse
+// log2(e) and delta, then the mbarriers: 231,472 bytes of the 232,448 a
+// block may have.
+template <>
+struct KvLayout<256> {
+  static constexpr int kConsumers = 2;
+  static constexpr int kN = 64;                // keys a work tile
+  static constexpr int kM = 64;                // query rows a ring tile
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+  static constexpr int kAtoms = 4;
+  static constexpr int kKVBytes = kN * 256 * 2;
+  static constexpr int kTileBytes = kM * 256 * 2;
+  static constexpr int kV = kKVBytes;
+  static constexpr int kQ = 2 * kKVBytes;
+  static constexpr int kDO = kQ + kStages * kTileBytes;
+  static constexpr int kP = kDO + kStages * kTileBytes;
+  static constexpr int kDS = kP + kN * kM * 2;
+  static constexpr int kX = kDS + kN * kM * 2;
+  static constexpr int kRows = kX + kN * kM * 4;
+  static constexpr int kBars = kRows + kStages * 2 * kM * 4;
+  // kv_full, kv_empty, full[stages], empty[stages]
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "K6b's D 256 dK/dV block");
+};
+
+// the most CTAs that share one work tile of the D 256 dK/dV pass (its
+// G query heads' query tiles split between them; ops.FLASH_BWD_MAX_SPLITS)
+constexpr int kMaxSplits = 8;
+
+// d (64 x 128, f32) += A (64 x 16, shared memory, K-major) * B (16 x 128,
+// shared memory, MN-major)
+__device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
 
 // A (64 x D) * B^T as D / 16 steps of 16 over two K-major tiles: a step
 // moves 32 bytes along a 128-byte swizzled row, or on to the next atom
@@ -1305,12 +1462,712 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------ dK/dV pass at D 256 ---
+
+struct KvSplit {
+  int bkv, b, hk, k0, c, first, nt, p0, p1;
+};
+
+// the D 256 dK/dV pass's work tile t: (batch * kv head, split c, 64
+// keys), the lowest keys first. Its G query heads' query tiles [first,
+// first + nt) of 64 rows (from the diagonal, and (kWindow) up to the tile
+// holding row k0 + 62 + window, the last that sees one of its keys) are
+// numbered p = g nt + (tile - first) and cut into `splits` runs: split c
+// takes [p0, p1), possibly none
+template <bool kWindow>
+__device__ __forceinline__ KvSplit kv_split(const Args& a, int t, int n_bkv,
+                                            int splits) {
+  using L = KvLayout<256>;
+  const int kv = a.H / a.G;
+  KvSplit w;
+  w.bkv = t % n_bkv;
+  w.b = w.bkv / kv;
+  w.hk = w.bkv % kv;
+  const int r = t / n_bkv;
+  w.c = r % splits;
+  w.k0 = (r / splits) * L::kN;
+  const int n_q = (a.Sq + L::kM - 1) / L::kM;
+  w.first = a.causal ? min(w.k0 / L::kM, n_q) : 0;
+  const int end =
+      kWindow ? max(w.first,
+                    min(n_q, (w.k0 + L::kN - 2 + a.window) / L::kM + 1))
+              : n_q;
+  w.nt = end - w.first;
+  const int n = a.G * w.nt;
+  w.p0 = w.c * n / splits;
+  w.p1 = (w.c + 1) * n / splits;
+  return w;
+}
+
+// a 64 x N accumulator (as store_rows) in f32 to rows < n_rows of out
+template <int N>
+__device__ __forceinline__ void store_rows_f32(float* out, long long ss,
+                                               const float (&acc)[N / 2],
+                                               int r0, int cq, int n_rows) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r < n_rows) {
+      float* row = out + r * ss + cq;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) {
+        *reinterpret_cast<float2*>(row + 8 * n) =
+            make_float2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// named barriers between the two consumer warpgroups of the D 256
+// passes (bar_sync / bar_arrive, 256 threads) and warpgroup 0's own
+// (wg_sync)
+constexpr int kBarX = 1;       // dP (dP^T) is in shared memory (1 -> 0)
+constexpr int kBarP = 2;       // dS (P^T and dS^T) are (0 -> 1)
+constexpr int kBarFree = 3;    // 1's products have read them (1 -> 0)
+constexpr int kBarWg0 = 4;
+
+// the 16-byte chunk c of row r of a 64-row, 128-byte swizzled tile lies
+// at chunk c ^ (r % 8): the 32-bit word of elements e, e + 1 (columns 8
+// (e / 4) + cq, + 1) of the thread's row r, as a word index
+__device__ __forceinline__ int swizzled_word(int r, int e, int lane) {
+  return r * 32 + (((e / 4) ^ (r % 8)) * 4) + lane % 4;
+}
+
+// One work tile of 64 query rows, both consumer warpgroups over all of
+// them, each summing dQ for its 128 columns of D. A KV tile (stage s):
+// warpgroup 0 forms S = Q K^T, warpgroup 1 dP = dO V^T (ss, 16 k-steps
+// each); warpgroup 1 puts dP in f32 into shared memory in its register
+// order; warpgroup 0 forms p in place, takes dP from there, forms ds = p
+// (dP - delta) and writes dS in bf16 as a swizzled K-major tile; then
+// each warpgroup runs dQ += dS K over its columns (ss, K MN-major, 4
+// k-steps of n128). As in the D 256 dK/dV pass, each warpgroup issues
+// the next tile's S or dP with (0) or before (1) this tile's dQ product,
+// and no product is in flight across a branch. Warpgroup 0 first forms
+// delta of the rows (a pair of threads a row) and writes lse log2(e) and
+// delta to the scratch the dK/dV pass reads.
+template <bool kWindow>
+__global__ void __launch_bounds__(DqLayout<256>::kThreads, 1)
+bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Args a,
+                   int n_bh, int n_tiles) {
+  using L = DqLayout<256>;
+  constexpr int S = L::kStages;
+  constexpr int C = L::kConsumers;
+  constexpr int kM = L::kM;
+  constexpr int kN = L::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t sdO = base + L::kDO;
+  const uint32_t sK = base + L::kK;
+  const uint32_t sV = base + L::kV;
+  const uint32_t sdS = base + L::kDS;
+  uint32_t* const ds_s = reinterpret_cast<uint32_t*>(gbase + L::kDS);
+  float* const x_s = reinterpret_cast<float*>(gbase + L::kX);
+  float* const lse2_s = reinterpret_cast<float*>(gbase + L::kRows);
+  float* const delta_s = lse2_s + kM;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t full = q_empty + 8;             // + 8 s
+  const uint32_t empty = full + 8 * S;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, C * 4);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, C * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == C) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(L::kProducerRegs));
+    if (threadIdx.x == C * 128) {
+      int g = 0;                                 // KV tiles loaded so far
+      for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
+        const DqTile w = dq_tile<256, kWindow>(a, tile_of(ti), n_bh);
+        const int hk = w.h / a.G;
+        if (ti > 0) mbar_wait(q_empty, (ti - 1) & 1);
+        mbar_expect_tx(q_full, 2 * L::kQBytes);
+#pragma unroll
+        for (int at = 0; at < L::kAtoms; ++at) {
+          tma_load(sQ + at * kM * 128, &tq, q_full, at * 64, w.h, w.q0, w.b);
+          tma_load(sdO + at * kM * 128, &tdo, q_full, at * 64, w.h, w.q0,
+                   w.b);
+        }
+        for (int j = 0; j < w.n_kv; ++j, ++g) {
+          const int s = g % S;
+          if (g >= S) mbar_wait(empty + 8 * s, (g / S - 1) & 1);
+          mbar_expect_tx(full + 8 * s, 2 * L::kTileBytes);
+#pragma unroll
+          for (int at = 0; at < L::kAtoms; ++at) {
+            tma_load(sK + s * L::kTileBytes + at * kN * 128, &tk,
+                     full + 8 * s, at * 64, hk, (w.kv0 + j) * kN, w.b);
+            tma_load(sV + s * L::kTileBytes + at * kN * 128, &tv,
+                     full + 8 * s, at * 64, hk, (w.kv0 + j) * kN, w.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(L::kConsumerRegs));
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int cq = 2 * (lane % 4);
+  const float sl2 = a.scale * kLog2e;
+  const long long* st = a.st;
+  // S (0) or dP (1): A the resident Q or dO in registers, B K-major from
+  // the stage's K or V; dQ += dS K: A K-major from dS (one atom), B
+  // MN-major from the stage's K atoms 2 wgi and 2 wgi + 1
+  const uint32_t a_tile = wgi == 0 ? sQ : sdO;
+  const uint64_t d_b = desc(wgi == 0 ? sK : sV, 16, 1024);
+  const uint64_t dds_a = desc(sdS, 16, 1024);
+  const uint64_t dk_mn = desc(sK + wgi * 2 * kN * 128, kN * 128, 1024);
+  constexpr int kStage = L::kTileBytes / 16;
+  int g = 0;                                     // KV tiles consumed so far
+  int n_done = 0;                                // tiles 0 wrote dS for
+  for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
+    const DqTile w = dq_tile<256, kWindow>(a, tile_of(ti), n_bh);
+    const int row0 = w.q0 + warp * 16 + lane / 4;  // the thread's two rows
+    const long long bh = static_cast<long long>(w.b) * a.H + w.h;
+    float lse0 = 0.0f, lse1 = 0.0f, del0 = 0.0f, del1 = 0.0f;
+    if (wgi == 0) {
+      // delta of the rows, a pair of threads a row (half the columns
+      // each, then one shuffle), and lse log2(e): into shared memory and
+      // the scratch the dK/dV pass reads
+      wg_sync(kBarWg0);                          // the last tile's reads
+      const int r = tid / 2;
+      const int i = w.q0 + r;
+      float acc = 0.0f;
+      if (i < a.Sq) {
+        const __nv_bfloat16* orow = static_cast<const __nv_bfloat16*>(a.o) +
+                                    w.b * st[9] + w.h * st[10] + i * st[11] +
+                                    (tid % 2) * 128;
+        const __nv_bfloat16* grow =
+            static_cast<const __nv_bfloat16*>(a.dout) + w.b * st[12] +
+            w.h * st[13] + i * st[14] + (tid % 2) * 128;
+#pragma unroll 4
+        for (int c = 0; c < 128; c += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
+          const __nv_bfloat162* o2 =
+              reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* g2 =
+              reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 gf = __bfloat1622float2(g2[e]);
+            acc = fmaf(gf.x, of.x, acc);
+            acc = fmaf(gf.y, of.y, acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (tid % 2 == 0) {
+        const float l2 = i < a.Sq ? a.lse[bh * a.Sq + i] * kLog2e : INFINITY;
+        lse2_s[r] = l2;
+        delta_s[r] = acc;
+        if (i < a.sq_pad) {
+          a.delta[bh * a.sq_pad + i] = l2;
+          a.delta[a.n_bhp + bh * a.sq_pad + i] = acc;
+        }
+      }
+      wg_sync(kBarWg0);
+      lse0 = lse2_s[row0 - w.q0];
+      lse1 = lse2_s[row0 + 8 - w.q0];
+      del0 = delta_s[row0 - w.q0];
+      del1 = delta_s[row0 + 8 - w.q0];
+    }
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.0f;
+    // the warpgroup's A operand of S (Q) or dP (dO), all 64 rows, in
+    // registers once a work tile (64 a thread): the products then read
+    // only K or V from shared memory, and Q and dO's buffer is free for
+    // the next work tile at once
+    uint32_t af[16][4];
+    mbar_wait(q_full, ti & 1);
+    load_afrags<256, kM>(af, a_tile, 0);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty);         // Q and dO are read
+    const int n = w.n_kv;
+    auto scores = [&](float (&x)[32], int s) {
+      mma_kmajor_rs<256, kN>(x, af, d_b + s * kStage);
+      wgmma_commit();
+    };
+    auto grads = [&](int s) {                    // dQ += dS K
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss_n128_mn(dq, dds_a + kk * 2, dk_mn + s * kStage + kk * 128);
+      }
+      wgmma_commit();
+    };
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+    };
+    // warpgroup 0: S -> p in place, then (dP from warpgroup 1) dS, to
+    // shared memory in bf16 for both warpgroups
+    auto form = [&](float (&x)[32], int j) {
+      const int k0 = (w.kv0 + j) * kN;
+      const bool edge = k0 + kN > a.Skv ||
+                        (a.causal && k0 + kN - 1 > w.q0) ||
+                        (kWindow && w.q0 + kM - 1 - k0 >= a.window);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {             // element 4 n + 2 i + c
+        const int i = (e >> 1) & 1;
+        const int col = k0 + 8 * (e / 4) + cq + (e & 1);
+        const int row = row0 + 8 * i;
+        float p = ex2(fmaf(x[e], sl2, i ? -lse1 : -lse0));
+        if (edge && (col >= a.Skv || (a.causal && col > row) ||
+                     (kWindow && row - col >= a.window))) {
+          p = 0.0f;
+        }
+        x[e] = p;
+      }
+      bar_sync(kBarX);                           // dP is in x_s
+      if (n_done > 0) bar_sync(kBarFree);        // the last dS read
+      ++n_done;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int i = (e >> 1) & 1;
+        const float del = i ? del1 : del0;
+        const float ds0 = x[e] * (x_s[e * 128 + tid] - del);
+        const float ds1 = x[e + 1] * (x_s[(e + 1) * 128 + tid] - del);
+        ds_s[swizzled_word(warp * 16 + lane / 4 + 8 * i, e, lane)] =
+            pack_bf16(ds0, ds1);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(kBarWg0);
+      bar_arrive(kBarP);
+    };
+    // warpgroup 1: dP to shared memory in its register order
+    auto put = [&](const float (&x)[32]) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) x_s[e * 128 + tid] = x[e];
+      bar_arrive(kBarX);
+    };
+    float x[32];                                 // S (0) or dP (1)
+    {
+      const int s = g % S;
+      mbar_wait(full + 8 * s, (g / S) & 1);
+      wgmma_fence();
+      scores(x, s);
+      wgmma_wait<0>();
+      pin(x);
+    }
+    if (wgi == 0) {
+      for (int j = 0; j < n - 1; ++j, ++g) {
+        const int s = g % S;
+        form(x, j);
+        const int s2 = (g + 1) % S;
+        mbar_wait(full + 8 * s2, ((g + 1) / S) & 1);
+        wgmma_fence();
+        grads(s);
+        scores(x, s2);
+        wgmma_wait<0>();
+        pin(x);
+        pin(dq);
+        release(s);
+      }
+      const int s = g % S;
+      form(x, n - 1);
+      wgmma_fence();
+      grads(s);
+      wgmma_wait<0>();
+      pin(dq);
+      release(s);
+      ++g;
+    } else {
+      for (int j = 0; j < n - 1; ++j, ++g) {
+        const int s = g % S;
+        put(x);
+        const int s2 = (g + 1) % S;
+        mbar_wait(full + 8 * s2, ((g + 1) / S) & 1);
+        wgmma_fence();
+        scores(x, s2);
+        bar_sync(kBarP);                         // dS is in
+        grads(s);
+        wgmma_wait<0>();
+        pin(x);
+        pin(dq);
+        bar_arrive(kBarFree);
+        release(s);
+      }
+      const int s = g % S;
+      put(x);
+      bar_sync(kBarP);
+      wgmma_fence();
+      grads(s);
+      wgmma_wait<0>();
+      pin(dq);
+      bar_arrive(kBarFree);
+      release(s);
+      ++g;
+    }
+
+    __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(a.dq) + w.b * st[15] +
+                         w.h * st[16] + 128 * wgi;
+    store_rows<128>(dqg, st[17], dq, row0, cq, a.Sq, a.scale);
+  }
+  if (wgi == 0 && n_done > 0) bar_sync(kBarFree);  // 1's last arrival
+}
+
+// One work tile of 64 keys, both consumer warpgroups over all of them,
+// each summing dK and dV for its 128 columns of D. A query tile (stage
+// s): warpgroup 0 forms S^T = K Q^T, warpgroup 1 dP^T = V dO^T (ss, 16
+// k-steps each, issued together); warpgroup 1 puts dP^T in f32 into
+// shared memory in its register order; warpgroup 0 forms p^T in place,
+// takes dP^T from there, forms ds^T = p^T (dP^T - delta) and writes P^T
+// and dS^T in bf16 as swizzled K-major tiles; then each warpgroup runs
+// dV += P^T dO and dK += dS^T Q over its columns (ss, B MN-major, 2 x 4
+// k-steps of n128). Each warpgroup issues the next tile's S^T or dP^T
+// with (warpgroup 0) or before (1) this tile's dV and dK products, so the
+// tensor cores have work while warpgroup 0 forms p^T and ds^T; each
+// tile's first scores and last products are peeled off the loop, so no
+// product is in flight across a branch. With `splits` > 1 a split's
+// sums go in f32 to `part` ((splits, B Kv, Skv rounded up to 64, dK | dV
+// of 2 D floats)) and `dkdv_sum_kernel` adds them up in split order.
+template <bool kWindow>
+__global__ void __launch_bounds__(KvLayout<256>::kThreads, 1)
+bwd_dkdv_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Args a,
+                     int n_bkv, int n_tiles, int splits, float* part) {
+  using L = KvLayout<256>;
+  constexpr int S = L::kStages;
+  constexpr int C = L::kConsumers;
+  constexpr int kM = L::kM;
+  constexpr int kN = L::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t sK = base;
+  const uint32_t sV = base + L::kV;
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t sdO = base + L::kDO;
+  const uint32_t sP = base + L::kP;
+  const uint32_t sdS = base + L::kDS;
+  uint32_t* const p_s = reinterpret_cast<uint32_t*>(gbase + L::kP);
+  uint32_t* const ds_s = reinterpret_cast<uint32_t*>(gbase + L::kDS);
+  float* const x_s = reinterpret_cast<float*>(gbase + L::kX);
+  const uint32_t sRows = base + L::kRows;
+  const float* rows_s = reinterpret_cast<const float*>(gbase + L::kRows);
+  const uint32_t kv_full = base + L::kBars;
+  const uint32_t kv_empty = kv_full + 8;
+  const uint32_t full = kv_empty + 8;            // + 8 s
+  const uint32_t empty = full + 8 * S;
+  const float* lse2_g = a.delta;                 // (B, H, sq_pad) each
+  const float* delta_g = a.delta + a.n_bhp;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, C * 4);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, C * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == C) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(L::kProducerRegs));
+    if (threadIdx.x == C * 128) {
+      int g = 0;                                 // ring tiles loaded so far
+      for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
+        const KvSplit w = kv_split<kWindow>(a, tile_of(ti), n_bkv, splits);
+        if (ti > 0) mbar_wait(kv_empty, (ti - 1) & 1);
+        mbar_expect_tx(kv_full, 2 * L::kKVBytes);
+#pragma unroll
+        for (int at = 0; at < L::kAtoms; ++at) {
+          tma_load(sK + at * kN * 128, &tk, kv_full, at * 64, w.hk, w.k0,
+                   w.b);
+          tma_load(sV + at * kN * 128, &tv, kv_full, at * 64, w.hk, w.k0,
+                   w.b);
+        }
+        for (int p = w.p0; p < w.p1; ++p, ++g) {
+          const int h = w.hk * a.G + p / w.nt;
+          const int t = w.first + p % w.nt;
+          const long long row_base =
+              (static_cast<long long>(w.b) * a.H + h) * a.sq_pad;
+          const int s = g % S;
+          if (g >= S) mbar_wait(empty + 8 * s, (g / S - 1) & 1);
+          mbar_expect_tx(full + 8 * s, 2 * L::kTileBytes + 2 * kM * 4);
+#pragma unroll
+          for (int at = 0; at < L::kAtoms; ++at) {
+            tma_load(sQ + s * L::kTileBytes + at * kM * 128, &tq,
+                     full + 8 * s, at * 64, h, t * kM, w.b);
+            tma_load(sdO + s * L::kTileBytes + at * kM * 128, &tdo,
+                     full + 8 * s, at * 64, h, t * kM, w.b);
+          }
+          bulk_load(sRows + s * 2 * kM * 4, lse2_g + row_base + t * kM,
+                    kM * 4, full + 8 * s);
+          bulk_load(sRows + s * 2 * kM * 4 + kM * 4,
+                    delta_g + row_base + t * kM, kM * 4, full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(L::kConsumerRegs));
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int cq = 2 * (lane % 4);
+  const float sl2 = a.scale * kLog2e;
+  const long long* st = a.st;
+  // S^T (0) or dP^T (1): A K-major from the resident K or V, B K-major
+  // from the stage's Q or dO; dV += P^T dO, dK += dS^T Q: A K-major from
+  // P^T and dS^T (one atom), B MN-major from the stage's atoms 2 wgi and
+  // 2 wgi + 1 (the warpgroup's 128 columns)
+  const uint64_t d_a = desc(wgi == 0 ? sK : sV, 16, 1024);
+  const uint64_t d_b = desc(wgi == 0 ? sQ : sdO, 16, 1024);
+  const uint64_t dp_a = desc(sP, 16, 1024);
+  const uint64_t dds_a = desc(sdS, 16, 1024);
+  const uint64_t dq_mn = desc(sQ + wgi * 2 * kM * 128, kM * 128, 1024);
+  const uint64_t ddo_mn = desc(sdO + wgi * 2 * kM * 128, kM * 128, 1024);
+  constexpr int kStage = L::kTileBytes / 16;
+  int g = 0;                                     // ring tiles consumed so far
+  int n_done = 0;                                // tiles 0 wrote P^T for
+  for (int ti = 0; tile_of(ti) < n_tiles; ++ti) {
+    const KvSplit w = kv_split<kWindow>(a, tile_of(ti), n_bkv, splits);
+    const int key0 = w.k0 + warp * 16 + lane / 4;  // the thread's two keys
+    const int n = w.p1 - w.p0;
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.0f;
+    mbar_wait(kv_full, ti & 1);
+    auto scores = [&](float (&x)[32], int s) {
+      mma_kmajor<256, kN, kM>(x, d_a, d_b + s * kStage);
+      wgmma_commit();
+    };
+    auto grads = [&](int s) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss_n128_mn(dv, dp_a + kk * 2, ddo_mn + s * kStage + kk * 128);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss_n128_mn(dk, dds_a + kk * 2, dq_mn + s * kStage + kk * 128);
+      }
+      wgmma_commit();
+    };
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+    };
+    // warpgroup 0: S^T -> P^T in place, then (dP^T from warpgroup 1) dS^T;
+    // P^T and dS^T to shared memory in bf16, 128-byte swizzled (the 16-byte
+    // chunk c of key row r at chunk c ^ (r % 8)), for both warpgroups
+    auto form = [&](float (&x)[32], int s, int p) {
+      const int q0 = (w.first + p % w.nt) * kM;
+      const float* lse2 = rows_s + s * 2 * kM;
+      const float* delta = lse2 + kM;
+      const bool edge = w.k0 + kN > a.Skv ||
+                        (a.causal && w.k0 + kN - 1 > q0) ||
+                        (kWindow && q0 + kM - 1 - w.k0 >= a.window);
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        // elements e, e + 1: key key0 + 8 i, queries c, c + 1
+        const int i = (e >> 1) & 1;
+        const int c = 8 * (e / 4) + cq;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
+        float p0 = ex2(fmaf(x[e], sl2, -l2.x));
+        float p1 = ex2(fmaf(x[e + 1], sl2, -l2.y));
+        if (edge) {
+          const int key = key0 + 8 * i;
+          const int qr = q0 + c;
+          if (key >= a.Skv || (a.causal && key > qr) ||
+              (kWindow && qr - key >= a.window)) {
+            p0 = 0.0f;
+          }
+          if (key >= a.Skv || (a.causal && key > qr + 1) ||
+              (kWindow && qr + 1 - key >= a.window)) {
+            p1 = 0.0f;
+          }
+        }
+        x[e] = p0;
+        x[e + 1] = p1;
+      }
+      bar_sync(kBarX);                           // dP^T is in x_s
+      if (n_done > 0) bar_sync(kBarFree);        // the last P^T, dS^T read
+      ++n_done;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int i = (e >> 1) & 1;
+        const int c = 8 * (e / 4) + cq;
+        const float2 d2 = *reinterpret_cast<const float2*>(delta + c);
+        const float ds0 = x[e] * (x_s[e * 128 + tid] - d2.x);
+        const float ds1 = x[e + 1] * (x_s[(e + 1) * 128 + tid] - d2.y);
+        const int word = swizzled_word(warp * 16 + lane / 4 + 8 * i, e, lane);
+        p_s[word] = pack_bf16(x[e], x[e + 1]);
+        ds_s[word] = pack_bf16(ds0, ds1);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(kBarWg0);
+      bar_arrive(kBarP);
+    };
+    // warpgroup 1: dP^T to shared memory in its register order
+    auto put = [&](const float (&x)[32]) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) x_s[e * 128 + tid] = x[e];
+      bar_arrive(kBarX);
+    };
+    if (n > 0) {
+      float x[32];                               // S^T (0) or dP^T (1)
+      {
+        const int s = g % S;
+        mbar_wait(full + 8 * s, (g / S) & 1);
+        wgmma_fence();
+        scores(x, s);
+        wgmma_wait<0>();
+        pin(x);
+      }
+      if (wgi == 0) {
+        for (int j = 0; j < n - 1; ++j, ++g) {
+          const int s = g % S;
+          form(x, s, w.p0 + j);
+          const int s2 = (g + 1) % S;
+          mbar_wait(full + 8 * s2, ((g + 1) / S) & 1);
+          wgmma_fence();
+          grads(s);
+          scores(x, s2);
+          wgmma_wait<0>();
+          pin(x);
+          pin(dk);
+          pin(dv);
+          release(s);
+        }
+        const int s = g % S;
+        form(x, s, w.p1 - 1);
+        wgmma_fence();
+        grads(s);
+        wgmma_wait<0>();
+        pin(dk);
+        pin(dv);
+        release(s);
+        ++g;
+      } else {
+        for (int j = 0; j < n - 1; ++j, ++g) {
+          const int s = g % S;
+          put(x);
+          const int s2 = (g + 1) % S;
+          mbar_wait(full + 8 * s2, ((g + 1) / S) & 1);
+          wgmma_fence();
+          scores(x, s2);
+          bar_sync(kBarP);                       // P^T and dS^T are in
+          grads(s);
+          wgmma_wait<0>();
+          pin(x);
+          pin(dk);
+          pin(dv);
+          bar_arrive(kBarFree);
+          release(s);
+        }
+        const int s = g % S;
+        put(x);
+        bar_sync(kBarP);
+        wgmma_fence();
+        grads(s);
+        wgmma_wait<0>();
+        pin(dk);
+        pin(dv);
+        bar_arrive(kBarFree);
+        release(s);
+        ++g;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kv_empty);        // K and V are read
+
+    if (splits == 1) {
+      __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk) + w.b * st[18] +
+                           w.hk * st[19] + 128 * wgi;
+      __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv) + w.b * st[21] +
+                           w.hk * st[22] + 128 * wgi;
+      store_rows<128>(dkg, st[20], dk, key0, cq, a.Skv, a.scale);
+      store_rows<128>(dvg, st[23], dv, key0, cq, a.Skv, 1.0f);
+    } else {
+      const long long skv_pad = (a.Skv + kN - 1) / kN * kN;
+      float* pk = part +
+                  (static_cast<long long>(w.c) * n_bkv + w.bkv) * skv_pad *
+                      512 + 128 * wgi;
+      store_rows_f32<128>(pk, 512, dk, key0, cq, a.Skv);
+      store_rows_f32<128>(pk + 256, 512, dv, key0, cq, a.Skv);
+    }
+  }
+  if (wgi == 0 && n_done > 0) bar_sync(kBarFree);  // 1's last arrival
+}
+
+// dK and dV of the D 256 pass from its splits' f32 sums, added in split
+// order (no atomics: bit-equal twice), dK times the scale, to bf16: a
+// thread 4 columns of one key's dK | dV row
+__global__ void __launch_bounds__(256)
+dkdv_sum_kernel(const Args a, const float* part, int n_bkv, int splits) {
+  const int kv = a.H / a.G;
+  const long long skv_pad = (a.Skv + 63) / 64 * 64;
+  const long long n = static_cast<long long>(n_bkv) * a.Skv * 128;
+  const long long* st = a.st;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    const int c4 = static_cast<int>(i % 128) * 4;
+    const long long rk = i / 128;
+    const int key = static_cast<int>(rk % a.Skv);
+    const int bkv = static_cast<int>(rk / a.Skv);
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int c = 0; c < splits; ++c) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          part + ((static_cast<long long>(c) * n_bkv + bkv) * skv_pad + key) *
+                     512 + c4);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const long long b = bkv / kv;
+    const long long hk = bkv % kv;
+    __nv_bfloat16* out;
+    float mul = 1.0f;
+    if (c4 < 256) {
+      out = static_cast<__nv_bfloat16*>(a.dk) + b * st[18] + hk * st[19] +
+            key * st[20] + c4;
+      mul = a.scale;
+    } else {
+      out = static_cast<__nv_bfloat16*>(a.dv) + b * st[21] + hk * st[22] +
+            key * st[23] + c4 - 256;
+    }
+    *reinterpret_cast<uint2*>(out) = make_uint2(
+        pack_bf16(acc.x * mul, acc.y * mul), pack_bf16(acc.z * mul,
+                                                       acc.w * mul));
+  }
+}
+
 }  // namespace wgb
 
 // --------------------------------------------------------------- launch ---
 
 template <int D>
-int launch_wgmma(const Args& a, int B, cudaStream_t stream) {
+int launch_wgmma(const Args& a, int B, int splits, cudaStream_t stream) {
   using LQ = wgb::DqLayout<D>;
   using LK = wgb::KvLayout<D>;
   const EncodeTiled fn = encode_tiled();
@@ -1319,7 +2176,7 @@ int launch_wgmma(const Args& a, int B, cudaStream_t stream) {
   const int Kv = a.H / a.G;
   // Q and dO as the dQ pass's resident tiles (kM rows) and as the dK/dV
   // pass's ring tiles (64 rows); K and V as the dQ pass's ring tiles (64
-  // keys) and the dK/dV pass's resident tiles (128 keys)
+  // keys) and the dK/dV pass's resident tiles (128 keys, 64 at D 256)
   CUtensorMap q_res, do_res, k_ring, v_ring, q_ring, do_ring, k_res, v_res;
   const bool ok =
       encode(fn, &q_res, a.q, D, a.H, a.Sq, B, st[1], st[2], st[0],
@@ -1340,17 +2197,17 @@ int launch_wgmma(const Args& a, int B, cudaStream_t stream) {
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   // two instantiations: the band's masks only where a launch has one, so
   // a causal launch runs the code it ran before the window
-  const auto dq_kernel = a.window > 0 ? wgb::bwd_dq_wgmma_kernel<D, true>
-                                      : wgb::bwd_dq_wgmma_kernel<D, false>;
-  const auto kv_kernel = a.window > 0
-                             ? wgb::bwd_dkdv_wgmma_kernel<D, true>
-                             : wgb::bwd_dkdv_wgmma_kernel<D, false>;
+  const auto dq_kernel = [&] {
+    if constexpr (D == 256) {
+      return a.window > 0 ? wgb::bwd_dq_d256_kernel<true>
+                          : wgb::bwd_dq_d256_kernel<false>;
+    } else {
+      return a.window > 0 ? wgb::bwd_dq_wgmma_kernel<D, true>
+                          : wgb::bwd_dq_wgmma_kernel<D, false>;
+    }
+  }();
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::kBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             LK::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
@@ -1363,20 +2220,53 @@ int launch_wgmma(const Args& a, int B, cudaStream_t stream) {
   const long long q_tiles =
       static_cast<long long>(n_bh) * ((a.Sq + LQ::kM - 1) / LQ::kM);
   const int n_bkv = B * Kv;
-  const long long kv_tiles =
-      static_cast<long long>(n_bkv) * ((a.Skv + LK::kN - 1) / LK::kN);
+  const long long kv_tiles = static_cast<long long>(n_bkv) *
+                             ((a.Skv + LK::kN - 1) / LK::kN) * splits;
   if (q_tiles > 0x7fffffff || kv_tiles > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int grid_q = static_cast<int>(q_tiles < sms ? q_tiles : sms);
-  dq_kernel<<<grid_q, LQ::kThreads, LQ::kBytes, stream>>>(
-      q_res, do_res, k_ring, v_ring, a, n_bh, static_cast<int>(q_tiles));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int grid_kv = static_cast<int>(kv_tiles < sms ? kv_tiles : sms);
-  kv_kernel<<<grid_kv, LK::kThreads, LK::kBytes, stream>>>(
-      q_ring, do_ring, k_res, v_res, a, n_bkv, static_cast<int>(kv_tiles));
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (D == 256) {
+    const auto kv_kernel = a.window > 0 ? wgb::bwd_dkdv_d256_kernel<true>
+                                        : wgb::bwd_dkdv_d256_kernel<false>;
+    err = cudaFuncSetAttribute(kv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               LK::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dq_kernel<<<grid_q, LQ::kThreads, LQ::kBytes, stream>>>(
+        q_res, do_res, k_ring, v_ring, a, n_bh, static_cast<int>(q_tiles));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // the splits' sums after the scratch's lse log2(e) and delta
+    float* part = a.delta + 2 * a.n_bhp;
+    kv_kernel<<<grid_kv, LK::kThreads, LK::kBytes, stream>>>(
+        q_ring, do_ring, k_res, v_res, a, n_bkv, static_cast<int>(kv_tiles),
+        splits, part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+    const long long n = static_cast<long long>(n_bkv) * a.Skv * 128;
+    const long long blocks = (n + 255) / 256;
+    wgb::dkdv_sum_kernel<<<static_cast<int>(
+                               blocks < 8LL * sms ? blocks : 8LL * sms),
+                           256, 0, stream>>>(a, part, n_bkv, splits);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    const auto kv_kernel = a.window > 0
+                               ? wgb::bwd_dkdv_wgmma_kernel<D, true>
+                               : wgb::bwd_dkdv_wgmma_kernel<D, false>;
+    err = cudaFuncSetAttribute(kv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               LK::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dq_kernel<<<grid_q, LQ::kThreads, LQ::kBytes, stream>>>(
+        q_res, do_res, k_ring, v_ring, a, n_bh, static_cast<int>(q_tiles));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kv_kernel<<<grid_kv, LK::kThreads, LK::kBytes, stream>>>(
+        q_ring, do_ring, k_res, v_res, a, n_bkv, static_cast<int>(kv_tiles));
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 enum Variant { kWgmma, kSimt };
@@ -1385,10 +2275,14 @@ template <typename T>
 int launch(Variant variant, const void* q, const void* k, const void* v,
            const void* o, const void* dout, const float* lse, float* delta,
            void* dq, void* dk, void* dv, int B, int H, int G, int Sq,
-           int Skv, int D, int causal, int window, float scale,
+           int Skv, int D, int causal, int window, int splits, float scale,
            const long long* st, cudaStream_t stream) {
+  // splits > 1 only where the D 256 dK/dV pass takes them
+  const bool split_ok =
+      splits == 1 || (variant == kWgmma && sizeof(T) == 2 && D == 256 &&
+                      splits > 1 && splits <= wgb::kMaxSplits);
   if (B < 1 || H < 1 || G < 1 || H % G != 0 || Sq < 1 || Skv < 1 ||
-      window < 0 ||
+      window < 0 || !split_ok ||
       (Sq + 31) / 32 > 65535 || (Skv + 31) / 32 > 65535 ||
       static_cast<long long>(B) * H > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1402,8 +2296,9 @@ int launch(Variant variant, const void* q, const void* k, const void* v,
   if (variant == kWgmma) {
     if constexpr (sizeof(T) == 2) {
       switch (D) {
-        case 64: return launch_wgmma<64>(a, B, stream);
-        case 128: return launch_wgmma<128>(a, B, stream);
+        case 64: return launch_wgmma<64>(a, B, 1, stream);
+        case 128: return launch_wgmma<128>(a, B, 1, stream);
+        case 256: return launch_wgmma<256>(a, B, splits, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
       }
     }
@@ -1420,21 +2315,23 @@ int launch(Variant variant, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, o, dO, lse (B, H, Sq) float32, the float32 scratch (simt: B H
-// Sq floats; wgmma: 2 B H Sq_pad, Sq rounded up to 64), dq, dk, dv; B
-// batches of H query heads, G query heads per kv head; window 0 or the
-// band's width; strides: (batch, head, row) of q, k, v, o, dO, dq, dk, dv
-// in elements, 24 in all
+// Sq floats; wgmma: 2 B H Sq_pad, Sq rounded up to 64, and at D 256 with
+// splits > 1 then splits B Kv Skv_pad 2 D, Skv rounded up to 64), dq, dk,
+// dv; B batches of H query heads, G query heads per kv head; window 0 or
+// the band's width; splits: the CTAs that share a work tile of the D 256
+// dK/dV pass (1 elsewhere); strides: (batch, head, row) of q, k, v, o,
+// dO, dq, dk, dv in elements, 24 in all
 #define FLASH_BWD_ENTRY(NAME, T, VARIANT)                                   \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* o, const void* dout, const void* lse,     \
                       void* delta, void* dq, void* dk, void* dv, int B,     \
                       int H, int G, int Sq, int Skv, int D, int causal,     \
-                      int window, float scale, const long long* strides,    \
-                      void* stream) {                                       \
+                      int window, int splits, float scale,                  \
+                      const long long* strides, void* stream) {             \
     return launch<T>(VARIANT, q, k, v, o, dout,                             \
                      static_cast<const float*>(lse),                        \
                      static_cast<float*>(delta), dq, dk, dv, B, H, G, Sq,   \
-                     Skv, D, causal, window, scale, strides,                \
+                     Skv, D, causal, window, splits, scale, strides,        \
                      static_cast<cudaStream_t>(stream));                    \
   }
 

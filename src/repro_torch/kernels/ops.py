@@ -1520,25 +1520,105 @@ def flash_variant_counts() -> dict:
 
 # K6b's variants (kernels/csrc/flash_attention_bwd.cu) and the head dims
 # each takes
-FLASH_BWD_VARIANTS = {"wgmma": (64, 128), "simt": (64, 128, 256)}
+FLASH_BWD_VARIANTS = {"wgmma": (64, 128, 256), "simt": (64, 128, 256)}
 _FLASH_BWD_VARIANT_LAUNCHES = {name: 0 for name in FLASH_BWD_VARIANTS}
+# the most CTAs that share a work tile of wgmma's dK/dV pass at D 256
+# (`kMaxSplits` in flash_attention_bwd.cu)
+FLASH_BWD_MAX_SPLITS = 8
+# keys a work tile of that pass
+FLASH_BWD_D256_KEYS = 64
 
 
 def flash_bwd_variant(dtype: torch.dtype, D: int) -> str:
     """The K6b variant the dispatcher launches, fixed by dtype and head dim
-    alone: bf16 at D 64 and 128 the wgmma/TMA kernels, everything else
-    (float32 at every D, where a tensor-core product would round to tf32;
-    bf16 at D 256) the CUDA-core kernels."""
+    alone: bf16 (D 64, 128 and 256) the wgmma/TMA kernels, float32 (every
+    D: a tensor-core product would round to tf32) the CUDA-core kernels."""
     if dtype == torch.bfloat16 and D in FLASH_BWD_VARIANTS["wgmma"]:
         return "wgmma"
     return "simt"
+
+
+def flash_bwd_dkdv_loads(B: int, Kv: int, Sq: int, Skv: int, G: int,
+                         causal: bool, window: int, splits: int,
+                         sms: int) -> list:
+    """(query-tile steps, work tiles) of each persistent block of wgmma's
+    dK/dV pass at D 256 (`kv_split` and `tile_of` in
+    flash_attention_bwd.cu): work tiles (batch * kv head, split c, 64
+    keys), lowest keys first, taken by min(tiles, sms) blocks in rounds
+    of alternating direction; split c of a key tile takes [c n / splits,
+    (c + 1) n / splits) of its n = G x (query tiles of 64 rows from the
+    diagonal, and with a window up to the one holding row k0 + 62 +
+    window)."""
+    n_bkv, n_q = B * Kv, -(-Sq // 64)
+    tiles = -(-Skv // FLASH_BWD_D256_KEYS) * n_bkv * splits
+
+    def cost(t):
+        r = t // n_bkv
+        c, k0 = r % splits, (r // splits) * FLASH_BWD_D256_KEYS
+        first = min(k0 // 64, n_q) if causal else 0
+        end = max(first, min(n_q, (k0 + 62 + window) // 64 + 1)) \
+            if window else n_q
+        n = G * (end - first)
+        return (c + 1) * n // splits - c * n // splits
+
+    grid = min(tiles, sms)
+    loads = []
+    for block in range(grid):
+        steps = taken = 0
+        for i in range(-(-tiles // grid)):
+            t = i * grid + (grid - 1 - block if i % 2 else block)
+            if t < tiles:
+                steps += cost(t)
+                taken += 1
+        loads.append((steps, taken))
+    return loads
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_splits(variant: str, B: int, Kv: int, Sq: int, Skv: int,
+                     G: int, D: int, causal: bool, window: int,
+                     sms: int) -> int:
+    """The CTAs that share each work tile of K6b's dK/dV pass: 1, except
+    for wgmma at D 256 when its work tiles (batch * kv head, 64 keys) are
+    fewer than the SMs. Then the count in 1 .. FLASH_BWD_MAX_SPLITS whose
+    busiest block (`flash_bwd_dkdv_loads`: its query-tile steps plus one
+    a work tile, for the tile's start and its sums' store) is least, the
+    smallest within 3% of that (recurrentgemma-2b's train shape: 64
+    tiles, 6 splits, the busiest block 124 steps where one split a tile
+    leaves 330 and two 165). Each split takes a share of the tile's G
+    query heads' query tiles; their f32 sums are added in split order.
+    `window` is the launch's (0: none)."""
+    if variant != "wgmma" or D != 256:
+        return 1
+    if B * Kv * -(-Skv // FLASH_BWD_D256_KEYS) >= sms:
+        return 1
+    busiest = {
+        n: max(steps + taken for steps, taken in flash_bwd_dkdv_loads(
+            B, Kv, Sq, Skv, G, causal, window, n, sms))
+        for n in range(1, FLASH_BWD_MAX_SPLITS + 1)}
+    least = min(busiest.values())
+    return min(n for n, v in busiest.items() if v <= 1.03 * least)
+
+
+def flash_bwd_scratch(variant: str, B: int, H: int, Kv: int, Sq: int,
+                      Skv: int, D: int, splits: int) -> int:
+    """The float32 scratch K6b's launch takes, in elements: simt's delta
+    (B, H, Sq); wgmma's lse log2(e) and delta, each (B, H, Sq rounded up
+    to 64), then with splits > 1 the splits' dK | dV sums (splits, B Kv,
+    Skv rounded up to 64, 2 D)."""
+    if variant == "simt":
+        return B * H * Sq
+    n = 2 * B * H * (-(-Sq // 64) * 64)
+    if splits > 1:
+        n += splits * B * Kv * (-(-Skv // 64) * 64) * 2 * D
+    return n
 
 
 def flash_bwd_checked_variant(dtype: torch.dtype, D: int,
                               variant: str | None = None) -> str:
     """`variant`, or the rule's (`flash_bwd_variant`) when None; raises
     ValueError for a name that is not one of FLASH_BWD_VARIANTS or does
-    not take `dtype` at head dim D (wgmma: bf16 at D 64 and 128)."""
+    not take `dtype` at head dim D (wgmma: bf16 only)."""
     if variant is None:
         return flash_bwd_variant(dtype, D)
     if variant not in FLASH_BWD_VARIANTS or \
@@ -1722,8 +1802,10 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
 
     On the card: D 64, 128 or 256, float32 or bfloat16 (q, k, v, out and
     do alike), the strides contract of K6 (`flash_strides`; do is made
-    contiguous first); two launches (dQ with delta, then dK/dV) counted
-    once, and once under their variant; deterministic, no atomics.
+    contiguous first); two launches (dQ with delta, then dK/dV; wgmma at
+    D 256 with `flash_bwd_splits` > 1 a third that adds the splits' sums)
+    counted once, and once under their variant; deterministic, no
+    atomics.
     `flash_bwd_variant` picks the kernels; `variant` names another one of
     FLASH_BWD_VARIANTS that takes the dtype and D (to time them side by
     side). Anything else raises."""
@@ -1757,17 +1839,17 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
         flash_strides(views[1], views[2], dk4, dv4)
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
-    # the passes' scratch: simt's delta (B, H, Sq); wgmma's lse log2(e)
-    # and delta, each (B, H, Sq rounded up to 64)
-    delta = torch.empty((B, H, Sq) if variant == "simt" else
-                        (2, B, H, -(-Sq // 64) * 64), dtype=torch.float32,
-                        device=q.device)
+    splits = flash_bwd_splits(variant, B, Kv, Sq, Skv, G, D, bool(causal),
+                              window, _sm_count(q.device))
+    delta = torch.empty(flash_bwd_scratch(variant, B, H, Kv, Sq, Skv, D,
+                                          splits),
+                        dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention_bwd")
     fn = getattr(lib, f"flash_attention_bwd_{variant}_"
                       f"{_VALUE_TYPES[q.dtype]}")
     err = fn(_ptr(q4), _ptr(k4), _ptr(v4), _ptr(views[0]), _ptr(views[1]),
              _ptr(lse), _ptr(delta), _ptr(views[2]), _ptr(dk4), _ptr(dv4),
-             B, H, G, Sq, Skv, D, int(bool(causal)), int(window),
+             B, H, G, Sq, Skv, D, int(bool(causal)), int(window), splits,
              float(sm_scale), (ctypes.c_longlong * 24)(*strides),
              _stream(q))
     _raise_if(err, f"flash_attention_bwd ({variant})")

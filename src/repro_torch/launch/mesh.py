@@ -23,6 +23,7 @@ made after a failure: a group that does not come up raises.
 """
 from __future__ import annotations
 
+import atexit
 import itertools
 import os
 from typing import Dict, Sequence, Tuple
@@ -68,10 +69,20 @@ def init_distributed(device="cuda") -> str:
         torch.cuda.set_device(dev)
     if "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend, init_method="env://")
+        # torn down before the interpreter is: left to interpreter exit,
+        # a rank that ends first could abort in the group's teardown
+        # (SIGABRT, "terminate called without an active exception") while
+        # another still wrote its report, and torchrun failed the run
+        atexit.register(_destroy_group)
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
     return backend
+
+
+def _destroy_group() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 class Mesh:

@@ -6,7 +6,8 @@ against `jax.vjp` of the reference's blockwise attention
 (`_blockwise_sdpa`, whose custom vjp is `_flash_mha_bwd` with the band of
 `_block_mask`), its blocks patched to 8 so that a window falls inside one
 block, across blocks, or covers the whole sequence; G 1 and G > 1; ragged
-Sq; with and without the causal mask. Then `ops.flash_attention(...,
+Sq; with and without the causal mask; at head dim 256 too (K6b's tensor-
+core kernels at D 256 are held to this plain version on the card). Then `ops.flash_attention(...,
 window=)` on CPU tensors under autograd (the `FlashAttention` Function,
 whose backward passes its window to `flash_attention_bwd`) against
 `jax.grad` of the same loss, and the wrapper's refusal of a negative
@@ -55,6 +56,10 @@ CASES = [
     (1, 37, 37, 2, 2, 16, True, 37),    # a window of Sq: nothing masked
     (1, 33, 33, 4, 1, 8, True, 100),    # MQA, a window past Sq
     (2, 24, 37, 4, 4, 16, False, 7),    # no causal mask, Sq != Skv
+    # head dim 256, the shapes K6b's wgmma variant takes at D 256
+    (1, 40, 40, 2, 2, 256, True, 13),   # G 1 (gemma-7b's grouping)
+    (1, 45, 45, 5, 1, 256, True, 21),   # G 5, ragged, a window off 64
+    (2, 24, 37, 4, 2, 256, False, 70),  # no causal mask, Sq != Skv
 ]
 
 

@@ -982,7 +982,9 @@ def test_flash_attention_window_non_causal_and_strided(cuda):
 
 
 @pytest.mark.parametrize("q_shape,kv_shape,dtype,window", [
-    ((1, 1000, 10, 256), (1, 1000, 1, 256), torch.bfloat16, 300),  # simt
+    ((1, 1000, 10, 256), (1, 1000, 1, 256), torch.bfloat16, 300),  # wgmma
+    ((2, 777, 10, 256), (2, 777, 1, 256), torch.bfloat16, 77),     # wgmma
+    ((1, 1000, 16, 256), (1, 1000, 16, 256), torch.bfloat16, 100),  # wgmma
     ((1, 1000, 4, 256), (1, 1000, 1, 256), torch.float32, 77),     # simt
     ((2, 777, 8, 64), (2, 777, 2, 64), torch.float32, 129),        # simt
     ((2, 1000, 14, 64), (2, 1000, 2, 64), torch.bfloat16, 100),    # wgmma
@@ -1457,6 +1459,8 @@ _BWD_SHAPES = [
     ((1, 200, 4, 64), (1, 330, 2, 64)),         # Sq != Skv
     ((1, 330, 4, 128), (1, 200, 2, 128)),       # Sq > Skv, D 128
     ((6, 129, 64), (2, 129, 64)),               # grouped (BH, S, D)
+    ((1, 1000, 10, 256), (1, 1000, 1, 256)),    # recurrentgemma-2b heads
+    ((1, 200, 4, 256), (1, 330, 2, 256)),       # Sq != Skv, D 256
 ]
 
 
@@ -1505,8 +1509,8 @@ def test_flash_attention_bwd_kernel(cuda, q_shape, kv_shape, dtype, variant,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_runs_the_rules_variant(cuda, D, dtype):
     """With no variant named, K6b launches the rule's (`flash_bwd_variant`:
-    wgmma for bf16 at D 64 and 128, simt otherwise) and counts it there;
-    the result is held to the plain version per row."""
+    wgmma for bf16, simt for float32) and counts it there; the result is
+    held to the plain version per row."""
     g = torch.Generator(device=cuda).manual_seed(D)
     q, do = (torch.randn((2, 300, 4, D), generator=g, device=cuda).to(dtype)
              for _ in range(2))
@@ -1518,8 +1522,7 @@ def test_flash_attention_bwd_runs_the_rules_variant(cuda, D, dtype):
     want = ref.attention_bwd_ref(q, k, v, out, lse, do)
     torch.cuda.synchronize()
     variant = ops.flash_bwd_variant(dtype, D)
-    assert variant == ("wgmma" if dtype == torch.bfloat16 and D < 256
-                       else "simt")
+    assert variant == ("wgmma" if dtype == torch.bfloat16 else "simt")
     assert ops.flash_bwd_variant_counts() == {
         name: int(name == variant) for name in ops.FLASH_BWD_VARIANTS}
     for a, b in zip(got, want):

@@ -181,7 +181,7 @@ def test_wgmma_tile_order_covers_every_tile_once():
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 256, "simt"), (torch.float32, 64, "simt"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 256, "simt")])
 def test_flash_bwd_variant_is_fixed_by_dtype_and_head_dim(dtype, D, variant):
     assert ops.flash_bwd_variant(dtype, D) == variant
@@ -199,8 +199,8 @@ def test_flash_bwd_every_head_dim_has_one_variant_for_each_dtype(dtype, D):
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
-    (torch.bfloat16, 256, "wgmma"),      # D 256: the ring does not fit
-    (torch.float32, 64, "wgmma"),        # float32 stays on the CUDA cores
+    (torch.float32, 256, "wgmma"),       # float32 stays on the CUDA cores
+    (torch.float32, 64, "wgmma"),
     (torch.float32, 128, "wgmma"),
     (torch.bfloat16, 64, "mma"),         # K6's name, not K6b's
     (torch.bfloat16, 64, "f32"),
@@ -214,6 +214,7 @@ def test_flash_bwd_refuses_a_variant_that_does_not_take_the_call(dtype, D,
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
                                      (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256),
                                      (torch.float32, 256)])
 def test_flash_bwd_takes_a_variant_that_fits(dtype, D):
     for variant in ops.FLASH_BWD_VARIANTS:
@@ -241,24 +242,48 @@ def test_flash_attention_bwd_on_cpu_takes_the_plain_version(variant):
 
 
 def _bwd_schedule(pass_, B, Sq, Skv, H, Kv, D, causal=True, zigzag=True,
-                  sms=H100_SMS):
+                  sms=H100_SMS, window=0, splits=None):
     """K6b wgmma's work plans, as flash_attention_bwd.cu lays them out ->
     (tiles each block takes, in order; the ring steps a block).
     dQ pass (`dq_tile`): work tiles of 64 C query rows (C = 3 at D 64, 2
-    at D 128) x (batch * head), heaviest-first, each costing its KV tiles
-    of 64 keys up to the diagonal. dK/dV pass (`kv_tile`): work tiles of
-    128 keys x (batch * kv head), lowest keys first, each costing G x its
-    query tiles of 64 rows from the diagonal on. Both taken by
-    min(tiles, SMs) persistent blocks in rounds (`tile_of`)."""
+    at D 128, 1 at D 256, where two warpgroups split D) x (batch * head),
+    heaviest-first, each costing its KV tiles of 64 keys up to the
+    diagonal, and with a window from the tile of key q0 - window + 1.
+    dK/dV pass (`kv_tile`): work tiles of 128 keys x (batch * kv head),
+    lowest keys first, each costing G x its query tiles of 64 rows from
+    the diagonal on; at D 256 (`kv_split`) 64 keys x `splits` (by default
+    `ops.flash_bwd_splits`') x (batch * kv head), split c costing its
+    share [c n / splits, (c + 1) n / splits) of the tile's n = G x (query
+    tiles from the diagonal, and with a window up to the one holding row
+    k0 + 62 + window). Both taken by min(tiles, SMs) persistent blocks in
+    rounds (`tile_of`)."""
     G = H // Kv
     if pass_ == "dq":
-        kM = 64 * (3 if D == 64 else 2)
-        n_q, n_bh, n_k = -(-Sq // kM), B * H, -(-Skv // 64)
+        kM = 64 * {64: 3, 128: 2, 256: 1}[D]
+        kN = 64
+        n_q, n_bh, n_k = -(-Sq // kM), B * H, -(-Skv // kN)
         tiles = n_q * n_bh
 
         def cost(t):
             q0 = (n_q - 1 - t // n_bh) * kM
-            return min(n_k, (q0 + kM - 1) // 64 + 1) if causal else n_k
+            end = min(n_k, (q0 + kM - 1) // kN + 1) if causal else n_k
+            kv0 = min(max(0, q0 - window + 1) // kN, end - 1) if window \
+                else 0
+            return end - kv0
+    elif D == 256:
+        n_bkv, n_q = B * Kv, -(-Sq // 64)
+        splits = ops.flash_bwd_splits("wgmma", B, Kv, Sq, Skv, H // Kv, D,
+                                      causal, window, sms) \
+            if splits is None else splits
+        tiles = -(-Skv // 64) * n_bkv * splits
+
+        def cost(t):
+            c, k0 = (t // n_bkv) % splits, (t // n_bkv // splits) * 64
+            first = min(k0 // 64, n_q) if causal else 0
+            end = max(first, min(n_q, (k0 + 62 + window) // 64 + 1)) \
+                if window else n_q
+            n = G * (end - first)
+            return (c + 1) * n // splits - c * n // splits
     else:
         n_bkv, n_q = B * Kv, -(-Sq // 64)
         tiles = -(-Skv // 128) * n_bkv
@@ -305,13 +330,83 @@ def test_flash_bwd_schedules_balance_the_blocks_at_the_train_shape(pass_,
     (1, 4000, 4000, 14, 2, 64),      # ragged
     (1, 2048, 2048, 32, 4, 128),     # yi-6b heads
     (8, 200, 328, 2, 1, 64),         # Sq != Skv
-    (1, 33, 33, 4, 2, 128)])         # one tile
+    (1, 33, 33, 4, 2, 128),          # one tile
+    (1, 4096, 4096, 10, 1, 256),     # recurrentgemma-2b: 2 splits
+    (1, 4096, 4096, 16, 16, 256),    # gemma-7b: no split
+    (1, 200, 330, 4, 2, 256)])       # Sq != Skv, 8 splits
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_schedules_cover_every_tile_once(pass_, shape, causal):
     taken, load = _bwd_schedule(pass_, *shape, causal=causal)
     seen = sorted(t for x in taken for t in x)
     assert seen == list(range(len(seen))) and len(seen) >= len(taken)
     assert min(load) >= 0
+
+
+@pytest.mark.parametrize("B,Kv,Sq,G,causal,window,D,variant,sms,splits", [
+    (1, 1, 4096, 10, True, 2048, 256, "wgmma", 132, 6),  # recurrentgemma
+    (1, 16, 4096, 1, True, 0, 256, "wgmma", 132, 1),     # gemma-7b
+    (1, 1, 1000, 10, True, 300, 256, "wgmma", 132, 8),   # 16 tiles
+    (1, 2, 330, 2, False, 0, 256, "wgmma", 132, 6),    # 12 tiles
+    (1, 16, 300, 1, True, 0, 256, "wgmma", 132, 2),      # 80 tiles
+    (3, 1, 4096, 10, True, 2048, 256, "wgmma", 132, 1),  # 192 tiles
+    (1, 1, 4096, 10, True, 2048, 256, "simt", 132, 1),   # only wgmma's
+    (1, 1, 4096, 10, True, 2048, 128, "wgmma", 132, 1),  # ... D 256 pass
+    (1, 1, 4096, 10, True, 2048, 256, "wgmma", 64, 1)])  # tiles >= SMs
+def test_flash_bwd_splits_rule(B, Kv, Sq, G, causal, window, D, variant,
+                               sms, splits):
+    assert ops.flash_bwd_splits(variant, B, Kv, Sq, Sq, G, D, causal,
+                                window, sms) == splits
+    assert 1 <= splits <= ops.FLASH_BWD_MAX_SPLITS
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 4096, 4096, 10, 1, 256), True, 2048),
+    ((1, 1000, 1000, 10, 1, 256), True, 300),
+    ((1, 200, 330, 4, 2, 256), False, 0),
+    ((2, 777, 777, 10, 1, 256), True, 77)])
+@pytest.mark.parametrize("splits", [1, 3, 8])
+def test_flash_bwd_dkdv_loads_mirror_the_schedule(shape, causal, window,
+                                                  splits):
+    """`ops.flash_bwd_dkdv_loads`, which the splits rule reads, against
+    this file's own mirror of the D 256 dK/dV pass's schedule."""
+    B, Sq, Skv, H, Kv, D = shape
+    taken, load = _bwd_schedule("dkdv", *shape, causal=causal,
+                                window=window, splits=splits)
+    got = ops.flash_bwd_dkdv_loads(B, Kv, Sq, Skv, H // Kv, causal, window,
+                                   splits, H100_SMS)
+    assert got == [(x, len(t)) for x, t in zip(load, taken)]
+
+
+def test_flash_bwd_splits_fill_the_card_at_the_hybrid_train_shape():
+    """recurrentgemma-2b's train shape (B 1 x 10 query heads over 1, S
+    4096, D 256, window 2048): 64 key tiles of the D 256 dK/dV pass. One
+    block a key tile leaves 68 SMs idle and the busiest block 330
+    query-tile steps; two splits 165 (the band's last key tiles see fewer
+    query tiles, which equal splits of 128 work tiles do not even out);
+    the rule's 6 splits, 384 work tiles in three rounds, 124 against a
+    mean of 120."""
+    shape = (1, 4096, 4096, 10, 1, 256)
+    taken, load = _bwd_schedule("dkdv", *shape, window=2048)
+    assert sum(len(x) for x in taken) == 384 and len(taken) == 132
+    assert sum(load) == 10 * sum(
+        min(64, (k0 + 62 + 2048) // 64 + 1) - k0 // 64
+        for k0 in range(0, 4096, 64))
+    assert (max(load), sum(load) / len(load)) == (124, 120)
+    for splits, busiest in ((1, 330), (2, 165)):
+        _, other = _bwd_schedule("dkdv", *shape, window=2048, splits=splits)
+        assert max(other) == busiest
+
+
+@pytest.mark.parametrize("variant,splits,want", [
+    ("simt", 1, 10 * 1000),
+    ("wgmma", 1, 2 * 10 * 1024),
+    ("wgmma", 8, 2 * 10 * 1024 + 8 * 1024 * 2 * 256)])
+def test_flash_bwd_scratch_size(variant, splits, want):
+    """K6b's float32 scratch: simt's delta; wgmma's lse log2(e) and delta
+    with rows padded to 64; the splits' dK | dV sums with keys padded to
+    64 (B 1, 10 heads over 1, Sq 1000, Skv 1000, D 256)."""
+    assert ops.flash_bwd_scratch(variant, 1, 10, 1, 1000, 1000, 256,
+                                 splits) == want
 
 
 # -- K1: one cluster a bundle; K2: warps a column ------------------------------
