@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases ssm       # build + serving the ssm family
     python3 chip_smoke.py --phases hybrid,vlm,encdec  # the other three
     python3 chip_smoke.py --phases ftrain    # build + training the five
+    python3 chip_smoke.py --phases dtrain    # build + training over a mesh
     python3 chip_smoke.py --lm-profiles      # + the LM phases' traces
     python3 chip_smoke.py --phases path      # build + the regularization path
     python3 chip_smoke.py --phases fault     # build + diagnostics, faults
@@ -296,14 +297,33 @@ Phases:
                  patches; falcon-mamba-7b 4 of 64, 1 x 2048; whisper-small
                  whole, 4 x 384): finite losses, the mean of the last 3
                  below the first, K6/K6b launches by variant, step wall,
-                 tokens/s, peak under 75 GiB; the hybrid's run crashed at
-                 step 6 with checkpoints every 4, its replayed steps 4-5
+                 tokens/s, peak under 75 GiB; whisper-small's run crashed
+                 at step 6 with checkpoints every 4, its replayed steps 4-5
                  bit-equal to the same steps before the crash; each run's
                  checkpoints removed after it; one step from shared
                  carries through K6/K6b against the plain route for the
                  hybrid (one triple), moe (2 layers) and vlm (1 layer),
                  TRAIN_RTOL's bf16 limits (the hybrid's grad_norm 5e-5),
                  a fault planted in the plain backward as a control.
+  23. dtrain  -- LM training over a (data, model) mesh: qwen2-0.5b at
+                 full width (24 layers, bf16, remat), batch 2 x 4096,
+                 `launch.train --full --data D --model-parallel M` in
+                 torchrun children: (a) a world of 1 on NCCL, 4 steps,
+                 bit-equal to the same command without torchrun; (b) two
+                 ranks sharing the card over gloo, 3 steps at (2, 1) and
+                 at (1, 2), losses within TRAIN_RTOL's bf16 loss limit of
+                 (a)'s; (2, 1) again crashed at step 2 with checkpoints
+                 every 2, bit-equal to the first (2, 1) run; that run's
+                 checkpoint resumed in a world of 1 (its loss at step 3
+                 within the same limit of (a)'s); (c) one float32 step at
+                 full width and 2 layers from a shared carry, (2, 1) and
+                 (1, 2) against (1, 1) within TRAIN_RTOL's float32
+                 limits, a per-shard mean planted as a control and read
+                 past them; K6 and K6b `wgmma` in every layer of every
+                 rank's steps; each rank's peak memory, the step walls
+                 (gloo stages every collective through the host) and the
+                 launches by rank printed; checkpoints removed after
+                 their runs.
 
 Each solve phase sets the launch counts to 0, solves with the kernels,
 reads the counts, then solves again with the plain versions from the same
@@ -341,7 +361,7 @@ DEVICE = "cuda"
 PHASES = ("build", "kernels", "tune", "support", "full", "dense", "scdn",
           "tron", "bf16", "cli", "serve", "path", "fault", "sharded",
           "lm", "train", "moe", "ssm", "hybrid", "vlm", "encdec",
-          "ftrain")  # in order
+          "ftrain", "dtrain")  # in order
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -781,11 +801,15 @@ FTRAIN = {HYBRID_ARCH: (5, 1, 4096, 8),
           ENCDEC_ARCH: (0, 4, 384, 8)}
 FTRAIN_LABEL = {HYBRID_ARCH: "hybrid", MOE_ARCH: "moe", VLM_ARCH: "vlm",
                 SSM_ARCH: "ssm", ENCDEC_ARCH: "encdec"}
-# the hybrid's run crashes at FTRAIN_CRASH_AT with a checkpoint every
-# FTRAIN_CKPT_EVERY steps: its steps up to the crash are an uninterrupted
-# run's, and the replayed steps must equal them bit for bit (a run
-# without the crash took 57.2 s more, 20 GB of its ~26 s the final
-# checkpoint's write)
+# FTRAIN_CRASH_ARCH's run crashes at FTRAIN_CRASH_AT with a checkpoint
+# every FTRAIN_CKPT_EVERY steps: its steps up to the crash are an
+# uninterrupted run's, and the replayed steps must equal them bit for bit.
+# whisper-small's (a 2.8 GB checkpoint: its enc_layers / dec_layers
+# tree), for the whole run's time: the hybrid's crashed run (two 17.5 GB
+# checkpoints and a restore) took 79.1 s of ftrain's 206.2 on an H100
+# (PERF.md §4); the hybrid's triples / tail_rec<j> restore stays held on
+# the CPU (tests/test_torch_train_families_cli.py)
+FTRAIN_CRASH_ARCH = ENCDEC_ARCH
 FTRAIN_CKPT_EVERY = 4
 FTRAIN_CRASH_AT = 6
 FTRAIN_PEAK_GIB = 75.0
@@ -815,6 +839,44 @@ FLOCK_FAULT = {HYBRID_ARCH: "band", MOE_ARCH: "delta", VLM_ARCH: "delta"}
 FLOCK_RTOL = {HYBRID_ARCH: {**TRAIN_RTOL["bfloat16"], "grad_norm": 5e-5},
               MOE_ARCH: {**TRAIN_RTOL["bfloat16"], "grad_norm": 2e-3},
               VLM_ARCH: {**TRAIN_RTOL["bfloat16"], "grad_norm": 5e-4}}
+# the dtrain phase: the train phase's qwen2-0.5b at its published width
+# (bf16, remat, TRAIN_LR) over a (data, model) mesh, `launch.train --data
+# D --model-parallel M` in torchrun children, batch DTRAIN_BATCH x
+# DTRAIN_SEQ. (a) a world of 1 on NCCL runs DTRAIN_ONE_STEPS steps, and
+# the same command without torchrun must give its losses bit for bit;
+# (b) two ranks sharing the card over gloo: (2, 1) for DTRAIN_STEPS
+# steps, its losses within TRAIN_RTOL["bfloat16"]'s loss limit of (a)'s;
+# (2, 1) again with a crash at DTRAIN_CRASH_AT and a checkpoint every
+# DTRAIN_CKPT_EVERY (bit-equal to the first: its steps before the crash
+# rerun, the step after replayed from the checkpoint); then (1, 2)
+# resumes the first (2, 1) run's checkpoint (step DTRAIN_STEPS), its
+# loss at that step within the same limit of (a)'s. The rates of steps
+# 0-2 do not depend on --steps (warm-up 2, then the cosine's first
+# value), and a step's loss is taken before its update, so the runs of
+# 1, 3 and 4 steps read against each other there. (c) one float32 step
+# at full width and DTRAIN_F32_LAYERS layers from a shared carry, (2, 1)
+# and (1, 2) against (1, 1), TRAIN_RTOL["float32"], with a planted
+# control: each shard's loss its own mean in place of its share of the
+# batch's. The two-rank child starts with (a) and waits, its process
+# group up, until this process has run (a) and its command: no two runs
+# share the card. The restores (the crash's, the resume's) are held to
+# RESTORE_RATIO on every rank
+DTRAIN_BATCH = 2
+DTRAIN_SEQ = 4096
+DTRAIN_STEPS = 3
+DTRAIN_ONE_STEPS = DTRAIN_STEPS + 1
+DTRAIN_CKPT_EVERY = 2
+DTRAIN_CRASH_AT = 2
+DTRAIN_F32_LAYERS = 2
+DTRAIN_MESHES = ((2, 1), (1, 2))
+DTRAIN_FAULT = "per-shard mean"
+DTRAIN_GO_S = 300       # how long the two-rank child waits for (a)
+# a restore on the card adds the state it restores and nothing more: what
+# it adds to the device's allocation at its peak stays within
+# RESTORE_RATIO of that state's bytes there (`launch.train`'s
+# `restore_bytes_by_rank`). Before PR 28 the restore's template was
+# stacked from the live leaves, a second copy of the state on the card
+RESTORE_RATIO = 1.1
 # the band planted in K6's plain version: a key j counts when i - j <=
 # window (one key too many a row past the window)
 WINDOW_FAULT = "band"
@@ -2993,14 +3055,19 @@ def planted_backward(torch, fault: str):
         ref.attention_ref = plain_ref
 
 
-def _train_cli(args, env=None, timeout=900, runs=None, label="train"):
-    """`python -m repro_torch.launch.train args` in a child process -> its
-    `[train] result` dict; or with `runs` [(arch, layers, args, fault
-    plan or None), ...] the same `main` once a run, one after the other
-    in one child process, through this script's `--family-train` wrapper
-    -> their results."""
+def _train_cli(args, env=None, timeout=900, runs=None, label="train",
+               ranks=None):
+    """`python -m repro_torch.launch.train args` in a child process (with
+    `ranks`, under torchrun with that many ranks) -> its `[train] result`
+    dict (rank 0's); or with `runs` [(arch, layers, args, fault plan or
+    None), ...] the same `main` once a run, one after the other in one
+    child process, through this script's `--family-train` wrapper ->
+    their results."""
     if runs is None:
         cmd = ["repro_torch.launch.train", *args]
+        if ranks is not None:
+            cmd = ["torch.distributed.run", "--standalone",
+                   "--nproc-per-node", str(ranks), "-m", *cmd]
     else:
         cmd = ["chip_smoke", "--family-train"]
         for i, (arch, layers, run_args, plan) in enumerate(runs):
@@ -3122,6 +3189,7 @@ def phase_train(torch, card: str) -> dict:
     assert run["events"] == ["crash", "restore"], run["events"]
     assert run["loss_steps"] == list(range(TRAIN_CRASH_AT)) + \
         list(range(back, TRAIN_STEPS)), run["loss_steps"]
+    restore_check("train", run, card)
     assert len(once) == TRAIN_CRASH_AT - back and not diff, \
         (diff, once, again)
 
@@ -4276,9 +4344,9 @@ def phase_ftrain(torch, card: str) -> dict:
     """Training of the moe, ssm, hybrid, vlm and encdec families on the
     card: (b) one `launch.train --full` run a family (`ftrain_args`,
     `ftrain_check`; the depth cut as FTRAIN says; the five one after the
-    other in one child process), the hybrid's with
+    other in one child process), FTRAIN_CRASH_ARCH's with
     a crash at FTRAIN_CRASH_AT and checkpoints every FTRAIN_CKPT_EVERY: it
-    restores its `triples` / `tail_rec<j>` tree, and the steps it runs
+    restores its layer-stacked tree, and the steps it runs
     again from it equal the same steps before the crash bit for bit
     (moe's run is not replayed: its gathers' backward adds with
     atomics); (c) one train step a family from shared carries, kernel
@@ -4294,14 +4362,14 @@ def phase_ftrain(torch, card: str) -> dict:
                                      dir=str(ROOT / "build")) as tmp:
         # the five runs one after the other in one child (one process
         # start and one CUDA context; a child a run took ~18 s more a
-        # run), the hybrid's with its crash
+        # run), FTRAIN_CRASH_ARCH's with its crash
         archs = (HYBRID_ARCH, MOE_ARCH, VLM_ARCH, SSM_ARCH, ENCDEC_ARCH)
         runs = [ftrain_args(a, os.path.join(tmp, FTRAIN_LABEL[a]))
-                for a in archs[1:]]
-        runs.insert(0, ftrain_args(
-            HYBRID_ARCH, os.path.join(tmp, "hybrid"),
-            ("--ckpt-every", str(FTRAIN_CKPT_EVERY)),
-            plan={"crash_at_iter": FTRAIN_CRASH_AT}))
+                if a != FTRAIN_CRASH_ARCH else ftrain_args(
+                    a, os.path.join(tmp, FTRAIN_LABEL[a]),
+                    ("--ckpt-every", str(FTRAIN_CKPT_EVERY)),
+                    plan={"crash_at_iter": FTRAIN_CRASH_AT})
+                for a in archs]
         t0 = time.perf_counter()
         results = dict(zip(archs, _train_cli(None, env=FTRAIN_ALLOC,
                                              label="ftrain", runs=runs)))
@@ -4315,7 +4383,7 @@ def phase_ftrain(torch, card: str) -> dict:
                 prev = totals[f"{kernel} variants"]
                 totals[f"{kernel} variants"] = {
                     v: prev.get(v, 0) + by.get(v, 0) for v in {*prev, *by}}
-            if arch != HYBRID_ARCH:
+            if arch != FTRAIN_CRASH_ARCH:
                 continue
             # restored at `back`, the steps back .. FTRAIN_CRASH_AT - 1 run
             # again: the first time from the uninterrupted state, the
@@ -4323,18 +4391,18 @@ def phase_ftrain(torch, card: str) -> dict:
             back = (FTRAIN_CRASH_AT // FTRAIN_CKPT_EVERY) * FTRAIN_CKPT_EVERY
             first = res["losses"][back:FTRAIN_CRASH_AT]
             again = res["losses"][FTRAIN_CRASH_AT:2 * FTRAIN_CRASH_AT - back]
-            log(f"[ftrain] hybrid crash at step {FTRAIN_CRASH_AT}, "
-                f"checkpoints every {FTRAIN_CKPT_EVERY}: events "
-                f"{res['events']}, restored at {back}, steps run "
+            log(f"[ftrain] {FTRAIN_LABEL[arch]} crash at step "
+                f"{FTRAIN_CRASH_AT}, checkpoints every {FTRAIN_CKPT_EVERY}: "
+                f"events {res['events']}, restored at {back}, steps run "
                 f"{res['loss_steps']}; steps {back}-{FTRAIN_CRASH_AT - 1} "
-                f"from the restored triples / tail_rec tree against the "
+                f"from the restored layer-stacked tree against the "
                 f"same steps before the crash: "
                 f"{'bit-equal' if first == again else 'differ'} "
                 f"({first} / {again})")
             assert res["events"] == ["crash", "restore"], res["events"]
             assert res["loss_steps"] == list(range(FTRAIN_CRASH_AT)) + \
-                list(range(back, FTRAIN[HYBRID_ARCH][3])), \
-                res["loss_steps"]
+                list(range(back, FTRAIN[arch][3])), res["loss_steps"]
+            restore_check(f"ftrain {FTRAIN_LABEL[arch]}", res, card)
             assert len(first) == FTRAIN_CRASH_AT - back and first == again, \
                 (first, again)
     for arch, tol in FLOCK_RTOL.items():
@@ -4344,6 +4412,350 @@ def phase_ftrain(torch, card: str) -> dict:
             f"limits {tol}")
         assert all(r[k] <= tol[k] for k in tol), (arch, r, tol)
         assert any(x[k] > tol[k] for k in tol), (arch, x, tol)
+    return totals
+
+
+def dtrain_args(ckpt_dir: str, steps: int, data: int = 1,
+                model: int = 1, extra=()) -> list:
+    """`launch.train` arguments of a dtrain run: qwen2-0.5b --full,
+    DTRAIN_BATCH x DTRAIN_SEQ, `steps` steps at TRAIN_LR, over a (data,
+    model) mesh."""
+    return ["--arch", LM_ARCH, "--full", "--batch", str(DTRAIN_BATCH),
+            "--seq", str(DTRAIN_SEQ), "--steps", str(steps), "--lr",
+            str(TRAIN_LR), "--seed", str(TRAIN_SEED), "--device", DEVICE,
+            "--data", str(data), "--model-parallel", str(model),
+            "--ckpt-dir", ckpt_dir, *extra]
+
+
+@contextlib.contextmanager
+def per_shard_mean():
+    """Inside the block each data shard's loss is its own rows' mean (the
+    whole batch's count dropped): the sharded step's gradient is then the
+    shards' means summed, D times the batch's mean with equal shards."""
+    from repro_torch.models import layers
+    real = layers.softmax_xent
+
+    def shard_mean(logits, labels, mask=None, total=None):
+        return real(logits, labels, mask)
+
+    layers.softmax_xent = shard_mean
+    try:
+        yield
+    finally:
+        layers.softmax_xent = real
+
+
+def dtrain_lockstep(torch) -> dict:
+    """(c) of the dtrain phase, on each rank of a world of 2: one float32
+    train step of qwen2-0.5b at full width and DTRAIN_F32_LAYERS layers
+    from a shared carry (one world-of-1 step from the seeded init, so the
+    moments are not zero), through each mesh of DTRAIN_MESHES against the
+    same step on this rank alone, and the planted control (the first mesh
+    with `per_shard_mean`). -> {"2x1": readings, "1x2": ..., "control":
+    ...} (`train_readings`: loss, grad_norm, update)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, rows_split
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.convert import full_state, local_state
+    from repro_torch.models.decls import init_params
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_init
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config(LM_ARCH).replace(n_layers=DTRAIN_F32_LAYERS,
+                                      dtype="float32")
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+    model = Model(cfg, dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.01)
+    pipe = TokenPipeline(cfg, DTRAIN_BATCH, DTRAIN_SEQ, seed=TRAIN_SEED)
+
+    def batch(i, shard=0, shards=1):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in pipe.batch_at(i, shard, shards).items()}
+
+    one = make_train_step(model, opt_cfg)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    carry, opt, _ = one(params, adamw_init(params, opt_cfg), batch(0))
+    del params
+    ref = one(carry, opt, batch(1))
+    out = {}
+    for shape in DTRAIN_MESHES + (None,):
+        mesh = make_host_mesh(*(shape or DTRAIN_MESHES[0]), device=DEVICE)
+        D = mesh.size("data")
+        split = rows_split(DTRAIN_BATCH, D)
+        step = make_train_step(model, opt_cfg, mesh=mesh, rows_split=split)
+        local = AdamWState(opt.step, local_state(cfg, opt.mu, mesh),
+                           local_state(cfg, opt.nu, mesh), None)
+        rows = batch(1, mesh.index("data"), D) if split else batch(1)
+        with per_shard_mean() if shape is None else \
+                contextlib.nullcontext():
+            new, _, met = step(local_state(cfg, carry, mesh), local, rows)
+        new = full_state(cfg, new, mesh)
+        name = "control" if shape is None else f"{shape[0]}x{shape[1]}"
+        out[name] = train_readings(torch, carry, (new, met), ref[::2])
+        del new, step, local
+    return out
+
+
+def dtrain_ranks(tmp: str, out: str) -> None:
+    """The dtrain phase's two-rank child (`--dtrain-ranks DIR OUT`, one
+    process a rank under torchrun, gloo on the one card). Its process
+    group and CUDA context start, then it waits (DTRAIN_GO_S at most)
+    for DIR/go, which the smoke writes once (a) is done. Then (b)
+    `launch.train.main` at (2, 1) for DTRAIN_STEPS steps (its checkpoint
+    kept in DIR/data), at (2, 1) again with a crash at DTRAIN_CRASH_AT
+    and a checkpoint every DTRAIN_CKPT_EVERY, and at (1, 2) resuming
+    DIR/data for one step, each run's result with every rank's kernel
+    launches and wall; then (c) `dtrain_lockstep`. Rank 0 writes
+    {"runs": {name: result}, "lockstep": readings, "lockstep_s",
+    "waited_s"} to OUT as JSON."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_distributed
+    init_distributed(DEVICE)
+    torch.zeros(1, device=DEVICE)
+    t0 = time.perf_counter()
+    go = os.path.join(tmp, "go")
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > DTRAIN_GO_S:
+            raise TimeoutError(f"no {go} after {DTRAIN_GO_S} s")
+        time.sleep(0.1)
+    waited = time.perf_counter() - t0
+    runs = {}
+
+    def run(name, args, plan=None):
+        os.environ.pop("REPRO_FAULT_PLAN", None)
+        if plan is not None:
+            os.environ["REPRO_FAULT_PLAN"] = json.dumps(plan)
+        t0 = time.perf_counter()
+        res = train.main(args)
+        res["wall_s"] = time.perf_counter() - t0
+        counts = [None] * dist.get_world_size()
+        dist.all_gather_object(counts, res["launches_by_variant"])
+        res["launches_by_rank"] = counts
+        runs[name] = res
+        os.environ.pop("REPRO_FAULT_PLAN", None)
+        free_card(torch)
+
+    def remove(*dirs):
+        # the machine's disk counts every block written: the next run's
+        # checkpoint reuses these
+        if dist.get_rank() == 0:
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+        dist.barrier()
+
+    data = os.path.join(tmp, "data")
+    run("2x1", dtrain_args(data, DTRAIN_STEPS, 2, 1))
+    crash = os.path.join(tmp, "crash")
+    run("2x1 crash", dtrain_args(crash, DTRAIN_STEPS, 2, 1, (
+        "--ckpt-every", str(DTRAIN_CKPT_EVERY))),
+        plan={"crash_at_iter": DTRAIN_CRASH_AT})
+    remove(crash)
+    run("1x2 resumed", dtrain_args(data, 1, 1, 2))
+    remove(data)
+    t0 = time.perf_counter()
+    lock = dtrain_lockstep(torch)
+    lock_s = time.perf_counter() - t0
+    if dist.get_rank() == 0:
+        with open(out, "w") as fh:
+            json.dump({"runs": runs, "lockstep": lock, "lockstep_s": lock_s,
+                       "waited_s": waited}, fh)
+
+
+def restore_check(label: str, res: dict, card: str) -> None:
+    """A run's restores on the card (`launch.train`'s
+    `restore_bytes_by_rank`): on every rank, what the largest one added
+    to the device's allocation at its peak within RESTORE_RATIO of the
+    state it restored there."""
+    got = res["restore_bytes_by_rank"]
+    assert got and all(r is not None for r in got), (label, got)
+    ratios = [added / held for added, held in got]
+    log(f"[{label}] restore on the card, every rank: added "
+        f"{[round(a / 2 ** 30, 3) for a, _ in got]} GiB at its peak for a "
+        f"state of {[round(h / 2 ** 30, 3) for _, h in got]} GiB there: "
+        f"{[round(x, 4) for x in ratios]} of it (limit {RESTORE_RATIO}; "
+        f"{card})")
+    assert max(ratios) <= RESTORE_RATIO, (label, got)
+
+
+def _train_here(torch, args: list) -> dict:
+    """`launch.train.main(args)` in this process (no REPRO_FAULT_PLAN),
+    its --ckpt-dir removed after it and the card's cached blocks
+    returned -> its result."""
+    from repro_torch.launch import train
+    os.environ.pop("REPRO_FAULT_PLAN", None)
+    res = train.main(args)
+    shutil.rmtree(args[args.index("--ckpt-dir") + 1], ignore_errors=True)
+    free_card(torch)
+    return res
+
+
+def _dtrain_counts(res: dict) -> dict:
+    """K6 and K6b launches of one dtrain run over its ranks:
+    {kernel: {variant: launches}}."""
+    by_rank = res.get("launches_by_rank") or [res["launches_by_variant"]]
+    return {k: {v: sum(r[k][v] for r in by_rank) for v in by_rank[0][k]}
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def phase_dtrain(torch, card: str) -> dict:
+    """LM training over a (data, model) mesh on the card (see
+    DTRAIN_BATCH): the two-rank child (`--dtrain-ranks`, gloo) starts
+    first and waits; (a) a world of 1 on NCCL under torchrun, then the
+    same command in this process (no process group), bit-equal; then
+    the child runs (b): (2, 1), (2, 1) crashed and replayed, (1, 2)
+    resuming the first (2, 1) run's checkpoint, within
+    TRAIN_RTOL["bfloat16"]'s loss limit of (a), the crashed run bit-equal
+    to the first, each restore within RESTORE_RATIO; and (c) the float32
+    lockstep and its control. Each run's checkpoints are removed after
+    it. Printed, not gated: each rank's peak memory, the step walls (two
+    ranks on one card stage every collective through the host over
+    gloo: the walls measure that staging, not scaling over cards) and
+    K6/K6b launches by rank. -> the K6 and K6b launches of the runs,
+    with their variants."""
+    from repro_torch.configs import get_config
+    L = get_config(LM_ARCH).n_layers
+    free_card(torch)
+    tol = TRAIN_RTOL["bfloat16"]["loss"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dtrain_",
+                                     dir=str(ROOT / "build")) as tmp:
+        out = os.path.join(tmp, "ranks.json")
+        t_child = time.perf_counter()
+        proc = _child(["torch.distributed.run", "--standalone",
+                       "--nproc-per-node", "2", "-m", "chip_smoke",
+                       "--dtrain-ranks", tmp, out], timeout=600,
+                      log_to=os.path.join(tmp, "ranks"))
+        try:
+            t0 = time.perf_counter()
+            a = _train_cli(dtrain_args(os.path.join(tmp, "one"),
+                                       DTRAIN_ONE_STEPS), ranks=1,
+                           label="dtrain")
+            shutil.rmtree(os.path.join(tmp, "one"), ignore_errors=True)
+            a_wall = time.perf_counter() - t0
+            # the same command without torchrun: in this process (no
+            # process group starts where WORLD_SIZE is unset)
+            t0 = time.perf_counter()
+            plain = _train_here(torch, dtrain_args(
+                os.path.join(tmp, "plain"), DTRAIN_ONE_STEPS))
+            plain_wall = time.perf_counter() - t0
+            Path(tmp, "go").touch()
+            t0 = time.perf_counter()
+            log_lines = _finish("dtrain ranks", proc)
+            b_wall = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        child_wall = time.perf_counter() - t_child
+        for line in log_lines.splitlines():
+            if line.startswith(("[train] ", "step ")) and \
+                    not line.startswith("[train] result "):
+                log(f"[dtrain]   {line[:300]}")
+        with open(out) as fh:
+            ranks = json.load(fh)
+    runs = dict(ranks["runs"])
+    runs["1x1 torchrun"], runs["1x1 plain"] = a, plain
+    for name, res in runs.items():
+        m = res["mesh"]
+        m = m and {k: m[k] for k in ("data", "model", "backend")}
+        peaks = [round((p or 0) / 2 ** 30, 2)
+                 for p in res["peak_bytes_by_rank"]]
+        counts = [{k: {v: n for v, n in c[k].items() if n} for k in c}
+                  for c in res.get("launches_by_rank")
+                  or [res["launches_by_variant"]]]
+        wall = res["step_wall_s"]
+        wall = "-" if wall is None else f"{wall * 1e3:.1f} ms"
+        log(f"[dtrain] {name}: mesh {m}, steps {res['loss_steps']}, "
+            f"losses {res['losses']}, events {res['events']}; step wall "
+            f"{wall} (median after the first; first "
+            f"{res['step_walls_s'][0]:.2f} s); peak GiB by rank {peaks}; "
+            f"collectives a step {res['collectives_per_step']}; K6/K6b "
+            f"launches by rank {counts}; run {res.get('wall_s', 0):.1f} s "
+            f"({card})")
+    log(f"[dtrain] walls: (a) torchrun world of 1 {a_wall:.1f} s with its "
+        f"process start, its command in this process {plain_wall:.1f} s; "
+        f"the two-rank child {child_wall:.1f} s from its start, of which "
+        f"it waited {ranks['waited_s']:.1f} s with its group up, and "
+        f"{b_wall:.1f} s after (a) for (b) and (c) (the lockstep "
+        f"{ranks['lockstep_s']:.1f})")
+    # (a) a world of 1 on NCCL: the plain process's bits
+    assert a["mesh"] == {"data": 1, "model": 1, "world": 1, "backend": (
+        "nccl" if DEVICE == "cuda" else "gloo"), "rank": 0,
+        "rows_split": False}, a["mesh"]
+    assert plain["mesh"] is None and a["collectives_per_step"] == 0
+    log(f"[dtrain] (a) world of 1 on NCCL vs no process group: "
+        f"{'bit-equal' if a['losses'] == plain['losses'] else 'differ'}")
+    assert a["losses"] == plain["losses"], (a["losses"], plain["losses"])
+    # (b) two ranks on gloo
+    first, crashed = runs["2x1"], runs["2x1 crash"]
+    resumed = runs["1x2 resumed"]
+    for r in (first, crashed, resumed):
+        assert r["mesh"]["backend"] == "gloo" and r["mesh"]["world"] == 2
+    rel = [abs(x - y) / abs(y) for x, y in zip(first["losses"],
+                                               a["losses"])]
+    log(f"[dtrain] (b) 2x1 against (a): loss rel {max(rel):.2e} (limit "
+        f"{tol})")
+    assert first["loss_steps"] == list(range(DTRAIN_STEPS)), \
+        first["loss_steps"]
+    assert max(rel) <= tol, (first["losses"], a["losses"])
+    back = (DTRAIN_CRASH_AT // DTRAIN_CKPT_EVERY) * DTRAIN_CKPT_EVERY
+    log(f"[dtrain] (b) 2x1 again, a crash at step {DTRAIN_CRASH_AT} with "
+        f"checkpoints every {DTRAIN_CKPT_EVERY}: events {crashed['events']}"
+        f", steps {crashed['loss_steps']}; against the first 2x1 run: "
+        f"{'bit-equal' if crashed['losses'] == first['losses'] else 'differ'}")
+    assert crashed["events"] == ["crash", "restore"], crashed["events"]
+    assert crashed["loss_steps"] == list(range(DTRAIN_CRASH_AT)) + \
+        list(range(back, DTRAIN_STEPS)), crashed["loss_steps"]
+    assert crashed["losses"] == first["losses"], (crashed["losses"],
+                                                  first["losses"])
+    restore_check("dtrain 2x1 crash", crashed, card)
+    want = a["losses"][DTRAIN_STEPS]
+    rel = abs(resumed["losses"][0] - want) / abs(want)
+    log(f"[dtrain] (b) the 2x1 checkpoint (step {DTRAIN_STEPS}) resumed at "
+        f"1x2: start {resumed['start_step']}, events {resumed['events']}, "
+        f"loss {resumed['losses'][0]:.6f} against (a)'s {want:.6f}: rel "
+        f"{rel:.2e} (limit {tol})")
+    assert resumed["start_step"] == DTRAIN_STEPS and \
+        resumed["events"] == ["resume"] and \
+        resumed["loss_steps"] == [DTRAIN_STEPS], resumed
+    assert rel <= tol, rel
+    restore_check("dtrain 1x2 resumed", resumed, card)
+    # (c) the float32 lockstep
+    ftol = TRAIN_RTOL["float32"]
+    for name, r in ranks["lockstep"].items():
+        what = (name if name != "control" else
+                f"{DTRAIN_MESHES[0]} with the {DTRAIN_FAULT!r} control")
+        log(f"[dtrain] (c) float32 lockstep at {DTRAIN_F32_LAYERS} layers, "
+            f"{what} against (1, 1): loss rel {r['loss']:.2e}, grad_norm "
+            f"{r['grad_norm']:.2e}, update {r['update']:.2e} (one "
+            f"parameter's at most {r['param_update']:.2e}, {r['param']}); "
+            f"limits {ftol}")
+        if name == "control":
+            assert any(r[k] > ftol[k] for k in ftol), r
+        else:
+            assert all(r[k] <= ftol[k] for k in ftol), (name, r)
+    # K6 and K6b in every layer of every rank's steps
+    totals = {"flash_attention": 0, "flash_attention_bwd": 0,
+              "flash_attention variants": {},
+              "flash_attention_bwd variants": {}}
+    for name, res in runs.items():
+        steps = len(res["losses"]) * (res["mesh"] or {}).get("world", 1)
+        got = _dtrain_counts(res)
+        assert got["flash_attention"]["wgmma"] == 2 * L * steps and \
+            got["flash_attention_bwd"]["wgmma"] == L * steps and \
+            sum(got["flash_attention"].values()) == 2 * L * steps and \
+            sum(got["flash_attention_bwd"].values()) == L * steps, \
+            (name, got, steps)
+        for kernel, by in got.items():
+            totals[kernel] += sum(by.values())
+            prev = totals[f"{kernel} variants"]
+            totals[f"{kernel} variants"] = {
+                v: prev.get(v, 0) + by.get(v, 0) for v in {*prev, *by}}
+    log(f"[dtrain] K6/K6b launches of the runs, every rank: "
+        f"{totals['flash_attention']} / {totals['flash_attention_bwd']}")
     return totals
 
 
@@ -5499,23 +5911,36 @@ def phase_path(torch, rows, data, card: str) -> dict:
     return total
 
 
-def _child(args, env=None, timeout=300):
+def _child(args, env=None, timeout=300, log_to=None):
     """Start `python -m <args>` on the checkout's src, the fault plan (if
-    any) in REPRO_FAULT_PLAN. -> the Popen (stdout and stderr piped)."""
+    any) in REPRO_FAULT_PLAN. -> the Popen (stdout and stderr piped; with
+    `log_to`, a path, written to log_to.out and log_to.err instead, so
+    that a child left running while this process works cannot stall on
+    a full pipe)."""
     e = dict(os.environ)
     e["PYTHONPATH"] = str(SRC)
     e.pop("REPRO_FAULT_PLAN", None)
     e.update(env or {})
-    proc = subprocess.Popen([sys.executable, "-m", *args],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=e, cwd=str(ROOT))
+    outs = [subprocess.PIPE] * 2
+    if log_to is not None:
+        outs = [open(f"{log_to}.{x}", "w") for x in ("out", "err")]
+    proc = subprocess.Popen([sys.executable, "-m", *args], stdout=outs[0],
+                            stderr=outs[1], text=True, env=e, cwd=str(ROOT))
+    if log_to is not None:
+        for fh in outs:
+            fh.close()
     proc.smoke_timeout = timeout
+    proc.smoke_logs = log_to
     return proc
 
 
 def _finish(name, proc, rc=0):
     """Wait for a child of `_child`; its rc must be `rc`. -> stdout."""
     out, err = proc.communicate(timeout=proc.smoke_timeout)
+    logs = getattr(proc, "smoke_logs", None)
+    if logs is not None:
+        out, err = (Path(f"{logs}.{x}").read_text()
+                    for x in ("out", "err"))
     if proc.returncode != rc:
         raise AssertionError(f"[fault] {name}: exit {proc.returncode} "
                              f"(expected {rc})\n{out[-3000:]}\n"
@@ -6205,6 +6630,18 @@ def phase_cli(torch) -> None:
             assert counts[kernel] > 0, counts
 
 
+def cache_bytecode() -> None:
+    """Cache compiled bytecode under build/pycache, for this process and
+    every process it starts: where PYTHONDONTWRITEBYTECODE is set and
+    site-packages holds no bytecode, Python compiles each module it
+    imports from source in every process, torch's thousands included."""
+    prefix = str(ROOT / "build" / "pycache")
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES[1:]),
@@ -6256,6 +6693,9 @@ def main(argv=None) -> int:
                          "gisette dense) or one TRON "
                          "iteration and print its JSON line (the scdn and "
                          "tron phases run this in a child process)")
+    ap.add_argument("--dtrain-ranks", nargs=2, metavar=("DIR", "OUT"),
+                    help="one rank of the dtrain phase's two-rank runs and "
+                         "lockstep (the phase starts two under torchrun)")
     ap.add_argument("--sharded-ranks", nargs=2, metavar=("NPZ", "OUT"),
                     help="one rank of the sharded phase's two-rank run "
                          "(the phase starts two under torchrun)")
@@ -6272,6 +6712,8 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
+    if (SRC / "repro_torch").is_dir():
+        cache_bytecode()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -6287,6 +6729,9 @@ def main(argv=None) -> int:
         return 0
     if args.sharded_ranks:
         sharded_ranks(*args.sharded_ranks)
+        return 0
+    if args.dtrain_ranks:
+        dtrain_ranks(*args.dtrain_ranks)
         return 0
     if args.lm_profile:
         print(json.dumps(lm_profile()), flush=True)
@@ -6460,6 +6905,16 @@ def run_phases(torch, phases) -> int:
             by_phase.setdefault(kernel, {})["ftrain"] = n
             launches[kernel] = launches.get(kernel, 0) + n
         lap("ftrain")
+    if "dtrain" in phases:
+        for kernel, n in phase_dtrain(torch, f"{card} ({smi})").items():
+            if kernel.endswith(" variants"):
+                prev = launches.get(kernel, {})
+                launches[kernel] = {v: prev.get(v, 0) + n.get(v, 0)
+                                    for v in {*prev, *n}}
+                continue
+            by_phase.setdefault(kernel, {})["dtrain"] = n
+            launches[kernel] = launches.get(kernel, 0) + n
+        lap("dtrain")
 
     if kernels:
         rows = []

@@ -19,6 +19,26 @@ import numpy as np
 from repro_torch.models.config import ModelConfig
 
 
+def rows_split(batch: int, shards: int) -> bool:
+    """Whether a batch of `batch` rows splits over `shards` data shards:
+    when it divides, as the reference's `_fit_axes` splits a batch dim
+    (else every shard takes the whole batch)."""
+    return shards > 1 and batch % shards == 0
+
+
+def shard_rows(batch: Dict[str, np.ndarray], shard: int,
+               shards: int) -> Dict[str, np.ndarray]:
+    """Data shard `shard` of `shards`: rows [shard * B / shards, (shard +
+    1) * B / shards) of every entry (tokens, labels, vlm's patches and
+    loss_mask, encdec's frames), or the whole batch where `shards` does
+    not divide B (`rows_split`)."""
+    B = len(next(iter(batch.values())))
+    if not rows_split(B, shards):
+        return batch
+    b = B // shards
+    return {k: v[shard * b:(shard + 1) * b] for k, v in batch.items()}
+
+
 class TokenPipeline:
     def __init__(self, cfg: ModelConfig, batch: int, seq: int,
                  seed: int = 0, prefetch: int = 2):
@@ -28,8 +48,13 @@ class TokenPipeline:
         self.seed = seed
         self.prefetch = prefetch
 
-    def batch_at(self, index: int) -> Dict[str, np.ndarray]:
-        """Pure function of (seed, index): restart-deterministic."""
+    def batch_at(self, index: int, shard: int = 0,
+                 shards: int = 1) -> Dict[str, np.ndarray]:
+        """Pure function of (seed, index): restart-deterministic. With
+        `shards` > 1, data shard `shard`'s rows of it (`shard_rows`)."""
+        return shard_rows(self._batch(index), shard, shards)
+
+    def _batch(self, index: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(
             np.random.SeedSequence([self.seed, index]))
         V = self.cfg.vocab_size

@@ -10,7 +10,13 @@ Layout:  <dir>/step_<N>/       (N zero-padded to 8 digits)
 Leaves are full host arrays (a sharded backend gathers them over its
 mesh, and its rank 0 writes them). Every file is fsynced, the step directory
 lands by an atomic rename, stale `.tmp_ckpt_` directories of crashed
-writers are removed, and the `keep` newest steps are kept.
+writers are removed, and the `keep` newest steps are kept. The .npz is
+np.savez's (stored members, .npy format 1.0), written a member at a time
+with a device tensor's bytes through one pinned staging buffer
+(`_write_npz`), and `restore` reads each member with one np.fromfile at
+its offset, its CRC-32 checked (`_read_member`), where np.load reads
+through small buffered copies (`benchmarks/port/ckpt_io.py` times both
+ways).
 
 Trees are nested dicts (sorted keys), tuples, lists and NamedTuples, with
 None an empty subtree, flattened in `jax.tree_util`'s leaf order under
@@ -41,7 +47,10 @@ import hashlib
 import json
 import os
 import shutil
+import struct
 import tempfile
+import zipfile
+import zlib
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -79,39 +88,42 @@ def flatten_with_names(tree) -> list:
     """[(name, leaf)] in the reference's leaf order and names (its
     `_flatten_with_names`); None holds no leaf."""
     out = []
-
-    def walk(path, node):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append((_SEP.join(path) or "leaf", node))
-            return
-        for part, child in kids:
-            walk(path + (part,), child)
-
-    walk((), tree)
+    _walk((), tree, out)
     return out
+
+
+# The recursions are module functions: a nested function that calls
+# itself sits in a reference cycle with its closure, which would keep
+# the leaves it collected (a save's stacked copy of the state, on the
+# card) alive after the call until the next garbage collection.
+def _walk(path, node, out: list) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append((_SEP.join(path) or "leaf", node))
+        return
+    for part, child in kids:
+        _walk(path + (part,), child, out)
 
 
 def unflatten_like(like, leaves: list):
     """A tree of `like`'s structure holding `leaves` in leaf order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        kids = _children(node)
-        if kids is None:
-            return next(it)
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        built = [build(c) for _, c in kids]
-        if _is_namedtuple(node):
-            return type(node)(*built)
-        return type(node)(built)
 
-    return build(like)
+def _build(node, it):
+    if node is None:
+        return None
+    kids = _children(node)
+    if kids is None:
+        return next(it)
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    built = [_build(c, it) for _, c in kids]
+    if _is_namedtuple(node):
+        return type(node)(*built)
+    return type(node)(built)
 
 
 def _treedef(tree) -> str:
@@ -147,21 +159,123 @@ def _to_host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _writable(arr: np.ndarray) -> np.ndarray:
+    """`arr` itself when torch may wrap it (C-contiguous and writable, as
+    an array np.load reads is), else a copy."""
+    return np.require(arr, requirements=("C", "W"))
+
+
 def _from_host(arr: np.ndarray, like):
     """A loaded array cast to `like`'s dtype (and device for a tensor);
     "|V2" entries are bfloat16 bits."""
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+        t = torch.from_numpy(_writable(arr.view(np.int16))).view(
+            torch.bfloat16)
     else:
         t = None
     if isinstance(like, torch.Tensor):
         if t is None:
-            t = torch.from_numpy(np.array(arr))
+            t = torch.from_numpy(_writable(arr))
         return t.to(device=like.device, dtype=like.dtype)
     if t is not None:
         arr = t.to(torch.float32).numpy()
     dtype = getattr(like, "dtype", None)
     return np.asarray(arr, dtype=dtype) if dtype is not None else arr
+
+
+_STAGING = 64 << 20      # bytes a device-to-host copy of a write
+
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    """The host dtype of a tensor's .npz entry ("|V2" for bfloat16)."""
+    if t.dtype == torch.bfloat16:
+        return np.dtype("V2")
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def _write_npz(path: str, named: list) -> None:
+    """The file `np.savez(path, **{key: _to_host(leaf)})` writes, for
+    `named` [(key, leaf)]: a stored zip of one member `<key>.npy` a leaf,
+    each an .npy of format 1.0 (C order). A device tensor's bytes go to
+    its member through one pinned staging buffer, _STAGING bytes a copy,
+    and a host array's in one write: np.savez copies each array to the
+    host whole (pageable, for a tensor), then through 16 MiB chunks."""
+    fmt = np.lib.format
+    staging = None
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, leaf in named:
+            on_device = isinstance(leaf, torch.Tensor) and \
+                leaf.device.type != "cpu"
+            if on_device:
+                t = leaf.detach().contiguous()
+                header = {"descr": fmt.dtype_to_descr(_np_dtype(t)),
+                          "fortran_order": False, "shape": tuple(t.shape)}
+                data = t.reshape(-1).view(torch.uint8)
+            else:
+                arr = np.require(_to_host(leaf), requirements="C")
+                header = fmt.header_data_from_array_1_0(arr)
+            with zf.open(key + ".npy", "w", force_zip64=True) as fh:
+                fmt.write_array_header_1_0(fh, header)
+                if not on_device:
+                    fh.write(arr.reshape(-1).view(np.uint8).data)
+                    continue
+                if staging is None:
+                    staging = torch.empty(_STAGING, dtype=torch.uint8,
+                                          pin_memory=True)
+                for off in range(0, data.numel(), _STAGING):
+                    n = min(_STAGING, data.numel() - off)
+                    staging[:n].copy_(data[off:off + n])
+                    fh.write(staging[:n].numpy().data)
+
+
+def _npz_members(path: str) -> dict:
+    """{key: ZipInfo} of an .npz's members (the key without ".npy")."""
+    with zipfile.ZipFile(path) as zf:
+        return {(i.filename[:-4] if i.filename.endswith(".npy")
+                 else i.filename): i for i in zf.infolist()}
+
+
+def _read_member(fh, info: zipfile.ZipInfo, path: str) -> np.ndarray:
+    """One member of the .npz `path` (open as `fh`): a stored .npy of
+    format 1.0 or 2.0 (what np.savez and `_write_npz` write), read with
+    one np.fromfile at its offset and its CRC-32 checked (np.load reads
+    through small buffered reads). A member of any other kind (compressed,
+    another .npy format, an object dtype), a short one or a corrupt one
+    raises zipfile.BadZipFile."""
+    fmt = np.lib.format
+    fh.seek(info.header_offset)
+    local = fh.read(30)
+    if info.compress_type != zipfile.ZIP_STORED or \
+            local[:4] != b"PK\x03\x04":
+        raise zipfile.BadZipFile(f"{info.filename} in {path} is not a "
+                                 f"stored zip member")
+    name_len, extra_len = struct.unpack("<HH", local[26:30])
+    start = info.header_offset + 30 + name_len + extra_len
+    fh.seek(start)
+    try:
+        version = fmt.read_magic(fh)
+        if version not in ((1, 0), (2, 0)):
+            raise ValueError(f".npy format {version}")
+        read_header = (fmt.read_array_header_1_0 if version == (1, 0)
+                       else fmt.read_array_header_2_0)
+        shape, fortran, dtype = read_header(fh)
+    except ValueError as e:
+        raise zipfile.BadZipFile(f"{info.filename} in {path}: {e}") from e
+    head = fh.tell() - start
+    count = int(np.prod(shape, dtype=np.int64))
+    if dtype.hasobject or head + count * dtype.itemsize != info.file_size:
+        raise zipfile.BadZipFile(
+            f"{info.filename} in {path}: {dtype} x {shape} after a "
+            f"{head}-byte header does not fill its {info.file_size} bytes")
+    arr = np.fromfile(fh, dtype=dtype, count=count)
+    fh.seek(start)
+    crc = zlib.crc32(fh.read(head))
+    if arr.size != count or zlib.crc32(
+            arr.reshape(-1).view(np.uint8).data, crc) != info.CRC:
+        raise zipfile.BadZipFile(f"bad CRC-32 or short data for "
+                                 f"{info.filename} in {path}")
+    return arr.reshape(shape, order="F" if fortran else "C")
 
 
 class CheckpointManager:
@@ -174,11 +288,11 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
         """Write `tree` (see the module docstring) as step `step`."""
         named = flatten_with_names(tree)
-        arrays = {f"{i:05d}{_SEP}{name}": _to_host(leaf)
-                  for i, (name, leaf) in enumerate(named)}
         tmp = tempfile.mkdtemp(dir=self.directory, prefix=".tmp_ckpt_")
         try:
-            np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+            _write_npz(os.path.join(tmp, "arrays.npz"),
+                       [(f"{i:05d}{_SEP}{name}", leaf)
+                        for i, (name, leaf) in enumerate(named)])
             manifest = {
                 "step": int(step),
                 "treedef": _treedef(tree),
@@ -237,23 +351,23 @@ class CheckpointManager:
             raise FileNotFoundError(f"no committed checkpoint in "
                                     f"{self.directory}")
         likes = [leaf for _, leaf in flatten_with_names(like)]
-        with np.load(os.path.join(self._step_dir(step), "arrays.npz")) as d:
-            keys = sorted(d.files, key=lambda k: int(k.split(_SEP)[0]))
-            if len(keys) != len(likes):
-                raise ValueError(f"leaf count mismatch: {len(keys)} in "
-                                 f"step {step} vs {len(likes)} in `like`")
-            leaves = [_from_host(d[k], ref) for k, ref in zip(keys, likes)]
+        path = os.path.join(self._step_dir(step), "arrays.npz")
+        members = _npz_members(path)
+        keys = sorted(members, key=lambda k: int(k.split(_SEP)[0]))
+        if len(keys) != len(likes):
+            raise ValueError(f"leaf count mismatch: {len(keys)} in "
+                             f"step {step} vs {len(likes)} in `like`")
+        with open(path, "rb") as fh:
+            leaves = [_from_host(_read_member(fh, members[k], path), ref)
+                      for k, ref in zip(keys, likes)]
         return step, unflatten_like(like, leaves)
 
     def load_raw(self, step: int) -> dict:
         """The step's leaves as a {name: host array} dict."""
-        d = self._step_dir(step)
-        with np.load(os.path.join(d, "arrays.npz")) as data:
-            out = {}
-            for key in data.files:
-                _, name = key.split(_SEP, 1)
-                out[name] = data[key]
-        return out
+        path = os.path.join(self._step_dir(step), "arrays.npz")
+        with open(path, "rb") as fh:
+            return {key.split(_SEP, 1)[1]: _read_member(fh, info, path)
+                    for key, info in _npz_members(path).items()}
 
     def restore_latest_valid_raw(self) -> Optional[Tuple[int, dict, dict]]:
         """Newest checkpoint that actually LOADS, as (step, raw leaves,

@@ -15,6 +15,12 @@ loops: port of `repro.fault.runner`.
     ranks running now; checkpoints hold full host arrays, so a restore
     needs no particular mesh.
 
+Over several ranks (`launch.train` under torchrun) each rank runs its own
+runner in lockstep: an injected crash fires on every rank at the same
+step and each restores the same checkpoint, and `slowest` (a step's wall
+-> the slowest rank's) makes every rank take the same straggler decision,
+so no rank re-issues a step whose collectives the others do not join.
+
 A step's wall is measured to the end of its device work: the runner
 synchronizes the device of the state's first tensor leaf (the reference
 blocks on its first leaf). Fault injection hooks (`inject_fault`) let the
@@ -59,16 +65,19 @@ def _block_until_ready(state: Any) -> None:
 class FaultTolerantRunner:
     def __init__(self, step_fn: Callable, state: Any,
                  ckpt: CheckpointManager, cfg: RunnerConfig = RunnerConfig(),
-                 inject_fault: Optional[Callable[[int, int], None]] = None):
+                 inject_fault: Optional[Callable[[int, int], None]] = None,
+                 slowest: Optional[Callable[[float], float]] = None):
         """step_fn(state, step_idx) -> (state, metrics). state is any tree
         `CheckpointManager` stores (params + opt state + data cursor).
         inject_fault(step, attempt) may raise to simulate a crash (test
-        hook)."""
+        hook). slowest(seconds) -> the largest of the ranks' walls of the
+        step (a collective; None on one rank)."""
         self.step_fn = step_fn
         self.state = state
         self.ckpt = ckpt
         self.cfg = cfg
         self.inject_fault = inject_fault
+        self.slowest = slowest
         self.step_times: list[float] = []
         self.events: list[dict] = []      # fault/straggler/restore log
         self.start_step = 0
@@ -93,6 +102,8 @@ class FaultTolerantRunner:
         # block so the deadline measures real execution, not dispatch
         _block_until_ready(state)
         dt = time.perf_counter() - t0
+        if self.slowest is not None:
+            dt = self.slowest(dt)
         if dt > self._deadline():
             self.events.append({"kind": "straggler", "step": step,
                                 "attempt": attempt, "seconds": dt})

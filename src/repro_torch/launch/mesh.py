@@ -9,9 +9,16 @@ and lays the ranks out row-major over them, so rank = (pod * D + data) * M
 The sharded backend reduces over three kinds of groups: the data-like
 axes (the ranks that share a model column), the model axis (the ranks that
 share a data row), and all ranks. `Mesh.psum` / `Mesh.pmax` take the axes
-by name. A reduction over axes of total size 1 is the identity and issues
-no collective, as XLA compiles a psum over a size-1 axis to nothing;
-`Mesh.counts` tells the reductions asked for from the collectives issued.
+by name. LM training (`train.steps`) adds `Mesh.all_gather`, the ranks'
+tensors along the axes concatenated in rank order, and
+`Mesh.psum_ordered`, a sum over the axes added in rank order from an
+all-gather: gloo with CUDA tensors (two ranks on one card) has no
+reduce-scatter, and a ring all-reduce adds in an order that depends on
+the chunk, so this sum is the one whose bits do not depend on the
+group's algorithm. A collective over axes of total size 1 is the
+identity and issues nothing, as XLA compiles a psum over a size-1 axis
+to nothing; `Mesh.counts` tells the collectives asked for from those
+issued.
 
 Devices and backends. Each rank runs on `cuda:LOCAL_RANK` when the host
 has a card for every local rank, else on the one card; `device="cpu"`
@@ -85,6 +92,20 @@ def _destroy_group() -> None:
         dist.destroy_process_group()
 
 
+def check_world(shape: Sequence[int], axis_names: Sequence[str],
+                world: int) -> None:
+    """Raise unless a mesh of `shape` over `axis_names` takes `world`
+    ranks."""
+    need = 1
+    for a in shape:
+        need *= int(a)
+    if world != need:
+        raise ValueError(
+            f"mesh {dict(zip(axis_names, shape))} needs {need} ranks, the "
+            f"process group has {world}; start {need} ranks (torchrun "
+            f"--nproc-per-node {need}) or change the mesh")
+
+
 class Mesh:
     """Named axes over the ranks of the default process group."""
 
@@ -96,16 +117,9 @@ class Mesh:
             raise ValueError(f"mesh shape {shape} and axes {names} differ")
         if any(a < 1 for a in shape):
             raise ValueError(f"mesh shape {shape}: every axis must be >= 1")
-        need = 1
-        for a in shape:
-            need *= a
         backend = init_distributed(device)
         world = dist.get_world_size()
-        if world != need:
-            raise ValueError(
-                f"mesh {dict(zip(names, shape))} needs {need} ranks, the "
-                f"process group has {world}; start {need} ranks (torchrun "
-                f"--nproc-per-node {need}) or change the mesh")
+        check_world(shape, names, world)
         self.axis_names = names
         self.shape: Dict[str, int] = dict(zip(names, shape))
         self.rank = dist.get_rank()
@@ -183,6 +197,46 @@ class Mesh:
         self.counts["issued"] += 1
         dist.all_reduce(t, op=op, group=self._group(axes))
         return t
+
+    def _gathered(self, t: Tensor, axes: Tuple[str, ...]) -> list:
+        """The tensors of the ranks along `axes` (of size > 1), in rank
+        order (row-major over the axes: a group's ranks ascend)."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size(axes))]
+        dist.all_gather(parts, t, group=self._group(axes))
+        return parts
+
+    def all_gather(self, t: Tensor, axes, dim: int = 0) -> Tensor:
+        """The tensors of the ranks along `axes` concatenated along `dim`
+        in rank order (`t` itself over axes of size 1)."""
+        axes = self._axes(axes)
+        self.counts["asked"] += 1
+        if self.size(axes) == 1:
+            return t
+        self.counts["issued"] += 1
+        return torch.cat(self._gathered(t, axes), dim=dim)
+
+    def psum_ordered(self, t: Tensor, axes, dtype=None) -> Tensor:
+        """Sum of `t` over the ranks along `axes`, in `dtype` (t's by
+        default), added in rank order: bit-equal on every rank and from
+        run to run, whatever the group's algorithm. A new tensor; `t`
+        itself (cast to `dtype`) over axes of size 1."""
+        axes = self._axes(axes)
+        dtype = dtype or t.dtype
+        self.counts["asked"] += 1
+        if self.size(axes) == 1:
+            return t.to(dtype)
+        self.counts["issued"] += 1
+        parts = self._gathered(t.reshape(-1), axes)
+        out = parts[0].to(dtype, copy=True)
+        for part in parts[1:]:
+            out += part.to(dtype)
+        return out.view(t.shape)
+
+    def barrier(self) -> None:
+        """Wait for every rank (nothing in a world of 1)."""
+        if self.world > 1:
+            dist.barrier()
 
     def psum(self, t: Tensor, axes) -> Tensor:
         """Sum of `t` over the ranks along `axes`, IN PLACE (returned)."""

@@ -48,24 +48,31 @@ class Attention(decls.Declared):
         if H != rH:
             wo = decls.padded(wo, 0, rH)
         if cfg.fused_qkv:
-            self.declare("wqkv", (d, H + 2 * Kv, Dh), decls.dense(d))
-            self.declare("wo", (H, Dh, d), wo)
+            self.declare("wqkv", (d, H + 2 * Kv, Dh), decls.dense(d),
+                         axes=("embed", "heads", "head_dim"))
+            self.declare("wo", (H, Dh, d), wo,
+                         axes=("heads", "head_dim", "embed"))
             if cfg.qkv_bias:
-                self.declare("bqkv", (H + 2 * Kv, Dh), decls.ZEROS)
+                self.declare("bqkv", (H + 2 * Kv, Dh), decls.ZEROS,
+                             axes=("heads", "head_dim"))
             return
         wq, wkv = decls.dense(d), decls.dense(d)
         if H != rH:
             wq = decls.padded(wq, 1, rH)
         if Kv != rKv:
             wkv = decls.padded(wkv, 1, rKv)
-        self.declare("wq", (d, H, Dh), wq)
-        self.declare("wk", (d, Kv, Dh), wkv)
-        self.declare("wv", (d, Kv, Dh), wkv)
-        self.declare("wo", (H, Dh, d), wo)
+        self.declare("wq", (d, H, Dh), wq, axes=("embed", "heads", "head_dim"))
+        self.declare("wk", (d, Kv, Dh), wkv,
+                     axes=("embed", "kv_heads", "head_dim"))
+        self.declare("wv", (d, Kv, Dh), wkv,
+                     axes=("embed", "kv_heads", "head_dim"))
+        self.declare("wo", (H, Dh, d), wo, axes=("heads", "head_dim", "embed"))
         if cfg.qkv_bias:
-            self.declare("bq", (H, Dh), decls.ZEROS)
-            self.declare("bk", (Kv, Dh), decls.ZEROS)
-            self.declare("bv", (Kv, Dh), decls.ZEROS)
+            self.declare("bq", (H, Dh), decls.ZEROS, axes=("heads", "head_dim"))
+            self.declare("bk", (Kv, Dh), decls.ZEROS,
+                         axes=("kv_heads", "head_dim"))
+            self.declare("bv", (Kv, Dh), decls.ZEROS,
+                         axes=("kv_heads", "head_dim"))
 
     def _project(self, x: Tensor, w: Tensor, b) -> Tensor:
         """x (B, S, d) @ w (d, h, Dh) [+ b (h, Dh)] -> (B, S, h, Dh)."""

@@ -23,15 +23,40 @@ The AdamW state crosses the same way: `opt_state_from_jax` takes the
 reference's `AdamWState(step, mu, nu, master)` (or a tuple in that field
 order) to the port's, float32 moments and master copy; `opt_state_to_jax`
 returns the four fields for the reference's `AdamWState(*fields)`.
+
+Over a mesh (`launch.mesh.Mesh`) each rank holds its blocks
+(`models.sharding`): `local_state` cuts a full flat dict (such as
+`params_from_jax`'s) to this rank's blocks and `full_state` gathers the
+blocks back (for `stack_layers` and the checkpoints).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model, stacked_layers
 from repro_torch.optim.adamw import AdamWState
+
+
+def state_specs(cfg: ModelConfig, mesh) -> dict:
+    """{parameter name: spec} of `cfg`'s model on `mesh` (a model on the
+    meta device: nothing allocated)."""
+    return sh.spec_tree(Model(cfg, "meta"), None, mesh)
+
+
+def local_state(cfg: ModelConfig, state: dict, mesh) -> dict:
+    """A full flat dict under the port's names (params, or AdamW's
+    moments) -> this rank's blocks (`sharding.local_slice`)."""
+    specs = state_specs(cfg, mesh)
+    return {k: sh.local_slice(t, specs[k], mesh) for k, t in state.items()}
+
+
+def full_state(cfg: ModelConfig, state: dict, mesh) -> dict:
+    """This rank's blocks -> the full flat dict (`sharding.gather_tree`:
+    a collective, every rank of the mesh calls it)."""
+    return sh.gather_tree(state, state_specs(cfg, mesh), mesh)
 
 
 def params_from_jax(cfg: ModelConfig, tree: dict, dtype=None) -> dict:
@@ -102,25 +127,26 @@ def unstack_layers(cfg: ModelConfig, tree: dict) -> dict:
     """`stack_layers`'s inverse: a nested tree of tensors -> the port's
     flat dict (layer i of a stacked leaf is a view of it)."""
     out = {}
-    stacks = stacked_layers(cfg)
-
-    def walk(path, node):
-        if isinstance(node, dict):
-            for key, child in node.items():
-                walk(path + (key,), child)
-            return
-        if path[0] in stacks:
-            n = stacks[path[0]]
-            if node.shape[0] != n:
-                raise ValueError(f"{'.'.join(path)}: {node.shape[0]} "
-                                 f"stacked layers, config stacks {n}")
-            for i in range(n):
-                out[".".join((path[0], str(i)) + path[1:])] = node[i]
-        else:
-            out[".".join(path)] = node
-
-    walk((), tree)
+    _unstack((), tree, stacked_layers(cfg), out)
     return out
+
+
+def _unstack(path, node, stacks: dict, out: dict) -> None:
+    # a module function: a nested one calling itself would hold `out` in
+    # a reference cycle, its tensors alive until a garbage collection
+    if isinstance(node, dict):
+        for key, child in node.items():
+            _unstack(path + (key,), child, stacks, out)
+        return
+    if path[0] in stacks:
+        n = stacks[path[0]]
+        if node.shape[0] != n:
+            raise ValueError(f"{'.'.join(path)}: {node.shape[0]} "
+                             f"stacked layers, config stacks {n}")
+        for i in range(n):
+            out[".".join((path[0], str(i)) + path[1:])] = node[i]
+    else:
+        out[".".join(path)] = node
 
 
 def load_jax_params(model, tree: dict) -> None:

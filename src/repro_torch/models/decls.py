@@ -13,11 +13,11 @@ reference's `_normal_init` does. The two packages draw different numbers
 from the same seed: tests carry the reference's weights over with
 `models.convert.params_from_jax`.
 
-Not ported, because one card holds every parameter whole: the
-logical-axis rules (`DEFAULT_RULES`, `ShardingRules`), `resolve_spec`,
-`spec_tree`, `shard_params` and `constrain`. They map logical axes onto a
-device mesh for pjit; a multi-card slice would map them onto
-`torch.distributed` instead (ROADMAP).
+Each parameter also carries the reference's logical axes (`axes=`, one
+name or None a dim: "embed", "heads", "ff", ...; `logical_axes(model)`).
+`models.sharding` maps them onto a port mesh (`resolve_spec`,
+`spec_tree`) for the sharded train step. The reference's `shard_params`
+and `constrain` place arrays for pjit and have no counterpart.
 """
 from __future__ import annotations
 
@@ -68,16 +68,32 @@ class Declared(nn.Module):
         self.dtype = dtype
         self.device = torch.device(device)
         self.inits: dict[str, Init] = {}
+        self.axes: dict[str, Tuple[Optional[str], ...]] = {}
 
-    def declare(self, name: str, shape, init: Init,
+    def declare(self, name: str, shape, init: Init, *, axes,
                 dtype: Optional[torch.dtype] = None) -> None:
-        """Declare parameter `name`, in `dtype` (the module's by
-        default)."""
+        """Declare parameter `name` with its logical axes (a name or None
+        a dim), in `dtype` (the module's by default)."""
+        shape, axes = tuple(shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"{name}: shape {shape}, logical axes {axes}")
         self.register_parameter(name, nn.Parameter(
-            torch.empty(tuple(shape), dtype=dtype or self.dtype,
+            torch.empty(shape, dtype=dtype or self.dtype,
                         device=self.device),
             requires_grad=False))
         self.inits[name] = init
+        self.axes[name] = axes
+
+
+def logical_axes(model: nn.Module) -> dict:
+    """{parameter name: its declared logical axes} over
+    `model.named_parameters()`."""
+    out = {}
+    for prefix, module in model.named_modules():
+        if isinstance(module, Declared):
+            for name, axes in module.axes.items():
+                out[f"{prefix}.{name}" if prefix else name] = axes
+    return {name: out[name] for name, _ in model.named_parameters()}
 
 
 @torch.no_grad()

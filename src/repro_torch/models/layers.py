@@ -29,7 +29,7 @@ class RMSNorm(decls.Declared):
         super().__init__(dtype, device)
         self.eps = eps
         self.plus_one = plus_one
-        self.declare("scale", (d,), decls.ONES)
+        self.declare("scale", (d,), decls.ONES, axes=("embed",))
 
     def forward(self, x: Tensor) -> Tensor:
         xf = x.to(f32)
@@ -45,8 +45,8 @@ class LayerNorm(decls.Declared):
     def __init__(self, d: int, eps: float, dtype, device):
         super().__init__(dtype, device)
         self.eps = eps
-        self.declare("scale", (d,), decls.ONES)
-        self.declare("bias", (d,), decls.ZEROS)
+        self.declare("scale", (d,), decls.ONES, axes=("embed",))
+        self.declare("bias", (d,), decls.ZEROS, axes=("embed",))
 
     def forward(self, x: Tensor) -> Tensor:
         xf = x.to(f32)
@@ -77,13 +77,15 @@ class MLP(decls.Declared):
         d, f = cfg.d_model, d_ff or cfg.d_ff
         self.mlp_type = cfg.mlp_type
         if cfg.mlp_type in ("swiglu", "geglu"):
-            self.declare("w_gate", (d, f), decls.dense(d))
-        self.declare("w_up", (d, f), decls.dense(d))
-        self.declare("w_down", (f, d), decls.dense(f))
+            self.declare("w_gate", (d, f), decls.dense(d),
+                         axes=("embed", "ff"))
+        self.declare("w_up", (d, f), decls.dense(d), axes=("embed", "ff"))
+        self.declare("w_down", (f, d), decls.dense(f),
+                     axes=("ff", "embed"))
         self.bias = bias and cfg.mlp_type not in ("swiglu", "geglu")
         if self.bias:
-            self.declare("b_up", (f,), decls.ZEROS)
-            self.declare("b_down", (d,), decls.ZEROS)
+            self.declare("b_up", (f,), decls.ZEROS, axes=("ff",))
+            self.declare("b_down", (d,), decls.ZEROS, axes=("embed",))
 
     def forward(self, x: Tensor) -> Tensor:
         if self.mlp_type == "swiglu":
@@ -110,9 +112,11 @@ class Embed(decls.Declared):
         super().__init__(cfg.torch_dtype, device)
         self.cfg = cfg
         Vp, d = cfg.padded_vocab, cfg.d_model
-        self.declare("embedding", (Vp, d), decls.EMBEDDING)
+        self.declare("embedding", (Vp, d), decls.EMBEDDING,
+                     axes=("vocab", "embed"))
         if not cfg.tie_embeddings:
-            self.declare("unembed", (d, Vp), decls.dense(d))
+            self.declare("unembed", (d, Vp), decls.dense(d),
+                         axes=("embed", "vocab"))
 
     def apply_embed(self, tokens: Tensor) -> Tensor:
         x = self.embedding[tokens]
@@ -175,17 +179,28 @@ def sinusoid_at(pos: int, d: int, device) -> Tensor:
 # --- losses ------------------------------------------------------------------
 
 def softmax_xent(logits: Tensor, labels: Tensor,
-                 mask: Tensor | None = None) -> Tensor:
+                 mask: Tensor | None = None,
+                 total: Tensor | None = None) -> Tensor:
     """Mean next-token cross-entropy in float32. logits (..., V), labels
     (...) integer, mask (...) optional weights: sum(nll * m) / max(sum(m),
     1). The gold logit is a gather (the reference writes it as a masked
     reduction over the vocab so that a vocab sharded over a mesh needs no
     all-gather; nothing in the port shards the vocab). Pad-vocab logits
-    carry -1e9 from `Embed.apply_unembed`, so they add nothing."""
+    carry -1e9 from `Embed.apply_unembed`, so they add nothing.
+
+    `total`: the weight of the whole batch when these rows are one data
+    shard of it (sum(m) summed over the shards, or their token count
+    without a mask). The result is then this shard's sum(nll * m) /
+    max(total, 1), and the shards' results add up to the whole batch's
+    mean, as do their gradients (`train.steps`): a mean a shard would
+    weigh the shards' tokens unequally where their sum(m) differ."""
     lf = logits.to(f32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
+    if total is not None:
+        num = torch.sum(nll if mask is None else nll * mask.to(f32))
+        return num / torch.clamp(total, min=1.0)
     if mask is not None:
         m = mask.to(f32)
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)

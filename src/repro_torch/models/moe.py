@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer with sort-based capacity dispatch: port of
-`repro.models.moe` on one card.
+`repro.models.moe`, every expert on each rank.
 
     MoE(cfg, device)              -- `moe_decls`' parameters: router (d, E)
         float32, w_gate / w_up (E, d, F), w_down (E, F, d), and the shared
@@ -9,9 +9,13 @@
     apply_moe_dense(cfg, p, x)    -- decode: every expert on every token
 
 The reference runs the dispatch inside a shard_map, each model shard
-holding a slice of the experts and the combine summed over the mesh. One
-card holds every expert, so this is its body at E_l = E, e_lo = 0, with
-no psum: route in float32 (softmax, top-k, the gates renormalised), sort
+holding a slice of the experts and the combine summed over the mesh.
+Here a rank computes with every expert (the sharded train step gathers
+the weights first), so this is its body at E_l = E, e_lo = 0, with no
+psum. As there, the capacity counts the tokens the call is given: in
+the sharded train step one data shard's rows (the reference's T = B_l *
+S inside its shard_map), so a token is dropped where its shard's queue
+is full, not the whole batch's. Route in float32 (softmax, top-k, the gates renormalised), sort
 the (token, slot) pairs by expert (stable), give each its position in its
 expert's queue, drop those at or past the capacity
 cap = max(8, ceil8(int(cf * T * K / E))), gather the kept tokens into an
@@ -49,10 +53,14 @@ class MoE(decls.Declared):
         super().__init__(cfg.torch_dtype, device)
         m = cfg.moe
         d, E, Fe = cfg.d_model, m.n_experts, m.d_ff_expert
-        self.declare("router", (d, E), decls.dense(d), dtype=f32)
-        self.declare("w_gate", (E, d, Fe), decls.dense(E))
-        self.declare("w_up", (E, d, Fe), decls.dense(E))
-        self.declare("w_down", (E, Fe, d), decls.dense(Fe))
+        self.declare("router", (d, E), decls.dense(d), axes=("embed", None),
+                     dtype=f32)
+        self.declare("w_gate", (E, d, Fe), decls.dense(E),
+                     axes=("experts", "embed", "expert_ff"))
+        self.declare("w_up", (E, d, Fe), decls.dense(E),
+                     axes=("experts", "embed", "expert_ff"))
+        self.declare("w_down", (E, Fe, d), decls.dense(Fe),
+                     axes=("experts", "expert_ff", "embed"))
         if m.n_shared:
             # the reference's shared experts are always SwiGLU
             self.shared = L.MLP(cfg.replace(mlp_type="swiglu"), device,

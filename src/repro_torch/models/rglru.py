@@ -46,17 +46,20 @@ class RGLRU(decls.Declared):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__(cfg.torch_dtype, device)
         d, W, Kc = cfg.d_model, _width(cfg), cfg.hybrid.conv_width
-        self.declare("in_x", (d, W), decls.dense(d))
-        self.declare("in_gate", (d, W), decls.dense(d))
-        self.declare("conv_w", (Kc, W), decls.dense(Kc))
-        self.declare("conv_b", (W,), decls.ZEROS)
-        self.declare("w_a", (W, W), decls.dense(W))
-        self.declare("b_a", (W,), decls.ZEROS, dtype=f32)
-        self.declare("w_i", (W, W), decls.dense(W))
-        self.declare("b_i", (W,), decls.ZEROS, dtype=f32)
+        self.declare("in_x", (d, W), decls.dense(d), axes=("embed", "lru"))
+        self.declare("in_gate", (d, W), decls.dense(d),
+                     axes=("embed", "lru"))
+        self.declare("conv_w", (Kc, W), decls.dense(Kc),
+                     axes=("conv", "lru"))
+        self.declare("conv_b", (W,), decls.ZEROS, axes=("lru",))
+        self.declare("w_a", (W, W), decls.dense(W), axes=("lru", "lru"))
+        self.declare("b_a", (W,), decls.ZEROS, axes=("lru",), dtype=f32)
+        self.declare("w_i", (W, W), decls.dense(W), axes=("lru", "lru"))
+        self.declare("b_i", (W,), decls.ZEROS, axes=("lru",), dtype=f32)
         # a = sigmoid(Lambda) in ~(0.9, 0.999)
-        self.declare("Lambda", (W,), decls.const(3.0), dtype=f32)
-        self.declare("out", (W, d), decls.dense(W))
+        self.declare("Lambda", (W,), decls.const(3.0), axes=("lru",),
+                     dtype=f32)
+        self.declare("out", (W, d), decls.dense(W), axes=("lru", "embed"))
 
 
 class LRUState(NamedTuple):

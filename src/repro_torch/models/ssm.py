@@ -46,15 +46,22 @@ class SSM(decls.Declared):
         super().__init__(cfg.torch_dtype, device)
         d = cfg.d_model
         Di, R, N, Kc = _dims(cfg)
-        self.declare("in_proj", (d, 2 * Di), decls.dense(d))
-        self.declare("conv_w", (Kc, Di), decls.dense(Kc))
-        self.declare("conv_b", (Di,), decls.ZEROS)
-        self.declare("x_proj", (Di, R + 2 * N), decls.dense(Di))
-        self.declare("dt_proj", (R, Di), decls.dense(R))
-        self.declare("dt_bias", (Di,), decls.ZEROS)
-        self.declare("A_log", (Di, N), decls.const(0.5), dtype=f32)
-        self.declare("D", (Di,), decls.ONES, dtype=f32)
-        self.declare("out_proj", (Di, d), decls.dense(Di))
+        self.declare("in_proj", (d, 2 * Di), decls.dense(d),
+                     axes=("embed", "ssm_inner"))
+        self.declare("conv_w", (Kc, Di), decls.dense(Kc),
+                     axes=("conv", "ssm_inner"))
+        self.declare("conv_b", (Di,), decls.ZEROS, axes=("ssm_inner",))
+        self.declare("x_proj", (Di, R + 2 * N), decls.dense(Di),
+                     axes=("ssm_inner", None))
+        self.declare("dt_proj", (R, Di), decls.dense(R),
+                     axes=(None, "ssm_inner"))
+        self.declare("dt_bias", (Di,), decls.ZEROS, axes=("ssm_inner",))
+        self.declare("A_log", (Di, N), decls.const(0.5),
+                     axes=("ssm_inner", "ssm_state"), dtype=f32)
+        self.declare("D", (Di,), decls.ONES, axes=("ssm_inner",),
+                     dtype=f32)
+        self.declare("out_proj", (Di, d), decls.dense(Di),
+                     axes=("ssm_inner", "embed"))
 
 
 class SSMState(NamedTuple):

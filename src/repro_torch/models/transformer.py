@@ -22,7 +22,8 @@ new x first: a DenseLayer or MoELayer its rotated k and v after it (the
 prefill's cache), an SSMLayer or RecLayer its recurrent state, a
 DecoderLayer (which also takes the encoder's output) its self-attention's
 k and v and its cross-attention's. There is no `_constrain`: it is a
-mesh-sharding hint, and the port runs on one card.
+sharding hint to XLA, and the port's sharded train step places the batch
+and the parameters itself (`train.steps`, `models.sharding`).
 With `train=True` and `cfg.remat` each layer is recomputed in the
 backward pass (`torch.utils.checkpoint`, non-reentrant), as the
 reference wraps its scanned layer body in `jax.checkpoint`: a layer keeps
@@ -326,20 +327,22 @@ class Model(nn.Module):
         return self.embed.apply_unembed(
             self.backbone(x, positions, train, enc_out))
 
-    def loss_fn(self, batch: dict) -> Tensor:
+    def loss_fn(self, batch: dict, total: Tensor | None = None) -> Tensor:
         """Mean next-token cross-entropy of batch["tokens"] (with vlm's
         "patches", encdec's "frames") against batch["labels"], weighted by
-        the optional batch["loss_mask"]."""
+        the optional batch["loss_mask"]; with `total`, these rows' share
+        of a batch split over data shards (`layers.softmax_xent`)."""
         logits = self.logits(batch["tokens"], train=True,
                              patches=batch.get("patches"),
                              frames=batch.get("frames"))
         return L.softmax_xent(logits, batch["labels"],
-                              batch.get("loss_mask"))
+                              batch.get("loss_mask"), total)
 
-    def forward(self, batch: dict) -> Tensor:
+    def forward(self, batch: dict, total: Tensor | None = None) -> Tensor:
         """The training loss (`loss_fn`): what `torch.func.functional_call(
-        model, params, (batch,))` evaluates at `params`."""
-        return self.loss_fn(batch)
+        model, params, (batch,), {"total": ...})` evaluates at
+        `params`."""
+        return self.loss_fn(batch, total)
 
 
 def stacked_layers(cfg: ModelConfig) -> dict:

@@ -54,20 +54,37 @@ def adamw_init(params: dict, cfg: AdamWConfig) -> AdamWState:
                       nu, master)
 
 
-def global_norm(tree: dict) -> Tensor:
+def global_norm(tree: dict, counted=None, sum_ranks=None) -> Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, in
-    float32."""
-    sq = [torch.sum(torch.square(x.to(f32))) for x in tree.values()]
-    return torch.sqrt(torch.stack(sq).sum())
+    float32, the leaves summed in dict order.
+
+    Over a mesh `tree` holds this rank's blocks: `counted` (a set of
+    names) keeps the leaves whose block this rank counts, so that each
+    element of the whole tree counts once over the mesh
+    (`models.sharding.counted_once`), and `sum_ranks` adds the ranks'
+    partial sums in a fixed order (`launch.mesh.Mesh.psum_ordered`)."""
+    sq = [torch.sum(torch.square(x.to(f32))) for k, x in tree.items()
+          if counted is None or k in counted]
+    if sq:
+        total = torch.stack(sq).sum()
+    else:
+        total = torch.zeros((), dtype=f32,
+                            device=next(iter(tree.values())).device)
+    if sum_ranks is not None:
+        total = sum_ranks(total)
+    return torch.sqrt(total)
 
 
 def adamw_update(params: dict, grads: dict, state: AdamWState,
-                 cfg: AdamWConfig, lr=None):
+                 cfg: AdamWConfig, lr=None, norm=None):
     """-> (new_params, new_state, metrics {"grad_norm", "lr"} as float32
-    tensors). `lr` (a float or a 0-d tensor) defaults to cfg.lr."""
+    tensors). `lr` (a float or a 0-d tensor) defaults to cfg.lr; `norm`
+    (grads -> the clip's global norm) to `global_norm`. Over a mesh the
+    dicts hold this rank's blocks, every update is elementwise, and
+    `norm` sums each element once over the mesh."""
     lr = cfg.lr if lr is None else lr
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = (norm or global_norm)(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                          max=1.0) if cfg.grad_clip > 0 else 1.0)
     b1, b2 = cfg.b1, cfg.b2

@@ -4,9 +4,10 @@
 Each leaf sends only the top-`frac` share of its entries by magnitude;
 the rest accumulates in a float32 residual that is added back the next
 step (error feedback), so compressed + new residual == grads + old
-residual exactly. The reference applies it to data-parallel all-reduces
-of the LM trainer; the port's LM runs on one card, where it is the same
-function with no collective.
+residual exactly. The reference offers it for data-parallel all-reduces
+of the LM trainer; the port's sharded train step (`train.steps`) sums
+its gradients over "data" uncompressed, in a fixed order, so this
+function is not on its path.
 """
 from __future__ import annotations
 
