@@ -81,7 +81,11 @@ Phases:
                  over 16, S 4096, D 256, causal) beside `simt` and SDPA's
                  backward; K6b at the moe and vlm train runs' shapes (G
                  1 at D 128; 32 heads over 8 at 4352), timed beside
-                 SDPA's backward.
+                 SDPA's backward; K6 and K6b at the split hybrid's rank
+                 shape (B 1 x 5 heads over 1, S 4096, D 256, window 2048:
+                 G 5, `mma` and `wgmma`) per row against their plain
+                 versions, timed L2-cold and warm beside the bound and
+                 SDPA with the band as a mask.
   3. tune     -- the autotuner (`kernels.autotune`) at benchmarks/port/
                  bench_kernels.py's full cells (the shapes above; K1-K3
                  also in bf16): every key tuned into a cache of the run's
@@ -310,20 +314,32 @@ Phases:
                  `launch.train --full --data D --model-parallel M` in
                  torchrun children: (a) a world of 1 on NCCL, 4 steps,
                  bit-equal to the same command without torchrun; (b) two
-                 ranks sharing the card over gloo, 3 steps at (2, 1) and
-                 at (1, 2), losses within TRAIN_RTOL's bf16 loss limit of
-                 (a)'s; (2, 1) again crashed at step 2 with checkpoints
-                 every 2, bit-equal to the first (2, 1) run; that run's
-                 checkpoint resumed in a world of 1 (its loss at step 3
-                 within the same limit of (a)'s); (c) one float32 step at
+                 ranks sharing the card over gloo, 4 steps at (2, 1)
+                 crashed at step 3 with checkpoints every 2, losses
+                 within TRAIN_RTOL's bf16 loss limit of (a)'s, the
+                 replayed step 2 bit-equal to the one before the crash;
+                 its step-2 checkpoint resumed at (1, 2) for 2 steps, the
+                 compute split along "model" (7 of the 14 heads, G 7,
+                 half of d_ff and of the vocabulary a rank), its loss at
+                 step 2 within the same limit of (a)'s, its peak a rank
+                 within DTRAIN_SPLIT_PEAK_GIB; (c) one float32 step at
                  full width and 2 layers from a shared carry, (2, 1) and
                  (1, 2) against (1, 1) within TRAIN_RTOL's float32
                  limits, a per-shard mean planted as a control and read
-                 past them; K6 and K6b `wgmma` in every layer of every
-                 rank's steps; each rank's peak memory, the step walls
-                 (gloo stages every collective through the host) and the
-                 launches by rank printed; checkpoints removed after
-                 their runs.
+                 past them; then one float32 step a family at (1, 2)
+                 against (1, 1) from a shared carry, full width, the
+                 depth cut (DSPLIT:
+                 deepseek-moe-16b 2 layers, falcon-mamba-7b 2,
+                 recurrentgemma-2b a triple, pixtral-12b 1, whisper-small
+                 2 + 2; 1 x 2048, whisper 4 x 384), TRAIN_RTOL's float32
+                 limits; (d) one bf16 step of recurrentgemma-2b (a
+                 triple, 1 x 4096) at (1, 2) against (1, 1), FLOCK_RTOL's
+                 hybrid limits: K6 `mma` and K6b `wgmma` at G 5, D 256,
+                 window 2048 on each rank; K6 and K6b in every attention
+                 layer of every rank's steps; each rank's peak memory,
+                 the step walls (gloo stages every collective through
+                 the host) and the launches by rank printed; checkpoints
+                 removed after their runs.
 
 Each solve phase sets the launch counts to 0, solves with the kernels,
 reads the counts, then solves again with the plain versions from the same
@@ -845,16 +861,17 @@ FLOCK_RTOL = {HYBRID_ARCH: {**TRAIN_RTOL["bfloat16"], "grad_norm": 5e-5},
 # DTRAIN_SEQ. (a) a world of 1 on NCCL runs DTRAIN_ONE_STEPS steps, and
 # the same command without torchrun must give its losses bit for bit;
 # (b) two ranks sharing the card over gloo: (2, 1) for DTRAIN_STEPS
-# steps, its losses within TRAIN_RTOL["bfloat16"]'s loss limit of (a)'s;
-# (2, 1) again with a crash at DTRAIN_CRASH_AT and a checkpoint every
-# DTRAIN_CKPT_EVERY (bit-equal to the first: its steps before the crash
-# rerun, the step after replayed from the checkpoint); then (1, 2)
-# resumes the first (2, 1) run's checkpoint (step DTRAIN_STEPS), its
-# loss at that step within the same limit of (a)'s. The rates of steps
-# 0-2 do not depend on --steps (warm-up 2, then the cosine's first
-# value), and a step's loss is taken before its update, so the runs of
-# 1, 3 and 4 steps read against each other there. (c) one float32 step
-# at full width and DTRAIN_F32_LAYERS layers from a shared carry, (2, 1)
+# steps with a crash at DTRAIN_CRASH_AT and a checkpoint every
+# DTRAIN_CKPT_EVERY, its losses within TRAIN_RTOL["bfloat16"]'s loss
+# limit of (a)'s and the steps replayed from the checkpoint (from
+# DTRAIN_RESUME_AT) bit-equal to the same steps before the crash; then
+# (1, 2) resumes that run's checkpoint at DTRAIN_RESUME_AT (the later
+# one removed), its loss at that step within the same limit of (a)'s.
+# The crashed run holds its own replay, as ftrain's does. The rates of
+# steps 0-2 do not depend on --steps (warm-up 2, then the cosine's first
+# value), and a step's loss is taken before its update, so the resumed
+# run's first loss reads against (a)'s. (c) one float32 step at full
+# width and DTRAIN_F32_LAYERS layers from a shared carry, (2, 1)
 # and (1, 2) against (1, 1), TRAIN_RTOL["float32"], with a planted
 # control: each shard's loss its own mean in place of its share of the
 # batch's. The two-rank child starts with (a) and waits, its process
@@ -863,14 +880,33 @@ FLOCK_RTOL = {HYBRID_ARCH: {**TRAIN_RTOL["bfloat16"], "grad_norm": 5e-5},
 # RESTORE_RATIO on every rank
 DTRAIN_BATCH = 2
 DTRAIN_SEQ = 4096
-DTRAIN_STEPS = 3
-DTRAIN_ONE_STEPS = DTRAIN_STEPS + 1
+DTRAIN_STEPS = 4
+DTRAIN_ONE_STEPS = DTRAIN_STEPS
 DTRAIN_CKPT_EVERY = 2
-DTRAIN_CRASH_AT = 2
+DTRAIN_CRASH_AT = 3
+DTRAIN_RESUME_AT = 2
 DTRAIN_F32_LAYERS = 2
 DTRAIN_MESHES = ((2, 1), (1, 2))
 DTRAIN_FAULT = "per-shard mean"
 DTRAIN_GO_S = 300       # how long the two-rank child waits for (a)
+# the (1, 2) run resumes the (2, 1) checkpoint for 2 steps: the second's
+# wall is the split step's (the first's holds its warm-up)
+DTRAIN_RESUME_STEPS = 2
+# (c) beyond qwen2 and (d): one step a family at (1, 2) against (1, 1)
+# from a shared carry (`split_lockstep`), the published width with the
+# depth cut, arch -> (layers, batch, seq); whisper's layers are its
+# encoder's and its decoder's, 4 x 384 (no attention reaches 2048 keys,
+# as in ftrain); the others 1 x 2048, where K6 / K6b run their float32
+# variants. (d): the hybrid in bf16 at one triple, 1 x 4096: each rank
+# attends with 5 of the 10 heads over the one kv head, K6 `mma` and K6b
+# `wgmma` at G 5, D 256, window 2048
+DSPLIT = {MOE_ARCH: (2, 1, 2048), SSM_ARCH: (2, 1, 2048),
+          HYBRID_ARCH: (3, 1, 2048), VLM_ARCH: (1, 1, 2048),
+          ENCDEC_ARCH: (2, 4, 384)}
+DSPLIT_BF16 = (HYBRID_ARCH, 3, 1, 4096)
+# the peak a rank that the split (1, 2) qwen2 run must stay under (on an
+# H100 27.81 GiB with the state split and the compute whole; 11.79 split)
+DTRAIN_SPLIT_PEAK_GIB = 22.0
 # a restore on the card adds the state it restores and nothing more: what
 # it adds to the device's allocation at its peak stays within
 # RESTORE_RATIO of that state's bytes there (`launch.train`'s
@@ -2297,7 +2333,63 @@ def flash_kernel_checks(torch, flush) -> dict:
         (1, 1000, 16, 256), (1, 1500, 16, 256), torch.float32), False)
     out["flash_attention"]["window"] = flash_window_checks(
         torch, flush, check, inputs)
+    out["flash_attention"]["g5"] = flash_g5_checks(torch, flush, check,
+                                                   inputs)
     return out
+
+
+def g5_shape():
+    """The rank shape of the split hybrid train step (DSPLIT_BF16 at (1,
+    2)): recurrentgemma-2b's heads halved over its one kv head -> (B, S,
+    H, Kv, D, window)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(HYBRID_ARCH)
+    _, _, B, S = DSPLIT_BF16
+    return (B, S, cfg.n_heads // 2, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.hybrid.window)
+
+
+def band_sdpa(torch, q, k, v, window: int):
+    """-> library(): scaled_dot_product_attention of (q, k, v) heads first
+    and contiguous, the causal band of `window` as a boolean mask (the
+    library call K6's window is timed against)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qi = torch.arange(q.shape[1], device=q.device)
+    band = (qi[:, None] >= qi[None, :]) & (qi[:, None] - qi[None, :] < window)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+
+def flash_g5_checks(torch, flush, check, inputs) -> dict:
+    """K6 at the split hybrid train step's rank shape (`g5_shape`: B 1 x 5
+    heads over 1, S 4096, D 256, window 2048, bf16, `mma`; G 5, which no
+    unsplit run launches), per row against its plain version, timed
+    L2-cold and warm beside the band's bound, the plain version and SDPA
+    with the band as a mask (timed only). -> its readings."""
+    from repro_torch.kernels import ops, ref
+    B, S, H, Kv, D, W = g5_shape()
+    q, k, v = inputs((B, S, H, D), (B, S, Kv, D), torch.bfloat16)
+    e, want = check("split hybrid rank (G 5)", q, k, v, True, window=W)
+    del want
+    nbytes, nops = flash_work(q, k, True, W)
+    r = dict(max_abs_err=e[0], row_rel=e[1],
+             **timings(torch, lambda: ops.flash_attention(q, k, v, window=W),
+                       lambda: ref.attention_ref(q, k, v, window=W), flush),
+             bound=bound(nbytes, nops, BF16_TENSOR_OPS_PER_S),
+             library_ms=device_ms(torch, band_sdpa(torch, q, k, v, W), 20,
+                                  flush),
+             shape=f"B {B} x H {H} (kv {Kv}), S {S}, D {D}, window {W}, "
+                   f"bf16, causal")
+    log(f"[kernels] flash_attention at the split hybrid's rank shape "
+        f"({r['shape']}, variant {ops.flash_variant(q.dtype, D)}): L2-cold "
+        f"{r['ms'] * 1e3:.2f} us ({flash_rate(torch, q, k, True, r['ms'], W)}"
+        f"), warm {r['warm_ms'] * 1e3:.2f} us; bound "
+        f"{r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}); plain "
+        f"{r['plain_ms'] * 1e3:.2f} us; library (SDPA with the band as a "
+        f"mask) {r['library_ms'] * 1e3:.2f} us")
+    del q, k, v
+    free_card(torch)
+    return r
 
 
 def flash_window_checks(torch, flush, check, inputs) -> dict:
@@ -2337,14 +2429,7 @@ def flash_window_checks(torch, flush, check, inputs) -> dict:
         f"{rows}, the last row (which loses key 0) equal {last}")
     assert whole and rows and not last
     del edge, causal
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qi = torch.arange(S, device=q.device)
-    band = (qi[:, None] >= qi[None, :]) & (qi[:, None] - qi[None, :] < W)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-
-    def library():
-        return sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
-
+    library = band_sdpa(torch, q, k, v, W)
     e_lib = row_rel_err(torch, library().transpose(1, 2), want)
     del want
     nbytes, nops = flash_work(q, k, True, W)
@@ -2370,7 +2455,7 @@ def flash_window_checks(torch, flush, check, inputs) -> dict:
         f"scaled_dot_product_attention with the band as a mask "
         f"{r['library_ms'] * 1e3:.2f} us (row rel {e_lib[1]:.2e} against "
         f"the plain version, timed only)")
-    del q, k, v, qt, kt, vt, band
+    del q, k, v, library
     check("float32, window", *inputs((1, 3072, H, D), (1, 3072, Kv, D),
                                      torch.float32), True, window=W)
     check("wgmma D 128, window", *inputs((2, 4096, 8, 128), (2, 4096, 2, 128),
@@ -2602,6 +2687,7 @@ def flash_bwd_checks(torch, flush) -> dict:
     torch.cuda.empty_cache()
     r["window"] = flash_bwd_window_checks(torch, flush, case, inputs)
     r["gemma"] = flash_bwd_gemma_timing(torch, flush, case, inputs)
+    r["g5"] = flash_bwd_g5_timing(torch, flush, case, inputs)
     for arch in (MOE_ARCH, VLM_ARCH):
         r[FTRAIN_LABEL[arch]] = flash_bwd_family_timing(torch, flush, case,
                                                         inputs, arch)
@@ -2745,6 +2831,30 @@ def flash_bwd_gemma_timing(torch, flush, case, inputs) -> dict:
         f"{r['variant_ms']['simt'] * 1e3:.2f} us; plain "
         f"{r['plain_ms'] * 1e3:.2f} us; library (SDPA's causal backward) "
         f"{r['library_ms'] * 1e3:.2f} us")
+    del q, k, v, do, out, lse
+    free_card(torch)
+    return r
+
+
+def flash_bwd_g5_timing(torch, flush, case, inputs) -> dict:
+    """K6b at the split hybrid train step's rank shape (`g5_shape`: G 5,
+    D 256, window 2048, bf16, `wgmma`), per row against its plain version
+    (out and lse from K6), then timed (`flash_bwd_timings`: L2-cold and
+    warm, the band's bound, the plain version, SDPA's backward with the
+    band as a mask)."""
+    B, S, H, Kv, D, W = g5_shape()
+    q, k, v, do = inputs((B, S, H, D), (B, S, Kv, D), torch.bfloat16)
+    err, out, lse = case("split hybrid rank (G 5)", q, k, v, do, True,
+                         window=W)
+    r = flash_bwd_timings(torch, flush, q, k, v, out, lse, do, W)
+    r["max_abs_err"] = err
+    log(f"[kernels] flash_attention_bwd at the split hybrid's rank shape "
+        f"({r['shape']}, variant {r['variant']}): L2-cold "
+        f"{r['ms'] * 1e3:.2f} us ({r['gflop'] / r['ms']:.2f} TFLOP/s, "
+        f"{r['bound'][0] / r['ms']:.4f} of its bound "
+        f"{r['bound'][0] * 1e3:.1f} us), warm {r['warm_ms'] * 1e3:.2f} us; "
+        f"plain {r['plain_ms'] * 1e3:.2f} us; library (SDPA backward with "
+        f"the band as a mask) {r['library_ms'] * 1e3:.2f} us")
     del q, k, v, do, out, lse
     free_card(torch)
     return r
@@ -2952,18 +3062,22 @@ def train_readings(torch, base, a, b) -> dict:
     a row alike, and the softmax does not see it) gets Adam's normalised
     step of its rounding noise, which differs between any two routes."""
     (pa, ma), (pb, mb) = a, b
+    d2 = {k: float(torch.linalg.vector_norm(pa[k].float() - pb[k].float()))
+          ** 2 for k in base}
+    s2 = {k: float(torch.linalg.vector_norm(pb[k].float() - p0.float()))
+          ** 2 for k, p0 in base.items()}
+    return update_readings(ma, mb, d2, s2)
+
+
+def update_readings(ma, mb, d2: dict, s2: dict) -> dict:
+    """`train_readings` from route a's and route b's metrics and, a
+    parameter each, the squared norms ||new_a - new_b||^2 (`d2`) and
+    ||new_b - base||^2 (`s2`)."""
     out = {k: abs(float(ma[k]) - float(mb[k])) / abs(float(mb[k]))
            for k in ("loss", "grad_norm")}
-    diff = step = 0.0
-    worst, name = 0.0, None
-    for k, p0 in base.items():
-        d = float(torch.linalg.vector_norm(pa[k].float() - pb[k].float()))
-        s = float(torch.linalg.vector_norm(pb[k].float() - p0.float()))
-        diff += d * d
-        step += s * s
-        if s > 0 and d / s > worst:
-            worst, name = d / s, k
-    out["update"] = (diff / step) ** 0.5
+    out["update"] = (sum(d2.values()) / sum(s2.values())) ** 0.5
+    worst, name = max((((d2[k] / s2[k]) ** 0.5, k) for k in d2
+                       if s2[k] > 0), default=(0.0, None))
     out["param_update"], out["param"] = worst, name
     return out
 
@@ -4435,8 +4549,8 @@ def per_shard_mean():
     from repro_torch.models import layers
     real = layers.softmax_xent
 
-    def shard_mean(logits, labels, mask=None, total=None):
-        return real(logits, labels, mask)
+    def shard_mean(logits, labels, mask=None, total=None, split=None):
+        return real(logits, labels, mask, split=split)
 
     layers.softmax_xent = shard_mean
     try:
@@ -4445,57 +4559,178 @@ def per_shard_mean():
         layers.softmax_xent = real
 
 
-def dtrain_lockstep(torch) -> dict:
-    """(c) of the dtrain phase, on each rank of a world of 2: one float32
-    train step of qwen2-0.5b at full width and DTRAIN_F32_LAYERS layers
-    from a shared carry (one world-of-1 step from the seeded init, so the
-    moments are not zero), through each mesh of DTRAIN_MESHES against the
-    same step on this rank alone, and the planted control (the first mesh
-    with `per_shard_mean`). -> {"2x1": readings, "1x2": ..., "control":
-    ...} (`train_readings`: loss, grad_norm, update)."""
+def split_lockstep(torch, arch: str, dtype: str, layers: int, batch: int,
+                   seq: int, meshes=((1, 2),), control: bool = False) -> dict:
+    """(c) and (d) of the dtrain phase for one model, on each rank of a
+    world of 2: `arch` at its published width cut to `layers` layers (the
+    encoder's too for encdec), in `dtype`, one train step over each mesh
+    of `meshes` (at (1, 2) the compute split along "model") against the
+    same step on one process, from a shared carry: the seeded init and
+    the moments of one clipped gradient of the pipeline's first batch (an
+    AdamW step at rate 0; from zero moments Adam's first step is g / |g|,
+    which turns float32 noise in a gradient near 0 into a whole step), on
+    its second batch (a rank's rows of it where "data" splits them). With
+    `control`, the first mesh's step again with `per_shard_mean` planted.
+
+    The ranks take turns at the one-process step (moe's routing recorded:
+    a top-k flip between two routes a few ulps apart moves a token by a
+    whole expert), each keeping only its blocks of the carry and of the
+    result for each mesh (at full width pixtral-12b's float32 state is
+    6.5 GB a copy, and the step's peak ~52 GiB); then both run each
+    mesh's step (the routing replayed) and hold its new parameters to the
+    one-process step's on their own blocks (nothing gathered). -> (on
+    rank 0; {} elsewhere) {"2x1" / "1x2" / "control": readings}, each
+    `train_readings`' keys (the update's sums over every element once),
+    the losses, every rank's K6/K6b launches by variant and peak memory,
+    the step's collectives and wall, and the laps of rank 0's turn."""
+    import dataclasses
+
+    import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenPipeline, rows_split
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.convert import full_state, local_state
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.convert import local_state, state_specs
     from repro_torch.models.decls import init_params
     from repro_torch.models.transformer import Model
-    from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_init
-    from repro_torch.train.steps import make_train_step
-    cfg = get_config(LM_ARCH).replace(n_layers=DTRAIN_F32_LAYERS,
-                                      dtype="float32")
-    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
-        torch.device(DEVICE)
-    model = Model(cfg, dev)
-    init_params(model, torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    from repro_torch.optim.adamw import AdamWConfig, AdamWState, global_norm
+    from repro_torch.train.steps import make_loss_and_grads, make_train_step
+    cfg = get_config(arch).replace(dtype=dtype, n_layers=layers)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(encdec=dataclasses.replace(
+            cfg.encdec, n_encoder_layers=layers))
+    runs = [(f"{d}x{m}", (d, m)) for d, m in meshes]
+    if control:
+        runs.append(("control", tuple(meshes[0])))
+    grids = {}
+    for _, shape in runs:
+        if shape not in grids:
+            grids[shape] = make_host_mesh(*shape, device=DEVICE)
+    mesh = next(iter(grids.values()))
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    model = Model(cfg, "meta")      # the structure: every step binds its own
     opt_cfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.01)
-    pipe = TokenPipeline(cfg, DTRAIN_BATCH, DTRAIN_SEQ, seed=TRAIN_SEED)
+    pipe = TokenPipeline(cfg, batch, seq, seed=TRAIN_SEED)
+    f32 = torch.float32
+    laps, t_lap = {}, [time.perf_counter()]
 
-    def batch(i, shard=0, shards=1):
-        return {k: torch.as_tensor(v, device=dev)
+    def lap(name):
+        if cuda:
+            torch.cuda.synchronize()
+        laps[name] = laps.get(name, 0.0) + time.perf_counter() - t_lap[0]
+        t_lap[0] = time.perf_counter()
+
+    def data(i, shard=0, shards=1):    # as launch.train feeds it
+        return {k: torch.as_tensor(v, device=dev, dtype=(
+                    cfg.torch_dtype if k in ("patches", "frames") else None))
                 for k, v in pipe.batch_at(i, shard, shards).items()}
 
-    one = make_train_step(model, opt_cfg)
-    params = {k: p.detach() for k, p in model.named_parameters()}
-    carry, opt, _ = one(params, adamw_init(params, opt_cfg), batch(0))
-    del params
-    ref = one(carry, opt, batch(1))
-    out = {}
-    for shape in DTRAIN_MESHES + (None,):
-        mesh = make_host_mesh(*(shape or DTRAIN_MESHES[0]), device=DEVICE)
-        D = mesh.size("data")
-        split = rows_split(DTRAIN_BATCH, D)
-        step = make_train_step(model, opt_cfg, mesh=mesh, rows_split=split)
-        local = AdamWState(opt.step, local_state(cfg, opt.mu, mesh),
-                           local_state(cfg, opt.nu, mesh), None)
-        rows = batch(1, mesh.index("data"), D) if split else batch(1)
-        with per_shard_mean() if shape is None else \
-                contextlib.nullcontext():
-            new, _, met = step(local_state(cfg, carry, mesh), local, rows)
-        new = full_state(cfg, new, mesh)
-        name = "control" if shape is None else f"{shape[0]}x{shape[1]}"
-        out[name] = train_readings(torch, carry, (new, met), ref[::2])
-        del new, step, local
-    return out
+    def carry():
+        m = Model(cfg, dev)
+        init_params(m, torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+        params = {k: p.detach() for k, p in m.named_parameters()}
+        del m
+        _, grads = make_loss_and_grads(model)(params, data(0))
+        scale = torch.clamp(opt_cfg.grad_clip / torch.clamp(
+            global_norm(grads), min=1e-12), max=1.0)
+        mu, nu = {}, {}
+        for k in list(grads):
+            g = grads.pop(k).to(f32) * scale
+            mu[k], nu[k] = g * (1 - opt_cfg.b1), torch.square(g) * (
+                1 - opt_cfg.b2)
+        return params, AdamWState(torch.ones((), dtype=torch.int32,
+                                             device=dev), mu, nu, None)
+
+    experts = []
+
+    def routing(mode):
+        if cfg.family != "moe":
+            return contextlib.nullcontext()
+        return moe_routing(torch, mode, experts)
+
+    b1 = data(1)
+    one_peak, mine = 0, {}
+    for turn in range(mesh.world):
+        if mesh.rank == turn:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            t_lap[0] = time.perf_counter()
+            params, opt = carry()
+            lap("carry")
+            with routing("record"):
+                ref = make_train_step(model, opt_cfg)(params, opt, b1)
+            # the step's moments are not kept (the split step's peak)
+            ref, ref_met = ref[0], {k: float(v) for k, v in ref[2].items()}
+            lap("one-process step")
+            held = {shape: (local_state(cfg, params, g), AdamWState(
+                opt.step, local_state(cfg, opt.mu, g),
+                local_state(cfg, opt.nu, g), None), local_state(cfg, ref, g))
+                for shape, g in grids.items()}
+            del params, opt, ref
+            free_card(torch)
+            lap("blocks")
+            if cuda:
+                one_peak = torch.cuda.max_memory_allocated(dev)
+        mesh.barrier()
+    for name, shape in runs:
+        grid = grids[shape]
+        local, lopt, ref = held[shape]
+        D = grid.size("data")
+        split = rows_split(batch, D)
+        rows = data(1, grid.index("data"), D) if split else b1
+        step = make_train_step(model, opt_cfg, mesh=grid, rows_split=split)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        grid.reset_counts()
+        t0 = time.perf_counter()
+        with routing("replay"), (per_shard_mean() if name == "control"
+                                 else contextlib.nullcontext()):
+            new = step(local, lopt, rows)
+        new, met = new[0], new[2]
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"flash_attention": ops.flash_variant_counts(),
+                  "flash_attention_bwd": ops.flash_bwd_variant_counts()}
+        specs = state_specs(cfg, grid)
+        got = {"counts": {k: {v: n for v, n in by.items() if n}
+                          for k, by in counts.items()},
+               "peak": torch.cuda.max_memory_allocated(dev) if cuda else 0,
+               "d2": {}, "s2": {}}
+        # the update's sums over this rank's blocks, each element once
+        for k, t in new.items():
+            if sh.counted_once(specs[k], grid):
+                got["d2"][k] = float(torch.linalg.vector_norm(
+                    t.float() - ref[k].float())) ** 2
+                got["s2"][k] = float(torch.linalg.vector_norm(
+                    ref[k].float() - local[k].float())) ** 2
+        del new
+        free_card(torch)
+        every = [None] * mesh.world
+        dist.all_gather_object(every, got)
+        if mesh.rank == 0:
+            d2, s2 = {}, {}
+            for r in every:
+                for k in r["d2"]:
+                    d2[k] = d2.get(k, 0.0) + r["d2"][k]
+                    s2[k] = s2.get(k, 0.0) + r["s2"][k]
+            met = {k: float(v) for k, v in met.items()}
+            out = update_readings(met, ref_met, d2, s2)
+            out.update(losses=[met["loss"], ref_met["loss"]],
+                       launches_by_rank=[r["counts"] for r in every],
+                       peak_gib_by_rank=[r["peak"] / 2 ** 30 for r in every],
+                       collectives=grid.counts["issued"], step_s=wall)
+            mine[name] = out
+    del held
+    free_card(torch)
+    peaks = [None] * mesh.world
+    dist.all_gather_object(peaks, one_peak / 2 ** 30)
+    for out in mine.values():
+        out.update(one_peak_gib_by_rank=peaks, laps_s=laps)
+    return mine
 
 
 def dtrain_ranks(tmp: str, out: str) -> None:
@@ -4503,13 +4738,17 @@ def dtrain_ranks(tmp: str, out: str) -> None:
     process a rank under torchrun, gloo on the one card). Its process
     group and CUDA context start, then it waits (DTRAIN_GO_S at most)
     for DIR/go, which the smoke writes once (a) is done. Then (b)
-    `launch.train.main` at (2, 1) for DTRAIN_STEPS steps (its checkpoint
-    kept in DIR/data), at (2, 1) again with a crash at DTRAIN_CRASH_AT
-    and a checkpoint every DTRAIN_CKPT_EVERY, and at (1, 2) resuming
-    DIR/data for one step, each run's result with every rank's kernel
-    launches and wall; then (c) `dtrain_lockstep`. Rank 0 writes
-    {"runs": {name: result}, "lockstep": readings, "lockstep_s",
-    "waited_s"} to OUT as JSON."""
+    `launch.train.main` at (2, 1) for DTRAIN_STEPS steps with a crash at
+    DTRAIN_CRASH_AT and a checkpoint every DTRAIN_CKPT_EVERY (kept in
+    DIR/data), then at (1, 2) resuming its checkpoint before the crash
+    (the last one removed) for DTRAIN_RESUME_STEPS steps, each run's
+    result with every
+    rank's kernel launches and wall; then (c) `split_lockstep` of qwen2
+    over DTRAIN_MESHES with its control and of a family of DSPLIT at (1,
+    2) (float32), and (d) of DSPLIT_BF16. Rank 0 writes {"runs": {name:
+    result}, "lockstep": {name: readings}, "families": {arch: readings},
+    "bf16": readings, "lockstep_s", "families_s", "waited_s"} to OUT as
+    JSON."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import train
@@ -4548,21 +4787,29 @@ def dtrain_ranks(tmp: str, out: str) -> None:
         dist.barrier()
 
     data = os.path.join(tmp, "data")
-    run("2x1", dtrain_args(data, DTRAIN_STEPS, 2, 1))
-    crash = os.path.join(tmp, "crash")
-    run("2x1 crash", dtrain_args(crash, DTRAIN_STEPS, 2, 1, (
+    run("2x1 crash", dtrain_args(data, DTRAIN_STEPS, 2, 1, (
         "--ckpt-every", str(DTRAIN_CKPT_EVERY))),
         plan={"crash_at_iter": DTRAIN_CRASH_AT})
-    remove(crash)
-    run("1x2 resumed", dtrain_args(data, 1, 1, 2))
+    remove(*(os.path.join(data, f"step_{step:08d}")
+             for step in range(DTRAIN_RESUME_AT + 1, DTRAIN_STEPS + 1)))
+    run("1x2 resumed", dtrain_args(data, DTRAIN_RESUME_STEPS, 1, 2))
     remove(data)
     t0 = time.perf_counter()
-    lock = dtrain_lockstep(torch)
+    lock = split_lockstep(torch, LM_ARCH, "float32", DTRAIN_F32_LAYERS,
+                          DTRAIN_BATCH, DTRAIN_SEQ, DTRAIN_MESHES,
+                          control=True)
     lock_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    families = {arch: split_lockstep(torch, arch, "float32", *shape).get(
+        "1x2") for arch, shape in DSPLIT.items()}
+    arch, *shape = DSPLIT_BF16
+    bf16 = split_lockstep(torch, arch, "bfloat16", *shape).get("1x2")
+    families_s = time.perf_counter() - t0
     if dist.get_rank() == 0:
         with open(out, "w") as fh:
             json.dump({"runs": runs, "lockstep": lock, "lockstep_s": lock_s,
-                       "waited_s": waited}, fh)
+                       "families": families, "bf16": bf16,
+                       "families_s": families_s, "waited_s": waited}, fh)
 
 
 def restore_check(label: str, res: dict, card: str) -> None:
@@ -4606,16 +4853,22 @@ def phase_dtrain(torch, card: str) -> dict:
     DTRAIN_BATCH): the two-rank child (`--dtrain-ranks`, gloo) starts
     first and waits; (a) a world of 1 on NCCL under torchrun, then the
     same command in this process (no process group), bit-equal; then
-    the child runs (b): (2, 1), (2, 1) crashed and replayed, (1, 2)
-    resuming the first (2, 1) run's checkpoint, within
-    TRAIN_RTOL["bfloat16"]'s loss limit of (a), the crashed run bit-equal
-    to the first, each restore within RESTORE_RATIO; and (c) the float32
-    lockstep and its control. Each run's checkpoints are removed after
-    it. Printed, not gated: each rank's peak memory, the step walls (two
-    ranks on one card stage every collective through the host over
-    gloo: the walls measure that staging, not scaling over cards) and
-    K6/K6b launches by rank. -> the K6 and K6b launches of the runs,
-    with their variants."""
+    the child runs (b): (2, 1) crashed and replayed, (1, 2) resuming its
+    checkpoint before the crash (the compute split along "model"),
+    within TRAIN_RTOL["bfloat16"]'s loss limit of (a), the replayed steps
+    bit-equal to the same steps before the crash, each restore within
+    RESTORE_RATIO; (c) the float32 lockstep and its control, then a
+    family's split step a DSPLIT entry within TRAIN_RTOL["float32"]; and
+    (d) the hybrid's bf16 split step within FLOCK_RTOL's hybrid limits.
+    K6 and K6b launch in every attention layer of every rank's steps, by
+    the variants `ftrain_expected` names, and the split (1, 2) run's peak
+    stays within DTRAIN_SPLIT_PEAK_GIB on every rank. Each run's
+    checkpoints are removed after it. Printed, not gated: each rank's
+    peak memory, the step walls (two ranks
+    on one card stage every collective through the host over gloo: the
+    walls measure that staging, not scaling over cards) and K6/K6b
+    launches by rank. -> the K6 and K6b launches of the runs and the
+    split steps, with their variants."""
     from repro_torch.configs import get_config
     L = get_config(LM_ARCH).n_layers
     free_card(torch)
@@ -4624,10 +4877,12 @@ def phase_dtrain(torch, card: str) -> dict:
                                      dir=str(ROOT / "build")) as tmp:
         out = os.path.join(tmp, "ranks.json")
         t_child = time.perf_counter()
+        # the split steps' float32 logits over 256,000 tokens need the
+        # caching allocator's expandable segments, as ftrain's runs do
         proc = _child(["torch.distributed.run", "--standalone",
                        "--nproc-per-node", "2", "-m", "chip_smoke",
-                       "--dtrain-ranks", tmp, out], timeout=600,
-                      log_to=os.path.join(tmp, "ranks"))
+                       "--dtrain-ranks", tmp, out], env=FTRAIN_ALLOC,
+                      timeout=900, log_to=os.path.join(tmp, "ranks"))
         try:
             t0 = time.perf_counter()
             a = _train_cli(dtrain_args(os.path.join(tmp, "one"),
@@ -4671,7 +4926,9 @@ def phase_dtrain(torch, card: str) -> dict:
         log(f"[dtrain] {name}: mesh {m}, steps {res['loss_steps']}, "
             f"losses {res['losses']}, events {res['events']}; step wall "
             f"{wall} (median after the first; first "
-            f"{res['step_walls_s'][0]:.2f} s); peak GiB by rank {peaks}; "
+            f"{res['step_walls_s'][0]:.2f} s; each "
+            f"{[round(w, 2) for w in res['step_walls_s']]} s); peak GiB by "
+            f"rank {peaks}; "
             f"collectives a step {res['collectives_per_step']}; K6/K6b "
             f"launches by rank {counts}; run {res.get('wall_s', 0):.1f} s "
             f"({card})")
@@ -4679,8 +4936,9 @@ def phase_dtrain(torch, card: str) -> dict:
         f"process start, its command in this process {plain_wall:.1f} s; "
         f"the two-rank child {child_wall:.1f} s from its start, of which "
         f"it waited {ranks['waited_s']:.1f} s with its group up, and "
-        f"{b_wall:.1f} s after (a) for (b) and (c) (the lockstep "
-        f"{ranks['lockstep_s']:.1f})")
+        f"{b_wall:.1f} s after (a) for (b), (c) and (d) (the qwen2 lockstep "
+        f"{ranks['lockstep_s']:.1f}, the families' split steps "
+        f"{ranks['families_s']:.1f})")
     # (a) a world of 1 on NCCL: the plain process's bits
     assert a["mesh"] == {"data": 1, "model": 1, "world": 1, "backend": (
         "nccl" if DEVICE == "cuda" else "gloo"), "rank": 0,
@@ -4690,57 +4948,95 @@ def phase_dtrain(torch, card: str) -> dict:
         f"{'bit-equal' if a['losses'] == plain['losses'] else 'differ'}")
     assert a["losses"] == plain["losses"], (a["losses"], plain["losses"])
     # (b) two ranks on gloo
-    first, crashed = runs["2x1"], runs["2x1 crash"]
-    resumed = runs["1x2 resumed"]
-    for r in (first, crashed, resumed):
+    crashed, resumed = runs["2x1 crash"], runs["1x2 resumed"]
+    for r in (crashed, resumed):
         assert r["mesh"]["backend"] == "gloo" and r["mesh"]["world"] == 2
-    rel = [abs(x - y) / abs(y) for x, y in zip(first["losses"],
-                                               a["losses"])]
-    log(f"[dtrain] (b) 2x1 against (a): loss rel {max(rel):.2e} (limit "
-        f"{tol})")
-    assert first["loss_steps"] == list(range(DTRAIN_STEPS)), \
-        first["loss_steps"]
-    assert max(rel) <= tol, (first["losses"], a["losses"])
     back = (DTRAIN_CRASH_AT // DTRAIN_CKPT_EVERY) * DTRAIN_CKPT_EVERY
-    log(f"[dtrain] (b) 2x1 again, a crash at step {DTRAIN_CRASH_AT} with "
-        f"checkpoints every {DTRAIN_CKPT_EVERY}: events {crashed['events']}"
-        f", steps {crashed['loss_steps']}; against the first 2x1 run: "
-        f"{'bit-equal' if crashed['losses'] == first['losses'] else 'differ'}")
+    assert back == DTRAIN_RESUME_AT
     assert crashed["events"] == ["crash", "restore"], crashed["events"]
     assert crashed["loss_steps"] == list(range(DTRAIN_CRASH_AT)) + \
         list(range(back, DTRAIN_STEPS)), crashed["loss_steps"]
-    assert crashed["losses"] == first["losses"], (crashed["losses"],
-                                                  first["losses"])
+    rel = [abs(x - a["losses"][k]) / abs(a["losses"][k])
+           for k, x in zip(crashed["loss_steps"], crashed["losses"])]
+    log(f"[dtrain] (b) 2x1 against (a): loss rel {max(rel):.2e} (limit "
+        f"{tol})")
+    assert max(rel) <= tol, (crashed["losses"], a["losses"])
+    before = crashed["losses"][back:DTRAIN_CRASH_AT]
+    again = crashed["losses"][DTRAIN_CRASH_AT:2 * DTRAIN_CRASH_AT - back]
+    log(f"[dtrain] (b) 2x1, a crash at step {DTRAIN_CRASH_AT} with "
+        f"checkpoints every {DTRAIN_CKPT_EVERY}: events {crashed['events']}"
+        f", steps {crashed['loss_steps']}; steps {back}-"
+        f"{DTRAIN_CRASH_AT - 1} from the restored checkpoint against the "
+        f"same steps before the crash: "
+        f"{'bit-equal' if again == before else 'differ'}")
+    assert again == before, (again, before)
     restore_check("dtrain 2x1 crash", crashed, card)
-    want = a["losses"][DTRAIN_STEPS]
+    want = a["losses"][back]
     rel = abs(resumed["losses"][0] - want) / abs(want)
-    log(f"[dtrain] (b) the 2x1 checkpoint (step {DTRAIN_STEPS}) resumed at "
+    log(f"[dtrain] (b) the 2x1 checkpoint (step {back}) resumed at "
         f"1x2: start {resumed['start_step']}, events {resumed['events']}, "
         f"loss {resumed['losses'][0]:.6f} against (a)'s {want:.6f}: rel "
         f"{rel:.2e} (limit {tol})")
-    assert resumed["start_step"] == DTRAIN_STEPS and \
+    assert resumed["start_step"] == back and \
         resumed["events"] == ["resume"] and \
-        resumed["loss_steps"] == [DTRAIN_STEPS], resumed
+        resumed["loss_steps"] == list(range(
+            back, back + DTRAIN_RESUME_STEPS)), resumed
     assert rel <= tol, rel
     restore_check("dtrain 1x2 resumed", resumed, card)
-    # (c) the float32 lockstep
+    peaks = [p / 2 ** 30 for p in resumed["peak_bytes_by_rank"]]
+    log(f"[dtrain] (b) the split (1, 2) step: peak "
+        f"{[round(p, 2) for p in peaks]} GiB a rank (limit "
+        f"{DTRAIN_SPLIT_PEAK_GIB}; 27.81 with the state split alone), step "
+        f"wall {resumed['step_wall_s'] * 1e3:.1f} ms, "
+        f"{resumed['collectives_per_step']} collectives a step ({card})")
+    assert max(peaks) <= DTRAIN_SPLIT_PEAK_GIB, peaks
+    # (c) and (d): a model's step over a mesh against one process
     ftol = TRAIN_RTOL["float32"]
-    for name, r in ranks["lockstep"].items():
-        what = (name if name != "control" else
-                f"{DTRAIN_MESHES[0]} with the {DTRAIN_FAULT!r} control")
-        log(f"[dtrain] (c) float32 lockstep at {DTRAIN_F32_LAYERS} layers, "
-            f"{what} against (1, 1): loss rel {r['loss']:.2e}, grad_norm "
-            f"{r['grad_norm']:.2e}, update {r['update']:.2e} (one "
+    fams = [(LM_ARCH, "float32", (DTRAIN_F32_LAYERS, DTRAIN_BATCH,
+                                  DTRAIN_SEQ), name, r, ftol)
+            for name, r in ranks["lockstep"].items()]
+    fams += [(arch, "float32", shape, "1x2", ranks["families"][arch], ftol)
+             for arch, shape in DSPLIT.items()]
+    arch, *shape = DSPLIT_BF16
+    fams.append((arch, "bfloat16", shape, "1x2", ranks["bf16"],
+                 FLOCK_RTOL[HYBRID_ARCH]))
+    split_counts = []
+    for arch, dtype, (layers, B, S), name, r, lim in fams:
+        cfg = get_config(arch).replace(dtype=dtype, n_layers=layers)
+        want = ftrain_expected(cfg)
+        what = (f"{DTRAIN_MESHES[0]} with the {DTRAIN_FAULT!r} control"
+                if name == "control" else name)
+        log(f"[dtrain] ({'c' if dtype == 'float32' else 'd'}) {arch} "
+            f"{dtype} at {layers} layer(s), B {B} x S {S}, one step at "
+            f"{what} against (1, 1): loss {r['losses'][0]:.6f} vs "
+            f"{r['losses'][1]:.6f}, rel {r['loss']:.2e}; grad_norm rel "
+            f"{r['grad_norm']:.2e}; update rel {r['update']:.2e} (one "
             f"parameter's at most {r['param_update']:.2e}, {r['param']}); "
-            f"limits {ftol}")
+            f"limits {lim}; the step {r['step_s']:.2f} s, "
+            f"{r['collectives']} collectives a rank, peak GiB by rank "
+            f"{[round(p, 2) for p in r['peak_gib_by_rank']]} (the one-process"
+            f" step on it {[round(p, 2) for p in r['one_peak_gib_by_rank']]}"
+            f"); the turn's laps s "
+            f"{ {k: round(v, 2) for k, v in r['laps_s'].items()} }; K6/K6b "
+            f"launches by rank {r['launches_by_rank']} (each {want}; "
+            f"{card})")
         if name == "control":
-            assert any(r[k] > ftol[k] for k in ftol), r
+            assert any(r[k] > lim[k] for k in lim), r
         else:
-            assert all(r[k] <= ftol[k] for k in ftol), (name, r)
+            assert all(r[k] <= lim[k] for k in lim), (arch, dtype, r, lim)
+        assert all(c == want for c in r["launches_by_rank"]), \
+            (arch, name, r["launches_by_rank"], want)
+        split_counts += r["launches_by_rank"]
     # K6 and K6b in every layer of every rank's steps
     totals = {"flash_attention": 0, "flash_attention_bwd": 0,
               "flash_attention variants": {},
               "flash_attention_bwd variants": {}}
+    for c in split_counts:
+        for kernel, by in c.items():
+            totals[kernel] += sum(by.values())
+            prev = totals[f"{kernel} variants"]
+            totals[f"{kernel} variants"] = {
+                v: prev.get(v, 0) + by.get(v, 0) for v in {*prev, *by}}
     for name, res in runs.items():
         steps = len(res["losses"]) * (res["mesh"] or {}).get("world", 1)
         got = _dtrain_counts(res)
@@ -5942,9 +6238,10 @@ def _finish(name, proc, rc=0):
         out, err = (Path(f"{logs}.{x}").read_text()
                     for x in ("out", "err"))
     if proc.returncode != rc:
+        # the err tail holds every rank's traceback and torchrun's report
         raise AssertionError(f"[fault] {name}: exit {proc.returncode} "
                              f"(expected {rc})\n{out[-3000:]}\n"
-                             f"{err[-3000:]}")
+                             f"{err[-12000:]}")
     return out
 
 
@@ -6947,6 +7244,15 @@ def run_phases(torch, phases) -> int:
                     "causal_ms": w.get("causal_ms"),
                     "variant_ms": w.get("variant_ms"),
                     "max_abs_err": w["max_abs_err"]}
+            if "g5" in r:  # the split hybrid's rank shape, G 5
+                g = r["g5"]
+                row["g5_train" if name == "flash_attention_bwd"
+                    else "g5_prefill"] = {
+                    "shape": g["shape"], "ms": g["ms"],
+                    "warm_ms": g["warm_ms"], "plain_ms": g["plain_ms"],
+                    "bound_ms": g["bound"][0], "bound_by": g["bound"][1],
+                    "library_ms": g["library_ms"],
+                    "max_abs_err": g["max_abs_err"]}
             # K6b at a train run's shape, and at gemma-7b's
             for label in (FTRAIN_LABEL[MOE_ARCH], FTRAIN_LABEL[VLM_ARCH],
                           "gemma"):

@@ -20,6 +20,28 @@ identity and issues nothing, as XLA compiles a psum over a size-1 axis
 to nothing; `Mesh.counts` tells the collectives asked for from those
 issued.
 
+The compute split along "model" (`models.sharding.Split`) needs
+collectives that autograd sees, all on `psum_ordered` and the ranks'
+all-gather, so their bits are equal on every rank and from run to run
+(`Split.enter`, `leave` and `gather` apply them):
+
+    Enter(x, mesh, axes)    -- into a split region: x forward, its
+        gradient summed over the axes in rank order backward
+    Leave(x, mesh, axes)    -- out of one: the ranks' partials summed in
+        rank order (float32 accumulators, cast back) forward, the
+        gradient as it is backward
+    GatherBlock(t, mesh, axes, dim, partial)  -- the ranks' blocks
+        concatenated along dim forward; backward the rank's block of the
+        gradient, summed over the axes first where each rank's use gave
+        only a part of it (`partial`)
+
+and `Mesh.pmax_ordered(x, axes)`, the elementwise max over the axes (no
+gradient).
+
+Under `torch.utils.checkpoint` (non-reentrant) a layer's forward
+collectives run again in its recompute; the ranks run one graph, so they
+issue them in one order.
+
 Devices and backends. Each rank runs on `cuda:LOCAL_RANK` when the host
 has a card for every local rank, else on the one card; `device="cpu"`
 keeps every rank on the CPU. NCCL will not put two ranks on one card, so
@@ -233,6 +255,17 @@ class Mesh:
             out += part.to(dtype)
         return out.view(t.shape)
 
+    def pmax_ordered(self, t: Tensor, axes) -> Tensor:
+        """Elementwise max of `t` over the ranks along `axes`, from the
+        ranks' all-gather (exact in any order); a new tensor, `t` itself
+        over axes of size 1. No gradient."""
+        axes = self._axes(axes)
+        self.counts["asked"] += 1
+        if self.size(axes) == 1:
+            return t
+        self.counts["issued"] += 1
+        return torch.stack(self._gathered(t, axes)).amax(0)
+
     def barrier(self) -> None:
         """Wait for every rank (nothing in a world of 1)."""
         if self.world > 1:
@@ -248,6 +281,58 @@ class Mesh:
 
     def reset_counts(self) -> None:
         self.counts = {"asked": 0, "issued": 0}
+
+
+class Enter(torch.autograd.Function):
+    """`x`, replicated over `axes`, into a region where each rank
+    computes its part: the identity forward; backward the ranks'
+    gradients summed in rank order (float32, cast back)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.psum_ordered(g, ctx.axes, torch.float32).to(g.dtype),
+                None, None)
+
+
+class Leave(torch.autograd.Function):
+    """The ranks' partials `x` summed over `axes` in rank order
+    (float32 accumulators, cast back to x's dtype): replicated again.
+    Backward the gradient as it is (equal on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.psum_ordered(x, axes, torch.float32).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class GatherBlock(torch.autograd.Function):
+    """The ranks' blocks `t` along `axes` concatenated along `dim` in
+    rank order. Backward this rank's block of the gradient: summed over
+    the axes first when `partial` (each rank used only a part of the
+    whole: inside a split region), taken as it is otherwise (every rank
+    used all of it alike)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim, partial):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.partial = mesh, axes, dim, partial
+        return mesh.all_gather(t, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.mesh, ctx.axes, ctx.dim
+        if ctx.partial:
+            g = mesh.psum_ordered(g, axes, torch.float32).to(g.dtype)
+        n = g.shape[dim] // mesh.size(axes)
+        return (g.narrow(dim, mesh.index(axes) * n, n).contiguous(), None,
+                None, None, None)
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],

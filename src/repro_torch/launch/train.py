@@ -20,13 +20,16 @@ the CPU; the choice is printed). Each rank holds the block of every
 parameter and of its AdamW state that the reference's logical-axis rules
 give it (`models.sharding`) and its rows of each batch (split over
 "data" when D divides --batch, else the whole batch), and runs
-`train.steps.make_train_step` over the mesh. "model" shards the state,
-not the compute: each rank gathers the full weights and computes its
-data row's forward and backward whole. Init draws the whole tree on
-every rank from the one seeded generator and keeps the rank's blocks, so
-the bits are a world of 1's. A (D, M) that is not the world size raises
-`launch.mesh`'s message before any process group starts; without
-WORLD_SIZE and at D = M = 1 no process group starts at all.
+`train.steps.make_train_step` over the mesh: each rank gathers its
+blocks whole over "data" and computes its share along "model" (its
+heads, ff columns, vocabulary rows of the logits and the loss, experts
+or expert_ff columns, ssm / lru channels; partial sums added over
+"model" in rank order), as the reference's rules place it. Init draws
+the whole tree on every rank from the one seeded generator and keeps
+the rank's blocks, so the bits are a world of 1's. A (D, M) that is
+not the world size raises `launch.mesh`'s message before any process
+group starts; without WORLD_SIZE and at D = M = 1 no process group
+starts at all.
 
 Checkpoints hold the reference's tree, (params, AdamWState(step, mu, nu,
 master)) with the layers stacked on a leading axis (`layers`, moe's
@@ -186,11 +189,16 @@ def placement_line(mesh, specs: dict, batch: int, split: bool) -> str:
     rows = (f"batch {batch} split over \"data\" ({batch // D} a rank)"
             if split else f"batch {batch} on every rank (whole: "
             f"{'one data shard' if D == 1 else f'{D} does not divide it'})")
+    compute = ("\"model\" splits the compute: every rank gathers its "
+               "blocks over \"data\" and computes its share of the heads, "
+               "ff, vocabulary, experts and channels, the partial sums "
+               "added over \"model\""
+               if mesh.size("model") > 1 else
+               "every rank gathers the full weights and runs its rows' "
+               "forward and backward whole")
     return (f"[train] mesh {mesh.describe()}; {rows}; parameters and "
             f"AdamW state by the logical-axis rules, {sh.describe(specs, mesh)}"
-            f"; \"model\" shards the state, not the compute: every rank "
-            f"gathers the full weights and runs its rows' forward and "
-            f"backward whole")
+            f"; {compute}")
 
 
 def main(argv=None) -> dict:

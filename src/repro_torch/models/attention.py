@@ -12,6 +12,14 @@ with its sliding window), which reads kv head h // G in place and is
 differentiable, window and all (its backward is K6b). A windowed layer's
 decode cache is a ring of min(max_len, window) slots, as the reference's
 hybrid cache is (`init_cache`, `fill_cache`, `decode_step`).
+
+Split along "model" (the train step's `sharding.Split`, `attend_full`):
+a rank computes its block of the q heads and the kv heads they read,
+K6 / K6b on those local heads (their G the local group), and `wo`'s rows
+with one exit sum. kv projections that "model" does not divide run
+whole on the replicated input and enter the split region as k and v; a
+fused `wqkv` is gathered and its rank's rows taken (`sharding.qkv_rows`).
+Head counts come from the bound tensors, not the config.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models import decls
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rope
 
@@ -83,8 +92,14 @@ class Attention(decls.Declared):
     def project_qkv(self, x: Tensor):
         """-> q (B, S, H, Dh), k and v (B, S, Kv, Dh)."""
         if self.cfg.fused_qkv:
-            out = self._project(x, self.wqkv, getattr(self, "bqkv", None))
-            H, Kv = self.cfg.eff_heads, self.cfg.eff_kv_heads
+            w, b = self.wqkv, getattr(self, "bqkv", None)
+            sp = self.split_on("wqkv", 1)
+            if sp is not None:      # stored split, the heads computed whole
+                w = sp.gather(w, 1, partial=False)
+                b = None if b is None else sp.gather(b, 0, partial=False)
+            out = self._project(x, w, b)
+            H = self.shapes["wo"][0]
+            Kv = (self.shapes["wqkv"][1] - H) // 2
             return out[..., :H, :], out[..., H:H + Kv, :], \
                 out[..., H + Kv:, :]
         return (self._project(x, self.wq, getattr(self, "bq", None)),
@@ -105,9 +120,64 @@ class Attention(decls.Declared):
                 self._project(x, self.wv, getattr(self, "bv", None)))
 
     def project_out(self, o: Tensor) -> Tensor:
-        """o (B, S, H, Dh) -> (B, S, d)."""
+        """o (B, S, H, Dh) -> (B, S, d); under a split of the heads, the
+        rank's heads' rows of wo and the exit sum."""
         H, Dh, d = self.wo.shape
-        return o.reshape(*o.shape[:-2], H * Dh) @ self.wo.reshape(H * Dh, d)
+        out = o.reshape(*o.shape[:-2], H * Dh) @ self.wo.reshape(H * Dh, d)
+        sp = self.split_on("wo", 0)
+        return out if sp is None else sp.leave(out)
+
+    def split_qkv(self, x: Tensor, kv_x: Tensor | None = None):
+        """The projections a rank computes with under a split of the
+        heads (`split_on("wo", 0)`): q of its block of the heads, k and v
+        of the kv heads those read, a contiguous run shared in equal
+        groups or one kv head a q head (`sharding.kv_heads_of`). From x,
+        or with `kv_x` k and v from it (cross-attention)."""
+        sp = self.split_on("wo", 0)
+        H = self.shapes["wo"][0]
+        Hl = self.wo.shape[0]
+        h_lo = sp.block(Hl)
+        src = x if kv_x is None else kv_x
+        if self.cfg.fused_qkv:
+            Kv = (self.shapes["wqkv"][1] - H) // 2
+            rows = torch.tensor(sh.qkv_rows(H, Kv, h_lo, Hl),
+                                device=x.device)
+            w = self.wqkv
+            b = getattr(self, "bqkv", None)
+            if self.split_on("wqkv", 1) is not None:
+                w = sp.gather(w, 1)
+                b = None if b is None else sp.gather(b, 0)
+            else:
+                w = sp.enter(w)
+                b = None if b is None else sp.enter(b)
+            w = w.index_select(1, rows)
+            b = None if b is None else b.index_select(0, rows)
+            n = (len(rows) - Hl) // 2
+            xs = sp.enter(x)
+            q = self._project(xs, w[:, :Hl], None if b is None else b[:Hl])
+            kvs = xs if kv_x is None else sp.enter(kv_x)
+            k = self._project(kvs, w[:, Hl:Hl + n],
+                              None if b is None else b[Hl:Hl + n])
+            v = self._project(kvs, w[:, Hl + n:],
+                              None if b is None else b[Hl + n:])
+            return q, k, v
+        q = self._project(sp.enter(x), self.wq, getattr(self, "bq", None))
+        bk, bv = getattr(self, "bk", None), getattr(self, "bv", None)
+        if self.split_on("wk", 1) is not None:
+            # the kv heads divide as the q heads do: the rank's own
+            kvs = sp.enter(src)
+            return (q, self._project(kvs, self.wk, bk),
+                    self._project(kvs, self.wv, bv))
+        # kv heads replicated: whole on the replicated input, then into
+        # the split region, the kv heads of the rank's q heads taken
+        Kv = self.wk.shape[1]
+        k = sp.enter(self._project(src, self.wk, bk))
+        v = sp.enter(self._project(src, self.wv, bv))
+        kv = sh.kv_heads_of(H, Kv, h_lo, Hl)
+        if isinstance(kv, tuple):
+            return q, k.narrow(2, *kv), v.narrow(2, *kv)
+        idx = torch.tensor(kv, device=x.device)
+        return q, k.index_select(2, idx), v.index_select(2, idx)
 
 
 def mask_bias(q_pos: Tensor, k_pos: Tensor, causal: bool,
@@ -159,16 +229,25 @@ def attend_full(cfg: ModelConfig, p: Attention, x: Tensor,
     Blockwise (K6, with `window`) from BLOCKWISE_MIN_KV keys, dense (Sq,
     Skv) scores below, as the reference dispatches. `use_kernels=False`
     sends the blockwise route to K6's plain version (`ref.attention_ref`)
-    on any device."""
+    on any device.
+
+    Under a split of the heads along "model" (`Attention.split_qkv`) the
+    rank attends with its q heads and the kv heads they read, and the
+    output is summed over "model" (`Attention.project_out`); the k and v
+    returned are those local heads'."""
+    split = p.split_on("wo", 0) is not None
     if kv_x is None:
-        q, k, v = p.project_qkv(x)
+        q, k, v = p.split_qkv(x) if split else p.project_qkv(x)
         if cfg.rope_theta > 0:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         kv_positions = positions
     else:
-        q = p.project_q(x)
-        k, v = p.project_kv(kv_x)
+        if split:
+            q, k, v = p.split_qkv(x, kv_x)
+        else:
+            q = p.project_q(x)
+            k, v = p.project_kv(kv_x)
         if kv_positions is None:
             kv_positions = torch.arange(kv_x.shape[1], device=x.device)
     scale = cfg.resolved_head_dim ** -0.5

@@ -18,6 +18,13 @@ name or None a dim: "embed", "heads", "ff", ...; `logical_axes(model)`).
 `models.sharding` maps them onto a port mesh (`resolve_spec`,
 `spec_tree`) for the sharded train step. The reference's `shard_params`
 and `constrain` place arrays for pjit and have no counterpart.
+
+A module keeps each parameter's declared (whole) shape, and `split`, the
+rank's `sharding.Split` while the train step computes split along
+"model" (None otherwise, `Model.split_compute`): `split_on(name, dim)`
+is that split where the tensor bound to `name` (under
+`torch.func.functional_call`, the rank's block) is a block of the
+declared dim, else None.
 """
 from __future__ import annotations
 
@@ -63,12 +70,23 @@ class Declared(nn.Module):
     its own tensors through `torch.func.functional_call` and
     differentiates those."""
 
+    split = None
+
     def __init__(self, dtype: torch.dtype, device):
         super().__init__()
         self.dtype = dtype
         self.device = torch.device(device)
         self.inits: dict[str, Init] = {}
         self.axes: dict[str, Tuple[Optional[str], ...]] = {}
+        self.shapes: dict[str, Tuple[int, ...]] = {}
+
+    def split_on(self, name: str, dim: int):
+        """`self.split` where the tensor bound to `name` is a block of its
+        declared dim `dim`, else None."""
+        if self.split is None:
+            return None
+        bound = getattr(self, name).shape[dim]
+        return self.split if bound < self.shapes[name][dim] else None
 
     def declare(self, name: str, shape, init: Init, *, axes,
                 dtype: Optional[torch.dtype] = None) -> None:
@@ -83,6 +101,7 @@ class Declared(nn.Module):
             requires_grad=False))
         self.inits[name] = init
         self.axes[name] = axes
+        self.shapes[name] = shape
 
 
 def logical_axes(model: nn.Module) -> dict:

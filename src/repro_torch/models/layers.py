@@ -5,6 +5,14 @@ Port of `repro.models.layers` as modules: each declares its parameters
 parameter tree loads as it is (`models.convert`). Compute runs in the
 parameter dtype with float32 where the reference has it (norm statistics,
 rope), and the training loss `softmax_xent`.
+
+Split along "model" (`models.sharding`, while the train step computes
+split): the MLP's gate and up columns and its down rows over "ff", one
+exit sum, `b_down` added once after it; the embedding's rows over
+"vocab": a lookup of the rank's rows (zero for the others' tokens) and
+an exit sum, the logits on the rank's vocabulary slice (tied or
+untied, the pads masked at the rank's offset), and `softmax_xent` in
+its vocab-parallel form.
 """
 from __future__ import annotations
 
@@ -88,15 +96,21 @@ class MLP(decls.Declared):
             self.declare("b_down", (d,), decls.ZEROS, axes=("embed",))
 
     def forward(self, x: Tensor) -> Tensor:
+        sp = self.split_on("w_up", 1)
+        if sp is not None:
+            x = sp.enter(x)
         if self.mlp_type == "swiglu":
-            return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
-        if self.mlp_type == "geglu":
-            return (F.gelu(x @ self.w_gate, approximate="tanh") *
-                    (x @ self.w_up)) @ self.w_down
-        h = x @ self.w_up
-        if self.bias:
-            h = h + self.b_up
-        out = F.gelu(h, approximate="tanh") @ self.w_down
+            out = (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+        elif self.mlp_type == "geglu":
+            out = (F.gelu(x @ self.w_gate, approximate="tanh") *
+                   (x @ self.w_up)) @ self.w_down
+        else:
+            h = x @ self.w_up
+            if self.bias:
+                h = h + self.b_up
+            out = F.gelu(h, approximate="tanh") @ self.w_down
+        if sp is not None:
+            out = sp.leave(out)
         if self.bias:
             out = out + self.b_down
         return out
@@ -118,19 +132,39 @@ class Embed(decls.Declared):
             self.declare("unembed", (d, Vp), decls.dense(d),
                          axes=("embed", "vocab"))
 
+    def vocab_split(self):
+        """The rank's split when the vocabulary's rows are split over it,
+        else None."""
+        return self.split_on("embedding", 0)
+
     def apply_embed(self, tokens: Tensor) -> Tensor:
-        x = self.embedding[tokens]
+        sp = self.vocab_split()
+        if sp is None:
+            x = self.embedding[tokens]
+        else:
+            # the rank's rows; the other ranks' tokens read 0 here
+            n = self.embedding.shape[0]
+            local = tokens - sp.block(n)
+            mine = (local >= 0) & (local < n)
+            x = sp.leave(self.embedding[local.clamp(0, n - 1)] *
+                         mine[..., None].to(self.embedding.dtype))
         if self.cfg.embed_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
     def apply_unembed(self, x: Tensor) -> Tensor:
+        """Logits (..., padded vocab); under a vocabulary split the rank's
+        slice of them."""
         cfg = self.cfg
         w = self.embedding.T if cfg.tie_embeddings else self.unembed
+        sp = self.vocab_split()
+        if sp is not None:
+            x = sp.enter(x)
         logits = x @ w
         if cfg.padded_vocab != cfg.vocab_size:    # mask the pad logits
-            pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
-                cfg.vocab_size
+            n = logits.shape[-1]
+            lo = 0 if sp is None else sp.block(n)
+            pad = torch.arange(lo, lo + n, device=x.device) >= cfg.vocab_size
             logits = logits + torch.where(pad, -1e9, 0.0).to(logits.dtype)
         return logits
 
@@ -180,13 +214,19 @@ def sinusoid_at(pos: int, d: int, device) -> Tensor:
 
 def softmax_xent(logits: Tensor, labels: Tensor,
                  mask: Tensor | None = None,
-                 total: Tensor | None = None) -> Tensor:
+                 total: Tensor | None = None, split=None) -> Tensor:
     """Mean next-token cross-entropy in float32. logits (..., V), labels
     (...) integer, mask (...) optional weights: sum(nll * m) / max(sum(m),
-    1). The gold logit is a gather (the reference writes it as a masked
-    reduction over the vocab so that a vocab sharded over a mesh needs no
-    all-gather; nothing in the port shards the vocab). Pad-vocab logits
-    carry -1e9 from `Embed.apply_unembed`, so they add nothing.
+    1). Pad-vocab logits carry -1e9 from `Embed.apply_unembed`, so they
+    add nothing.
+
+    `split` (a `sharding.Split`): logits are the rank's slice of the
+    vocabulary (rows split.index * V on), and the loss is the reference's
+    vocab-parallel form with no all-gather of logits: the log-sum-exp
+    from the rank-ordered max over "model" and the slices' sums of
+    exp(l - max) summed over it, the gold logit the rank's where the
+    label falls in its slice (0 elsewhere) summed over it. Every rank
+    returns the same loss.
 
     `total`: the weight of the whole batch when these rows are one data
     shard of it (sum(m) summed over the shards, or their token count
@@ -195,8 +235,18 @@ def softmax_xent(logits: Tensor, labels: Tensor,
     mean, as do their gradients (`train.steps`): a mean a shard would
     weigh the shards' tokens unequally where their sum(m) differ."""
     lf = logits.to(f32)
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if split is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    else:
+        V = lf.shape[-1]
+        m = split.mesh.pmax_ordered(lf.detach().amax(-1), split.axes)
+        lse = m + torch.log(split.leave(
+            torch.sum(torch.exp(lf - m[..., None]), dim=-1)))
+        local = labels.long() - split.block(V)
+        mine = (local >= 0) & (local < V)
+        gold = torch.gather(lf, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+        gold = split.leave(torch.where(mine, gold, 0.0))
     nll = lse - gold
     if total is not None:
         num = torch.sum(nll if mask is None else nll * mask.to(f32))

@@ -8,11 +8,17 @@
         dispatch of the reference's `_moe_local`
     apply_moe_dense(cfg, p, x)    -- decode: every expert on every token
 
-The reference runs the dispatch inside a shard_map, each model shard
-holding a slice of the experts and the combine summed over the mesh.
-Here a rank computes with every expert (the sharded train step gathers
-the weights first), so this is its body at E_l = E, e_lo = 0, with no
-psum. As there, the capacity counts the tokens the call is given: in
+The reference runs the dispatch inside a shard_map (`_moe_local`), each
+model shard holding a slice of the experts and the combine summed over
+the mesh; so does `apply_moe` under the train step's split along "model"
+(`sharding.Split`): routing and the capacity dispatch whole on every
+rank (replicated), then case A (E divisible by the "model" size: the
+rank's E_l = E / M whole experts, e_lo its first) or case B (E smaller:
+every expert on the rank's expert_ff columns, each rank's output a
+partial sum over them), the gates entering the split region, and one
+exit sum over "model" of the scattered-back outputs. Without a split a
+rank computes with every expert: the body at E_l = E, e_lo = 0, with no
+sum. As there, the capacity counts the tokens the call is given: in
 the sharded train step one data shard's rows (the reference's T = B_l *
 S inside its shard_map), so a token is dropped where its shard's queue
 is full, not the whole batch's. Route in float32 (softmax, top-k, the gates renormalised), sort
@@ -129,18 +135,35 @@ def apply_moe(cfg: ModelConfig, p: MoE, x: Tensor) -> Tensor:
     """x (B, S, d) -> (B, S, d): routed experts through the capacity
     dispatch, plus the shared experts."""
     B, S, D = x.shape
-    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    K = cfg.moe.top_k
     xt = x.reshape(B * S, D)
     gates, ids = route(cfg, p.router, xt)
     dp = dispatch(cfg, ids)
-    # a zero row at index T for the empty slots
-    buf = torch.cat([xt, xt.new_zeros((1, D))])[dp.src]     # (E, cap, d)
-    # the gated expert FFN, expert by expert as batched products
-    h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
-    out_e = torch.bmm(h, p.w_down).reshape(E * dp.cap, D)
     w = gates.reshape(-1).to(x.dtype) * dp.keep.to(x.dtype)
-    vals = out_e[dp.slot] * w[:, None]
-    out = vals.reshape(B * S, K, D).sum(dim=1).reshape(B, S, D)
+    src, slot = dp.src, dp.slot
+    sp = p.split_on("w_gate", 0) or p.split_on("w_gate", 2)
+    if sp is not None:
+        xt, w = sp.enter(xt), sp.enter(w)
+    if p.split_on("w_gate", 0) is not None:
+        # case A: the rank's experts e_lo .. e_lo + E_l - 1
+        E_l = p.w_gate.shape[0]
+        lo = sp.block(E_l) * dp.cap
+        src = src[sp.block(E_l):sp.block(E_l) + E_l]
+        slot = slot - lo
+        mine = (slot >= 0) & (slot < E_l * dp.cap)
+        slot = slot.clamp(0, E_l * dp.cap - 1)
+        w = w * mine.to(w.dtype)
+    # a zero row at index T for the empty slots
+    buf = torch.cat([xt, xt.new_zeros((1, D))])[src]        # (E_l, cap, d)
+    # the gated expert FFN, expert by expert as batched products (case
+    # B: on the rank's expert_ff columns, a partial sum)
+    h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
+    out_e = torch.bmm(h, p.w_down).reshape(-1, D)
+    vals = out_e[slot] * w[:, None]
+    out = vals.reshape(B * S, K, D).sum(dim=1)
+    if sp is not None:
+        out = sp.leave(out)
+    out = out.reshape(B, S, D)
     if cfg.moe.n_shared:
         out = out + p.shared(x)
     return out

@@ -20,6 +20,14 @@ and an in-place update, no `torch.cat`), over the whole sequence at once
 (a (B, S, W) float32 carry). Dtypes as in the reference: the projections
 and the conv in the model dtype; the gates, the scan and h in float32;
 `b_a`, `b_i` and `Lambda` are float32 parameters.
+
+Split along "model" (the train step's `sharding.Split`, over lru):
+`in_x` / `in_gate` as column splits, the conv, the gates and the scan on
+the rank's block of the W channels, `out` as a row split with an exit
+sum. `w_a` / `w_i` are stored split on their rows only (`resolve_spec`
+uses "model" once): they and the post-conv activation are gathered over
+"model" and the rank's columns taken (why not the row-split product:
+`models.sharding`).
 """
 from __future__ import annotations
 
@@ -80,11 +88,22 @@ def init_lru_state(cfg: ModelConfig, batch: int, device,
                                 device=device), 0)
 
 
-def _gates(cfg: ModelConfig, p: RGLRU, xc: Tensor):
-    """a_t and the gated input of the LRU, float32. xc (..., W) post-conv."""
+def _gates(cfg: ModelConfig, p: RGLRU, xc: Tensor, split=None):
+    """a_t and the gated input of the LRU, float32. xc (..., W) post-conv;
+    with `split` the rank's channels, its gates from the gathered xc and
+    the gathered w_a / w_i's columns of them."""
     xf = xc.to(f32)
-    r = torch.sigmoid(xf @ p.w_a.to(f32) + p.b_a)
-    i = torch.sigmoid(xf @ p.w_i.to(f32) + p.b_i)
+    if split is None:
+        r = torch.sigmoid(xf @ p.w_a.to(f32) + p.b_a)
+        i = torch.sigmoid(xf @ p.w_i.to(f32) + p.b_i)
+    else:
+        n = xc.shape[-1]
+        cols = slice(split.block(n), split.block(n) + n)
+        xg = split.gather(xc, -1).to(f32)
+        r = torch.sigmoid(xg @ split.gather(p.w_a, 0)[:, cols].to(f32)
+                          + p.b_a)
+        i = torch.sigmoid(xg @ split.gather(p.w_i, 0)[:, cols].to(f32)
+                          + p.b_i)
     log_a = cfg.hybrid.lru_c * r * F.logsigmoid(p.Lambda)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
@@ -96,21 +115,26 @@ def apply_rglru_block(cfg: ModelConfig, p: RGLRU, x: Tensor,
                       state: Optional[LRUState] = None):
     """The block over a sequence (prefill, training), from `state` (zeros
     by default). x (B, S, d) -> (out (B, S, d), the state after it)."""
-    W, Kc = _width(cfg), cfg.hybrid.conv_width
+    Kc = cfg.hybrid.conv_width
     B, S, _ = x.shape
+    sp = p.split_on("conv_b", 0)
+    if sp is not None:
+        x = sp.enter(x)
     xb = x @ p.in_x
     gate_branch = F.gelu(x @ p.in_gate, approximate="tanh")
     prev = (state.conv if state is not None
-            else x.new_zeros((B, Kc - 1, W)))
+            else x.new_zeros((B, Kc - 1, xb.shape[-1])))
     xpad = torch.cat([prev, xb], dim=1)                      # (B, S+Kc-1, W)
     xc = sum(xpad[:, i:i + S] * p.conv_w[i] for i in range(Kc)) + p.conv_b
-    a, gated = _gates(cfg, p, xc)                            # (B, S, W) f32
+    a, gated = _gates(cfg, p, xc, sp)                        # (B, S, W) f32
     del xc
     if state is not None:
         gated[:, 0] += a[:, 0] * state.h
     hs = _scan(a, gated)
     del a, gated
     y = (hs.to(x.dtype) * gate_branch) @ p.out
+    if sp is not None:
+        y = sp.leave(y)
     length = (state.length if state is not None else 0) + S
     return y, LRUState(hs[:, -1], xpad[:, S:], length)
 

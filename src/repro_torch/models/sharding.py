@@ -34,6 +34,56 @@ of `mesh.size(A)` equal pieces, the order `Mesh.all_gather` concatenates
 in, so `gather(local_slice(t))` is `t` bit for bit. A spec whose axes
 all have size 1 (every spec on a mesh of one) slices nothing:
 `local_slice` and `gather` return the tensor itself.
+
+    restrict(spec, axes)            -- the spec's entries over `axes`
+        only (the train step gathers over the data axes alone)
+
+The compute half. Over a mesh whose "model" axis has more than one rank,
+the train step binds each rank's "model" blocks into the model
+(`torch.func.functional_call`) and `Model.split_compute(Split(mesh))`
+tells every module which rank it runs on; a module reads what it
+computes with from the blocks it is given, the reference's GSPMD layout
+under `DEFAULT_RULES`:
+
+- column splits (attention's heads and kv heads, the MLP's ff columns,
+  the experts or the expert_ff columns, the lru / ssm_inner channels,
+  the vocabulary's rows of the logits) run on `Split.enter(x)`: x as it
+  is forward, its gradient summed over "model" backward;
+- row splits (wo, w_down, the moe combine, out_proj, the RG-LRU's out,
+  x_proj, the embedding lookup) give each rank a partial sum, which
+  `Split.leave` adds over "model" in rank order;
+- a weight replicated over "model" whose output only some of the rank's
+  work uses (kv projections that "model" does not divide, the moe
+  router) runs on the replicated input outside the split region, and
+  its output enters it: the weight's gradient is then whole and equal on
+  every rank, the sum over "model" having been taken on the output's
+  gradient;
+- the rest (norms, biases added after an exit sum) runs replicated.
+
+Three storage blocks are not the blocks a rank computes with; the step
+moves what it needs, the cheaper way at full width (bytes a rank
+receives over "model" = 2 a layer a step, forward, recompute and
+backward):
+
+- the fused `wqkv` (d, H + 2 Kv, Dh), split on its fused dim: a
+  contiguous slice of it is not "the rank's q heads and their kv
+  heads". The weight is gathered (`Split.gather`) and the rank's rows
+  taken (`qkv_rows`): at qwen2-0.5b's width 2.1 MB bf16 against a (2,
+  4096, 18 x 64) activation's 18.9 MB. No config fuses it.
+- mamba's `in_proj` (d, 2 Di) over ssm_inner: at M = 2 rank 0 stores
+  all of x and rank 1 all of z. The rank's product with its stored
+  columns is gathered and its x and z channels taken (`in_proj_columns`):
+  at falcon-mamba-7b's width and its train shape (1 x 2048) a (2048,
+  16384) bf16 activation, 67 MB, against the weight's 134 MB; the
+  weight is the cheaper one from d tokens on (4096).
+- the RG-LRU's `w_a` / `w_i` (W, W) over ("lru", "lru"), whose columns
+  `resolve_spec` leaves whole: the weights (13.1 MB bf16 each at
+  recurrentgemma-2b's W 2560) and the post-conv activation (1 x 4096 x
+  2560 bf16, 21 MB) are gathered and the rank's columns taken, ~94 MB
+  a layer a step, against ~252 MB to sum the float32 row-split products
+  (42 MB each) over "model".
+
+Each gradient comes back as the stored block.
 """
 from __future__ import annotations
 
@@ -42,6 +92,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import Enter, GatherBlock, Leave
 from repro_torch.models import decls
 
 Tensor = torch.Tensor
@@ -209,6 +260,21 @@ def gather_tree(tree: dict, specs: dict, mesh) -> dict:
     return out
 
 
+def restrict(spec: tuple, axes) -> tuple:
+    """`spec` with only the mesh axes in `axes` kept (entries left with
+    none are None, trailing Nones dropped)."""
+    axes = set(axes)
+    parts = []
+    for entry in spec:
+        kept = () if entry is None else tuple(
+            a for a in _entry_axes(entry) if a in axes)
+        parts.append(None if not kept else kept[0] if len(kept) == 1
+                     else kept)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
 def counted_once(spec: tuple, mesh) -> bool:
     """Whether this rank's block of a leaf counts in a sum over the whole
     tree: the mesh axes the spec does not split along are copies, and
@@ -234,3 +300,72 @@ def describe(specs: dict, mesh) -> str:
         parts.append(f"{len(names)} split over {a!r}")
     parts.append(f"{len(specs) - len(split_any)} replicated")
     return f"{len(specs)} leaves: " + ", ".join(parts)
+
+
+# --- the compute layout along "model" ----------------------------------------
+
+class Split:
+    """One rank's place along "model" for the compute split (see the
+    module docstring): its `index` of `size` ranks, and the collectives
+    over that axis that autograd sees (`launch.mesh.Enter`, `Leave`,
+    `GatherBlock`)."""
+
+    def __init__(self, mesh, axis: str = "model"):
+        self.mesh = mesh
+        self.axes = (axis,)
+        self.size = mesh.size(axis)
+        self.index = mesh.index(axis)
+
+    @classmethod
+    def over(cls, mesh, axis: str = "model") -> Optional["Split"]:
+        """The split of `mesh` along `axis`, or None where the mesh has no
+        such axis or one of size 1 (nothing splits: the one-rank path)."""
+        if mesh is None or axis not in mesh.shape or mesh.size(axis) == 1:
+            return None
+        return cls(mesh, axis)
+
+    def block(self, n_local: int) -> int:
+        """The first of this rank's `n_local` entries of a split dim."""
+        return self.index * n_local
+
+    def enter(self, x: Tensor) -> Tensor:
+        """`x`, equal on every rank, into the split region."""
+        return Enter.apply(x, self.mesh, self.axes)
+
+    def leave(self, x: Tensor) -> Tensor:
+        """The ranks' partials `x` summed: out of the split region."""
+        return Leave.apply(x, self.mesh, self.axes)
+
+    def gather(self, t: Tensor, dim: int, partial: bool = True) -> Tensor:
+        """The ranks' blocks `t` concatenated along `dim`."""
+        return GatherBlock.apply(t, self.mesh, self.axes, dim, partial)
+
+
+def kv_heads_of(H: int, Kv: int, h_lo: int, n: int):
+    """The kv heads that q heads h_lo .. h_lo + n - 1 of H over Kv read
+    (q head h reads kv head h // (H // Kv)) -> (kv_lo, kv_n), a
+    contiguous run that the n heads share in equal groups of n // kv_n,
+    or a list of n kv heads, one a q head, where they do not."""
+    G = H // Kv
+    of = [h // G for h in range(h_lo, h_lo + n)]
+    kv_lo, kv_n = of[0], of[-1] - of[0] + 1
+    g = n // kv_n
+    if n % kv_n == 0 and of == [kv_lo + i // g for i in range(n)]:
+        return kv_lo, kv_n
+    return of
+
+
+def qkv_rows(H: int, Kv: int, h_lo: int, n: int) -> list:
+    """The rows of a fused (d, H + 2 Kv, Dh) `wqkv` a rank computes with
+    for q heads h_lo .. h_lo + n - 1: those q heads, then the kv heads
+    they read (`kv_heads_of`) among k's rows and among v's."""
+    kv = kv_heads_of(H, Kv, h_lo, n)
+    kv = list(range(kv[0], kv[0] + kv[1])) if isinstance(kv, tuple) else kv
+    return (list(range(h_lo, h_lo + n)) + [H + j for j in kv]
+            + [H + Kv + j for j in kv])
+
+
+def in_proj_columns(Di: int, lo: int, n: int) -> Tuple[slice, slice]:
+    """The columns of mamba's (d, 2 Di) `in_proj` (x's, then z's) that
+    carry ssm_inner channels lo .. lo + n - 1: (x's, z's)."""
+    return slice(lo, lo + n), slice(Di + lo, Di + lo + n)

@@ -16,6 +16,15 @@ an op a position). Decode keeps an O(1) state (h, the conv's tail).
 Dtypes as in the reference: the projections and the conv in the model
 dtype; delta, A, B, C, the scan and its state in float32; `A_log` and `D`
 are float32 parameters.
+
+Split along "model" (the train step's `sharding.Split`, over ssm_inner):
+the rank's block of the Di channels through the conv, `dt_proj`,
+`dt_bias`, `A_log`, `D` and the scan. `in_proj`'s stored columns are not
+the rank's x and z channels (at M = 2 rank 0 stores all of x): the
+rank's product with them is gathered over "model" and its channels taken
+(`sharding.in_proj_columns`; why not the weight: `models.sharding`).
+`x_proj` is a row split whose exit sum enters the split region again,
+`out_proj` a row split with an exit sum.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import decls
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -116,14 +126,18 @@ def _scan(a: Tensor, b: Tensor) -> Tensor:
 
 
 def _ssm_core(cfg: ModelConfig, p: SSM, xb: Tensor,
-              h0: Optional[Tensor]):
+              h0: Optional[Tensor], split=None):
     """xb (B, S, Di) post-conv activations -> (y (B, S, Di), h_last
     (B, Di, N) float32). The (B, ck, Di, N) discretised state exists for
-    one chunk at a time."""
-    Di, R, N, _ = _dims(cfg)
-    B, S, _ = xb.shape
+    one chunk at a time. With `split` xb holds the rank's channels, and
+    x_proj's row-split product is summed over "model"."""
+    _, R, N, _ = _dims(cfg)
+    B, S, Di = xb.shape
     xf = xb.to(f32)
-    dbc = (xb @ p.x_proj).to(f32)                            # (B, S, R+2N)
+    dbc = xb @ p.x_proj
+    if split is not None:
+        dbc = split.enter(split.leave(dbc))
+    dbc = dbc.to(f32)                                        # (B, S, R+2N)
     dt_in, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
     delta = F.softplus(dt_in @ p.dt_proj.to(f32) + p.dt_bias.to(f32))
     A = -torch.exp(p.A_log)                                  # (Di, N)
@@ -147,16 +161,29 @@ def apply_ssm_block(cfg: ModelConfig, p: SSM, x: Tensor,
     """The whole Mamba block over a sequence (prefill, training), from
     `state` (zeros by default). x (B, S, d) -> (out (B, S, d), the state
     after the sequence)."""
-    Di, _, _, Kc = _dims(cfg)
+    _, _, _, Kc = _dims(cfg)
     B, S, _ = x.shape
-    xb, zb = torch.chunk(x @ p.in_proj, 2, dim=-1)
+    sp = p.split_on("D", 0)
+    if sp is not None:
+        Di_l = p.D.shape[0]
+        xz = sp.gather(sp.enter(x) @ p.in_proj, -1)
+        cx, cz = sh.in_proj_columns(xz.shape[-1] // 2, sp.block(Di_l), Di_l)
+        xb, zb = xz[..., cx], xz[..., cz]
+    else:
+        w = p.in_proj
+        if p.split_on("in_proj", 1) is not None:   # channels computed whole
+            w = p.split.gather(w, 1, partial=False)
+        xb, zb = torch.chunk(x @ w, 2, dim=-1)
     prev = (state.conv if state is not None
-            else x.new_zeros((B, Kc - 1, Di)))
+            else x.new_zeros((B, Kc - 1, xb.shape[-1])))
     xpad = torch.cat([prev, xb], dim=1)                      # (B, S+Kc-1, Di)
     xc = sum(xpad[:, i:i + S] * p.conv_w[i] for i in range(Kc)) + p.conv_b
     xc = F.silu(xc)
-    y, h_last = _ssm_core(cfg, p, xc, state.h if state is not None else None)
+    y, h_last = _ssm_core(cfg, p, xc, state.h if state is not None else None,
+                          split=sp)
     out = (y * F.silu(zb)) @ p.out_proj
+    if sp is not None:
+        out = sp.leave(out)
     length = (state.length if state is not None else 0) + S
     return out, SSMState(h_last, xpad[:, S:S + Kc - 1], length)
 

@@ -23,13 +23,19 @@ prefill's cache), an SSMLayer or RecLayer its recurrent state, a
 DecoderLayer (which also takes the encoder's output) its self-attention's
 k and v and its cross-attention's. There is no `_constrain`: it is a
 sharding hint to XLA, and the port's sharded train step places the batch
-and the parameters itself (`train.steps`, `models.sharding`).
+and the parameters itself (`train.steps`, `models.sharding`). Inside
+`model.split_compute(split)` (a `sharding.Split` along "model") the
+backbone, the logits and `loss_fn` compute each rank's share, as the
+reference's rules place it, on the "model" blocks bound by
+`functional_call`; decode and prefill never run split.
 With `train=True` and `cfg.remat` each layer is recomputed in the
 backward pass (`torch.utils.checkpoint`, non-reentrant), as the
 reference wraps its scanned layer body in `jax.checkpoint`: a layer keeps
 only its input, and K6 runs twice an attention layer a step.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -38,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import decls
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru
@@ -252,6 +259,19 @@ class Model(nn.Module):
                                             for _ in range(n["dec_layers"]))
         self.final_norm = L.make_norm(cfg, device)
 
+    @contextlib.contextmanager
+    def split_compute(self, split):
+        """Inside the block every module computes its share along "model"
+        of `split` (a `sharding.Split`; None: whole, as outside)."""
+        mods = [m for m in self.modules() if isinstance(m, decls.Declared)]
+        for m in mods:
+            m.split = split
+        try:
+            yield
+        finally:
+            for m in mods:
+                m.split = None
+
     def tails(self) -> list:
         """The hybrid's tail rec layers, `tail_rec0`, `tail_rec1`, ..."""
         out = []
@@ -336,7 +356,8 @@ class Model(nn.Module):
                              patches=batch.get("patches"),
                              frames=batch.get("frames"))
         return L.softmax_xent(logits, batch["labels"],
-                              batch.get("loss_mask"), total)
+                              batch.get("loss_mask"), total,
+                              split=self.embed.vocab_split())
 
     def forward(self, batch: dict, total: Tensor | None = None) -> Tensor:
         """The training loss (`loss_fn`): what `torch.func.functional_call(

@@ -7,9 +7,12 @@ reference's is.
 ("data", "model") mesh (`launch.mesh`): each rank holds the block of
 every parameter and of its AdamW state that the reference's logical-axis
 rules give it (`models.sharding`), and its data shard's rows of the
-batch (`data.tokens.shard_rows`). The reference instead returns the
-shardings for pjit; the cache sharding specs of serving have no
-counterpart (the port serves on one card).
+batch (`data.tokens.shard_rows`). Along "data" the step gathers the
+blocks whole; along "model" each rank computes its share (heads and
+ff, the vocabulary, experts, ssm and RG-LRU channels) on its own blocks,
+as the reference's GSPMD does under its rules. The reference instead
+returns the shardings for pjit; the cache sharding specs of serving have
+no counterpart (the port serves on one card).
 """
 from __future__ import annotations
 
@@ -42,14 +45,26 @@ def make_loss_and_grads(model: Model, mesh=None, rows_split: bool = False):
     (`sharding.local_slice` under `sharding.spec_tree(model)`), and batch
     is this rank's rows when `rows_split` (the batch split over the data
     axes, `data.tokens.rows_split`), else the whole batch. The function
-    gathers the full parameters (one all-gather a mesh axis and dtype),
-    takes the loss and its gradient on the rank's rows (their share of
-    the whole batch's mean: their sum over the count summed over "data"),
-    and sums the gradients (float32 accumulators) and the loss over
-    "data" in rank order. The "model" axis shards the state only: the
-    ranks of a data row compute the same forward and backward."""
-    specs = None if mesh is None else sh.spec_tree(model, None, mesh)
+    gathers the blocks over the data axes only (one all-gather a set of
+    axes and dtype), keeps the "model" blocks, and computes the rank's
+    share along "model" (`Model.split_compute(sharding.Split(mesh))`:
+    the collectives over "model" are autograd's, inside the forward, the
+    remat recompute and the backward) of the loss on the rank's rows
+    (their share of the whole batch's mean: their sum over the count
+    summed over "data") and of its gradient. Each gradient comes out as
+    the rank's "model" block, whole along the data-gathered dims, summed
+    with the loss over "data" in rank order (float32 accumulators). A
+    parameter replicated over "model" gets its whole gradient on every
+    rank: where only part of a rank's work reads it (kv projections
+    "model" does not divide, the moe router), its output entered the
+    split region and that output's gradient was summed over "model".
+    With "model" of size 1 (or no mesh) nothing splits: the one-rank
+    step, bit for bit."""
+    specs = None if mesh is None else {
+        k: sh.restrict(spec, data_axes(mesh))
+        for k, spec in sh.spec_tree(model, None, mesh).items()}
     split = mesh is not None and rows_split
+    model_split = sh.Split.over(mesh)
 
     def loss_and_grads(params: dict, batch: dict):
         full = params if mesh is None else sh.gather_tree(params, specs,
@@ -63,7 +78,7 @@ def make_loss_and_grads(model: Model, mesh=None, rows_split: bool = False):
                      else torch.tensor(float(batch["labels"].numel()),
                                        device=batch["labels"].device))
             kwargs["total"] = mesh.psum_ordered(count, data_axes(mesh))
-        with torch.enable_grad():
+        with torch.enable_grad(), model.split_compute(model_split):
             loss = functional_call(model, leaves, (batch,), kwargs)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         grads = dict(zip(leaves, grads))
@@ -89,11 +104,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 
     Over `mesh` params, batch and the state's mu, nu and master are this
     rank's blocks and rows, as `make_loss_and_grads` takes them: the step
-    keeps its block of each gradient and updates its blocks, and the
-    clip's norm counts each element once over the mesh. The "model" axis
-    shards the state only: each rank keeps the gradient block it owns,
-    so that axis needs no gradient collective. On a mesh whose axes are
-    all of size 1 the step is the one-device step, bit for bit.
+    keeps its block over "data" of each gradient (already its "model"
+    block) and updates its blocks, and the clip's norm counts each
+    element once over the mesh. On a mesh whose axes are all of size 1
+    the step is the one-device step, bit for bit.
 
     Functional: the step returns new tensors and changes none of its
     inputs (the parameters it differentiates are detached aliases), so
@@ -103,6 +117,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     norm = None
     if mesh is not None:
         specs = sh.spec_tree(model, None, mesh)
+        data_specs = {k: sh.restrict(spec, data_axes(mesh))
+                      for k, spec in specs.items()}
         if mesh.world > 1:
             counted = {k for k, spec in specs.items()
                        if sh.counted_once(spec, mesh)}
@@ -114,7 +130,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     def train_step(params: dict, opt_state: AdamWState, batch: dict):
         loss, grads = loss_and_grads(params, batch)
         if mesh is not None:
-            grads = {k: sh.local_slice(g, specs[k], mesh)
+            grads = {k: sh.local_slice(g, data_specs[k], mesh)
                      for k, g in grads.items()}
         lr = (lr_schedule(opt_state.step) if lr_schedule is not None
               else opt_cfg.lr)

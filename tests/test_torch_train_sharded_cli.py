@@ -85,8 +85,9 @@ def test_two_ranks_train_crash_and_replay(tmp_path):
             flag, "2", "--ckpt-dir", str(tmp_path / flag[2:])])
         assert res["mesh"]["world"] == 2 and res["mesh"]["backend"] == "gloo"
         assert res["mesh"]["rows_split"] == (flag == "--data")
-        assert len(mesh_lines) == 1 and \
-            "shards the state, not the compute" in mesh_lines[0]
+        assert len(mesh_lines) == 1 and (
+            "runs its rows' forward and backward whole" if flag == "--data"
+            else '"model" splits the compute') in mesh_lines[0]
         assert res["collectives_per_step"] > 0
         assert len(res["peak_bytes_by_rank"]) == 2
         np.testing.assert_allclose(res["losses"], one["losses"],
