@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """What gloo's collectives cost between ranks that share one card (CUDA
 tensors, staged through the host): the collectives the sharded train step
-uses (`launch.mesh.Mesh.all_gather`, `psum_ordered`, `pmax`), each first
-held to its exact result on small tensors of every dtype the step sends
-(bf16, float32, int64), then timed at sizes of the step's buffers: an
-all-gather of 256 MB of bf16 and an all-reduce of 512 MB of float32,
-`--repeats` times each (wall a call, the card synchronised).
+uses (`launch.mesh.Mesh.all_gather`, `psum_ordered`, `pmax`, and the
+all-to-all under `psum_scatter_ordered`), each first held to its exact
+result on small tensors of every dtype the step sends (bf16, float32,
+int64), then timed at sizes of the step's buffers: an all-gather of 256
+MB of bf16, an all-reduce of 512 MB of float32 and an all-to-all of 256
+MB of bf16, `--repeats` times each (wall a call, the card synchronised).
 
     torchrun --standalone --nproc-per-node 2 benchmarks/port/gloo_probe.py
 
@@ -40,8 +41,17 @@ def main(argv=None) -> dict:
         y = x.clone()
         dist.all_reduce(y)
         assert int(y[0]) == world * (world + 1) // 2
+        # row j of what a rank sends goes to rank j: rank r receives
+        # every rank's row r, in rank order
+        rows = torch.arange(world * 3, dtype=dtype, device=dev).view(
+            world, 3) + 100 * rank
+        got = torch.empty_like(rows)
+        dist.all_to_all_single(got, rows)
+        want = torch.stack([torch.arange(3, dtype=dtype, device=dev)
+                            + 3 * rank + 100 * j for j in range(world)])
+        assert torch.equal(got, want), (dtype, got, want)
     out = {"world": world, "all_gather_256MB_bf16_ms": [],
-           "all_reduce_512MB_f32_ms": []}
+           "all_reduce_512MB_f32_ms": [], "all_to_all_256MB_bf16_ms": []}
     big = torch.ones(128 << 20, dtype=torch.bfloat16, device=dev)
     wide = torch.ones(128 << 20, dtype=torch.float32, device=dev)
     for _ in range(args.repeats):
@@ -59,6 +69,14 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
         out["all_reduce_512MB_f32_ms"].append(
             (time.perf_counter() - t0) * 1e3)
+        got = torch.empty_like(big)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_to_all_single(got, big)
+        torch.cuda.synchronize()
+        out["all_to_all_256MB_bf16_ms"].append(
+            (time.perf_counter() - t0) * 1e3)
+        del got
     dist.barrier()
     if rank == 0:
         for k, v in out.items():

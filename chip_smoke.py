@@ -315,9 +315,13 @@ Phases:
                  torchrun children: (a) a world of 1 on NCCL, 4 steps,
                  bit-equal to the same command without torchrun; (b) two
                  ranks sharing the card over gloo, 4 steps at (2, 1)
-                 crashed at step 3 with checkpoints every 2, losses
-                 within TRAIN_RTOL's bf16 loss limit of (a)'s, the
-                 replayed step 2 bit-equal to the one before the crash;
+                 (FSDP over "data": each layer gathered in its forward
+                 and recompute, each gradient summed into the rank's
+                 block) crashed at step 3 with checkpoints every 2,
+                 losses within TRAIN_RTOL's bf16 loss limit of (a)'s,
+                 the replayed step 2 bit-equal to the one before the
+                 crash, its peak a rank within DTRAIN_DATA_PEAK_GIB, its
+                 collectives and bytes a step printed;
                  its step-2 checkpoint resumed at (1, 2) for 2 steps, the
                  compute split along "model" (7 of the 14 heads, G 7,
                  half of d_ff and of the vocabulary a rank), its loss at
@@ -331,11 +335,13 @@ Phases:
                  depth cut (DSPLIT:
                  deepseek-moe-16b 2 layers, falcon-mamba-7b 2,
                  recurrentgemma-2b a triple, pixtral-12b 1, whisper-small
-                 2 + 2; 1 x 2048, whisper 4 x 384), TRAIN_RTOL's float32
-                 limits; (d) one bf16 step of recurrentgemma-2b (a
-                 triple, 1 x 4096) at (1, 2) against (1, 1), FLOCK_RTOL's
-                 hybrid limits: K6 `mma` and K6b `wgmma` at G 5, D 256,
-                 window 2048 on each rank; K6 and K6b in every attention
+                 2 + 2; 1 x 2048, whisper 4 x 384), TRAIN_RTOL's
+                 float32 limits, whisper-small and recurrentgemma-2b (at
+                 2 x 2048) also at (2, 1); (d) one bf16 step of
+                 recurrentgemma-2b (a triple, 1 x 4096) at (1, 2)
+                 against (1, 1), FLOCK_RTOL's hybrid limits: K6 `mma`
+                 and K6b `wgmma` at G 5, D 256, window 2048 on each
+                 rank; K6 and K6b in every attention
                  layer of every rank's steps; each rank's peak memory,
                  the step walls (gloo stages every collective through
                  the host) and the launches by rank printed; checkpoints
@@ -567,7 +573,8 @@ SHARDED_ENTRIES = ("pcdn_sparse_direction_partials", "pcdn_sparse_scatter",
 # the top one, so the Rayleigh quotient sits near the second for ~1000 steps,
 # where float32 noise meets the 1e-9 stop test (an H100 run: stopped at
 # 278 steps, 3.0e-3 low; 3000 steps with no stop, 1.3e-6; PERF.md).
-# Costs: FAULT_COST_ITERS support iterations a reading
+# Costs (printed, not gated): FAULT_COST_ITERS support iterations a
+# reading, each mode read twice, interleaved
 FAULT_P = 64
 FAULT_NAN_AT = 3
 FAULT_MAX_OUTER = 12
@@ -579,7 +586,7 @@ FAULT_PATH_OUTER = 10
 FAULT_RESUME_RTOL = 1e-6
 FAULT_RHO_RTOL = 1e-3
 FAULT_POWER_STEPS = 3000
-FAULT_COST_ITERS = 10
+FAULT_COST_ITERS = 5
 
 # the tune phase: benchmarks/port/bench_kernels.py's full cells (K1-K3
 # in float32 and bf16, K4a, K4b, K5's three entries) tuned into a cache
@@ -874,10 +881,13 @@ FLOCK_RTOL = {HYBRID_ARCH: {**TRAIN_RTOL["bfloat16"], "grad_norm": 5e-5},
 # width and DTRAIN_F32_LAYERS layers from a shared carry, (2, 1)
 # and (1, 2) against (1, 1), TRAIN_RTOL["float32"], with a planted
 # control: each shard's loss its own mean in place of its share of the
-# batch's. The two-rank child starts with (a) and waits, its process
-# group up, until this process has run (a) and its command: no two runs
-# share the card. The restores (the crash's, the resume's) are held to
-# RESTORE_RATIO on every rank
+# batch's. Over "data" the step is FSDP: each layer's blocks gathered in
+# its forward and recompute, each gradient summed into the rank's block;
+# (b)'s (2, 1) run holds its peak a rank to DTRAIN_DATA_PEAK_GIB. The
+# two-rank child starts with (a) and waits, its process group up, until
+# this process has run (a) and its command: no two runs share the card.
+# The restores (the crash's, the resume's) are held to RESTORE_RATIO on
+# every rank
 DTRAIN_BATCH = 2
 DTRAIN_SEQ = 4096
 DTRAIN_STEPS = 4
@@ -892,21 +902,35 @@ DTRAIN_GO_S = 300       # how long the two-rank child waits for (a)
 # the (1, 2) run resumes the (2, 1) checkpoint for 2 steps: the second's
 # wall is the split step's (the first's holds its warm-up)
 DTRAIN_RESUME_STEPS = 2
-# (c) beyond qwen2 and (d): one step a family at (1, 2) against (1, 1)
+# (c) beyond qwen2 and (d): one float32 step a family against (1, 1)
 # from a shared carry (`split_lockstep`), the published width with the
-# depth cut, arch -> (layers, batch, seq); whisper's layers are its
-# encoder's and its decoder's, 4 x 384 (no attention reaches 2048 keys,
-# as in ftrain); the others 1 x 2048, where K6 / K6b run their float32
-# variants. (d): the hybrid in bf16 at one triple, 1 x 4096: each rank
-# attends with 5 of the 10 heads over the one kv head, K6 `mma` and K6b
-# `wgmma` at G 5, D 256, window 2048
-DSPLIT = {MOE_ARCH: (2, 1, 2048), SSM_ARCH: (2, 1, 2048),
-          HYBRID_ARCH: (3, 1, 2048), VLM_ARCH: (1, 1, 2048),
-          ENCDEC_ARCH: (2, 4, 384)}
+# depth cut: (arch, layers, batch, seq, the meshes that step from one
+# carry), in the order they run. At (1, 2) every family; whisper's
+# layers are its encoder's and its decoder's, 4 x 384 (no attention
+# reaches 2048 keys, as in ftrain), also at (2, 1) from the same carry
+# (FSDP over "data" through cross-attention); the others 1 x 2048, where
+# K6 / K6b run their float32 variants. The hybrid's triple also at (2,
+# 1) at batch 2, which "data" splits, from a carry of its own (its (1,
+# 2) step at batch 2 with both meshes' blocks of the carry held ran two
+# ranks out of the card's memory: ~36 GiB a rank). (d): the hybrid in
+# bf16 at one triple, 1 x 4096: each rank attends with 5 of the 10 heads
+# over the one kv head, K6 `mma` and K6b `wgmma` at G 5, D 256, window
+# 2048
+DSPLIT = ((MOE_ARCH, 2, 1, 2048, ((1, 2),)),
+          (SSM_ARCH, 2, 1, 2048, ((1, 2),)),
+          (HYBRID_ARCH, 3, 1, 2048, ((1, 2),)),
+          (VLM_ARCH, 1, 1, 2048, ((1, 2),)),
+          (ENCDEC_ARCH, 2, 4, 384, ((1, 2), (2, 1))),
+          (HYBRID_ARCH, 3, 2, 2048, ((2, 1),)))
 DSPLIT_BF16 = (HYBRID_ARCH, 3, 1, 4096)
 # the peak a rank that the split (1, 2) qwen2 run must stay under (on an
 # H100 27.81 GiB with the state split and the compute whole; 11.79 split)
 DTRAIN_SPLIT_PEAK_GIB = 22.0
+# the peak a rank that the (2, 1) qwen2 run, FSDP over "data", must stay
+# under: between the two routes' readings on an H100, 15.33 GiB FSDP and
+# 15.99 with every block gathered whole at the step's start and every
+# whole gradient summed on every rank, ~0.3 GiB from each
+DTRAIN_DATA_PEAK_GIB = 15.65
 # a restore on the card adds the state it restores and nothing more: what
 # it adds to the device's allocation at its peak stays within
 # RESTORE_RATIO of that state's bytes there (`launch.train`'s
@@ -4559,6 +4583,36 @@ def per_shard_mean():
         layers.softmax_xent = real
 
 
+@contextlib.contextmanager
+def exchange_peak(torch, dev, out: dict):
+    """On the card, inside the block: out["added"], the most that one
+    gradient exchange over the data axes (`sharding.psum_scatter_tree`)
+    adds to the device's allocation at its peak over what it was handed
+    (the rank's float32 blocks it returns included), and out["peak"], the
+    allocation's peak over the whole block (each exchange restarts the
+    peak counter to read its own)."""
+    from repro_torch.models import sharding as sh
+    real = sh.psum_scatter_tree
+    out.update(added=0, peak=0)
+
+    def measured(*args, **kwargs):
+        out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated(dev))
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            return real(*args, **kwargs)
+        finally:
+            out["added"] = max(out["added"], torch.cuda.max_memory_allocated(
+                dev) - base)
+
+    sh.psum_scatter_tree = measured
+    try:
+        yield
+    finally:
+        sh.psum_scatter_tree = real
+        out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated(dev))
+
+
 def split_lockstep(torch, arch: str, dtype: str, layers: int, batch: int,
                    seq: int, meshes=((1, 2),), control: bool = False) -> dict:
     """(c) and (d) of the dtrain phase for one model, on each rank of a
@@ -4686,8 +4740,11 @@ def split_lockstep(torch, arch: str, dtype: str, layers: int, batch: int,
         ops.reset_launch_counts()
         grid.reset_counts()
         t0 = time.perf_counter()
+        ex = {"added": 0, "peak": 0}
         with routing("replay"), (per_shard_mean() if name == "control"
-                                 else contextlib.nullcontext()):
+                                 else contextlib.nullcontext()), \
+                (exchange_peak(torch, dev, ex) if cuda
+                 else contextlib.nullcontext()):
             new = step(local, lopt, rows)
         new, met = new[0], new[2]
         if cuda:
@@ -4698,8 +4755,8 @@ def split_lockstep(torch, arch: str, dtype: str, layers: int, batch: int,
         specs = state_specs(cfg, grid)
         got = {"counts": {k: {v: n for v, n in by.items() if n}
                           for k, by in counts.items()},
-               "peak": torch.cuda.max_memory_allocated(dev) if cuda else 0,
-               "d2": {}, "s2": {}}
+               "peak": ex["peak"], "exchange": ex["added"], "d2": {},
+               "s2": {}}
         # the update's sums over this rank's blocks, each element once
         for k, t in new.items():
             if sh.counted_once(specs[k], grid):
@@ -4719,10 +4776,14 @@ def split_lockstep(torch, arch: str, dtype: str, layers: int, batch: int,
                     s2[k] = s2.get(k, 0.0) + r["s2"][k]
             met = {k: float(v) for k, v in met.items()}
             out = update_readings(met, ref_met, d2, s2)
-            out.update(losses=[met["loss"], ref_met["loss"]],
+            out.update(shape=[layers, batch, seq],
+                       losses=[met["loss"], ref_met["loss"]],
                        launches_by_rank=[r["counts"] for r in every],
                        peak_gib_by_rank=[r["peak"] / 2 ** 30 for r in every],
-                       collectives=grid.counts["issued"], step_s=wall)
+                       exchange_gib_by_rank=[r["exchange"] / 2 ** 30
+                                             for r in every],
+                       collectives=grid.counts["issued"],
+                       collective_bytes=grid.counts["bytes"], step_s=wall)
             mine[name] = out
     del held
     free_card(torch)
@@ -4744,9 +4805,10 @@ def dtrain_ranks(tmp: str, out: str) -> None:
     (the last one removed) for DTRAIN_RESUME_STEPS steps, each run's
     result with every
     rank's kernel launches and wall; then (c) `split_lockstep` of qwen2
-    over DTRAIN_MESHES with its control and of a family of DSPLIT at (1,
-    2) (float32), and (d) of DSPLIT_BF16. Rank 0 writes {"runs": {name:
-    result}, "lockstep": {name: readings}, "families": {arch: readings},
+    over DTRAIN_MESHES with its control and of each family of DSPLIT at (1,
+    2) or (2, 1) as DSPLIT says (float32), and (d) of
+    DSPLIT_BF16. Rank 0 writes {"runs": {name: result}, "lockstep":
+    {name: readings}, "families": {arch: {name: readings}},
     "bf16": readings, "lockstep_s", "families_s", "waited_s"} to OUT as
     JSON."""
     import torch
@@ -4800,8 +4862,10 @@ def dtrain_ranks(tmp: str, out: str) -> None:
                           control=True)
     lock_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    families = {arch: split_lockstep(torch, arch, "float32", *shape).get(
-        "1x2") for arch, shape in DSPLIT.items()}
+    families = {}
+    for arch, *shape, meshes in DSPLIT:
+        families.setdefault(arch, {}).update(split_lockstep(
+            torch, arch, "float32", *shape, meshes=meshes))
     arch, *shape = DSPLIT_BF16
     bf16 = split_lockstep(torch, arch, "bfloat16", *shape).get("1x2")
     families_s = time.perf_counter() - t0
@@ -4857,8 +4921,9 @@ def phase_dtrain(torch, card: str) -> dict:
     checkpoint before the crash (the compute split along "model"),
     within TRAIN_RTOL["bfloat16"]'s loss limit of (a), the replayed steps
     bit-equal to the same steps before the crash, each restore within
-    RESTORE_RATIO; (c) the float32 lockstep and its control, then a
-    family's split step a DSPLIT entry within TRAIN_RTOL["float32"]; and
+    RESTORE_RATIO, the (2, 1) run's peak a rank within
+    DTRAIN_DATA_PEAK_GIB; (c) the float32 lockstep and its control, then
+    the steps of DSPLIT within TRAIN_RTOL["float32"]; and
     (d) the hybrid's bf16 split step within FLOCK_RTOL's hybrid limits.
     K6 and K6b launch in every attention layer of every rank's steps, by
     the variants `ftrain_expected` names, and the split (1, 2) run's peak
@@ -4929,7 +4994,8 @@ def phase_dtrain(torch, card: str) -> dict:
             f"{res['step_walls_s'][0]:.2f} s; each "
             f"{[round(w, 2) for w in res['step_walls_s']]} s); peak GiB by "
             f"rank {peaks}; "
-            f"collectives a step {res['collectives_per_step']}; K6/K6b "
+            f"collectives a step {res['collectives_per_step']} bringing a "
+            f"rank {res['collective_bytes_per_step'] / 1e6:.1f} MB; K6/K6b "
             f"launches by rank {counts}; run {res.get('wall_s', 0):.1f} s "
             f"({card})")
     log(f"[dtrain] walls: (a) torchrun world of 1 {a_wall:.1f} s with its "
@@ -4971,6 +5037,15 @@ def phase_dtrain(torch, card: str) -> dict:
         f"{'bit-equal' if again == before else 'differ'}")
     assert again == before, (again, before)
     restore_check("dtrain 2x1 crash", crashed, card)
+    peaks = [p / 2 ** 30 for p in crashed["peak_bytes_by_rank"]]
+    log(f"[dtrain] (b) the (2, 1) step, FSDP over \"data\": peak "
+        f"{[round(p, 3) for p in peaks]} GiB a rank (limit "
+        f"{DTRAIN_DATA_PEAK_GIB}; 15.99 with every block gathered whole at "
+        f"the step's start), step wall {crashed['step_wall_s'] * 1e3:.1f} "
+        f"ms, {crashed['collectives_per_step']} collectives a step bringing "
+        f"a rank {crashed['collective_bytes_per_step'] / 1e6:.1f} MB "
+        f"({card})")
+    assert max(peaks) <= DTRAIN_DATA_PEAK_GIB, peaks
     want = a["losses"][back]
     rel = abs(resumed["losses"][0] - want) / abs(want)
     log(f"[dtrain] (b) the 2x1 checkpoint (step {back}) resumed at "
@@ -4995,8 +5070,9 @@ def phase_dtrain(torch, card: str) -> dict:
     fams = [(LM_ARCH, "float32", (DTRAIN_F32_LAYERS, DTRAIN_BATCH,
                                   DTRAIN_SEQ), name, r, ftol)
             for name, r in ranks["lockstep"].items()]
-    fams += [(arch, "float32", shape, "1x2", ranks["families"][arch], ftol)
-             for arch, shape in DSPLIT.items()]
+    fams += [(arch, "float32", r["shape"], name, r, ftol)
+             for arch, runs in ranks["families"].items()
+             for name, r in runs.items()]
     arch, *shape = DSPLIT_BF16
     fams.append((arch, "bfloat16", shape, "1x2", ranks["bf16"],
                  FLOCK_RTOL[HYBRID_ARCH]))
@@ -5013,10 +5089,14 @@ def phase_dtrain(torch, card: str) -> dict:
             f"{r['grad_norm']:.2e}; update rel {r['update']:.2e} (one "
             f"parameter's at most {r['param_update']:.2e}, {r['param']}); "
             f"limits {lim}; the step {r['step_s']:.2f} s, "
-            f"{r['collectives']} collectives a rank, peak GiB by rank "
-            f"{[round(p, 2) for p in r['peak_gib_by_rank']]} (the one-process"
-            f" step on it {[round(p, 2) for p in r['one_peak_gib_by_rank']]}"
-            f"); the turn's laps s "
+            f"{r['collectives']} collectives a rank bringing it "
+            f"{r['collective_bytes'] / 1e6:.1f} MB, peak GiB by rank "
+            f"{[round(p, 2) for p in r['peak_gib_by_rank']]} (the gradient "
+            f"exchange over \"data\" adding at most "
+            f"{[round(p, 3) for p in r['exchange_gib_by_rank']]}; the "
+            f"one-process step on it "
+            f"{[round(p, 2) for p in r['one_peak_gib_by_rank']]}); the "
+            f"turn's laps s "
             f"{ {k: round(v, 2) for k, v in r['laps_s'].items()} }; K6/K6b "
             f"launches by rank {r['launches_by_rank']} (each {want}; "
             f"{card})")
@@ -6574,7 +6654,7 @@ def phase_fault(torch, rows, data, card: str) -> dict:
     modes = {"off": (off, None), "diag planes": (planes, None),
              "ckpt every 3": (off, ck_cost.solve_callback(off))}
     order = ["off", "diag planes", "ckpt every 3", "ckpt every 3",
-             "diag planes", "off"] * 2
+             "diag planes", "off"]
     readings = {m: [] for m in modes}
     engine_loop.solve(off, c_s, max_outer=2, tol_kkt=0.0)   # warm
     ops.reset_launch_counts()
@@ -6600,7 +6680,7 @@ def phase_fault(torch, rows, data, card: str) -> dict:
     mb = (Path(d) / "arrays.npz").stat().st_size / 1e6
     log(f"[fault] (6) support iteration wall (real-sim, P {P_s}, c {c_s}, "
         f"{FAULT_COST_ITERS} iterations a reading, interleaved "
-        f"{' / '.join(order[:6])}, twice; {card}): "
+        f"{' / '.join(order)}; {card}): "
         + "; ".join(f"{m} " + ", ".join(f"{v * 1e3:.3f}" for v in vs)
                     + f" ms (mean {np.mean(vs) * 1e3:.3f})"
                     for m, vs in readings.items())

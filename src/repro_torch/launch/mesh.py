@@ -15,10 +15,15 @@ tensors along the axes concatenated in rank order, and
 all-gather: gloo with CUDA tensors (two ranks on one card) has no
 reduce-scatter, and a ring all-reduce adds in an order that depends on
 the chunk, so this sum is the one whose bits do not depend on the
-group's algorithm. A collective over axes of total size 1 is the
-identity and issues nothing, as XLA compiles a psum over a size-1 axis
-to nothing; `Mesh.counts` tells the collectives asked for from those
-issued.
+group's algorithm. `Mesh.psum_scatter_ordered` is the same sum of which
+each rank receives only its own piece: an all-to-all, then the ranks'
+pieces added in rank order (`dist.reduce_scatter` promises no order). A
+collective over axes of total size 1 is the identity and issues nothing,
+as XLA compiles a psum over a size-1 axis to nothing; `Mesh.counts`
+tells the collectives asked for from those issued, and counts the bytes
+the issued ones bring the rank from the others (an all-gather's or an
+ordered sum's n - 1 tensors, an all-to-all's n - 1 pieces, an
+all-reduce's 2 (n - 1) / n of the tensor, as a ring moves it).
 
 The compute split along "model" (`models.sharding.Split`) needs
 collectives that autograd sees, all on `psum_ordered` and the ranks'
@@ -36,7 +41,14 @@ all-gather, so their bits are equal on every rank and from run to run
         only a part of it (`partial`)
 
 and `Mesh.pmax_ordered(x, axes)`, the elementwise max over the axes (no
-gradient).
+gradient). FSDP over the data axes (`models.sharding.DataGather`) has
+one more:
+
+    GatherScatter(handle, gather, scatter, *blocks)  -- `gather(blocks)`
+        forward (a layer's blocks gathered); backward `scatter(grads)`,
+        which keeps what it makes (the rank's float32 blocks of the
+        gradients summed over the data axes) rather than returning it to
+        autograd, which would cast it to the blocks' dtype
 
 Under `torch.utils.checkpoint` (non-reentrant) a layer's forward
 collectives run again in its recompute; the ranks run one graph, so they
@@ -174,7 +186,7 @@ class Mesh:
                     group = dist.new_group(ranks)
                     if self.rank in ranks:
                         self._groups[sub] = group
-        self.counts = {"asked": 0, "issued": 0}
+        self.reset_counts()
 
     def _rank_of(self, coords: dict) -> int:
         return sum(coords[a] * self._strides[a] for a in self.axis_names)
@@ -216,15 +228,22 @@ class Mesh:
         self.counts["asked"] += 1
         if self.size(axes) == 1:
             return t
-        self.counts["issued"] += 1
+        self._issued(2 * (self.size(axes) - 1) * t.nbytes
+                     // self.size(axes))
         dist.all_reduce(t, op=op, group=self._group(axes))
         return t
+
+    def _issued(self, nbytes: int) -> None:
+        """Count one collective issued that brings the rank `nbytes`."""
+        self.counts["issued"] += 1
+        self.counts["bytes"] += int(nbytes)
 
     def _gathered(self, t: Tensor, axes: Tuple[str, ...]) -> list:
         """The tensors of the ranks along `axes` (of size > 1), in rank
         order (row-major over the axes: a group's ranks ascend)."""
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size(axes))]
+        self._issued((len(parts) - 1) * t.nbytes)
         dist.all_gather(parts, t, group=self._group(axes))
         return parts
 
@@ -235,7 +254,6 @@ class Mesh:
         self.counts["asked"] += 1
         if self.size(axes) == 1:
             return t
-        self.counts["issued"] += 1
         return torch.cat(self._gathered(t, axes), dim=dim)
 
     def psum_ordered(self, t: Tensor, axes, dtype=None) -> Tensor:
@@ -248,12 +266,37 @@ class Mesh:
         self.counts["asked"] += 1
         if self.size(axes) == 1:
             return t.to(dtype)
-        self.counts["issued"] += 1
         parts = self._gathered(t.reshape(-1), axes)
         out = parts[0].to(dtype, copy=True)
         for part in parts[1:]:
             out += part.to(dtype)
         return out.view(t.shape)
+
+    def psum_scatter_ordered(self, t: Tensor, axes, dtype=None) -> Tensor:
+        """The sum over the ranks along `axes` of their `t[i]`, for this
+        rank's index i over the axes (`t` of shape (n, ...), n the axes'
+        size; row j is rank j's piece), in `dtype` (t's by default),
+        added in rank order: the rank's piece of `psum_ordered(t)`, bit
+        for bit, from one all-to-all that brings it n - 1 pieces rather
+        than n - 1 whole tensors. `t[0]` (cast to `dtype`) over axes of
+        size 1."""
+        axes = self._axes(axes)
+        dtype = dtype or t.dtype
+        n = self.size(axes)
+        if t.shape[0] != n:
+            raise ValueError(f"psum_scatter_ordered over {axes} takes {n} "
+                             f"pieces, got a leading dim of {t.shape[0]}")
+        self.counts["asked"] += 1
+        if n == 1:
+            return t[0].to(dtype)
+        t = t.contiguous()
+        parts = torch.empty_like(t)
+        self._issued((n - 1) * t[0].nbytes)
+        dist.all_to_all_single(parts, t, group=self._group(axes))
+        out = parts[0].to(dtype, copy=True)
+        for part in parts[1:]:
+            out += part.to(dtype)
+        return out
 
     def pmax_ordered(self, t: Tensor, axes) -> Tensor:
         """Elementwise max of `t` over the ranks along `axes`, from the
@@ -263,7 +306,6 @@ class Mesh:
         self.counts["asked"] += 1
         if self.size(axes) == 1:
             return t
-        self.counts["issued"] += 1
         return torch.stack(self._gathered(t, axes)).amax(0)
 
     def barrier(self) -> None:
@@ -280,7 +322,7 @@ class Mesh:
         return self._reduce(t, axes, dist.ReduceOp.MAX)
 
     def reset_counts(self) -> None:
-        self.counts = {"asked": 0, "issued": 0}
+        self.counts = {"asked": 0, "issued": 0, "bytes": 0}
 
 
 class Enter(torch.autograd.Function):
@@ -333,6 +375,29 @@ class GatherBlock(torch.autograd.Function):
         n = g.shape[dim] // mesh.size(axes)
         return (g.narrow(dim, mesh.index(axes) * n, n).contiguous(), None,
                 None, None, None)
+
+
+class GatherScatter(torch.autograd.Function):
+    """`gather(blocks)` forward: the tensors computed with (a layer's
+    blocks gathered over the data axes). Backward `scatter(grads)` with
+    their gradients, which keeps what it makes (the rank's blocks, summed
+    over the data axes in float32) instead of handing it to autograd:
+    autograd casts the gradient of an input to the input's dtype, and
+    the sum must reach the optimizer as float32. `handle`, a scalar that
+    requires grad, is the input for which autograd runs this backward
+    (`torch.autograd.grad` reaches only nodes on the way to the inputs it
+    is asked for); its gradient is 0."""
+
+    @staticmethod
+    def forward(ctx, handle, gather, scatter, *blocks):
+        ctx.scatter = scatter
+        return tuple(gather(blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.scatter(grads)
+        return (torch.zeros((), device=grads[0].device), None, None,
+                *(None,) * len(grads))
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],

@@ -20,8 +20,10 @@ the CPU; the choice is printed). Each rank holds the block of every
 parameter and of its AdamW state that the reference's logical-axis rules
 give it (`models.sharding`) and its rows of each batch (split over
 "data" when D divides --batch, else the whole batch), and runs
-`train.steps.make_train_step` over the mesh: each rank gathers its
-blocks whole over "data" and computes its share along "model" (its
+`train.steps.make_train_step` over the mesh: FSDP over "data" (each
+layer's blocks gathered inside its forward and its remat recompute,
+each gradient summed over "data" only into the rank's block) and the
+rank's share of the compute along "model" (its
 heads, ff columns, vocabulary rows of the logits and the loss, experts
 or expert_ff columns, ssm / lru channels; partial sums added over
 "model" in rank order), as the reference's rules place it. Init draws
@@ -51,8 +53,9 @@ median after the first, tokens/s at that median, the peak device memory
 and each rank's, each rank's largest restore on a card (what it added
 to the device's allocation at its peak, and the bytes of the state it
 restored there), the kernels' launch counts, the mesh and the
-collectives a step issues, the runner's events) and returns the same
-dict on every rank.
+collectives a step issues and the bytes they bring the rank
+(`Mesh.counts`), the runner's events) and returns the same dict on
+every rank.
 """
 from __future__ import annotations
 
@@ -189,13 +192,15 @@ def placement_line(mesh, specs: dict, batch: int, split: bool) -> str:
     rows = (f"batch {batch} split over \"data\" ({batch // D} a rank)"
             if split else f"batch {batch} on every rank (whole: "
             f"{'one data shard' if D == 1 else f'{D} does not divide it'})")
-    compute = ("\"model\" splits the compute: every rank gathers its "
-               "blocks over \"data\" and computes its share of the heads, "
-               "ff, vocabulary, experts and channels, the partial sums "
-               "added over \"model\""
-               if mesh.size("model") > 1 else
-               "every rank gathers the full weights and runs its rows' "
-               "forward and backward whole")
+    kept = ("each gradient summed over \"data\" into the rank's block"
+            if split else "each rank keeps its block of each gradient")
+    gather = (f"each layer gathers its blocks over \"data\" in its forward "
+              f"and recompute, {kept}; " if D > 1 else "")
+    compute = gather + (
+        "\"model\" splits the compute: every rank computes its share of "
+        "the heads, ff, vocabulary, experts and channels, the partial sums "
+        "added over \"model\"" if mesh.size("model") > 1 else
+        "every rank runs its rows' forward and backward whole")
     return (f"[train] mesh {mesh.describe()}; {rows}; parameters and "
             f"AdamW state by the logical-axis rules, {sh.describe(specs, mesh)}"
             f"; {compute}")
@@ -257,7 +262,8 @@ def main(argv=None) -> dict:
     pipe = TokenPipeline(cfg, args.batch, args.seq, seed=args.seed)
 
     ckpt = TrainCheckpoints(args.ckpt_dir, cfg, keep=2, mesh=mesh)
-    issued = []          # collectives a step issued
+    issued = []          # collectives a step issued, and their bytes
+    received = []
 
     def loop_step(state, idx):
         params, opt = state
@@ -265,10 +271,11 @@ def main(argv=None) -> dict:
         for k, v in pipe.batch_at(idx, shard, shards).items():
             dtype = cfg.torch_dtype if k in EMBEDDINGS else None
             batch[k] = torch.as_tensor(v, device=dev, dtype=dtype)
-        before = 0 if mesh is None else mesh.counts["issued"]
+        before = None if mesh is None else dict(mesh.counts)
         params, opt, metrics = step_fn(params, opt, batch)
         if mesh is not None:
-            issued.append(mesh.counts["issued"] - before)
+            issued.append(mesh.counts["issued"] - before["issued"])
+            received.append(mesh.counts["bytes"] - before["bytes"])
         return (params, opt), metrics
 
     slowest = None
@@ -343,6 +350,8 @@ def main(argv=None) -> dict:
             "rows_split": split},
         "collectives_per_step": (int(np.median(issued)) if issued
                                  else 0),
+        "collective_bytes_per_step": (int(np.median(received)) if received
+                                      else 0),
         "launches": ops.launch_counts(),
         "launches_by_variant": {
             "flash_attention": ops.flash_variant_counts(),

@@ -24,6 +24,10 @@ dropped.
     gather(t, spec, mesh)           -- a block back to the full tensor
     gather_tree(tree, specs, mesh)  -- every block of a {name: tensor}
         dict, in one all-gather a set of mesh axes and dtype
+    psum_scatter_tree(tree, specs, mesh, axes)  -- each whole tensor of a
+        dict summed over the axes into the rank's block alone (rank
+        order, float32), one all-to-all a dtype up to
+        EXCHANGE_ROW_BYTES a row
     packed(tree, names, fn)         -- one collective a dtype over leaves
         packed flat, each leaf's piece of the result back
     counted_once(spec, mesh)        -- whether this rank's block counts in
@@ -38,12 +42,24 @@ all have size 1 (every spec on a mesh of one) slices nothing:
     restrict(spec, axes)            -- the spec's entries over `axes`
         only (the train step gathers over the data axes alone)
 
+FSDP over the data axes (`DataGather`, the train step's): the leaves
+outside the layers are gathered once at the step's start; each layer's
+body gathers the layer's blocks (one packed all-gather a dtype) inside
+its forward and again inside its remat recompute, as the reference's
+pjit gathers its scanned layer body's slice of each weight under the
+"embed" -> "data" rule; and each gradient is summed over the data axes
+only into the block the rank keeps (`psum_scatter_tree`, in the layer's
+backward for its leaves): a rank holds one layer's whole weights at a
+time, and the exchange brings it D - 1 pieces the size of its blocks
+((D - 1) / D of the gradients whole over "data"), not D - 1 whole
+gradients.
+
 The compute half. Over a mesh whose "model" axis has more than one rank,
-the train step binds each rank's "model" blocks into the model
-(`torch.func.functional_call`) and `Model.split_compute(Split(mesh))`
-tells every module which rank it runs on; a module reads what it
-computes with from the blocks it is given, the reference's GSPMD layout
-under `DEFAULT_RULES`:
+the train step binds each rank's "model" blocks (whole over "data" once
+gathered) into the model (`torch.func.functional_call`) and
+`Model.split_compute(Split(mesh))` tells every module which rank it runs
+on; a module reads what it computes with from the blocks it is given,
+the reference's GSPMD layout under `DEFAULT_RULES`:
 
 - column splits (attention's heads and kv heads, the MLP's ff columns,
   the experts or the expert_ff columns, the lru / ssm_inner channels,
@@ -88,14 +104,23 @@ Each gradient comes back as the stored block.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
+import math
 from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import Enter, GatherBlock, Leave
+from repro_torch.launch.mesh import (Enter, GatherBlock, GatherScatter,
+                                     Leave)
 from repro_torch.models import decls
 
 Tensor = torch.Tensor
+
+# The most bytes a row of one gradient exchange over the data axes holds
+# (`psum_scatter_tree`): a layer's leaves, and qwen2-0.5b's bf16
+# embedding block at (2, 1), go in one exchange.
+EXCHANGE_ROW_BYTES = 256 * 2 ** 20
 
 # Default logical-axis -> mesh-axis rules: the reference's DEFAULT_RULES.
 DEFAULT_RULES = {
@@ -197,17 +222,26 @@ def _split_dims(spec: tuple, mesh) -> list:
     return out
 
 
+def _block(t: Tensor, spec: tuple, mesh, coords: dict) -> Tensor:
+    """The block of the full tensor `t` under `spec` of the rank at mesh
+    coordinates `coords`, a view (`t` itself where nothing splits)."""
+    for dim, axes in _split_dims(spec, mesh):
+        index = 0
+        for a in mesh._axes(axes):
+            index = index * mesh.shape[a] + coords[a]
+        n = t.shape[dim] // mesh.size(axes)
+        t = t.narrow(dim, index * n, n)
+    return t
+
+
 def local_slice(t: Tensor, spec: tuple, mesh) -> Tensor:
     """This rank's block of the full tensor `t` under `spec`: a new
     contiguous tensor, so the full one can be freed; `t` itself when the
     spec splits nothing on this mesh."""
-    dims = _split_dims(spec, mesh)
-    if not dims:
+    if not _split_dims(spec, mesh):
         return t
-    for dim, axes in dims:
-        n = t.shape[dim] // mesh.size(axes)
-        t = t.narrow(dim, mesh.index(axes) * n, n)
-    return t.clone(memory_format=torch.contiguous_format)
+    return _block(t, spec, mesh, mesh.coords).clone(
+        memory_format=torch.contiguous_format)
 
 
 def gather(t: Tensor, spec: tuple, mesh) -> Tensor:
@@ -218,6 +252,14 @@ def gather(t: Tensor, spec: tuple, mesh) -> Tensor:
     return t
 
 
+def _by_dtype(tree: dict, names) -> list:
+    """`names` grouped by their leaves' dtype, in order."""
+    groups: dict = {}
+    for name in names:
+        groups.setdefault(tree[name].dtype, []).append(name)
+    return list(groups.values())
+
+
 def packed(tree: dict, names, fn) -> dict:
     """{name: its piece of `fn`'s result} for the leaves `names` of
     `tree`: the leaves go flat into one buffer a dtype (in `names`'
@@ -225,11 +267,8 @@ def packed(tree: dict, names, fn) -> dict:
     returns a tensor whose last dim is the buffer's, and each leaf gets
     its slice of that last dim in the leaf's shape, the leading dims
     kept."""
-    by_dtype: dict = {}
-    for name in names:
-        by_dtype.setdefault(tree[name].dtype, []).append(name)
     out = {}
-    for group in by_dtype.values():
+    for group in _by_dtype(tree, names):
         res = fn(torch.cat([tree[name].reshape(-1) for name in group]))
         off = 0
         for name in group:
@@ -258,6 +297,94 @@ def gather_tree(tree: dict, specs: dict, mesh) -> dict:
         for name, ranks in got.items():
             out[name] = torch.cat(list(ranks.unbind(0)), dim=dims[name])
     return out
+
+
+def _lead(shape) -> int:
+    """The rows of a tensor of `shape` along its leading dim (1 for a
+    0-d one)."""
+    return shape[0] if len(shape) else 1
+
+
+def _rows(t: Tensor, lo: int, hi: int) -> Tensor:
+    """Rows lo:hi of `t`'s leading dim, a view (`t` if 0-d)."""
+    return t.narrow(0, lo, hi - lo) if t.dim() else t
+
+
+def _exchanges(shapes: dict, cap: int) -> list:
+    """The pieces ({name: block shape}, in order) that go into one
+    exchange each, up to `cap` elements a row: [[(name, lo, hi, elements)
+    of rows lo:hi of its block, ...], ...]. A block above `cap` goes in
+    pieces of its leading dim (a row above it whole)."""
+    pieces = []
+    for k, shape in shapes.items():
+        row = math.prod(shape[1:])
+        rows = max(1, cap // max(1, row))
+        pieces += [(k, lo, min(lo + rows, _lead(shape)),
+                    (min(lo + rows, _lead(shape)) - lo) * row)
+                   for lo in range(0, _lead(shape), rows)]
+    out, size = [[]], 0
+    for piece in pieces:
+        if out[-1] and size + piece[3] > cap:
+            out.append([])
+            size = 0
+        out[-1].append(piece)
+        size += piece[3]
+    return out
+
+
+def psum_scatter_tree(tree: dict, specs: dict, mesh, axes) -> dict:
+    """Each leaf of `tree` ({name: this rank's full tensor}, the same
+    shape on every rank) summed over the ranks along `axes`, of which the
+    rank gets only its block under `specs[name]` (splits over `axes`
+    alone: `restrict`), float32, added in rank order: bit for bit the
+    rank's block of `Mesh.psum_ordered(leaf, axes, float32)`.
+
+    The leaves of a dtype go through `Mesh.psum_scatter_ordered` packed
+    into one buffer whose row j holds the blocks of rank j along the
+    axes, which brings the rank its block from each other rank: one
+    all-to-all a dtype while they fit in EXCHANGE_ROW_BYTES a row. Past
+    that they go in several exchanges, a block larger than it in pieces
+    of its leading dim, so what one exchange holds at once (the buffer,
+    what it receives, their float32 sum) stays within about 3 x the
+    axes' size x EXCHANGE_ROW_BYTES whatever the leaf (an untied
+    256,000-token embedding's float32 gradient is 2.4 GiB whole).
+    Consumes `tree`: a leaf leaves it once its last piece is copied into
+    a buffer, so a caller that holds no other reference frees the whole
+    tensors as they go. -> {name: block} in `tree`'s order."""
+    axes = mesh._axes(axes)
+    members = [{**mesh.coords, **dict(zip(axes, c))} for c in
+               itertools.product(*(range(mesh.shape[a]) for a in axes))]
+    order = list(tree)
+    out = {}
+    for names in _by_dtype(tree, order):
+        first = tree[names[0]]
+        dtype, device = first.dtype, first.device
+        cap = max(1, EXCHANGE_ROW_BYTES // first.element_size())
+        del first
+        shapes = {k: _block(tree[k], specs[k], mesh, mesh.coords).shape
+                  for k in names}
+        for exchange in _exchanges(shapes, cap):
+            buf = torch.empty((len(members), sum(p[3] for p in exchange)),
+                              dtype=dtype, device=device)
+            off = 0
+            for k, lo, hi, n in exchange:
+                for j, c in enumerate(members):
+                    src = _rows(_block(tree[k], specs[k], mesh, c), lo, hi)
+                    buf[j, off:off + n].view(src.shape).copy_(src)
+                if hi == _lead(shapes[k]):
+                    del tree[k]
+                off += n
+            flat = mesh.psum_scatter_ordered(buf, axes, torch.float32)
+            del buf
+            off = 0
+            for k, lo, hi, n in exchange:
+                if k not in out:
+                    out[k] = flat.new_empty(shapes[k])
+                dst = _rows(out[k], lo, hi)
+                dst.copy_(flat[off:off + n].view(dst.shape))
+                off += n
+            del flat
+    return {k: out[k] for k in order}
 
 
 def restrict(spec: tuple, axes) -> tuple:
@@ -300,6 +427,83 @@ def describe(specs: dict, mesh) -> str:
         parts.append(f"{len(names)} split over {a!r}")
     parts.append(f"{len(specs) - len(split_any)} replicated")
     return f"{len(specs)} leaves: " + ", ".join(parts)
+
+
+# --- FSDP over the data axes -------------------------------------------------
+
+class DataGather:
+    """FSDP over the data axes of `mesh` for `model`'s train step, as
+    the reference's pjit runs its scanned layer body under "embed" ->
+    "data": each layer's leaves stay the rank's blocks until the layer
+    runs.
+
+    - `bind(layer, blocks)` (the layer's body, `Model.gathering`) gathers
+      all of a layer's blocks over `axes` at its start, in one packed
+      all-gather a dtype (`gather_tree`), in its forward and again in
+      its remat recompute; its backward exchanges the layer's gradients
+      (`reduce`) into `grads`, the rank's blocks.
+    - The leaves outside the layers (`Model.layers_run()`), `top`: the
+      embedding, the final norms, are gathered once by the step, and
+      `finish` sends their gradients through `reduce` after the backward.
+    - `reduce`: with `summed` (the rows split over the data axes) each
+      gradient is summed over `axes` into the rank's block alone, in
+      rank order, float32 (`psum_scatter_tree`); else every rank has the
+      whole gradient already and keeps its block.
+
+    A leaf with no dim over `axes` is the same on every rank and is
+    bound as it is; its gradient is summed all the same."""
+
+    def __init__(self, model, mesh, axes, summed: bool):
+        self.mesh, self.axes, self.summed = mesh, tuple(axes), summed
+        self.specs = {k: restrict(spec, self.axes)
+                      for k, spec in spec_tree(model, None, mesh).items()}
+        layers = {id(m) for m in model.layers_run()}
+        self.prefix = {id(m): name + "." for name, m in model.named_modules()
+                       if id(m) in layers}
+        inside = tuple(self.prefix.values())
+        self.top = [k for k in self.specs if not k.startswith(inside)]
+        self.handle, self.grads = None, {}
+
+    def begin(self, device) -> Tensor:
+        """A new step: `grads` emptied, and the handle whose gradient
+        makes autograd run every layer's exchange (`GatherScatter`)."""
+        self.grads = {}
+        self.handle = torch.zeros((), device=device, requires_grad=True)
+        return self.handle
+
+    def bind(self, layer, blocks: dict) -> dict:
+        """{name: whole over the data axes} for `layer`'s blocks
+        ({name under the layer: block})."""
+        names = [self.prefix[id(layer)] + k for k in blocks]
+        full = GatherScatter.apply(
+            self.handle, functools.partial(self._gather, names),
+            functools.partial(self._scatter, names), *blocks.values())
+        return dict(zip(blocks, full))
+
+    def _gather(self, names, blocks):
+        out = gather_tree(dict(zip(names, blocks)), self.specs, self.mesh)
+        return [out[k] for k in names]
+
+    def _scatter(self, names, grads):
+        self.grads.update(self.reduce(dict(zip(names, grads))))
+
+    def finish(self, top: dict, order) -> dict:
+        """-> {name: the rank's block of its gradient} in `order`: the
+        layers' (exchanged in the backward) and those of `top` ({name:
+        whole gradient} of the leaves outside the layers, through
+        `reduce` here, which consumes `top`). The step's blocks are let
+        go."""
+        blocks = {**self.grads, **self.reduce(top)}
+        self.grads, self.handle = {}, None
+        return {k: blocks[k] for k in order}
+
+    def reduce(self, grads: dict) -> dict:
+        """{name: the rank's block} of whole gradients (see the class
+        docstring); consumes `grads` (`psum_scatter_tree`)."""
+        if self.summed:
+            return psum_scatter_tree(grads, self.specs, self.mesh, self.axes)
+        return {k: local_slice(grads.pop(k), self.specs[k], self.mesh)
+                for k in list(grads)}
 
 
 # --- the compute layout along "model" ----------------------------------------

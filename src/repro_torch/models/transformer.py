@@ -31,7 +31,10 @@ reference's rules place it, on the "model" blocks bound by
 With `train=True` and `cfg.remat` each layer is recomputed in the
 backward pass (`torch.utils.checkpoint`, non-reentrant), as the
 reference wraps its scanned layer body in `jax.checkpoint`: a layer keeps
-only its input, and K6 runs twice an attention layer a step.
+only its input, and K6 runs twice an attention layer a step. Inside
+`model.gathering(gather)` (a `sharding.DataGather`: FSDP over the data
+axes) each layer's body first gathers the layer's blocks, so the forward
+and the recompute each hold one layer's whole weights at a time.
 """
 from __future__ import annotations
 
@@ -258,6 +261,18 @@ class Model(nn.Module):
             self.dec_layers = nn.ModuleList(DecoderLayer(cfg, device)
                                             for _ in range(n["dec_layers"]))
         self.final_norm = L.make_norm(cfg, device)
+        self.data_gather = None
+
+    @contextlib.contextmanager
+    def gathering(self, gather):
+        """Inside the block each layer's body binds its parameters
+        through `gather.bind` (a `sharding.DataGather`; None: as they
+        are, as outside)."""
+        self.data_gather = gather
+        try:
+            yield
+        finally:
+            self.data_gather = None
 
     @contextlib.contextmanager
     def split_compute(self, split):
@@ -292,18 +307,53 @@ class Model(nn.Module):
         first = [self.layer0] if hasattr(self, "layer0") else []
         return first + list(self.layers)
 
+    def layers_run(self) -> list:
+        """Every layer a step runs: encdec's encoder layers, then
+        `stack()`."""
+        enc = list(self.enc_layers) if self.cfg.family == "encdec" else []
+        return enc + self.stack()
+
+    def _layer(self, layer: nn.Module, x: Tensor, positions: Tensor,
+               remat: bool, *extra: Tensor) -> Tensor:
+        """x after `layer`. With `remat` (checkpointed) or inside
+        `gathering` its parameters go in as explicit inputs and a body
+        binds them with `functional_call`, gathered first through
+        `gather.bind` inside `gathering`. Under `torch.utils.checkpoint`
+        (non-reentrant) only x (and `extra`, the encoder's output for a
+        decoder layer) is kept, and the body runs again in the backward
+        on the tensors of this forward: under an outer `functional_call`
+        the module's own attributes are restored before the backward
+        runs. So with a gather the forward frees the whole weights and
+        the recompute gathers them again, as `jax.checkpoint` does. Only
+        x is returned: training keeps no cache and no recurrent
+        state."""
+        gather, use_kernels = self.data_gather, self.use_kernels
+        if not remat and gather is None:
+            return layer(x, positions, use_kernels, *extra)[0]
+        names = [n for n, _ in layer.named_parameters()]
+        tensors = [t for _, t in layer.named_parameters()]
+        k = len(extra)
+
+        def body(h, *args):
+            params = dict(zip(names, args[k:]))
+            if gather is not None:
+                params = gather.bind(layer, params)
+            return functional_call(layer, params,
+                                   (h, positions, use_kernels, *args[:k]))[0]
+
+        if remat:
+            return checkpoint(body, x, *extra, *tensors, use_reentrant=False)
+        return body(x, *extra, *tensors)
+
     def backbone(self, x: Tensor, positions: Tensor, train: bool = False,
                  enc_out: Tensor | None = None) -> Tensor:
         """x (B, S, d) embedded inputs -> final hidden states (encdec: the
         decoder's, over the encoder's output `enc_out`); with `train` and
-        cfg.remat each layer is checkpointed (`_remat`)."""
+        cfg.remat each layer is checkpointed (`_layer`)."""
         remat = train and self.cfg.remat
         extra = () if enc_out is None else (enc_out,)
         for layer in self.stack():
-            if remat:
-                x = _remat(layer, x, positions, self.use_kernels, *extra)
-            else:
-                x = layer(x, positions, self.use_kernels, *extra)[0]
+            x = self._layer(layer, x, positions, remat, *extra)
         return self.final_norm(x)
 
     def encode(self, frames: Tensor, train: bool = False) -> Tensor:
@@ -315,10 +365,7 @@ class Model(nn.Module):
         positions = torch.arange(F, device=frames.device)
         remat = train and self.cfg.remat
         for layer in self.enc_layers:
-            if remat:
-                x = _remat(layer, x, positions, self.use_kernels)
-            else:
-                x = layer(x, positions, self.use_kernels)[0]
+            x = self._layer(layer, x, positions, remat)
         return self.enc_norm(x)
 
     def embed_inputs(self, tokens: Tensor, patches: Tensor | None = None,
@@ -381,22 +428,3 @@ def stacked_layers(cfg: ModelConfig) -> dict:
     return {"layers": cfg.n_layers}
 
 
-def _remat(layer: nn.Module, x: Tensor, positions: Tensor,
-           use_kernels: bool, *extra: Tensor) -> Tensor:
-    """One layer under `torch.utils.checkpoint` (non-reentrant): only x
-    (and `extra`, the encoder's output for a decoder layer) is kept, and
-    the layer runs again in the backward pass. Its parameters
-    go in as explicit inputs and the body binds them with
-    `functional_call`, so the recomputation uses the tensors of this
-    forward: under an outer `functional_call` the module's own attributes
-    are restored before the backward runs. Only x is returned: training
-    keeps no cache and no recurrent state."""
-    names = [n for n, _ in layer.named_parameters()]
-    tensors = [t for _, t in layer.named_parameters()]
-    k = len(extra)
-
-    def body(h, *args):
-        return functional_call(layer, dict(zip(names, args[k:])),
-                               (h, positions, use_kernels, *args[:k]))[0]
-
-    return checkpoint(body, x, *extra, *tensors, use_reentrant=False)

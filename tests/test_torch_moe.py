@@ -206,9 +206,9 @@ def test_decode_continues_a_longer_prefill(arch):
 
 
 def test_remat_loss_and_grads_match_without_remat():
-    """With cfg.remat the MoE layers (and the dense first layer) run under
-    `_remat`: the loss and the gradients are the same, the router's
-    nonzero."""
+    """With cfg.remat the MoE layers (and the dense first layer) run
+    checkpointed (`Model._layer`): the loss and the gradients are the
+    same, the router's nonzero."""
     _, tree, tm = models("deepseek-moe-16b")
     tr = Model(tm.cfg.replace(remat=True), "cpu")
     tr.load_state_dict(tm.state_dict())

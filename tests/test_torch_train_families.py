@@ -200,7 +200,7 @@ def test_loss_and_grads_match_value_and_grad_blockwise_remat(small_blocks,
                                                               arch):
     """The blockwise route (the hybrid's window of 16 shorter than the
     sequence; whisper's encoder and cross-attention over 16 frames
-    blockwise too) with each layer under `_remat`."""
+    blockwise too) with each layer checkpointed (`Model._layer`)."""
     jm, tree, tm = _setup(arch, remat=True)
     cfg = jm.cfg
     if cfg.family == "hybrid":

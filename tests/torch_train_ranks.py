@@ -18,8 +18,8 @@ of its world ((2, 1) and (1, 2) at 2 ranks, (2, 2) at 4; or --meshes):
    rows of each batch
    (`data.tokens.shard_rows`), runs `train.steps.make_loss_and_grads`
    (which computes the rank's share along "model" and returns its
-   "model" block of each gradient) and holds the loss and every
-   gradient, gathered whole over "model", against the
+   block of each gradient) and holds the loss and every gradient,
+   gathered whole (`convert.full_state`), against the
    reference's (the `split` oracle where the rows split over "data",
    else `whole`) at rtol RTOL, atol RTOL x the leaf's largest entry
    (ATOL_ZERO x the model's for leaves that are 0 in exact arithmetic);
@@ -121,9 +121,7 @@ def _rank(rank: int, args) -> None:
                             rank=rank, world_size=args.world)
     from repro_torch.data.tokens import rows_split, shard_rows
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import sharding as sh
-    from repro_torch.models.convert import (full_state, local_state,
-                                            state_specs)
+    from repro_torch.models.convert import full_state, local_state
     from repro_torch.models.transformer import Model
     from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_init
     from repro_torch.train.steps import make_loss_and_grads, make_train_step
@@ -164,8 +162,6 @@ def _rank(rank: int, args) -> None:
         mesh = make_host_mesh(*shape, device="cpu")
         D = mesh.size("data")
         local = local_state(cfg, params, mesh)
-        by_model = {k: sh.restrict(spec, ("model",))
-                    for k, spec in state_specs(cfg, mesh).items()}
         for j, batch in enumerate(batches):
             B = len(batch["tokens"])
             split = rows_split(B, D)
@@ -173,7 +169,7 @@ def _rank(rank: int, args) -> None:
             rows = shard_rows(batch, mesh.index("data"), D)
             loss, grads = make_loss_and_grads(model, mesh, split)(local,
                                                                   rows)
-            grads = sh.gather_tree(grads, by_model, mesh)
+            grads = full_state(cfg, grads, mesh)
             tag = f"{shape} batch {j} ({way})"
             _close(f"{tag} loss", loss, npz[f"loss/{j}/{way}"], RTOL, 0.0)
             want = {k: npz[f"g/{j}/{way}/{k}"] for k in grads}
